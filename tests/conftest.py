@@ -62,6 +62,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running (launcher/multi-process/big-model) "
         "tests; opt in with --runslow or PADDLE_RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (paddle_tpu_torch kernels); "
+        "skips inside the test when torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):
