@@ -55,8 +55,8 @@ def _seed_rows(seed: int, seeds, rows: int) -> np.ndarray:
 class GenerationSession:
     """Fixed-shape generation state machine over ``model``.
 
-    ``model`` exposes ``forward(ids, caches=..., positions=...)`` /
-    ``forward(ids, caches=..., prefill=True)`` returning
+    ``model`` exposes ``forward(ids, caches=..., positions=...)`` (a
+    decode step; without ``positions``, a prefill from zero) returning
     ``(logits, caches)``, plus ``gen_caches(batch, capacity)`` and
     ``device`` (:class:`~paddle_tpu_torch.models.GPT` has all three).
 
@@ -134,7 +134,7 @@ class GenerationSession:
             ids_t = self._tensor(ids, torch.long)
             plens = self._tensor(prompt_lens, torch.long)
             fresh = self.model.gen_caches(B, P)
-            logits, fresh = self.model(ids_t, caches=fresh, prefill=True)
+            logits, fresh = self.model(ids_t, caches=fresh)
             idx = (plens - 1).clamp(0, P - 1)
             last = logits[torch.arange(B, device=self.device), idx]
             # the sampled token sits at position prompt_len: the noise is

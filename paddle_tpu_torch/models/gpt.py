@@ -11,7 +11,7 @@ takes the hand-written flash-attention kernel for CUDA tensors.
 generation steps over fixed-capacity KV caches, which it updates **in
 place**: a decode step (``positions`` given) writes one token's keys and
 values per row and attends over the capacity axis under a length mask; a
-prefill (``prefill=True``) starts every row at position 0 of a zeroed
+prefill (no ``positions``) starts every row at position 0 of a zeroed
 cache, where the reference's length mask is exactly causal attention over
 the prompt bucket, so the prefill attends through the kernel.
 """
@@ -54,12 +54,11 @@ class GPTAttention(nn.Module):
         self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor, cache: Optional[_kv.KVCache] = None,
-                positions: Optional[torch.Tensor] = None,
-                prefill: bool = False) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, D = x.shape
         h, hd = self.num_heads, self.head_dim
         q, k, v = self.qkv(x).reshape(B, T, 3, h, hd).unbind(2)
-        if cache is None or prefill:
+        if cache is None or positions is None:
             if cache is not None:
                 # zeroed cache, every row at position 0
                 cache.k[:, :T] = k
@@ -87,10 +86,8 @@ class GPTBlock(nn.Module):
         self.dropout = nn.Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor, cache: Optional[_kv.KVCache] = None,
-                positions: Optional[torch.Tensor] = None,
-                prefill: bool = False) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), cache=cache, positions=positions,
-                          prefill=prefill)
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), cache=cache, positions=positions)
         return x + self.dropout(self.down(F.gelu(self.up(self.ln2(x)))))
 
 
@@ -140,11 +137,11 @@ class GPT(nn.Module):
 
     def forward(self, ids: torch.Tensor,
                 caches: Optional[Sequence[_kv.KVCache]] = None,
-                positions=None, prefill: bool = False):
+                positions=None):
         """Logits ``(B, T, V)``; with ``caches``, ``(logits, caches)``.
 
-        A cached step writes at per-row ``positions`` ``(B,)``; a prefill
-        (``prefill=True``, no ``positions``) writes every row from 0 into
+        A cached step writes at per-row ``positions`` ``(B,)``; without
+        ``positions`` it is a prefill, which writes every row from 0 into
         zeroed caches.  Cached positions clip to ``max_seq_len - 1``."""
         ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         B, T = ids.shape
@@ -154,19 +151,20 @@ class GPT(nn.Module):
             for blk in self.blocks:
                 x = blk(x)
             return self.head(self.ln_f(x))
-        if prefill:
-            if positions is not None:
-                raise ValueError("a prefill starts every row at 0; "
-                                 "pass no positions")
-            starts = torch.zeros((B,), dtype=torch.long, device=self.device)
+        if positions is None:
+            if T > caches[0].capacity:
+                raise ValueError(f"a prefill of {T} tokens overruns the "
+                                 f"cache capacity {caches[0].capacity}")
+            starts = None
+            x = self.wte(ids) + self.wpe(steps)[None]
         else:
             starts = torch.as_tensor(positions, dtype=torch.long,
                                      device=self.device)
-        idx = (starts[:, None] + steps[None, :]).clamp(
-            0, self.cfg.max_seq_len - 1)
-        x = self.wte(ids) + self.wpe(idx)
+            idx = (starts[:, None] + steps[None, :]).clamp(
+                0, self.cfg.max_seq_len - 1)
+            x = self.wte(ids) + self.wpe(idx)
         for blk, c in zip(self.blocks, caches):
-            x = blk(x, cache=c, positions=starts, prefill=prefill)
+            x = blk(x, cache=c, positions=starts)
         return self.head(self.ln_f(x)), caches
 
     def gen_caches(self, batch: int, capacity: Optional[int] = None

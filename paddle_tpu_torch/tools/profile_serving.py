@@ -55,13 +55,22 @@ def _phase(name, run, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     wall_p50, prof_p50 = statistics.median(wall), statistics.median(prof_wall)
     # the profiler slows the host, not the device: the share of an
-    # unprofiled step the device is idle is 1 - device time / its wall
+    # unprofiled step the device is idle is 1 - device time / its wall.
+    # Each profiled step's device work ends inside its wall (the step
+    # ends in the token's copy to the host), so more device time than
+    # profiled wall means the events are miscounted
+    prof_mean = statistics.fmean(prof_wall)
+    if device_ms > prof_mean:
+        raise RuntimeError(
+            f"{name}: summed device time {device_ms:.3f} ms/step exceeds "
+            f"the profiled steps' mean wall {prof_mean:.3f} ms: the device "
+            "events are miscounted")
     out = dict(
         phase=name, steps=steps,
         wall_ms_p50=wall_p50, profiled_wall_ms_p50=prof_p50,
         device_ms_per_step=device_ms,
-        idle_share=max(0.0, 1.0 - device_ms / wall_p50),
-        idle_share_profiled=max(0.0, 1.0 - device_ms / prof_p50),
+        idle_share=1.0 - device_ms / wall_p50,
+        idle_share_profiled=1.0 - device_ms / prof_p50,
         launches_per_step=len(events) / steps,
         top=[dict(name=n[:120], ms_per_step=v[0] / steps,
                   calls_per_step=v[1] / steps) for n, v in top])

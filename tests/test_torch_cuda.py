@@ -78,7 +78,7 @@ def test_gpt_on_the_card_matches_the_cpu(card):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
         # a prefill through the kernel equals the masked path on the card
         kc, mc = net.gen_caches(2, 100), net.gen_caches(2, 100)
-        by_kernel, _ = net(ids, caches=kc, prefill=True)
+        by_kernel, _ = net(ids, caches=kc)
         by_mask, _ = net(ids, caches=mc, positions=torch.zeros(2))
     torch.testing.assert_close(by_kernel, by_mask, rtol=0, atol=1e-4)
     # layer 0 caches the same projections; deeper layers see inputs that

@@ -85,8 +85,9 @@ def test_uncached_logits_match(pair, B, T):
 
 @pytest.mark.parametrize("prefill", [True, False])
 def test_cached_prefill_then_decode_match(pair, prefill):
-    # prefill=True is the port's kernel route for a prefill from zero;
-    # prefill=False takes the masked path, as the reference does
+    # prefill=True passes no positions: the port's kernel route for a
+    # prefill from zero; prefill=False passes zeros and takes the masked
+    # path, as the reference does
     ref, net, _ = pair
     B, P, C = 2, 12, 32
     ids = _ids(5, B, P)
@@ -96,8 +97,7 @@ def test_cached_prefill_then_decode_match(pair, prefill):
     caches = net.gen_caches(B, C)
     with torch.inference_mode():
         if prefill:
-            logits, caches = net(torch.from_numpy(ids), caches=caches,
-                                 prefill=True)
+            logits, caches = net(torch.from_numpy(ids), caches=caches)
         else:
             logits, caches = net(torch.from_numpy(ids), caches=caches,
                                  positions=torch.zeros(B, dtype=torch.long))
@@ -124,9 +124,10 @@ def test_cached_prefill_then_decode_match(pair, prefill):
 
 def test_prefill_refuses_positions(pair):
     _ref, net, _ = pair
+    # a prefill (no positions) refuses to run past the cache's capacity
     with pytest.raises(ValueError, match="prefill"):
-        net(torch.zeros((1, 4), dtype=torch.long),
-            caches=net.gen_caches(1, 8), positions=[0], prefill=True)
+        net(torch.zeros((1, 9), dtype=torch.long),
+            caches=net.gen_caches(1, 8))
     with pytest.raises(ValueError, match="capacity"):
         net.gen_caches(1, 65)
 
