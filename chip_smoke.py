@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             card, or with no ``paddle_tpu_torch/`` beside this script
 2. build    nvcc builds every kernel source in paddle_tpu_torch/csrc
 3. kernels  each kernel against its plain PyTorch version on the card,
-            at every shape the serving and scoring paths give it
+            at every shape the serving, scoring and train paths give it
+            and around them (packed attention T 100 ... 2048, d 32/64/128;
+            LM head up to N 4096, V 30528)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -17,7 +19,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
             from 4 client threads; every stream equals its solo-session
             stream, and a second run repeats every stream exactly
 6. timing   kernel, plain and library times with CUDA events beside the
-            card's bound
+            card's bound, at the serving and train paths' shapes, each
+            kernel's result held against its plain version there too
+7. train    the flagship train step at full width (B 128, T 512, bf16,
+            remat "ctx"): one step through the kernels (12 + 12 attention
+            launches, the fused head) against the same step with the
+            plain versions swapped in; two runs of two steps repeat bit
+            for bit; the loss falls over 12 steps on one batch; step ms,
+            seq/s, MFU and peak memory
+8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
+   long     step through the kernels against the plain versions
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -36,11 +47,12 @@ from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); the
-# kernel computes with fp32 FMAs, so its operation bound is the fp32 rate
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32
+# kernels compute on FMAs, so their operation bound is the fp32 rate
+# outside the tensor cores; bf16 kernels run on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 GPT_WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=512)
@@ -60,6 +72,34 @@ SHARP_SHAPES = [(32, 32), (512, 512)]
 SHARP_TOL, SHARP_MIN_STD = 1.6e-2, 0.5
 SCORING_ATOL = 1e-3
 SLOTS, NEW_TOKENS, CLIENTS, REQUESTS, SAMPLED = 8, 64, 4, 16, 4
+
+# packed attention (rows 3/4/5): every length from 128 to 2048 and one
+# ragged one, each head dim, causal and not, fp32 and bf16
+QKV_TS = (100, 128, 256, 512, 1024, 2048)
+GRAD_ATOL = {"float32": 5e-5, "bfloat16": 5e-2}  # test_pallas_kernels.py
+LSE_ATOL = 1e-4
+# LM head (row 10): lse and at from exact products of the inputs summed in
+# fp32 by both versions, in another order; bf16 logits here reach ~10,
+# where fp32 sums of 768 terms differ in their last bits
+HEAD_SHAPES = ((256, 64, 512), (256, 64, 700), (4096, 768, 30528))
+HEAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+
+# the train path (bench.py:119-124): BERT-base GPT, B 128, T 512, bf16
+TRAIN = dict(width=dict(vocab_size=30528, hidden_size=768, num_layers=12,
+                        num_heads=12, max_seq_len=512),
+             batch=128, seq=512, dtype="bfloat16", remat="ctx")
+# row 5's regime (512 < T <= 2048) at reduced depth, fp32
+TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
+                             num_layers=2, num_heads=12, max_seq_len=1024),
+                  batch=8, seq=1024, dtype="float32", remat="full")
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# kernels against plain versions over one bf16 step: each attention
+# output and the head's statistics differ in bf16 roundings, carried
+# through 12 blocks
+TRAIN_LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
+TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}   # relative L2
+TRAIN_GRADS = ("blocks.qkv_w", "head_w", "wte")
+ADAM_B1 = 0.9
 
 
 def log(msg: str = ""):
@@ -130,6 +170,81 @@ def check_kernels(torch, fa, dev):
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel checks disagree with the "
+                             f"plain version: {bad}")
+    return results
+
+
+def check_qkv_kernels(torch, fq, dev):
+    """Rows 3/4/5: forward, lse and dqkv against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = []
+    for T in QKV_TS:
+        for d in (32, 64, 128):
+            H = 12 if d == 64 else 4
+            for causal in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    qkv = torch.rand((2, T, 3 * H * d), generator=gen,
+                                     device=dev).to(dtype)
+                    g = torch.rand((2, T, H * d), generator=gen,
+                                   device=dev).to(dtype)
+                    out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
+                    dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H,
+                                            causal=causal)
+                    ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H,
+                                                        causal=causal)
+                    ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H,
+                                                 causal=causal)
+                    sync(torch, dev)
+                    name = str(dtype).replace("torch.", "")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    err_lse = (lse - ref_lse).abs().max().item()
+                    err_d = (dqkv.float() - ref_d.float()).abs().max().item()
+                    ok = (out.dtype == dtype and dqkv.shape == qkv.shape
+                          and err <= ATOL[name] and err_lse <= LSE_ATOL
+                          and err_d <= GRAD_ATOL[name])
+                    results.append(dict(b=2, t=T, h=H, d=d, causal=causal,
+                                        dtype=name, max_abs_err=err,
+                                        max_abs_err_lse=err_lse,
+                                        max_abs_err_dqkv=err_d, ok=ok))
+                    log(f"  flash_qkv T={T:4d} H={H:2d} d={d:3d} "
+                        f"causal={int(causal)} {name:8s} out {err:.2e} "
+                        f"(atol {ATOL[name]:.0e}) lse {err_lse:.2e} "
+                        f"(atol {LSE_ATOL:.0e}) dqkv {err_d:.2e} (atol "
+                        f"{GRAD_ATOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} packed-attention checks disagree "
+                             f"with the plain versions: {bad}")
+    return results
+
+
+def check_head_kernel(torch, sx, dev):
+    """Row 10: lse and at against the plain version."""
+    import numpy as np
+    rs = np.random.RandomState(4)
+    results = []
+    for N, D, V in HEAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(N, D).astype(np.float32)).to(
+                dev, dtype)
+            w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
+                np.float32)).to(dev, dtype)
+            lab = torch.from_numpy(rs.randint(0, V, N)).to(dev)
+            lse, at = sx.softmax_xent_fwd(x, w, lab)
+            ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, w, lab)
+            sync(torch, dev)
+            name = str(dtype).replace("torch.", "")
+            err = max((lse - ref_lse).abs().max().item(),
+                      (at - ref_at).abs().max().item())
+            ok = err <= HEAD_ATOL[name]
+            results.append(dict(n=N, d=D, v=V, dtype=name, max_abs_err=err,
+                                atol=HEAD_ATOL[name], ok=ok))
+            log(f"  softmax_xent_fwd N={N} D={D} V={V} {name:8s} lse/at "
+                f"max_abs_err={err:.3e} (atol {HEAD_ATOL[name]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} LM-head checks disagree with the "
                              f"plain version: {bad}")
     return results
 
@@ -312,12 +427,11 @@ def time_ms(torch, fn, reps=25, warmup=3):
     return float(np.median(times))
 
 
-def bound(bh, tq, tk, d, causal, elem_bytes):
-    """Least time for the work on an H100: each input read once, the
-    output written once, against the fp32 operation rate."""
-    flops = 4.0 * bh * tq * tk * d / (2.0 if causal else 1.0)
-    nbytes = float(elem_bytes * bh * d * (2 * tq + 2 * tk))
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+def bound(flops, nbytes, flops_per_s):
+    """Least time for the work on an H100: the larger of the operations
+    over the peak rate for their type and the bytes (each input read
+    once, each output written once) over the memory rate."""
+    t_ops = flops / flops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -337,7 +451,8 @@ def timing(torch, fa):
                 q, k, v, causal=True))
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
-        b_ms, b_by = bound(bh, T, T, d, True, 4)
+        b_ms, b_by = bound(2.0 * bh * T * T * d, 4.0 * bh * d * 4 * T,
+                           FP32_FLOPS_PER_S)
         rows.append(dict(bh=bh, t=T, d=d, dtype="float32", causal=True,
                          ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=b_ms, bound_by=b_by))
@@ -348,14 +463,288 @@ def timing(torch, fa):
     return rows
 
 
-def run(torch, dev, width):
-    """Phases 3-6 on ``dev`` with a GPT of ``width``; returns the report
-    and the ``kernels`` entries."""
+def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
+    """Rows 3, 4/5 and (with ``head``) 10 at the shapes of the train
+    config ``cfg``, each also held against its plain version there."""
+    import torch.nn.functional as F
+    w = cfg["width"]
+    B, T, H = cfg["batch"], cfg["seq"], w["num_heads"]
+    D, V = w["hidden_size"], w["vocab_size"]
+    d, N = D // H, B * T
+    dt = getattr(torch, cfg["dtype"])
+    name = cfg["dtype"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((B, T, 3 * D), generator=gen, device=dev).to(dt)
+    g = torch.randn((B, T, D), generator=gen, device=dev).to(dt)
+    rows = {}
+    with torch.no_grad():
+        out, lse = fq.flash_qkv_fwd(qkv, H, causal=True)
+        dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H, causal=True)
+        ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H, causal=True)
+        ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H, causal=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        err_d = (dqkv.float() - ref_d.float()).abs().max().item()
+        del ref, ref_lse, ref_d
+        fwd_ms = time_ms(torch, lambda: fq.flash_qkv_fwd(qkv, H,
+                                                         causal=True))
+        fwd_plain = time_ms(torch, lambda: fq.flash_qkv_fwd_ref(
+            qkv, H, causal=True), reps=5)
+        bwd_ms = time_ms(torch, lambda: fq.flash_qkv_bwd(
+            qkv, out, lse, g, H, causal=True))
+        bwd_plain = time_ms(torch, lambda: fq.flash_qkv_bwd_ref(
+            qkv, out, lse, g, H, causal=True), reps=5)
+        q, k, v = qkv.view(B, T, 3, H, d).permute(2, 0, 3, 1, 4)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    go = g.view(B, T, H, d).permute(0, 2, 1, 3)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), go)
+
+    lib_fb = time_ms(torch, sdpa_fwd_bwd)
+    half = 2.0 * B * H * T * T * d / 2      # one causal T x T x d product
+    el = qkv.element_size()
+    f_bytes = el * B * T * 4 * D + 4.0 * B * H * T
+    b_bytes = el * B * T * (3 * D + 2 * D + 3 * D) + 4.0 * B * H * T
+    rows["flash_qkv_fwd"] = dict(
+        ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+        library="F.scaled_dot_product_attention forward on split "
+                "(B, H, T, d) views",
+        max_abs_err=err, atol=ATOL[name],
+        shape=f"B {B}, T {T}, H {H}, d {d}, {name}, causal",
+        flops=2 * half, bytes=f_bytes)
+    rows["flash_qkv_bwd"] = dict(
+        ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_fb,
+        library="F.scaled_dot_product_attention forward + backward on "
+                "split views (compare with fwd_plus_bwd_ms)",
+        fwd_plus_bwd_ms=fwd_ms + bwd_ms, max_abs_err=err_d,
+        atol=GRAD_ATOL[name], shape=rows["flash_qkv_fwd"]["shape"],
+        flops=5 * half, bytes=b_bytes)
+    del qkv, g, out, lse, dqkv, q, k, v, qg, kg, vg, go
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    if head:
+        rows["softmax_xent_fwd"] = _time_head(torch, sx, gen, dev, dt, N, D,
+                                              V)
+    for key, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"], rate)
+        ok = r["max_abs_err"] <= r["atol"]
+        r["ok"] = ok
+        extra = (f", fwd+bwd {r['fwd_plus_bwd_ms']:.4f} ms"
+                 if "fwd_plus_bwd_ms" in r else "")
+        extra += (f", torch.matmul(x, w) alone {r['matmul_ms']:.4f} ms"
+                  if "matmul_ms" in r else "")
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        log(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}{extra}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{rate / 1e12:.0f} TFLOP/s, 3.35 TB/s); max_abs_err vs plain "
+            f"{r['max_abs_err']:.3e} (atol {r['atol']:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{bad} disagree with their plain versions at "
+                             "the train path's shapes")
+    return rows
+
+
+def _time_head(torch, sx, gen, dev, dt, N, D, V):
+    name = str(dt).replace("torch.", "")
+    el = torch.empty((), dtype=dt).element_size()
+    x = (torch.randn((N, D), generator=gen, device=dev)).to(dt)
+    hw = (torch.randn((D, V), generator=gen, device=dev) * 0.01).to(dt)
+    lab = torch.randint(0, V, (N,), generator=gen, device=dev)
+    with torch.no_grad():
+        lse, at = sx.softmax_xent_fwd(x, hw, lab)
+        ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, hw, lab)
+        err = max((lse - ref_lse).abs().max().item(),
+                  (at - ref_at).abs().max().item())
+        del ref_lse, ref_at
+        ms = time_ms(torch, lambda: sx.softmax_xent_fwd(x, hw, lab))
+        plain = time_ms(torch, lambda: sx.softmax_xent_fwd_ref(x, hw, lab),
+                        reps=5)
+        mm = time_ms(torch, lambda: torch.matmul(x, hw), reps=10)
+    return dict(
+        ms=ms, plain_ms=plain, library_ms=None,
+        library="none (no single PyTorch call computes lse and the label "
+                "logit)", matmul_ms=mm, max_abs_err=err,
+        atol=HEAD_ATOL[name], shape=f"N {N}, D {D}, V {V}, {name}",
+        flops=2.0 * N * D * V,
+        bytes=el * (N * D + D * V) + 4.0 * N + 8.0 * N)
+
+
+# -- phases 7 and 8 ------------------------------------------------------------
+def _clone_state(params, opt):
+    """Copies of a train state (the step updates its state in place)."""
+    from paddle_tpu_torch.models.gpt_spmd import _leaves, _rebuild
+
+    def clone(tree):
+        return _rebuild(tree, {k: v.clone() for k, v in _leaves(tree).items()})
+
+    return clone(params), clone(opt)
+
+
+def _plain_kernels(fq, sx):
+    """Every kernel wrapper of the train path swapped for its plain
+    version."""
+    from contextlib import ExitStack
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(fq, "flash_qkv_fwd",
+                                          fq.flash_qkv_fwd_ref))
+    stack.enter_context(mock.patch.object(fq, "flash_qkv_bwd",
+                                          fq.flash_qkv_bwd_ref))
+    stack.enter_context(mock.patch.object(sx, "softmax_xent_fwd",
+                                          sx.softmax_xent_fwd_ref))
+    return stack
+
+
+def _reset(fq, sx):
+    fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
+
+
+def _launches(fq, sx):
+    return dict(flash_qkv_fwd=fq.FWD_LAUNCHES, flash_qkv_bwd=fq.BWD_LAUNCHES,
+                softmax_xent_fwd=sx.LAUNCHES)
+
+
+def _grads_after_one_step(opt, names):
+    """The step's gradients, read from AdamW's first moment after step 1
+    (m = (1 - b1) g)."""
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    m = _leaves(opt["m"])
+    return {n: m[n] / (1 - ADAM_B1) for n in names}
+
+
+def train(torch, fq, sx, dev, cfg, timed=True):
+    """One config of the train path; returns its report."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, build_spmd_train_step
+    w = cfg["width"]
+    L, V, D = w["num_layers"], w["vocab_size"], w["hidden_size"]
+    B, T, name = cfg["batch"], cfg["seq"], cfg["dtype"]
+    step, init_fn = build_spmd_train_step(
+        GPTConfig(**w), compute_dtype=getattr(torch, name),
+        remat_policy=cfg["remat"], device=dev)
+    params, opt = init_fn(0)
+    rng = np.random.RandomState(0)                # bench.py:137-139
+    ids = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    labels = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    state0 = _clone_state(params, opt)
+
+    # the main path: one step through the kernels, counted
+    sync(torch, dev)
+    _reset(fq, sx)
+    loss_k, _, opt_k = step(*_clone_state(*state0), ids, labels)
+    sync(torch, dev)
+    launches = _launches(fq, sx)
+    fwd_per_step = L * (2 if cfg["remat"] == "full" else 1)
+    log(f"  step 1 through the kernels: loss {loss_k.item():.6f}, "
+        f"launches {launches} (expected flash_qkv_fwd {fwd_per_step}, "
+        f"flash_qkv_bwd {L}, softmax_xent_fwd >= 1)")
+    if (launches["flash_qkv_fwd"] != fwd_per_step
+            or launches["flash_qkv_bwd"] != L
+            or launches["softmax_xent_fwd"] < 1):
+        raise AssertionError(f"train step launched {launches}; expected "
+                             f"{fwd_per_step} / {L} / >= 1")
+    grads_k = _grads_after_one_step(opt_k, TRAIN_GRADS)
+    del opt_k
+
+    with _plain_kernels(fq, sx):
+        loss_p, _, opt_p = step(*_clone_state(*state0), ids, labels)
+    grads_p = _grads_after_one_step(opt_p, TRAIN_GRADS)
+    del opt_p
+    d_loss = abs(loss_k.item() - loss_p.item())
+    rel = {n: ((grads_k[n] - grads_p[n]).float().norm()
+               / grads_p[n].float().norm()).item() for n in TRAIN_GRADS}
+    rtol = TRAIN_LOSS_RTOL[name]
+    loss_ok = d_loss <= rtol * abs(loss_p.item())
+    grads_ok = all(v <= TRAIN_GRAD_RTOL[name] for v in rel.values())
+    log(f"  same step with the plain versions: loss {loss_p.item():.6f}, "
+        f"|difference| {d_loss:.3e} (limit rtol {rtol:.0e}); grads "
+        f"relative L2 {', '.join(f'{k} {v:.3e}' for k, v in rel.items())} "
+        f"(limit {TRAIN_GRAD_RTOL[name]:.0e})")
+    finite = bool(torch.isfinite(loss_k).item())
+    if not (loss_ok and grads_ok and finite):
+        raise AssertionError("the step through the kernels disagrees with "
+                             "the step through the plain versions")
+    del grads_k, grads_p
+    out = dict(config=cfg, loss_step1=loss_k.item(),
+               loss_step1_plain=loss_p.item(), loss_abs_diff=d_loss,
+               grad_rel_l2=rel, launches=launches)
+    if not timed:
+        return out
+
+    # two runs of two steps from the same state repeat bit for bit
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    runs = []
+    for _ in range(2):
+        p, o = _clone_state(*state0)
+        losses = []
+        for _ in range(2):
+            loss, p, o = step(p, o, ids, labels)
+            losses.append(loss.clone())
+        runs.append((torch.stack(losses), _leaves(p)))
+        del o
+    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    log(f"  two runs of two steps: losses {runs[0][0].tolist()} and "
+        f"{runs[1][0].tolist()}; bit-identical losses and parameters: "
+        f"{same}")
+    if not same:
+        raise AssertionError("two identical runs of the train step differ")
+    del runs
+
+    # 2 warm-ups, then timed steps on one fixed batch; the loss falls
+    del state0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, params, opt = step(params, opt, ids, labels)
+        b.record()
+        b.synchronize()
+        losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = pct(times, 50)
+    seq_s = B / (step_ms / 1e3)
+    # bench.py:187: fwd+bwd matmul and attention flops per token, the
+    # attention counted non-causal, no remat recompute
+    flops_tok = 6 * (L * 12 * D * D + D * V) + 12 * L * T * D
+    mfu = seq_s * T * flops_tok / BF16_FLOPS_PER_S
+    log(f"  losses over {len(losses)} steps: {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    log(f"  step ms p50 {step_ms:.3f} (min {min(times):.3f}, max "
+        f"{max(times):.3f}, {TRAIN_TIMED} steps after {TRAIN_WARMUP} "
+        f"warm-ups, CUDA events); {seq_s:.2f} seq/s; MFU {mfu:.4f} "
+        f"(bench.py:187 FLOP count, non-causal attention, against 989 "
+        f"TFLOP/s bf16); peak memory {peak / 2**30:.3f} GiB")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    out.update(losses=losses, step_ms=times, step_ms_p50=step_ms,
+               seq_per_s=seq_s, mfu=mfu, flops_per_token=flops_tok,
+               peak_memory_bytes=peak, deterministic=same)
+    return out
+
+
+def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
+    """Phases 3-8 on ``dev`` with a serving GPT of ``width`` and the two
+    train configs; returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import flash_attention_qkv as fq
+    from paddle_tpu_torch.ops import softmax_xent as sx
 
+    dev = torch.device(dev)
     log("== phase 3: kernels against their plain versions")
     checks = check_kernels(torch, fa, dev)
+    qkv_checks = check_qkv_kernels(torch, fq, dev)
+    head_checks = check_head_kernel(torch, sx, dev)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -364,6 +753,15 @@ def run(torch, dev, width):
     log("== phase 6: kernel times")
     times = timing(torch, fa)
     main_shape = times[-1]                            # T = 512
+    train_times = timing_train_kernels(torch, fq, sx, train_cfg, dev)
+    long_times = timing_train_kernels(torch, fq, sx, long_cfg, dev,
+                                      head=False)
+    del net
+    torch.cuda.empty_cache()
+    log("== phase 7: train at full width")
+    trained = train(torch, fq, sx, dev, train_cfg)
+    log("== phase 8: train at T 1024, reduced depth")
+    trained_long = train(torch, fq, sx, dev, long_cfg, timed=False)
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -381,7 +779,58 @@ def run(torch, dev, width):
                              and c["inputs"] == "rand"),
         max_abs_err_bf16_sharp=max(c["max_abs_err"] for c in checks
                                    if c["inputs"] == "sharp"))]
-    report = dict(checks=checks, scoring=score, serving=serve, timing=times)
+
+    def entry(key, source, replaces, launches, checks_err, **extra):
+        t = train_times[key]
+        return dict(name=key, route="cuda",
+                    source=f"paddle_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=checks_err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    library=t["library"], timed_shape=t["shape"],
+                    max_abs_err_timed_shape=t["max_abs_err"], **extra)
+
+    def worst(rows, key, dtype):
+        return max(r[key] for r in rows if r["dtype"] == dtype)
+
+    tl = trained["launches"]
+    ll = trained_long["launches"]
+    kernels += [
+        entry("flash_qkv_fwd", "flash_attn_qkv.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:276",
+              tl["flash_qkv_fwd"], worst(qkv_checks, "max_abs_err",
+                                         "float32"),
+              max_abs_err_bf16=worst(qkv_checks, "max_abs_err", "bfloat16"),
+              max_abs_err_lse=max(r["max_abs_err_lse"] for r in qkv_checks),
+              launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks)),
+        entry("flash_qkv_bwd", "flash_attn_qkv.cu",
+              "paddle_tpu/ops/pallas/flash_attention.py:303",
+              tl["flash_qkv_bwd"], worst(qkv_checks, "max_abs_err_dqkv",
+                                         "float32"),
+              replaces_also="paddle_tpu/ops/pallas/flash_attention.py:442",
+              max_abs_err_bf16=worst(qkv_checks, "max_abs_err_dqkv",
+                                     "bfloat16"),
+              fwd_plus_bwd_ms=train_times["flash_qkv_bwd"][
+                  "fwd_plus_bwd_ms"],
+              launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
+              t1024={k: long_times["flash_qkv_bwd"][k] for k in (
+                  "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "fwd_plus_bwd_ms", "max_abs_err")}),
+        entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
+              "paddle_tpu/ops/pallas/softmax_xent.py:48",
+              tl["softmax_xent_fwd"], worst(head_checks, "max_abs_err",
+                                            "float32"),
+              max_abs_err_bf16=worst(head_checks, "max_abs_err",
+                                     "bfloat16"),
+              matmul_ms=train_times["softmax_xent_fwd"]["matmul_ms"],
+              launches_t1024=ll["softmax_xent_fwd"],
+              checks=len(head_checks))]
+    report = dict(checks=checks, qkv_checks=qkv_checks,
+                  head_checks=head_checks, scoring=score, serving=serve,
+                  timing=times, train_timing=train_times,
+                  train_long_timing=long_times, train=trained,
+                  train_long=trained_long)
     return report, kernels
 
 

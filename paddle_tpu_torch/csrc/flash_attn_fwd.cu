@@ -32,12 +32,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_common.cuh"
+
 namespace {
 
 constexpr int BLOCK_M = 64;   // query rows per block
 constexpr int BLOCK_N = 64;   // key rows per shared-memory tile
 constexpr int THREADS = 256;  // four threads per query row
-constexpr float NEG_INF = -1e30f;
+using tile::NEG_INF;
+using tile::Vec;
 
 template <int D>
 struct Layout {
@@ -47,62 +50,12 @@ struct Layout {
       sizeof(float) * (size_t)(3 * BLOCK_M * LD + BLOCK_M * PLD);
 };
 
-// 16-byte global loads and stores, converted to and from fp32.
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-  __device__ static void store4(float* dst, float4 x) {
-    *reinterpret_cast<float4*>(dst) = x;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* src, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* dst, float4 x) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
-  }
-};
-
-// Rows [row0, row0 + 64) of a (nrows, D) matrix into shared memory as fp32;
-// rows past nrows are zero so that 0-weighted products stay finite.
+// Rows [row0, row0 + 64) of a (nrows, D) matrix into shared memory as fp32.
 template <typename T, int D>
 __device__ void load_tile(const T* __restrict__ src, int row0, int nrows,
                           float* dst) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int PER_ROW = D / VN;
-  for (int idx = threadIdx.x; idx < BLOCK_N * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VN;
-    float* d = dst + r * Layout<D>::LD + c;
-    if (row0 + r < nrows) {
-      Vec<T>::load(src + (size_t)(row0 + r) * D + c, d);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VN; ++i) d[i] = 0.f;
-    }
-  }
+  tile::load_tile_f32<T, BLOCK_N, D, Layout<D>::LD, THREADS>(src, D, row0,
+                                                             nrows, dst);
 }
 
 template <typename T, int D>

@@ -1,21 +1,26 @@
 """Carry the reference GPT's weights into the port.
 
-The reference names are those of ``paddle_tpu``'s
-``GPT.functional_state()[0]``; the port's modules carry the same names.
-The reference stores every linear weight as ``(in, out)``; ``nn.Linear``
-holds ``(out, in)``, so those are transposed.  Embeddings and LayerNorm
-parameters carry over as they are.
+:func:`gpt_state_from_paddle_tpu` takes the eager GPT's weights, named as
+``paddle_tpu``'s ``GPT.functional_state()[0]``; the port's modules carry
+the same names.  The reference stores every linear weight as
+``(in, out)``; ``nn.Linear`` holds ``(out, in)``, so those are
+transposed.  Embeddings and LayerNorm parameters carry over as they are.
+
+:func:`gpt_spmd_state_from_paddle_tpu` takes the compiled trainer's
+stacked parameter tree (``gpt_spmd.init_gpt_params``) and its AdamW state;
+the port keeps that layout as it is.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["gpt_state_from_paddle_tpu", "LINEAR_WEIGHTS"]
+__all__ = ["gpt_state_from_paddle_tpu", "gpt_spmd_state_from_paddle_tpu",
+           "LINEAR_WEIGHTS"]
 
 # name suffixes of the reference's (in, out) linear weights
 LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out.weight", "up.weight",
@@ -38,3 +43,29 @@ def gpt_state_from_paddle_tpu(params: Mapping[str, np.ndarray], *,
             arr = arr.T
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(dev)
     return out
+
+
+def _tensor_tree(tree: Mapping, dev: torch.device) -> Dict:
+    return {k: _tensor_tree(v, dev) if isinstance(v, Mapping)
+            else torch.from_numpy(np.array(np.asarray(v), order="C")).to(dev)
+            for k, v in tree.items()}
+
+
+def gpt_spmd_state_from_paddle_tpu(params: Mapping,
+                                   opt_state: Optional[Mapping] = None, *,
+                                   device=None) -> Tuple[Dict, Dict]:
+    """``(params, opt_state)`` for
+    :func:`~paddle_tpu_torch.models.gpt_spmd.build_spmd_train_step` from
+    the reference's stacked parameter tree and, if given, its optimizer
+    state ``{"m": tree, "v": tree, "step": int}`` (any array-likes numpy
+    can read), on ``device`` (the card unless ``device="cpu"``).  Without
+    an optimizer state the moments are zero at step 0."""
+    from .gpt_spmd import init_opt_state
+    dev = resolve_device(device)
+    out = _tensor_tree(params, dev)
+    if opt_state is None:
+        return out, init_opt_state(out)
+    step = int(np.asarray(opt_state["step"]))
+    return out, {"m": _tensor_tree(opt_state["m"], dev),
+                 "v": _tensor_tree(opt_state["v"], dev),
+                 "step": torch.tensor(step, dtype=torch.int32, device=dev)}

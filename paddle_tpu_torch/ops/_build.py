@@ -3,9 +3,10 @@
 Every ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, placed in
 ``paddle_tpu_torch/_build/`` at first use and loaded with ``ctypes``.
-The library's file name carries a digest of its source and of the flags,
-so an edited source builds anew and an unchanged one is reused by later
-processes of the same checkout.  Nothing is prebuilt or checked in.
+The library's file name carries a digest of its source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an edited source or header
+builds anew and an unchanged one is reused by later processes of the same
+checkout.  Nothing is prebuilt or checked in.
 """
 from __future__ import annotations
 
@@ -56,11 +57,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by its source and flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, the shared
+    headers it may include and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

@@ -1,4 +1,4 @@
-"""paddle_tpu_torch on the card: the CUDA kernel and the paths that launch it.
+"""paddle_tpu_torch on the card: the CUDA kernels and the paths that launch them.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no JAX, so it runs on the card's machine, which has none (the
@@ -13,6 +13,8 @@ import torch
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig
 from paddle_tpu_torch.ops import flash_attention as pfa
+from paddle_tpu_torch.ops import flash_attention_qkv as fq
+from paddle_tpu_torch.ops import softmax_xent as sx
 from paddle_tpu_torch.serving import GenerationEngine, GenerationEngineConfig
 
 pytestmark = pytest.mark.cuda
@@ -20,6 +22,10 @@ pytestmark = pytest.mark.cuda
 WIDTH = dict(vocab_size=97, hidden_size=128, num_layers=2, num_heads=2,
              max_seq_len=128)                    # head dim 64
 FP32_ATOL, BF16_ATOL = 2e-5, 3e-2                # tests/test_pallas_kernels.py
+GRAD_ATOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+# the head kernel and its plain version both sum exact products of the
+# inputs in fp32 and differ only in the order of the sums
+HEAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 
 
 @pytest.fixture
@@ -105,3 +111,87 @@ def test_engine_streams_equal_solo_streams_on_the_card(card):
     for (p, kw), out in zip(reqs, outs):
         np.testing.assert_array_equal(
             out, solo.generate([p], max_new_tokens=16, **kw)[0])
+
+
+def _qkv_cases():
+    cases = [(2, T, 2, d, causal, dtype)
+             for T in (64, 100, 256, 1024) for d in (32, 64, 128)
+             for causal in (False, True)
+             for dtype in (torch.float32, torch.bfloat16)]
+    return cases + [(2, 512, 12, 64, True, dtype)
+                    for dtype in (torch.float32, torch.bfloat16)]
+
+
+def test_packed_attention_kernels_match_plain_versions(card):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, T, H, d, causal, dtype in _qkv_cases():
+        qkv = torch.rand((B, T, 3 * H * d), generator=gen,
+                         device="cuda").to(dtype)
+        g = torch.rand((B, T, H * d), generator=gen, device="cuda").to(dtype)
+        f0, b0 = fq.FWD_LAUNCHES, fq.BWD_LAUNCHES
+        out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
+        dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H, causal=causal)
+        torch.cuda.synchronize()
+        assert (fq.FWD_LAUNCHES, fq.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+        ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H, causal=causal)
+        ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H, causal=causal)
+        atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+        case = (B, T, H, d, causal, dtype)
+        assert out.dtype == dtype and dqkv.dtype == dtype, case
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=atol, msg=lambda m: f"{case}: {m}")
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4,
+                                   msg=lambda m: f"{case}: {m}")
+        torch.testing.assert_close(dqkv.float(), ref_d.float(), rtol=0,
+                                   atol=GRAD_ATOL[dtype],
+                                   msg=lambda m: f"{case}: {m}")
+
+
+def test_packed_attention_autograd_goes_through_both_kernels(card):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.rand((2, 128, 3 * 128), generator=gen,
+                     device="cuda").requires_grad_()
+    f0, b0 = fq.FWD_LAUNCHES, fq.BWD_LAUNCHES
+    out = fq.flash_attention_qkv(qkv, 2, causal=True)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fq.FWD_LAUNCHES, fq.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    ref_in = qkv.detach().clone().requires_grad_()
+    fq.flash_attention_qkv_ref(ref_in, 2, causal=True).square().sum() \
+        .backward()
+    torch.testing.assert_close(qkv.grad, ref_in.grad, rtol=0,
+                               atol=GRAD_ATOL[torch.float32])
+
+
+def test_head_kernel_matches_plain_version(card):
+    rs = np.random.RandomState(0)
+    for N, D, V in ((256, 64, 512), (256, 64, 700), (100, 64, 1000),
+                    (300, 96, 30528)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(N, D)).to("cuda", dtype)
+            w = torch.from_numpy(rs.randn(D, V) * 0.05).to("cuda", dtype)
+            lab = torch.from_numpy(rs.randint(0, V, N)).to("cuda")
+            before = sx.LAUNCHES
+            lse, at = sx.softmax_xent_fwd(x, w, lab)
+            torch.cuda.synchronize()
+            assert sx.LAUNCHES == before + 1
+            ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, w, lab)
+            case = (N, D, V, dtype)
+            torch.testing.assert_close(lse, ref_lse, rtol=0,
+                                       atol=HEAD_ATOL[dtype],
+                                       msg=lambda m: f"{case}: {m}")
+            torch.testing.assert_close(at, ref_at, rtol=0,
+                                       atol=HEAD_ATOL[dtype],
+                                       msg=lambda m: f"{case}: {m}")
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
+    qkv = torch.rand(2, 8, 3 * 2 * 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fq.flash_qkv_fwd(qkv, 2)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fq.flash_qkv_fwd(torch.rand(2, 8, 192, device="cuda").half(), 1)
+    x = torch.rand(4, 8, device="cuda")
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        sx.softmax_xent_fwd(x, torch.rand(8, 5, device="cuda").half(),
+                            torch.zeros(4, dtype=torch.int64, device="cuda"))

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch import NoCudaDevice, resolve_device
-from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
+from paddle_tpu_torch.models import (GPT, GPTConfig, build_spmd_train_step,
+                                     gpt_spmd_state_from_paddle_tpu,
+                                     gpt_state_from_paddle_tpu)
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as pfa
 
@@ -42,7 +44,11 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.models, "
             "paddle_tpu_torch.generation, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.ops.nn_misc\n"
+            "paddle_tpu_torch.ops.nn_misc, "
+            "paddle_tpu_torch.ops.flash_attention_qkv, "
+            "paddle_tpu_torch.ops.softmax_xent, "
+            "paddle_tpu_torch.models.gpt_spmd, "
+            "paddle_tpu_torch.tools.profile_train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -66,6 +72,10 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(no_card):
         GPT(cfg)
     with pytest.raises(NoCudaDevice):
         gpt_state_from_paddle_tpu({"wte.weight": np.zeros((11, 8))})
+    with pytest.raises(NoCudaDevice):
+        build_spmd_train_step(cfg)
+    with pytest.raises(NoCudaDevice):
+        gpt_spmd_state_from_paddle_tpu({"wte": np.zeros((11, 8))})
     with pytest.raises(ValueError, match="unsupported"):
         resolve_device("meta")
     net = GPT(cfg, device="cpu")
@@ -93,6 +103,22 @@ def test_build_is_keyed_by_source_and_refuses_without_nvcc(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share a header"
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before == {name: _build.library_path(name)
+                      for name in _build.SOURCES}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert all(after[name] != before[name] for name in _build.SOURCES)
+    assert {"flash_attn_fwd", "flash_attn_qkv",
+            "softmax_xent_fwd"} <= set(_build.SOURCES)
 
 
 def _run_smoke(script, cwd):
