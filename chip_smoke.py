@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels  each kernel against its plain PyTorch version on the card,
             at every shape the serving, scoring and train paths give it
             and around them (packed attention T 100 ... 2048, d 32/64/128;
-            LM head up to N 4096, V 30528)
+            split-layout forward with lse and backward T 128 ... 8192 and
+            Tq < Tk, d 32/64/128; LM head up to N 4096, V 30528)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -19,8 +20,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             from 4 client threads; every stream equals its solo-session
             stream, and a second run repeats every stream exactly
 6. timing   kernel, plain and library times with CUDA events beside the
-            card's bound, at the serving and train paths' shapes, each
-            kernel's result held against its plain version there too
+            card's bound, at the serving and train paths' shapes (rows 2
+            and 6-9 at T 512, 1024 and 8192), each kernel's result held
+            against its plain version there too
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, the fused head) against the same step with the
@@ -29,6 +31,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             seq/s, MFU and peak memory
 8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
    long     step through the kernels against the plain versions
+9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
+            full width (B 32, T 512, fp32): one step through the kernels
+            (12 + 12 launches, mode "small", row 6) against the plain
+            versions; two runs of two steps repeat bit for bit; the loss
+            falls over 12 steps; step ms, seq/s, peak memory
+10. eager   the same at L 2: T 1024, B 8 (row 7) and T 8192, B 1 (rows 2,
+    long    8 and 9), each one step through the kernels against the plain
+            versions, with the launches per mode
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -93,6 +103,24 @@ TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
                              num_layers=2, num_heads=12, max_seq_len=1024),
                   batch=8, seq=1024, dtype="float32", remat="full")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+
+# split-layout attention (rows 1, 2, 6-9): every mode's lengths, a ragged
+# one and Tq < Tk; forward with lse and backward on (B, S, H, D) operands
+SPLIT_SHAPES = [(t, t) for t in (128, 256, 512, 1000, 1024, 2048, 4096,
+                                 8192)] + [(128, 256), (640, 1280)]
+SPLIT_LSE_ATOL = 1e-5                            # test_pallas_kernels.py:288
+# (batch, length) of the split-layout timing: rows 6, 7 and 2/8/9 at the
+# eager train path's shapes (H 12, d 64, fp32, causal)
+SPLIT_TIMING = ((32, 512), (32, 1024), (1, 8192))
+# the eager train path (Model.train_batch): the serving width at T 512
+EAGER = dict(width=GPT_WIDTH, batch=32, seq=512)
+EAGER_LONG = (dict(width=dict(GPT_WIDTH, num_layers=2, max_seq_len=1024),
+                   batch=8, seq=1024),
+              dict(width=dict(GPT_WIDTH, num_layers=2, max_seq_len=8192),
+                   batch=1, seq=8192))
+# fp32 on both sides: the kernels and the plain versions sum in another
+# order, carried through 12 blocks
+EAGER_LOSS_RTOL, EAGER_GRAD_RTOL = 1e-4, 1e-4
 # kernels against plain versions over one bf16 step: each attention
 # output and the head's statistics differ in bf16 roundings, carried
 # through 12 blocks
@@ -249,6 +277,72 @@ def check_head_kernel(torch, sx, dev):
     return results
 
 
+def _split_operands(torch, gen, dev, B, tq, tk, H, d, dtype):
+    """q, k, v, dout: head views of one packed projection when tq == tk
+    (the eager GPT's layout), else separate (B, S, H, D) tensors."""
+    if tq == tk:
+        q, k, v = torch.rand((B, tq, 3, H, d), generator=gen,
+                             device=dev).to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.rand((B, t, H, d), generator=gen, device=dev)
+                   .to(dtype) for t in (tq, tk, tk))
+    g = torch.rand((B, tq, H, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, g
+
+
+def check_split_kernels(torch, fa, dev):
+    """Rows 1, 2 and 6-9: the forward with lse and the backward on
+    (B, S, H, D) operands against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    results = []
+    for tq, tk in SPLIT_SHAPES:
+        B, H = (2, 2) if max(tq, tk) <= 2048 else (1, 2)
+        for d in (32, 64, 128):
+            for causal in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, g = _split_operands(torch, gen, dev, B, tq, tk,
+                                                 H, d, dtype)
+                    out, lse = fa.flash_attn_fwd(q, k, v, causal=causal,
+                                                 return_lse=True)
+                    grads = fa.flash_attn_bwd(q, k, v, out, lse, g,
+                                              causal=causal)
+                    ref, ref_lse = fa.flash_attn_fwd_ref(
+                        q, k, v, causal=causal, return_lse=True)
+                    ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                                  causal=causal)
+                    sync(torch, dev)
+                    name = str(dtype).replace("torch.", "")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    err_lse = (lse - ref_lse).abs().max().item()
+                    err_g = max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(grads, ref_g))
+                    mode = fa._pallas_mode(tq, tk, causal)
+                    rows = (fa.reference_rows("fwd", mode, tk)
+                            + fa.reference_rows("bwd", mode, tk))
+                    ok = (out.dtype == dtype and out.shape == q.shape
+                          and all(a.shape == x.shape for a, x in
+                                  zip(grads, (q, k, v)))
+                          and err <= ATOL[name] and err_lse <= SPLIT_LSE_ATOL
+                          and err_g <= GRAD_ATOL[name])
+                    results.append(dict(b=B, tq=tq, tk=tk, h=H, d=d,
+                                        causal=causal, dtype=name, mode=mode,
+                                        rows=rows, max_abs_err=err,
+                                        max_abs_err_lse=err_lse,
+                                        max_abs_err_grads=err_g, ok=ok))
+                    log(f"  flash_attn tq={tq:4d} tk={tk:4d} d={d:3d} "
+                        f"causal={int(causal)} {name:8s} {mode:6s} rows "
+                        f"{rows} out {err:.2e} (atol {ATOL[name]:.0e}) lse "
+                        f"{err_lse:.2e} (atol {SPLIT_LSE_ATOL:.0e}) dq/dk/dv "
+                        f"{err_g:.2e} (atol {GRAD_ATOL[name]:.0e}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    del q, k, v, g, out, lse, grads, ref, ref_lse, ref_g
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} split-layout attention checks "
+                             f"disagree with the plain versions: {bad}")
+    return results
+
+
 # -- phase 4 -------------------------------------------------------------------
 def scoring(torch, fa, net, batch=8):
     cfg, dev = net.cfg, net.device
@@ -258,13 +352,13 @@ def scoring(torch, fa, net, batch=8):
     with torch.inference_mode():
         net(ids)                                      # warm-up
         sync(torch, dev)
-        fa.LAUNCHES = 0
+        fa.FWD_LAUNCHES = 0
         t0 = time.perf_counter()
         logits = net(ids)
         sync(torch, dev)
         ms = (time.perf_counter() - t0) * 1e3
-        launches = fa.LAUNCHES
-        with mock.patch.object(fa, "flash_attn_fwd", fa.flash_attention_ref):
+        launches = fa.FWD_LAUNCHES
+        with mock.patch.object(fa, "flash_attn_fwd", fa.flash_attn_fwd_ref):
             t0 = time.perf_counter()
             plain = net(ids)
             sync(torch, dev)
@@ -327,14 +421,14 @@ def run_engine(fa, net, reqs):
     threads = [threading.Thread(target=client, args=(c,))
                for c in range(CLIENTS)]
     try:
-        fa.LAUNCHES = 0
+        fa.FWD_LAUNCHES = 0
         t0 = time.perf_counter()
         for th in threads:
             th.start()
         for th in threads:
             th.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = fa.LAUNCHES
+        launches = fa.FWD_LAUNCHES
     finally:
         engine.close()
     if errors:
@@ -575,6 +669,120 @@ def _time_head(torch, sx, gen, dev, dt, N, D, V):
         bytes=el * (N * D + D * V) + 4.0 * N + 8.0 * N)
 
 
+def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
+    """Rows 2, 6, 7, 8 and 9 at the eager train path's shapes (H 12, d 64,
+    fp32, causal, head views of one packed projection), each result also
+    held against its plain version there.  The streaming rows 8 and 9 are
+    the backward's passes timed apart: delta + dQ, and dK/dV."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(7)
+    H, d = 12, 64
+    rows = {}
+    for B, T in shapes:
+        qkv = torch.randn((B, T, 3, H, d), generator=gen, device=dev)
+        q, k, v = qkv.unbind(2)
+        g = torch.randn((B, T, H, d), generator=gen, device=dev)
+        with torch.no_grad():
+            out, lse = fa.flash_attn_fwd(q, k, v, causal=True,
+                                         return_lse=True)
+            grads = fa.flash_attn_bwd(q, k, v, out, lse, g, causal=True)
+            ref, ref_lse = fa.flash_attn_fwd_ref(q, k, v, causal=True,
+                                                 return_lse=True)
+            ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                          causal=True)
+            err_f = max((out - ref).abs().max().item(),
+                        (lse - ref_lse).abs().max().item())
+            err_b = max((a - b).abs().max().item()
+                        for a, b in zip(grads, ref_g))
+            del ref, ref_lse, ref_g, grads
+            fwd_ms = time_ms(torch, lambda: fa.flash_attn_fwd(
+                q, k, v, causal=True, return_lse=True))
+            fwd_plain = time_ms(torch, lambda: fa.flash_attn_fwd_ref(
+                q, k, v, causal=True, return_lse=True), reps=5)
+            bwd_ms = time_ms(torch, lambda: fa.flash_attn_bwd(
+                q, k, v, out, lse, g, causal=True))
+            bwd_plain = time_ms(torch, lambda: fa.flash_attn_bwd_ref(
+                q, k, v, out, lse, g, causal=True), reps=5)
+            dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+            delta = torch.empty((B, H, T), device=dev)
+
+            def passes(mask):
+                fa._launch_bwd(q, k, v, out, lse, g, dq, dk, dv, delta, True,
+                               None, passes=mask)
+
+            passes(fa.ALL_PASSES)
+            dq_ms = time_ms(torch, lambda: passes(fa.PASS_DELTA | fa.PASS_DQ))
+            dkv_ms = time_ms(torch, lambda: passes(fa.PASS_DKV))
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        gh = g.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            torch.autograd.grad(o, (qg, kg, vg), gh)
+
+        lib_fb = time_ms(torch, sdpa_fwd_bwd)
+        n_el = 4.0 * B * T * H * d            # bytes of one operand, fp32
+        stats = 4.0 * B * H * T               # bytes of lse (or delta)
+        # flops of one causal T x T x d product (half of 2*T*T*d): the
+        # forward needs 2 (S, PV), the backward 5 (S, dP, dV, dQ, dK); the
+        # dQ pass runs 3 of them, the dK/dV pass 4
+        prod = 1.0 * B * H * T * T * d
+        shape = f"B {B}, T {T}, H {H}, d {d}, fp32, causal"
+        lib_note = "F.scaled_dot_product_attention forward + backward on " \
+                   "(B, H, T, d) views"
+        common = dict(shape=shape, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                      max_abs_err_fwd=err_f, max_abs_err_bwd=err_b,
+                      library_fwd_ms=lib_fwd)
+        mode = fa._pallas_mode(T, T, True)
+        if mode == "stream":
+            rows[2] = dict(common, kernel="flash_attn_fwd (with lse)",
+                           ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
+                           library="F.scaled_dot_product_attention forward "
+                                   "on (B, H, T, d) views",
+                           max_abs_err=err_f, atol=SPLIT_LSE_ATOL,
+                           flops=2 * prod, bytes=4 * n_el + stats)
+            # plain: the whole plain backward (no plain version of one pass)
+            rows[8] = dict(common, kernel="flash_attn_bwd passes delta + dQ",
+                           ms=dq_ms, plain_ms=bwd_plain, library_ms=lib_fb,
+                           library=lib_note, max_abs_err=err_b,
+                           atol=GRAD_ATOL["float32"], flops=3 * prod,
+                           bytes=6 * n_el + stats)
+            rows[9] = dict(common, kernel="flash_attn_bwd pass dK/dV",
+                           ms=dkv_ms, plain_ms=bwd_plain, library_ms=lib_fb,
+                           library=lib_note, max_abs_err=err_b,
+                           atol=GRAD_ATOL["float32"], flops=4 * prod,
+                           bytes=6 * n_el + 2 * stats)
+        else:
+            row = fa.reference_rows("bwd", mode, T)[0]
+            rows[row] = dict(common, kernel="flash_attn_bwd", ms=bwd_ms,
+                             plain_ms=bwd_plain, library_ms=lib_fb,
+                             library=lib_note, max_abs_err=err_b,
+                             atol=GRAD_ATOL["float32"], flops=5 * prod,
+                             bytes=8 * n_el + stats, dq_pass_ms=dq_ms,
+                             dkv_pass_ms=dkv_ms)
+        del qkv, q, k, v, g, out, lse, dq, dk, dv, delta, qg, kg, vg, gh
+    for row, r in sorted(rows.items()):
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"],
+                                             FP32_FLOPS_PER_S)
+        r["ok"] = r["max_abs_err"] <= r["atol"]
+        log(f"  row {row} {r['kernel']} ({r['shape']}): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s "
+            f"fp32, {r['bytes'] / 1e6:.2f} MB at 3.35 TB/s); forward "
+            f"{r['fwd_ms']:.4f} ms, backward {r['bwd_ms']:.4f} ms; max_abs_err "
+            f"vs plain {r['max_abs_err']:.3e} (atol {r['atol']:.0e}) "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+    bad = [row for row, r in rows.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"rows {bad} disagree with their plain versions "
+                             "at the eager train path's shapes")
+    return rows
+
+
 # -- phases 7 and 8 ------------------------------------------------------------
 def _clone_state(params, opt):
     """Copies of a train state (the step updates its state in place)."""
@@ -732,9 +940,145 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     return out
 
 
-def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
-    """Phases 3-8 on ``dev`` with a serving GPT of ``width`` and the two
-    train configs; returns the report and the ``kernels`` entries."""
+# -- phases 9 and 10 -----------------------------------------------------------
+def _plain_attention(fa):
+    """The attention kernels' wrappers swapped for their plain versions."""
+    from contextlib import ExitStack
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(fa, "flash_attn_fwd",
+                                          fa.flash_attn_fwd_ref))
+    stack.enter_context(mock.patch.object(fa, "flash_attn_bwd",
+                                          fa.flash_attn_bwd_ref))
+    return stack
+
+
+def eager_train(torch, fa, dev, cfg, timed=True):
+    """The eager train path on one config: ``Model(GPT).prepare(AdamW(1e-3,
+    weight_decay=0.01), CrossEntropyLoss()).train_batch``; returns its
+    report."""
+    import numpy as np
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    w = cfg["width"]
+    L, V, B, T = w["num_layers"], w["vocab_size"], cfg["batch"], cfg["seq"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    rng = np.random.RandomState(0)                # tests/test_models.py:57
+    ids = rng.randint(0, V, (B, T))
+    labels = np.roll(ids, -1, 1).reshape(B, T, 1)
+    ids, labels = (torch.from_numpy(a).to(dev) for a in (ids, labels))
+    names = ("blocks.0.attn.qkv.weight", "wte.weight",
+             f"blocks.{L - 1}.down.weight")
+
+    def fresh():
+        net.load_state_dict(state0)
+        return Model(net).prepare(
+            AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
+            CrossEntropyLoss())
+
+    def first_step(model):
+        loss = model.train_batch([ids], [labels], update=False)["loss"]
+        params = dict(net.named_parameters())
+        grads = {n: params[n].grad.clone() for n in names}
+        model._optimizer.clear_grad()
+        return loss.item(), grads
+
+    # the main path: step 1 through the kernels, counted
+    model = fresh()
+    sync(torch, dev)
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.MODE_LAUNCHES.clear()
+    loss_k, grads_k = first_step(model)
+    sync(torch, dev)
+    launches = dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
+                    modes=dict(fa.MODE_LAUNCHES))
+    mode = fa._pallas_mode(T, T, True)
+    rows = dict(fwd=fa.reference_rows("fwd", mode, T),
+                bwd=fa.reference_rows("bwd", mode, T))
+    want = {f"fwd {mode}": L, f"bwd {mode}": L}
+    log(f"  step 1 through the kernels: loss {loss_k:.6f}, launches "
+        f"{launches} (expected {L} + {L}, {want}: rows {rows})")
+    if launches["fwd"] != L or launches["bwd"] != L \
+            or launches["modes"] != want:
+        raise AssertionError(f"the eager step launched {launches}; expected "
+                             f"{L} forward and {L} backward, {want}")
+
+    with _plain_attention(fa):
+        loss_p, grads_p = first_step(model)
+    d_loss = abs(loss_k - loss_p)
+    rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
+           for n in names}
+    log(f"  same step with the plain versions: loss {loss_p:.6f}, "
+        f"|difference| {d_loss:.3e} (limit rtol {EAGER_LOSS_RTOL:.0e}); "
+        f"grads relative L2 {', '.join(f'{k} {v:.3e}' for k, v in rel.items())}"
+        f" (limit {EAGER_GRAD_RTOL:.0e})")
+    if not (np.isfinite(loss_k) and d_loss <= EAGER_LOSS_RTOL * abs(loss_p)
+            and all(v <= EAGER_GRAD_RTOL for v in rel.values())):
+        raise AssertionError("the eager step through the kernels disagrees "
+                             "with the step through the plain versions")
+    del grads_k, grads_p
+    out = dict(config=cfg, mode=mode, rows=rows, loss_step1=loss_k,
+               loss_step1_plain=loss_p, loss_abs_diff=d_loss,
+               grad_rel_l2=rel, launches=launches)
+    if not timed:
+        return out
+
+    # two runs of two steps from the same state repeat bit for bit
+    runs = []
+    for _ in range(2):
+        model = fresh()
+        losses = torch.stack([model.train_batch([ids], [labels])["loss"]
+                              for _ in range(2)])
+        runs.append((losses, {k: v.clone() for k, v in
+                              net.state_dict().items()}))
+    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    log(f"  two runs of two steps: losses {runs[0][0].tolist()} and "
+        f"{runs[1][0].tolist()}; bit-identical losses and parameters: "
+        f"{same}")
+    if not same:
+        raise AssertionError("two identical runs of the eager step differ")
+    del runs
+
+    # 2 warm-ups, then timed steps on one fixed batch; the loss falls
+    model = fresh()
+    del state0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = model.train_batch([ids], [labels])["loss"]
+        b.record()
+        b.synchronize()
+        losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = pct(times, 50)
+    seq_s = B / (step_ms / 1e3)
+    log(f"  losses over {len(losses)} steps: {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    log(f"  step ms p50 {step_ms:.3f} (min {min(times):.3f}, max "
+        f"{max(times):.3f}, {TRAIN_TIMED} steps after {TRAIN_WARMUP} "
+        f"warm-ups, CUDA events); {seq_s:.2f} seq/s; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    out.update(losses=losses, step_ms=times, step_ms_p50=step_ms,
+               seq_per_s=seq_s, peak_memory_bytes=peak, deterministic=same)
+    return out
+
+
+def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
+        eager_cfg=EAGER, eager_long=EAGER_LONG):
+    """Phases 3-10 on ``dev`` with a serving GPT of ``width``, the two
+    train configs and the eager train configs; returns the report and the
+    ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -745,6 +1089,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
     checks = check_kernels(torch, fa, dev)
     qkv_checks = check_qkv_kernels(torch, fq, dev)
     head_checks = check_head_kernel(torch, sx, dev)
+    split_checks = check_split_kernels(torch, fa, dev)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -756,12 +1101,21 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
     train_times = timing_train_kernels(torch, fq, sx, train_cfg, dev)
     long_times = timing_train_kernels(torch, fq, sx, long_cfg, dev,
                                       head=False)
+    split_times = timing_split_kernels(torch, fa, dev)
     del net
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
     trained = train(torch, fq, sx, dev, train_cfg)
     log("== phase 8: train at T 1024, reduced depth")
     trained_long = train(torch, fq, sx, dev, long_cfg, timed=False)
+    torch.cuda.empty_cache()
+    log("== phase 9: eager train at full width (Model.train_batch)")
+    eager = eager_train(torch, fa, dev, eager_cfg)
+    eager_runs = []
+    for cfg in eager_long:
+        torch.cuda.empty_cache()
+        log(f"== phase 10: eager train at T {cfg['seq']}, reduced depth")
+        eager_runs.append(eager_train(torch, fa, dev, cfg, timed=False))
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -774,6 +1128,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
         library_ms=main_shape["library_ms"],
         timed_shape="bh 96, T 512, d 64, fp32, causal",
         launches_scoring=score["launches"], checks=len(checks),
+        launches_eager_forward=eager["launches"]["fwd"],
         max_abs_err_bf16=max(c["max_abs_err"] for c in checks
                              if c["dtype"] == "bfloat16"
                              and c["inputs"] == "rand"),
@@ -797,14 +1152,14 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
     tl = trained["launches"]
     ll = trained_long["launches"]
     kernels += [
-        entry("flash_qkv_fwd", "flash_attn_qkv.cu",
+        entry("flash_qkv_fwd", "flash_attn_fwd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:276",
               tl["flash_qkv_fwd"], worst(qkv_checks, "max_abs_err",
                                          "float32"),
               max_abs_err_bf16=worst(qkv_checks, "max_abs_err", "bfloat16"),
               max_abs_err_lse=max(r["max_abs_err_lse"] for r in qkv_checks),
               launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks)),
-        entry("flash_qkv_bwd", "flash_attn_qkv.cu",
+        entry("flash_qkv_bwd", "flash_attn_bwd.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
               tl["flash_qkv_bwd"], worst(qkv_checks, "max_abs_err_dqkv",
                                          "float32"),
@@ -826,11 +1181,45 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG):
               matmul_ms=train_times["softmax_xent_fwd"]["matmul_ms"],
               launches_t1024=ll["softmax_xent_fwd"],
               checks=len(head_checks))]
+
+    def split_entry(name, row, source, replaces, launches, key):
+        t = split_times[row]
+        worst_fp32 = max(c[key] for c in split_checks
+                         if row in c["rows"] and c["dtype"] == "float32")
+        worst_bf16 = max(c[key] for c in split_checks
+                         if row in c["rows"] and c["dtype"] == "bfloat16")
+        return dict(name=name, route="cuda",
+                    source=f"paddle_tpu_torch/csrc/{source}",
+                    replaces=replaces, row=row, launches=launches,
+                    max_abs_err=worst_fp32, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"], library_ms=t["library_ms"],
+                    library=t["library"], timed_shape=t["shape"],
+                    timed=t["kernel"], max_abs_err_bf16=worst_bf16,
+                    max_abs_err_timed_shape=t["max_abs_err"],
+                    checks=sum(row in c["rows"] for c in split_checks))
+
+    t1024, t8192 = (r["launches"]["modes"] for r in eager_runs)
+    fa_py = "paddle_tpu/ops/pallas/flash_attention.py"
+    kernels += [
+        split_entry("flash_attn_fwd_stream", 2, "flash_attn_fwd.cu",
+                    f"{fa_py}:94", t8192["fwd stream"], "max_abs_err"),
+        split_entry("flash_attn_bwd_small", 6, "flash_attn_bwd.cu",
+                    f"{fa_py}:733", eager["launches"]["modes"]["bwd small"],
+                    "max_abs_err_grads"),
+        split_entry("flash_attn_bwd_tiled", 7, "flash_attn_bwd.cu",
+                    f"{fa_py}:649", t1024["bwd small"], "max_abs_err_grads"),
+        split_entry("flash_attn_bwd_dq", 8, "flash_attn_bwd.cu",
+                    f"{fa_py}:808", t8192["bwd stream"], "max_abs_err_grads"),
+        split_entry("flash_attn_bwd_dkv", 9, "flash_attn_bwd.cu",
+                    f"{fa_py}:856", t8192["bwd stream"], "max_abs_err_grads")]
     report = dict(checks=checks, qkv_checks=qkv_checks,
-                  head_checks=head_checks, scoring=score, serving=serve,
-                  timing=times, train_timing=train_times,
-                  train_long_timing=long_times, train=trained,
-                  train_long=trained_long)
+                  head_checks=head_checks, split_checks=split_checks,
+                  scoring=score, serving=serve, timing=times,
+                  train_timing=train_times, train_long_timing=long_times,
+                  split_timing={str(k): v for k, v in split_times.items()},
+                  train=trained, train_long=trained_long, eager=eager,
+                  eager_long=eager_runs)
     return report, kernels
 
 

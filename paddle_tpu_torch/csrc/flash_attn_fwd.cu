@@ -1,32 +1,44 @@
-// Flash-attention forward, split layout, for Hopper (sm_90a).
+// Flash-attention forward over strided (B, S, H, D) operands, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel `_small_fwd_kernel` of
-// paddle_tpu/ops/pallas/flash_attention.py (launched there by
-// `_small_flash_fwd` and, for 1024 < T <= 4096, by `_mid_flash_fwd`):
+// Replaces three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py,
+// each of which computes out = softmax(q k^T * scale) v per (batch, head):
+//   _small_fwd_kernel      row 1: launched by _small_flash_fwd and, for
+//                          1024 < T <= 4096, by _mid_flash_fwd; no lse
+//   _fwd_kernel_pipelined  row 2: launched by _flash_fwd for T > 4096;
+//                          writes lse
+//   _qkv_fwd_kernel        row 3: launched by _qkv_small_fwd, straight
+//                          from the packed (B, T, 3F) projection
+// One kernel serves all three: it streams K/V for any Tk and writes the
+// fp32 log-sum-exp lse (B, H, Tq) when asked (the backward's residual).
 //
-//   out[bh] = softmax(q[bh] k[bh]^T * scale) v[bh]       (no lse output)
+// Operands: q is (B, Tq, H, D), k and v are (B, Tk, H, D) and out is
+// (B, Tq, H, D), each addressed by its own element strides (batch, row,
+// head) with a contiguous last axis, so head-split views of a fused
+// projection, the packed projection itself and folded (B*H, T, D)
+// tensors are read where they lie, with no copy.  fp32 or bf16; D in
+// {32, 64, 128}.  Causal masking is bottom-right aligned as in the
+// reference: query i sees key j iff j <= i + (Tk - Tq); causal with
+// Tq > Tk (fully masked rows) is refused.  Any Tq and Tk: the ragged edge
+// is masked here, where the TPU kernels needed multiples of 128.  Softmax
+// statistics are fp32, masked scores take the finite NEG_INF = -1e30, and
+// p is cast to v's type before the P V product, as in the reference.
 //
-// q is (BH, Tq, d), k and v are (BH, Tk, d), all contiguous, fp32 or bf16;
-// the output has the input's type.  Softmax statistics and both products
-// accumulate in fp32.  Causal masking is bottom-right aligned, as in the
-// reference: key j is visible to query i iff j <= i + (Tk - Tq), and a
-// masked score takes the finite NEG_INF = -1e30.  Causal with Tq > Tk is
-// refused.  Any Tq and Tk are taken: the ragged edges are masked here,
-// where the TPU kernel needed multiples of 128.
+// What bounds it on an H100: per (batch, head) the causal forward does
+// 2*Tq*Tk*D flops on 2*(Tq + Tk)*D elements.  In bf16 on the tensor cores
+// (~295 flops per byte of device memory) that is bound by the bytes up to
+// T ~ 512 at D = 64 and by the arithmetic above; fp32 runs on FMAs (~20
+// flops per byte) and is bound by the arithmetic past T ~ 160.  bf16
+// products run on mma.sync m16n8k16 with fp32 accumulators and ldmatrix
+// operand loads; fp32 runs on FMAs with the same accumulator layout for
+// its 2e-5 parity.  K/V tiles are re-read once per 64-row query tile,
+// mostly from L2; wgmma, TMA, a load pipeline and larger tiles are later
+// work.
 //
-// What bounds it on an H100: one head does 4*Tq*Tk*d flops (half of that
-// when causal) on (2*Tq + 2*Tk)*d elements, so past T ~ 64 at d = 64 the
-// work is bound by arithmetic, not by memory.  This first version does
-// both products with fp32 FMAs out of shared memory, not on the tensor
-// cores, so it runs well below the card's peak; wgmma, TMA and warp
-// specialisation are later work.
-//
-// Design: one block of 256 threads per (bh, tile of 64 query rows); four
-// neighbouring lanes own one query row.  K and V tiles of 64 rows are
-// staged through shared memory (converted to fp32, rows padded so the
-// float4 reads of one warp hit distinct banks), the online softmax
-// (running max m and denominator l) stays in fp32 registers, and K/V
-// tiles wholly above the causal diagonal are never loaded.
+// Design: one 256-thread block per (b, h, 64 query rows); 64-row K/V tiles
+// stream through shared memory, tiles wholly above the causal diagonal
+// are never loaded, and the online softmax keeps its running max and sum
+// in fp32, rescaling the output accumulators (registers) per tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,183 +48,189 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // query rows per block
-constexpr int BLOCK_N = 64;   // key rows per shared-memory tile
-constexpr int THREADS = 256;  // four threads per query row
 using tile::NEG_INF;
-using tile::Vec;
+using tile::Strides;
+using tile::Warp;
 
-template <int D>
-struct Layout {
-  static constexpr int LD = D + 4;         // row stride of sQ/sK/sV (floats)
-  static constexpr int PLD = BLOCK_N + 4;  // row stride of sP (floats)
-  static constexpr size_t bytes =
-      sizeof(float) * (size_t)(3 * BLOCK_M * LD + BLOCK_M * PLD);
+constexpr int BM = 64;        // query rows per tile
+constexpr int BN = 64;        // key rows per tile
+constexpr int THREADS = 256;  // eight warps
+
+template <typename T, int D>
+struct Cfg {
+  static constexpr int LDT = D + tile::pad<T>();   // q, k, v tiles
+  static constexpr int LDP = BN + tile::pad<T>();  // P tile
+  static constexpr int LDS = BN + 4;               // fp32 score tile
+  static constexpr int NTD = D / 16;  // 8-column blocks per warp over D
+  static constexpr size_t TILE = sizeof(T) * (size_t)64 * LDT;
+  static constexpr size_t bytes = 3 * TILE + sizeof(float) * (size_t)BM * LDS +
+                                  sizeof(T) * (size_t)BM * LDP +
+                                  sizeof(float) * 2 * BM;
 };
 
-// Rows [row0, row0 + 64) of a (nrows, D) matrix into shared memory as fp32.
-template <typename T, int D>
-__device__ void load_tile(const T* __restrict__ src, int row0, int nrows,
-                          float* dst) {
-  tile::load_tile_f32<T, BLOCK_N, D, Layout<D>::LD, THREADS>(src, D, row0,
-                                                             nrows, dst);
-}
+template <typename T>
+struct FwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  float* lse;  // (B, H, Tq) or null
+  Strides sq, sk, sv, so;
+  int H, tq, tk, causal;
+  float scale;
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-                 int causal, float scale) {
-  constexpr int LD = Layout<D>::LD;
-  constexpr int PLD = Layout<D>::PLD;
-  constexpr int NS = BLOCK_N / 4;  // scores per thread per tile
-  constexpr int NG = D / 16;       // float4 output columns per thread
+flash_fwd_kernel(const FwdArgs<T> a) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + BM * C::LDT;
+  T* sV = sK + BN * C::LDT;
+  float* sS = reinterpret_cast<float*>(sV + BN * C::LDT);
+  T* sP = reinterpret_cast<T*>(sS + BM * C::LDS);
+  float* sCorr = reinterpret_cast<float*>(sP + BM * C::LDP);
+  float* sL = sCorr + BM;
 
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BLOCK_M * LD;
-  float* sV = sK + BLOCK_N * LD;
-  float* sP = sV + BLOCK_N * LD;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int m0 = blockIdx.y * BM;
+  const int offset = a.tk - a.tq;
+  const T* qb = a.sq.head(a.q, b, h);
+  const T* kb = a.sk.head(a.k, b, h);
+  const T* vb = a.sv.head(a.v, b, h);
+  const Warp w;
+  const int row = threadIdx.x >> 2;  // softmax: four lanes per query row
+  const int sub = threadIdx.x & 3;
+  const int qi = m0 + row;
 
-  const int bh = blockIdx.x;
-  const int m0 = blockIdx.y * BLOCK_M;
-  const int row = threadIdx.x >> 2;  // query row within the tile
-  const int sub = threadIdx.x & 3;   // which quarter of the row's work
-  const int offset = tk - tq;
-  const int last_key = m0 + row + offset;  // causal: last visible key
-  const T* qb = q + (size_t)bh * tq * D;
-  const T* kb = k + (size_t)bh * tk * D;
-  const T* vb = v + (size_t)bh * tk * D;
+  tile::copy_rows<T, BM, D, C::LDT, THREADS>(qb, a.sq.s_, m0, a.tq, sQ);
+  float m_i = NEG_INF, l_i = 0.f;
+  float o[C::NTD][4];
+  tile::zero(o);
+  // keys past the tile's last live query row are masked for every row;
+  // key 0 is visible to every row, so the first tile sets a finite max
+  const int n_end =
+      a.causal ? min(a.tk, min(m0 + BM, a.tq) + offset) : a.tk;
 
-  load_tile<T, D>(qb, m0, tq, sQ);
-
-  // keys past the block's last live query row are masked for every row
-  int n_end = tk;
-  if (causal) n_end = min(tk, min(m0 + BLOCK_M, tq) + offset);
-
-  float m_i = NEG_INF;
-  float l_i = 0.f;
-  float acc[NG][4];
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-
-  for (int n0 = 0; n0 < n_end; n0 += BLOCK_N) {
-    __syncthreads();  // the previous tile's sK/sV are no longer read
-    load_tile<T, D>(kb, n0, tk, sK);
-    load_tile<T, D>(vb, n0, tk, sV);
+  for (int n0 = 0; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile's sK, sV, sP are no longer read
+    tile::copy_rows<T, BN, D, C::LDT, THREADS>(kb, a.sk.s_, n0, a.tk, sK);
+    tile::copy_rows<T, BN, D, C::LDT, THREADS>(vb, a.sv.s_, n0, a.tk, sV);
     __syncthreads();
 
-    // scores of this row against keys n0 + 4*i + sub
-    float s[NS];
+    float s[4][4];
+    tile::zero(s);
+    tile::warp_mma<T, 4, true>(s, sQ, C::LDT, sK, C::LDT, w.wm, w.wn * 32,
+                               D);
 #pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    const float* qrow = sQ + row * LD;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qrow + d);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(sK + (4 * i + sub) * LD + d);
-        s[i] = fmaf(qv.x, kv.x, s[i]);
-        s[i] = fmaf(qv.y, kv.y, s[i]);
-        s[i] = fmaf(qv.z, kv.z, s[i]);
-        s[i] = fmaf(qv.w, kv.w, s[i]);
-      }
+    for (int j = 0; j < 4; ++j) {
+      float* dst = sS + (w.wm + w.g) * C::LDS + w.wn * 32 + 8 * j + 2 * w.t;
+      tile::store_pair(dst, s[j][0], s[j][1]);
+      tile::store_pair(dst + 8 * C::LDS, s[j][2], s[j][3]);
     }
+    __syncthreads();
 
+    // online softmax over keys n0 + sub + 4i of this row
+    float x[BN / 4];
     float tile_max = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int j = n0 + 4 * i + sub;
-      float x = s[i] * scale;
-      if (j >= tk || (causal && j > last_key)) x = NEG_INF;
-      s[i] = x;
-      tile_max = fmaxf(tile_max, x);
+    for (int i = 0; i < BN / 4; ++i) {
+      const int j = n0 + sub + 4 * i;
+      float v = sS[row * C::LDS + sub + 4 * i] * a.scale;
+      if (j >= a.tk || (a.causal && j > qi + offset)) v = NEG_INF;
+      x[i] = v;
+      tile_max = fmaxf(tile_max, v);
     }
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
     const float m_new = fmaxf(m_i, tile_max);
     const float corr = expf(m_i - m_new);
-
     float row_sum = 0.f;
-    float* prow = sP + row * PLD;
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      // keys past tk do not exist: their weight is exactly 0
-      const float p = (n0 + 4 * i + sub < tk) ? expf(s[i] - m_new) : 0.f;
+    for (int i = 0; i < BN / 4; ++i) {
+      // keys past Tk do not exist: their weight is exactly 0
+      const float p = (n0 + sub + 4 * i < a.tk) ? expf(x[i] - m_new) : 0.f;
       row_sum += p;
-      prow[4 * i + sub] = p;
+      sP[row * C::LDP + sub + 4 * i] = tile::from_f32<T>(p);
     }
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
     l_i = l_i * corr + row_sum;
     m_i = m_new;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      acc[g][0] *= corr;
-      acc[g][1] *= corr;
-      acc[g][2] *= corr;
-      acc[g][3] *= corr;
-    }
-    __syncwarp();  // the row's four lanes wrote prow; all four read it
+    if (sub == 0) sCorr[row] = corr;
+    __syncthreads();
 
-    const int jn = min(BLOCK_N, tk - n0);
-    for (int j = 0; j < jn; ++j) {
-      const float p = prow[j];
-      const float* vrow = sV + j * LD;
+    const float c0 = sCorr[w.wm + w.g], c1 = sCorr[w.wm + w.g + 8];
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vrow + 4 * (sub + 4 * g));
-        acc[g][0] = fmaf(p, vv.x, acc[g][0]);
-        acc[g][1] = fmaf(p, vv.y, acc[g][1]);
-        acc[g][2] = fmaf(p, vv.z, acc[g][2]);
-        acc[g][3] = fmaf(p, vv.w, acc[g][3]);
-      }
+    for (int j = 0; j < C::NTD; ++j) {
+      o[j][0] *= c0;
+      o[j][1] *= c0;
+      o[j][2] *= c1;
+      o[j][3] *= c1;
     }
+    tile::warp_mma<T, C::NTD, false>(o, sP, C::LDP, sV, C::LDT, w.wm,
+                                     w.wn * (D / 2), BN);
   }
 
-  const int gr = m0 + row;
-  if (gr < tq) {
-    T* orow = o + ((size_t)bh * tq + gr) * D;
+  if (sub == 0) {
+    sL[row] = l_i;
+    if (a.lse != nullptr && qi < a.tq)
+      a.lse[(size_t)bh * a.tq + qi] = m_i + logf(l_i);
+  }
+  __syncthreads();
+  T* ob = a.so.head(a.o, b, h);
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const float4 x = make_float4(acc[g][0] / l_i, acc[g][1] / l_i,
-                                   acc[g][2] / l_i, acc[g][3] / l_i);
-      Vec<T>::store4(orow + 4 * (sub + 4 * g), x);
+  for (int half = 0; half < 2; ++half) {
+    const int r = w.wm + w.g + 8 * half;
+    if (m0 + r >= a.tq) continue;
+    const float inv = 1.f / sL[r];
+#pragma unroll
+    for (int j = 0; j < C::NTD; ++j) {
+      const int col = w.wn * (D / 2) + 8 * j + 2 * w.t;
+      tile::store_pair(ob + (size_t)(m0 + r) * a.so.s_ + col,
+                       o[j][2 * half] * inv, o[j][2 * half + 1] * inv);
     }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int tq, int tk, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
+cudaError_t launch(const FwdArgs<T>& a, int B, cudaStream_t stream) {
+  using C = Cfg<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)C::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (tq + BLOCK_M - 1) / BLOCK_M);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), tq, tk, causal, scale);
+  const dim3 grid(B * a.H, (a.tq + BM - 1) / BM);
+  flash_fwd_kernel<T, D><<<grid, THREADS, C::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int bh, int tq, int tk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+cudaError_t run(const void* q, const void* k, const void* v, void* o,
+                void* lse, const long long* st, int B, int H, int tq, int tk,
+                int d, int causal, float scale, cudaStream_t stream) {
+  const FwdArgs<T> a{static_cast<const T*>(q),
+                     static_cast<const T*>(k),
+                     static_cast<const T*>(v),
+                     static_cast<T*>(o),
+                     static_cast<float*>(lse),
+                     {st[0], st[1], st[2]},
+                     {st[3], st[4], st[5]},
+                     {st[6], st[7], st[8]},
+                     {st[9], st[10], st[11]},
+                     H,
+                     tq,
+                     tk,
+                     causal,
+                     scale};
   switch (d) {
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, tq, tk, causal, scale, stream);
+      return launch<T, 32>(a, B, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, tq, tk, causal, scale, stream);
+      return launch<T, 64>(a, B, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, tq, tk, causal, scale, stream);
+      return launch<T, 128>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -220,23 +238,25 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// strides: 12 element strides, (batch, row, head) of q, k, v and out in
+// that order.  lse: (B, H, Tq) fp32, or null for no lse.  dtype: 0 =
+// float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int bh, int tq, int tk, int d,
-                              int dtype, int causal, float scale,
-                              void* stream) {
+                              void* o, void* lse, const long long* strides,
+                              int B, int H, int tq, int tk, int d, int dtype,
+                              int causal, float scale, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
-  if (bh <= 0 || tq <= 0 || tk <= 0 || (causal && tq > tk) ||
-      (tq + BLOCK_M - 1) / BLOCK_M > 65535)
+  if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0 || (causal && tq > tk) ||
+      (long long)B * H > 0x7fffffffLL || (tq + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)dispatch_d<float>(q, k, v, o, bh, tq, tk, d, causal, scale,
-                                    s);
+      return (int)run<float>(q, k, v, o, lse, strides, B, H, tq, tk, d,
+                             causal, scale, s);
     case 1:
-      return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d,
-                                            causal, scale, s);
+      return (int)run<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, tq, tk,
+                                     d, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

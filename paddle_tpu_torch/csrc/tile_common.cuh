@@ -1,10 +1,10 @@
 // Shared device code of the hand-written Hopper kernels in this directory.
 //
-// - 16-byte global loads converted to fp32 (`Vec`) and a strided tile
-//   loader into fp32 shared memory (`load_tile_f32`), used by
-//   flash_attn_fwd.cu;
-// - strided tile copies that keep the input type (`copy_tile`), used by
-//   flash_attn_qkv.cu and softmax_xent_fwd.cu;
+// - strided tile copies that keep the input type (`copy_tile`,
+//   `copy_rows`), used by every kernel here;
+// - the addressing of a (B, S, H, D) attention operand by element strides
+//   (`Strides`) and a warp's place in a 64-row tile (`Warp`), used by
+//   flash_attn_fwd.cu and flash_attn_bwd.cu;
 // - a warp-level 16 x (8*NT) product `warp_mma` over operands in shared
 //   memory.  bf16 runs on the tensor cores (ldmatrix and mma.sync
 //   m16n8k16, fp32 accumulators); fp32 runs on FMAs with the same
@@ -24,65 +24,6 @@
 namespace tile {
 
 constexpr float NEG_INF = -1e30f;
-
-// ---- 16-byte loads and stores, converted to and from fp32 -----------------
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* src, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-  }
-  __device__ static void store4(float* dst, float4 x) {
-    *reinterpret_cast<float4*>(dst) = x;
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* src, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store4(__nv_bfloat16* dst, float4 x) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = raw;
-  }
-};
-
-// Rows [row0, row0 + ROWS) of a matrix with row stride `ld` elements and
-// COLS used columns into shared memory as fp32 (row stride LDS); rows past
-// nrows are zero so that 0-weighted products stay finite.
-template <typename T, int ROWS, int COLS, int LDS, int THREADS>
-__device__ void load_tile_f32(const T* __restrict__ src, size_t ld, int row0,
-                              int nrows, float* dst) {
-  constexpr int VN = Vec<T>::N;
-  constexpr int PER_ROW = COLS / VN;
-  for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VN;
-    float* d = dst + r * LDS + c;
-    if (row0 + r < nrows) {
-      Vec<T>::load(src + (size_t)(row0 + r) * ld + c, d);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VN; ++i) d[i] = 0.f;
-    }
-  }
-}
 
 // ---- conversions ---------------------------------------------------------------
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -108,6 +49,32 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
+
+// ---- attention operands ----------------------------------------------------
+// A (B, S, H, D) operand whose last axis is contiguous: element (b, s, h, 0)
+// is at base + b*b_ + s*s_ + h*h_.  A packed (B, T, 3F) projection, a
+// head-split view of it, a folded (B*H, T, D) tensor (H = 1) and a plain
+// contiguous (B, S, H, D) tensor are all such operands.
+struct Strides {
+  long long b_, s_, h_;
+  template <typename T>
+  __device__ T* head(T* base, int b, int h) const {
+    return base + b * b_ + h * h_;
+  }
+};
+
+// A warp's place in a 64-row tile worked by eight warps: rows wm..wm+15
+// and column half wn; lane (g, t) as in the accumulator layout above.
+struct Warp {
+  int g, t, wm, wn;
+  __device__ Warp() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    wm = (warp & 3) * 16;
+    wn = warp >> 2;
+  }
+};
 
 // ---- tile copies in the input type ------------------------------------------
 // Rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of a row-major

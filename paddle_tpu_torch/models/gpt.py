@@ -5,9 +5,13 @@ position embeddings, pre-LN blocks (LayerNorm -> fused QKV projection ->
 causal attention -> output projection; LayerNorm -> exact-erf GELU FFN),
 a final LayerNorm and an untied LM head.  Attention goes through
 :func:`~paddle_tpu_torch.ops.nn_misc.scaled_dot_product_attention`, which
-takes the hand-written flash-attention kernel for CUDA tensors.
+takes the hand-written flash-attention kernels for CUDA tensors: the
+forward, and under autograd the forward with lse and the backward.
 
-``forward(ids)`` scores a whole sequence.  With ``caches`` it runs the
+``forward(ids)`` scores a whole sequence; under autograd, in ``train()``
+mode, it is the forward of the eager train path
+(:class:`~paddle_tpu_torch.Model`).  Dropout is 0 in the default config,
+as in the reference.  With ``caches`` it runs the
 generation steps over fixed-capacity KV caches, which it updates **in
 place**: a decode step (``positions`` given) writes one token's keys and
 values per row and attends over the capacity axis under a length mask; a

@@ -7,9 +7,13 @@
 ``[q heads | k heads | v heads]`` (the reference's ``reshape(B, T, 3H, d)``
 and split); the result is ``ctx (B, T, H·d)``.  :class:`FlashQKV` is the
 autograd function: its forward is :func:`flash_qkv_fwd` and its backward
-:func:`flash_qkv_bwd`, the wrappers of the hand-written CUDA kernels in
-``csrc/flash_attn_qkv.cu``.  On a CUDA tensor each wrapper launches its
-kernel or raises; on a CPU tensor it computes its plain PyTorch version
+:func:`flash_qkv_bwd`.  These wrappers launch the attention kernels of
+:mod:`.flash_attention` (``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu``) on head views of the packed projection, which
+those kernels read, and of the packed gradient, which they write, by
+stride: no head-split copy is made in either direction.  On a CUDA tensor
+each wrapper launches its kernel or raises; on a CPU tensor it computes
+its plain PyTorch version
 (:func:`flash_qkv_fwd_ref`, :func:`flash_qkv_bwd_ref`).
 :func:`flash_attention_qkv_ref` is the plain differentiable function the
 tests hold both against.  :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES`
@@ -17,47 +21,25 @@ count kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
 
-from . import _build
-from .flash_attention import NEG_INF, flash_attention_ref
+from . import flash_attention as _fa
+from .flash_attention import HEAD_DIMS, NEG_INF, _scale, flash_attention_ref
 
 __all__ = ["flash_attention_qkv", "flash_attention_qkv_ref", "FlashQKV",
            "flash_qkv_fwd", "flash_qkv_bwd", "flash_qkv_fwd_ref",
            "flash_qkv_bwd_ref", "FWD_LAUNCHES", "BWD_LAUNCHES", "HEAD_DIMS",
            "MAX_T"]
 
-HEAD_DIMS = (32, 64, 128)
 MAX_T = 2048          # the longest sequence the kernels are checked at
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since import (plain integers; tests and the smoke run
 # reset them to 0 and read them back)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
-
-_lib = None
-
-
-def _kernels():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attn_qkv")
-        lib.flash_qkv_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_qkv_fwd.restype = ctypes.c_int
-        lib.flash_qkv_bwd.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_qkv_bwd.restype = ctypes.c_int
-        lib.flash_qkv_error_string.argtypes = [ctypes.c_int]
-        lib.flash_qkv_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
 
 def _dims(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
     if qkv.dim() != 3:
@@ -68,14 +50,18 @@ def _dims(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
     return B, T, num_heads, F3 // (3 * num_heads)
 
 
-def _scale(d: int, scale: Optional[float]) -> float:
-    return float(scale) if scale is not None else 1.0 / math.sqrt(d)
-
-
 def _split(qkv: torch.Tensor, num_heads: int):
     """q, k, v as (B, H, T, d) views of the packed projection."""
     B, T, H, d = _dims(qkv, num_heads)
     return qkv.reshape(B, T, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _views(qkv: torch.Tensor, num_heads: int):
+    """q, k, v as (B, T, H, d) views of the packed projection (or of its
+    gradient): row stride 3F, q at column h·d, k at F + h·d, v at
+    2F + h·d."""
+    B, T, H, d = _dims(qkv, num_heads)
+    return qkv.view(B, T, 3, H, d).unbind(2)
 
 
 def _causal_mask(T: int, device) -> torch.Tensor:
@@ -149,7 +135,7 @@ def flash_qkv_bwd_ref(qkv: torch.Tensor, out: torch.Tensor,
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype = tensors[0].dtype
-    if dtype not in _DTYPE_CODES:
+    if dtype not in _DTYPES:
         raise TypeError(f"{name} takes fp32 or bf16; got {dtype}")
     for t in tensors:
         if t.dtype != dtype:
@@ -195,17 +181,9 @@ def flash_qkv_fwd(qkv: torch.Tensor, num_heads: int, *,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
     if B * T == 0:
         return out, lse
-    lib = _kernels()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.flash_qkv_fwd(qkv.data_ptr(), out.data_ptr(),
-                                lse.data_ptr(), B, T, H, d,
-                                _DTYPE_CODES[qkv.dtype], int(bool(causal)),
-                                _scale(d, scale), stream)
-    if err:
-        raise RuntimeError(f"flash_qkv_fwd launch failed: "
-                           f"{lib.flash_qkv_error_string(err).decode()} "
-                           f"(cudaError {err})")
+    q, k, v = _views(qkv, H)
+    _fa._launch_fwd(q, k, v, out.view(B, T, H, d), lse, causal,
+                    _scale(d, scale))
     FWD_LAUNCHES += 1
     return out, lse
 
@@ -235,18 +213,10 @@ def flash_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     if B * T == 0:
         return dqkv
     delta = torch.empty((B, H, T), dtype=torch.float32, device=qkv.device)
-    lib = _kernels()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.flash_qkv_bwd(qkv.data_ptr(), out.data_ptr(),
-                                dout.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dqkv.data_ptr(), B, T, H, d,
-                                _DTYPE_CODES[qkv.dtype], int(bool(causal)),
-                                _scale(d, scale), stream)
-    if err:
-        raise RuntimeError(f"flash_qkv_bwd launch failed: "
-                           f"{lib.flash_qkv_error_string(err).decode()} "
-                           f"(cudaError {err})")
+    q, k, v = _views(qkv, H)
+    _fa._launch_bwd(q, k, v, out.view(B, T, H, d), lse,
+                    dout.view(B, T, H, d), *_views(dqkv, H), delta, causal,
+                    _scale(d, scale))
     BWD_LAUNCHES += 1
     return dqkv
 

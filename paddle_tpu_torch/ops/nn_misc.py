@@ -1,8 +1,11 @@
 """Attention entry point — the counterpart of
 ``paddle_tpu/ops/nn_misc.py:scaled_dot_product_attention``, routed as the
-reference routes it: without a mask, the flash-attention forward (the
-kernel for CUDA tensors, its plain version for CPU tensors); with an
-additive mask, plain masked math (the reference's ``_sdpa_xla``)."""
+reference routes it (``_sdpa_pallas`` :168): without a mask, the flash
+attention of :mod:`.flash_attention` (the kernels for CUDA tensors, their
+plain versions for CPU tensors, differentiable either way; it keeps causal
+attention with more queries than keys on plain math, as the reference
+does); with an additive mask, plain masked math (the reference's
+``_sdpa_xla``)."""
 from __future__ import annotations
 
 import math

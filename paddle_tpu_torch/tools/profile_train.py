@@ -1,18 +1,23 @@
 """Where a train step's time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_train [--steps 5] [--json PATH]
+    python3 -m paddle_tpu_torch.tools.profile_train [--eager] [--steps 5]
+                                                    [--json PATH]
 
-Builds the flagship train step (V 30528, D 768, L 12, H 12, T 512, B 128,
-bf16 compute over fp32 masters, remat ``"ctx"``) from ``init_fn(0)`` with
-ids and labels from ``np.random.RandomState(0)``, takes two warm-up steps,
-then ``--steps`` steps unprofiled (host wall per step, ending in a
-synchronise) and ``--steps`` steps under ``torch.profiler`` (CPU and CUDA
-activities).  Reports the device time per step (the sum of the kernels'
-and copies' durations on the card), the device's idle share of an
-unprofiled step (1 - device time / unprofiled wall), device ops and the
-port's kernel launches per step, the device time by kind of op, and the
-top ops by device time.  With ``--json PATH`` it also writes the summary
-to PATH.
+Without ``--eager`` it builds the flagship compiled train step (V 30528,
+D 768, L 12, H 12, T 512, B 128, bf16 compute over fp32 masters, remat
+``"ctx"``) from ``init_fn(0)`` with ids and labels from
+``np.random.RandomState(0)``.  With ``--eager`` it builds the eager train
+path at the same width: ``Model(GPT).prepare(AdamW(1e-3,
+weight_decay=0.01), CrossEntropyLoss()).train_batch`` at B 32, T 512,
+fp32, on ids from ``np.random.RandomState(0)`` and labels rolled by one.
+Either way it takes two warm-up steps, then ``--steps`` steps unprofiled
+(host wall per step, ending in a synchronise) and ``--steps`` steps under
+``torch.profiler`` (CPU and CUDA activities).  Reports the device time
+per step (the sum of the kernels' and copies' durations on the card),
+the device's idle share of an unprofiled step (1 - device time /
+unprofiled wall), device ops and the port's kernel launches per step, the
+device time by kind of op, and the top ops by device time.  With
+``--json PATH`` it also writes the summary to PATH.
 """
 from __future__ import annotations
 
@@ -27,19 +32,24 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ..models import GPTConfig
+from ..hapi import Model
+from ..models import GPT, GPTConfig
 from ..models.gpt_spmd import build_spmd_train_step
+from ..nn import CrossEntropyLoss
+from ..ops import flash_attention as fa
 from ..ops import flash_attention_qkv as fq
 from ..ops import softmax_xent as sx
+from ..optimizer import AdamW
 
 WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
              num_heads=12, max_seq_len=512)
 BATCH, SEQ = 128, 512
+EAGER_BATCH = 32
 
 # device-op name fragments by kind, first match wins
-KINDS = (("flash_attn_qkv forward (row 3)", ("qkv_fwd_kernel",)),
-         ("flash_attn_qkv backward (rows 4/5)",
-          ("qkv_dkv_kernel", "qkv_dq_kernel", "qkv_delta_kernel")),
+KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",)),
+         ("flash attention backward (rows 4-9)",
+          ("attn_dkv_kernel", "attn_dq_kernel", "attn_delta_kernel")),
          ("softmax_xent_fwd (row 10)", ("sxent_fwd_kernel",)),
          ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_",
                                        "xmma", "nvjet")),
@@ -59,8 +69,61 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _compiled_path():
+    """The compiled train step: (one step, counter reset, counts, setup)."""
+    cfg = GPTConfig(**WIDTH)
+    step, init_fn = build_spmd_train_step(
+        cfg, compute_dtype=torch.bfloat16, remat_policy="ctx")
+    state = list(init_fn(0))
+    rng = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (BATCH, SEQ))).cuda()
+                   for _ in range(2))
+
+    def one():
+        _, state[0], state[1] = step(state[0], state[1], ids, labels)
+
+    def reset():
+        fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
+
+    def counts():
+        return dict(flash_qkv_fwd=fq.FWD_LAUNCHES,
+                    flash_qkv_bwd=fq.BWD_LAUNCHES,
+                    softmax_xent_fwd=sx.LAUNCHES)
+
+    return one, reset, counts, dict(path="compiled", batch=BATCH, seq=SEQ,
+                                    dtype="bfloat16", remat="ctx")
+
+
+def _eager_path():
+    """Model.train_batch on the eager GPT: the same four callables."""
+    net = GPT(GPTConfig(**WIDTH), seed=0)
+    model = Model(net).prepare(
+        AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
+        CrossEntropyLoss())
+    ids = np.random.RandomState(0).randint(0, WIDTH["vocab_size"],
+                                           (EAGER_BATCH, SEQ))
+    labels = np.roll(ids, -1, 1).reshape(EAGER_BATCH, SEQ, 1)
+    ids, labels = (torch.from_numpy(a).cuda() for a in (ids, labels))
+
+    def one():
+        model.train_batch([ids], [labels])
+
+    def reset():
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+
+    def counts():
+        return dict(flash_attn_fwd=fa.FWD_LAUNCHES,
+                    flash_attn_bwd=fa.BWD_LAUNCHES)
+
+    return one, reset, counts, dict(path="eager", batch=EAGER_BATCH,
+                                    seq=SEQ, dtype="float32", remat="none")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--eager", action="store_true",
+                    help="profile Model.train_batch on the eager GPT")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the summary to PATH")
@@ -69,31 +132,21 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
-    cfg = GPTConfig(**WIDTH)
-    step, init_fn = build_spmd_train_step(
-        cfg, compute_dtype=torch.bfloat16, remat_policy="ctx")
-    params, opt = init_fn(0)
-    rng = np.random.RandomState(0)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (BATCH, SEQ))
-                           ).cuda()
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (BATCH, SEQ))
-                              ).cuda()
+    one, reset, counts, setup = (_eager_path if args.eager
+                                 else _compiled_path)()
 
     def run():
-        nonlocal params, opt
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, params, opt = step(params, opt, ids, labels)
+        one()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
     for _ in range(2):
         run()                                         # warm-up
-    fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
+    reset()
     wall = [run() for _ in range(args.steps)]
-    launches = dict(flash_qkv_fwd=fq.FWD_LAUNCHES / args.steps,
-                    flash_qkv_bwd=fq.BWD_LAUNCHES / args.steps,
-                    softmax_xent_fwd=sx.LAUNCHES / args.steps)
+    launches = {k: v / args.steps for k, v in counts().items()}
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -116,8 +169,7 @@ def main(argv=None) -> int:
     wall_p50 = statistics.median(wall)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     report = dict(
-        card=card, width=WIDTH, batch=BATCH, seq=SEQ, dtype="bfloat16",
-        remat="ctx", steps=n, wall_ms_p50=wall_p50,
+        card=card, width=WIDTH, **setup, steps=n, wall_ms_p50=wall_p50,
         profiled_wall_ms_p50=statistics.median(prof_wall),
         device_ms_per_step=device_ms,
         idle_share=1.0 - device_ms / wall_p50,
@@ -126,7 +178,8 @@ def main(argv=None) -> int:
                  for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])],
         top=[dict(name=k[:120], ms_per_step=v[0] / n, calls_per_step=v[1] / n)
              for k, v in top])
-    print(f"{card}: train step wall {wall_p50:.3f} ms p50 unprofiled "
+    print(f"{card}: {setup['path']} train step wall {wall_p50:.3f} ms p50 "
+          f"unprofiled "
           f"({report['profiled_wall_ms_p50']:.3f} profiled); device "
           f"{device_ms:.3f} ms/step; idle share {report['idle_share']:.4f}; "
           f"{report['device_ops_per_step']:.0f} device ops/step; kernel "

@@ -48,10 +48,10 @@ def test_kernel_matches_plain_version(card):
     for tq, tk, d, causal, dtype in _kernel_cases():
         q, k, v = (torch.rand((24, t, d), generator=gen, device="cuda")
                    .to(dtype) for t in (tq, tk, tk))
-        before = pfa.LAUNCHES
+        before = pfa.FWD_LAUNCHES
         out = pfa.flash_attn_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert pfa.LAUNCHES == before + 1
+        assert pfa.FWD_LAUNCHES == before + 1
         ref = pfa.flash_attention_ref(q, k, v, causal=causal)
         atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
         assert out.dtype == dtype
@@ -76,11 +76,11 @@ def test_gpt_on_the_card_matches_the_cpu(card):
     cpu = GPT(GPTConfig(**WIDTH), device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     ids = torch.randint(0, WIDTH["vocab_size"], (2, 100))
-    before = pfa.LAUNCHES
+    before = pfa.FWD_LAUNCHES
     with torch.inference_mode():
         got = net(ids.cuda())
         want = cpu(ids)
-        assert pfa.LAUNCHES == before + WIDTH["num_layers"]
+        assert pfa.FWD_LAUNCHES == before + WIDTH["num_layers"]
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
         # a prefill through the kernel equals the masked path on the card
         kc, mc = net.gen_caches(2, 100), net.gen_caches(2, 100)
@@ -100,13 +100,13 @@ def test_engine_streams_equal_solo_streams_on_the_card(card):
     reqs = [(rs.randint(1, WIDTH["vocab_size"], n).astype(np.int32),
              dict(do_sample=i % 2 == 1, temperature=0.8, top_p=0.9,
                   seed=i)) for i, n in enumerate((3, 20, 9, 5, 17, 2))]
-    before = pfa.LAUNCHES
+    before = pfa.FWD_LAUNCHES
     with GenerationEngine(net, GenerationEngineConfig(
             max_slots=4, max_new_tokens=16)) as engine:
         streams = [engine.submit(p, **kw) for p, kw in reqs]
         outs = [s.result(timeout=120) for s in streams]
         groups = engine.stats()["prefill_steps"]
-    assert pfa.LAUNCHES - before == WIDTH["num_layers"] * groups
+    assert pfa.FWD_LAUNCHES - before == WIDTH["num_layers"] * groups
     solo = GenerationSession(net, batch_capacity=4)
     for (p, kw), out in zip(reqs, outs):
         np.testing.assert_array_equal(
@@ -195,3 +195,90 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(TypeError, match="fp32 or bf16"):
         sx.softmax_xent_fwd(x, torch.rand(8, 5, device="cuda").half(),
                             torch.zeros(4, dtype=torch.int64, device="cuda"))
+
+
+def _split_cases():
+    cases = [(2, tq, tk, 2, d, causal, dtype)
+             for tq, tk in [(64, 64), (100, 100), (128, 256), (640, 1280),
+                            (1000, 1000)]
+             for d in (32, 64, 128)
+             for causal in (False, True)
+             for dtype in (torch.float32, torch.bfloat16)]
+    return cases + [(1, 4100, 4100, 2, 64, True, torch.float32)]
+
+
+def test_split_layout_kernels_match_plain_versions(card):
+    # forward with lse and the backward on head views of one packed
+    # projection (Tq == Tk) or on separate (B, S, H, D) tensors
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for B, tq, tk, H, d, causal, dtype in _split_cases():
+        if tq == tk:
+            q, k, v = torch.rand((B, tq, 3, H, d), generator=gen,
+                                 device="cuda").to(dtype).unbind(2)
+        else:
+            q, k, v = (torch.rand((B, t, H, d), generator=gen,
+                                  device="cuda").to(dtype)
+                       for t in (tq, tk, tk))
+        g = torch.rand((B, tq, H, d), generator=gen, device="cuda").to(dtype)
+        f0, b0 = pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES
+        out, lse = pfa.flash_attn_fwd(q, k, v, causal=causal,
+                                      return_lse=True)
+        grads = pfa.flash_attn_bwd(q, k, v, out, lse, g, causal=causal)
+        torch.cuda.synchronize()
+        assert (pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+        ref, ref_lse = pfa.flash_attn_fwd_ref(q, k, v, causal=causal,
+                                              return_lse=True)
+        ref_grads = pfa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                           causal=causal)
+        case = (B, tq, tk, H, d, causal, dtype)
+        atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=atol, msg=lambda m: f"{case}: {m}")
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5,
+                                   msg=lambda m: f"{case}: {m}")
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+            assert a.dtype == dtype and a.shape == b.shape
+            torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                       atol=GRAD_ATOL[dtype],
+                                       msg=lambda m: f"{case} {name}: {m}")
+
+
+def test_sdpa_gradients_flow_through_the_kernels(card):
+    # q, k and v get their gradients from the backward kernel, within
+    # 5e-5 of the plain versions' (the fault the autograd function fixes)
+    from paddle_tpu_torch.ops.nn_misc import scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.rand((2, 256, 3, 2, 64), generator=gen, device="cuda")
+    g = torch.rand((2, 256, 2, 64), generator=gen, device="cuda")
+    leaves = qkv.clone().requires_grad_()
+    f0, b0 = pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES
+    out = scaled_dot_product_attention(*leaves.unbind(2), is_causal=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    assert leaves.grad is not None and leaves.grad.abs().sum() > 0
+    plain = qkv.clone().requires_grad_()
+    q, k, v = plain.unbind(2)
+    fold = [x.permute(0, 2, 1, 3).reshape(4, 256, 64) for x in (q, k, v)]
+    pfa.flash_attention_ref(*fold, causal=True).reshape(2, 2, 256, 64) \
+        .permute(0, 2, 1, 3).backward(g)
+    torch.testing.assert_close(leaves.grad, plain.grad, rtol=0,
+                               atol=GRAD_ATOL[torch.float32])
+
+
+def test_eager_gpt_train_batch_goes_through_the_kernels(card):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters(),
+                                     weight_decay=0.01), CrossEntropyLoss())
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, WIDTH["vocab_size"], (2, 100))
+    labels = np.roll(ids, -1, 1).reshape(2, 100, 1)
+    f0, b0 = pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES
+    losses = [float(model.train_batch([ids], [labels])["loss"])
+              for _ in range(5)]
+    assert (pfa.FWD_LAUNCHES - f0, pfa.BWD_LAUNCHES - b0) == (
+        5 * WIDTH["num_layers"], 5 * WIDTH["num_layers"])
+    assert losses[-1] < losses[0]

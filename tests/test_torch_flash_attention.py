@@ -66,9 +66,9 @@ def test_unaligned_lengths_match_reference_math(causal, tq, tk):
 
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 1, 16, 16, 2, 32))
-    before = pfa.LAUNCHES
+    before = pfa.FWD_LAUNCHES
     out = scaled_dot_product_attention(q, k, v, is_causal=True)
-    assert pfa.LAUNCHES == before
+    assert pfa.FWD_LAUNCHES == before
     ref = pfa.flash_attention_ref(
         *(x.permute(0, 2, 1, 3).reshape(2, 16, 32) for x in (q, k, v)),
         causal=True).reshape(1, 2, 16, 32).permute(0, 2, 1, 3)

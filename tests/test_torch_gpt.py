@@ -75,10 +75,10 @@ def test_uncached_logits_match(pair, B, T):
     ref, net, _ = pair
     ids = _ids(T, B, T)
     want = np.asarray(ref(Tensor(jnp.asarray(ids)))._data)
-    before = pfa.LAUNCHES
+    before = pfa.FWD_LAUNCHES
     with torch.inference_mode():
         got = net(torch.from_numpy(ids))
-    assert pfa.LAUNCHES == before          # CPU: the plain version
+    assert pfa.FWD_LAUNCHES == before          # CPU: the plain version
     assert got.shape == (B, T, WIDTH["vocab_size"])
     np.testing.assert_allclose(got.numpy(), want, atol=LOGIT_ATOL)
 
