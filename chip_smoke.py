@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             at every shape the serving, scoring and train paths give it
             and around them (packed attention T 100 ... 2048, d 32/64/128;
             split-layout forward with lse and backward T 128 ... 8192 and
-            Tq < Tk, d 32/64/128; LM head up to N 4096, V 30528)
+            Tq < Tk, d 32/64/128; LM head forward and dlogits up to N
+            4096, V 30528; the fused epilogue at D 64 ... 4096, N 1 ...
+            16384, p 0 / 0.1 / 0.5, and its dropout mask against the hash
+            bit for bit)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -21,16 +24,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
             stream, and a second run repeats every stream exactly
 6. timing   kernel, plain and library times with CUDA events beside the
             card's bound, at the serving and train paths' shapes (rows 2
-            and 6-9 at T 512, 1024 and 8192), each kernel's result held
-            against its plain version there too
+            and 6-9 at T 512, 1024 and 8192; the head's dlogits at one
+            chunk; the fused epilogue at the encoder's N 16384, D 768),
+            each kernel's result held against its plain version there too
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
-            launches, the fused head) against the same step with the
-            plain versions swapped in; two runs of two steps repeat bit
-            for bit; the loss falls over 12 steps on one batch; step ms,
-            seq/s, MFU and peak memory
+            launches, the fused head, 16 dlogits launches) against the
+            same step with the plain versions swapped in; two runs of two
+            steps repeat bit for bit; the loss falls over 12 steps on one
+            batch; step ms, seq/s, MFU and peak memory
 8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
-   long     step through the kernels against the plain versions
+   long     step through the kernels (2 dlogits launches) against the
+            plain versions
 9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
             full width (B 32, T 512, fp32): one step through the kernels
             (12 + 12 launches, mode "small", row 6) against the plain
@@ -39,6 +44,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. eager   the same at L 2: T 1024, B 8 (row 7) and T 8192, B 1 (rows 2,
     long    8 and 9), each one step through the kernels against the plain
             versions, with the launches per mode
+11. encoder 12 post-LN FusedTransformerEncoderLayer(768, 12, 3072,
+            dropout 0.1, gelu, no attention dropout) between token and
+            position embeddings (V 30528, 512 positions) and an untied
+            head: Model.predict_batch on (8, 512) (24 fused-epilogue and
+            12 attention launches, logits against the plain versions);
+            Model.train_batch at B 32, T 512, fp32: one step through the
+            kernels (24 epilogue, 12 + 12 attention launches, non-causal)
+            against the plain versions with the same seeds; two runs of
+            two steps repeat bit for bit; the loss falls over 12 steps;
+            step ms, seq/s, peak memory
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -128,6 +143,31 @@ TRAIN_LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
 TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}   # relative L2
 TRAIN_GRADS = ("blocks.qkv_w", "head_w", "wte")
 ADAM_B1 = 0.9
+
+# the fused epilogue (row 12): the warp path (D <= 1024, 16-byte and
+# one-value loads) and the block path with the row in shared memory (up to
+# D 12288, GPT-3's width) and recomputed (D 12800), one row to the
+# encoder's 16384 rows
+FUSED_LN_DS = (64, 100, 768, 1024, 4096, 12288, 12800)
+FUSED_LN_NS = (1, 7, 1000, 16384)
+FUSED_LN_PS = (0.0, 0.1, 0.5)
+FUSED_LN_SEEDS = (0, 1, 2**31 - 2, 0xFFFFFFFF)
+# fp32: both sum the same fp32 values in another order; bf16: both round
+# fp32 values that differ by up to that atol, so the outputs may differ by
+# the atol plus one bf16 ulp of the output (an output near 0 comes from a
+# cancellation of gamma·ẑ against beta, where the fp32 difference is
+# larger than the output's ulp)
+FUSED_LN_ATOL = 1e-5
+# the head's dlogits (row 11): fp32 atol 1e-5 (tests/test_pallas_kernels.py
+# :322); bf16 each element within 1e-6·|g| plus one bf16 ulp of the plain
+# value (both round fp32 values whose products summed in another order; at
+# the label p - 1 cancels).  A typical element, |g|/V, is 30 times that
+# atol at V 30528, so a wrong softmax term fails
+DLOGITS_G, DLOGITS_ATOL, DLOGITS_BF16_ATOL_PER_G = 2.0, 1e-5, 1e-6
+# the encoder path (phase 11): profile_train.ENCODER, BERT-base
+# (bert-base-uncased) at the flagship vocabulary (bench.py:1027-1029),
+# built by profile_train.build_encoder
+ENCODER_SCORE_BATCH, ENCODER_BATCH = 8, 32          # T = max_len, 512
 
 
 def log(msg: str = ""):
@@ -340,6 +380,139 @@ def check_split_kernels(torch, fa, dev):
     if bad:
         raise AssertionError(f"{len(bad)} split-layout attention checks "
                              f"disagree with the plain versions: {bad}")
+    return results
+
+
+def _bf16_ulp(torch, t):
+    """One bf16 ulp of each value of the fp32 tensor ``t``."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-30))) - 7)
+
+
+def check_fused_ln(torch, fl, dev):
+    """Row 12: the fused epilogue against its plain version, every D, N,
+    type and p, the seeds in turn, bias/gamma/beta in x's type or fp32."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    results = []
+    i = 0
+    for D in FUSED_LN_DS:
+        for N in FUSED_LN_NS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for p in FUSED_LN_PS:
+                    seed = FUSED_LN_SEEDS[i % len(FUSED_LN_SEEDS)]
+                    pdt = dtype if i % 2 else torch.float32
+                    i += 1
+                    x, r = (torch.randn((N, D), generator=gen, device=dev)
+                            .to(dtype) for _ in range(2))
+                    b, be = (torch.randn(D, generator=gen, device=dev)
+                             .to(pdt) for _ in range(2))
+                    g = (1.0 + 0.1 * torch.randn(D, generator=gen,
+                                                 device=dev)).to(pdt)
+                    out = fl.fused_ln(x, r, b, g, be, seed, p=p, eps=1e-5)
+                    ref = fl.fused_ln_ref(x, r, b, g, be, seed, p=p,
+                                          eps=1e-5)
+                    sync(torch, dev)
+                    name = str(dtype).replace("torch.", "")
+                    diff = (out.float() - ref.float()).abs()
+                    err = diff.max().item()
+                    if dtype == torch.float32:
+                        tol, ok = f"atol {FUSED_LN_ATOL:.0e}", \
+                            err <= FUSED_LN_ATOL
+                    else:
+                        ulps = ((diff - FUSED_LN_ATOL).clamp_min(0.0)
+                                / _bf16_ulp(torch, ref.float())).max()
+                        tol = (f"atol {FUSED_LN_ATOL:.0e} + {ulps.item():.2f}"
+                               f" bf16 ulp (limit 1)")
+                        ok = ulps.item() <= 1.0
+                    ok = ok and out.dtype == dtype and out.shape == x.shape
+                    results.append(dict(
+                        n=N, d=D, dtype=name, p=p, seed=seed,
+                        param_dtype=str(pdt).replace("torch.", ""),
+                        max_abs_err=err, tolerance=tol, ok=ok))
+                    log(f"  fused_ln N={N:5d} D={D:4d} {name:8s} p={p:.1f} "
+                        f"seed={seed:10d} params "
+                        f"{results[-1]['param_dtype']:8s} max_abs_err="
+                        f"{err:.2e} {tol} {'ok' if ok else 'FAIL'}")
+                    del x, r, out, ref, diff
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fused-epilogue checks disagree "
+                             f"with the plain version: {bad}")
+    return results
+
+
+def check_fused_ln_mask(torch, fl, dev, N=4096, D=768):
+    """Row 12's dropout mask bit for bit: with x = 1, residual = bias =
+    beta = 0 and gamma = 1 an output is positive exactly where the element
+    was kept, which must be where the plain hash is >= p."""
+    one = torch.ones((N, D), device=dev)
+    zero = torch.zeros((N, D), device=dev)
+    results = []
+    for p in (0.1, 0.5):
+        for seed in FUSED_LN_SEEDS:
+            out = fl.fused_ln(one, zero, zero[0], one[0], zero[0], seed, p=p,
+                              eps=1e-5)
+            keep = fl.hash_uniform(seed, (N, D), device=dev) >= \
+                torch.tensor(p, dtype=torch.float32)
+            signed = bool((out != 0).all().item())
+            same = bool(torch.equal(out > 0, keep))
+            kept = keep.float().mean().item()
+            results.append(dict(n=N, d=D, p=p, seed=seed, kept_share=kept,
+                                every_sign_defined=signed, equal=same,
+                                ok=same and signed))
+            log(f"  fused_ln mask N={N} D={D} p={p:.1f} seed={seed:10d}: "
+                f"kept {kept:.4f}, signs equal to the hash's keep bits: "
+                f"{same} {'ok' if same and signed else 'FAIL'}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the kernel's dropout mask differs from the "
+                             f"hash: {bad}")
+    return results
+
+
+def _dlogits_err(torch, out, ref, g):
+    """Row 11's agreement with its plain version: (max_abs_err, limit
+    text, ok) under the fp32 atol, or in bf16 each element's error against
+    1e-6·|g| plus one bf16 ulp of the plain value."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if out.dtype == torch.float32:
+        return err, f"atol {DLOGITS_ATOL:.0e}", err <= DLOGITS_ATOL
+    atol = DLOGITS_BF16_ATOL_PER_G * abs(float(g))
+    ulps = ((diff - atol).clamp_min(0.0)
+            / _bf16_ulp(torch, ref.float())).max().item()
+    return err, f"atol {atol:.1e} + {ulps:.2f} bf16 ulp (limit 1)", \
+        ulps <= 1.0
+
+
+def check_dlogits(torch, sx, dev):
+    """Row 11: the head's dlogits against the plain version."""
+    import numpy as np
+    rs = np.random.RandomState(9)
+    results = []
+    for N, D, V in HEAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(N, D).astype(np.float32)).to(
+                dev, dtype)
+            w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
+                np.float32)).to(dev, dtype)
+            lab = torch.from_numpy(rs.randint(0, V, N)).to(dev, torch.int32)
+            lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
+            g = torch.tensor(DLOGITS_G, device=dev)
+            out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+            ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+            sync(torch, dev)
+            name = str(dtype).replace("torch.", "")
+            err, tol, ok = _dlogits_err(torch, out, ref, DLOGITS_G)
+            ok = ok and out.dtype == dtype and out.shape == (N, V)
+            results.append(dict(n=N, d=D, v=V, dtype=name, g=DLOGITS_G,
+                                max_abs_err=err, tolerance=tol, ok=ok))
+            log(f"  softmax_xent_dlogits N={N} D={D} V={V} {name:8s} "
+                f"max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+            del x, w, out, ref
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} dlogits checks disagree with the "
+                             f"plain version: {bad}")
     return results
 
 
@@ -783,6 +956,110 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
     return rows
 
 
+def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
+    """Row 12 at the encoder's shape (N = B 32 x T 512, D 768, fp32) with
+    the train path's p 0.1, and p 0 (scoring); library: ``F.layer_norm``
+    on the precomputed ``residual + x + bias``, the p = 0 function."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x, r = (torch.randn((N, D), generator=gen, device=dev) for _ in range(2))
+    b, g, be = (torch.randn(D, generator=gen, device=dev) for _ in range(3))
+    with torch.no_grad():
+        out = fl.fused_ln(x, r, b, g, be, 3, p=p, eps=1e-5)
+        ref = fl.fused_ln_ref(x, r, b, g, be, 3, p=p, eps=1e-5)
+        err = (out - ref).abs().max().item()
+        del out, ref
+        ms = time_ms(torch, lambda: fl.fused_ln(x, r, b, g, be, 3, p=p,
+                                                eps=1e-5))
+        ms_p0 = time_ms(torch, lambda: fl.fused_ln(x, r, b, g, be, 3,
+                                                   p=0.0, eps=1e-5))
+        plain = time_ms(torch, lambda: fl.fused_ln_ref(x, r, b, g, be, 3,
+                                                       p=p, eps=1e-5),
+                        reps=5)
+        z = r + x + b
+        lib = time_ms(torch, lambda: F.layer_norm(z, (D,), g, be, 1e-5))
+    nbytes = 4.0 * (3 * N * D + 3 * D)
+    b_ms, b_by = bound(10.0 * N * D, nbytes, FP32_FLOPS_PER_S)
+    row = dict(ms=ms, ms_p0=ms_p0, plain_ms=plain, library_ms=lib,
+               library="F.layer_norm on the precomputed residual + x + bias "
+                       "(the p = 0 function)",
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
+               atol=FUSED_LN_ATOL, shape=f"N {N}, D {D}, fp32, p {p}")
+    row["ok"] = err <= FUSED_LN_ATOL
+    log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms (p 0: "
+        f"{ms_p0:.4f} ms), plain {plain:.4f} ms, F.layer_norm {lib:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB at 3.35 "
+        f"TB/s); max_abs_err vs plain {err:.3e} (atol "
+        f"{FUSED_LN_ATOL:.0e}) {'ok' if row['ok'] else 'FAIL'}")
+    if not row["ok"]:
+        raise AssertionError("fused_ln disagrees with its plain version at "
+                             "the encoder's shape")
+    return row
+
+
+def timing_dlogits(torch, sx, cfg, dev="cuda"):
+    """Row 11 at one chunk of the compiled step's head backward (C 4096,
+    D 768, V 30528, bf16); library: the chunk's pb as the step formed it
+    before the kernel (``matmul_f32``, which is ``torch.mm(...,
+    out_dtype=float32)`` for bf16 on the card, ``exp``, the label index,
+    the scale and the cast)."""
+    w_ = cfg["width"]
+    D, V = w_["hidden_size"], w_["vocab_size"]
+    N = cfg["batch"] * cfg["seq"]
+    C = sx._chunk(N)
+    dt = getattr(torch, cfg["dtype"])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((C, D), generator=gen, device=dev).to(dt)
+    w = (torch.randn((D, V), generator=gen, device=dev) * 0.01).to(dt)
+    lab = torch.randint(0, V, (C,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    g = torch.tensor(1.0 / N, device=dev)
+    with torch.no_grad():
+        lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
+        out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+        ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+        err, tol, ok = _dlogits_err(torch, out, ref, 1.0 / N)
+        del out, ref
+        rows = torch.arange(C, device=dev)
+        lab64 = lab.long()
+
+        def step_pb():
+            p = torch.exp(sx.matmul_f32(x, w) - lse[:, None])
+            p[rows, lab64] -= 1.0
+            return (p * g).to(x.dtype)
+
+        ms = time_ms(torch, lambda: sx.softmax_xent_dlogits(x, w, lab, lse,
+                                                            g))
+        plain = time_ms(torch, lambda: sx.softmax_xent_dlogits_ref(
+            x, w, lab, lse, g), reps=5)
+        lib = time_ms(torch, step_pb, reps=10)
+    el = x.element_size()
+    flops = 2.0 * C * D * V
+    nbytes = el * (C * D + D * V + C * V) + 8.0 * C
+    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    b_ms, b_by = bound(flops, nbytes, rate)
+    per_step = N // C
+    row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+               library="the chunk's pb as formed before the kernel: "
+                       "torch.mm(x, w, out_dtype=float32), exp, label "
+                       "index, scale, cast",
+               bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+               launches_per_step=per_step, bound_per_step_ms=b_ms * per_step,
+               ms_per_step=ms * per_step, max_abs_err=err, tolerance=tol,
+               shape=f"C {C}, D {D}, V {V}, {cfg['dtype']}", ok=ok)
+    log(f"  softmax_xent_dlogits ({row['shape']}): kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, the step's former pb {lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP at "
+        f"{rate / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+        f"{per_step} per step: {ms * per_step:.3f} ms against a bound of "
+        f"{b_ms * per_step:.3f} ms; max_abs_err vs plain {err:.3e} ({tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not row["ok"]:
+        raise AssertionError("softmax_xent_dlogits disagrees with its plain "
+                             "version at the step's chunk")
+    return row
+
+
 # -- phases 7 and 8 ------------------------------------------------------------
 def _clone_state(params, opt):
     """Copies of a train state (the step updates its state in place)."""
@@ -805,16 +1082,20 @@ def _plain_kernels(fq, sx):
                                           fq.flash_qkv_bwd_ref))
     stack.enter_context(mock.patch.object(sx, "softmax_xent_fwd",
                                           sx.softmax_xent_fwd_ref))
+    stack.enter_context(mock.patch.object(sx, "softmax_xent_dlogits",
+                                          sx.softmax_xent_dlogits_ref))
     return stack
 
 
 def _reset(fq, sx):
     fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
+    sx.DLOGITS_LAUNCHES = 0
 
 
 def _launches(fq, sx):
     return dict(flash_qkv_fwd=fq.FWD_LAUNCHES, flash_qkv_bwd=fq.BWD_LAUNCHES,
-                softmax_xent_fwd=sx.LAUNCHES)
+                softmax_xent_fwd=sx.LAUNCHES,
+                softmax_xent_dlogits=sx.DLOGITS_LAUNCHES)
 
 
 def _grads_after_one_step(opt, names):
@@ -848,14 +1129,17 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     sync(torch, dev)
     launches = _launches(fq, sx)
     fwd_per_step = L * (2 if cfg["remat"] == "full" else 1)
+    chunks = B * T // sx._chunk(B * T)
     log(f"  step 1 through the kernels: loss {loss_k.item():.6f}, "
         f"launches {launches} (expected flash_qkv_fwd {fwd_per_step}, "
-        f"flash_qkv_bwd {L}, softmax_xent_fwd >= 1)")
+        f"flash_qkv_bwd {L}, softmax_xent_fwd >= 1, softmax_xent_dlogits "
+        f"{chunks})")
     if (launches["flash_qkv_fwd"] != fwd_per_step
             or launches["flash_qkv_bwd"] != L
-            or launches["softmax_xent_fwd"] < 1):
+            or launches["softmax_xent_fwd"] < 1
+            or launches["softmax_xent_dlogits"] != chunks):
         raise AssertionError(f"train step launched {launches}; expected "
-                             f"{fwd_per_step} / {L} / >= 1")
+                             f"{fwd_per_step} / {L} / >= 1 / {chunks}")
     grads_k = _grads_after_one_step(opt_k, TRAIN_GRADS)
     del opt_k
 
@@ -952,25 +1236,25 @@ def _plain_attention(fa):
     return stack
 
 
-def eager_train(torch, fa, dev, cfg, timed=True):
-    """The eager train path on one config: ``Model(GPT).prepare(AdamW(1e-3,
-    weight_decay=0.01), CrossEntropyLoss()).train_batch``; returns its
-    report."""
+def model_train(torch, net, ids, labels, names, reset, launches, want,
+                plain, note="", timed=True):
+    """The eager train path on ``net``: ``Model(net).prepare(AdamW(1e-3,
+    weight_decay=0.01), CrossEntropyLoss()).train_batch`` on (ids,
+    labels).  Step 1 runs through the kernels with the counts ``reset``
+    just before and ``launches()`` read just after (they must equal
+    ``want``), then again inside ``plain()`` (the plain versions); two
+    runs of two steps must repeat bit for bit; with ``timed``, 12 steps
+    on the batch must lower the loss.  Every run starts from
+    ``paddle_tpu_torch.seed``, so the fused epilogue's seeds and the
+    dropout masks repeat.  Returns the report."""
     import numpy as np
+    import paddle_tpu_torch
     from paddle_tpu_torch import Model
-    from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import AdamW
-    w = cfg["width"]
-    L, V, B, T = w["num_layers"], w["vocab_size"], cfg["batch"], cfg["seq"]
-    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    dev = ids.device
+    B = ids.shape[0]
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
-    rng = np.random.RandomState(0)                # tests/test_models.py:57
-    ids = rng.randint(0, V, (B, T))
-    labels = np.roll(ids, -1, 1).reshape(B, T, 1)
-    ids, labels = (torch.from_numpy(a).to(dev) for a in (ids, labels))
-    names = ("blocks.0.attn.qkv.weight", "wte.weight",
-             f"blocks.{L - 1}.down.weight")
 
     def fresh():
         net.load_state_dict(state0)
@@ -979,6 +1263,7 @@ def eager_train(torch, fa, dev, cfg, timed=True):
             CrossEntropyLoss())
 
     def first_step(model):
+        paddle_tpu_torch.seed(1)
         loss = model.train_batch([ids], [labels], update=False)["loss"]
         params = dict(net.named_parameters())
         grads = {n: params[n].grad.clone() for n in names}
@@ -988,47 +1273,40 @@ def eager_train(torch, fa, dev, cfg, timed=True):
     # the main path: step 1 through the kernels, counted
     model = fresh()
     sync(torch, dev)
-    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
-    fa.MODE_LAUNCHES.clear()
+    reset()
     loss_k, grads_k = first_step(model)
     sync(torch, dev)
-    launches = dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
-                    modes=dict(fa.MODE_LAUNCHES))
-    mode = fa._pallas_mode(T, T, True)
-    rows = dict(fwd=fa.reference_rows("fwd", mode, T),
-                bwd=fa.reference_rows("bwd", mode, T))
-    want = {f"fwd {mode}": L, f"bwd {mode}": L}
+    counts = launches()
     log(f"  step 1 through the kernels: loss {loss_k:.6f}, launches "
-        f"{launches} (expected {L} + {L}, {want}: rows {rows})")
-    if launches["fwd"] != L or launches["bwd"] != L \
-            or launches["modes"] != want:
-        raise AssertionError(f"the eager step launched {launches}; expected "
-                             f"{L} forward and {L} backward, {want}")
+        f"{counts} (expected {want}{note})")
+    if counts != want:
+        raise AssertionError(f"the step launched {counts}; expected {want}")
 
-    with _plain_attention(fa):
+    with plain():
         loss_p, grads_p = first_step(model)
     d_loss = abs(loss_k - loss_p)
     rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
            for n in names}
-    log(f"  same step with the plain versions: loss {loss_p:.6f}, "
-        f"|difference| {d_loss:.3e} (limit rtol {EAGER_LOSS_RTOL:.0e}); "
-        f"grads relative L2 {', '.join(f'{k} {v:.3e}' for k, v in rel.items())}"
-        f" (limit {EAGER_GRAD_RTOL:.0e})")
+    log(f"  same step with the plain versions and the same seeds: loss "
+        f"{loss_p:.6f}, |difference| {d_loss:.3e} (limit rtol "
+        f"{EAGER_LOSS_RTOL:.0e}); grads relative L2 "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (limit "
+        f"{EAGER_GRAD_RTOL:.0e})")
     if not (np.isfinite(loss_k) and d_loss <= EAGER_LOSS_RTOL * abs(loss_p)
             and all(v <= EAGER_GRAD_RTOL for v in rel.values())):
-        raise AssertionError("the eager step through the kernels disagrees "
-                             "with the step through the plain versions")
+        raise AssertionError("the step through the kernels disagrees with "
+                             "the step through the plain versions")
     del grads_k, grads_p
-    out = dict(config=cfg, mode=mode, rows=rows, loss_step1=loss_k,
-               loss_step1_plain=loss_p, loss_abs_diff=d_loss,
-               grad_rel_l2=rel, launches=launches)
+    out = dict(loss_step1=loss_k, loss_step1_plain=loss_p,
+               loss_abs_diff=d_loss, grad_rel_l2=rel, launches=counts)
     if not timed:
         return out
 
-    # two runs of two steps from the same state repeat bit for bit
+    # two runs of two steps from the same state and seed repeat bit for bit
     runs = []
     for _ in range(2):
         model = fresh()
+        paddle_tpu_torch.seed(2)
         losses = torch.stack([model.train_batch([ids], [labels])["loss"]
                               for _ in range(2)])
         runs.append((losses, {k: v.clone() for k, v in
@@ -1044,6 +1322,7 @@ def eager_train(torch, fa, dev, cfg, timed=True):
 
     # 2 warm-ups, then timed steps on one fixed batch; the loss falls
     model = fresh()
+    paddle_tpu_torch.seed(3)
     del state0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1074,22 +1353,150 @@ def eager_train(torch, fa, dev, cfg, timed=True):
     return out
 
 
+def _batch(torch, vocab, B, T, dev):
+    """ids from ``np.random.RandomState(0)`` and labels = ids rolled by one
+    (``tests/test_models.py:57-58``), on ``dev``."""
+    import numpy as np
+    ids = np.random.RandomState(0).randint(0, vocab, (B, T))
+    labels = np.roll(ids, -1, 1).reshape(B, T, 1)
+    return tuple(torch.from_numpy(a).to(dev) for a in (ids, labels))
+
+
+def _reset_attention(fa):
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.MODE_LAUNCHES.clear()
+
+
+def _attention_launches(fa):
+    return dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
+                modes=dict(fa.MODE_LAUNCHES))
+
+
+def eager_train(torch, fa, dev, cfg, timed=True):
+    """The eager GPT of one config through :func:`model_train`; L forward
+    and L backward attention launches in the mode of its length."""
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    w = cfg["width"]
+    L, T = w["num_layers"], cfg["seq"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], T, dev)
+    mode = fa._pallas_mode(T, T, True)
+    rows = dict(fwd=fa.reference_rows("fwd", mode, T),
+                bwd=fa.reference_rows("bwd", mode, T))
+    want = dict(fwd=L, bwd=L, modes={f"fwd {mode}": L, f"bwd {mode}": L})
+    out = model_train(
+        torch, net, ids, labels,
+        ("blocks.0.attn.qkv.weight", "wte.weight",
+         f"blocks.{L - 1}.down.weight"),
+        lambda: _reset_attention(fa), lambda: _attention_launches(fa),
+        want, lambda: _plain_attention(fa), note=f"; rows {rows}",
+        timed=timed)
+    return dict(out, config=cfg, mode=mode, rows=rows)
+
+
+# -- phase 11 ------------------------------------------------------------------
+def _plain_encoder_kernels(fa, fl):
+    """The encoder path's kernel wrappers swapped for their plain versions:
+    attention forward and backward, and the fused epilogue."""
+    stack = _plain_attention(fa)
+    stack.enter_context(mock.patch.object(fl, "fused_ln", fl.fused_ln_ref))
+    return stack
+
+
+def _reset_encoder(fa, fl):
+    _reset_attention(fa)
+    fl.LAUNCHES = 0
+
+
+def _encoder_launches(fa, fl):
+    return dict(_attention_launches(fa), fused_ln=fl.LAUNCHES)
+
+
+def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
+    """``Model(net).predict_batch`` on (batch, max_len) in eval mode: the
+    fused epilogue at p 0, attention forward without lse."""
+    import numpy as np
+    from paddle_tpu_torch import Model
+    L, T, V = cfg["num_layers"], cfg["max_len"], cfg["vocab_size"]
+    ids = np.random.RandomState(11).randint(0, V, (batch, T))
+    model = Model(net)
+    model.predict_batch([ids])                        # warm-up
+    sync(torch, next(net.parameters()).device)
+    _reset_encoder(fa, fl)
+    t0 = time.perf_counter()
+    logits = model.predict_batch([ids])[0]
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _encoder_launches(fa, fl)
+    with _plain_encoder_kernels(fa, fl):
+        t0 = time.perf_counter()
+        plain = model.predict_batch([ids])[0]
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(logits - plain).max())
+    finite = bool(np.isfinite(logits).all())
+    want = dict(fwd=L, bwd=0, modes={"fwd small": L}, fused_ln=2 * L)
+    log(f"  predict_batch logits {logits.shape} finite={finite} "
+        f"max_abs_err_vs_plain={err:.3e} (atol {SCORING_ATOL:.0e}) "
+        f"launches {launches} (expected {want}); {ms:.3f} ms with the "
+        f"host copy of the logits, plain {plain_ms:.3f} ms")
+    if logits.shape != (batch, T, V) or not finite:
+        raise AssertionError("encoder logits have the wrong shape or are "
+                             "not finite")
+    if launches != want:
+        raise AssertionError(f"encoder scoring launched {launches}; "
+                             f"expected {want}")
+    if err > SCORING_ATOL:
+        raise AssertionError(f"encoder logits differ from the plain path by "
+                             f"{err} > {SCORING_ATOL}")
+    return dict(launches=launches, max_abs_err=err, atol=SCORING_ATOL,
+                predict_ms=ms, plain_predict_ms=plain_ms)
+
+
+def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
+                  timed=True):
+    """The encoder through :func:`model_train` at (batch, max_len), fp32:
+    per step 2L fused-epilogue launches and L + L non-causal attention
+    launches."""
+    L, T = cfg["num_layers"], cfg["max_len"]
+    ids, labels = _batch(torch, cfg["vocab_size"], batch, T, dev)
+    mode = fa._pallas_mode(T, T, False)
+    rows = dict(fwd=fa.reference_rows("fwd", mode, T),
+                bwd=fa.reference_rows("bwd", mode, T))
+    want = dict(fwd=L, bwd=L, modes={f"fwd {mode}": L, f"bwd {mode}": L},
+                fused_ln=2 * L)
+    out = model_train(
+        torch, net, ids, labels,
+        ("layers.0.fused_attn.qkv_weight", "layers.0.ffn.ln2_scale",
+         f"layers.{L - 1}.fused_attn.ln_scale", "wte.weight"),
+        lambda: _reset_encoder(fa, fl), lambda: _encoder_launches(fa, fl),
+        want, lambda: _plain_encoder_kernels(fa, fl),
+        note=f"; attention rows {rows}, non-causal", timed=timed)
+    return dict(out, config=dict(cfg, batch=batch, seq=T), mode=mode,
+                rows=rows)
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
-        eager_cfg=EAGER, eager_long=EAGER_LONG):
-    """Phases 3-10 on ``dev`` with a serving GPT of ``width``, the two
-    train configs and the eager train configs; returns the report and the
-    ``kernels`` entries."""
+        eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
+        encoder_batch=ENCODER_BATCH):
+    """Phases 3-11 on ``dev`` with a serving GPT of ``width``, the two
+    train configs, the eager train configs and the encoder; returns the
+    report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
+    from paddle_tpu_torch.ops import fused_ln as fl
     from paddle_tpu_torch.ops import softmax_xent as sx
+    from paddle_tpu_torch.tools.profile_train import ENCODER, build_encoder
 
+    encoder_cfg = encoder_cfg or ENCODER
     dev = torch.device(dev)
     log("== phase 3: kernels against their plain versions")
     checks = check_kernels(torch, fa, dev)
     qkv_checks = check_qkv_kernels(torch, fq, dev)
     head_checks = check_head_kernel(torch, sx, dev)
+    dlogits_checks = check_dlogits(torch, sx, dev)
     split_checks = check_split_kernels(torch, fa, dev)
+    ln_checks = check_fused_ln(torch, fl, dev)
+    mask_checks = check_fused_ln_mask(torch, fl, dev)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -1102,6 +1509,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     long_times = timing_train_kernels(torch, fq, sx, long_cfg, dev,
                                       head=False)
     split_times = timing_split_kernels(torch, fa, dev)
+    dlogits_time = timing_dlogits(torch, sx, train_cfg, dev)
+    ln_time = timing_fused_ln(torch, fl, encoder_cfg["dropout_rate"], dev)
     del net
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
@@ -1116,6 +1525,13 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         torch.cuda.empty_cache()
         log(f"== phase 10: eager train at T {cfg['seq']}, reduced depth")
         eager_runs.append(eager_train(torch, fa, dev, cfg, timed=False))
+    torch.cuda.empty_cache()
+    log("== phase 11: the fused post-LN encoder (incubate.nn) at full width")
+    enc = build_encoder(encoder_cfg, dev)
+    enc_score = encoder_scoring(torch, fa, fl, enc, encoder_cfg)
+    enc_train = encoder_train(torch, fa, fl, enc, encoder_cfg, dev,
+                              batch=encoder_batch)
+    del enc
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1213,13 +1629,45 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     f"{fa_py}:808", t8192["bwd stream"], "max_abs_err_grads"),
         split_entry("flash_attn_bwd_dkv", 9, "flash_attn_bwd.cu",
                     f"{fa_py}:856", t8192["bwd stream"], "max_abs_err_grads")]
+    def timed_entry(name, source, replaces, launches, t, checks_, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"paddle_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    max_abs_err=worst(checks_, "max_abs_err", "float32"),
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"], library=t["library"],
+                    timed_shape=t["shape"],
+                    max_abs_err_timed_shape=t["max_abs_err"],
+                    max_abs_err_bf16=worst(checks_, "max_abs_err",
+                                           "bfloat16"),
+                    checks=len(checks_), **extra)
+
+    kernels += [
+        timed_entry("softmax_xent_dlogits", "softmax_xent_dlogits.cu",
+                    "paddle_tpu/ops/pallas/softmax_xent.py:132",
+                    tl["softmax_xent_dlogits"], dlogits_time, dlogits_checks,
+                    launches_t1024=ll["softmax_xent_dlogits"],
+                    ms_per_step=dlogits_time["ms_per_step"],
+                    bound_per_step_ms=dlogits_time["bound_per_step_ms"]),
+        timed_entry("fused_ln", "fused_ln.cu",
+                    "paddle_tpu/ops/pallas/fused_ln.py:55",
+                    enc_train["launches"]["fused_ln"], ln_time, ln_checks,
+                    ms_p0=ln_time["ms_p0"],
+                    launches_scoring=enc_score["launches"]["fused_ln"],
+                    mask_checks_equal=sum(r["equal"] for r in mask_checks),
+                    mask_checks=len(mask_checks))]
     report = dict(checks=checks, qkv_checks=qkv_checks,
-                  head_checks=head_checks, split_checks=split_checks,
-                  scoring=score, serving=serve, timing=times,
-                  train_timing=train_times, train_long_timing=long_times,
+                  head_checks=head_checks, dlogits_checks=dlogits_checks,
+                  split_checks=split_checks, fused_ln_checks=ln_checks,
+                  fused_ln_mask_checks=mask_checks, scoring=score,
+                  serving=serve, timing=times, train_timing=train_times,
+                  train_long_timing=long_times,
                   split_timing={str(k): v for k, v in split_times.items()},
+                  dlogits_timing=dlogits_time, fused_ln_timing=ln_time,
                   train=trained, train_long=trained_long, eager=eager,
-                  eager_long=eager_runs)
+                  eager_long=eager_runs, encoder_scoring=enc_score,
+                  encoder_train=enc_train)
     return report, kernels
 
 

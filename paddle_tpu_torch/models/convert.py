@@ -9,6 +9,11 @@ transposed.  Embeddings and LayerNorm parameters carry over as they are.
 :func:`gpt_spmd_state_from_paddle_tpu` takes the compiled trainer's
 stacked parameter tree (``gpt_spmd.init_gpt_params``) and its AdamW state;
 the port keeps that layout as it is.
+
+:func:`fused_transformer_state_from_paddle_tpu` takes the weights of the
+reference's fused transformer layers (``paddle_tpu.incubate.nn``), whose
+layouts the port's layers keep, so names and arrays carry over as they
+are.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["gpt_state_from_paddle_tpu", "gpt_spmd_state_from_paddle_tpu",
-           "LINEAR_WEIGHTS"]
+           "fused_transformer_state_from_paddle_tpu", "LINEAR_WEIGHTS"]
 
 # name suffixes of the reference's (in, out) linear weights
 LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out.weight", "up.weight",
@@ -69,3 +74,18 @@ def gpt_spmd_state_from_paddle_tpu(params: Mapping,
     return out, {"m": _tensor_tree(opt_state["m"], dev),
                  "v": _tensor_tree(opt_state["v"], dev),
                  "step": torch.tensor(step, dtype=torch.int32, device=dev)}
+
+
+def fused_transformer_state_from_paddle_tpu(
+        params: Mapping[str, np.ndarray], *,
+        device=None) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's fused layers
+    (:mod:`paddle_tpu_torch.incubate.nn`) from the reference layer's
+    parameter arrays (any array-likes numpy can read), on ``device`` (the
+    card unless ``device="cpu"``).  The port's layers keep the reference's
+    layouts (the packed ``[3, H, Dh, D]`` qkv weight, ``(in, out)`` linear
+    weights, ``(D,)`` LayerNorm vectors) and its parameter names, so every
+    name and array carries over as it is, with no transpose."""
+    dev = resolve_device(device)
+    return {name: torch.from_numpy(np.array(np.asarray(value), order="C"))
+            .to(dev) for name, value in params.items()}

@@ -5,10 +5,15 @@
 of ``x @ w`` without an ``(N, V)`` logits tensor: on a CUDA tensor it
 launches the hand-written kernel ``csrc/softmax_xent_fwd.cu`` (or raises),
 on a CPU tensor it computes :func:`softmax_xent_fwd_ref`, its plain
-version.  :func:`softmax_xent_loss` is the mean cross-entropy as an
-autograd function whose backward is the reference's ``_sxl_bwd`` (:200):
-chunked plain products on the saved lse, as the reference left it to XLA.
-:data:`LAUNCHES` counts kernel launches.
+version.  :func:`softmax_xent_dlogits` forms one chunk's
+``(softmax(x @ w) - onehot(labels)) · g`` from the saved lse in x's type:
+the kernel ``csrc/softmax_xent_dlogits.cu`` on a CUDA tensor,
+:func:`softmax_xent_dlogits_ref` on a CPU tensor.
+:func:`softmax_xent_loss` is the mean cross-entropy as an autograd
+function whose backward is the reference's ``_sxl_bwd`` (:200): per chunk
+of rows one dlogits launch, then ``dx`` and ``dW`` as plain products, as
+the reference left them to XLA.  :data:`LAUNCHES` and
+:data:`DLOGITS_LAUNCHES` count kernel launches.
 """
 from __future__ import annotations
 
@@ -19,30 +24,40 @@ import torch
 
 from . import _build
 
-__all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_loss",
-           "SoftmaxXentLoss", "matmul_f32", "LAUNCHES", "BWD_CHUNK"]
+__all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_dlogits",
+           "softmax_xent_dlogits_ref", "softmax_xent_loss", "SoftmaxXentLoss",
+           "matmul_f32", "LAUNCHES", "DLOGITS_LAUNCHES", "BWD_CHUNK"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_CHUNK = 4096      # rows per backward chunk (the reference's C)
 
-# kernel launches since import (a plain integer; tests and the smoke run
-# reset it to 0 and read it back)
-LAUNCHES = 0
+# kernel launches since import (plain integers; tests and the smoke run
+# reset them to 0 and read them back)
+LAUNCHES = 0             # softmax_xent_fwd
+DLOGITS_LAUNCHES = 0     # softmax_xent_dlogits
 
-_lib = None
+_libs = {}
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("softmax_xent_fwd")
-        lib.softmax_xent_fwd.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.softmax_xent_fwd.restype = ctypes.c_int
-        lib.softmax_xent_error_string.argtypes = [ctypes.c_int]
-        lib.softmax_xent_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _kernel(name: str = "softmax_xent_fwd"):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        fn = getattr(lib, name)
+        if name == "softmax_xent_fwd":
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            err = lib.softmax_xent_error_string
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            err = lib.softmax_xent_dlogits_error_string
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        lib.error_string = err
+        _libs[name] = lib
+    return lib
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,12 +141,87 @@ def softmax_xent_fwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                                    lab.data_ptr(), lse.data_ptr(),
                                    at.data_ptr(), N, D, V,
                                    _DTYPE_CODES[x.dtype], stream)
-    if err:
-        raise RuntimeError(f"softmax_xent_fwd launch failed: "
-                           f"{lib.softmax_xent_error_string(err).decode()} "
-                           f"(cudaError {err})")
+    _raise_on(err, lib, "softmax_xent_fwd")
     LAUNCHES += 1
     return lse, at
+
+
+def _raise_on(err: int, lib, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def softmax_xent_dlogits_ref(x: torch.Tensor, w: torch.Tensor,
+                             labels: torch.Tensor, lse: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the dlogits kernel: ``p = exp(x @ w - lse)`` in
+    fp32, 1 subtracted at each label inside ``[0, V)``, times ``g``, cast
+    to x's type; ``(C, V)``."""
+    V = w.shape[1]
+    p = torch.exp(matmul_f32(x, w) - lse[:, None])
+    lab = labels.long()
+    ok = (lab >= 0) & (lab < V)
+    # p - 1 at the label (p + -1 is the same fp32 value), p + -0 elsewhere
+    p.scatter_add_(1, lab.clamp(0, V - 1)[:, None], -ok[:, None].to(p.dtype))
+    return (p * g).to(x.dtype)
+
+
+def softmax_xent_dlogits(x: torch.Tensor, w: torch.Tensor,
+                         labels: torch.Tensor, lse: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """``(softmax(x @ w) - onehot(labels)) · g`` in x's type from the saved
+    ``lse``: ``x (C, D)``, ``w (D, V)`` of one type (fp32 or bf16),
+    ``labels (C,)`` integers (int32 on the card), ``lse (C,)`` fp32, ``g``
+    a one-element fp32 tensor, read where it lies (no host sync).  Returns
+    ``(C, V)``.  CUDA tensors go through the kernel; CPU tensors take
+    :func:`softmax_xent_dlogits_ref`."""
+    global DLOGITS_LAUNCHES
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
+            or labels.shape != (x.shape[0],) or lse.shape != labels.shape \
+            or g.numel() != 1:
+        raise ValueError(f"softmax_xent_dlogits takes x (C, D), w (D, V), "
+                         f"labels (C,), lse (C,), one g; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(labels.shape)}, {tuple(lse.shape)}, "
+                         f"{tuple(g.shape)}")
+    devices = {t.device for t in (x, w, labels, lse, g)}
+    if len(devices) != 1:
+        raise ValueError(f"softmax_xent_dlogits: tensors on different "
+                         f"devices: {devices}")
+    if x.device.type == "cpu":
+        return softmax_xent_dlogits_ref(x, w, labels, lse, g)
+    if x.device.type != "cuda":
+        raise ValueError(f"softmax_xent_dlogits runs on CUDA or CPU, not "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"the kernel takes fp32 or bf16 x and w of one "
+                        f"type; got {x.dtype}, {w.dtype}")
+    if labels.dtype != torch.int32 or lse.dtype != torch.float32 \
+            or g.dtype != torch.float32:
+        raise TypeError(f"softmax_xent_dlogits takes int32 labels and fp32 "
+                        f"lse and g; got {labels.dtype}, {lse.dtype}, "
+                        f"{g.dtype}")
+    if not all(t.is_contiguous() for t in (x, w, labels, lse)):
+        raise ValueError("softmax_xent_dlogits: inputs must be contiguous")
+    C, D = x.shape
+    V = w.shape[1]
+    out = torch.empty((C, V), dtype=x.dtype, device=x.device)
+    if C == 0:
+        return out
+    if D == 0 or V == 0:
+        raise ValueError(f"softmax_xent_dlogits over D={D}, V={V}")
+    lib = _kernel("softmax_xent_dlogits")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.softmax_xent_dlogits(x.data_ptr(), w.data_ptr(),
+                                       labels.data_ptr(), lse.data_ptr(),
+                                       g.data_ptr(), out.data_ptr(), C, D, V,
+                                       _DTYPE_CODES[x.dtype], stream)
+    _raise_on(err, lib, "softmax_xent_dlogits")
+    DLOGITS_LAUNCHES += 1
+    return out
 
 
 class SoftmaxXentLoss(torch.autograd.Function):
@@ -147,22 +237,22 @@ class SoftmaxXentLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         """The reference's ``_sxl_bwd``: per chunk of C rows,
-        ``pb = ((exp(logits - lse) - onehot) · g/N)`` in x's type,
-        ``dx = pb wᵀ`` and ``dW += xᵀ pb`` in fp32, cast to w's type."""
+        ``pb = ((exp(logits - lse) - onehot) · g/N)`` in x's type (one
+        :func:`softmax_xent_dlogits` launch), ``dx = pb wᵀ`` and
+        ``dW += xᵀ pb`` in fp32, cast to w's type.  ``g/N`` stays on the
+        device; the labels are cast to int32 once."""
         x, w, labels, lse = ctx.saved_tensors
         N, D = x.shape
         gs = g.float() / N
+        lab = labels.to(torch.int32)
         dx = torch.empty_like(x)
         dw = torch.zeros((D, w.shape[1]), dtype=torch.float32,
                          device=x.device)
         c = _chunk(N)
-        rows = torch.arange(c, device=x.device)
         for c0 in range(0, N, c):
             xc = x[c0:c0 + c]
-            p = torch.exp(matmul_f32(xc, w) - lse[c0:c0 + c, None])
-            p[rows, labels[c0:c0 + c].long()] -= 1.0
-            pb = (p * gs).to(x.dtype)
-            del p
+            pb = softmax_xent_dlogits(xc, w, lab[c0:c0 + c],
+                                      lse[c0:c0 + c], gs)
             dx[c0:c0 + c] = torch.matmul(pb, w.t())
             dw += matmul_f32(xc.t(), pb)
         return dx, dw.to(w.dtype), None

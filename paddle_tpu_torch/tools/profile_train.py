@@ -1,16 +1,19 @@
 """Where a train step's time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_train [--eager] [--steps 5]
-                                                    [--json PATH]
+    python3 -m paddle_tpu_torch.tools.profile_train [--eager | --encoder]
+                                                    [--steps 5] [--json PATH]
 
-Without ``--eager`` it builds the flagship compiled train step (V 30528,
+Without a path option it builds the flagship compiled train step (V 30528,
 D 768, L 12, H 12, T 512, B 128, bf16 compute over fp32 masters, remat
 ``"ctx"``) from ``init_fn(0)`` with ids and labels from
 ``np.random.RandomState(0)``.  With ``--eager`` it builds the eager train
 path at the same width: ``Model(GPT).prepare(AdamW(1e-3,
 weight_decay=0.01), CrossEntropyLoss()).train_batch`` at B 32, T 512,
 fp32, on ids from ``np.random.RandomState(0)`` and labels rolled by one.
-Either way it takes two warm-up steps, then ``--steps`` steps unprofiled
+With ``--encoder`` it trains the same way the encoder of
+:func:`build_encoder` at :data:`ENCODER` (``chip_smoke.py`` phase 11
+builds the same model).  Either way it takes two warm-up steps, then
+``--steps`` steps unprofiled
 (host wall per step, ending in a synchronise) and ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activities).  Reports the device time
 per step (the sum of the kernels' and copies' durations on the card),
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import sys
@@ -33,24 +37,35 @@ import numpy as np
 import torch
 
 from ..hapi import Model
+from ..incubate.nn import FusedTransformerEncoderLayer
 from ..models import GPT, GPTConfig
 from ..models.gpt_spmd import build_spmd_train_step
 from ..nn import CrossEntropyLoss
 from ..ops import flash_attention as fa
 from ..ops import flash_attention_qkv as fq
+from ..ops import fused_ln as fl
 from ..ops import softmax_xent as sx
+from ..device import resolve_device
 from ..optimizer import AdamW
+from ..random import default_generator, seed
 
 WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
              num_heads=12, max_seq_len=512)
 BATCH, SEQ = 128, 512
 EAGER_BATCH = 32
+# the fused post-LN encoder: BERT-base (bert-base-uncased: L 12, hidden
+# 768, 12 heads, intermediate 3072, hidden dropout 0.1, GELU, post-LN) at
+# the flagship vocabulary
+ENCODER = dict(vocab_size=30528, d_model=768, num_layers=12, nhead=12,
+               dim_feedforward=3072, max_len=SEQ, dropout_rate=0.1)
 
 # device-op name fragments by kind, first match wins
 KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",)),
          ("flash attention backward (rows 4-9)",
           ("attn_dkv_kernel", "attn_dq_kernel", "attn_delta_kernel")),
          ("softmax_xent_fwd (row 10)", ("sxent_fwd_kernel",)),
+         ("softmax_xent_dlogits (row 11)", ("sxent_dlogits_kernel",)),
+         ("fused_ln (row 12)", ("fused_ln_warp", "fused_ln_row")),
          ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_",
                                        "xmma", "nvjet")),
          ("copies and casts", ("copy", "Copy", "Memcpy", "Memset")),
@@ -85,19 +100,72 @@ def _compiled_path():
 
     def reset():
         fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
+        sx.DLOGITS_LAUNCHES = 0
 
     def counts():
         return dict(flash_qkv_fwd=fq.FWD_LAUNCHES,
                     flash_qkv_bwd=fq.BWD_LAUNCHES,
-                    softmax_xent_fwd=sx.LAUNCHES)
+                    softmax_xent_fwd=sx.LAUNCHES,
+                    softmax_xent_dlogits=sx.DLOGITS_LAUNCHES)
 
     return one, reset, counts, dict(path="compiled", batch=BATCH, seq=SEQ,
                                     dtype="bfloat16", remat="ctx")
 
 
-def _eager_path():
-    """Model.train_batch on the eager GPT: the same four callables."""
-    net = GPT(GPTConfig(**WIDTH), seed=0)
+class _Encoder(torch.nn.Module):
+    """Token and position embeddings, fused post-LN encoder layers, an
+    untied head."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        V, D = cfg["vocab_size"], cfg["d_model"]
+        self.wte = torch.nn.Embedding(V, D, device=device)
+        self.wpe = torch.nn.Embedding(cfg["max_len"], D, device=device)
+        self.layers = torch.nn.ModuleList([FusedTransformerEncoderLayer(
+            D, cfg["nhead"], cfg["dim_feedforward"],
+            dropout_rate=cfg["dropout_rate"], activation="gelu",
+            attn_dropout_rate=0.0, normalize_before=False, device=device)
+            for _ in range(cfg["num_layers"])])
+        self.head = torch.nn.Linear(D, V, device=device)
+
+    def forward(self, ids):
+        ids = ids.long()
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        x = self.wte(ids) + self.wpe(pos)[None]
+        for layer in self.layers:
+            x = layer(x)
+        return self.head(x)
+
+
+def build_encoder(cfg=ENCODER, device=None, seed_val: int = 0):
+    """The encoder composed around the fused stack: ``num_layers`` post-LN
+    ``FusedTransformerEncoderLayer``s (GELU, hidden dropout
+    ``dropout_rate``, no attention dropout, activation dropout at its
+    default, the hidden rate) between token and position embeddings and an
+    untied head, on ``device`` (the card unless ``"cpu"``).  Weights come
+    from the port's random state reseeded with ``seed_val``: the layers'
+    Xavier-normal weights, embeddings N(0, 1), the head Xavier-normal with
+    a zero bias."""
+    seed(seed_val)
+    dev = resolve_device(device)
+    net = _Encoder(cfg, dev)
+    gen = default_generator.device(dev)
+    D, V = cfg["d_model"], cfg["vocab_size"]
+    with torch.no_grad():
+        net.wte.weight.normal_(0.0, 1.0, generator=gen)
+        net.wpe.weight.normal_(0.0, 1.0, generator=gen)
+        net.head.weight.normal_(0.0, math.sqrt(2.0 / (D + V)), generator=gen)
+        net.head.bias.zero_()
+    return net
+
+
+def _eager_path(encoder: bool = False):
+    """Model.train_batch on the eager GPT (or the fused encoder): the same
+    four callables."""
+    if encoder:
+        net = build_encoder()
+    else:
+        net = GPT(GPTConfig(**WIDTH), seed=0)
     model = Model(net).prepare(
         AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
         CrossEntropyLoss())
@@ -110,20 +178,25 @@ def _eager_path():
         model.train_batch([ids], [labels])
 
     def reset():
-        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fl.LAUNCHES = 0
 
     def counts():
         return dict(flash_attn_fwd=fa.FWD_LAUNCHES,
-                    flash_attn_bwd=fa.BWD_LAUNCHES)
+                    flash_attn_bwd=fa.BWD_LAUNCHES, fused_ln=fl.LAUNCHES)
 
-    return one, reset, counts, dict(path="eager", batch=EAGER_BATCH,
-                                    seq=SEQ, dtype="float32", remat="none")
+    return one, reset, counts, dict(
+        path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
+        dtype="float32", remat="none")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--eager", action="store_true",
-                    help="profile Model.train_batch on the eager GPT")
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--eager", action="store_true",
+                      help="profile Model.train_batch on the eager GPT")
+    path.add_argument("--encoder", action="store_true",
+                      help="profile Model.train_batch on the fused "
+                           "post-LN encoder")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the summary to PATH")
@@ -132,8 +205,10 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
-    one, reset, counts, setup = (_eager_path if args.eager
-                                 else _compiled_path)()
+    if args.eager or args.encoder:
+        one, reset, counts, setup = _eager_path(encoder=args.encoder)
+    else:
+        one, reset, counts, setup = _compiled_path()
 
     def run():
         torch.cuda.synchronize()

@@ -14,6 +14,7 @@ from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig
 from paddle_tpu_torch.ops import flash_attention as pfa
 from paddle_tpu_torch.ops import flash_attention_qkv as fq
+from paddle_tpu_torch.ops import fused_ln as fl
 from paddle_tpu_torch.ops import softmax_xent as sx
 from paddle_tpu_torch.serving import GenerationEngine, GenerationEngineConfig
 
@@ -282,3 +283,128 @@ def test_eager_gpt_train_batch_goes_through_the_kernels(card):
     assert (pfa.FWD_LAUNCHES - f0, pfa.BWD_LAUNCHES - b0) == (
         5 * WIDTH["num_layers"], 5 * WIDTH["num_layers"])
     assert losses[-1] < losses[0]
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``t`` (fp32)."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-30))) - 7)
+
+
+def test_fused_ln_kernel_matches_plain_version(card):
+    # the warp path (D <= 1024, vector and scalar loads) and the block
+    # path with the row in shared memory (D 4096, 12288) and recomputed
+    # (D 12800), fp32 atol 1e-5; bf16: both round fp32 values that differ
+    # by up to 1e-5, so 1e-5 plus one bf16 ulp of the output
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    seeds = (0, 2**31 - 2, 0xFFFFFFFF)
+    i = 0
+    for D in (64, 100, 768, 4096, 12288, 12800):
+        for N in (1, 37, 600):
+            for dtype in (torch.float32, torch.bfloat16):
+                for p in (0.0, 0.1, 0.5):
+                    i += 1
+                    x, r = (torch.randn((N, D), generator=gen, device="cuda")
+                            .to(dtype) for _ in range(2))
+                    pdt = dtype if i % 2 else torch.float32
+                    b, g, be = (torch.randn(D, generator=gen, device="cuda")
+                                .to(pdt) for _ in range(3))
+                    seed = seeds[i % 3]
+                    before = fl.LAUNCHES
+                    out = fl.fused_ln(x, r, b, g, be, seed, p=p, eps=1e-5)
+                    torch.cuda.synchronize()
+                    assert fl.LAUNCHES == before + 1
+                    ref = fl.fused_ln_ref(x, r, b, g, be, seed, p=p,
+                                          eps=1e-5)
+                    case = (N, D, dtype, p, seed)
+                    assert out.dtype == dtype and out.shape == x.shape, case
+                    err = (out.float() - ref.float()).abs()
+                    tol = 1e-5 if dtype == torch.float32 else \
+                        1e-5 + _bf16_ulp(ref.float())
+                    assert (err <= tol).all(), (case, err.max().item())
+
+
+def test_fused_ln_mask_is_the_hash_bit_for_bit(card):
+    # x = 1, residual = bias = beta = 0, gamma = 1: an element's output is
+    # positive exactly when it was kept
+    N, D = 256, 768
+    one = torch.ones((N, D), device="cuda")
+    zero = torch.zeros((N, D), device="cuda")
+    for p in (0.1, 0.5):
+        for seed in (0, 2**31 - 2, 0xFFFFFFFF):
+            out = fl.fused_ln(one, zero, zero[0], one[0], zero[0], seed, p=p,
+                              eps=1e-5)
+            keep = fl.hash_uniform(seed, (N, D), device="cuda") >= \
+                torch.tensor(p, dtype=torch.float32)
+            assert torch.equal(out > 0, keep), (p, seed)
+
+
+def test_dlogits_kernel_matches_plain_version(card):
+    rs = np.random.RandomState(1)
+    for C, D, V in ((256, 64, 512), (256, 64, 700), (100, 64, 1001)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rs.randn(C, D)).to("cuda", dtype)
+            w = torch.from_numpy(rs.randn(D, V) * 0.05).to("cuda", dtype)
+            lab = torch.from_numpy(rs.randint(0, V, C)).to("cuda",
+                                                            torch.int32)
+            lse = torch.logsumexp(sx.matmul_f32(x, w), -1)
+            g = torch.tensor(0.37, device="cuda")
+            before = sx.DLOGITS_LAUNCHES
+            out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+            torch.cuda.synchronize()
+            assert sx.DLOGITS_LAUNCHES == before + 1
+            ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+            case = (C, D, V, dtype)
+            assert out.dtype == dtype and out.shape == (C, V), case
+            # fp32 atol 1e-5; bf16 each element within 1e-6·|g| plus one
+            # bf16 ulp of the plain value (a typical element, |g|/V, is
+            # far above that, so a wrong softmax term fails)
+            err = (out.float() - ref.float()).abs()
+            tol = 1e-5 if dtype == torch.float32 else \
+                1e-6 * 0.37 + _bf16_ulp(ref.float())
+            assert (err <= tol).all(), (case, err.max().item())
+
+
+def test_head_backward_goes_through_the_dlogits_kernel(card):
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(8192, 64)).float().cuda().requires_grad_()
+    w = torch.from_numpy(rs.randn(64, 700) * 0.05).float().cuda() \
+        .requires_grad_()
+    lab = torch.from_numpy(rs.randint(0, 700, 8192)).cuda()
+    before = sx.DLOGITS_LAUNCHES
+    dx, dw = torch.autograd.grad(sx.softmax_xent_loss(x, w, lab), (x, w))
+    torch.cuda.synchronize()
+    assert sx.DLOGITS_LAUNCHES == before + 2          # chunks of 4096
+    ref = torch.nn.functional.cross_entropy(x @ w, lab)
+    rdx, rdw = torch.autograd.grad(ref, (x, w))
+    torch.testing.assert_close(dx, rdx, rtol=0, atol=1e-7)
+    torch.testing.assert_close(dw, rdw, rtol=0, atol=1e-6)
+
+
+def test_encoder_gradients_flow_through_the_fused_ln_kernel(card):
+    import paddle_tpu_torch
+    from unittest import mock
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    layer = FusedTransformerEncoderLayer(128, 2, 256, dropout_rate=0.1,
+                                         activation="gelu",
+                                         attn_dropout_rate=0.0,
+                                         act_dropout_rate=0.0, device="cuda")
+    layer.train()
+    x = torch.randn((2, 100, 128), device="cuda")
+
+    def grads():
+        paddle_tpu_torch.seed(7)
+        layer.zero_grad()
+        xi = x.clone().requires_grad_()
+        layer(xi).square().sum().backward()
+        return [xi.grad] + [p.grad.clone() for p in layer.parameters()
+                            if p.grad is not None]
+
+    f0, a0 = fl.LAUNCHES, pfa.FWD_LAUNCHES
+    got = grads()
+    torch.cuda.synchronize()
+    assert (fl.LAUNCHES - f0, pfa.FWD_LAUNCHES - a0) == (2, 1)
+    with mock.patch.object(fl, "fused_ln", fl.fused_ln_ref):
+        want = grads()
+    assert len(got) == len(want) > 10
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch import NoCudaDevice, resolve_device
+from paddle_tpu_torch.incubate.nn import (FusedBiasDropoutResidualLayerNorm,
+                                          FusedTransformerEncoderLayer)
 from paddle_tpu_torch.models import (GPT, GPTConfig, build_spmd_train_step,
+                                     fused_transformer_state_from_paddle_tpu,
                                      gpt_spmd_state_from_paddle_tpu,
                                      gpt_state_from_paddle_tpu)
 from paddle_tpu_torch.ops import _build
@@ -50,7 +53,10 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.models.gpt_spmd, "
             "paddle_tpu_torch.tools.profile_train, paddle_tpu_torch.hapi, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn, "
-            "paddle_tpu_torch.ops.loss\n"
+            "paddle_tpu_torch.ops.loss, paddle_tpu_torch.incubate.nn, "
+            "paddle_tpu_torch.incubate.nn.functional, "
+            "paddle_tpu_torch.ops.fused_ops, paddle_tpu_torch.ops.fused_ln, "
+            "paddle_tpu_torch.random\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -78,6 +84,14 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(no_card):
         build_spmd_train_step(cfg)
     with pytest.raises(NoCudaDevice):
         gpt_spmd_state_from_paddle_tpu({"wte": np.zeros((11, 8))})
+    with pytest.raises(NoCudaDevice):
+        FusedTransformerEncoderLayer(8, 2, 16)
+    with pytest.raises(NoCudaDevice):
+        FusedBiasDropoutResidualLayerNorm(8)
+    with pytest.raises(NoCudaDevice):
+        fused_transformer_state_from_paddle_tpu({"ln_bias": np.zeros(8)})
+    assert FusedTransformerEncoderLayer(
+        8, 2, 16, device="cpu").ffn.linear1_weight.is_cpu
     with pytest.raises(ValueError, match="unsupported"):
         resolve_device("meta")
     net = GPT(cfg, device="cpu")
@@ -119,8 +133,8 @@ def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
     after = {name: _build.library_path(name) for name in _build.SOURCES}
     assert all(after[name] != before[name] for name in _build.SOURCES)
-    assert {"flash_attn_fwd", "flash_attn_bwd",
-            "softmax_xent_fwd"} <= set(_build.SOURCES)
+    assert {"flash_attn_fwd", "flash_attn_bwd", "softmax_xent_fwd",
+            "softmax_xent_dlogits", "fused_ln"} <= set(_build.SOURCES)
 
 
 def _run_smoke(script, cwd):

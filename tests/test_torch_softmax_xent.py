@@ -119,3 +119,81 @@ def test_wrapper_refuses_mismatched_shapes():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sx.softmax_xent_fwd(meta, torch.empty((8, 3), device="meta"),
                             torch.empty(4, device="meta", dtype=torch.long))
+
+
+@pytest.mark.parametrize("V,dtype", [(384, "float32"), (700, "float32"),
+                                     (700, "bfloat16")])
+def test_dlogits_plain_version_matches_reference_kernel(V, dtype):
+    # V 700 is not a multiple of the reference's 512-column block: its pad
+    # columns are sliced off and must be zero.  fp32 atol 1e-5
+    # (tests/test_pallas_kernels.py:322); bf16: both round the same fp32
+    # value, which differs in its last bits, so one bf16 ulp of |g|
+    x, w, lab = _inputs(5, 128, 32, V, wscale=0.1)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    lse = np.array(jax.scipy.special.logsumexp(
+        jnp.matmul(jx, jw, preferred_element_type=jnp.float32), -1))
+    want = rsx.softmax_xent_dlogits(jx, jw, jnp.asarray(lab),
+                                    jnp.asarray(lse), 2.0, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    assert not want[:, V:].any()
+    tdt = getattr(torch, dtype)
+    got = sx.softmax_xent_dlogits(
+        torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
+        torch.from_numpy(lab), torch.from_numpy(lse), torch.tensor(2.0))
+    assert got.shape == (128, V) and got.dtype == tdt
+    atol = 1e-5 if dtype == "float32" else 2.0 * 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want[:, :V], atol=atol,
+                               rtol=0)
+
+
+def _pr3_backward(x, w, labels, lse, g):
+    """The head backward as it stood before the dlogits kernel: pb formed
+    by three plain passes per chunk."""
+    N, D = x.shape
+    gs = g.float() / N
+    dx = torch.empty_like(x)
+    dw = torch.zeros((D, w.shape[1]), dtype=torch.float32)
+    c = sx._chunk(N)
+    rows = torch.arange(c)
+    for c0 in range(0, N, c):
+        xc = x[c0:c0 + c]
+        p = torch.exp(sx.matmul_f32(xc, w) - lse[c0:c0 + c, None])
+        p[rows, labels[c0:c0 + c].long()] -= 1.0
+        pb = (p * gs).to(x.dtype)
+        dx[c0:c0 + c] = torch.matmul(pb, w.t())
+        dw += sx.matmul_f32(xc.t(), pb)
+    return dx, dw.to(w.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_backward_through_plain_dlogits_equals_the_old_backward(dtype):
+    # 6144 rows: three chunks of 2048
+    x, w, lab = _inputs(6, 6144, 16, 40)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    tw = torch.from_numpy(w).to(tdt).requires_grad_()
+    labels = torch.from_numpy(lab)
+    loss = sx.softmax_xent_loss(tx, tw, labels)
+    g = torch.tensor(1.7)
+    dx, dw = torch.autograd.grad(loss, (tx, tw), g)
+    lse, _ = sx.softmax_xent_fwd(tx.detach(), tw.detach(), labels)
+    want_dx, want_dw = _pr3_backward(tx.detach(), tw.detach(), labels, lse,
+                                     g)
+    assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+
+
+def test_dlogits_leaves_out_of_range_labels_alone():
+    x, w, _ = _inputs(7, 4, 8, 10)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    lse = torch.logsumexp(tx @ tw, -1)
+    g = torch.tensor(0.5)
+    got = sx.softmax_xent_dlogits(tx, tw, torch.tensor([0, 9, 10, -1]), lse,
+                                  g)
+    p = torch.softmax(tx @ tw, -1)
+    p[0, 0] -= 1.0
+    p[1, 9] -= 1.0
+    torch.testing.assert_close(got, p * 0.5, rtol=0, atol=1e-7)
+    with pytest.raises(ValueError, match="labels \\(C,\\)"):
+        sx.softmax_xent_dlogits(tx, tw, torch.zeros(3, dtype=torch.long),
+                                lse, g)
