@@ -7,10 +7,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. card     name and power limit, torch and CUDA versions; exit 1 with no
             card, or with no ``paddle_tpu_torch/`` beside this script
-2. build    nvcc builds every kernel source in paddle_tpu_torch/csrc
+2. build    nvcc builds every kernel source in paddle_tpu_torch/csrc;
+            each kernel's registers and spills (-Xptxas -v)
 3. kernels  each kernel against its plain PyTorch version on the card,
             at every shape the serving, scoring and train paths give it
-            and around them (packed attention T 100 ... 2048, d 32/64/128;
+            and around them (packed attention T 100 ... 2048, d 32/64/128,
+            and T 4096 at d 64; bf16 at d 64/128 on flash_attn_sm90, also
+            with sharp inputs;
             split-layout forward with lse and backward T 128 ... 8192 and
             Tq < Tk, d 32/64/128; LM head forward and dlogits up to N
             4096, V 30528; the fused epilogue at D 64 ... 4096, N 1 ...
@@ -26,10 +29,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             card's bound, at the serving and train paths' shapes (rows 2
             and 6-9 at T 512, 1024 and 8192; the head's dlogits at one
             chunk; the fused epilogue at the encoder's N 16384, D 768),
-            each kernel's result held against its plain version there too
+            each kernel's result held against its plain version there too;
+            rows 3 and 4 and SDPA also in device time (torch.profiler)
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
-            launches, the fused head, 16 dlogits launches) against the
+            launches, all of them flash_attn_sm90's, the fused head, 16
+            dlogits launches) against the
             same step with the plain versions swapped in; two runs of two
             steps repeat bit for bit; the loss falls over 12 steps on one
             batch; step ms, seq/s, MFU and peak memory
@@ -64,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -99,10 +105,28 @@ SCORING_ATOL = 1e-3
 SLOTS, NEW_TOKENS, CLIENTS, REQUESTS, SAMPLED = 8, 64, 4, 16, 4
 
 # packed attention (rows 3/4/5): every length from 128 to 2048 and one
-# ragged one, each head dim, causal and not, fp32 and bf16
+# ragged one, each head dim, causal and not, fp32 and bf16; T 4096 at d 64,
+# past the reference's packed kernels, which the port's take
 QKV_TS = (100, 128, 256, 512, 1024, 2048)
+QKV_LONG = ((4096, 64),)
 GRAD_ATOL = {"float32": 5e-5, "bfloat16": 5e-2}  # test_pallas_kernels.py
 LSE_ATOL = 1e-4
+# bf16 packed attention with sharp inputs (q, k ~ 2·N(0, 1), v and the
+# output gradient ~ N(0, 1)), where torch.rand's flat softmax would hide a
+# wrongly rescaled output: the forward is held to SHARP_TOL per element
+# (as row 1's sharp checks), dq, dk and dv each to a relative L2 error of
+# SHARP_GRAD_RTOL.  A per-element bound does not fit them: both versions
+# round P and dS = P (dP - delta) to bf16, the kernel with delta =
+# rowsum(dO * O) from the bf16 output and the plain version with
+# rowsum(P * dP) in fp32, and dP - delta cancels, so an element that is a
+# sum of large terms of both signs differs by several of its ulps.  The
+# relative L2 error this leaves is about 0.5% (up to 1% at T 7); a wrong
+# rescale or a dropped tile gives errors of order 1.  The output's spread
+# is reported but not held to row 1's SHARP_MIN_STD: without a mask each
+# row averages more keys as T grows, and at T 2048 its std is 0.48.
+SHARP_QKV = [(T, d) for T in (100, 512, 2048) for d in (64, 128)] + [
+    (4096, 64)]
+SHARP_GRAD_RTOL = 2e-2
 # LM head (row 10): lse and at from exact products of the inputs summed in
 # fp32 by both versions, in another order; bf16 logits here reach ~10,
 # where fp32 sums of 768 terms differ in their last bits
@@ -192,6 +216,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# -- phase 2 -------------------------------------------------------------------
+def ptxas_summary(report: str):
+    """Each kernel of one ``nvcc -Xptxas -v`` report: a short name (the
+    kernel and its integer template arguments), registers, spill bytes."""
+    out, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([a-z_]*kernel[a-z_]*)", m.group(1))
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            spill_stores=spill[0], spill_loads=spill[1]))
+            name, spill = None, (0, 0)
+    return out
+
+
 # -- phase 3 -------------------------------------------------------------------
 def check_kernels(torch, fa, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -242,43 +292,74 @@ def check_kernels(torch, fa, dev):
     return results
 
 
+def _qkv_case(torch, fq, gen, dev, T, d, causal, dtype, inputs):
+    """One packed-attention check: forward, lse and dqkv of the kernels
+    against the plain versions on (2, T, 3·H·d) inputs."""
+    H = 12 if d == 64 else 4
+    if inputs == "rand":
+        qkv = torch.rand((2, T, 3 * H * d), generator=gen, device=dev)
+        g = torch.rand((2, T, H * d), generator=gen, device=dev)
+    else:
+        qkv = torch.randn((2, T, 3, H * d), generator=gen, device=dev)
+        qkv[:, :, :2] *= 2.0
+        qkv = qkv.reshape(2, T, 3 * H * d)
+        g = torch.randn((2, T, H * d), generator=gen, device=dev)
+    qkv, g = qkv.to(dtype), g.to(dtype)
+    out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
+    dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H, causal=causal)
+    ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H, causal=causal)
+    ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H, causal=causal)
+    sync(torch, dev)
+    name = str(dtype).replace("torch.", "")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    err_d = (dqkv.float() - ref_d.float()).abs().max().item()
+    ok = (out.dtype == dtype and dqkv.shape == qkv.shape
+          and err_lse <= LSE_ATOL)
+    r = dict(b=2, t=T, h=H, d=d, causal=causal, dtype=name, inputs=inputs,
+             max_abs_err=err, max_abs_err_lse=err_lse,
+             max_abs_err_dqkv=err_d)
+    if inputs == "rand":
+        ok = ok and err <= ATOL[name] and err_d <= GRAD_ATOL[name]
+        tol = (f"out atol {ATOL[name]:.0e}, lse atol {LSE_ATOL:.0e}, dqkv "
+               f"atol {GRAD_ATOL[name]:.0e}")
+    else:
+        worst = (diff / (SHARP_TOL + SHARP_TOL * ref.float().abs())
+                 ).max().item()
+        spread = ref.float().std().item()
+        rel = {}
+        for i, part in enumerate(("dq", "dk", "dv")):
+            a = dqkv.view(2, T, 3, -1)[:, :, i].float()
+            b = ref_d.view(2, T, 3, -1)[:, :, i].float()
+            rel[part] = ((a - b).norm() / b.norm()).item()
+        ok = (ok and worst <= 1.0
+              and all(v <= SHARP_GRAD_RTOL for v in rel.values()))
+        r.update(out_err_over_tol=worst, ref_std=spread, dqkv_rel_l2=rel)
+        tol = (f"out err/({SHARP_TOL:.1e}+{SHARP_TOL:.1e}|ref|) "
+               f"{worst:.3f} (ref std {spread:.2f}), lse atol "
+               f"{LSE_ATOL:.0e}, dq/dk/dv rel L2 "
+               f"{'/'.join(f'{v:.1e}' for v in rel.values())} (limit "
+               f"{SHARP_GRAD_RTOL:.0e})")
+    r.update(tolerance=tol, ok=ok)
+    log(f"  flash_qkv T={T:4d} H={H:2d} d={d:3d} causal={int(causal)} "
+        f"{name:8s} {inputs:5s} out {err:.2e} lse {err_lse:.2e} dqkv "
+        f"{err_d:.2e}; {tol} {'ok' if ok else 'FAIL'}")
+    return r
+
+
 def check_qkv_kernels(torch, fq, dev):
-    """Rows 3/4/5: forward, lse and dqkv against the plain versions."""
+    """Rows 3/4/5: forward, lse and dqkv against the plain versions; bf16
+    at d 64 and 128 runs on flash_attn_sm90, the rest on the tile
+    kernels."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    results = []
-    for T in QKV_TS:
-        for d in (32, 64, 128):
-            H = 12 if d == 64 else 4
-            for causal in (False, True):
-                for dtype in (torch.float32, torch.bfloat16):
-                    qkv = torch.rand((2, T, 3 * H * d), generator=gen,
-                                     device=dev).to(dtype)
-                    g = torch.rand((2, T, H * d), generator=gen,
-                                   device=dev).to(dtype)
-                    out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
-                    dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H,
-                                            causal=causal)
-                    ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H,
-                                                        causal=causal)
-                    ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H,
-                                                 causal=causal)
-                    sync(torch, dev)
-                    name = str(dtype).replace("torch.", "")
-                    err = (out.float() - ref.float()).abs().max().item()
-                    err_lse = (lse - ref_lse).abs().max().item()
-                    err_d = (dqkv.float() - ref_d.float()).abs().max().item()
-                    ok = (out.dtype == dtype and dqkv.shape == qkv.shape
-                          and err <= ATOL[name] and err_lse <= LSE_ATOL
-                          and err_d <= GRAD_ATOL[name])
-                    results.append(dict(b=2, t=T, h=H, d=d, causal=causal,
-                                        dtype=name, max_abs_err=err,
-                                        max_abs_err_lse=err_lse,
-                                        max_abs_err_dqkv=err_d, ok=ok))
-                    log(f"  flash_qkv T={T:4d} H={H:2d} d={d:3d} "
-                        f"causal={int(causal)} {name:8s} out {err:.2e} "
-                        f"(atol {ATOL[name]:.0e}) lse {err_lse:.2e} "
-                        f"(atol {LSE_ATOL:.0e}) dqkv {err_d:.2e} (atol "
-                        f"{GRAD_ATOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
+    shapes = [(T, d) for T in QKV_TS for d in (32, 64, 128)] + list(QKV_LONG)
+    cases = [(T, d, causal, dtype, "rand") for T, d in shapes
+             for causal in (False, True)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(T, d, causal, torch.bfloat16, "sharp") for T, d in SHARP_QKV
+              for causal in (False, True)]
+    results = [_qkv_case(torch, fq, gen, dev, *c) for c in cases]
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} packed-attention checks disagree "
@@ -771,6 +852,17 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         torch.autograd.grad(o, (qg, kg, vg), go)
 
     lib_fb = time_ms(torch, sdpa_fwd_bwd)
+    # device time alone (torch.profiler): CUDA events around one call also
+    # count the host's time to issue it when the card waits for it
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    with torch.no_grad():
+        dev_fwd = device_ms_per_call(lambda: fq.flash_qkv_fwd(
+            qkv, H, causal=True))
+        dev_bwd = device_ms_per_call(lambda: fq.flash_qkv_bwd(
+            qkv, out, lse, g, H, causal=True))
+        dev_lib_fwd = device_ms_per_call(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    dev_lib_fb = device_ms_per_call(sdpa_fwd_bwd)
     half = 2.0 * B * H * T * T * d / 2      # one causal T x T x d product
     el = qkv.element_size()
     f_bytes = el * B * T * 4 * D + 4.0 * B * H * T
@@ -781,14 +873,17 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
                 "(B, H, T, d) views",
         max_abs_err=err, atol=ATOL[name],
         shape=f"B {B}, T {T}, H {H}, d {d}, {name}, causal",
-        flops=2 * half, bytes=f_bytes)
+        flops=2 * half, bytes=f_bytes, device_ms=dev_fwd,
+        library_device_ms=dev_lib_fwd)
     rows["flash_qkv_bwd"] = dict(
         ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_fb,
         library="F.scaled_dot_product_attention forward + backward on "
                 "split views (compare with fwd_plus_bwd_ms)",
         fwd_plus_bwd_ms=fwd_ms + bwd_ms, max_abs_err=err_d,
         atol=GRAD_ATOL[name], shape=rows["flash_qkv_fwd"]["shape"],
-        flops=5 * half, bytes=b_bytes)
+        flops=5 * half, bytes=b_bytes, device_ms=dev_bwd,
+        fwd_plus_bwd_device_ms=dev_fwd + dev_bwd,
+        library_device_ms=dev_lib_fb)
     del qkv, g, out, lse, dqkv, q, k, v, qg, kg, vg, go
     rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
     if head:
@@ -802,6 +897,10 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
                  if "fwd_plus_bwd_ms" in r else "")
         extra += (f", torch.matmul(x, w) alone {r['matmul_ms']:.4f} ms"
                   if "matmul_ms" in r else "")
+        extra += (f"; device time (torch.profiler) kernel "
+                  f"{r['device_ms']:.4f} ms, library "
+                  f"{r['library_device_ms']:.4f} ms"
+                  if "device_ms" in r else "")
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         log(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
@@ -1090,10 +1189,13 @@ def _plain_kernels(fq, sx):
 def _reset(fq, sx):
     fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
     sx.DLOGITS_LAUNCHES = 0
+    fq._fa.SM90_FWD_LAUNCHES = fq._fa.SM90_BWD_LAUNCHES = 0
 
 
 def _launches(fq, sx):
     return dict(flash_qkv_fwd=fq.FWD_LAUNCHES, flash_qkv_bwd=fq.BWD_LAUNCHES,
+                flash_attn_sm90_fwd=fq._fa.SM90_FWD_LAUNCHES,
+                flash_attn_sm90_bwd=fq._fa.SM90_BWD_LAUNCHES,
                 softmax_xent_fwd=sx.LAUNCHES,
                 softmax_xent_dlogits=sx.DLOGITS_LAUNCHES)
 
@@ -1130,16 +1232,24 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     launches = _launches(fq, sx)
     fwd_per_step = L * (2 if cfg["remat"] == "full" else 1)
     chunks = B * T // sx._chunk(B * T)
+    # bf16 at d 64 / 128: every attention launch is flash_attn_sm90's
+    sm90 = (name == "bfloat16"
+            and D // w["num_heads"] in fq._fa.SM90_HEAD_DIMS)
+    want_sm90 = (fwd_per_step, L) if sm90 else (0, 0)
     log(f"  step 1 through the kernels: loss {loss_k.item():.6f}, "
         f"launches {launches} (expected flash_qkv_fwd {fwd_per_step}, "
-        f"flash_qkv_bwd {L}, softmax_xent_fwd >= 1, softmax_xent_dlogits "
+        f"flash_qkv_bwd {L}, of them flash_attn_sm90 {want_sm90[0]} + "
+        f"{want_sm90[1]}, softmax_xent_fwd >= 1, softmax_xent_dlogits "
         f"{chunks})")
     if (launches["flash_qkv_fwd"] != fwd_per_step
             or launches["flash_qkv_bwd"] != L
+            or (launches["flash_attn_sm90_fwd"],
+                launches["flash_attn_sm90_bwd"]) != want_sm90
             or launches["softmax_xent_fwd"] < 1
             or launches["softmax_xent_dlogits"] != chunks):
         raise AssertionError(f"train step launched {launches}; expected "
-                             f"{fwd_per_step} / {L} / >= 1 / {chunks}")
+                             f"{fwd_per_step} / {L} (flash_attn_sm90 "
+                             f"{want_sm90}) / >= 1 / {chunks}")
     grads_k = _grads_after_one_step(opt_k, TRAIN_GRADS)
     del opt_k
 
@@ -1563,31 +1673,53 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     max_abs_err_timed_shape=t["max_abs_err"], **extra)
 
     def worst(rows, key, dtype):
-        return max(r[key] for r in rows if r["dtype"] == dtype)
+        return max(r[key] for r in rows if r["dtype"] == dtype
+                   and r.get("inputs", "rand") == "rand")
+
+    sharp_qkv = [r for r in qkv_checks if r["inputs"] == "sharp"]
+    sharp_fields = dict(
+        sharp_checks=len(sharp_qkv),
+        sharp_out_err_over_tol=max(r["out_err_over_tol"] for r in sharp_qkv),
+        sharp_dqkv_rel_l2=max(max(r["dqkv_rel_l2"].values())
+                              for r in sharp_qkv))
 
     tl = trained["launches"]
     ll = trained_long["launches"]
     kernels += [
-        entry("flash_qkv_fwd", "flash_attn_fwd.cu",
+        entry("flash_qkv_fwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:276",
-              tl["flash_qkv_fwd"], worst(qkv_checks, "max_abs_err",
-                                         "float32"),
+              tl["flash_attn_sm90_fwd"], worst(qkv_checks, "max_abs_err",
+                                               "float32"),
+              launches_wrapper=tl["flash_qkv_fwd"],
               max_abs_err_bf16=worst(qkv_checks, "max_abs_err", "bfloat16"),
               max_abs_err_lse=max(r["max_abs_err_lse"] for r in qkv_checks),
-              launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks)),
-        entry("flash_qkv_bwd", "flash_attn_bwd.cu",
+              device_ms=train_times["flash_qkv_fwd"]["device_ms"],
+              library_device_ms=train_times["flash_qkv_fwd"][
+                  "library_device_ms"],
+              fp32_source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+              launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks),
+              **sharp_fields),
+        entry("flash_qkv_bwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
-              tl["flash_qkv_bwd"], worst(qkv_checks, "max_abs_err_dqkv",
-                                         "float32"),
+              tl["flash_attn_sm90_bwd"], worst(qkv_checks,
+                                               "max_abs_err_dqkv", "float32"),
+              launches_wrapper=tl["flash_qkv_bwd"],
               replaces_also="paddle_tpu/ops/pallas/flash_attention.py:442",
               max_abs_err_bf16=worst(qkv_checks, "max_abs_err_dqkv",
                                      "bfloat16"),
               fwd_plus_bwd_ms=train_times["flash_qkv_bwd"][
                   "fwd_plus_bwd_ms"],
+              device_ms=train_times["flash_qkv_bwd"]["device_ms"],
+              fwd_plus_bwd_device_ms=train_times["flash_qkv_bwd"][
+                  "fwd_plus_bwd_device_ms"],
+              library_device_ms=train_times["flash_qkv_bwd"][
+                  "library_device_ms"],
+              fp32_source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
               launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
               t1024={k: long_times["flash_qkv_bwd"][k] for k in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                  "bound_by", "fwd_plus_bwd_ms", "max_abs_err")}),
+                  "bound_by", "fwd_plus_bwd_ms", "max_abs_err")},
+              **sharp_fields),
         entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
               tl["softmax_xent_fwd"], worst(head_checks, "max_abs_err",
@@ -1701,10 +1833,10 @@ def main(argv=None) -> int:
     built = _build.build()
     for name, info in built.items():
         log(f"  {name}: {info['seconds']:.2f} s -> {info['path']}")
-        for line in info["report"].splitlines():
-            if "entry function" in line or "registers" in line \
-                    or "spill" in line:
-                log(f"    {line.strip()}")
+        info["kernels"] = ptxas_summary(info["report"])
+        for k in info["kernels"]:
+            log(f"    {k['kernel']}: {k['registers']} registers, spill "
+                f"stores {k['spill_stores']} B, loads {k['spill_loads']} B")
 
     report, kernels = run(torch, "cuda", GPT_WIDTH)
     report.update(card=card, device=kind, torch=torch.__version__,

@@ -21,7 +21,8 @@
 // (batch, row, head) with a contiguous last axis, so the gradients of a
 // packed projection go straight into their column blocks of one
 // (B, T, 3F) tensor and those of split views into (B, S, H, D) tensors,
-// with no fold or unfold copy.  fp32 or bf16; D in {32, 64, 128}; causal
+// with no fold or unfold copy.  fp32 at D in {32, 64, 128}, bf16 at D 32
+// (bf16 at D 64 and 128 runs flash_attn_sm90.cu); causal
 // masking bottom-right aligned (query i sees key j iff j <= i + Tk - Tq,
 // with Tq <= Tk), or none; any Tq and Tk, masked at the ragged edge.
 // P = exp(s - lse) is cast to dO's type for dV and dS = P (dP - delta) to
@@ -370,15 +371,20 @@ cudaError_t run(const void* const* ptrs, const long long* st, const void* lse,
                      tk,
                      causal,
                      scale};
-  switch (d) {
-    case 32:
-      return launch<T, 32>(a, B, passes, stream);
-    case 64:
-      return launch<T, 64>(a, B, passes, stream);
-    case 128:
-      return launch<T, 128>(a, B, passes, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
+    return d == 32 ? launch<T, 32>(a, B, passes, stream)
+                   : cudaErrorInvalidValue;
+  } else {
+    switch (d) {
+      case 32:
+        return launch<T, 32>(a, B, passes, stream);
+      case 64:
+        return launch<T, 64>(a, B, passes, stream);
+      case 128:
+        return launch<T, 128>(a, B, passes, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 

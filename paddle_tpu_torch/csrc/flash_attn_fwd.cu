@@ -16,8 +16,9 @@
 // (B, Tq, H, D), each addressed by its own element strides (batch, row,
 // head) with a contiguous last axis, so head-split views of a fused
 // projection, the packed projection itself and folded (B*H, T, D)
-// tensors are read where they lie, with no copy.  fp32 or bf16; D in
-// {32, 64, 128}.  Causal masking is bottom-right aligned as in the
+// tensors are read where they lie, with no copy.  fp32 at D in {32, 64,
+// 128}, bf16 at D 32 (bf16 at D 64 and 128 runs flash_attn_sm90.cu).
+// Causal masking is bottom-right aligned as in the
 // reference: query i sees key j iff j <= i + (Tk - Tq); causal with
 // Tq > Tk (fully masked rows) is refused.  Any Tq and Tk: the ragged edge
 // is masked here, where the TPU kernels needed multiples of 128.  Softmax
@@ -224,15 +225,19 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
                      tk,
                      causal,
                      scale};
-  switch (d) {
-    case 32:
-      return launch<T, 32>(a, B, stream);
-    case 64:
-      return launch<T, 64>(a, B, stream);
-    case 128:
-      return launch<T, 128>(a, B, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
+    return d == 32 ? launch<T, 32>(a, B, stream) : cudaErrorInvalidValue;
+  } else {
+    switch (d) {
+      case 32:
+        return launch<T, 32>(a, B, stream);
+      case 64:
+        return launch<T, 64>(a, B, stream);
+      case 128:
+        return launch<T, 128>(a, B, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -14,14 +14,22 @@ made in either direction:
   backward from the saved lse (rows 6, 7, 8 and 9 here, rows 4 and 5
   through :mod:`.flash_attention_qkv`).
 
+Those two carry fp32 (FMAs) and bf16 at head dim 32 (``mma.sync``).  bf16
+at head dims 64 and 128 goes to ``csrc/flash_attn_sm90.cu``, the same
+forward and backward built for Hopper on ``wgmma`` and TMA tile loads
+(:func:`kernel_route`); its operands are described to TMA by
+:func:`tma_geometry`, and an operand TMA cannot describe raises.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes its plain PyTorch version (:func:`flash_attn_fwd_ref`,
 :func:`flash_attn_bwd_ref`).  :class:`FlashAttention` is the autograd
 function (the role of ``_flash``) and :func:`flash_attention` the
 ``(B, S, H, D)`` entry, which routes each call by :func:`_pallas_mode`.
 :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES` count launches,
-:data:`MODE_LAUNCHES` counts them by direction and mode, and
-:func:`reference_rows` names the TPU kernel a launch stands in for.
+:data:`MODE_LAUNCHES` counts them by direction and mode,
+:data:`SM90_FWD_LAUNCHES` and :data:`SM90_BWD_LAUNCHES` count the launches
+of ``flash_attn_sm90`` (these wrappers' and :mod:`.flash_attention_qkv`'s),
+and :func:`reference_rows` names the TPU kernel a launch stands in for.
 """
 from __future__ import annotations
 
@@ -36,10 +44,13 @@ from . import _build
 __all__ = ["flash_attention", "FlashAttention", "flash_attn_fwd",
            "flash_attn_bwd", "flash_attn_fwd_ref", "flash_attn_bwd_ref",
            "flash_attention_ref", "reference_rows", "FWD_LAUNCHES",
-           "BWD_LAUNCHES", "MODE_LAUNCHES", "NEG_INF", "HEAD_DIMS"]
+           "BWD_LAUNCHES", "MODE_LAUNCHES", "NEG_INF", "HEAD_DIMS",
+           "SM90_HEAD_DIMS", "SM90_FWD_LAUNCHES", "SM90_BWD_LAUNCHES",
+           "kernel_route", "tma_geometry"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)   # bf16 head dims of csrc/flash_attn_sm90.cu
 SMALL_T_MAX = 1024      # flash_attention.py:43
 MID_T_MAX = 4096        # flash_attention.py:52
 SMALL_BWD_T_MAX = 512   # flash_attention.py:1011: longer keys take row 7
@@ -54,8 +65,12 @@ ALL_PASSES = PASS_DELTA | PASS_DKV | PASS_DQ
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 MODE_LAUNCHES: Dict[str, int] = {}
+# launches of csrc/flash_attn_sm90.cu (a backward's three passes count one)
+SM90_FWD_LAUNCHES = 0
+SM90_BWD_LAUNCHES = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_SCHED: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
@@ -63,7 +78,18 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
-        if name == "flash_attn_fwd":
+        if name == "flash_attn_sm90":
+            lib.flash_sm90_fwd.argtypes = [ctypes.c_void_p] * 5 + [
+                _STRIDES] + [ctypes.c_int] * 6 + [ctypes.c_float] + [
+                ctypes.c_void_p] * 2
+            lib.flash_sm90_fwd.restype = ctypes.c_int
+            lib.flash_sm90_bwd.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), _STRIDES, ctypes.c_void_p,
+                ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2
+            lib.flash_sm90_bwd.restype = ctypes.c_int
+            err = lib.flash_sm90_error_string
+        elif name == "flash_attn_fwd":
             lib.flash_attn_fwd.argtypes = [ctypes.c_void_p] * 5 + [
                 _STRIDES] + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                  ctypes.c_void_p]
@@ -277,6 +303,78 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"{t.stride()}")
 
 
+def tma_geometry(x: torch.Tensor, rows: int = 64) -> Dict[str, tuple]:
+    """How TMA reads a ``(B, S, H, D)`` bf16 operand of
+    ``csrc/flash_attn_sm90.cu``: ``dims`` ``(D, H, S, B)``, innermost
+    first; ``strides``, the byte strides of H, S and B; ``box``
+    ``(64, 1, rows, 1)``, one 128-byte-swizzled half of a ``rows``-row tile
+    (a tile of head dim 128 is two boxes).  A dimension of extent 1 is
+    never stepped over, so it takes the stride ``D·2`` whatever torch
+    reports.  Raises ``ValueError`` where TMA cannot describe the operand:
+    not 4-D, last axis not contiguous, base not 16-byte aligned, or a
+    stride that is not a multiple of 16 bytes or is 2**40 bytes or more."""
+    g = _tma_dims(x)
+    return dict(dims=g[:4], strides=g[4:], box=(64, 1, rows, 1))
+
+
+def _tma_dims(x: torch.Tensor) -> Tuple[int, ...]:
+    """:func:`tma_geometry`'s dims and strides as one 7-tuple."""
+    if x.dim() != 4:
+        raise ValueError(f"TMA operands are (B, S, H, D); got "
+                         f"{tuple(x.shape)}")
+    B, S, H, D = x.shape
+    sb, ss, sh, sd = x.stride()
+    el = x.element_size()
+    if sd != 1 and D > 1:
+        raise ValueError(f"TMA cannot describe an operand whose last axis "
+                         f"is not contiguous: strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"TMA cannot describe an operand whose base "
+                         f"{x.data_ptr():#x} is not 16-byte aligned")
+    strides = (sh * el if H > 1 else D * el, ss * el if S > 1 else D * el,
+               sb * el if B > 1 else D * el)
+    for st in strides:
+        if st % 16 or not 0 < st < 2 ** 40:
+            raise ValueError(f"TMA cannot describe an operand with byte "
+                             f"strides {strides} (multiples of 16 below "
+                             f"2**40 only)")
+    return (D, H, S, B) + strides
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int,
+                 *operands: torch.Tensor) -> str:
+    """Which CUDA library takes an attention launch: ``"sm90"``
+    (``csrc/flash_attn_sm90.cu``, wgmma and TMA) for bf16 at a head dim of
+    :data:`SM90_HEAD_DIMS`, else ``"tile"`` (``csrc/flash_attn_fwd.cu`` /
+    ``flash_attn_bwd.cu``: fp32 on FMAs, bf16 at d 32 on ``mma.sync``).
+    A pure function of the type, the head dim and the operands' layouts:
+    an ``"sm90"`` operand that TMA cannot describe (:func:`tma_geometry`)
+    raises ``ValueError``; it is never sent to the other library."""
+    if _sm90_geometry(dtype, head_dim, *operands) is None:
+        return "tile"
+    return "sm90"
+
+
+def _sm90_geometry(dtype: torch.dtype, head_dim: int, *tensors):
+    """None where :func:`kernel_route` says ``"tile"``; else the
+    :func:`tma_geometry` dims and byte strides of each operand, 7 values
+    each, as the C array ``flash_attn_sm90`` takes."""
+    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
+        return None
+    vals = sum((_tma_dims(t) for t in tensors), ())
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _sched(device: torch.device, stream: int) -> int:
+    """The item counters of ``flash_attn_sm90`` on this device and stream:
+    four int32, zero between launches (each launch leaves them zero)."""
+    key = (device.index, stream)
+    buf = _SCHED.get(key)
+    if buf is None:
+        buf = _SCHED[key] = torch.zeros(4, dtype=torch.int32, device=device)
+    return buf.data_ptr()
+
+
 def _strides(*tensors: torch.Tensor):
     """Element strides (batch, row, head) of each ``(B, S, H, D)`` operand,
     as the C array the kernels take."""
@@ -294,8 +392,24 @@ def _raise_on(err: int, lib: ctypes.CDLL, name: str) -> None:
 
 def _launch_fwd(q4, k4, v4, out4, lse, causal: bool,
                 scale: Optional[float]) -> None:
-    """One launch of ``csrc/flash_attn_fwd.cu`` on checked operands."""
+    """One launch of the forward (``flash_attn_sm90`` or
+    ``flash_attn_fwd``, by :func:`kernel_route`) on checked operands."""
+    global SM90_FWD_LAUNCHES
     B, tq, H, d = q4.shape
+    geo = _sm90_geometry(q4.dtype, d, q4, k4, v4, out4)
+    if geo is not None:
+        lib = _lib("flash_attn_sm90")
+        with torch.cuda.device(q4.device):
+            stream = torch.cuda.current_stream(q4.device).cuda_stream
+            sched = _sched(q4.device, stream)
+            err = lib.flash_sm90_fwd(
+                q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                geo, B, H, tq, k4.shape[1], d,
+                int(bool(causal)), _scale(d, scale), sched, stream)
+        _raise_on(err, lib, "flash_attn_sm90 forward")
+        SM90_FWD_LAUNCHES += 1
+        return
     lib = _lib("flash_attn_fwd")
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
@@ -311,13 +425,28 @@ def _launch_fwd(q4, k4, v4, out4, lse, causal: bool,
 def _launch_bwd(q4, k4, v4, out4, lse, dout4, dq4, dk4, dv4, delta,
                 causal: bool, scale: Optional[float],
                 passes: int = ALL_PASSES) -> None:
-    """Launches of ``csrc/flash_attn_bwd.cu`` (the ``passes`` bit mask) on
-    checked operands; ``lse`` and ``delta`` are contiguous ``(B, H, Tq)``
-    fp32."""
+    """Launches of the backward (``flash_attn_sm90`` or
+    ``flash_attn_bwd``, by :func:`kernel_route`; the ``passes`` bit mask)
+    on checked operands; ``lse`` and ``delta`` are contiguous
+    ``(B, H, Tq)`` fp32."""
+    global SM90_BWD_LAUNCHES
     B, tq, H, d = q4.shape
     ops = (q4, k4, v4, out4, dout4, dq4, dk4, dv4)
-    lib = _lib("flash_attn_bwd")
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in ops))
+    geo = _sm90_geometry(q4.dtype, d, *ops)
+    if geo is not None:
+        lib = _lib("flash_attn_sm90")
+        with torch.cuda.device(q4.device):
+            stream = torch.cuda.current_stream(q4.device).cuda_stream
+            sched = _sched(q4.device, stream)
+            err = lib.flash_sm90_bwd(
+                ptrs, geo, lse.data_ptr(), delta.data_ptr(), B,
+                H, tq, k4.shape[1], d, int(bool(causal)), _scale(d, scale),
+                passes, sched, stream)
+        _raise_on(err, lib, "flash_attn_sm90 backward")
+        SM90_BWD_LAUNCHES += 1
+        return
+    lib = _lib("flash_attn_bwd")
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
         err = lib.flash_attn_bwd(

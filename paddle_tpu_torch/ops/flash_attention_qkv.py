@@ -1,15 +1,17 @@
 """Packed-QKV flash attention, forward and backward — the counterpart of
 ``flash_attention_qkv`` in ``paddle_tpu/ops/pallas/flash_attention.py``
 (its custom VJPs ``_flash_qkv`` for T <= 512 and ``_flash_qkv_mid`` for
-512 < T <= 2048).
+512 < T <= 2048; longer sequences, which the reference sends to its split
+path, take the same kernels here, which stream K/V at any T).
 
 ``qkv`` is the fused projection output ``(B, T, 3·H·d)`` laid out
 ``[q heads | k heads | v heads]`` (the reference's ``reshape(B, T, 3H, d)``
 and split); the result is ``ctx (B, T, H·d)``.  :class:`FlashQKV` is the
 autograd function: its forward is :func:`flash_qkv_fwd` and its backward
 :func:`flash_qkv_bwd`.  These wrappers launch the attention kernels of
-:mod:`.flash_attention` (``csrc/flash_attn_fwd.cu`` and
-``csrc/flash_attn_bwd.cu``) on head views of the packed projection, which
+:mod:`.flash_attention` (bf16 at d 64 / 128: ``csrc/flash_attn_sm90.cu``;
+otherwise ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``; see
+``kernel_route``) on head views of the packed projection, which
 those kernels read, and of the packed gradient, which they write, by
 stride: no head-split copy is made in either direction.  On a CUDA tensor
 each wrapper launches its kernel or raises; on a CPU tensor it computes
@@ -30,10 +32,8 @@ from .flash_attention import HEAD_DIMS, NEG_INF, _scale, flash_attention_ref
 
 __all__ = ["flash_attention_qkv", "flash_attention_qkv_ref", "FlashQKV",
            "flash_qkv_fwd", "flash_qkv_bwd", "flash_qkv_fwd_ref",
-           "flash_qkv_bwd_ref", "FWD_LAUNCHES", "BWD_LAUNCHES", "HEAD_DIMS",
-           "MAX_T"]
+           "flash_qkv_bwd_ref", "FWD_LAUNCHES", "BWD_LAUNCHES", "HEAD_DIMS"]
 
-MAX_T = 2048          # the longest sequence the kernels are checked at
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since import (plain integers; tests and the smoke run
@@ -160,9 +160,6 @@ def _route(name: str, qkv: torch.Tensor, num_heads: int, *others) -> bool:
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; the kernel has "
                          f"{HEAD_DIMS}")
-    if T > MAX_T:
-        raise ValueError(f"T={T} > {MAX_T}: the kernel is checked up to "
-                         f"T={MAX_T}")
     return True
 
 

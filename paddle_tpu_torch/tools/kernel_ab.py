@@ -5,14 +5,17 @@
 
 Imports ``paddle_tpu_torch`` from the checkout at ``DIR`` (its kernels
 build into that checkout's ``_build/``) and times, with CUDA events (median
-of 25 launches after 3 warm-ups), the kernel calls that every slice of the
-port since the train step has had, at the shapes of the main paths:
+of 25 launches after 3 warm-ups; the host's time to issue a call counts
+where the card waits for it) and in device time (``*_device_ms``: the
+kernels' durations in a ``torch.profiler`` trace of 10 calls), the
+attention kernel calls of the serving and train paths, at their shapes:
 
 - ``flash_attn_fwd`` on ``(BH, T, d)``: bh 96, T 512, d 64, fp32, causal
   (the serving shape, row 1);
 - ``flash_qkv_fwd`` and ``flash_qkv_bwd`` on a packed ``(B, T, 3F)``
-  projection: B 128, T 512, H 12, d 64, bf16, causal (rows 3 and 4), and
-  ``flash_qkv_bwd`` at B 8, T 1024, fp32 (row 5).
+  projection: B 128, T 512, H 12, d 64, bf16, causal (rows 3 and 4), at
+  B 8, T 1024, fp32 (row 5), and bf16 at B 16, T 2048 with d 64 (H 16)
+  and d 128 (H 8), causal (the bf16 head dims of ``flash_attn_sm90``).
 
 Run it on two checkouts in turns (A, B, B, A) inside one call to compare
 them; each run prints one JSON line and, with ``--json``, writes it.
@@ -42,6 +45,23 @@ def _time_ms(torch, fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
+def _device_ms(torch, fn, reps=10):
+    # kept here, not imported: the checkout under test may predate
+    # paddle_tpu_torch.tools.profile_train.device_ms_per_call
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / reps
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True,
@@ -68,17 +88,27 @@ def main(argv=None) -> int:
                    for _ in range(3))
         out["row1_flash_attn_fwd_ms"] = _time_ms(
             torch, lambda: fa.flash_attn_fwd(q, k, v, causal=True))
-        for key, B, T, dt in (("bf16_b128_t512", 128, 512, torch.bfloat16),
-                              ("fp32_b8_t1024", 8, 1024, torch.float32)):
-            qkv = torch.randn((B, T, 3 * 768), generator=gen,
+        for key, B, T, H, d, dt in (
+                ("bf16_b128_t512", 128, 512, 12, 64, torch.bfloat16),
+                ("fp32_b8_t1024", 8, 1024, 12, 64, torch.float32),
+                ("bf16_b16_t2048_d64", 16, 2048, 16, 64, torch.bfloat16),
+                ("bf16_b16_t2048_d128", 16, 2048, 8, 128, torch.bfloat16)):
+            F = H * d
+            qkv = torch.randn((B, T, 3 * F), generator=gen,
                               device="cuda").to(dt)
-            g = torch.randn((B, T, 768), generator=gen, device="cuda").to(dt)
-            o, lse = fq.flash_qkv_fwd(qkv, 12, causal=True)
-            out[f"flash_qkv_fwd_{key}_ms"] = _time_ms(
-                torch, lambda: fq.flash_qkv_fwd(qkv, 12, causal=True))
-            out[f"flash_qkv_bwd_{key}_ms"] = _time_ms(
-                torch, lambda: fq.flash_qkv_bwd(qkv, o, lse, g, 12,
-                                                causal=True))
+            g = torch.randn((B, T, F), generator=gen, device="cuda").to(dt)
+            o, lse = fq.flash_qkv_fwd(qkv, H, causal=True)
+
+            def fwd():
+                fq.flash_qkv_fwd(qkv, H, causal=True)
+
+            def bwd():
+                fq.flash_qkv_bwd(qkv, o, lse, g, H, causal=True)
+
+            for name, fn in (("fwd", fwd), ("bwd", bwd)):
+                out[f"flash_qkv_{name}_{key}_ms"] = _time_ms(torch, fn)
+                out[f"flash_qkv_{name}_{key}_device_ms"] = _device_ms(
+                    torch, fn)
     print(json.dumps(out), flush=True)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -60,9 +60,11 @@ ENCODER = dict(vocab_size=30528, d_model=768, num_layers=12, nhead=12,
                dim_feedforward=3072, max_len=SEQ, dropout_rate=0.1)
 
 # device-op name fragments by kind, first match wins
-KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",)),
+KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",
+                                                  "::fwd_kernel<")),
          ("flash attention backward (rows 4-9)",
-          ("attn_dkv_kernel", "attn_dq_kernel", "attn_delta_kernel")),
+          ("attn_dkv_kernel", "attn_dq_kernel", "attn_delta_kernel",
+           "::dkv_kernel<", "::dq_kernel<", "::delta_kernel<")),
          ("softmax_xent_fwd (row 10)", ("sxent_fwd_kernel",)),
          ("softmax_xent_dlogits (row 11)", ("sxent_dlogits_kernel",)),
          ("fused_ln (row 12)", ("fused_ln_warp", "fused_ln_row")),
@@ -84,6 +86,25 @@ def _device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def device_ms_per_call(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Device time of one ``fn()``: every kernel it launches, summed from
+    a ``torch.profiler`` trace of ``reps`` calls (host time between the
+    launches is not counted, unlike CUDA events around a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    if not events:
+        raise RuntimeError("the profiler recorded no device time")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+
+
 def _compiled_path():
     """The compiled train step: (one step, counter reset, counts, setup)."""
     cfg = GPTConfig(**WIDTH)
@@ -101,10 +122,13 @@ def _compiled_path():
     def reset():
         fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
         sx.DLOGITS_LAUNCHES = 0
+        fa.SM90_FWD_LAUNCHES = fa.SM90_BWD_LAUNCHES = 0
 
     def counts():
         return dict(flash_qkv_fwd=fq.FWD_LAUNCHES,
                     flash_qkv_bwd=fq.BWD_LAUNCHES,
+                    flash_attn_sm90_fwd=fa.SM90_FWD_LAUNCHES,
+                    flash_attn_sm90_bwd=fa.SM90_BWD_LAUNCHES,
                     softmax_xent_fwd=sx.LAUNCHES,
                     softmax_xent_dlogits=sx.DLOGITS_LAUNCHES)
 

@@ -408,3 +408,81 @@ def test_encoder_gradients_flow_through_the_fused_ln_kernel(card):
     assert len(got) == len(want) > 10
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- csrc/flash_attn_sm90.cu: bf16 attention on wgmma and TMA -------------------
+SM90_TS = (100, 128, 256, 512, 1024, 2048, 4096)   # chip_smoke QKV_TS + 4096
+
+
+def _packed_check(qkv, g, H, causal, dtype):
+    out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
+    dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H, causal=causal)
+    ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H, causal=causal)
+    atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+    case = (tuple(qkv.shape), H, causal, dtype)
+    assert out.dtype == dtype and dqkv.dtype == dtype, case
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol,
+                               msg=lambda m: f"{case}: {m}")
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4,
+                               msg=lambda m: f"{case}: {m}")
+    torch.testing.assert_close(dqkv.float(), ref_d.float(), rtol=0,
+                               atol=GRAD_ATOL[dtype],
+                               msg=lambda m: f"{case}: {m}")
+
+
+def test_sm90_kernels_match_plain_versions(card):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for T in SM90_TS:
+        for d in (64, 128):
+            for causal in (False, True):
+                qkv = torch.rand((1, T, 3 * 2 * d), generator=gen,
+                                 device="cuda").bfloat16()
+                g = torch.rand((1, T, 2 * d), generator=gen,
+                               device="cuda").bfloat16()
+                f0, b0 = pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES
+                _packed_check(qkv, g, 2, causal, torch.bfloat16)
+                assert (pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES) == (
+                    f0 + 1, b0 + 1)
+
+
+def test_sm90_backward_repeats_bit_for_bit(card):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((2, 1024, 3 * 12 * 64), generator=gen,
+                      device="cuda").bfloat16()
+    g = torch.randn((2, 1024, 12 * 64), generator=gen,
+                    device="cuda").bfloat16()
+    out, lse = fq.flash_qkv_fwd(qkv, 12, causal=True)
+    first = fq.flash_qkv_bwd(qkv, out, lse, g, 12, causal=True)
+    second = fq.flash_qkv_bwd(qkv, out, lse, g, 12, causal=True)
+    assert torch.equal(first, second)
+
+
+def test_packed_attention_past_2048_on_the_card(card):
+    # fault C3: flash_attention_qkv raised ValueError for T > 2048 on a
+    # CUDA tensor, where the reference trains
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            qkv = torch.rand((1, 4096, 3 * 2 * 64), generator=gen,
+                             device="cuda").to(dtype)
+            g = torch.rand((1, 4096, 2 * 64), generator=gen,
+                           device="cuda").to(dtype)
+            _packed_check(qkv, g, 2, causal, dtype)
+            x = qkv.clone().requires_grad_()
+            fq.flash_attention_qkv(x, 2, causal=causal).backward(g)
+            assert x.grad.shape == qkv.shape
+
+
+def test_sm90_refuses_an_operand_tma_cannot_describe(card):
+    n = 128 * 2 * 64
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")
+    q = flat[1:1 + n].view(1, 128, 2, 64)          # base 2 bytes off
+    out = torch.empty((1, 128, 2, 64), dtype=torch.bfloat16, device="cuda")
+    before = pfa.SM90_FWD_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfa._launch_fwd(q, q, q, out, None, False, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfa.flash_attn_fwd(q, q, q)
+    assert pfa.SM90_FWD_LAUNCHES == before
