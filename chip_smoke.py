@@ -11,11 +11,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             each kernel's registers and spills (-Xptxas -v)
 3. kernels  each kernel against its plain PyTorch version on the card,
             at every shape the serving, scoring and train paths give it
-            and around them (packed attention T 100 ... 2048, d 32/64/128,
-            and T 4096 at d 64; bf16 at d 64/128 on flash_attn_sm90, also
-            with sharp inputs;
+            and around them (packed attention T 100 ... 2048 at every
+            built head dim, d 16/32/64/80/96/128, and T 4096 at d 64; bf16
+            at d 64/128 on flash_attn_sm90, also with sharp inputs;
             split-layout forward with lse and backward T 128 ... 8192 and
-            Tq < Tk, d 32/64/128; LM head forward and dlogits up to N
+            Tq < Tk, every built head dim; the fp32 kernels and the plain
+            fp32 versions against float64, causal, T 1024 ... 8192; LM
+            head forward and dlogits up to N
             4096, V 30528; the fused epilogue at D 64 ... 4096, N 1 ...
             16384, p 0 / 0.1 / 0.5, and its dropout mask against the hash
             bit for bit)
@@ -26,11 +28,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
             from 4 client threads; every stream equals its solo-session
             stream, and a second run repeats every stream exactly
 6. timing   kernel, plain and library times with CUDA events beside the
-            card's bound, at the serving and train paths' shapes (rows 2
-            and 6-9 at T 512, 1024 and 8192; the head's dlogits at one
-            chunk; the fused epilogue at the encoder's N 16384, D 768),
-            each kernel's result held against its plain version there too;
-            rows 3 and 4 and SDPA also in device time (torch.profiler)
+            card's bound, at the serving and train paths' shapes (every
+            fp32 attention row: 1 at bh 96, T 512; 3 and 4 at B 32, T 512;
+            3 and 5 at B 8, T 1024; 2 and 6-9 at T 512, 1024 and 8192;
+            each with its fp32 bound and its 3xTF32 bound, and the names
+            of the kernels SDPA runs there, from a torch.profiler trace;
+            the head's dlogits at one chunk; the fused epilogue at the
+            encoder's N 16384, D 768), each kernel's result held against
+            its plain version there too; rows 3 and 4 and SDPA also in
+            device time (torch.profiler)
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, all of them flash_attn_sm90's, the fused head, 16
@@ -40,7 +46,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
             batch; step ms, seq/s, MFU and peak memory
 8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
    long     step through the kernels (2 dlogits launches) against the
-            plain versions
+            plain versions; the same for the reference's dryrun model
+            (V 128, hidden 32, 2 heads: head dim 16, L 4, B 4, T 16)
 9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
             full width (B 32, T 512, fp32): one step through the kernels
             (12 + 12 launches, mode "small", row 6) against the plain
@@ -79,10 +86,15 @@ from unittest import mock
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32
-# kernels compute on FMAs, so their operation bound is the fp32 rate
-# outside the tensor cores; bf16 kernels run on the tensor cores
+# work is bounded by the fp32 rate outside the tensor cores (its type's
+# peak, the `bound_ms` of the kernels line); the fp32 attention kernels
+# run it on the tensor cores in split precision, three tf32 products per
+# fp32 product, whose bound (`bound_3xtf32_ms`, in the log and the
+# report's timing sections, not in the kernels line) is 3 x flops at the
+# tf32 rate; bf16 kernels run on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12
 
 GPT_WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
@@ -137,6 +149,16 @@ HEAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
 TRAIN = dict(width=dict(vocab_size=30528, hidden_size=768, num_layers=12,
                         num_heads=12, max_seq_len=512),
              batch=128, seq=512, dtype="bfloat16", remat="ctx")
+# rows 3 and 4 in fp32 (the tile kernels' packed path, T <= 512): the
+# compiled step's width at B 32, fp32; timed only
+TRAIN_FP32 = dict(width=dict(vocab_size=30528, hidden_size=768,
+                             num_layers=12, num_heads=12, max_seq_len=512),
+                  batch=32, seq=512, dtype="float32", remat="full")
+# the reference's dryrun model (__graft_entry__.py:101-102): hidden 32
+# over 2 heads, head dim 16 (fault C4), B 4, T 16, fp32
+DRYRUN = dict(width=dict(vocab_size=128, hidden_size=32, num_layers=4,
+                         num_heads=2, max_seq_len=32, ffn_mult=2),
+              batch=4, seq=16, dtype="float32", remat="full")
 # row 5's regime (512 < T <= 2048) at reduced depth, fp32
 TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
                              num_layers=2, num_heads=12, max_seq_len=1024),
@@ -148,6 +170,9 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 SPLIT_SHAPES = [(t, t) for t in (128, 256, 512, 1000, 1024, 2048, 4096,
                                  8192)] + [(128, 256), (640, 1280)]
 SPLIT_LSE_ATOL = 1e-5                            # test_pallas_kernels.py:288
+# the fp32 kernels and the plain fp32 versions against float64: causal,
+# where each key's dK and dV sum over up to T queries
+FP64_SHAPES = ((1024, 64), (4096, 128), (8192, 64))
 # (batch, length) of the split-layout timing: rows 6, 7 and 2/8/9 at the
 # eager train path's shapes (H 12, d 64, fp32, causal)
 SPLIT_TIMING = ((32, 512), (32, 1024), (1, 8192))
@@ -226,6 +251,10 @@ def ptxas_summary(report: str):
         if m:
             k = re.search(r"([a-z_]*kernel[a-z_]*)", m.group(1))
             args = re.findall(r"Li(\d+)E", m.group(1))
+            if "bfloat16" in m.group(1):
+                args.insert(0, "bf16")
+            elif re.search(r"I(?:K)?fLi", m.group(1)):
+                args.insert(0, "fp32")
             name = (k.group(1) if k else m.group(1)) + (
                 f"<{','.join(args)}>" if args else "")
             continue
@@ -248,8 +277,8 @@ def check_kernels(torch, fa, dev):
     cases = [(96, tq, tk, 64, causal, dtype)
              for tq, tk in KERNEL_SHAPES for causal in (False, True)
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(96, 128, 128, d, True, dtype) for d in (32, 128)
-              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(96, 128, 128, d, True, dtype) for d in fa.HEAD_DIMS
+              if d != 64 for dtype in (torch.float32, torch.bfloat16)]
     cases = [c + ("rand",) for c in cases] + [
         (96, tq, tk, 64, causal, torch.bfloat16, "sharp")
         for tq, tk in SHARP_SHAPES for causal in (False, True)]
@@ -353,7 +382,7 @@ def check_qkv_kernels(torch, fq, dev):
     at d 64 and 128 runs on flash_attn_sm90, the rest on the tile
     kernels."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    shapes = [(T, d) for T in QKV_TS for d in (32, 64, 128)] + list(QKV_LONG)
+    shapes = [(T, d) for T in QKV_TS for d in fq.HEAD_DIMS] + list(QKV_LONG)
     cases = [(T, d, causal, dtype, "rand") for T, d in shapes
              for causal in (False, True)
              for dtype in (torch.float32, torch.bfloat16)]
@@ -418,7 +447,7 @@ def check_split_kernels(torch, fa, dev):
     results = []
     for tq, tk in SPLIT_SHAPES:
         B, H = (2, 2) if max(tq, tk) <= 2048 else (1, 2)
-        for d in (32, 64, 128):
+        for d in fa.HEAD_DIMS:
             for causal in (False, True):
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v, g = _split_operands(torch, gen, dev, B, tq, tk,
@@ -461,6 +490,70 @@ def check_split_kernels(torch, fa, dev):
     if bad:
         raise AssertionError(f"{len(bad)} split-layout attention checks "
                              f"disagree with the plain versions: {bad}")
+    return results
+
+
+def _attention_fp64(torch, fa, q, k, v, do, causal):
+    """out, lse and (dq, dk, dv) of (B, S, H, D) operands in float64,
+    folded to (B*H, S, D): the truth both fp32 versions are held to."""
+    q, k, v, do = (fa._fold(x).double() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    s = q @ k.transpose(1, 2) * scale
+    if causal:
+        s = s.masked_fill(~fa._visible(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    out = p @ v
+    ds = p * (do @ v.transpose(1, 2) - (do * out).sum(-1, keepdim=True))
+    return out, lse, (ds @ k * scale, ds.transpose(1, 2) @ q * scale,
+                      p.transpose(1, 2) @ do)
+
+
+def check_fp64_truth(torch, fa, dev):
+    """The fp32 kernels (split-precision TF32) and the plain fp32 versions
+    (full fp32 products), each against float64 on the same causal inputs:
+    the kernel is held to the fp32 tolerances against the truth; the plain
+    version's own error is reported beside it."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    results = []
+    for T, d in FP64_SHAPES:
+        q, k, v = torch.rand((1, T, 3, 2, d), generator=gen,
+                             device=dev).unbind(2)
+        g = torch.rand((1, T, 2, d), generator=gen, device=dev)
+        out, lse = fa.flash_attn_fwd(q, k, v, causal=True, return_lse=True)
+        grads = fa.flash_attn_bwd(q, k, v, out, lse, g, causal=True)
+        p_out, p_lse = fa.flash_attn_fwd_ref(q, k, v, causal=True,
+                                             return_lse=True)
+        p_grads = fa.flash_attn_bwd_ref(q, k, v, p_out, p_lse, g,
+                                        causal=True)
+        t_out, t_lse, t_grads = _attention_fp64(torch, fa, q, k, v, g, True)
+        sync(torch, dev)
+
+        def errs(o, l, gs):
+            e = dict(out=(fa._fold(o).double() - t_out).abs().max().item(),
+                     lse=(l.reshape(t_lse.shape).double() - t_lse).abs()
+                     .max().item())
+            for name, a, b in zip(("dq", "dk", "dv"), gs, t_grads):
+                e[name] = (fa._fold(a).double() - b).abs().max().item()
+            return e
+
+        kern, plain = errs(out, lse, grads), errs(p_out, p_lse, p_grads)
+        ok = (kern["out"] <= ATOL["float32"] and kern["lse"] <= SPLIT_LSE_ATOL
+              and max(kern[n] for n in ("dq", "dk", "dv"))
+              <= GRAD_ATOL["float32"])
+        results.append(dict(b=1, t=T, h=2, d=d, causal=True, kernel=kern,
+                            plain=plain, ok=ok))
+        log(f"  fp64 truth T={T} d={d} causal: kernel "
+            f"{', '.join(f'{n} {v:.2e}' for n, v in kern.items())}; plain "
+            f"fp32 {', '.join(f'{n} {v:.2e}' for n, v in plain.items())} "
+            f"{'ok' if ok else 'FAIL'}")
+        del q, k, v, g, out, lse, grads, p_out, p_lse, p_grads, t_out, \
+            t_lse, t_grads
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fp32 kernel results miss the fp32 "
+                             f"tolerances against float64: {bad}")
     return results
 
 
@@ -784,6 +877,39 @@ def bound(flops, nbytes, flops_per_s):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_3xtf32(flops, nbytes):
+    """The fp32 attention kernels' own bound: three tf32 products per fp32
+    product at the tf32 rate, or the bytes."""
+    return bound(3 * flops, nbytes, 3 * TF32X3_FLOPS_PER_S)[0]
+
+
+def library_kernels(torch, fn):
+    """The CUDA kernels one ``fn()`` launches and the device ms of each (a
+    torch.profiler trace), longest first: which kernels
+    F.scaled_dot_product_attention picks, and its backward kernel's time
+    apart from its forward's."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:120]
+            ms[name] = ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return [dict(name=n, device_ms=t)
+            for n, t in sorted(ms.items(), key=lambda kv: -kv[1])]
+
+
+def kernels_line(kernels):
+    """library_kernels' result, short, for the log."""
+    return "; ".join(f"{k['name'][:70]} {k['device_ms']:.4f} ms"
+                     for k in kernels)
+
+
 def timing(torch, fa):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -799,15 +925,21 @@ def timing(torch, fa):
                 q, k, v, causal=True))
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True))
-        b_ms, b_by = bound(2.0 * bh * T * T * d, 4.0 * bh * d * 4 * T,
-                           FP32_FLOPS_PER_S)
+        flops, nbytes = 2.0 * bh * T * T * d, 4.0 * bh * d * 4 * T
+        b_ms, b_by = bound(flops, nbytes, FP32_FLOPS_PER_S)
         rows.append(dict(bh=bh, t=T, d=d, dtype="float32", causal=True,
                          ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=b_ms, bound_by=b_by))
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_3xtf32_ms=bound_3xtf32(flops, nbytes)))
         log(f"  T={T:4d} bh={bh} d={d} fp32 causal: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, F.scaled_dot_product_attention "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; fp32 67 TFLOP/s, "
-            "3.35 TB/s)")
+            f"3.35 TB/s), 3xTF32 bound {rows[-1]['bound_3xtf32_ms']:.4f} ms")
+    rows[-1]["library_kernels"] = library_kernels(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True))
+    log(f"  SDPA's kernels at T 512: "
+        f"{kernels_line(rows[-1]['library_kernels'])}")
     return rows
 
 
@@ -863,6 +995,11 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         dev_lib_fwd = device_ms_per_call(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     dev_lib_fb = device_ms_per_call(sdpa_fwd_bwd)
+    with torch.no_grad():
+        lib_names_fwd = library_kernels(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True))
+    lib_names_fb = library_kernels(torch, sdpa_fwd_bwd)
     half = 2.0 * B * H * T * T * d / 2      # one causal T x T x d product
     el = qkv.element_size()
     f_bytes = el * B * T * 4 * D + 4.0 * B * H * T
@@ -874,7 +1011,7 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         max_abs_err=err, atol=ATOL[name],
         shape=f"B {B}, T {T}, H {H}, d {d}, {name}, causal",
         flops=2 * half, bytes=f_bytes, device_ms=dev_fwd,
-        library_device_ms=dev_lib_fwd)
+        library_device_ms=dev_lib_fwd, library_kernels=lib_names_fwd)
     rows["flash_qkv_bwd"] = dict(
         ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_fb,
         library="F.scaled_dot_product_attention forward + backward on "
@@ -883,7 +1020,7 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         atol=GRAD_ATOL[name], shape=rows["flash_qkv_fwd"]["shape"],
         flops=5 * half, bytes=b_bytes, device_ms=dev_bwd,
         fwd_plus_bwd_device_ms=dev_fwd + dev_bwd,
-        library_device_ms=dev_lib_fb)
+        library_device_ms=dev_lib_fb, library_kernels=lib_names_fb)
     del qkv, g, out, lse, dqkv, q, k, v, qg, kg, vg, go
     rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
     if head:
@@ -891,6 +1028,8 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
                                               V)
     for key, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"], rate)
+        if dt == torch.float32 and key != "softmax_xent_fwd":
+            r["bound_3xtf32_ms"] = bound_3xtf32(r["flops"], r["bytes"])
         ok = r["max_abs_err"] <= r["atol"]
         r["ok"] = ok
         extra = (f", fwd+bwd {r['fwd_plus_bwd_ms']:.4f} ms"
@@ -901,6 +1040,10 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
                   f"{r['device_ms']:.4f} ms, library "
                   f"{r['library_device_ms']:.4f} ms"
                   if "device_ms" in r else "")
+        extra += (f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms"
+                  if "bound_3xtf32_ms" in r else "")
+        extra += (f"; library kernels {kernels_line(r['library_kernels'])}"
+                  if "library_kernels" in r else "")
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
         log(f"  {key} ({r['shape']}): kernel {r['ms']:.4f} ms, plain "
@@ -996,6 +1139,11 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
             torch.autograd.grad(o, (qg, kg, vg), gh)
 
         lib_fb = time_ms(torch, sdpa_fwd_bwd)
+        with torch.no_grad():
+            names_fwd = library_kernels(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True))
+        names_fb = library_kernels(torch, sdpa_fwd_bwd)
         n_el = 4.0 * B * T * H * d            # bytes of one operand, fp32
         stats = 4.0 * B * H * T               # bytes of lse (or delta)
         # flops of one causal T x T x d product (half of 2*T*T*d): the
@@ -1007,7 +1155,8 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
                    "(B, H, T, d) views"
         common = dict(shape=shape, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
                       max_abs_err_fwd=err_f, max_abs_err_bwd=err_b,
-                      library_fwd_ms=lib_fwd)
+                      library_fwd_ms=lib_fwd, library_kernels=names_fb,
+                      library_fwd_kernels=names_fwd)
         mode = fa._pallas_mode(T, T, True)
         if mode == "stream":
             rows[2] = dict(common, kernel="flash_attn_fwd (with lse)",
@@ -1039,15 +1188,18 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
     for row, r in sorted(rows.items()):
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"],
                                              FP32_FLOPS_PER_S)
+        r["bound_3xtf32_ms"] = bound_3xtf32(r["flops"], r["bytes"])
         r["ok"] = r["max_abs_err"] <= r["atol"]
         log(f"  row {row} {r['kernel']} ({r['shape']}): kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s "
             f"fp32, {r['bytes'] / 1e6:.2f} MB at 3.35 TB/s); forward "
-            f"{r['fwd_ms']:.4f} ms, backward {r['bwd_ms']:.4f} ms; max_abs_err "
+            f"{r['fwd_ms']:.4f} ms, backward {r['bwd_ms']:.4f} ms; 3xTF32 "
+            f"bound {r['bound_3xtf32_ms']:.4f} ms; max_abs_err "
             f"vs plain {r['max_abs_err']:.3e} (atol {r['atol']:.0e}) "
-            f"{'ok' if r['ok'] else 'FAIL'}")
+            f"{'ok' if r['ok'] else 'FAIL'}; SDPA's kernels "
+            f"{kernels_line(r['library_kernels'])}")
     bad = [row for row, r in rows.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"rows {bad} disagree with their plain versions "
@@ -1057,8 +1209,11 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
 
 def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
     """Row 12 at the encoder's shape (N = B 32 x T 512, D 768, fp32) with
-    the train path's p 0.1, and p 0 (scoring); library: ``F.layer_norm``
-    on the precomputed ``residual + x + bias``, the p = 0 function."""
+    the train path's p 0.1, and p 0 (scoring).  No PyTorch call computes
+    the function (``library_ms`` None); ``F.layer_norm`` on the
+    precomputed ``residual + x + bias`` is timed beside it as a smaller
+    function (one (N, D) tensor read and one written, against the
+    kernel's two read and one written)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(10)
     x, r = (torch.randn((N, D), generator=gen, device=dev) for _ in range(2))
@@ -1079,16 +1234,17 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
         lib = time_ms(torch, lambda: F.layer_norm(z, (D,), g, be, 1e-5))
     nbytes = 4.0 * (3 * N * D + 3 * D)
     b_ms, b_by = bound(10.0 * N * D, nbytes, FP32_FLOPS_PER_S)
-    row = dict(ms=ms, ms_p0=ms_p0, plain_ms=plain, library_ms=lib,
-               library="F.layer_norm on the precomputed residual + x + bias "
-                       "(the p = 0 function)",
+    row = dict(ms=ms, ms_p0=ms_p0, plain_ms=plain, library_ms=None,
+               library="none (no PyTorch call computes LayerNorm(residual "
+                       "+ dropout(x + bias)))", layer_norm_ms=lib,
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
                atol=FUSED_LN_ATOL, shape=f"N {N}, D {D}, fp32, p {p}")
     row["ok"] = err <= FUSED_LN_ATOL
     log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms (p 0: "
-        f"{ms_p0:.4f} ms), plain {plain:.4f} ms, F.layer_norm {lib:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB at 3.35 "
-        f"TB/s); max_abs_err vs plain {err:.3e} (atol "
+        f"{ms_p0:.4f} ms), plain {plain:.4f} ms, F.layer_norm on the "
+        f"precomputed sum (a smaller function) {lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+        f"max_abs_err vs plain {err:.3e} (atol "
         f"{FUSED_LN_ATOL:.0e}) {'ok' if row['ok'] else 'FAIL'}")
     if not row["ok"]:
         raise AssertionError("fused_ln disagrees with its plain version at "
@@ -1586,7 +1742,7 @@ def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
 
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
-        encoder_batch=ENCODER_BATCH):
+        encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN):
     """Phases 3-11 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs and the encoder; returns the
     report and the ``kernels`` entries."""
@@ -1605,6 +1761,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     head_checks = check_head_kernel(torch, sx, dev)
     dlogits_checks = check_dlogits(torch, sx, dev)
     split_checks = check_split_kernels(torch, fa, dev)
+    fp64_checks = check_fp64_truth(torch, fa, dev)
     ln_checks = check_fused_ln(torch, fl, dev)
     mask_checks = check_fused_ln_mask(torch, fl, dev)
     log("== phase 4: full-width scoring")
@@ -1618,6 +1775,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     train_times = timing_train_kernels(torch, fq, sx, train_cfg, dev)
     long_times = timing_train_kernels(torch, fq, sx, long_cfg, dev,
                                       head=False)
+    fp32_times = timing_train_kernels(torch, fq, sx, fp32_cfg, dev,
+                                      head=False)
     split_times = timing_split_kernels(torch, fa, dev)
     dlogits_time = timing_dlogits(torch, sx, train_cfg, dev)
     ln_time = timing_fused_ln(torch, fl, encoder_cfg["dropout_rate"], dev)
@@ -1627,6 +1786,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     trained = train(torch, fq, sx, dev, train_cfg)
     log("== phase 8: train at T 1024, reduced depth")
     trained_long = train(torch, fq, sx, dev, long_cfg, timed=False)
+    log("== phase 8: the reference's dryrun model (head dim 16)")
+    trained_dryrun = train(torch, fq, sx, dev, dryrun_cfg, timed=False)
     torch.cuda.empty_cache()
     log("== phase 9: eager train at full width (Model.train_batch)")
     eager = eager_train(torch, fa, dev, eager_cfg)
@@ -1652,6 +1813,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
         bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
         library_ms=main_shape["library_ms"],
+        library_kernels=main_shape["library_kernels"],
         timed_shape="bh 96, T 512, d 64, fp32, causal",
         launches_scoring=score["launches"], checks=len(checks),
         launches_eager_forward=eager["launches"]["fwd"],
@@ -1685,6 +1847,18 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
 
     tl = trained["launches"]
     ll = trained_long["launches"]
+    dl = trained_dryrun["launches"]
+
+    def fp32_rows(key):
+        # the fp32 path of a packed kernel: row 3 / 4 at T 512 (B 32) and
+        # rows 3 / 5 at T 1024 (B 8), the bound and SDPA's kernels (the
+        # 3xTF32 bound stays in the report's timing sections)
+        return {f"t{t['shape'].split(', ')[1][2:]}": {k: t[k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "library_device_ms", "fwd_plus_bwd_ms",
+            "fwd_plus_bwd_device_ms", "library_kernels", "max_abs_err")
+            if k in t}
+            for t in (fp32_times[key], long_times[key])}
     kernels += [
         entry("flash_qkv_fwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:276",
@@ -1698,7 +1872,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   "library_device_ms"],
               fp32_source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
               launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks),
-              **sharp_fields),
+              launches_dryrun=dl["flash_qkv_fwd"],
+              fp32=fp32_rows("flash_qkv_fwd"), **sharp_fields),
         entry("flash_qkv_bwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
               tl["flash_attn_sm90_bwd"], worst(qkv_checks,
@@ -1716,10 +1891,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   "library_device_ms"],
               fp32_source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
               launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
-              t1024={k: long_times["flash_qkv_bwd"][k] for k in (
-                  "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                  "bound_by", "fwd_plus_bwd_ms", "max_abs_err")},
-              **sharp_fields),
+              launches_dryrun=dl["flash_qkv_bwd"],
+              fp32=fp32_rows("flash_qkv_bwd"), **sharp_fields),
         entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
               tl["softmax_xent_fwd"], worst(head_checks, "max_abs_err",
@@ -1745,6 +1918,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     library=t["library"], timed_shape=t["shape"],
                     timed=t["kernel"], max_abs_err_bf16=worst_bf16,
                     max_abs_err_timed_shape=t["max_abs_err"],
+                    library_kernels=t["library_kernels"],
                     checks=sum(row in c["rows"] for c in split_checks))
 
     t1024, t8192 = (r["launches"]["modes"] for r in eager_runs)
@@ -1786,15 +1960,18 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     "paddle_tpu/ops/pallas/fused_ln.py:55",
                     enc_train["launches"]["fused_ln"], ln_time, ln_checks,
                     ms_p0=ln_time["ms_p0"],
+                    layer_norm_ms=ln_time["layer_norm_ms"],
                     launches_scoring=enc_score["launches"]["fused_ln"],
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
                     mask_checks=len(mask_checks))]
     report = dict(checks=checks, qkv_checks=qkv_checks,
+                  fp64_checks=fp64_checks,
                   head_checks=head_checks, dlogits_checks=dlogits_checks,
                   split_checks=split_checks, fused_ln_checks=ln_checks,
                   fused_ln_mask_checks=mask_checks, scoring=score,
                   serving=serve, timing=times, train_timing=train_times,
-                  train_long_timing=long_times,
+                  train_long_timing=long_times, train_fp32_timing=fp32_times,
+                  train_dryrun=trained_dryrun,
                   split_timing={str(k): v for k, v in split_times.items()},
                   dlogits_timing=dlogits_time, fused_ln_timing=ln_time,
                   train=trained, train_long=trained_long, eager=eager,

@@ -21,23 +21,24 @@
 // (batch, row, head) with a contiguous last axis, so the gradients of a
 // packed projection go straight into their column blocks of one
 // (B, T, 3F) tensor and those of split views into (B, S, H, D) tensors,
-// with no fold or unfold copy.  fp32 at D in {32, 64, 128}, bf16 at D 32
-// (bf16 at D 64 and 128 runs flash_attn_sm90.cu); causal
-// masking bottom-right aligned (query i sees key j iff j <= i + Tk - Tq,
-// with Tq <= Tk), or none; any Tq and Tk, masked at the ragged edge.
-// P = exp(s - lse) is cast to dO's type for dV and dS = P (dP - delta) to
-// q's type for dQ and dK, every product accumulating in fp32, as in the
-// reference.
+// with no fold or unfold copy.  Head dims D in {16, 32, 64, 80, 96, 128}:
+// fp32 at all of them, bf16 at 16, 32, 80 and 96 (bf16 at D 64 and 128
+// runs flash_attn_sm90.cu); causal masking bottom-right aligned (query i
+// sees key j iff j <= i + Tk - Tq, with Tq <= Tk), or none; any Tq and Tk,
+// masked at the ragged edge.  P = exp(s - lse) is cast to dO's type for
+// dV and dS = P (dP - delta) to q's type for dQ and dK, every product
+// accumulating in fp32, as in the reference.
 //
 // What bounds it on an H100: per (batch, head) the causal backward needs
 // 5*Tq*Tk*D flops (S, dP, dV, dQ, dK, half of each square product) on
 // 4*(Tq + Tk)*D elements read and written; the two passes below recompute
-// S and dP, 7*Tq*Tk*D in all.  In bf16 on the tensor cores that is bound
-// by the bytes up to T ~ 512 and by the arithmetic above; fp32 on FMAs by
-// the arithmetic everywhere past T ~ 160.  bf16 runs on mma.sync m16n8k16
-// (ldmatrix operands, fp32 accumulators); fp32 on FMAs with the same
-// accumulator layout.  Q/dO (dK/dV pass) and K/V (dQ pass) are re-read
-// once per 64-row tile, mostly from L2.
+// S and dP, 7*Tq*Tk*D in all.  bf16 runs on mma.sync m16n8k16 (ldmatrix
+// operands, fp32 accumulators): bound by the bytes up to T ~ 512 and by
+// the arithmetic above.  fp32 runs on the tensor cores in split precision
+// (3xTF32, tile_common.cuh: three tf32 products per fp32 product, an
+// effective 165 TFLOP/s), bound by the arithmetic past T ~ 100, within
+// the reference's fp32 tolerances.  Q/dO (dK/dV pass) and K/V (dQ pass)
+// are re-read once per 64-row tile, mostly from L2.
 //
 // Design (FlashAttention-2 shape, no atomics, so results are
 // deterministic), three launches selected by the `passes` bit mask:
@@ -46,9 +47,18 @@
 //   registers over the query tiles that see those keys, P rebuilt from lse;
 // - dQ (4): one block per (b, h, 64 query rows); dQ accumulates over the
 //   key tiles the rows see.
-// Tiles wholly outside the causal band are skipped in both passes.  Eight
-// warps share a 64-row tile: warp w takes rows 16*(w % 4) and one half of
-// the columns (tile_common.cuh gives the accumulator layout).
+// Tiles wholly outside the causal band are skipped in both passes, and the
+// heaviest causal tiles take the lowest block indices (first keys in the
+// dK/dV pass, last queries in the dQ pass).  The streamed tiles (Q, dO and
+// their lse and delta; K, V) load on cp.async into one shared-memory
+// stage.  A second stage, so the next tile loads while this one is
+// multiplied, was measured on the card (PERF.md, tools/kernel_ab.py):
+// ~10% slower at fp32 d 64 and at d 128 (its dQ pass), 4% faster at
+// d 96, level at d 16 and 80.
+// Eight warps share a 64-row tile: warp w takes rows 16*(w % 4) and one
+// half of the columns (tile_common.cuh gives the accumulator layout); P
+// and dS go through shared memory to the products that take them as the
+// A operand.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,14 +79,19 @@ constexpr int PASS_DELTA = 1, PASS_DKV = 2, PASS_DQ = 4;
 
 template <typename T, int D>
 struct Cfg {
-  static constexpr int LDT = D + tile::pad<T>();   // q, k, v, dO tiles
-  static constexpr int LDP = BN + tile::pad<T>();  // P and dS tiles
+  static constexpr int LDT = D + tile::pad<T>();  // q, k, v, dO tiles
+  static constexpr int LDP = BN + 8;  // P, dS tiles (fp32: 8 mod 32 words)
   static constexpr int NTD = D / 16;  // 8-column blocks per warp over D
   static constexpr size_t TILE = sizeof(T) * (size_t)64 * LDT;
   static constexpr size_t PTILE = sizeof(T) * (size_t)64 * LDP;
   static constexpr size_t STATS = sizeof(float) * 2 * 64;
-  static constexpr size_t dkv_bytes = 4 * TILE + 2 * PTILE + STATS;
-  static constexpr size_t dq_bytes = 4 * TILE + PTILE + STATS;
+  // dK/dV: K, V, Q, dO, lse, delta, P and dS
+  static constexpr size_t dkv_bytes = 4 * TILE + STATS + 2 * PTILE;
+  // dQ: Q, dO, lse, delta, K, V and dS
+  static constexpr size_t dq_bytes = 4 * TILE + STATS + PTILE;
+  static_assert(D % 16 == 0 && dkv_bytes <= tile::SMEM_PER_BLOCK &&
+                    dq_bytes <= tile::SMEM_PER_BLOCK,
+                "head dim not built");
 };
 
 template <typename T>
@@ -198,15 +213,23 @@ attn_dkv_kernel(const BwdArgs<T> a) {
   float* sDelta = sLse + BM;
 
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * BN;  // the first keys see the most queries
   const T* qb = a.sq.head(a.q, b, h);
   const T* dob = a.sdo.head(a.dout, b, h);
   const Warp w;
+  auto load_q = [&](int m0) {
+    tile::copy_rows_async<T, BM, D, C::LDT, THREADS>(qb, a.sq.s_, m0, a.tq,
+                                                     sQ);
+    tile::copy_rows_async<T, BM, D, C::LDT, THREADS>(dob, a.sdo.s_, m0, a.tq,
+                                                     sdO);
+    tile::cp_async_commit();
+    load_stats(a, bh, m0, sLse, sDelta);
+  };
 
-  tile::copy_rows<T, BN, D, C::LDT, THREADS>(a.sk.head(a.k, b, h), a.sk.s_,
-                                             n0, a.tk, sK);
-  tile::copy_rows<T, BN, D, C::LDT, THREADS>(a.sv.head(a.v, b, h), a.sv.s_,
-                                             n0, a.tk, sV);
+  tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(a.sk.head(a.k, b, h),
+                                                   a.sk.s_, n0, a.tk, sK);
+  tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(a.sv.head(a.v, b, h),
+                                                   a.sv.s_, n0, a.tk, sV);
   float dk[C::NTD][4], dv[C::NTD][4];
   tile::zero(dk);
   tile::zero(dv);
@@ -215,28 +238,30 @@ attn_dkv_kernel(const BwdArgs<T> a) {
   // query tile is the one holding max(0, n0 - (Tk - Tq))
   const int m_begin =
       a.causal ? max(0, n0 - (a.tk - a.tq)) / BM * BM : 0;
+  load_q(m_begin);  // one group with K and V; m_begin < Tq always
   for (int m0 = m_begin; m0 < a.tq; m0 += BM) {
-    __syncthreads();  // the previous tile's operands are no longer read
-    tile::copy_rows<T, BM, D, C::LDT, THREADS>(qb, a.sq.s_, m0, a.tq, sQ);
-    tile::copy_rows<T, BM, D, C::LDT, THREADS>(dob, a.sdo.s_, m0, a.tq, sdO);
-    load_stats(a, bh, m0, sLse, sDelta);
-    __syncthreads();
+    if (m0 > m_begin) {
+      __syncthreads();  // every warp is done with the previous tile
+      load_q(m0);
+    }
+    tile::cp_async_wait<0>();
+    __syncthreads();  // this tile is visible to all
 
     float s[4][4], dp[4][4];
     tile::zero(s);
     tile::zero(dp);
     // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-    tile::warp_mma<T, 4, true>(s, sK, C::LDT, sQ, C::LDT, w.wm, w.wn * 32,
+    tile::attn_mma<T, 4, true>(s, sK, C::LDT, sQ, C::LDT, w.wm, w.wn * 32,
                                D);
-    tile::warp_mma<T, 4, true>(dp, sV, C::LDT, sdO, C::LDT, w.wm,
+    tile::attn_mma<T, 4, true>(dp, sV, C::LDT, sdO, C::LDT, w.wm,
                                w.wn * 32, D);
     softmax_grad<T, C::LDP, true>(s, dp, w, n0, m0, a, sLse, sDelta, sP,
                                   sdS);
     __syncthreads();
     // dV += P^T dO,  dK += dS^T Q
-    tile::warp_mma<T, C::NTD, false>(dv, sP, C::LDP, sdO, C::LDT, w.wm,
+    tile::attn_mma<T, C::NTD, false>(dv, sP, C::LDP, sdO, C::LDT, w.wm,
                                      w.wn * (D / 2), BM);
-    tile::warp_mma<T, C::NTD, false>(dk, sdS, C::LDP, sQ, C::LDT, w.wm,
+    tile::attn_mma<T, C::NTD, false>(dk, sdS, C::LDP, sQ, C::LDT, w.wm,
                                      w.wn * (D / 2), BM);
   }
 
@@ -261,16 +286,25 @@ attn_dq_kernel(const BwdArgs<T> a) {
   float* sDelta = sLse + BM;
 
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int m0 = blockIdx.y * BM;
+  // heaviest causal tiles first: block row 0 takes the last query tile
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const T* kb = a.sk.head(a.k, b, h);
   const T* vb = a.sv.head(a.v, b, h);
   const Warp w;
+  auto load_kv = [&](int n0) {
+    tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(kb, a.sk.s_, n0, a.tk,
+                                                     sK);
+    tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(vb, a.sv.s_, n0, a.tk,
+                                                     sV);
+    tile::cp_async_commit();
+  };
 
-  tile::copy_rows<T, BM, D, C::LDT, THREADS>(a.sq.head(a.q, b, h), a.sq.s_,
-                                             m0, a.tq, sQ);
-  tile::copy_rows<T, BM, D, C::LDT, THREADS>(a.sdo.head(a.dout, b, h),
-                                             a.sdo.s_, m0, a.tq, sdO);
+  tile::copy_rows_async<T, BM, D, C::LDT, THREADS>(a.sq.head(a.q, b, h),
+                                                   a.sq.s_, m0, a.tq, sQ);
+  tile::copy_rows_async<T, BM, D, C::LDT, THREADS>(a.sdo.head(a.dout, b, h),
+                                                   a.sdo.s_, m0, a.tq, sdO);
   load_stats(a, bh, m0, sLse, sDelta);
+  load_kv(0);  // one group with Q and dO
   float dq[C::NTD][4];
   tile::zero(dq);
   // keys past the tile's last live query row are masked for every row
@@ -278,24 +312,26 @@ attn_dq_kernel(const BwdArgs<T> a) {
       a.causal ? min(a.tk, min(m0 + BM, a.tq) + a.tk - a.tq) : a.tk;
 
   for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();
-    tile::copy_rows<T, BN, D, C::LDT, THREADS>(kb, a.sk.s_, n0, a.tk, sK);
-    tile::copy_rows<T, BN, D, C::LDT, THREADS>(vb, a.sv.s_, n0, a.tk, sV);
-    __syncthreads();
+    if (n0 > 0) {
+      __syncthreads();  // every warp is done with the previous tile
+      load_kv(n0);
+    }
+    tile::cp_async_wait<0>();
+    __syncthreads();  // this tile is visible to all
 
     float s[4][4], dp[4][4];
     tile::zero(s);
     tile::zero(dp);
     // S = Q K^T and dP = dO V^T: rows are queries, columns keys
-    tile::warp_mma<T, 4, true>(s, sQ, C::LDT, sK, C::LDT, w.wm, w.wn * 32,
+    tile::attn_mma<T, 4, true>(s, sQ, C::LDT, sK, C::LDT, w.wm, w.wn * 32,
                                D);
-    tile::warp_mma<T, 4, true>(dp, sdO, C::LDT, sV, C::LDT, w.wm,
+    tile::attn_mma<T, 4, true>(dp, sdO, C::LDT, sV, C::LDT, w.wm,
                                w.wn * 32, D);
     softmax_grad<T, C::LDP, false>(s, dp, w, m0, n0, a, sLse, sDelta,
                                    nullptr, sdS);
     __syncthreads();
     // dQ += dS K
-    tile::warp_mma<T, C::NTD, false>(dq, sdS, C::LDP, sK, C::LDT, w.wm,
+    tile::attn_mma<T, C::NTD, false>(dq, sdS, C::LDP, sK, C::LDT, w.wm,
                                      w.wn * (D / 2), BN);
   }
 
@@ -371,21 +407,25 @@ cudaError_t run(const void* const* ptrs, const long long* st, const void* lse,
                      tk,
                      causal,
                      scale};
-  if constexpr (sizeof(T) == 2) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
-    return d == 32 ? launch<T, 32>(a, B, passes, stream)
-                   : cudaErrorInvalidValue;
-  } else {
+  switch (d) {
+    case 16:
+      return launch<T, 16>(a, B, passes, stream);
+    case 32:
+      return launch<T, 32>(a, B, passes, stream);
+    case 80:
+      return launch<T, 80>(a, B, passes, stream);
+    case 96:
+      return launch<T, 96>(a, B, passes, stream);
+  }
+  if constexpr (sizeof(T) == 4) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
     switch (d) {
-      case 32:
-        return launch<T, 32>(a, B, passes, stream);
       case 64:
         return launch<T, 64>(a, B, passes, stream);
       case 128:
         return launch<T, 128>(a, B, passes, stream);
-      default:
-        return cudaErrorInvalidValue;
     }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -16,30 +16,38 @@
 // (B, Tq, H, D), each addressed by its own element strides (batch, row,
 // head) with a contiguous last axis, so head-split views of a fused
 // projection, the packed projection itself and folded (B*H, T, D)
-// tensors are read where they lie, with no copy.  fp32 at D in {32, 64,
-// 128}, bf16 at D 32 (bf16 at D 64 and 128 runs flash_attn_sm90.cu).
-// Causal masking is bottom-right aligned as in the
-// reference: query i sees key j iff j <= i + (Tk - Tq); causal with
-// Tq > Tk (fully masked rows) is refused.  Any Tq and Tk: the ragged edge
-// is masked here, where the TPU kernels needed multiples of 128.  Softmax
-// statistics are fp32, masked scores take the finite NEG_INF = -1e30, and
-// p is cast to v's type before the P V product, as in the reference.
+// tensors are read where they lie, with no copy.  Head dims D in {16, 32,
+// 64, 80, 96, 128}: fp32 at all of them, bf16 at 16, 32, 80 and 96 (bf16
+// at D 64 and 128 runs flash_attn_sm90.cu).  Causal masking is
+// bottom-right aligned as in the reference: query i sees key j iff
+// j <= i + (Tk - Tq); causal with Tq > Tk (fully masked rows) is refused.
+// Any Tq and Tk: the ragged edge is masked here, where the TPU kernels
+// needed multiples of 128.  Softmax statistics are fp32, masked scores
+// take the finite NEG_INF = -1e30, and p is cast to v's type before the
+// P V product, as in the reference.
 //
 // What bounds it on an H100: per (batch, head) the causal forward does
-// 2*Tq*Tk*D flops on 2*(Tq + Tk)*D elements.  In bf16 on the tensor cores
-// (~295 flops per byte of device memory) that is bound by the bytes up to
-// T ~ 512 at D = 64 and by the arithmetic above; fp32 runs on FMAs (~20
-// flops per byte) and is bound by the arithmetic past T ~ 160.  bf16
-// products run on mma.sync m16n8k16 with fp32 accumulators and ldmatrix
-// operand loads; fp32 runs on FMAs with the same accumulator layout for
-// its 2e-5 parity.  K/V tiles are re-read once per 64-row query tile,
-// mostly from L2; wgmma, TMA, a load pipeline and larger tiles are later
-// work.
+// 2*Tq*Tk*D flops on 2*(Tq + Tk)*D elements.  bf16 runs on mma.sync
+// m16n8k16 (~295 flops per byte of device memory at the tensor cores'
+// rate): bound by the bytes up to T ~ 512 at D = 64 and by the arithmetic
+// above.  fp32 runs on the tensor cores in split precision (3xTF32,
+// tile_common.cuh): three tf32 products per fp32 product at 495 TFLOP/s,
+// an effective 165 TFLOP/s, so it is bound by the arithmetic past T ~ 100;
+// the split costs two ALU operations per operand value read, and the
+// parity with the fp32 reference stays within its 2e-5.  K/V tiles are
+// re-read once per 64-row query tile, mostly from L2.
 //
-// Design: one 256-thread block per (b, h, 64 query rows); 64-row K/V tiles
-// stream through shared memory, tiles wholly above the causal diagonal
-// are never loaded, and the online softmax keeps its running max and sum
-// in fp32, rescaling the output accumulators (registers) per tile.
+// Design: one 256-thread block per (b, h, 64 query rows), the tiles of
+// the heaviest causal rows launched first (their blocks take the lowest
+// indices), so the short diagonal tiles fill the tail.  64-row K/V tiles
+// stream through a shared-memory ring on cp.async, two stages (the next
+// tile loads while the current one is multiplied) where the registers,
+// not the ring, set the blocks per SM (ring_stages below); tiles wholly
+// above the causal diagonal are never loaded.  S goes through shared
+// memory to the online softmax (four threads a query row), which keeps
+// its running max and sum in fp32 and writes P in place of S (fp32) or
+// beside it (bf16); the output accumulators (registers) are rescaled per
+// tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,16 +65,46 @@ constexpr int BM = 64;        // query rows per tile
 constexpr int BN = 64;        // key rows per tile
 constexpr int THREADS = 256;  // eight warps
 
+// Depth of the K/V ring: two stages unless the second stage's shared
+// memory (228 KB an SM, 1 KB reserved a block) leaves fewer blocks on an
+// SM than min(2, one stage's).  In fp32, ptxas gives these kernels
+// 101-163 registers a thread, so the registers allow at most two blocks
+// of eight warps whatever the shared memory.  Measured on the card
+// (PERF.md, tools/kernel_ab.py), fp32, against one stage: two stages
+// gain 1-4% at d 16 and 64, where two blocks still fit, and 10-25% at
+// d 128, where one fits either way; they lose ~20% at d 80 and 96, where
+// they leave one block instead of two, so those keep one stage.  bf16
+// (d 16, 32, 80, 96) measured level with one stage.
+constexpr int blocks_per_sm(size_t bytes) {
+  return static_cast<int>((228 * 1024) / (bytes + 1024));
+}
+constexpr int ring_stages(size_t one_stage, size_t two_stages) {
+  const int keep = blocks_per_sm(one_stage) < 2 ? blocks_per_sm(one_stage) : 2;
+  return two_stages <= tile::SMEM_PER_BLOCK &&
+                 blocks_per_sm(two_stages) >= keep
+             ? 2
+             : 1;
+}
+
 template <typename T, int D>
 struct Cfg {
-  static constexpr int LDT = D + tile::pad<T>();   // q, k, v tiles
-  static constexpr int LDP = BN + tile::pad<T>();  // P tile
-  static constexpr int LDS = BN + 4;               // fp32 score tile
+  static constexpr int LDT = D + tile::pad<T>();  // q, k, v tiles
+  static constexpr int LDP = BN + 8;  // P tile (fp32: 8 mod 32 words)
+  // fp32 writes P over S (each thread rewrites the scores it read); bf16
+  // keeps an fp32 score tile beside its bf16 P tile
+  static constexpr bool P_OVER_S = sizeof(T) == 4;
+  static constexpr int LDS = P_OVER_S ? LDP : BN + 4;  // fp32 score tile
   static constexpr int NTD = D / 16;  // 8-column blocks per warp over D
   static constexpr size_t TILE = sizeof(T) * (size_t)64 * LDT;
-  static constexpr size_t bytes = 3 * TILE + sizeof(float) * (size_t)BM * LDS +
-                                  sizeof(T) * (size_t)BM * LDP +
-                                  sizeof(float) * 2 * BM;
+  // Q, the score and P tiles and the row statistics; then the K/V ring
+  static constexpr size_t FIXED =
+      TILE + sizeof(float) * (size_t)BM * LDS +
+      (P_OVER_S ? 0 : sizeof(T) * (size_t)BM * LDP) + sizeof(float) * 2 * BM;
+  static constexpr int STAGES =
+      ring_stages(FIXED + 2 * TILE, FIXED + 4 * TILE);
+  static constexpr size_t bytes = FIXED + 2 * STAGES * TILE;
+  static_assert(D % 16 == 0 && bytes <= tile::SMEM_PER_BLOCK,
+                "head dim not built");
 };
 
 template <typename T>
@@ -87,15 +125,18 @@ flash_fwd_kernel(const FwdArgs<T> a) {
   using C = Cfg<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BM * C::LDT;
-  T* sV = sK + BN * C::LDT;
-  float* sS = reinterpret_cast<float*>(sV + BN * C::LDT);
-  T* sP = reinterpret_cast<T*>(sS + BM * C::LDS);
-  float* sCorr = reinterpret_cast<float*>(sP + BM * C::LDP);
+  T* sKV = sQ + BM * C::LDT;  // stage s: K at 2s, V at 2s + 1
+  float* sS = reinterpret_cast<float*>(sKV + 2 * C::STAGES * BN * C::LDT);
+  T* sP = C::P_OVER_S ? reinterpret_cast<T*>(sS)
+                      : reinterpret_cast<T*>(sS + BM * C::LDS);
+  float* sCorr = C::P_OVER_S
+                     ? sS + BM * C::LDS
+                     : reinterpret_cast<float*>(sP + BM * C::LDP);
   float* sL = sCorr + BM;
 
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int m0 = blockIdx.y * BM;
+  // heaviest causal tiles first: block row 0 takes the last query tile
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
   const int offset = a.tk - a.tq;
   const T* qb = a.sq.head(a.q, b, h);
   const T* kb = a.sk.head(a.k, b, h);
@@ -104,8 +145,18 @@ flash_fwd_kernel(const FwdArgs<T> a) {
   const int row = threadIdx.x >> 2;  // softmax: four lanes per query row
   const int sub = threadIdx.x & 3;
   const int qi = m0 + row;
+  auto load_kv = [&](int stage, int n0) {
+    T* dst = sKV + 2 * stage * BN * C::LDT;
+    tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(kb, a.sk.s_, n0, a.tk,
+                                                     dst);
+    tile::copy_rows_async<T, BN, D, C::LDT, THREADS>(vb, a.sv.s_, n0, a.tk,
+                                                     dst + BN * C::LDT);
+    tile::cp_async_commit();
+  };
 
-  tile::copy_rows<T, BM, D, C::LDT, THREADS>(qb, a.sq.s_, m0, a.tq, sQ);
+  tile::copy_rows_async<T, BM, D, C::LDT, THREADS>(qb, a.sq.s_, m0, a.tq,
+                                                   sQ);
+  load_kv(0, 0);  // one group: Q and the first K/V tile
   float m_i = NEG_INF, l_i = 0.f;
   float o[C::NTD][4];
   tile::zero(o);
@@ -114,15 +165,23 @@ flash_fwd_kernel(const FwdArgs<T> a) {
   const int n_end =
       a.causal ? min(a.tk, min(m0 + BM, a.tq) + offset) : a.tk;
 
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's sK, sV, sP are no longer read
-    tile::copy_rows<T, BN, D, C::LDT, THREADS>(kb, a.sk.s_, n0, a.tk, sK);
-    tile::copy_rows<T, BN, D, C::LDT, THREADS>(vb, a.sv.s_, n0, a.tk, sV);
+  for (int n0 = 0, it = 0; n0 < n_end; n0 += BN, ++it) {
+    const int stage = it % C::STAGES;
+    if (C::STAGES == 1 && it > 0) {
+      __syncthreads();  // every warp is done with the previous tile
+      load_kv(0, n0);
+    }
+    tile::cp_async_wait<0>();
+    // this tile is visible to all, and every warp is done with the
+    // previous one (its stage, sS and sP are free)
     __syncthreads();
+    if (C::STAGES == 2 && n0 + BN < n_end) load_kv(stage ^ 1, n0 + BN);
+    const T* sK = sKV + 2 * stage * BN * C::LDT;
+    const T* sV = sK + BN * C::LDT;
 
     float s[4][4];
     tile::zero(s);
-    tile::warp_mma<T, 4, true>(s, sQ, C::LDT, sK, C::LDT, w.wm, w.wn * 32,
+    tile::attn_mma<T, 4, true>(s, sQ, C::LDT, sK, C::LDT, w.wm, w.wn * 32,
                                D);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -170,7 +229,7 @@ flash_fwd_kernel(const FwdArgs<T> a) {
       o[j][2] *= c1;
       o[j][3] *= c1;
     }
-    tile::warp_mma<T, C::NTD, false>(o, sP, C::LDP, sV, C::LDT, w.wm,
+    tile::attn_mma<T, C::NTD, false>(o, sP, C::LDP, sV, C::LDT, w.wm,
                                      w.wn * (D / 2), BN);
   }
 
@@ -225,20 +284,25 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
                      tk,
                      causal,
                      scale};
-  if constexpr (sizeof(T) == 2) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
-    return d == 32 ? launch<T, 32>(a, B, stream) : cudaErrorInvalidValue;
-  } else {
+  switch (d) {
+    case 16:
+      return launch<T, 16>(a, B, stream);
+    case 32:
+      return launch<T, 32>(a, B, stream);
+    case 80:
+      return launch<T, 80>(a, B, stream);
+    case 96:
+      return launch<T, 96>(a, B, stream);
+  }
+  if constexpr (sizeof(T) == 4) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
     switch (d) {
-      case 32:
-        return launch<T, 32>(a, B, stream);
       case 64:
         return launch<T, 64>(a, B, stream);
       case 128:
         return launch<T, 128>(a, B, stream);
-      default:
-        return cudaErrorInvalidValue;
     }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

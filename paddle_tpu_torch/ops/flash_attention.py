@@ -14,8 +14,11 @@ made in either direction:
   backward from the saved lse (rows 6, 7, 8 and 9 here, rows 4 and 5
   through :mod:`.flash_attention_qkv`).
 
-Those two carry fp32 (FMAs) and bf16 at head dim 32 (``mma.sync``).  bf16
-at head dims 64 and 128 goes to ``csrc/flash_attn_sm90.cu``, the same
+Those two are built at the head dims of :data:`HEAD_DIMS` (16, 32, 64,
+80, 96, 128) and carry fp32 (on the tensor cores in split precision,
+3xTF32 ``mma.sync``) and bf16 at head dims 16, 32, 80 and 96
+(``mma.sync``).  bf16 at head dims 64 and 128 goes to
+``csrc/flash_attn_sm90.cu``, the same
 forward and backward built for Hopper on ``wgmma`` and TMA tile loads
 (:func:`kernel_route`); its operands are described to TMA by
 :func:`tma_geometry`, and an operand TMA cannot describe raises.
@@ -49,7 +52,8 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attn_fwd",
            "kernel_route", "tma_geometry"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# head dims the kernels are built at: every other d raises on the card
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 SM90_HEAD_DIMS = (64, 128)   # bf16 head dims of csrc/flash_attn_sm90.cu
 SMALL_T_MAX = 1024      # flash_attention.py:43
 MID_T_MAX = 4096        # flash_attention.py:52
@@ -287,13 +291,19 @@ def _layout_ok(x: torch.Tensor) -> bool:
         if n > 1)
 
 
+def _check_head_dim(name: str, d: int) -> None:
+    """Raises ``ValueError`` for a head dim the kernels are not built at
+    (:data:`HEAD_DIMS`); there is no fallback to the plain version."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not built; the kernels "
+                         f"have {HEAD_DIMS}")
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: the kernel takes fp32 or bf16; got {dtype}")
-    if tensors[0].shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {tensors[0].shape[-1]} not "
-                         f"built; the kernel has {HEAD_DIMS}")
+    _check_head_dim(name, tensors[0].shape[-1])
     for t in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed types {dtype} and {t.dtype}")
@@ -346,7 +356,8 @@ def kernel_route(dtype: torch.dtype, head_dim: int,
     """Which CUDA library takes an attention launch: ``"sm90"``
     (``csrc/flash_attn_sm90.cu``, wgmma and TMA) for bf16 at a head dim of
     :data:`SM90_HEAD_DIMS`, else ``"tile"`` (``csrc/flash_attn_fwd.cu`` /
-    ``flash_attn_bwd.cu``: fp32 on FMAs, bf16 at d 32 on ``mma.sync``).
+    ``flash_attn_bwd.cu``: fp32 in 3xTF32, bf16 at d 16, 32, 80 and 96,
+    all on ``mma.sync``).
     A pure function of the type, the head dim and the operands' layouts:
     an ``"sm90"`` operand that TMA cannot describe (:func:`tma_geometry`)
     raises ``ValueError``; it is never sent to the other library."""

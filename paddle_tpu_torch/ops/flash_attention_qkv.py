@@ -1,8 +1,9 @@
 """Packed-QKV flash attention, forward and backward — the counterpart of
 ``flash_attention_qkv`` in ``paddle_tpu/ops/pallas/flash_attention.py``
 (its custom VJPs ``_flash_qkv`` for T <= 512 and ``_flash_qkv_mid`` for
-512 < T <= 2048; longer sequences, which the reference sends to its split
-path, take the same kernels here, which stream K/V at any T).
+512 < T <= 2048; longer sequences and head dims outside 32/64/128, which
+the reference sends to its split path, take the same kernels here, which
+stream K/V at any T and are built at every head dim of ``HEAD_DIMS``).
 
 ``qkv`` is the fused projection output ``(B, T, 3·H·d)`` laid out
 ``[q heads | k heads | v heads]`` (the reference's ``reshape(B, T, 3H, d)``
@@ -155,11 +156,12 @@ def _route(name: str, qkv: torch.Tensor, num_heads: int, *others) -> bool:
         raise ValueError(f"{name}: tensors on different devices: {devices}")
     if qkv.device.type == "cpu":
         return False
+    # the split kernels' head dims: d 16 runs them too, on head views of
+    # the projection, where the reference's packed entry reroutes to its
+    # split path
+    _fa._check_head_dim(name, d)
     if qkv.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU, not {qkv.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built; the kernel has "
-                         f"{HEAD_DIMS}")
     return True
 
 

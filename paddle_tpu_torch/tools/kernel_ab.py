@@ -15,7 +15,14 @@ attention kernel calls of the serving and train paths, at their shapes:
 - ``flash_qkv_fwd`` and ``flash_qkv_bwd`` on a packed ``(B, T, 3F)``
   projection: B 128, T 512, H 12, d 64, bf16, causal (rows 3 and 4), at
   B 8, T 1024, fp32 (row 5), and bf16 at B 16, T 2048 with d 64 (H 16)
-  and d 128 (H 8), causal (the bf16 head dims of ``flash_attn_sm90``).
+  and d 128 (H 8), causal (the bf16 head dims of ``flash_attn_sm90``);
+- ``flash_attn_fwd`` with lse and ``flash_attn_bwd`` on head views of one
+  ``(B, T, 3, H, d)`` fp32 tensor, H 12, d 64, causal, at the split-layout
+  timing shapes of ``chip_smoke.py`` (``SPLIT_TIMING``): B 32, T 512
+  (backward row 6), B 32, T 1024 (row 7) and B 1, T 8192 (forward row 2,
+  backward rows 8 + 9), and at B 4, T 2048, H 12 with the other head
+  dims of the tile kernels, fp32 at 16, 80, 96 and 128 and bf16 at 16,
+  32, 80 and 96, whose shared-memory tiles differ from d 64's.
 
 Run it on two checkouts in turns (A, B, B, A) inside one call to compare
 them; each run prints one JSON line and, with ``--json``, writes it.
@@ -88,6 +95,37 @@ def main(argv=None) -> int:
                    for _ in range(3))
         out["row1_flash_attn_fwd_ms"] = _time_ms(
             torch, lambda: fa.flash_attn_fwd(q, k, v, causal=True))
+        out["row1_flash_attn_fwd_device_ms"] = _device_ms(
+            torch, lambda: fa.flash_attn_fwd(q, k, v, causal=True))
+        del q, k, v
+        f32, b16 = torch.float32, torch.bfloat16
+        for B, T, d, dt in ((32, 512, 64, f32), (32, 1024, 64, f32),
+                            (1, 8192, 64, f32), *((4, 2048, d, f32) for d in
+                                                  (16, 80, 96, 128)),
+                            *((4, 2048, d, b16) for d in (16, 32, 80, 96))):
+            q, k, v = torch.randn((B, T, 3, 12, d), generator=gen,
+                                  device="cuda").to(dt).unbind(2)
+            g = torch.randn((B, T, 12, d), generator=gen,
+                            device="cuda").to(dt)
+            try:
+                o, lse = fa.flash_attn_fwd(q, k, v, causal=True,
+                                           return_lse=True)
+            except ValueError as e:   # a checkout without this head dim
+                out[f"split_{d}_{dt}_error"] = str(e)
+                continue
+
+            def split_fwd():
+                fa.flash_attn_fwd(q, k, v, causal=True, return_lse=True)
+
+            def split_bwd():
+                fa.flash_attn_bwd(q, k, v, o, lse, g, causal=True)
+
+            for name, fn in (("fwd", split_fwd), ("bwd", split_bwd)):
+                key = (f"split_{name}_{'fp32' if dt == f32 else 'bf16'}"
+                       f"_b{B}_t{T}" + (f"_d{d}" if d != 64 else ""))
+                out[f"{key}_ms"] = _time_ms(torch, fn)
+                out[f"{key}_device_ms"] = _device_ms(torch, fn)
+            del q, k, v, g, o, lse
         for key, B, T, H, d, dt in (
                 ("bf16_b128_t512", 128, 512, 12, 64, torch.bfloat16),
                 ("fp32_b8_t1024", 8, 1024, 12, 64, torch.float32),

@@ -486,3 +486,132 @@ def test_sm90_refuses_an_operand_tma_cannot_describe(card):
     with pytest.raises(ValueError, match="16-byte aligned"):
         pfa.flash_attn_fwd(q, q, q)
     assert pfa.SM90_FWD_LAUNCHES == before
+
+
+# -- head dims 16, 80 and 96 (fault C4) and the fp32 product -----------------------
+NEW_DIMS = (16, 80, 96)
+
+
+def _split_check(B, tq, tk, H, d, causal, dtype, gen):
+    """Forward with lse and backward on head views of one packed
+    projection (tq == tk) or separate tensors, against the plain
+    versions; returns the launches counted."""
+    if tq == tk:
+        q, k, v = torch.rand((B, tq, 3, H, d), generator=gen,
+                             device="cuda").to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.rand((B, t, H, d), generator=gen,
+                              device="cuda").to(dtype) for t in (tq, tk, tk))
+    g = torch.rand((B, tq, H, d), generator=gen, device="cuda").to(dtype)
+    f0, b0 = pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES
+    out, lse = pfa.flash_attn_fwd(q, k, v, causal=causal, return_lse=True)
+    grads = pfa.flash_attn_bwd(q, k, v, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    launched = (pfa.FWD_LAUNCHES - f0, pfa.BWD_LAUNCHES - b0)
+    ref, ref_lse = pfa.flash_attn_fwd_ref(q, k, v, causal=causal,
+                                          return_lse=True)
+    ref_grads = pfa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                       causal=causal)
+    case = (B, tq, tk, H, d, causal, dtype)
+    atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol,
+                               msg=lambda m: f"{case}: {m}")
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5,
+                               msg=lambda m: f"{case}: {m}")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=GRAD_ATOL[dtype],
+                                   msg=lambda m: f"{case} {name}: {m}")
+    return launched
+
+
+def test_new_head_dims_split_layout_match_plain_versions(card):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for d in NEW_DIMS:
+        for tq, tk in ((7, 7), (100, 100), (128, 256), (1000, 1000)):
+            for causal in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    assert _split_check(2, tq, tk, 2, d, causal, dtype,
+                                        gen) == (1, 1)
+
+
+def test_new_head_dims_packed_match_plain_versions(card):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for d in NEW_DIMS:
+        for T in (16, 100, 512, 1024):
+            for causal in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    qkv = torch.rand((2, T, 3 * 2 * d), generator=gen,
+                                     device="cuda").to(dtype)
+                    g = torch.rand((2, T, 2 * d), generator=gen,
+                                   device="cuda").to(dtype)
+                    f0, b0 = fq.FWD_LAUNCHES, fq.BWD_LAUNCHES
+                    _packed_check(qkv, g, 2, causal, dtype)
+                    assert (fq.FWD_LAUNCHES, fq.BWD_LAUNCHES) == (
+                        f0 + 1, b0 + 1)
+
+
+def test_other_head_dims_still_raise(card):
+    for d in (24, 256):
+        x = torch.rand(1, 8, 2, d, device="cuda")
+        with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 96, 128\)"):
+            pfa.flash_attn_fwd(x, x, x)
+        with pytest.raises(ValueError, match=r"\(16, 32, 64, 80, 96, 128\)"):
+            fq.flash_qkv_fwd(torch.rand(1, 8, 3 * 2 * d, device="cuda"), 2)
+
+
+def test_fp32_rows_2_and_7_at_their_timing_shapes(card):
+    # row 2: the streaming forward with lse (B 1, T 8192, H 12, d 64);
+    # row 7: the tiled backward (B 32, T 1024, H 12, d 64); fp32, causal
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    assert _split_check(1, 8192, 8192, 12, 64, True, torch.float32,
+                        gen) == (1, 1)
+    assert pfa._pallas_mode(8192, 8192, True) == "stream"
+    assert _split_check(32, 1024, 1024, 12, 64, True, torch.float32,
+                        gen) == (1, 1)
+    assert pfa.reference_rows("bwd", pfa._pallas_mode(1024, 1024, True),
+                              1024) == (7,)
+
+
+def test_fp32_backward_repeats_bit_for_bit(card):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn((2, 1000, 4, 64), generator=gen,
+                              device="cuda") for _ in range(4))
+    out, lse = pfa.flash_attn_fwd(q, k, v, causal=True, return_lse=True)
+    first = pfa.flash_attn_bwd(q, k, v, out, lse, g, causal=True)
+    second = pfa.flash_attn_bwd(q, k, v, out, lse, g, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_dryrun_config_compiled_step_through_the_kernels(card):
+    # the reference's dryrun model (__graft_entry__.py:101-102), head dim
+    # 16: one fp32 step through the kernels against the same step with the
+    # plain versions swapped in (relative L2 1e-4 on the gradients)
+    from unittest import mock
+    from paddle_tpu_torch.models import build_spmd_train_step
+    from paddle_tpu_torch.models.gpt_spmd import _leaves, _rebuild
+    cfg = GPTConfig(vocab_size=128, hidden_size=32, num_layers=4,
+                    num_heads=2, max_seq_len=32, ffn_mult=2)
+    step, init_fn = build_spmd_train_step(cfg, device="cuda")
+    params, opt = init_fn(0)
+    rs = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rs.randint(0, 128, (4, 16))).cuda()
+                   for _ in range(2))
+
+    def one_step():
+        p, o = (_rebuild(t, {k: v.clone() for k, v in _leaves(t).items()})
+                for t in (params, opt))
+        loss, _, o = step(p, o, ids, labels)
+        return loss.item(), {k: v / 0.1 for k, v in _leaves(o["m"]).items()}
+
+    f0, b0 = fq.FWD_LAUNCHES, fq.BWD_LAUNCHES
+    loss, grads = one_step()
+    assert (fq.FWD_LAUNCHES - f0, fq.BWD_LAUNCHES - b0) == (8, 4)
+    with mock.patch.object(fq, "flash_qkv_fwd", fq.flash_qkv_fwd_ref), \
+            mock.patch.object(fq, "flash_qkv_bwd", fq.flash_qkv_bwd_ref):
+        ref_loss, ref_grads = one_step()
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, want in ref_grads.items():
+        err = ((grads[name] - want).norm() / want.norm().clamp_min(1e-30))
+        assert err.item() <= 1e-4, name
