@@ -17,8 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             split-layout forward with lse and backward T 128 ... 8192 and
             Tq < Tk, every built head dim; the fp32 kernels and the plain
             fp32 versions against float64, causal, T 1024 ... 8192; LM
-            head forward and dlogits up to N
-            4096, V 30528; the fused epilogue at D 64 ... 4096, N 1 ...
+            head forward and dlogits up to N 4096, V 30528, on both
+            routes (bf16 on softmax_xent_sm90.cu, fp32 and bf16 V 700 on
+            the tile kernels), N and V past the sm90 tile, labels 0,
+            V - 1, -1 and V; the fused epilogue at D 64 ... 4096, N 1 ...
             16384, p 0 / 0.1 / 0.5, and its dropout mask against the hash
             bit for bit)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
@@ -33,19 +35,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
             3 and 5 at B 8, T 1024; 2 and 6-9 at T 512, 1024 and 8192;
             each with its fp32 bound and its 3xTF32 bound, and the names
             of the kernels SDPA runs there, from a torch.profiler trace;
-            the head's dlogits at one chunk; the fused epilogue at the
-            encoder's N 16384, D 768), each kernel's result held against
-            its plain version there too; rows 3 and 4 and SDPA also in
-            device time (torch.profiler)
+            the head's forward at N 65536 and dlogits at one chunk; the
+            fused epilogue at the encoder's N 16384, D 768), each
+            kernel's result held against its plain version there too;
+            rows 3, 4, 10, 11 and SDPA also in device time
+            (torch.profiler)
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
-            launches, all of them flash_attn_sm90's, the fused head, 16
-            dlogits launches) against the
+            launches, all of them flash_attn_sm90's, the fused head's
+            forward and 16 dlogits launches, all softmax_xent_sm90's)
+            against the
             same step with the plain versions swapped in; two runs of two
             steps repeat bit for bit; the loss falls over 12 steps on one
             batch; step ms, seq/s, MFU and peak memory
 8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
-   long     step through the kernels (2 dlogits launches) against the
+   long     step through the kernels (2 dlogits launches, the head on
+            the tile kernels) against the
             plain versions; the same for the reference's dryrun model
             (V 128, hidden 32, 2 heads: head dim 16, L 4, B 4, T 16)
 9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
@@ -139,10 +144,18 @@ LSE_ATOL = 1e-4
 SHARP_QKV = [(T, d) for T in (100, 512, 2048) for d in (64, 128)] + [
     (4096, 64)]
 SHARP_GRAD_RTOL = 2e-2
-# LM head (row 10): lse and at from exact products of the inputs summed in
-# fp32 by both versions, in another order; bf16 logits here reach ~10,
-# where fp32 sums of 768 terms differ in their last bits
-HEAD_SHAPES = ((256, 64, 512), (256, 64, 700), (4096, 768, 30528))
+# LM head (rows 10 and 11): lse and at from exact products of the inputs
+# summed in fp32 by both versions, in another order; bf16 logits here
+# reach ~10, where fp32 sums of 768 terms differ in their last bits.  bf16
+# takes csrc/softmax_xent_sm90.cu where D and V are multiples of 8 (V 700
+# stays on the tile kernels, as does fp32); the last three shapes are the
+# sm90 route's edges: N past a multiple of its 128-row tile, V past a
+# multiple of its 256-column tile (30528 = 119 x 256 + 64, 520 = 2 x 256 +
+# 8), a one-chunk depth and a ragged one.  The first four labels of every
+# case are 0, V - 1, -1 and V (the last two select nothing: at 0, no
+# column of dlogits loses 1)
+HEAD_SHAPES = ((256, 64, 512), (256, 64, 700), (4096, 768, 30528),
+               (1000, 768, 30528), (4096, 64, 520), (130, 40, 264))
 HEAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 # the train path (bench.py:119-124): BERT-base GPT, B 128, T 512, bf16
@@ -249,7 +262,7 @@ def ptxas_summary(report: str):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]*kernel[a-z_]*)", m.group(1))
+            k = re.search(r"([a-z_]*kernel[a-z0-9_]*)", m.group(1))
             args = re.findall(r"Li(\d+)E", m.group(1))
             if "bfloat16" in m.group(1):
                 args.insert(0, "bf16")
@@ -396,8 +409,26 @@ def check_qkv_kernels(torch, fq, dev):
     return results
 
 
+def _head_labels(torch, rs, N, V, dev, dtype=None):
+    """Labels for a head check: random, the first four 0, V - 1, -1, V."""
+    lab = torch.from_numpy(rs.randint(0, V, N))
+    edge = torch.tensor([0, V - 1, -1, V])[:N]
+    lab[:len(edge)] = edge
+    return lab.to(dev, dtype)
+
+
+def _routed(sx, x, w, before, kind):
+    """The route (:func:`softmax_xent._route`) a head launch took, checked
+    against the route counters: exactly one launch on it, none elsewhere
+    (a CPU tensor's plain version is not checked)."""
+    route = sx._route(x, w)
+    moved = {k: v - before[k] for k, v in sx.ROUTE_LAUNCHES.items()}
+    want = {k: int(k == f"{route}_{kind}") for k in moved}
+    return route, moved == want or not x.is_cuda
+
+
 def check_head_kernel(torch, sx, dev):
-    """Row 10: lse and at against the plain version."""
+    """Row 10 on both routes: lse and at against the plain version."""
     import numpy as np
     rs = np.random.RandomState(4)
     results = []
@@ -407,19 +438,22 @@ def check_head_kernel(torch, sx, dev):
                 dev, dtype)
             w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
                 np.float32)).to(dev, dtype)
-            lab = torch.from_numpy(rs.randint(0, V, N)).to(dev)
+            lab = _head_labels(torch, rs, N, V, dev)
+            before = dict(sx.ROUTE_LAUNCHES)
             lse, at = sx.softmax_xent_fwd(x, w, lab)
+            route, counted = _routed(sx, x, w, before, "fwd")
             ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, w, lab)
             sync(torch, dev)
             name = str(dtype).replace("torch.", "")
             err = max((lse - ref_lse).abs().max().item(),
                       (at - ref_at).abs().max().item())
-            ok = err <= HEAD_ATOL[name]
-            results.append(dict(n=N, d=D, v=V, dtype=name, max_abs_err=err,
-                                atol=HEAD_ATOL[name], ok=ok))
-            log(f"  softmax_xent_fwd N={N} D={D} V={V} {name:8s} lse/at "
-                f"max_abs_err={err:.3e} (atol {HEAD_ATOL[name]:.0e}) "
-                f"{'ok' if ok else 'FAIL'}")
+            ok = err <= HEAD_ATOL[name] and counted
+            results.append(dict(n=N, d=D, v=V, dtype=name, route=route,
+                                max_abs_err=err, atol=HEAD_ATOL[name],
+                                ok=ok))
+            log(f"  softmax_xent_fwd N={N} D={D} V={V} {name:8s} "
+                f"{route:5s} lse/at max_abs_err={err:.3e} (atol "
+                f"{HEAD_ATOL[name]:.0e}) {'ok' if ok else 'FAIL'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} LM-head checks disagree with the "
@@ -659,7 +693,8 @@ def _dlogits_err(torch, out, ref, g):
 
 
 def check_dlogits(torch, sx, dev):
-    """Row 11: the head's dlogits against the plain version."""
+    """Row 11 on both routes: the head's dlogits against the plain
+    version."""
     import numpy as np
     rs = np.random.RandomState(9)
     results = []
@@ -669,19 +704,24 @@ def check_dlogits(torch, sx, dev):
                 dev, dtype)
             w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
                 np.float32)).to(dev, dtype)
-            lab = torch.from_numpy(rs.randint(0, V, N)).to(dev, torch.int32)
+            lab = _head_labels(torch, rs, N, V, dev, torch.int32)
             lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
             g = torch.tensor(DLOGITS_G, device=dev)
+            before = dict(sx.ROUTE_LAUNCHES)
             out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+            route, counted = _routed(sx, x, w, before, "dlogits")
             ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
             sync(torch, dev)
             name = str(dtype).replace("torch.", "")
             err, tol, ok = _dlogits_err(torch, out, ref, DLOGITS_G)
-            ok = ok and out.dtype == dtype and out.shape == (N, V)
-            results.append(dict(n=N, d=D, v=V, dtype=name, g=DLOGITS_G,
-                                max_abs_err=err, tolerance=tol, ok=ok))
+            ok = ok and out.dtype == dtype and out.shape == (N, V) \
+                and counted
+            results.append(dict(n=N, d=D, v=V, dtype=name, route=route,
+                                g=DLOGITS_G, max_abs_err=err, tolerance=tol,
+                                ok=ok))
             log(f"  softmax_xent_dlogits N={N} D={D} V={V} {name:8s} "
-                f"max_abs_err={err:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+                f"{route:5s} max_abs_err={err:.3e} ({tol}) "
+                f"{'ok' if ok else 'FAIL'}")
             del x, w, out, ref
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -1037,9 +1077,13 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         extra += (f", torch.matmul(x, w) alone {r['matmul_ms']:.4f} ms"
                   if "matmul_ms" in r else "")
         extra += (f"; device time (torch.profiler) kernel "
-                  f"{r['device_ms']:.4f} ms, library "
-                  f"{r['library_device_ms']:.4f} ms"
-                  if "device_ms" in r else "")
+                  f"{r['device_ms']:.4f} ms" if "device_ms" in r else "")
+        extra += (f", library {r['library_device_ms']:.4f} ms"
+                  if "library_device_ms" in r else "")
+        if "route" in r:
+            r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+            extra += (f"; route {r['route']}, {r['share_of_bound']:.1%} of "
+                      f"the bound in device time")
         extra += (f", 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms"
                   if "bound_3xtf32_ms" in r else "")
         extra += (f"; library kernels {kernels_line(r['library_kernels'])}"
@@ -1060,6 +1104,11 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
 
 
 def _time_head(torch, sx, gen, dev, dt, N, D, V):
+    """Row 10 at the train path's shape: CUDA events and device time (both
+    launches: the tiles and, on the sm90 route, the fold of their
+    partials), its route, the plain version and ``torch.matmul(x, w)``
+    alone (the product without the softmax, writing the logits)."""
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
     name = str(dt).replace("torch.", "")
     el = torch.empty((), dtype=dt).element_size()
     x = (torch.randn((N, D), generator=gen, device=dev)).to(dt)
@@ -1072,11 +1121,13 @@ def _time_head(torch, sx, gen, dev, dt, N, D, V):
                   (at - ref_at).abs().max().item())
         del ref_lse, ref_at
         ms = time_ms(torch, lambda: sx.softmax_xent_fwd(x, hw, lab))
+        dev_ms = device_ms_per_call(lambda: sx.softmax_xent_fwd(x, hw, lab))
         plain = time_ms(torch, lambda: sx.softmax_xent_fwd_ref(x, hw, lab),
                         reps=5)
         mm = time_ms(torch, lambda: torch.matmul(x, hw), reps=10)
     return dict(
-        ms=ms, plain_ms=plain, library_ms=None,
+        ms=ms, device_ms=dev_ms, route=sx._route(x, hw), plain_ms=plain,
+        library_ms=None,
         library="none (no single PyTorch call computes lse and the label "
                 "logit)", matmul_ms=mm, max_abs_err=err,
         atol=HEAD_ATOL[name], shape=f"N {N}, D {D}, V {V}, {name}",
@@ -1257,7 +1308,8 @@ def timing_dlogits(torch, sx, cfg, dev="cuda"):
     D 768, V 30528, bf16); library: the chunk's pb as the step formed it
     before the kernel (``matmul_f32``, which is ``torch.mm(...,
     out_dtype=float32)`` for bf16 on the card, ``exp``, the label index,
-    the scale and the cast)."""
+    the scale and the cast).  CUDA events and device time."""
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
     w_ = cfg["width"]
     D, V = w_["hidden_size"], w_["vocab_size"]
     N = cfg["batch"] * cfg["seq"]
@@ -1285,6 +1337,8 @@ def timing_dlogits(torch, sx, cfg, dev="cuda"):
 
         ms = time_ms(torch, lambda: sx.softmax_xent_dlogits(x, w, lab, lse,
                                                             g))
+        dev_ms = device_ms_per_call(lambda: sx.softmax_xent_dlogits(
+            x, w, lab, lse, g))
         plain = time_ms(torch, lambda: sx.softmax_xent_dlogits_ref(
             x, w, lab, lse, g), reps=5)
         lib = time_ms(torch, step_pb, reps=10)
@@ -1294,7 +1348,8 @@ def timing_dlogits(torch, sx, cfg, dev="cuda"):
     rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
     b_ms, b_by = bound(flops, nbytes, rate)
     per_step = N // C
-    row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+    row = dict(ms=ms, device_ms=dev_ms, route=sx._route(x, w),
+               share_of_bound=b_ms / dev_ms, plain_ms=plain, library_ms=lib,
                library="the chunk's pb as formed before the kernel: "
                        "torch.mm(x, w, out_dtype=float32), exp, label "
                        "index, scale, cast",
@@ -1303,6 +1358,8 @@ def timing_dlogits(torch, sx, cfg, dev="cuda"):
                ms_per_step=ms * per_step, max_abs_err=err, tolerance=tol,
                shape=f"C {C}, D {D}, V {V}, {cfg['dtype']}", ok=ok)
     log(f"  softmax_xent_dlogits ({row['shape']}): kernel {ms:.4f} ms, "
+        f"device time {dev_ms:.4f} ms (route {row['route']}, "
+        f"{row['share_of_bound']:.1%} of the bound), "
         f"plain {plain:.4f} ms, the step's former pb {lib:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP at "
         f"{rate / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
@@ -1345,6 +1402,8 @@ def _plain_kernels(fq, sx):
 def _reset(fq, sx):
     fq.FWD_LAUNCHES = fq.BWD_LAUNCHES = sx.LAUNCHES = 0
     sx.DLOGITS_LAUNCHES = 0
+    for k in sx.ROUTE_LAUNCHES:
+        sx.ROUTE_LAUNCHES[k] = 0
     fq._fa.SM90_FWD_LAUNCHES = fq._fa.SM90_BWD_LAUNCHES = 0
 
 
@@ -1353,7 +1412,9 @@ def _launches(fq, sx):
                 flash_attn_sm90_fwd=fq._fa.SM90_FWD_LAUNCHES,
                 flash_attn_sm90_bwd=fq._fa.SM90_BWD_LAUNCHES,
                 softmax_xent_fwd=sx.LAUNCHES,
-                softmax_xent_dlogits=sx.DLOGITS_LAUNCHES)
+                softmax_xent_dlogits=sx.DLOGITS_LAUNCHES,
+                **{f"softmax_xent_{k}": v
+                   for k, v in sx.ROUTE_LAUNCHES.items()})
 
 
 def _grads_after_one_step(opt, names):
@@ -1392,20 +1453,31 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     sm90 = (name == "bfloat16"
             and D // w["num_heads"] in fq._fa.SM90_HEAD_DIMS)
     want_sm90 = (fwd_per_step, L) if sm90 else (0, 0)
+    # the head: bf16 with D and V multiples of 8 on softmax_xent_sm90.cu,
+    # the rest (fp32 here) on the tile kernels; every launch on that route
+    head = "sm90" if name == "bfloat16" and D % 8 == 0 and V % 8 == 0 \
+        else "tile"
+    other = "tile" if head == "sm90" else "sm90"
+    head_ok = (launches[f"softmax_xent_{head}_fwd"]
+               == launches["softmax_xent_fwd"] >= 1
+               and launches[f"softmax_xent_{head}_dlogits"]
+               == launches["softmax_xent_dlogits"] == chunks
+               and launches[f"softmax_xent_{other}_fwd"]
+               == launches[f"softmax_xent_{other}_dlogits"] == 0)
     log(f"  step 1 through the kernels: loss {loss_k.item():.6f}, "
         f"launches {launches} (expected flash_qkv_fwd {fwd_per_step}, "
         f"flash_qkv_bwd {L}, of them flash_attn_sm90 {want_sm90[0]} + "
-        f"{want_sm90[1]}, softmax_xent_fwd >= 1, softmax_xent_dlogits "
-        f"{chunks})")
+        f"{want_sm90[1]}, softmax_xent_fwd >= 1 and softmax_xent_dlogits "
+        f"{chunks}, all on the {head} route)")
     if (launches["flash_qkv_fwd"] != fwd_per_step
             or launches["flash_qkv_bwd"] != L
             or (launches["flash_attn_sm90_fwd"],
                 launches["flash_attn_sm90_bwd"]) != want_sm90
-            or launches["softmax_xent_fwd"] < 1
-            or launches["softmax_xent_dlogits"] != chunks):
+            or not head_ok):
         raise AssertionError(f"train step launched {launches}; expected "
                              f"{fwd_per_step} / {L} (flash_attn_sm90 "
-                             f"{want_sm90}) / >= 1 / {chunks}")
+                             f"{want_sm90}) / >= 1 / {chunks} (head route "
+                             f"{head})")
     grads_k = _grads_after_one_step(opt_k, TRAIN_GRADS)
     del opt_k
 
@@ -1838,6 +1910,19 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         return max(r[key] for r in rows if r["dtype"] == dtype
                    and r.get("inputs", "rand") == "rand")
 
+    def routed(rows, route, dtype):
+        return max(r["max_abs_err"] for r in rows
+                   if r["route"] == route and r["dtype"] == dtype)
+
+    def tile_route(rows, kind):
+        # the head's other source: fp32, and bf16 that TMA cannot describe
+        return dict(tile_source=f"paddle_tpu_torch/csrc/softmax_xent_{kind}"
+                                f".cu",
+                    max_abs_err_tile_fp32=routed(rows, "tile", "float32"),
+                    max_abs_err_tile_bf16=routed(rows, "tile", "bfloat16"),
+                    launches_t1024=ll[f"softmax_xent_tile_{kind}"],
+                    launches_dryrun=dl[f"softmax_xent_tile_{kind}"])
+
     sharp_qkv = [r for r in qkv_checks if r["inputs"] == "sharp"]
     sharp_fields = dict(
         sharp_checks=len(sharp_qkv),
@@ -1893,15 +1978,16 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
               launches_dryrun=dl["flash_qkv_bwd"],
               fp32=fp32_rows("flash_qkv_bwd"), **sharp_fields),
-        entry("softmax_xent_fwd", "softmax_xent_fwd.cu",
+        entry("softmax_xent_fwd", "softmax_xent_sm90.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
-              tl["softmax_xent_fwd"], worst(head_checks, "max_abs_err",
-                                            "float32"),
-              max_abs_err_bf16=worst(head_checks, "max_abs_err",
-                                     "bfloat16"),
+              tl["softmax_xent_sm90_fwd"],
+              routed(head_checks, "sm90", "bfloat16"),
+              launches_wrapper=tl["softmax_xent_fwd"],
+              device_ms=train_times["softmax_xent_fwd"]["device_ms"],
+              share_of_bound=train_times["softmax_xent_fwd"][
+                  "share_of_bound"],
               matmul_ms=train_times["softmax_xent_fwd"]["matmul_ms"],
-              launches_t1024=ll["softmax_xent_fwd"],
-              checks=len(head_checks))]
+              checks=len(head_checks), **tile_route(head_checks, "fwd"))]
 
     def split_entry(name, row, source, replaces, launches, key):
         t = split_times[row]
@@ -1950,12 +2036,18 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     checks=len(checks_), **extra)
 
     kernels += [
-        timed_entry("softmax_xent_dlogits", "softmax_xent_dlogits.cu",
-                    "paddle_tpu/ops/pallas/softmax_xent.py:132",
-                    tl["softmax_xent_dlogits"], dlogits_time, dlogits_checks,
-                    launches_t1024=ll["softmax_xent_dlogits"],
-                    ms_per_step=dlogits_time["ms_per_step"],
-                    bound_per_step_ms=dlogits_time["bound_per_step_ms"]),
+        dict(timed_entry("softmax_xent_dlogits", "softmax_xent_sm90.cu",
+                         "paddle_tpu/ops/pallas/softmax_xent.py:132",
+                         tl["softmax_xent_sm90_dlogits"], dlogits_time,
+                         dlogits_checks,
+                         launches_wrapper=tl["softmax_xent_dlogits"],
+                         device_ms=dlogits_time["device_ms"],
+                         share_of_bound=dlogits_time["share_of_bound"],
+                         ms_per_step=dlogits_time["ms_per_step"],
+                         bound_per_step_ms=dlogits_time[
+                             "bound_per_step_ms"],
+                         **tile_route(dlogits_checks, "dlogits")),
+             max_abs_err=routed(dlogits_checks, "sm90", "bfloat16")),
         timed_entry("fused_ln", "fused_ln.cu",
                     "paddle_tpu/ops/pallas/fused_ln.py:55",
                     enc_train["launches"]["fused_ln"], ln_time, ln_checks,

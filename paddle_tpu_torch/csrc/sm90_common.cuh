@@ -3,18 +3,24 @@
 //
 // - mbarriers (`mbar_*`): init, arrive, arrive with an expected byte count,
 //   and a parity wait that traps after ~10 s instead of hanging the card;
-// - TMA (`tma_load_4d`): one thread asks for a whole box of a 4-D tensor
-//   map to be copied into shared memory, completing on an mbarrier;
-// - wgmma (`wgmma_ss`, `wgmma_rs`): a warpgroup's asynchronous 64 x N x 16
-//   bf16 product with fp32 accumulators, A from shared memory (SS) or from
-//   registers (RS), B from shared memory, and the fence / commit / wait
-//   that order them;
+// - TMA (`tma_load_4d`, `tma_load_2d`): one thread asks for a whole box of
+//   a 4-D or 2-D tensor map to be copied into shared memory, completing on
+//   an mbarrier; `tma_store_2d` copies a box back to device memory in a
+//   bulk group (`bulk_commit`, `bulk_wait_read`), after the writing
+//   threads' `fence_async_smem`;
+// - wgmma (`wgmma_ss`, `wgmma_ss_mn`, `wgmma_rs`): a warpgroup's
+//   asynchronous 64 x N x 16 bf16 product with fp32 accumulators, A from
+//   shared memory (SS) or from registers (RS), B from shared memory,
+//   K-major (`wgmma_ss`) or MN-major (`wgmma_ss_mn`, `wgmma_rs`), and the
+//   fence / commit / wait that order them;
+// - named barriers (`named_sync`) for a subset of the block's warps;
 // - the shared-memory matrix descriptor of a tile that TMA wrote with the
 //   128-byte swizzle (`desc_sw128`);
 // - `setmaxnreg` (register hand-over between warpgroups);
 // - the host side of TMA: `cuTensorMapEncodeTiled`, a driver-API call,
 //   reached through dlopen of the driver so the library links against the
-//   runtime alone, and the 4-D (D, H, S, B) bf16 attention operand map.
+//   runtime alone, the 4-D (D, H, S, B) bf16 attention operand map and a
+//   2-D map of a row-major bf16 matrix (`encode_matrix`).
 //
 // Tile layout that every kernel here shares: an operand tile of R rows
 // and D columns (bf16) lives in D / 64 "halves" of R x 64 elements, each
@@ -113,6 +119,50 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+// The box at (c0, c1), innermost first, of a 2-D map; as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// Shared memory at `src` to the box at (c0, c1) of a 2-D map, in the
+// calling thread's current bulk group; elements outside the tensor are not
+// written.  The threads that wrote `src` call fence_async_smem() and meet
+// at a barrier first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of the thread's bulk groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of the thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders the calling thread's writes to shared memory before later reads
+// of the async proxy (a TMA store).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Barrier `id` (1-15; 0 is __syncthreads) among `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma ----------------------------------------------------------------------
@@ -236,6 +286,36 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x N) += A (64 x 16, shared, K-major) * B (16 x N, shared,
+// MN-major: N contiguous, read transposed); scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<256>(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48), SM90_F16(64),
+        SM90_F16(80), SM90_F16(96), SM90_F16(112)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef SM90_F16
 #undef SM90_F4
 
@@ -327,6 +407,27 @@ inline int encode_operand(CUtensorMap* map, const void* base,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// The 2-D map of a row-major bf16 matrix (rows x cols, `row_bytes` apart)
+// with box (64 columns, `box_rows` rows) and the 128-byte swizzle: the
+// box is one "half" of the layout above.  Returns 0, or ERR_NO_DRIVER /
+// ERR_ENCODE + CUresult.
+inline int encode_matrix(CUtensorMap* map, const void* base, long long rows,
+                         long long cols, long long row_bytes, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ERR_NO_DRIVER;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

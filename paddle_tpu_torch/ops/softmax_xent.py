@@ -3,17 +3,22 @@
 
 :func:`softmax_xent_fwd` returns the per-row log-sum-exp and label logit
 of ``x @ w`` without an ``(N, V)`` logits tensor: on a CUDA tensor it
-launches the hand-written kernel ``csrc/softmax_xent_fwd.cu`` (or raises),
-on a CPU tensor it computes :func:`softmax_xent_fwd_ref`, its plain
-version.  :func:`softmax_xent_dlogits` forms one chunk's
+launches a hand-written kernel (or raises), on a CPU tensor it computes
+:func:`softmax_xent_fwd_ref`, its plain version.
+:func:`softmax_xent_dlogits` forms one chunk's
 ``(softmax(x @ w) - onehot(labels)) · g`` from the saved lse in x's type:
-the kernel ``csrc/softmax_xent_dlogits.cu`` on a CUDA tensor,
-:func:`softmax_xent_dlogits_ref` on a CPU tensor.
+a kernel on a CUDA tensor, :func:`softmax_xent_dlogits_ref` on a CPU
+tensor.  Which CUDA source runs is :func:`_route`'s choice, made before
+any launch: ``csrc/softmax_xent_sm90.cu`` (TMA and wgmma) for bf16
+operands TMA can describe, else ``csrc/softmax_xent_fwd.cu`` /
+``csrc/softmax_xent_dlogits.cu`` (``mma.sync`` tiles).  A launch on either
+route that fails raises; it is never retried on the other.
 :func:`softmax_xent_loss` is the mean cross-entropy as an autograd
 function whose backward is the reference's ``_sxl_bwd`` (:200): per chunk
 of rows one dlogits launch, then ``dx`` and ``dW`` as plain products, as
 the reference left them to XLA.  :data:`LAUNCHES` and
-:data:`DLOGITS_LAUNCHES` count kernel launches.
+:data:`DLOGITS_LAUNCHES` count kernel launches, :data:`ROUTE_LAUNCHES`
+the same launches by route.
 """
 from __future__ import annotations
 
@@ -26,38 +31,104 @@ from . import _build
 
 __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_dlogits",
            "softmax_xent_dlogits_ref", "softmax_xent_loss", "SoftmaxXentLoss",
-           "matmul_f32", "LAUNCHES", "DLOGITS_LAUNCHES", "BWD_CHUNK"]
+           "matmul_f32", "LAUNCHES", "DLOGITS_LAUNCHES", "ROUTE_LAUNCHES",
+           "BWD_CHUNK", "SM90_BN"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_CHUNK = 4096      # rows per backward chunk (the reference's C)
+
+# the sm90 kernels' vocabulary columns per tile (csrc/softmax_xent_sm90.cu
+# BN): the forward's partials hold one max and one sum per row and tile
+SM90_BN = 256
 
 # kernel launches since import (plain integers; tests and the smoke run
 # reset them to 0 and read them back)
 LAUNCHES = 0             # softmax_xent_fwd
 DLOGITS_LAUNCHES = 0     # softmax_xent_dlogits
+# the same launches by route (:func:`_route`); reset each value to 0
+ROUTE_LAUNCHES = {"sm90_fwd": 0, "tile_fwd": 0, "sm90_dlogits": 0,
+                  "tile_dlogits": 0}
+
+_P, _I = [ctypes.c_void_p], [ctypes.c_int]
+# CUDA source -> (its error-string function, {entry point: argtypes})
+_ENTRY_POINTS = {
+    "softmax_xent_fwd": ("softmax_xent_error_string", {
+        "softmax_xent_fwd": _P * 5 + _I * 4 + _P}),
+    "softmax_xent_dlogits": ("softmax_xent_dlogits_error_string", {
+        "softmax_xent_dlogits": _P * 6 + _I * 4 + _P}),
+    "softmax_xent_sm90": ("softmax_xent_sm90_error_string", {
+        "softmax_xent_sm90_fwd": _P * 6 + _I * 3 + _P,
+        "softmax_xent_sm90_dlogits": _P * 6 + _I * 3 + _P}),
+}
 
 _libs = {}
 
 
 def _kernel(name: str = "softmax_xent_fwd"):
+    """The loaded library of ``csrc/<name>.cu``, its entry points typed."""
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
-        fn = getattr(lib, name)
-        if name == "softmax_xent_fwd":
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            err = lib.softmax_xent_error_string
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            err = lib.softmax_xent_dlogits_error_string
-        fn.restype = ctypes.c_int
+        err_name, entries = _ENTRY_POINTS[name]
+        for fn_name, argtypes in entries.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        err = getattr(lib, err_name)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         lib.error_string = err
         _libs[name] = lib
     return lib
+
+
+def _route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which CUDA source takes a head launch on ``x (rows, D)`` and ``w
+    (D, V)``: ``"sm90"`` (``csrc/softmax_xent_sm90.cu``, TMA and wgmma)
+    when both are bf16 and contiguous with rows TMA can describe (``D``
+    and ``V`` multiples of 8, so 16-byte row strides, and 16-byte aligned
+    bases), else ``"tile"`` (``csrc/softmax_xent_fwd.cu`` /
+    ``softmax_xent_dlogits.cu``: fp32, and bf16 such as V 700).  A pure
+    function of the types, shapes and layouts."""
+    D, V = w.shape
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 \
+            or not (x.is_contiguous() and w.is_contiguous()) \
+            or D % 8 or V % 8 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        return "tile"
+    return "sm90"
+
+
+def _launch_sm90_fwd(x, w, lab, lse, at) -> None:
+    """Row 10 on ``csrc/softmax_xent_sm90.cu``: the tiles' max and sum
+    partials, then their fold into ``lse``.  An operand TMA cannot
+    describe fails the encode of its map, and the launch raises."""
+    N, D = x.shape
+    V = w.shape[1]
+    part = torch.empty((2, -(-V // SM90_BN), N), dtype=torch.float32,
+                       device=x.device)
+    lib = _kernel("softmax_xent_sm90")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.softmax_xent_sm90_fwd(x.data_ptr(), w.data_ptr(),
+                                        lab.data_ptr(), lse.data_ptr(),
+                                        at.data_ptr(), part.data_ptr(), N, D,
+                                        V, stream)
+    _raise_on(err, lib, "softmax_xent_fwd (sm90)")
+    ROUTE_LAUNCHES["sm90_fwd"] += 1
+
+
+def _launch_sm90_dlogits(x, w, labels, lse, g, out) -> None:
+    """Row 11 on ``csrc/softmax_xent_sm90.cu``; raises as
+    :func:`_launch_sm90_fwd`."""
+    C, D = x.shape
+    lib = _kernel("softmax_xent_sm90")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.softmax_xent_sm90_dlogits(
+            x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), out.data_ptr(), C, D, w.shape[1], stream)
+    _raise_on(err, lib, "softmax_xent_dlogits (sm90)")
+    ROUTE_LAUNCHES["sm90_dlogits"] += 1
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -134,14 +205,18 @@ def softmax_xent_fwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     if D == 0 or V == 0:
         raise ValueError(f"softmax_xent_fwd over D={D}, V={V}")
     lab = labels.to(torch.int32).contiguous()
-    lib = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.softmax_xent_fwd(x.data_ptr(), w.data_ptr(),
-                                   lab.data_ptr(), lse.data_ptr(),
-                                   at.data_ptr(), N, D, V,
-                                   _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, lib, "softmax_xent_fwd")
+    if _route(x, w) == "sm90":
+        _launch_sm90_fwd(x, w, lab, lse, at)
+    else:
+        lib = _kernel()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.softmax_xent_fwd(x.data_ptr(), w.data_ptr(),
+                                       lab.data_ptr(), lse.data_ptr(),
+                                       at.data_ptr(), N, D, V,
+                                       _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, lib, "softmax_xent_fwd")
+        ROUTE_LAUNCHES["tile_fwd"] += 1
     LAUNCHES += 1
     return lse, at
 
@@ -212,14 +287,18 @@ def softmax_xent_dlogits(x: torch.Tensor, w: torch.Tensor,
         return out
     if D == 0 or V == 0:
         raise ValueError(f"softmax_xent_dlogits over D={D}, V={V}")
-    lib = _kernel("softmax_xent_dlogits")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.softmax_xent_dlogits(x.data_ptr(), w.data_ptr(),
-                                       labels.data_ptr(), lse.data_ptr(),
-                                       g.data_ptr(), out.data_ptr(), C, D, V,
-                                       _DTYPE_CODES[x.dtype], stream)
-    _raise_on(err, lib, "softmax_xent_dlogits")
+    if _route(x, w) == "sm90":
+        _launch_sm90_dlogits(x, w, labels, lse, g, out)
+    else:
+        lib = _kernel("softmax_xent_dlogits")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.softmax_xent_dlogits(x.data_ptr(), w.data_ptr(),
+                                           labels.data_ptr(), lse.data_ptr(),
+                                           g.data_ptr(), out.data_ptr(), C, D,
+                                           V, _DTYPE_CODES[x.dtype], stream)
+        _raise_on(err, lib, "softmax_xent_dlogits")
+        ROUTE_LAUNCHES["tile_dlogits"] += 1
     DLOGITS_LAUNCHES += 1
     return out
 

@@ -1,7 +1,8 @@
-"""Time the attention kernels of one checkout, to compare two on one card.
+"""Time the attention and LM-head kernels of one checkout, to compare two
+on one card.
 
     python3 paddle_tpu_torch/tools/kernel_ab.py --root DIR [--label NAME]
-                                                [--json PATH]
+                                                [--head] [--json PATH]
 
 Imports ``paddle_tpu_torch`` from the checkout at ``DIR`` (its kernels
 build into that checkout's ``_build/``) and times, with CUDA events (median
@@ -22,7 +23,11 @@ attention kernel calls of the serving and train paths, at their shapes:
   (backward row 6), B 32, T 1024 (row 7) and B 1, T 8192 (forward row 2,
   backward rows 8 + 9), and at B 4, T 2048, H 12 with the other head
   dims of the tile kernels, fp32 at 16, 80, 96 and 128 and bf16 at 16,
-  32, 80 and 96, whose shared-memory tiles differ from d 64's.
+  32, 80 and 96, whose shared-memory tiles differ from d 64's;
+- the LM head at the compiled step's shapes, bf16: ``softmax_xent_fwd``
+  at N 65536, D 768, V 30528 (row 10) and ``softmax_xent_dlogits`` on one
+  4096-row chunk (row 11), with the route each took where the checkout
+  has one.  ``--head`` times these two rows alone.
 
 Run it on two checkouts in turns (A, B, B, A) inside one call to compare
 them; each run prints one JSON line and, with ``--json``, writes it.
@@ -74,6 +79,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True,
                     help="checkout whose paddle_tpu_torch is timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--head", action="store_true",
+                    help="time the LM head's rows 10 and 11 only")
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args(argv)
     import torch
@@ -90,6 +97,44 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = dict(label=args.label or root, root=root,
                card=torch.cuda.get_device_name(0))
+    _time_head(torch, gen, out)
+    if not args.head:
+        _time_attention(torch, fa, fq, gen, out)
+    print(json.dumps(out), flush=True)
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
+                    exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def _time_head(torch, gen, out):
+    from paddle_tpu_torch.ops import softmax_xent as sx
+    N, D, V, C = 65536, 768, 30528, 4096
+    x = torch.randn((N, D), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((D, V), generator=gen, device="cuda") * 0.01).bfloat16()
+    lab = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    g = torch.tensor(1.0 / N, device="cuda")
+    with torch.no_grad():
+        lse, _ = sx.softmax_xent_fwd(x, w, lab)
+        xc, lc, lsec = x[:C], lab[:C].int(), lse[:C]
+
+        def fwd():
+            sx.softmax_xent_fwd(x, w, lab)
+
+        def dlogits():
+            sx.softmax_xent_dlogits(xc, w, lc, lsec, g)
+
+        for key, fn in (("row10_softmax_xent_fwd_n65536", fwd),
+                        ("row11_softmax_xent_dlogits_c4096", dlogits)):
+            out[f"{key}_ms"] = _time_ms(torch, fn)
+            out[f"{key}_device_ms"] = _device_ms(torch, fn)
+    route = getattr(sx, "_route", None)
+    out["head_route"] = route(x, w) if route else "tile"
+
+
+def _time_attention(torch, fa, fq, gen, out):
     with torch.no_grad():
         q, k, v = (torch.rand((96, 512, 64), generator=gen, device="cuda")
                    for _ in range(3))
@@ -147,13 +192,6 @@ def main(argv=None) -> int:
                 out[f"flash_qkv_{name}_{key}_ms"] = _time_ms(torch, fn)
                 out[f"flash_qkv_{name}_{key}_device_ms"] = _device_ms(
                     torch, fn)
-    print(json.dumps(out), flush=True)
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
-                    exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(out, f, indent=1)
-    return 0
 
 
 if __name__ == "__main__":

@@ -615,3 +615,123 @@ def test_dryrun_config_compiled_step_through_the_kernels(card):
     for name, want in ref_grads.items():
         err = ((grads[name] - want).norm() / want.norm().clamp_min(1e-30))
         assert err.item() <= 1e-4, name
+
+
+# -- csrc/softmax_xent_sm90.cu: the LM head's bf16 kernels on TMA and wgmma -------
+# N and V past the kernel's 128-row / 256-column tile (30528 = 119 x 256 +
+# 64, 520 = 2 x 256 + 8), one-chunk and ragged depths; the first labels
+# are 0, V - 1, -1 and V
+SM90_HEAD_SHAPES = ((1000, 768, 30528), (4096, 64, 520), (130, 40, 264),
+                    (7, 8, 8), (256, 64, 512))
+
+
+def _head_inputs(rs, N, D, V, dtype=torch.bfloat16):
+    x = torch.from_numpy(rs.randn(N, D)).to("cuda", dtype)
+    w = torch.from_numpy(rs.randn(D, V) * 0.05).to("cuda", dtype)
+    lab = torch.from_numpy(rs.randint(0, V, N)).to("cuda", torch.int32)
+    edge = torch.tensor([0, V - 1, -1, V], dtype=torch.int32)[:N]
+    lab[:len(edge)] = edge.cuda()
+    return x, w, lab
+
+
+def _routes():
+    return dict(sx.ROUTE_LAUNCHES)
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in sx.ROUTE_LAUNCHES.items()
+            if v != before[k]}
+
+
+def test_sm90_head_kernels_match_plain_versions(card):
+    rs = np.random.RandomState(3)
+    for N, D, V in SM90_HEAD_SHAPES:
+        x, w, lab = _head_inputs(rs, N, D, V)
+        case = (N, D, V)
+        before = _routes()
+        lse, at = sx.softmax_xent_fwd(x, w, lab)
+        g = torch.tensor(0.37, device="cuda")
+        out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+        torch.cuda.synchronize()
+        assert _moved(before) == {"sm90_fwd": 1, "sm90_dlogits": 1}, case
+        ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, w, lab)
+        torch.testing.assert_close(lse, ref_lse, rtol=0,
+                                   atol=HEAD_ATOL[torch.bfloat16],
+                                   msg=lambda m: f"{case}: {m}")
+        torch.testing.assert_close(at, ref_at, rtol=0,
+                                   atol=HEAD_ATOL[torch.bfloat16],
+                                   msg=lambda m: f"{case}: {m}")
+        assert at[2].item() == at[3].item() == 0.0, case
+        ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+        assert out.dtype == torch.bfloat16 and out.shape == (N, V), case
+        # each element within 1e-6·|g| plus one bf16 ulp of the plain value
+        err = (out.float() - ref.float()).abs()
+        assert (err <= 1e-6 * 0.37 + _bf16_ulp(ref.float())).all(), \
+            (case, err.max().item())
+
+
+def test_sm90_head_kernels_repeat_bit_for_bit(card):
+    rs = np.random.RandomState(4)
+    x, w, lab = _head_inputs(rs, 4096, 768, 30528)
+    first = sx.softmax_xent_fwd(x, w, lab)
+    second = sx.softmax_xent_fwd(x, w, lab)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    g = torch.tensor(1.0 / 4096, device="cuda")
+    assert torch.equal(sx.softmax_xent_dlogits(x, w, lab, first[0], g),
+                       sx.softmax_xent_dlogits(x, w, lab, first[0], g))
+
+
+def test_compiled_bf16_step_head_takes_the_sm90_route(card):
+    from paddle_tpu_torch.models import build_spmd_train_step
+    cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    step, init_fn = build_spmd_train_step(cfg, compute_dtype=torch.bfloat16,
+                                          remat_policy="ctx", device="cuda")
+    params, opt = init_fn(0)
+    rs = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rs.randint(0, 1000, (64, 128))).cuda()
+                   for _ in range(2))
+    before = _routes()
+    loss, _, _ = step(params, opt, ids, labels)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss).item()
+    # 8192 rows: one forward, two 4096-row dlogits chunks
+    assert _moved(before) == {"sm90_fwd": 1, "sm90_dlogits": 2}
+
+
+def test_fp32_and_misaligned_bf16_head_take_the_tile_route(card):
+    rs = np.random.RandomState(5)
+    for dtype, V in ((torch.float32, 512), (torch.bfloat16, 700)):
+        x, w, lab = _head_inputs(rs, 256, 64, V, dtype)
+        assert sx._route(x, w) == "tile"
+        before = _routes()
+        lse, at = sx.softmax_xent_fwd(x, w, lab)
+        out = sx.softmax_xent_dlogits(x, w, lab, lse,
+                                      torch.tensor(0.5, device="cuda"))
+        torch.cuda.synchronize()
+        assert _moved(before) == {"tile_fwd": 1, "tile_dlogits": 1}
+        ref_lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
+        torch.testing.assert_close(lse, ref_lse, rtol=0,
+                                   atol=HEAD_ATOL[dtype])
+        assert out.shape == (256, V)
+
+
+def test_sm90_head_refuses_an_operand_tma_cannot_describe(card):
+    N, D, V = 256, 64, 512
+    flat = torch.zeros(N * D + 8, dtype=torch.bfloat16, device="cuda")
+    x = flat[1:1 + N * D].view(N, D)               # base 2 bytes off
+    w = torch.zeros((D, V), dtype=torch.bfloat16, device="cuda")
+    lab = torch.zeros(N, dtype=torch.int32, device="cuda")
+    lse = torch.empty(N, device="cuda")
+    at = torch.zeros(N, device="cuda")
+    out = torch.empty((N, V), dtype=torch.bfloat16, device="cuda")
+    assert sx._route(x, w) == "tile"
+    # on the sm90 route the encode of its tensor map refuses it: the launch
+    # raises, and nothing runs on the other route
+    before = _routes()
+    with pytest.raises(RuntimeError, match="refused an operand"):
+        sx._launch_sm90_fwd(x, w, lab, lse, at)
+    with pytest.raises(RuntimeError, match="refused an operand"):
+        sx._launch_sm90_dlogits(x, w, lab, lse,
+                                torch.tensor(1.0, device="cuda"), out)
+    assert _moved(before) == {}
