@@ -20,9 +20,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             head forward and dlogits up to N 4096, V 30528, on both
             routes (bf16 on softmax_xent_sm90.cu, fp32 and bf16 V 700 on
             the tile kernels), N and V past the sm90 tile, labels 0,
-            V - 1, -1 and V; the fused epilogue at D 64 ... 4096, N 1 ...
-            16384, p 0 / 0.1 / 0.5, and its dropout mask against the hash
-            bit for bit)
+            V - 1, -1 and V; the fused epilogue at D 64 ... 12800, N 1
+            ... 16384, p 0 / 0.1 / 0.5, x and residual of one type or
+            mixed (fp32 and bf16), and its dropout mask against the hash
+            bit for bit; the epilogue's backward kernel at D 64 ... 4096
+            (and 12800), N 1 ... 16384, the same types and p: dx, dres by
+            their type's grads atol, the column sums in fp32 against a
+            float64 run of the plain backward, dx exactly 0 where the
+            forward dropped)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -36,10 +41,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             each with its fp32 bound and its 3xTF32 bound, and the names
             of the kernels SDPA runs there, from a torch.profiler trace;
             the head's forward at N 65536 and dlogits at one chunk; the
-            fused epilogue at the encoder's N 16384, D 768), each
-            kernel's result held against its plain version there too;
-            rows 3, 4, 10, 11 and SDPA also in device time
-            (torch.profiler)
+            fused epilogue and its backward at the encoder's N 16384,
+            D 768, p 0.1 and 0), each kernel's result held against its
+            plain version there too; rows 3, 4, 10, 11, 12, the
+            epilogue's backward and SDPA also in device time
+            (torch.profiler), with the share of the bound
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, all of them flash_attn_sm90's, the fused head's
@@ -57,7 +63,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
             full width (B 32, T 512, fp32): one step through the kernels
             (12 + 12 launches, mode "small", row 6) against the plain
             versions; two runs of two steps repeat bit for bit; the loss
-            falls over 12 steps; step ms, seq/s, peak memory
+            falls over 12 steps; step ms, seq/s, peak memory.  Then the
+            same under AMP O1 in bf16 (prepare(amp_configs="O1"): 12 + 12
+            attention launches, all flash_attn_sm90's; against the plain
+            versions at the compiled bf16 step's tolerances, loss rtol
+            1e-3, grads 5e-2 relative L2), and O2 (fp32 masters) at L 2,
+            one step and two repeated runs
 10. eager   the same at L 2: T 1024, B 8 (row 7) and T 8192, B 1 (rows 2,
     long    8 and 9), each one step through the kernels against the plain
             versions, with the launches per mode
@@ -67,10 +78,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             head: Model.predict_batch on (8, 512) (24 fused-epilogue and
             12 attention launches, logits against the plain versions);
             Model.train_batch at B 32, T 512, fp32: one step through the
-            kernels (24 epilogue, 12 + 12 attention launches, non-causal)
-            against the plain versions with the same seeds; two runs of
-            two steps repeat bit for bit; the loss falls over 12 steps;
-            step ms, seq/s, peak memory
+            kernels (24 + 24 epilogue launches, forward and backward,
+            12 + 12 attention launches, non-causal) against the plain
+            versions with the same seeds; two runs of two steps repeat bit
+            for bit; the loss falls over 12 steps; step ms, seq/s, peak
+            memory.  Then the same under AMP O1 (the epilogue on bf16 x
+            and an fp32 or bf16 residual, attention on flash_attn_sm90)
+            and O2 at L 2, as in phase 9
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -220,6 +234,15 @@ FUSED_LN_SEEDS = (0, 1, 2**31 - 2, 0xFFFFFFFF)
 # cancellation of gamma·ẑ against beta, where the fp32 difference is
 # larger than the output's ulp)
 FUSED_LN_ATOL = 1e-5
+# the epilogue's backward (fused_ln_bwd.cu): the warp path at D 64 ... 1024
+# and the block path at D 1100 and 4096 (z in shared memory) and 12800
+# (recomputed), N 1 ... 16384; dx and dres by GRAD_ATOL of their type;
+# the column sums (N rows summed in another order) in fp32 at relative L2
+# 1e-5 against a float64 run of the plain backward, in bf16 at 5e-2
+# against the plain version
+FUSED_LN_BWD_SHAPES = tuple((D, N) for D in (64, 100, 768, 1024, 1100, 4096)
+                            for N in (1, 7, 1000, 16384)) + ((12800, 7),)
+FUSED_LN_BWD_COL_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # the head's dlogits (row 11): fp32 atol 1e-5 (tests/test_pallas_kernels.py
 # :322); bf16 each element within 1e-6·|g| plus one bf16 ulp of the plain
 # value (both round fp32 values whose products summed in another order; at
@@ -230,6 +253,9 @@ DLOGITS_G, DLOGITS_ATOL, DLOGITS_BF16_ATOL_PER_G = 2.0, 1e-5, 1e-6
 # (bert-base-uncased) at the flagship vocabulary (bench.py:1027-1029),
 # built by profile_train.build_encoder
 ENCODER_SCORE_BATCH, ENCODER_BATCH = 8, 32          # T = max_len, 512
+# phases 9 and 11 under AMP: O1 at full width, O2 at this depth (one step
+# against the plain versions and two repeated runs, untimed)
+AMP_O2_LAYERS = 2
 
 
 def log(msg: str = ""):
@@ -596,55 +622,159 @@ def _bf16_ulp(torch, t):
     return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-30))) - 7)
 
 
+def _fused_ln_err(torch, out, ref):
+    """The epilogue forward's agreement with its plain version: (max abs
+    error, limit text, ok) under the fp32 atol, or in bf16 each element
+    within that atol plus one bf16 ulp of the plain value."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if out.dtype == torch.float32:
+        return err, f"atol {FUSED_LN_ATOL:.0e}", err <= FUSED_LN_ATOL
+    ulps = ((diff - FUSED_LN_ATOL).clamp_min(0.0)
+            / _bf16_ulp(torch, ref.float())).max().item()
+    return err, f"atol {FUSED_LN_ATOL:.0e} + {ulps:.2f} bf16 ulp (limit 1)", \
+        ulps <= 1.0
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def _fused_ln_operands(torch, gen, dev, N, D, x_dt, r_dt, p_dt):
+    x = torch.randn((N, D), generator=gen, device=dev).to(x_dt)
+    r = torch.randn((N, D), generator=gen, device=dev).to(r_dt)
+    b, be = (torch.randn(D, generator=gen, device=dev).to(p_dt)
+             for _ in range(2))
+    g = (1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(p_dt)
+    return x, r, b, g, be
+
+
+def fused_ln_types(torch):
+    """(x, residual) type pairs the epilogue's kernels take."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16))
+
+
 def check_fused_ln(torch, fl, dev):
     """Row 12: the fused epilogue against its plain version, every D, N,
-    type and p, the seeds in turn, bias/gamma/beta in x's type or fp32."""
+    pair of x and residual types (the same, and each mixed with the
+    other, fault C6), p, the seeds in turn, bias/gamma/beta in x's type
+    or fp32."""
     gen = torch.Generator(device=dev).manual_seed(8)
     results = []
     i = 0
     for D in FUSED_LN_DS:
         for N in FUSED_LN_NS:
-            for dtype in (torch.float32, torch.bfloat16):
+            for x_dt, r_dt in fused_ln_types(torch):
                 for p in FUSED_LN_PS:
                     seed = FUSED_LN_SEEDS[i % len(FUSED_LN_SEEDS)]
-                    pdt = dtype if i % 2 else torch.float32
+                    pdt = x_dt if i % 2 else torch.float32
                     i += 1
-                    x, r = (torch.randn((N, D), generator=gen, device=dev)
-                            .to(dtype) for _ in range(2))
-                    b, be = (torch.randn(D, generator=gen, device=dev)
-                             .to(pdt) for _ in range(2))
-                    g = (1.0 + 0.1 * torch.randn(D, generator=gen,
-                                                 device=dev)).to(pdt)
+                    x, r, b, g, be = _fused_ln_operands(
+                        torch, gen, dev, N, D, x_dt, r_dt, pdt)
                     out = fl.fused_ln(x, r, b, g, be, seed, p=p, eps=1e-5)
                     ref = fl.fused_ln_ref(x, r, b, g, be, seed, p=p,
                                           eps=1e-5)
                     sync(torch, dev)
-                    name = str(dtype).replace("torch.", "")
-                    diff = (out.float() - ref.float()).abs()
-                    err = diff.max().item()
-                    if dtype == torch.float32:
-                        tol, ok = f"atol {FUSED_LN_ATOL:.0e}", \
-                            err <= FUSED_LN_ATOL
-                    else:
-                        ulps = ((diff - FUSED_LN_ATOL).clamp_min(0.0)
-                                / _bf16_ulp(torch, ref.float())).max()
-                        tol = (f"atol {FUSED_LN_ATOL:.0e} + {ulps.item():.2f}"
-                               f" bf16 ulp (limit 1)")
-                        ok = ulps.item() <= 1.0
-                    ok = ok and out.dtype == dtype and out.shape == x.shape
+                    err, tol, ok = _fused_ln_err(torch, out, ref)
+                    ok = ok and out.dtype == x_dt and out.shape == x.shape
                     results.append(dict(
-                        n=N, d=D, dtype=name, p=p, seed=seed,
-                        param_dtype=str(pdt).replace("torch.", ""),
-                        max_abs_err=err, tolerance=tol, ok=ok))
-                    log(f"  fused_ln N={N:5d} D={D:4d} {name:8s} p={p:.1f} "
-                        f"seed={seed:10d} params "
-                        f"{results[-1]['param_dtype']:8s} max_abs_err="
-                        f"{err:.2e} {tol} {'ok' if ok else 'FAIL'}")
-                    del x, r, out, ref, diff
+                        n=N, d=D, dtype=_dtype_name(x_dt),
+                        residual_dtype=_dtype_name(r_dt), p=p, seed=seed,
+                        param_dtype=_dtype_name(pdt), max_abs_err=err,
+                        tolerance=tol, ok=ok))
+                    log(f"  fused_ln N={N:5d} D={D:5d} x "
+                        f"{_dtype_name(x_dt):8s} residual "
+                        f"{_dtype_name(r_dt):8s} p={p:.1f} seed={seed:10d} "
+                        f"params {results[-1]['param_dtype']:8s} "
+                        f"max_abs_err={err:.2e} {tol} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    del x, r, out, ref
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} fused-epilogue checks disagree "
                              f"with the plain version: {bad}")
+    return results
+
+
+def _rel_l2(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()
+            .clamp_min(1e-300)).item()
+
+
+def check_fused_ln_bwd(torch, fl, dev):
+    """The epilogue's backward kernel against its plain version, every D,
+    N, type pair and p, the seeds in turn, parameters in x's type or fp32:
+    dx and dres by the atol of their type; dbias, dgamma, dbeta in fp32 at
+    relative L2 against a float64 run of the plain backward, in bf16
+    against the plain version; dx exactly 0 exactly where the forward
+    dropped."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    results = []
+    i = 0
+    for D, N in FUSED_LN_BWD_SHAPES:
+        for x_dt, r_dt in fused_ln_types(torch):
+            for p in FUSED_LN_PS:
+                seed = FUSED_LN_SEEDS[i % len(FUSED_LN_SEEDS)]
+                pdt = x_dt if i % 2 else torch.float32
+                i += 1
+                x, r, b, gam, be = _fused_ln_operands(
+                    torch, gen, dev, N, D, x_dt, r_dt, pdt)
+                g = torch.randn((N, D), generator=gen, device=dev).to(x_dt)
+                args = (g, x, r, b, gam, be, seed)
+                before = fl.BWD_LAUNCHES
+                got = fl.fused_ln_bwd(*args, p=p, eps=1e-5)
+                sync(torch, dev)
+                counted = fl.BWD_LAUNCHES == before + 1
+                ref = fl.fused_ln_bwd_ref(*args, p=p, eps=1e-5)
+                errs, ok = {}, counted
+                for name, a, w in zip(("dx", "dres"), got, ref):
+                    errs[name] = (a.float() - w.float()).abs().max().item()
+                    ok = ok and a.dtype == w.dtype and a.shape == w.shape \
+                        and errs[name] <= GRAD_ATOL[_dtype_name(a.dtype)]
+                if x_dt == torch.float32 and r_dt == torch.float32:
+                    truth = fl.fused_ln_bwd_ref(
+                        *(t.double() for t in args[:6]), seed, p=p,
+                        eps=1e-5)[2:]
+                    col_tol = FUSED_LN_BWD_COL_RTOL["float32"]
+                    col_vs = "float64"
+                else:
+                    truth, col_tol = ref[2:], FUSED_LN_BWD_COL_RTOL[
+                        "bfloat16"]
+                    col_vs = "plain"
+                for name, a, w in zip(("dbias", "dgamma", "dbeta"), got[2:],
+                                      truth):
+                    errs[name] = _rel_l2(a, w)
+                    ok = ok and a.dtype == pdt and errs[name] <= col_tol
+                dropped = fl.hash_uniform(seed, (N, D), device=dev) < \
+                    torch.tensor(p, dtype=torch.float32) if p > 0 else \
+                    torch.zeros((N, D), dtype=torch.bool, device=dev)
+                zero_where_dropped = bool(torch.equal(got[0] == 0, dropped))
+                separate = got[0].data_ptr() != got[1].data_ptr()
+                ok = ok and zero_where_dropped and separate
+                results.append(dict(
+                    n=N, d=D, dtype=_dtype_name(x_dt),
+                    residual_dtype=_dtype_name(r_dt), p=p, seed=seed,
+                    param_dtype=_dtype_name(pdt), errors=errs,
+                    max_abs_err=max(errs["dx"], errs["dres"]),
+                    columns_against=col_vs, columns_rel_l2_limit=col_tol,
+                    dx_zero_exactly_where_dropped=zero_where_dropped,
+                    counted=counted, ok=ok))
+                log(f"  fused_ln_bwd N={N:5d} D={D:5d} x "
+                    f"{_dtype_name(x_dt):8s} residual {_dtype_name(r_dt):8s}"
+                    f" p={p:.1f} params {_dtype_name(pdt):8s}: dx "
+                    f"{errs['dx']:.2e} dres {errs['dres']:.2e} (atol by "
+                    f"type: fp32 {GRAD_ATOL['float32']:.0e}, bf16 "
+                    f"{GRAD_ATOL['bfloat16']:.0e}); rel L2 vs {col_vs} dbias "
+                    f"{errs['dbias']:.1e} dgamma {errs['dgamma']:.1e} dbeta "
+                    f"{errs['dbeta']:.1e} (limit {col_tol:.0e}); dx == 0 "
+                    f"exactly where dropped: {zero_where_dropped} "
+                    f"{'ok' if ok else 'FAIL'}")
+                del x, r, g, got, ref, truth, dropped
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fused-epilogue backward checks "
+                             f"disagree with the plain version: {bad}")
     return results
 
 
@@ -1260,12 +1390,15 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
 
 def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
     """Row 12 at the encoder's shape (N = B 32 x T 512, D 768, fp32) with
-    the train path's p 0.1, and p 0 (scoring).  No PyTorch call computes
-    the function (``library_ms`` None); ``F.layer_norm`` on the
-    precomputed ``residual + x + bias`` is timed beside it as a smaller
-    function (one (N, D) tensor read and one written, against the
-    kernel's two read and one written)."""
+    the train path's p 0.1, and p 0 (scoring): CUDA events around one
+    call and device time alone (``torch.profiler``, 10 calls), its share
+    of the bound in device time.  No PyTorch call computes the function
+    (``library_ms`` None); ``F.layer_norm`` on the precomputed
+    ``residual + x + bias`` is timed beside it as a smaller function (one
+    (N, D) tensor read and one written, against the kernel's two read and
+    one written)."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
     gen = torch.Generator(device=dev).manual_seed(10)
     x, r = (torch.randn((N, D), generator=gen, device=dev) for _ in range(2))
     b, g, be = (torch.randn(D, generator=gen, device=dev) for _ in range(3))
@@ -1274,10 +1407,13 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
         ref = fl.fused_ln_ref(x, r, b, g, be, 3, p=p, eps=1e-5)
         err = (out - ref).abs().max().item()
         del out, ref
-        ms = time_ms(torch, lambda: fl.fused_ln(x, r, b, g, be, 3, p=p,
-                                                eps=1e-5))
-        ms_p0 = time_ms(torch, lambda: fl.fused_ln(x, r, b, g, be, 3,
-                                                   p=0.0, eps=1e-5))
+
+        def kernel(p_):
+            return lambda: fl.fused_ln(x, r, b, g, be, 3, p=p_, eps=1e-5)
+
+        ms, ms_p0 = time_ms(torch, kernel(p)), time_ms(torch, kernel(0.0))
+        dev_ms = device_ms_per_call(kernel(p))
+        dev_ms_p0 = device_ms_per_call(kernel(0.0))
         plain = time_ms(torch, lambda: fl.fused_ln_ref(x, r, b, g, be, 3,
                                                        p=p, eps=1e-5),
                         reps=5)
@@ -1285,21 +1421,86 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
         lib = time_ms(torch, lambda: F.layer_norm(z, (D,), g, be, 1e-5))
     nbytes = 4.0 * (3 * N * D + 3 * D)
     b_ms, b_by = bound(10.0 * N * D, nbytes, FP32_FLOPS_PER_S)
-    row = dict(ms=ms, ms_p0=ms_p0, plain_ms=plain, library_ms=None,
+    row = dict(ms=ms, ms_p0=ms_p0, device_ms=dev_ms, device_ms_p0=dev_ms_p0,
+               share_of_bound=b_ms / dev_ms, share_of_bound_p0=b_ms /
+               dev_ms_p0, plain_ms=plain, library_ms=None,
                library="none (no PyTorch call computes LayerNorm(residual "
                        "+ dropout(x + bias)))", layer_norm_ms=lib,
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
                atol=FUSED_LN_ATOL, shape=f"N {N}, D {D}, fp32, p {p}")
     row["ok"] = err <= FUSED_LN_ATOL
-    log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms (p 0: "
-        f"{ms_p0:.4f} ms), plain {plain:.4f} ms, F.layer_norm on the "
-        f"precomputed sum (a smaller function) {lib:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
-        f"max_abs_err vs plain {err:.3e} (atol "
+    log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms events, "
+        f"{dev_ms:.4f} ms device ({row['share_of_bound']:.1%} of the bound) "
+        f"(p 0: {ms_p0:.4f} events, {dev_ms_p0:.4f} device, "
+        f"{row['share_of_bound_p0']:.1%}), plain {plain:.4f} ms, "
+        f"F.layer_norm on the precomputed sum (a smaller function) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s); max_abs_err vs plain {err:.3e} (atol "
         f"{FUSED_LN_ATOL:.0e}) {'ok' if row['ok'] else 'FAIL'}")
     if not row["ok"]:
         raise AssertionError("fused_ln disagrees with its plain version at "
                              "the encoder's shape")
+    return row
+
+
+def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768):
+    """The epilogue's backward kernel (both launches) at the encoder's
+    shape, fp32, p 0.1 and p 0: CUDA events, device time, the plain
+    version, the bound (g, x, residual read, dx, dres written, the (D,)
+    vectors read and written once) and the share of it in device time.
+    No PyTorch call computes the function; ATen's LayerNorm backward on
+    the precomputed sum (g and z read, dz written, no dropout, no second
+    output) is timed beside it as a smaller function."""
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x, r, g = (torch.randn((N, D), generator=gen, device=dev)
+               for _ in range(3))
+    b, gam, be = (torch.randn(D, generator=gen, device=dev)
+                  for _ in range(3))
+    args = (g, x, r, b, gam, be, 3)
+    with torch.no_grad():
+        got = fl.fused_ln_bwd(*args, p=p, eps=1e-5)
+        ref = fl.fused_ln_bwd_ref(*args, p=p, eps=1e-5)
+        err = max((a - w).abs().max().item() for a, w in
+                  zip(got[:2], ref[:2]))
+        del got, ref
+
+        def kernel(p_):
+            return lambda: fl.fused_ln_bwd(*args, p=p_, eps=1e-5)
+
+        ms, ms_p0 = time_ms(torch, kernel(p)), time_ms(torch, kernel(0.0))
+        dev_ms = device_ms_per_call(kernel(p))
+        dev_ms_p0 = device_ms_per_call(kernel(0.0))
+        plain = time_ms(torch, lambda: fl.fused_ln_bwd_ref(*args, p=p,
+                                                           eps=1e-5),
+                        reps=5)
+        z = r + x + b
+        _, mean, rstd = torch.ops.aten.native_layer_norm(z, (D,), gam, be,
+                                                         1e-5)
+        lib = time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+            g, z, (D,), mean, rstd, gam, be, [True, True, True]))
+    nbytes = 4.0 * (5 * N * D + 6 * D)
+    b_ms, b_by = bound(30.0 * N * D, nbytes, FP32_FLOPS_PER_S)
+    row = dict(ms=ms, ms_p0=ms_p0, device_ms=dev_ms, device_ms_p0=dev_ms_p0,
+               share_of_bound=b_ms / dev_ms,
+               share_of_bound_p0=b_ms / dev_ms_p0, plain_ms=plain,
+               library_ms=None,
+               library="none (no PyTorch call computes the epilogue's "
+                       "backward)", layer_norm_backward_ms=lib,
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
+               atol=GRAD_ATOL["float32"], shape=f"N {N}, D {D}, fp32, p {p}")
+    row["ok"] = err <= GRAD_ATOL["float32"]
+    log(f"  fused_ln_bwd ({row['shape']}): kernel {ms:.4f} ms events, "
+        f"{dev_ms:.4f} ms device ({row['share_of_bound']:.1%} of the bound) "
+        f"(p 0: {ms_p0:.4f} events, {dev_ms_p0:.4f} device, "
+        f"{row['share_of_bound_p0']:.1%}), plain {plain:.4f} ms, ATen's "
+        f"LayerNorm backward on the precomputed sum (a smaller function) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB "
+        f"at 3.35 TB/s); max_abs_err vs plain {err:.3e} (atol "
+        f"{GRAD_ATOL['float32']:.0e}) {'ok' if row['ok'] else 'FAIL'}")
+    if not row["ok"]:
+        raise AssertionError("fused_ln_bwd disagrees with its plain version "
+                             "at the encoder's shape")
     return row
 
 
@@ -1575,14 +1776,16 @@ def _plain_attention(fa):
 
 
 def model_train(torch, net, ids, labels, names, reset, launches, want,
-                plain, note="", timed=True):
+                plain, note="", timed=True, amp=None, repeat=True):
     """The eager train path on ``net``: ``Model(net).prepare(AdamW(1e-3,
-    weight_decay=0.01), CrossEntropyLoss()).train_batch`` on (ids,
-    labels).  Step 1 runs through the kernels with the counts ``reset``
-    just before and ``launches()`` read just after (they must equal
-    ``want``), then again inside ``plain()`` (the plain versions); two
-    runs of two steps must repeat bit for bit; with ``timed``, 12 steps
-    on the batch must lower the loss.  Every run starts from
+    weight_decay=0.01), CrossEntropyLoss(), amp_configs=amp).train_batch``
+    on (ids, labels).  Step 1 runs through the kernels with the counts
+    ``reset`` just before and ``launches()`` read just after (they must
+    equal ``want``), then again inside ``plain()`` (the plain versions),
+    held to the fp32 tolerances, or under AMP to the compiled bf16 step's;
+    with ``repeat``, two runs of two steps must repeat bit for bit (and
+    under AMP leave the parameters fp32); with ``timed``, 12 steps on the
+    batch must lower the loss.  Every run starts from
     ``paddle_tpu_torch.seed``, so the fused epilogue's seeds and the
     dropout masks repeat.  Returns the report."""
     import numpy as np
@@ -1598,7 +1801,12 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
         net.load_state_dict(state0)
         return Model(net).prepare(
             AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-            CrossEntropyLoss())
+            CrossEntropyLoss(), amp_configs=amp)
+
+    loss_rtol = EAGER_LOSS_RTOL if amp is None else \
+        TRAIN_LOSS_RTOL["bfloat16"]
+    grad_rtol = EAGER_GRAD_RTOL if amp is None else \
+        TRAIN_GRAD_RTOL["bfloat16"]
 
     def first_step(model):
         paddle_tpu_torch.seed(1)
@@ -1627,17 +1835,18 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
            for n in names}
     log(f"  same step with the plain versions and the same seeds: loss "
         f"{loss_p:.6f}, |difference| {d_loss:.3e} (limit rtol "
-        f"{EAGER_LOSS_RTOL:.0e}); grads relative L2 "
+        f"{loss_rtol:.0e}); grads relative L2 "
         f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (limit "
-        f"{EAGER_GRAD_RTOL:.0e})")
-    if not (np.isfinite(loss_k) and d_loss <= EAGER_LOSS_RTOL * abs(loss_p)
-            and all(v <= EAGER_GRAD_RTOL for v in rel.values())):
+        f"{grad_rtol:.0e})")
+    if not (np.isfinite(loss_k) and d_loss <= loss_rtol * abs(loss_p)
+            and all(v <= grad_rtol for v in rel.values())):
         raise AssertionError("the step through the kernels disagrees with "
                              "the step through the plain versions")
     del grads_k, grads_p
     out = dict(loss_step1=loss_k, loss_step1_plain=loss_p,
-               loss_abs_diff=d_loss, grad_rel_l2=rel, launches=counts)
-    if not timed:
+               loss_abs_diff=d_loss, loss_rtol=loss_rtol, grad_rel_l2=rel,
+               grad_rtol=grad_rtol, launches=counts, amp=amp)
+    if not repeat:
         return out
 
     # two runs of two steps from the same state and seed repeat bit for bit
@@ -1651,12 +1860,19 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
                               net.state_dict().items()}))
     same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
         torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    fp32 = all(v.dtype == torch.float32 for v in runs[0][1].values()
+               if v.is_floating_point())
     log(f"  two runs of two steps: losses {runs[0][0].tolist()} and "
         f"{runs[1][0].tolist()}; bit-identical losses and parameters: "
-        f"{same}")
+        f"{same}; parameters fp32 after the steps: {fp32}")
     if not same:
         raise AssertionError("two identical runs of the eager step differ")
+    if not fp32:
+        raise AssertionError("the step left parameters that are not fp32")
     del runs
+    out.update(deterministic=same, params_fp32=fp32)
+    if not timed:
+        return out
 
     # 2 warm-ups, then timed steps on one fixed batch; the loss falls
     model = fresh()
@@ -1687,7 +1903,7 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     out.update(losses=losses, step_ms=times, step_ms_p50=step_ms,
-               seq_per_s=seq_s, peak_memory_bytes=peak, deterministic=same)
+               seq_per_s=seq_s, peak_memory_bytes=peak)
     return out
 
 
@@ -1702,17 +1918,28 @@ def _batch(torch, vocab, B, T, dev):
 
 def _reset_attention(fa):
     fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = 0
+    fa.SM90_FWD_LAUNCHES = fa.SM90_BWD_LAUNCHES = 0
     fa.MODE_LAUNCHES.clear()
 
 
 def _attention_launches(fa):
     return dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES,
+                sm90_fwd=fa.SM90_FWD_LAUNCHES, sm90_bwd=fa.SM90_BWD_LAUNCHES,
                 modes=dict(fa.MODE_LAUNCHES))
 
 
-def eager_train(torch, fa, dev, cfg, timed=True):
+def _attention_want(L, fwd_mode, bwd_mode, amp):
+    """L forward and L backward launches in their modes; under AMP (bf16
+    at d 64) every one of them on flash_attn_sm90.cu, else none."""
+    sm90 = L if amp else 0
+    return dict(fwd=L, bwd=L, sm90_fwd=sm90, sm90_bwd=sm90,
+                modes={f"fwd {fwd_mode}": L, f"bwd {bwd_mode}": L})
+
+
+def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True):
     """The eager GPT of one config through :func:`model_train`; L forward
-    and L backward attention launches in the mode of its length."""
+    and L backward attention launches in the mode of its length (under
+    AMP all on flash_attn_sm90.cu)."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     w = cfg["width"]
     L, T = w["num_layers"], cfg["seq"]
@@ -1721,33 +1948,37 @@ def eager_train(torch, fa, dev, cfg, timed=True):
     mode = fa._pallas_mode(T, T, True)
     rows = dict(fwd=fa.reference_rows("fwd", mode, T),
                 bwd=fa.reference_rows("bwd", mode, T))
-    want = dict(fwd=L, bwd=L, modes={f"fwd {mode}": L, f"bwd {mode}": L})
+    want = _attention_want(L, mode, mode, amp)
     out = model_train(
         torch, net, ids, labels,
         ("blocks.0.attn.qkv.weight", "wte.weight",
          f"blocks.{L - 1}.down.weight"),
         lambda: _reset_attention(fa), lambda: _attention_launches(fa),
         want, lambda: _plain_attention(fa), note=f"; rows {rows}",
-        timed=timed)
+        timed=timed, amp=amp, repeat=repeat)
     return dict(out, config=cfg, mode=mode, rows=rows)
 
 
 # -- phase 11 ------------------------------------------------------------------
 def _plain_encoder_kernels(fa, fl):
     """The encoder path's kernel wrappers swapped for their plain versions:
-    attention forward and backward, and the fused epilogue."""
+    attention forward and backward, and the fused epilogue's forward and
+    backward."""
     stack = _plain_attention(fa)
     stack.enter_context(mock.patch.object(fl, "fused_ln", fl.fused_ln_ref))
+    stack.enter_context(mock.patch.object(fl, "fused_ln_bwd",
+                                          fl.fused_ln_bwd_ref))
     return stack
 
 
 def _reset_encoder(fa, fl):
     _reset_attention(fa)
-    fl.LAUNCHES = 0
+    fl.LAUNCHES = fl.BWD_LAUNCHES = 0
 
 
 def _encoder_launches(fa, fl):
-    return dict(_attention_launches(fa), fused_ln=fl.LAUNCHES)
+    return dict(_attention_launches(fa), fused_ln=fl.LAUNCHES,
+                fused_ln_bwd=fl.BWD_LAUNCHES)
 
 
 def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
@@ -1771,7 +2002,8 @@ def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
         plain_ms = (time.perf_counter() - t0) * 1e3
     err = float(np.abs(logits - plain).max())
     finite = bool(np.isfinite(logits).all())
-    want = dict(fwd=L, bwd=0, modes={"fwd small": L}, fused_ln=2 * L)
+    want = dict(fwd=L, bwd=0, sm90_fwd=0, sm90_bwd=0, modes={"fwd small": L},
+                fused_ln=2 * L, fused_ln_bwd=0)
     log(f"  predict_batch logits {logits.shape} finite={finite} "
         f"max_abs_err_vs_plain={err:.3e} (atol {SCORING_ATOL:.0e}) "
         f"launches {launches} (expected {want}); {ms:.3f} ms with the "
@@ -1790,26 +2022,34 @@ def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
 
 
 def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
-                  timed=True):
-    """The encoder through :func:`model_train` at (batch, max_len), fp32:
-    per step 2L fused-epilogue launches and L + L non-causal attention
-    launches."""
+                  timed=True, amp=None, repeat=True):
+    """The encoder through :func:`model_train` at (batch, max_len), fp32
+    or under AMP: per step 2L fused-epilogue launches each way and L + L
+    non-causal attention launches (under AMP all on flash_attn_sm90.cu)."""
     L, T = cfg["num_layers"], cfg["max_len"]
     ids, labels = _batch(torch, cfg["vocab_size"], batch, T, dev)
     mode = fa._pallas_mode(T, T, False)
     rows = dict(fwd=fa.reference_rows("fwd", mode, T),
                 bwd=fa.reference_rows("bwd", mode, T))
-    want = dict(fwd=L, bwd=L, modes={f"fwd {mode}": L, f"bwd {mode}": L},
-                fused_ln=2 * L)
+    want = dict(_attention_want(L, mode, mode, amp), fused_ln=2 * L,
+                fused_ln_bwd=2 * L)
     out = model_train(
         torch, net, ids, labels,
         ("layers.0.fused_attn.qkv_weight", "layers.0.ffn.ln2_scale",
          f"layers.{L - 1}.fused_attn.ln_scale", "wte.weight"),
         lambda: _reset_encoder(fa, fl), lambda: _encoder_launches(fa, fl),
         want, lambda: _plain_encoder_kernels(fa, fl),
-        note=f"; attention rows {rows}, non-causal", timed=timed)
+        note=f"; attention rows {rows}, non-causal", timed=timed, amp=amp,
+        repeat=repeat)
     return dict(out, config=dict(cfg, batch=batch, seq=T), mode=mode,
                 rows=rows)
+
+
+def _o2_gpt(cfg):
+    """The eager config cut to AMP_O2_LAYERS layers."""
+    w = cfg["width"]
+    return dict(cfg, width=dict(w, num_layers=min(AMP_O2_LAYERS,
+                                                  w["num_layers"])))
 
 
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
@@ -1836,6 +2076,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     fp64_checks = check_fp64_truth(torch, fa, dev)
     ln_checks = check_fused_ln(torch, fl, dev)
     mask_checks = check_fused_ln_mask(torch, fl, dev)
+    ln_bwd_checks = check_fused_ln_bwd(torch, fl, dev)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -1852,6 +2093,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     split_times = timing_split_kernels(torch, fa, dev)
     dlogits_time = timing_dlogits(torch, sx, train_cfg, dev)
     ln_time = timing_fused_ln(torch, fl, encoder_cfg["dropout_rate"], dev)
+    ln_bwd_time = timing_fused_ln_bwd(torch, fl, encoder_cfg["dropout_rate"],
+                                      dev)
     del net
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
@@ -1863,11 +2106,19 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     torch.cuda.empty_cache()
     log("== phase 9: eager train at full width (Model.train_batch)")
     eager = eager_train(torch, fa, dev, eager_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 9: the same under AMP O1 (bf16)")
+    eager_o1 = eager_train(torch, fa, dev, eager_cfg, amp="O1")
+    torch.cuda.empty_cache()
+    log(f"== phase 9: AMP O2 (bf16, fp32 masters) at L {AMP_O2_LAYERS}")
+    eager_o2 = eager_train(torch, fa, dev, _o2_gpt(eager_cfg), amp="O2",
+                           timed=False)
     eager_runs = []
     for cfg in eager_long:
         torch.cuda.empty_cache()
         log(f"== phase 10: eager train at T {cfg['seq']}, reduced depth")
-        eager_runs.append(eager_train(torch, fa, dev, cfg, timed=False))
+        eager_runs.append(eager_train(torch, fa, dev, cfg, timed=False,
+                                      repeat=False))
     torch.cuda.empty_cache()
     log("== phase 11: the fused post-LN encoder (incubate.nn) at full width")
     enc = build_encoder(encoder_cfg, dev)
@@ -1875,6 +2126,16 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     enc_train = encoder_train(torch, fa, fl, enc, encoder_cfg, dev,
                               batch=encoder_batch)
     del enc
+    torch.cuda.empty_cache()
+    log("== phase 11: the same under AMP O1 (bf16)")
+    enc_o1 = encoder_train(torch, fa, fl, build_encoder(encoder_cfg, dev),
+                           encoder_cfg, dev, batch=encoder_batch, amp="O1")
+    torch.cuda.empty_cache()
+    log(f"== phase 11: AMP O2 (bf16, fp32 masters) at L {AMP_O2_LAYERS}")
+    o2_cfg = dict(encoder_cfg, num_layers=min(AMP_O2_LAYERS,
+                                              encoder_cfg["num_layers"]))
+    enc_o2 = encoder_train(torch, fa, fl, build_encoder(o2_cfg, dev), o2_cfg,
+                           dev, batch=encoder_batch, amp="O2", timed=False)
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1958,6 +2219,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               fp32_source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
               launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks),
               launches_dryrun=dl["flash_qkv_fwd"],
+              launches_eager_amp_o1=eager_o1["launches"]["sm90_fwd"],
+              launches_encoder_amp_o1=enc_o1["launches"]["sm90_fwd"],
               fp32=fp32_rows("flash_qkv_fwd"), **sharp_fields),
         entry("flash_qkv_bwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
@@ -1977,6 +2240,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               fp32_source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
               launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
               launches_dryrun=dl["flash_qkv_bwd"],
+              launches_eager_amp_o1=eager_o1["launches"]["sm90_bwd"],
+              launches_encoder_amp_o1=enc_o1["launches"]["sm90_bwd"],
               fp32=fp32_rows("flash_qkv_bwd"), **sharp_fields),
         entry("softmax_xent_fwd", "softmax_xent_sm90.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
@@ -2051,11 +2316,45 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         timed_entry("fused_ln", "fused_ln.cu",
                     "paddle_tpu/ops/pallas/fused_ln.py:55",
                     enc_train["launches"]["fused_ln"], ln_time, ln_checks,
-                    ms_p0=ln_time["ms_p0"],
+                    ms_p0=ln_time["ms_p0"], device_ms=ln_time["device_ms"],
+                    device_ms_p0=ln_time["device_ms_p0"],
+                    share_of_bound=ln_time["share_of_bound"],
                     layer_norm_ms=ln_time["layer_norm_ms"],
                     launches_scoring=enc_score["launches"]["fused_ln"],
+                    launches_amp_o1=enc_o1["launches"]["fused_ln"],
+                    mixed_type_checks=sum(r["dtype"] != r["residual_dtype"]
+                                          for r in ln_checks),
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
-                    mask_checks=len(mask_checks))]
+                    mask_checks=len(mask_checks)),
+        dict(timed_entry("fused_ln_bwd", "fused_ln_bwd.cu",
+                         "paddle_tpu/ops/fused_ops.py:62",
+                         enc_train["launches"]["fused_ln_bwd"], ln_bwd_time,
+                         ln_bwd_checks, tpu_kernel=None,
+                         note="the epilogue's backward: the reference's "
+                              "_fused_bwd is plain XLA, no Pallas kernel",
+                         ms_p0=ln_bwd_time["ms_p0"],
+                         device_ms=ln_bwd_time["device_ms"],
+                         device_ms_p0=ln_bwd_time["device_ms_p0"],
+                         share_of_bound=ln_bwd_time["share_of_bound"],
+                         layer_norm_backward_ms=ln_bwd_time[
+                             "layer_norm_backward_ms"],
+                         launches_amp_o1=enc_o1["launches"]["fused_ln_bwd"],
+                         launches_scoring=enc_score["launches"][
+                             "fused_ln_bwd"],
+                         columns_rel_l2_vs_float64=max(
+                             max(r["errors"][k] for k in
+                                 ("dbias", "dgamma", "dbeta"))
+                             for r in ln_bwd_checks
+                             if r["columns_against"] == "float64"),
+                         dx_zero_exactly_where_dropped=all(
+                             r["dx_zero_exactly_where_dropped"]
+                             for r in ln_bwd_checks)),
+             max_abs_err=max(r["max_abs_err"] for r in ln_bwd_checks
+                             if r["dtype"] == r["residual_dtype"] ==
+                             "float32"),
+             max_abs_err_bf16=max(r["max_abs_err"] for r in ln_bwd_checks
+                                  if r["dtype"] == r["residual_dtype"] ==
+                                  "bfloat16"))]
     report = dict(checks=checks, qkv_checks=qkv_checks,
                   fp64_checks=fp64_checks,
                   head_checks=head_checks, dlogits_checks=dlogits_checks,
@@ -2068,7 +2367,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   dlogits_timing=dlogits_time, fused_ln_timing=ln_time,
                   train=trained, train_long=trained_long, eager=eager,
                   eager_long=eager_runs, encoder_scoring=enc_score,
-                  encoder_train=enc_train)
+                  encoder_train=enc_train, eager_amp_o1=eager_o1,
+                  eager_amp_o2=eager_o2, encoder_amp_o1=enc_o1,
+                  encoder_amp_o2=enc_o2, fused_ln_bwd_checks=ln_bwd_checks,
+                  fused_ln_bwd_timing=ln_bwd_time)
     return report, kernels
 
 

@@ -14,8 +14,20 @@ constructor's ``inputs``/``labels`` (the reference's static input specs)
 are accepted and change nothing: the port has one engine and plans no
 memory.
 
+``prepare(amp_configs=...)`` (the reference's :189-215: ``"O1"``,
+``"O2"`` or a dict with ``level``, ``dtype``, ``custom_white_list``,
+``custom_black_list`` and the fp16 scaler's settings) runs
+``train_batch``'s forward under :func:`~paddle_tpu_torch.amp.auto_cast`,
+as the reference's step does (:618; the loss, eval and predict run
+outside it, as there).  O2 keeps the network's fp32 parameters as the
+masters the optimizer updates: the forward sees a low-type view of them
+cast inside the differentiated function (``torch.func.functional_call``),
+so the gradients land on the fp32 leaves (:254-262).  fp16 engages the
+dynamic loss scaling (``ops/amp_ops.py``); on the card it raises, since
+the attention and epilogue kernels take fp32 and bf16 only.
+
 Not ported yet (``ROADMAP.md`` A3), and raising ``NotImplementedError``:
-metrics, ``amp_configs``, ``offload=True``, the budget-driven remat of
+metrics, ``offload=True``, the budget-driven remat of
 ``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb``, and ``fit``,
 ``evaluate`` and ``predict``, which need ``io.DataLoader`` and the
 callbacks.
@@ -26,6 +38,9 @@ import os
 from typing import Dict, List
 
 import torch
+
+from ..amp import auto_cast, to_dtype
+from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
 
 __all__ = ["Model"]
 
@@ -53,13 +68,14 @@ class Model:
         self.network = network
         self._optimizer = None
         self._loss = None
+        self._amp = None
+        self._scaler = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=True, offload=False) -> "Model":
         if metrics:
             raise NotImplementedError(f"metrics {_NOT_PORTED}")
-        if amp_configs:
-            raise NotImplementedError(f"amp_configs {_NOT_PORTED}")
+        self._amp, self._scaler = self._amp_settings(amp_configs)
         if offload:
             raise NotImplementedError(f"optimizer-state offload "
                                       f"{_NOT_PORTED}")
@@ -69,6 +85,80 @@ class Model:
             optimizer._name_parameters(
                 {id(p): n for n, p in self.network.named_parameters()})
         return self
+
+    def _amp_settings(self, amp_configs):
+        """(auto_cast keywords, fp16 scaler state) from ``amp_configs``,
+        validated as the reference's ``prepare`` does; (None, None)
+        without AMP."""
+        if not amp_configs:
+            return None, None
+        cfg = {"level": amp_configs} if isinstance(amp_configs, str) \
+            else dict(amp_configs)
+        level = cfg.get("level", "O1")
+        if level not in ("O1", "O2"):
+            raise ValueError(f"amp_configs level must be 'O1' or 'O2', got "
+                             f"{level!r}")
+        dtype = to_dtype(cfg.get("dtype", "bfloat16"))
+        if dtype not in (torch.bfloat16, torch.float16):
+            raise ValueError(f"amp_configs dtype must be bfloat16 or "
+                             f"float16, got {cfg['dtype']!r}")
+        amp = dict(level=level, dtype=dtype,
+                   custom_white_list=cfg.get("custom_white_list"),
+                   custom_black_list=cfg.get("custom_black_list"))
+        if dtype == torch.bfloat16:
+            return amp, None
+        if self._device().type == "cuda":
+            raise NotImplementedError(
+                "AMP in float16 on the card: the kernels of "
+                "ops/flash_attention.py (_check_cuda) and ops/fused_ln.py "
+                "take fp32 and bf16 only; fp16 kernels are not ported yet "
+                "(ROADMAP.md A3); use dtype 'bfloat16'")
+        # fp16's exponent range needs dynamic loss scaling (:198-213);
+        # bf16 shares fp32's range and never engages it
+        scaler = dict(
+            scale=torch.tensor(float(cfg.get("init_loss_scaling",
+                                             2.0 ** 15))),
+            good=torch.zeros((), dtype=torch.int32),
+            bad=torch.zeros((), dtype=torch.int32),
+            incr_ratio=float(cfg.get("incr_ratio", 2.0)),
+            decr_ratio=float(cfg.get("decr_ratio", 0.5)),
+            incr_every_n_steps=int(cfg.get("incr_every_n_steps", 1000)),
+            decr_every_n_nan_or_inf=int(cfg.get("decr_every_n_nan_or_inf",
+                                                2)),
+            use_dynamic_loss_scaling=bool(cfg.get(
+                "use_dynamic_loss_scaling", True)))
+        return amp, scaler
+
+    def _forward_amp(self, inputs: List[torch.Tensor]):
+        """The network's forward under the prepared AMP: O1 as it is, O2
+        on a low-type view of the fp32 parameters, cast inside the
+        differentiated function."""
+        with auto_cast(**self._amp):
+            if self._amp["level"] == "O1":
+                return self.network(*inputs)
+            low = self._amp["dtype"]
+            view = {n: p.to(low) if p.dtype == torch.float32 else p
+                    for n, p in self.network.named_parameters()}
+            return torch.func.functional_call(self.network, view,
+                                              tuple(inputs))
+
+    def _scaled_backward(self, loss: torch.Tensor) -> bool:
+        """fp16: backward of the loss times the scale, the gradients
+        unscaled, and the scale state moved (``update_loss_scaling``).
+        Returns whether every gradient was finite."""
+        sc = self._scaler
+        (loss.float() * sc["scale"].to(loss.device)).backward()
+        params = [p for p in self.network.parameters() if p.grad is not None]
+        grads, found = check_finite_and_unscale([p.grad for p in params],
+                                                sc["scale"])
+        for p, g in zip(params, grads):
+            p.grad = g
+        if sc["use_dynamic_loss_scaling"]:
+            sc["scale"], sc["good"], sc["bad"] = update_loss_scaling(
+                found, sc["scale"], sc["good"], sc["bad"],
+                sc["incr_every_n_steps"], sc["decr_every_n_nan_or_inf"],
+                sc["incr_ratio"], sc["decr_ratio"])
+        return not bool(found)
 
     def _device(self) -> torch.device:
         return next(self.network.parameters()).device
@@ -97,11 +187,18 @@ class Model:
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
         self.network.train()
-        outs = _to_list(self.network(*self._tensors(inputs)))
+        ins = self._tensors(inputs)
+        outs = _to_list(self.network(*ins) if self._amp is None
+                        else self._forward_amp(ins))
         loss = self._loss(*(outs + self._tensors(labels)))
-        loss.backward()
+        finite = True
+        if self._scaler is None:
+            loss.backward()
+        else:
+            finite = self._scaled_backward(loss)
         if update:
-            self._optimizer.step()
+            if finite:
+                self._optimizer.step()
             self._optimizer.clear_grad()
         return self._pack_logs(loss.detach(), {})
 

@@ -2,12 +2,15 @@
 ``paddle_tpu/ops/fused_ops.py``: ``LayerNorm(residual + dropout(x +
 bias))`` as one op.
 
-The forward is :func:`~paddle_tpu_torch.ops.fused_ln.fused_ln`: the
-hand-written kernel for CUDA tensors, its plain version for CPU tensors.
-The backward is the reference's ``_fused_bwd`` (:62): autograd over the
-plain math :func:`_fused_math`, with the dropout mask recomputed from
-(seed, index), so no mask is stored.  The reference has no backward
-kernel; one is queued in ``ROADMAP.md``.
+The forward is :func:`~paddle_tpu_torch.ops.fused_ln.fused_ln` and the
+backward, the reference's ``_fused_bwd`` (:62), is
+:func:`~paddle_tpu_torch.ops.fused_ln.fused_ln_bwd`: the hand-written
+kernels for CUDA tensors, their plain versions for CPU tensors.  The
+backward recomputes the dropout mask from (seed, index), so no mask is
+stored.  x and the residual may differ in type (under AMP O1 the first
+layer's residual is fp32 and x bf16); the output is in x's type.  Under
+:func:`~paddle_tpu_torch.amp.auto_cast` the op is grey, as in the
+reference: O2 casts its floating inputs to the low type, O1 leaves them.
 
 Each call draws its hash seed on the host from the port's random state
 (:data:`~paddle_tpu_torch.random.default_generator`), in the reference's
@@ -19,21 +22,19 @@ from typing import Optional
 
 import torch
 
+from ..amp import amp_op
 from ..random import default_generator
 from . import fused_ln as _fl
 
 __all__ = ["fused_bias_dropout_residual_layer_norm",
            "FusedBiasDropoutResidualLN"]
 
-# the reference's pure math (:29), shared by the CPU forward and the
-# backward's recompute: the kernel's plain version
-_fused_math = _fl.fused_ln_ref
-
 
 class FusedBiasDropoutResidualLN(torch.autograd.Function):
-    """:func:`~paddle_tpu_torch.ops.fused_ln.fused_ln` forward (looked up
-    in its module at each call); the backward differentiates
-    :func:`_fused_math` at the saved inputs with the same seed."""
+    """:func:`~paddle_tpu_torch.ops.fused_ln.fused_ln` forward and
+    :func:`~paddle_tpu_torch.ops.fused_ln.fused_ln_bwd` backward at the
+    saved inputs with the same seed, each looked up in its module at each
+    call."""
 
     @staticmethod
     def forward(ctx, x, residual, bias, gamma, beta, seed, p, eps):
@@ -44,10 +45,8 @@ class FusedBiasDropoutResidualLN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = _fused_math(*leaves, ctx.seed, p=ctx.p, eps=ctx.eps)
-        grads = torch.autograd.grad(out, leaves, g)
+        grads = _fl.fused_ln_bwd(g.contiguous(), *ctx.saved_tensors,
+                                 ctx.seed, p=ctx.p, eps=ctx.eps)
         return (*(gr if need else None for gr, need in
                   zip(grads, ctx.needs_input_grad)), None, None, None)
 
@@ -56,6 +55,7 @@ def _next_seed() -> int:
     return default_generator.next_seed()
 
 
+@amp_op("fused_bias_dropout_residual_layer_norm")
 def fused_bias_dropout_residual_layer_norm(
         x: torch.Tensor, residual: torch.Tensor,
         bias: Optional[torch.Tensor] = None,

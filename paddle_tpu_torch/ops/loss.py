@@ -9,13 +9,17 @@ weights of the valid rows, :69-73), per-class ``weight``, and
 ``label_smoothing`` mixing the one-hot target with the uniform one.  The
 log-softmax runs in fp32.  A hard label picks its log-probability by
 gather instead of a one-hot product, which is the same sum with the zero
-terms left out and needs no ``(…, V)`` target tensor.
+terms left out and needs no ``(…, V)`` target tensor.  Under
+:func:`~paddle_tpu_torch.amp.auto_cast` it is a black-list op: its
+floating inputs are cast to fp32 (:func:`~paddle_tpu_torch.amp.amp_op`).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from ..amp import amp_op
 
 __all__ = ["cross_entropy"]
 
@@ -31,6 +35,7 @@ def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
                      f"{reduction!r}")
 
 
+@amp_op("cross_entropy")
 def cross_entropy(input: torch.Tensor, label: torch.Tensor,
                   weight: Optional[torch.Tensor] = None,
                   ignore_index: int = -100, reduction: str = "mean",

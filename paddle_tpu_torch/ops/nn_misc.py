@@ -13,7 +13,11 @@ Dropout masks come from the device stream of the port's random state
 (:data:`~paddle_tpu_torch.random.default_generator`, reseeded by
 :func:`paddle_tpu_torch.seed`).  torch's and JAX's random bits differ, so
 these masks are held to their statistics and to determinism, not to the
-reference's bits."""
+reference's bits.
+
+Under :func:`~paddle_tpu_torch.amp.auto_cast` each is one op of the
+reference's lists (:func:`~paddle_tpu_torch.amp.amp_op`): attention is
+white (bf16 attention runs the bf16 kernels), dropout grey."""
 from __future__ import annotations
 
 import math
@@ -21,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..amp import amp_op
 from ..random import default_generator
 from .flash_attention import flash_attention
 
@@ -33,6 +38,7 @@ def _keep(shape, p: float, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) < (1.0 - p)
 
 
+@amp_op("dropout")
 def dropout(x: torch.Tensor, p: float = 0.5, *,
             training: bool = True) -> torch.Tensor:
     """The reference's dropout in its default mode, ``upscale_in_train``:
@@ -65,6 +71,7 @@ def _sdpa_math(q, k, v, attn_mask, causal: bool, scale: Optional[float],
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+@amp_op("scaled_dot_product_attention")
 def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  value: torch.Tensor,
                                  attn_mask: Optional[torch.Tensor] = None,

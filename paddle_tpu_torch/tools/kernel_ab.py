@@ -2,7 +2,8 @@
 on one card.
 
     python3 paddle_tpu_torch/tools/kernel_ab.py --root DIR [--label NAME]
-                                                [--head] [--json PATH]
+                                                [--head | --epilogue]
+                                                [--json PATH]
 
 Imports ``paddle_tpu_torch`` from the checkout at ``DIR`` (its kernels
 build into that checkout's ``_build/``) and times, with CUDA events (median
@@ -27,7 +28,13 @@ attention kernel calls of the serving and train paths, at their shapes:
 - the LM head at the compiled step's shapes, bf16: ``softmax_xent_fwd``
   at N 65536, D 768, V 30528 (row 10) and ``softmax_xent_dlogits`` on one
   4096-row chunk (row 11), with the route each took where the checkout
-  has one.  ``--head`` times these two rows alone.
+  has one.  ``--head`` times these two rows alone;
+- with ``--epilogue`` instead, the fused epilogue alone at the encoder's
+  shape, N 16384, D 768, p 0.1: ``fused_ln`` (row 12) in fp32 and its
+  backward ``fused_ln_bwd`` with x and the residual fp32, bf16, and bf16
+  with an fp32 residual (the encoder's first layer under AMP O1), each
+  backward held against its plain version (``*_max_abs_err``, dx and
+  dres).
 
 Run it on two checkouts in turns (A, B, B, A) inside one call to compare
 them; each run prints one JSON line and, with ``--json``, writes it.
@@ -79,8 +86,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True,
                     help="checkout whose paddle_tpu_torch is timed")
     ap.add_argument("--label", default=None)
-    ap.add_argument("--head", action="store_true",
-                    help="time the LM head's rows 10 and 11 only")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--head", action="store_true",
+                      help="time the LM head's rows 10 and 11 only")
+    only.add_argument("--epilogue", action="store_true",
+                      help="time the fused epilogue's forward and "
+                           "backward only")
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args(argv)
     import torch
@@ -97,8 +108,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = dict(label=args.label or root, root=root,
                card=torch.cuda.get_device_name(0))
-    _time_head(torch, gen, out)
-    if not args.head:
+    if args.epilogue:
+        _time_epilogue(torch, gen, out)
+    else:
+        _time_head(torch, gen, out)
+    if not (args.head or args.epilogue):
         _time_attention(torch, fa, fq, gen, out)
     print(json.dumps(out), flush=True)
     if args.json:
@@ -107,6 +121,41 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
     return 0
+
+
+def _time_epilogue(torch, gen, out):
+    from paddle_tpu_torch.ops import fused_ln as fl
+    N, D, p = 16384, 768, 0.1
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, gam, be = (torch.randn(D, generator=gen, device="cuda")
+                  for _ in range(3))
+    with torch.no_grad():
+        x, r = (torch.randn((N, D), generator=gen, device="cuda")
+                for _ in range(2))
+
+        def fwd():
+            fl.fused_ln(x, r, b, gam, be, 3, p=p, eps=1e-5)
+
+        out["row12_fused_ln_fp32_ms"] = _time_ms(torch, fwd)
+        out["row12_fused_ln_fp32_device_ms"] = _device_ms(torch, fwd)
+        for name, x_dt, r_dt in (("fp32", f32, f32), ("bf16", bf16, bf16),
+                                 ("bf16_x_fp32_res", bf16, f32)):
+            g, x, r = (torch.randn((N, D), generator=gen, device="cuda")
+                       for _ in range(3))
+            args = (g.to(x_dt), x.to(x_dt), r.to(r_dt), b, gam, be, 3)
+
+            def bwd():
+                return fl.fused_ln_bwd(*args, p=p, eps=1e-5)
+
+            key = f"fused_ln_bwd_{name}"
+            got = bwd()
+            ref = fl.fused_ln_bwd_ref(*args, p=p, eps=1e-5)
+            out[f"{key}_max_abs_err"] = max(
+                (a.float() - w.float()).abs().max().item()
+                for a, w in zip(got[:2], ref[:2]))
+            del got, ref
+            out[f"{key}_ms"] = _time_ms(torch, bwd)
+            out[f"{key}_device_ms"] = _device_ms(torch, bwd)
 
 
 def _time_head(torch, gen, out):

@@ -1,6 +1,7 @@
 """Where a train step's time goes on the card.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--eager | --encoder]
+                                                    [--amp O1|O2]
                                                     [--steps 5] [--json PATH]
 
 Without a path option it builds the flagship compiled train step (V 30528,
@@ -12,7 +13,9 @@ weight_decay=0.01), CrossEntropyLoss()).train_batch`` at B 32, T 512,
 fp32, on ids from ``np.random.RandomState(0)`` and labels rolled by one.
 With ``--encoder`` it trains the same way the encoder of
 :func:`build_encoder` at :data:`ENCODER` (``chip_smoke.py`` phase 11
-builds the same model).  Either way it takes two warm-up steps, then
+builds the same model).  ``--amp`` (with ``--eager`` or ``--encoder``)
+prepares the model with ``amp_configs`` at that level in bf16.  Either
+way it takes two warm-up steps, then
 ``--steps`` steps unprofiled
 (host wall per step, ending in a synchronise) and ``--steps`` steps under
 ``torch.profiler`` (CPU and CUDA activities).  Reports the device time
@@ -68,6 +71,8 @@ KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",
          ("softmax_xent_fwd (row 10)", ("sxent_fwd_kernel",)),
          ("softmax_xent_dlogits (row 11)", ("sxent_dlogits_kernel",)),
          ("fused_ln (row 12)", ("fused_ln_warp", "fused_ln_row")),
+         ("fused_ln_bwd (the epilogue's backward)",
+          ("ln_bwd_warp", "ln_bwd_row", "ln_bwd_fold")),
          ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_",
                                        "xmma", "nvjet")),
          ("copies and casts", ("copy", "Copy", "Memcpy", "Memset")),
@@ -183,16 +188,16 @@ def build_encoder(cfg=ENCODER, device=None, seed_val: int = 0):
     return net
 
 
-def _eager_path(encoder: bool = False):
-    """Model.train_batch on the eager GPT (or the fused encoder): the same
-    four callables."""
+def _eager_path(encoder: bool = False, amp=None):
+    """Model.train_batch on the eager GPT (or the fused encoder), with
+    ``amp_configs=amp``: the same four callables."""
     if encoder:
         net = build_encoder()
     else:
         net = GPT(GPTConfig(**WIDTH), seed=0)
     model = Model(net).prepare(
         AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-        CrossEntropyLoss())
+        CrossEntropyLoss(), amp_configs=amp)
     ids = np.random.RandomState(0).randint(0, WIDTH["vocab_size"],
                                            (EAGER_BATCH, SEQ))
     labels = np.roll(ids, -1, 1).reshape(EAGER_BATCH, SEQ, 1)
@@ -203,14 +208,19 @@ def _eager_path(encoder: bool = False):
 
     def reset():
         fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fl.LAUNCHES = 0
+        fa.SM90_FWD_LAUNCHES = fa.SM90_BWD_LAUNCHES = fl.BWD_LAUNCHES = 0
 
     def counts():
         return dict(flash_attn_fwd=fa.FWD_LAUNCHES,
-                    flash_attn_bwd=fa.BWD_LAUNCHES, fused_ln=fl.LAUNCHES)
+                    flash_attn_bwd=fa.BWD_LAUNCHES,
+                    flash_attn_sm90_fwd=fa.SM90_FWD_LAUNCHES,
+                    flash_attn_sm90_bwd=fa.SM90_BWD_LAUNCHES,
+                    fused_ln=fl.LAUNCHES, fused_ln_bwd=fl.BWD_LAUNCHES)
 
     return one, reset, counts, dict(
         path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
-        dtype="float32", remat="none")
+        dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
+        remat="none")
 
 
 def main(argv=None) -> int:
@@ -221,6 +231,9 @@ def main(argv=None) -> int:
     path.add_argument("--encoder", action="store_true",
                       help="profile Model.train_batch on the fused "
                            "post-LN encoder")
+    ap.add_argument("--amp", choices=("O1", "O2"),
+                    help="with --eager or --encoder: prepare the model with "
+                         "amp_configs at this level (bf16)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the summary to PATH")
@@ -229,8 +242,11 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
+    if args.amp and not (args.eager or args.encoder):
+        ap.error("--amp takes --eager or --encoder")
     if args.eager or args.encoder:
-        one, reset, counts, setup = _eager_path(encoder=args.encoder)
+        one, reset, counts, setup = _eager_path(encoder=args.encoder,
+                                                amp=args.amp)
     else:
         one, reset, counts, setup = _compiled_path()
 

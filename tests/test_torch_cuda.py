@@ -399,15 +399,179 @@ def test_encoder_gradients_flow_through_the_fused_ln_kernel(card):
         return [xi.grad] + [p.grad.clone() for p in layer.parameters()
                             if p.grad is not None]
 
-    f0, a0 = fl.LAUNCHES, pfa.FWD_LAUNCHES
+    f0, b0, a0 = fl.LAUNCHES, fl.BWD_LAUNCHES, pfa.FWD_LAUNCHES
     got = grads()
     torch.cuda.synchronize()
-    assert (fl.LAUNCHES - f0, pfa.FWD_LAUNCHES - a0) == (2, 1)
-    with mock.patch.object(fl, "fused_ln", fl.fused_ln_ref):
+    assert (fl.LAUNCHES - f0, fl.BWD_LAUNCHES - b0,
+            pfa.FWD_LAUNCHES - a0) == (2, 2, 1)
+    with mock.patch.object(fl, "fused_ln", fl.fused_ln_ref), \
+            mock.patch.object(fl, "fused_ln_bwd", fl.fused_ln_bwd_ref):
         want = grads()
     assert len(got) == len(want) > 10
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# -- csrc/fused_ln_bwd.cu: the epilogue's backward; mixed types (C5, C6) -------
+F32, BF16 = torch.float32, torch.bfloat16
+LN_TYPES = ((F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16))
+
+
+def _ln_operands(gen, N, D, x_dt, r_dt, p_dt):
+    x, r, g = (torch.randn((N, D), generator=gen, device="cuda")
+               for _ in range(3))
+    b, be = (torch.randn(D, generator=gen, device="cuda").to(p_dt)
+             for _ in range(2))
+    gam = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(p_dt)
+    return g.to(x_dt), x.to(x_dt), r.to(r_dt), b, gam, be
+
+
+def test_fused_ln_mixed_types_match_plain_version(card):
+    # fault C6: x and residual of different types, out in x's type
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for D in (64, 768, 1100):
+        for x_dt, r_dt in LN_TYPES[2:]:
+            for p in (0.0, 0.1):
+                _, x, r, b, gam, be = _ln_operands(gen, 300, D, x_dt, r_dt,
+                                                   F32)
+                before = fl.LAUNCHES
+                out = fl.fused_ln(x, r, b, gam, be, 5, p=p, eps=1e-5)
+                torch.cuda.synchronize()
+                assert fl.LAUNCHES == before + 1
+                ref = fl.fused_ln_ref(x, r, b, gam, be, 5, p=p, eps=1e-5)
+                assert out.dtype == x_dt
+                err = (out.float() - ref.float()).abs()
+                tol = 1e-5 if x_dt == F32 else 1e-5 + _bf16_ulp(ref.float())
+                assert (err <= tol).all(), (D, x_dt, r_dt, p)
+
+
+def test_fused_ln_bwd_kernel_matches_plain_version(card):
+    # the warp path (D 64, 100, 768, 1024) and the block path (D 1100,
+    # 4096); dx, dres by their type's grads atol (fp32 5e-5, bf16 5e-2);
+    # the column sums in fp32 at relative L2 1e-5 against a float64 run
+    # of the plain backward; dx exactly 0 where the forward dropped
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    i = 0
+    for D in (64, 100, 768, 1024, 1100, 4096):
+        for N in (1, 37, 2000):
+            for x_dt, r_dt in LN_TYPES:
+                for p in (0.0, 0.1, 0.5):
+                    i += 1
+                    p_dt = x_dt if i % 2 else F32
+                    args = _ln_operands(gen, N, D, x_dt, r_dt, p_dt) + (i,)
+                    before = fl.BWD_LAUNCHES
+                    got = fl.fused_ln_bwd(*args, p=p, eps=1e-5)
+                    torch.cuda.synchronize()
+                    assert fl.BWD_LAUNCHES == before + 1
+                    ref = fl.fused_ln_bwd_ref(*args, p=p, eps=1e-5)
+                    case = (N, D, x_dt, r_dt, p)
+                    for a, w in zip(got[:2], ref[:2]):
+                        assert a.dtype == w.dtype, case
+                        torch.testing.assert_close(
+                            a.float(), w.float(), rtol=0,
+                            atol=GRAD_ATOL[a.dtype], msg=str(case))
+                    truth = ref[2:] if (x_dt, r_dt) != (F32, F32) else \
+                        fl.fused_ln_bwd_ref(*(t.double() for t in args[:6]),
+                                            i, p=p, eps=1e-5)[2:]
+                    tol = 5e-2 if (x_dt, r_dt) != (F32, F32) else 1e-5
+                    for a, w in zip(got[2:], truth):
+                        assert a.dtype == p_dt, case
+                        rel = (a.double() - w.double()).norm() / \
+                            w.double().norm()
+                        assert rel.item() <= tol, case
+                    if p > 0:
+                        dropped = fl.hash_uniform(i, (N, D), device="cuda") \
+                            < torch.tensor(p)
+                        assert torch.equal(got[0] == 0, dropped), case
+
+
+def test_fused_ln_bwd_repeats_bit_for_bit(card):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    args = _ln_operands(gen, 16384, 768, F32, F32, F32) + (3,)
+    first = fl.fused_ln_bwd(*args, p=0.1, eps=1e-5)
+    second = fl.fused_ln_bwd(*args, p=0.1, eps=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    # dres and dx (p 0) are separate tensors
+    dx, dres = fl.fused_ln_bwd(*args, p=0.0, eps=1e-5)[:2]
+    assert torch.equal(dx, dres) and dx.data_ptr() != dres.data_ptr()
+
+
+def _small_encoder():
+    from paddle_tpu_torch.tools.profile_train import build_encoder
+    return build_encoder(dict(vocab_size=97, d_model=128, num_layers=2,
+                              nhead=2, dim_feedforward=256, max_len=128,
+                              dropout_rate=0.1), device="cuda")
+
+
+def test_encoder_train_step_never_reaches_a_plain_epilogue(card):
+    # fault C5: with both plain versions made to raise, a train step of
+    # the encoder still runs, through 2L + 2L epilogue launches
+    from unittest import mock
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    net = _small_encoder()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 97, (4, 128))).cuda()
+    labels = ids.roll(-1, 1)[..., None]
+    for amp in (None, "O1", "O2"):
+        model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                                   CrossEntropyLoss(), amp_configs=amp)
+        f0, b0 = fl.LAUNCHES, fl.BWD_LAUNCHES
+        with mock.patch.object(fl, "fused_ln_ref", refuse), \
+                mock.patch.object(fl, "fused_ln_bwd_ref", refuse):
+            loss = model.train_batch([ids], [labels])["loss"]
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert (fl.LAUNCHES - f0, fl.BWD_LAUNCHES - b0) == (4, 4), amp
+
+
+def test_amp_o1_steps_run_bf16_attention_on_sm90(card):
+    # the eager GPT and the encoder under O1: every attention launch in
+    # bf16 on flash_attn_sm90.cu; the step against the plain versions
+    # (loss rtol 1e-3, grads relative L2 5e-2)
+    from unittest import mock
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 97, (4, 128))).cuda()
+    labels = ids.roll(-1, 1)[..., None]
+    for net in (GPT(GPTConfig(**WIDTH), device="cuda", seed=0),
+                _small_encoder()):
+        model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                                   CrossEntropyLoss(), amp_configs="O1")
+
+        def step():
+            paddle_tpu_torch.seed(4)
+            loss = model.train_batch([ids], [labels], update=False)["loss"]
+            grads = [p.grad.clone() for p in net.parameters()
+                     if p.grad is not None]
+            model._optimizer.clear_grad()
+            return loss.item(), grads
+
+        s0, b0 = pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES
+        loss, grads = step()
+        assert (pfa.SM90_FWD_LAUNCHES - s0, pfa.SM90_BWD_LAUNCHES - b0) == \
+            (2, 2)
+        with mock.patch.object(pfa, "flash_attn_fwd",
+                               pfa.flash_attn_fwd_ref), \
+                mock.patch.object(pfa, "flash_attn_bwd",
+                                  pfa.flash_attn_bwd_ref), \
+                mock.patch.object(fl, "fused_ln", fl.fused_ln_ref), \
+                mock.patch.object(fl, "fused_ln_bwd", fl.fused_ln_bwd_ref):
+            ref_loss, ref_grads = step()
+        assert abs(loss - ref_loss) <= 1e-3 * abs(ref_loss)
+        assert len(grads) == len(ref_grads) > 10
+        for a, b in zip(grads, ref_grads):
+            assert a.dtype == torch.float32
+            assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() \
+                <= 5e-2
 
 
 # -- csrc/flash_attn_sm90.cu: bf16 attention on wgmma and TMA -------------------
