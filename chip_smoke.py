@@ -31,9 +31,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
-5. serving  GenerationEngine (8 slots, 64 new tokens) answers 16 requests
-            from 4 client threads; every stream equals its solo-session
-            stream, and a second run repeats every stream exactly
+5. serving  GenerationEngine (8 slots, 64 new tokens, warmup=True: every
+            prompt bucket's prefill and the decode step captured in a
+            CUDA graph, 7 + 1 of them, before the clients start) answers
+            16 requests from 4 client threads by replays (12 launches a
+            prefill, counted through the replays; no capture while
+            serving); every stream equals its solo-session stream, a
+            second run repeats every stream exactly, and every bucket's
+            replay, out of capture order, and the decode's equal a direct
+            call of the same step on the same inputs, tokens and caches
+            bit for bit; capture ms, the graphs' pools, tokens/s, decode
+            ms/step and TTFT p50 and p99
 6. timing   kernel, plain and library times with CUDA events beside the
             card's bound, at the serving and train paths' shapes (every
             fp32 attention row: 1 at bh 96, T 512; 3 and 4 at B 32, T 512;
@@ -62,13 +70,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
             full width (B 32, T 512, fp32): one step through the kernels
             (12 + 12 launches, mode "small", row 6) against the plain
-            versions; two runs of two steps repeat bit for bit; the loss
-            falls over 12 steps; step ms, seq/s, peak memory.  Then the
-            same under AMP O1 in bf16 (prepare(amp_configs="O1"): 12 + 12
-            attention launches, all flash_attn_sm90's; against the plain
-            versions at the compiled bf16 step's tolerances, loss rtol
-            1e-3, grads 5e-2 relative L2), and O2 (fp32 masters) at L 2,
-            one step and two repeated runs
+            versions; 3 steps with jit=True (captured in a CUDA graph,
+            replayed) against jit=False from the same state and seeds, bit
+            for bit, and a second captured run repeating bit for bit, with
+            12 + 12 launches counted in a replay; the loss falls over 12
+            steps of each engine; step ms, seq/s, peak memory of both.
+            Then the same under AMP O1 in bf16 (prepare(amp_configs="O1"):
+            12 + 12 attention launches, all flash_attn_sm90's; against the
+            plain versions at the compiled bf16 step's tolerances, loss
+            rtol 1e-3, grads 5e-2 relative L2), and O2 (fp32 masters) at
+            L 2
 10. eager   the same at L 2: T 1024, B 8 (row 7) and T 8192, B 1 (rows 2,
     long    8 and 9), each one step through the kernels against the plain
             versions, with the launches per mode
@@ -80,11 +91,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
             Model.train_batch at B 32, T 512, fp32: one step through the
             kernels (24 + 24 epilogue launches, forward and backward,
             12 + 12 attention launches, non-causal) against the plain
-            versions with the same seeds; two runs of two steps repeat bit
-            for bit; the loss falls over 12 steps; step ms, seq/s, peak
-            memory.  Then the same under AMP O1 (the epilogue on bf16 x
-            and an fp32 or bf16 residual, attention on flash_attn_sm90)
-            and O2 at L 2, as in phase 9
+            versions with the same seeds; captured against uncaptured
+            steps and two captured runs as in phase 9, and two captured
+            steps at learning rate 0 on one batch that differ (new dropout
+            masks and epilogue seeds at every replay); the loss falls over
+            12 steps of each engine; step ms, seq/s, peak memory.  Then
+            the same under AMP O1 (the epilogue on bf16 x and an fp32 or
+            bf16 residual, attention on flash_attn_sm90) and O2 at L 2, as
+            in phase 9
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -191,6 +205,9 @@ TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
                              num_layers=2, num_heads=12, max_seq_len=1024),
                   batch=8, seq=1024, dtype="float32", remat="full")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# phases 9 and 11: steps of Model.train_batch with jit=True (captured in a
+# CUDA graph) against jit=False, on the batch rolled by 0, 1, 2 rows
+JIT_STEPS = 3
 
 # split-layout attention (rows 1, 2, 6-9): every mode's lengths, a ragged
 # one and Tq < Tk; forward with lse and backward on (B, S, H, D) operands
@@ -253,8 +270,7 @@ DLOGITS_G, DLOGITS_ATOL, DLOGITS_BF16_ATOL_PER_G = 2.0, 1e-5, 1e-6
 # (bert-base-uncased) at the flagship vocabulary (bench.py:1027-1029),
 # built by profile_train.build_encoder
 ENCODER_SCORE_BATCH, ENCODER_BATCH = 8, 32          # T = max_len, 512
-# phases 9 and 11 under AMP: O1 at full width, O2 at this depth (one step
-# against the plain versions and two repeated runs, untimed)
+# phases 9 and 11 under AMP: O1 at full width, O2 at this depth
 AMP_O2_LAYERS = 2
 
 
@@ -915,13 +931,23 @@ def make_requests(vocab):
     return reqs
 
 
-def run_engine(fa, net, reqs):
+def run_engine(torch, fa, net, reqs):
     """Serve ``reqs`` from CLIENTS threads (each submits its share, then
-    waits); returns the streams and the engine's counts and step times."""
+    waits) through an engine built with ``warmup=True`` (every prefill
+    bucket and the decode step captured before the clients start); returns
+    the streams, the engine's counts and step times, and its executable
+    cache's."""
+    import gc
     from paddle_tpu_torch.serving import (GenerationEngine,
                                           GenerationEngineConfig)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
     engine = GenerationEngine(net, GenerationEngineConfig(
-        max_slots=SLOTS, max_new_tokens=NEW_TOKENS))
+        max_slots=SLOTS, max_new_tokens=NEW_TOKENS, warmup=True))
+    warmup_s = time.perf_counter() - t0
+    pool = torch.cuda.memory_reserved() - reserved
     results, ttft, errors = [None] * len(reqs), [None] * len(reqs), []
 
     def client(c):
@@ -937,7 +963,9 @@ def run_engine(fa, net, reqs):
 
     threads = [threading.Thread(target=client, args=(c,))
                for c in range(CLIENTS)]
+    cache = engine.session._cache
     try:
+        hits0, compiles0 = cache.hits, cache.compiles
         fa.FWD_LAUNCHES = 0
         t0 = time.perf_counter()
         for th in threads:
@@ -953,27 +981,124 @@ def run_engine(fa, net, reqs):
     if any(th.is_alive() for th in threads):
         raise AssertionError("a client thread did not finish")
     sess = engine.session
+    entries = cache.entries()
     return dict(results=results, ttft=ttft, wall_s=wall, launches=launches,
                 prefill_steps=sess.steps["prefill"],
                 decode_steps=sess.steps["decode"],
                 prefill_ms=list(sess.step_ms["prefill"]),
                 decode_ms=list(sess.step_ms["decode"]),
-                stats=engine.stats())
+                stats=engine.stats(), warmed_buckets=engine.warmed_buckets,
+                warmup_s=warmup_s, construction_reserved_bytes=pool,
+                capture_ms={k[0]: e.capture_ms for k, e in entries.items()},
+                graph_pool_bytes={k[0]: e.pool_bytes
+                                  for k, e in entries.items()},
+                captured=_all_captured(entries.values()),
+                hits=cache.hits - hits0, compiles=cache.compiles - compiles0,
+                warmup_compiles=compiles0)
+
+
+def _all_captured(entries) -> bool:
+    """Whether an executable cache's entries are all captured graphs."""
+    entries = list(entries)
+    return bool(entries) and all(e.graph is not None for e in entries)
+
+
+def check_replays(torch, net, seed=5):
+    """Every prefill bucket, replayed out of capture order, and the decode
+    step against a direct call of the same step function on the same
+    inputs (uncaptured): the tokens and every cache buffer bit for bit."""
+    import numpy as np
+    from paddle_tpu_torch.generation import GenerationSession
+    from paddle_tpu_torch.generation import session as psession
+    from paddle_tpu_torch.serving import seq_buckets
+    S, V = SLOTS, net.cfg.vocab_size
+    sess = GenerationSession(net, batch_capacity=S)
+    caches = sess.init_caches()
+    rs = np.random.RandomState(seed)
+    buckets = seq_buckets(sess.max_length, sess.prompt_bucket_min)
+    knobs = (rs.randint(0, 2**31, S).astype(np.int64),
+             np.where(np.arange(S) % 2 == 1, 0.8, 0.0).astype(np.float32),
+             np.where(np.arange(S) % 4 == 1, 40, 0).astype(np.int32),
+             np.where(np.arange(S) % 4 == 3, 0.9, 1.0).astype(np.float32))
+
+    def prefill_values(P, mask):
+        return (rs.randint(1, V, (S, P)).astype(np.int32),
+                rs.randint(1, P + 1, S).astype(np.int32), mask) + knobs
+
+    def snapshot():
+        return [(c.k.clone(), c.v.clone()) for c in caches]
+
+    def direct(fn, types, values):
+        net.eval()
+        with torch.inference_mode():
+            tok = fn(*[torch.as_tensor(np.asarray(v)).to(net.device, t)
+                       for v, t in zip(values, types)])
+        return tok.cpu().numpy().astype(np.int32)
+
+    def compare(name, run, fn, types, values):
+        before = snapshot()
+        tok, _ = run(caches, *values)
+        replayed = snapshot()
+        for c, (k, v) in zip(caches, before):
+            c.k.copy_(k)
+            c.v.copy_(v)
+        want = direct(fn, types, values)
+        same = bool(np.array_equal(tok, want)) and all(
+            torch.equal(c.k, k) and torch.equal(c.v, v)
+            for c, (k, v) in zip(caches, replayed))
+        return dict(step=name, equal=same)
+
+    for P in buckets:                        # captured in bucket order
+        sess.prefill(caches, *prefill_values(P, np.ones(S, bool)))
+    order = list(np.random.RandomState(seed).permutation(buckets))
+    partial = np.arange(S) % 3 != 1
+    rows = [compare(f"prefill:{P}", sess.prefill, sess._make_prefill(int(P)),
+                    psession._PREFILL_TYPES,
+                    prefill_values(int(P), partial)) for P in order]
+    positions = rs.randint(4, 200, S).astype(np.int32)
+    for i in range(2):
+        values = (rs.randint(1, V, S).astype(np.int32), positions + i) + knobs
+        rows.append(compare("decode", sess.decode, sess._make_decode(),
+                            psession._DECODE_TYPES, values))
+    equal = sum(r["equal"] for r in rows)
+    log(f"  replays against direct calls, buckets in the order "
+        f"{[int(P) for P in order]} then 2 decodes: {equal}/{len(rows)} "
+        f"bit for bit (tokens and caches); cache compiles "
+        f"{sess._cache.compiles}, hits {sess._cache.hits}")
+    if equal != len(rows):
+        raise AssertionError(f"replayed steps differ from direct calls: "
+                             f"{[r['step'] for r in rows if not r['equal']]}")
+    return dict(order=[int(P) for P in order], steps=rows,
+                compiles=sess._cache.compiles, hits=sess._cache.hits)
 
 
 def serving(torch, fa, net):
+    import gc
     import numpy as np
     from paddle_tpu_torch.generation import GenerationSession
+    from paddle_tpu_torch.serving import seq_buckets
     reqs = make_requests(net.cfg.vocab_size)
-    first = run_engine(fa, net, reqs)
+    first = run_engine(torch, fa, net, reqs)
     answered = sum(r is not None and len(r) > 0 for r in first["results"])
     tokens = sum(len(r) for r in first["results"] if r is not None)
     groups = first["prefill_steps"]
+    want_buckets = len(seq_buckets(net.cfg.max_seq_len, 8)) + 1
+    log(f"  warmup: {first['warmed_buckets']} steps captured (the bound, "
+        f"{want_buckets}: every prompt bucket and decode) in "
+        f"{first['warmup_s']:.3f} s; capture ms "
+        f"{ {k: round(v, 3) for k, v in first['capture_ms'].items()} }; "
+        f"the graphs' pools reserve "
+        f"{sum(first['graph_pool_bytes'].values()) / 2**30:.3f} GiB "
+        f"({first['graph_pool_bytes']}); the engine's construction "
+        f"(KV caches, warm-up steps, graphs) "
+        f"{first['construction_reserved_bytes'] / 2**30:.3f} GiB")
     log(f"  requests answered {answered}/{REQUESTS}, tokens {tokens}, "
         f"wall {first['wall_s']:.3f} s, tokens/s "
         f"{tokens / first['wall_s']:.1f}")
-    log(f"  prefill groups {groups}, kernel launches {first['launches']}, "
-        f"decode steps {first['decode_steps']}")
+    log(f"  prefill groups {groups}, kernel launches {first['launches']} "
+        f"(replays), decode steps {first['decode_steps']}; executable "
+        f"cache while serving: hits {first['hits']}, compiles "
+        f"{first['compiles']}")
     log(f"  prefill ms p50 {pct(first['prefill_ms'], 50):.3f}; decode "
         f"ms/step p50 {pct(first['decode_ms'], 50):.3f} p99 "
         f"{pct(first['decode_ms'], 99):.3f}; ttft ms p50 "
@@ -982,6 +1107,14 @@ def serving(torch, fa, net):
     if answered != REQUESTS:
         raise AssertionError(f"only {answered} of {REQUESTS} requests "
                              "answered")
+    if first["warmed_buckets"] != want_buckets or not first["captured"]:
+        raise AssertionError(f"warmup left {first['warmed_buckets']} steps "
+                             f"(captured: {first['captured']}); expected "
+                             f"{want_buckets} captured")
+    if first["compiles"] or first["hits"] != groups + first["decode_steps"]:
+        raise AssertionError(f"serving compiled {first['compiles']} steps "
+                             f"and hit {first['hits']}; expected 0 and "
+                             f"{groups + first['decode_steps']}")
     if first["launches"] != net.cfg.num_layers * groups:
         raise AssertionError(
             f"{first['launches']} kernel launches over {groups} prefill "
@@ -998,15 +1131,21 @@ def serving(torch, fa, net):
     if differ:
         raise AssertionError(f"engine streams {differ} differ from their "
                              "solo-session streams")
+    del solo
 
-    second = run_engine(fa, net, reqs)
+    second = run_engine(torch, fa, net, reqs)
     changed = [i for i in range(REQUESTS) if not np.array_equal(
         first["results"][i], second["results"][i])]
     log(f"  a second engine run repeats {REQUESTS - len(changed)}/"
-        f"{REQUESTS} streams ({SAMPLED} of them sampled)")
+        f"{REQUESTS} streams ({SAMPLED} of them sampled); tokens/s "
+        f"{tokens / second['wall_s']:.1f}, decode ms/step p50 "
+        f"{pct(second['decode_ms'], 50):.3f}")
     if changed:
         raise AssertionError(f"streams {changed} changed between two runs "
                              "with the same seeds")
+    replays = check_replays(torch, net)
+    gc.collect()
+    torch.cuda.empty_cache()
     return dict(requests=REQUESTS, answered=answered, tokens=tokens,
                 wall_s=first["wall_s"], tokens_per_s=tokens / first["wall_s"],
                 prefill_groups=groups, decode_steps=first["decode_steps"],
@@ -1016,7 +1155,19 @@ def serving(torch, fa, net):
                 decode_ms_p99=pct(first["decode_ms"], 99),
                 ttft_ms_p50=pct(first["ttft"], 50) * 1e3,
                 ttft_ms_p99=pct(first["ttft"], 99) * 1e3,
-                stats=first["stats"])
+                stats=first["stats"], warmed_buckets=first["warmed_buckets"],
+                warmup_s=first["warmup_s"], capture_ms=first["capture_ms"],
+                graph_pool_bytes=first["graph_pool_bytes"],
+                construction_reserved_bytes=first[
+                    "construction_reserved_bytes"],
+                cache_hits=first["hits"], cache_compiles=first["compiles"],
+                warmup_compiles=first["warmup_compiles"],
+                second_run=dict(wall_s=second["wall_s"],
+                                tokens_per_s=tokens / second["wall_s"],
+                                decode_ms_p50=pct(second["decode_ms"], 50),
+                                decode_ms_p99=pct(second["decode_ms"], 99),
+                                ttft_ms_p50=pct(second["ttft"], 50) * 1e3),
+                replays=replays)
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1776,18 +1927,27 @@ def _plain_attention(fa):
 
 
 def model_train(torch, net, ids, labels, names, reset, launches, want,
-                plain, note="", timed=True, amp=None, repeat=True):
-    """The eager train path on ``net``: ``Model(net).prepare(AdamW(1e-3,
-    weight_decay=0.01), CrossEntropyLoss(), amp_configs=amp).train_batch``
-    on (ids, labels).  Step 1 runs through the kernels with the counts
-    ``reset`` just before and ``launches()`` read just after (they must
-    equal ``want``), then again inside ``plain()`` (the plain versions),
-    held to the fp32 tolerances, or under AMP to the compiled bf16 step's;
-    with ``repeat``, two runs of two steps must repeat bit for bit (and
-    under AMP leave the parameters fp32); with ``timed``, 12 steps on the
-    batch must lower the loss.  Every run starts from
-    ``paddle_tpu_torch.seed``, so the fused epilogue's seeds and the
+                plain, note="", timed=True, amp=None, repeat=True,
+                dropout=False):
+    """The train path on ``net``: ``Model(net).prepare(AdamW(1e-3,
+    weight_decay=0.01), CrossEntropyLoss(), amp_configs=amp, jit=...)
+    .train_batch`` on (ids, labels).  Step 1 (``update=False``, uncaptured
+    in both engines) runs through the kernels with the counts ``reset``
+    just before and ``launches()`` read just after (they must equal
+    ``want``), then again inside ``plain()`` (the plain versions), held to
+    the fp32 tolerances, or under AMP to the compiled bf16 step's.  With
+    ``repeat``: JIT_STEPS steps on rolled batches with ``jit=False``
+    (uncaptured), then twice with ``jit=True`` (a step captured in a CUDA
+    graph and replayed), from the same state and seeds; the captured runs
+    must repeat bit for bit, equal the uncaptured run bit for bit (else
+    within the tolerances above, reported), keep the parameters fp32, and
+    count ``want`` launches in a replayed step; with ``dropout``, two more
+    steps at learning rate 0 on one batch must differ (new masks at every
+    replay).  With ``timed``, each engine takes 12 steps on the batch (the
+    loss must fall): step ms p50, seq/s, peak memory.  Every run starts
+    from ``paddle_tpu_torch.seed``, so the fused epilogue's seeds and the
     dropout masks repeat.  Returns the report."""
+    import gc
     import numpy as np
     import paddle_tpu_torch
     from paddle_tpu_torch import Model
@@ -1797,11 +1957,15 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     B = ids.shape[0]
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
 
-    def fresh():
+    def fresh(jit=True):
         net.load_state_dict(state0)
         return Model(net).prepare(
             AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-            CrossEntropyLoss(), amp_configs=amp)
+            CrossEntropyLoss(), amp_configs=amp, jit=jit)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
 
     loss_rtol = EAGER_LOSS_RTOL if amp is None else \
         TRAIN_LOSS_RTOL["bfloat16"]
@@ -1842,68 +2006,132 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
             and all(v <= grad_rtol for v in rel.values())):
         raise AssertionError("the step through the kernels disagrees with "
                              "the step through the plain versions")
-    del grads_k, grads_p
+    del grads_k, grads_p, model
     out = dict(loss_step1=loss_k, loss_step1_plain=loss_p,
                loss_abs_diff=d_loss, loss_rtol=loss_rtol, grad_rel_l2=rel,
                grad_rtol=grad_rtol, launches=counts, amp=amp)
     if not repeat:
         return out
 
-    # two runs of two steps from the same state and seed repeat bit for bit
-    runs = []
-    for _ in range(2):
-        model = fresh()
+    # captured (jit=True) against uncaptured (jit=False): the same state,
+    # seeds and batches; the captured run twice
+    batches = [(ids.roll(i, 0), labels.roll(i, 0)) for i in range(JIT_STEPS)]
+    replay_counts = {}
+
+    def run_steps(jit, count=False):
+        model = fresh(jit)
         paddle_tpu_torch.seed(2)
-        losses = torch.stack([model.train_batch([ids], [labels])["loss"]
-                              for _ in range(2)])
-        runs.append((losses, {k: v.clone() for k, v in
-                              net.state_dict().items()}))
-    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
-        torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
-    fp32 = all(v.dtype == torch.float32 for v in runs[0][1].values()
+        losses = []
+        for i, (b_ids, b_labels) in enumerate(batches):
+            if count and i == 1:                 # a replay, counted
+                sync(torch, dev)
+                reset()
+            losses.append(model.train_batch([b_ids], [b_labels])["loss"])
+            if count and i == 1:
+                sync(torch, dev)
+                replay_counts.update(launches())
+        if dropout:
+            model._optimizer.set_lr(0.0)
+            losses += [model.train_batch([ids], [labels])["loss"]
+                       for _ in range(2)]
+        captured = _all_captured(model._steps.entries().values())
+        return torch.stack(losses), {k: v.clone() for k, v in
+                                     net.state_dict().items()}, captured
+
+    runs = []
+    for jit, count in ((False, False), (True, True), (True, False)):
+        runs.append(run_steps(jit, count))
+        release()
+    (l_e, s_e, cap_e), (l_j, s_j, cap_j), (l_j2, s_j2, cap_j2) = runs
+    exact = bool(torch.equal(l_e, l_j)) and all(torch.equal(v, s_j[k])
+                                                for k, v in s_e.items())
+    repeats = bool(torch.equal(l_j, l_j2)) and all(
+        torch.equal(v, s_j2[k]) for k, v in s_j.items())
+    fp32 = all(v.dtype == torch.float32 for v in s_j.values()
                if v.is_floating_point())
-    log(f"  two runs of two steps: losses {runs[0][0].tolist()} and "
-        f"{runs[1][0].tolist()}; bit-identical losses and parameters: "
-        f"{same}; parameters fp32 after the steps: {fp32}")
-    if not same:
-        raise AssertionError("two identical runs of the eager step differ")
+    d_losses = ((l_j - l_e).abs() / l_e.abs()).max().item()
+    d_params = max(((s_j[k].float() - v.float()).norm()
+                    / v.float().norm().clamp_min(1e-30)).item()
+                   for k, v in s_e.items() if v.is_floating_point())
+    log(f"  {JIT_STEPS} steps{' (+ 2 at learning rate 0)' if dropout else ''}"
+        f", jit=False / jit=True / jit=True: losses "
+        f"{l_e.tolist()} / {l_j.tolist()} / {l_j2.tolist()}; captured "
+        f"{cap_e} / {cap_j} / {cap_j2}")
+    log(f"  captured = uncaptured bit for bit (losses and parameters): "
+        f"{exact} (max loss rel diff {d_losses:.3e}, params rel L2 "
+        f"{d_params:.3e}); two captured runs bit for bit: {repeats}; "
+        f"parameters fp32: {fp32}; a replayed step's launches "
+        f"{replay_counts} (expected {want})")
+    if cap_e or not (cap_j and cap_j2):
+        raise AssertionError("jit=True did not capture, or jit=False did")
+    if not repeats:
+        raise AssertionError("two captured runs differ")
+    if not exact and not (d_losses <= loss_rtol and d_params <= grad_rtol):
+        raise AssertionError("the captured steps differ from the uncaptured "
+                             "ones beyond the tolerances")
     if not fp32:
         raise AssertionError("the step left parameters that are not fp32")
-    del runs
-    out.update(deterministic=same, params_fp32=fp32)
+    if replay_counts != want:
+        raise AssertionError(f"a replayed step counted {replay_counts}; "
+                             f"expected {want}")
+    masks = None
+    if dropout:
+        masks = bool(l_j[-2] != l_j[-1]) and bool(l_e[-2] != l_e[-1])
+        log(f"  two steps at learning rate 0 on one batch: losses "
+            f"{l_j[-2].item():.7f}, {l_j[-1].item():.7f} (captured): new "
+            f"dropout masks at every replay: {masks}")
+        if not masks:
+            raise AssertionError("the captured step replayed the same "
+                                 "dropout masks")
+    del runs, s_e, s_j, s_j2
+    out.update(jit_steps=JIT_STEPS, deterministic=repeats,
+               captured_equals_uncaptured=exact,
+               captured_vs_uncaptured=dict(loss_rel=d_losses,
+                                           params_rel_l2=d_params),
+               losses_uncaptured=l_e.tolist(), losses_captured=l_j.tolist(),
+               replay_launches=replay_counts, masks_change=masks,
+               params_fp32=fp32)
     if not timed:
         return out
 
-    # 2 warm-ups, then timed steps on one fixed batch; the loss falls
-    model = fresh()
-    paddle_tpu_torch.seed(3)
+    # per engine: 2 warm-ups (the captured engine's first one captures),
+    # then timed steps on one fixed batch; the loss falls
+    for engine, jit in (("uncaptured", False), ("captured", True)):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        model = fresh(jit)
+        paddle_tpu_torch.seed(3)
+        losses, times = [], []
+        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = model.train_batch([ids], [labels])["loss"]
+            b.record()
+            b.synchronize()
+            losses.append(loss.item())
+            if i >= TRAIN_WARMUP:
+                times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        step_ms = pct(times, 50)
+        seq_s = B / (step_ms / 1e3)
+        log(f"  {engine} (jit={jit}): losses over {len(losses)} steps: "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        log(f"  {engine}: step ms p50 {step_ms:.3f} (min {min(times):.3f}, "
+            f"max {max(times):.3f}, {TRAIN_TIMED} steps after "
+            f"{TRAIN_WARMUP} warm-ups, CUDA events); {seq_s:.2f} seq/s; "
+            f"peak memory {peak / 2**30:.3f} GiB, reserved "
+            f"{reserved / 2**30:.3f} GiB")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        out[engine] = dict(losses=losses, step_ms=times, step_ms_p50=step_ms,
+                           seq_per_s=seq_s, peak_memory_bytes=peak,
+                           reserved_bytes=reserved)
+        del model
+    out.update(out["captured"])
     del state0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        loss = model.train_batch([ids], [labels])["loss"]
-        b.record()
-        b.synchronize()
-        losses.append(loss.item())
-        if i >= TRAIN_WARMUP:
-            times.append(a.elapsed_time(b))
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = pct(times, 50)
-    seq_s = B / (step_ms / 1e3)
-    log(f"  losses over {len(losses)} steps: {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}")
-    log(f"  step ms p50 {step_ms:.3f} (min {min(times):.3f}, max "
-        f"{max(times):.3f}, {TRAIN_TIMED} steps after {TRAIN_WARMUP} "
-        f"warm-ups, CUDA events); {seq_s:.2f} seq/s; peak memory "
-        f"{peak / 2**30:.3f} GiB")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
-    out.update(losses=losses, step_ms=times, step_ms_p50=step_ms,
-               seq_per_s=seq_s, peak_memory_bytes=peak)
+    release()
     return out
 
 
@@ -2040,7 +2268,7 @@ def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
         lambda: _reset_encoder(fa, fl), lambda: _encoder_launches(fa, fl),
         want, lambda: _plain_encoder_kernels(fa, fl),
         note=f"; attention rows {rows}, non-causal", timed=timed, amp=amp,
-        repeat=repeat)
+        repeat=repeat, dropout=cfg["dropout_rate"] > 0)
     return dict(out, config=dict(cfg, batch=batch, seq=T), mode=mode,
                 rows=rows)
 
@@ -2111,8 +2339,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     eager_o1 = eager_train(torch, fa, dev, eager_cfg, amp="O1")
     torch.cuda.empty_cache()
     log(f"== phase 9: AMP O2 (bf16, fp32 masters) at L {AMP_O2_LAYERS}")
-    eager_o2 = eager_train(torch, fa, dev, _o2_gpt(eager_cfg), amp="O2",
-                           timed=False)
+    eager_o2 = eager_train(torch, fa, dev, _o2_gpt(eager_cfg), amp="O2")
     eager_runs = []
     for cfg in eager_long:
         torch.cuda.empty_cache()
@@ -2135,7 +2362,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     o2_cfg = dict(encoder_cfg, num_layers=min(AMP_O2_LAYERS,
                                               encoder_cfg["num_layers"]))
     enc_o2 = encoder_train(torch, fa, fl, build_encoder(o2_cfg, dev), o2_cfg,
-                           dev, batch=encoder_batch, amp="O2", timed=False)
+                           dev, batch=encoder_batch, amp="O2")
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",

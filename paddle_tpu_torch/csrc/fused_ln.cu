@@ -48,7 +48,7 @@ struct Args {
 template <typename TX, typename TR, int VEC>
 __global__ void __launch_bounds__(THREADS) fused_ln_warp(Args args) {
   constexpr int CHUNKS = WARP_MAX_D / (32 * VEC);
-  const Inputs& a = args.in;
+  const Inputs a = with_seed(args.in);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= a.N) return;  // the whole warp leaves together
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(THREADS) fused_ln_row(Args args,
                                                         int cached) {
   extern __shared__ float zs[];
   __shared__ float red[WARPS];
-  const Inputs& a = args.in;
+  const Inputs a = with_seed(args.in);
   const int row = blockIdx.x;
   const size_t base = (size_t)row * a.D;
   const TX* xr = static_cast<const TX*>(a.x) + base;
@@ -183,17 +183,18 @@ cudaError_t run_res(const Args& a, int res_dtype, cudaStream_t s) {
 
 // dtype (x, out) and res_dtype (residual): 0 = float32, 1 = bfloat16.
 // param_bf16: bit 0 bias, bit 1 gamma, bit 2 beta are bf16 (else fp32).
-// Returns a cudaError_t (0 = launched).
+// seed: one int64 in device memory, read only with dropout.  Returns a cudaError_t (0 = launched).
 extern "C" int fused_ln(const void* x, const void* res, const void* bias,
                         const void* gamma, const void* beta, void* out, int N,
                         int D, int dtype, int res_dtype, int param_bf16,
-                        unsigned int seed, int dropout, float p, float q,
-                        float eps, void* stream) {
+                        const unsigned long long* seed, int dropout,
+                        float p, float q, float eps, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{{x, res, bias, gamma, beta, N, D, param_bf16, seed, dropout,
-                p, q, eps},
-               out};
+  const Args a{
+      {x, res, bias, gamma, beta, N, D, param_bf16, seed, 0u, dropout, p, q,
+       eps},
+      out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -81,7 +81,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_warp(Args args) {
   constexpr int CHUNKS = WARP_MAX_D / (32 * VEC);
   static_assert(CHUNKS * VEC <= 32, "the keep bits fit one word");
   extern __shared__ float acc[];
-  const Inputs& a = args.in;
+  const Inputs a = with_seed(args.in);
   const int D = a.D;
   const int S = span(D, VEC);
   const int lane = threadIdx.x & 31;
@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_row(Args args,
                                                       int cached) {
   extern __shared__ float zs[];
   __shared__ float red[WARPS];
-  const Inputs& a = args.in;
+  const Inputs a = with_seed(args.in);
   const int D = a.D;
   const bool g16 = a.param_bf16 & 2;
   float* mine = args.partial + (size_t)blockIdx.x * 3 * D;
@@ -388,21 +388,23 @@ extern "C" int fused_ln_bwd_resident(int D, int dtype, int res_dtype,
 // g, x, dx in `dtype`; residual, dres in `res_dtype` (0 = float32,
 // 1 = bfloat16); param_bf16: bit 0 bias/dbias, bit 1 gamma/dgamma, bit 2
 // beta/dbeta are bf16 (else fp32).  `partial` holds blocks x 3 x D fp32.
-// Two launches on `stream`: the rows, then the fold of the column sums.
-// Returns a cudaError_t (0 = launched).
+// seed: one int64 in device memory, read only with dropout.  Two launches
+// on `stream`: the rows, then the fold of the column sums.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int fused_ln_bwd(const void* g, const void* x, const void* res,
                             const void* bias, const void* gamma,
                             const void* beta, void* dx, void* dres,
                             void* dbias, void* dgamma, void* dbeta,
                             float* partial, int blocks, int N, int D,
                             int dtype, int res_dtype, int param_bf16,
-                            unsigned int seed, int dropout, float p, float q,
-                            float eps, void* stream) {
+                            const unsigned long long* seed, int dropout,
+                            float p, float q, float eps, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (N <= 0 || D <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
-  const Args a{{x, res, bias, gamma, beta, N, D, param_bf16, seed, dropout,
-                p, q, eps},
-               g, dx, dres, partial, (N + blocks - 1) / blocks};
+  const Args a{
+      {x, res, bias, gamma, beta, N, D, param_bf16, seed, 0u, dropout, p, q,
+       eps},
+      g, dx, dres, partial, (N + blocks - 1) / blocks};
   return (int)by_types<Run>(dtype, res_dtype, &a, blocks, dbias, dgamma,
                             dbeta, static_cast<cudaStream_t>(stream));
 }

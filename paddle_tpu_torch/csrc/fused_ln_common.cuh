@@ -37,10 +37,22 @@ struct Inputs {
   const void* beta;
   int N, D;
   int param_bf16;  // bit 0 bias, bit 1 gamma, bit 2 beta
+  // The hash seed lives in device memory (its low 32 bits): a captured
+  // CUDA graph replays the launch with its arguments frozen, and reads
+  // there the seed its step wrote before the replay.  `seed` is that
+  // value, loaded once at the kernel's start (with_seed).
+  const unsigned long long* seed_ptr;
   uint32_t seed;
   int dropout;
   float p, q, eps;
 };
+
+// The inputs with the seed loaded from device memory (null and unread
+// without dropout).
+__device__ __forceinline__ Inputs with_seed(Inputs in) {
+  in.seed = in.dropout ? (uint32_t)*in.seed_ptr : 0u;
+  return in;
+}
 
 // Uniform [0, 1) from the Murmur3 finaliser of the element index mod 2^32
 // (the reference's hash_uniform, ops/pallas/fused_ln.py:33, bit for bit).

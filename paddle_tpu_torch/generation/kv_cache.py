@@ -98,6 +98,8 @@ def attention_mask(starts: torch.Tensor, q_len: int, capacity: int,
     qpos = starts[:, None, None] + torch.arange(q_len, device=dev)[None, :,
                                                                     None]
     allow = jpos <= qpos
-    big_neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=dev)
+    # both values filled on the device: no host-to-device copy, so the
+    # mask can be built inside a captured CUDA graph
+    big_neg = torch.full((), torch.finfo(dtype).min, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     return torch.where(allow, zero, big_neg)[:, None]

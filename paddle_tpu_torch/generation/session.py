@@ -13,17 +13,30 @@ Generation splits into
 
 Every step runs at the session's fixed batch capacity, and ``prefill``
 takes an ``update_mask`` so that a continuous-batching engine can admit
-rows into a live batch without touching its neighbours' cache.  Rows never
-interact, so a row's stream is the same in a solo :meth:`generate` call
-and in any slot of an engine that uses the same batch capacity.
+rows into a live batch without touching its neighbours' cache: the rows
+outside the mask keep their cache bit for bit (a select by the mask, as
+the reference merges).  Rows never interact, so a row's stream is the
+same in a solo :meth:`generate` call and in any slot of an engine that
+uses the same batch capacity.
 
-PyTorch runs eagerly, so the reference's ahead-of-time executable cache
-has no counterpart here.  Steps run under ``torch.inference_mode()`` with
-the model in eval mode, and each step's wall time (ended by the copy of
-its tokens to the host) is kept in :attr:`step_ms`.
+As in the reference, each step is made once per shape bucket through an
+:class:`~paddle_tpu_torch.serving.bucketing.ExecutableCache`: one
+``"prefill:{P}"`` entry per prompt bucket and one ``"decode"``, so a
+session makes at most ``len(seq_buckets(max_length)) + 1``.  An entry is
+a :class:`~paddle_tpu_torch.graphs.StepGraph`: on the card a CUDA graph
+captured at the bucket's first step and replayed after it, on the CPU the
+step function.  A graph reads the parameters and the KV caches by the
+address they had at capture, so the session owns one set of caches
+(:meth:`init_caches`), and an entry whose parameters were replaced rather
+than copied into (``load_state_dict`` copies) is captured again.  Steps
+run under ``torch.inference_mode()`` with the model in eval mode, one at
+a time; each serving step's wall time (ended by the copy of its tokens to
+the host) is kept in :attr:`step_ms`.
 """
 from __future__ import annotations
 
+import itertools
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -31,12 +44,19 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..graphs import StepGraph
 from .sampling import sample
 
 __all__ = ["GenerationSession"]
 
 # step times kept per phase (a bounded window; counts are exact)
 _TIMING_WINDOW = 4096
+# static input types of the steps, in argument order
+_PREFILL_TYPES = (torch.long, torch.long, torch.bool, torch.long,
+                  torch.float32, torch.long, torch.float32)
+_DECODE_TYPES = (torch.long, torch.long, torch.long, torch.float32,
+                 torch.long, torch.float32)
+_SERIALS = itertools.count()
 
 
 def _seed_rows(seed: int, seeds, rows: int) -> np.ndarray:
@@ -60,18 +80,28 @@ class GenerationSession:
     ``(logits, caches)``, plus ``gen_caches(batch, capacity)`` and
     ``device`` (:class:`~paddle_tpu_torch.models.GPT` has all three).
 
-    batch_capacity  row count of every step (rounded up to a power of two);
-                    an engine sets it to its slot count and
-                    :meth:`generate` pads smaller batches up to it
-    max_length      KV-cache capacity (prompt + generated tokens), bounded
-                    by the model's ``max_seq_len``
+    batch_capacity    row count of every step (rounded up to a power of
+                      two); an engine sets it to its slot count and
+                      :meth:`generate` pads smaller batches up to it
+    max_length        KV-cache capacity (prompt + generated tokens),
+                      bounded by the model's ``max_seq_len``
+    name              the session's name (an engine passes its own)
+    executable_cache  an :class:`~paddle_tpu_torch.serving.bucketing.ExecutableCache`
+                      to share; by default a private one under ``name``.
+                      An entry binds its session's caches, so keys carry
+                      the session's serial number.
+
+    :attr:`steps` and :attr:`step_ms` count the steps that served a row
+    (an engine's warmup steps, all rows masked out, are left out);
+    :attr:`tokens_out` counts the tokens they sampled.
     """
 
     def __init__(self, model, batch_capacity: int = 1,
                  max_length: Optional[int] = None,
-                 prompt_bucket_min: int = 8):
+                 prompt_bucket_min: int = 8, name: str = "generation",
+                 executable_cache=None):
         # imported here: serving imports this module
-        from ..serving.bucketing import next_bucket
+        from ..serving.bucketing import ExecutableCache, next_bucket
         self.model = model
         cfg = model.cfg
         self.device = model.device
@@ -83,15 +113,41 @@ class GenerationSession:
                 f"max_seq_len {cfg.max_seq_len} (no position embedding "
                 "past it)")
         self.prompt_bucket_min = max(1, int(prompt_bucket_min))
+        self.name = name
+        self._cache = executable_cache if executable_cache is not None \
+            else ExecutableCache(name=name)
+        self._serial = next(_SERIALS)
+        self._caches = None
+        self._lock = threading.Lock()
         self.steps: Dict[str, int] = {"prefill": 0, "decode": 0}
         self.step_ms: Dict[str, deque] = {
             "prefill": deque(maxlen=_TIMING_WINDOW),
             "decode": deque(maxlen=_TIMING_WINDOW)}
+        self.tokens_out = 0
 
     # -- caches and buckets ---------------------------------------------
     def init_caches(self):
-        """Zero fixed-capacity caches shaped for this session."""
-        return self.model.gen_caches(self.batch_capacity, self.max_length)
+        """The session's fixed-capacity caches, zeroed: the one set its
+        steps run on (made at the first call, zeroed in place after)."""
+        if self._caches is None:
+            self._caches = self.model.gen_caches(self.batch_capacity,
+                                                 self.max_length)
+        else:
+            with torch.no_grad():
+                for c in self._caches:
+                    c.k.zero_()
+                    c.v.zero_()
+        return self._caches
+
+    def _check_caches(self, caches) -> None:
+        own = self._caches
+        if own is None or len(caches) != len(own) or any(
+                a.k is not b.k or a.v is not b.v for a, b in zip(caches, own)):
+            raise ValueError(
+                "these KV caches are not this session's: its steps run on "
+                "the one set init_caches() returns (a captured CUDA graph "
+                "reads and writes the caches it was captured over, by "
+                "address); pass that set")
 
     def prompt_bucket(self, prompt_len: int) -> int:
         """Power-of-two prompt-length bucket (bounded by the capacity)."""
@@ -101,69 +157,118 @@ class GenerationSession:
                                        self.max_length))
         return min(b, self.max_length)
 
-    def _tensor(self, x, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype,
-                               device=self.device)
+    # -- the step functions (each entry of the cache wraps one) ----------
+    def _make_prefill(self, P: int) -> Callable[..., torch.Tensor]:
+        """The prefill step of bucket ``P`` over the session's caches:
+        ``(ids, prompt_lens, update_mask, seeds, temps, top_k, top_p)``
+        tensors in, the sampled tokens ``(B,)`` out."""
+        net, B, caches = self.model, self.batch_capacity, self._caches
 
-    def _run(self, phase: str, step: Callable[[], torch.Tensor]
-             ) -> np.ndarray:
+        def step(ids, plens, mask, seeds, temps, tks, tps):
+            fresh = net.gen_caches(B, P)
+            logits, fresh = net(ids, caches=fresh)
+            idx = (plens - 1).clamp(0, P - 1)
+            last = logits[torch.arange(B, device=ids.device), idx]
+            # the sampled token sits at position prompt_len: the noise is
+            # keyed on that position (decode keys the same way)
+            tok = sample(last, seeds, plens, temps, tks, tps)
+            m = mask.reshape(B, 1, 1, 1)
+            for old, new in zip(caches, fresh):
+                for buf, src in ((old.k, new.k), (old.v, new.v)):
+                    head = buf[:, :P]
+                    head.copy_(torch.where(m, src, head))
+                    buf[:, P:].masked_fill_(m, 0)
+            return tok
+        return step
+
+    def _make_decode(self) -> Callable[..., torch.Tensor]:
+        """The decode step over the session's caches: ``(tokens,
+        positions, seeds, temps, top_k, top_p)`` in, the next tokens
+        out."""
+        net, caches = self.model, self._caches
+
+        def step(tokens, positions, seeds, temps, tks, tps):
+            logits, _ = net(tokens[:, None], caches=caches,
+                            positions=positions)
+            return sample(logits[:, 0], seeds, positions + 1, temps, tks,
+                          tps)
+        return step
+
+    def _bound(self):
         net = self.model
-        was_training = net.training
-        t0 = time.perf_counter()
-        try:
-            net.eval()
-            with torch.inference_mode():
-                tok = step()
-            tok_h = tok.to("cpu").numpy().astype(np.int32)  # waits for it
-        finally:
-            net.train(was_training)
-        self.step_ms[phase].append((time.perf_counter() - t0) * 1e3)
-        self.steps[phase] += 1
+        return itertools.chain(net.parameters(), net.buffers())
+
+    def _compiled(self, kind: str, make: Callable, types, values):
+        """Run the step ``kind`` on ``values`` through its cache entry,
+        keyed ``(kind, batch_capacity, max_length, serial)``: the first
+        call makes the entry (on the card: runs the step, then captures
+        it) and returns that run's tokens; later calls replay."""
+        key = (kind, self.batch_capacity, self.max_length, self._serial)
+        made = []
+
+        def compile_fn():
+            inputs = [torch.zeros(np.shape(v), dtype=t, device=self.device)
+                      for v, t in zip(values, types)]
+            exe = StepGraph(key, make(), inputs, values, bound=self._bound)
+            made.append(exe)
+            return exe
+        exe = self._cache.get_or_compile(key, compile_fn,
+                                         valid=StepGraph.current)
+        if made:
+            tok, exe.first_outputs = exe.first_outputs, None
+            return tok
+        return exe(*values)
+
+    def _run(self, phase: str, step: Callable[[], torch.Tensor],
+             live: int) -> np.ndarray:
+        net = self.model
+        with self._lock:
+            was_training = net.training
+            t0 = time.perf_counter()
+            try:
+                net.eval()
+                with torch.inference_mode():
+                    tok = step()
+                tok_h = tok.to("cpu").numpy().astype(np.int32)  # waits
+            finally:
+                net.train(was_training)
+            if live:
+                self.step_ms[phase].append((time.perf_counter() - t0) * 1e3)
+                self.steps[phase] += 1
+                self.tokens_out += live
         return tok_h
 
     # -- steps (the engine calls these; generate() below too) -----------
     def prefill(self, caches, ids, prompt_lens, update_mask, seeds, temps,
                 tks, tps):
-        """Prefill ``ids`` ``(B, P)`` and sample each row's first token;
-        returns ``(tokens (B,) int32, caches)``.  Only ``update_mask``
-        rows of ``caches`` change (in place): they hold the prompt's keys
-        and values at ``[0, P)`` and zeros after."""
+        """Prefill ``ids`` ``(batch_capacity, P)`` and sample each row's
+        first token; returns ``(tokens (B,) int32, caches)``.  Only the
+        ``update_mask`` rows of the session's ``caches`` change (in
+        place): they hold the prompt's keys and values at ``[0, P)`` and
+        zeros after."""
+        self._check_caches(caches)
         B, P = np.shape(ids)
+        if B != self.batch_capacity:
+            raise ValueError(f"a prefill of {B} rows; the session's steps "
+                             f"run {self.batch_capacity}")
+        values = (ids, prompt_lens, update_mask, seeds, temps, tks, tps)
+        tok = self._run("prefill", lambda: self._compiled(
+            f"prefill:{P}", lambda: self._make_prefill(P), _PREFILL_TYPES,
+            values), int(np.count_nonzero(update_mask)))
+        return tok, caches
 
-        def step():
-            ids_t = self._tensor(ids, torch.long)
-            plens = self._tensor(prompt_lens, torch.long)
-            fresh = self.model.gen_caches(B, P)
-            logits, fresh = self.model(ids_t, caches=fresh)
-            idx = (plens - 1).clamp(0, P - 1)
-            last = logits[torch.arange(B, device=self.device), idx]
-            # the sampled token sits at position prompt_len: the noise is
-            # keyed on that position (decode keys the same way)
-            tok = sample(last, self._tensor(seeds, torch.long), plens,
-                         self._tensor(temps, torch.float32),
-                         self._tensor(tks, torch.long),
-                         self._tensor(tps, torch.float32))
-            rows = self._tensor(np.flatnonzero(update_mask), torch.long)
-            for old, new in zip(caches, fresh):
-                for buf, src in ((old.k, new.k), (old.v, new.v)):
-                    buf[rows] = 0
-                    buf[rows, :P] = src[rows]
-            return tok
-        return self._run("prefill", step), caches
-
-    def decode(self, caches, tokens, positions, seeds, temps, tks, tps):
+    def decode(self, caches, tokens, positions, seeds, temps, tks, tps,
+               live_rows: Optional[int] = None):
         """One decode step for every row: writes each row's token at its
         position (in place) and samples the next; returns
-        ``(tokens (B,) int32, caches)``."""
-        def step():
-            pos = self._tensor(positions, torch.long)
-            logits, _ = self.model(self._tensor(tokens, torch.long)[:, None],
-                                   caches=caches, positions=pos)
-            return sample(logits[:, 0], self._tensor(seeds, torch.long),
-                          pos + 1, self._tensor(temps, torch.float32),
-                          self._tensor(tks, torch.long),
-                          self._tensor(tps, torch.float32))
-        return self._run("decode", step), caches
+        ``(tokens (B,) int32, caches)``.  ``live_rows`` is how many rows
+        serve a request (all by default; an engine's warmup passes 0)."""
+        self._check_caches(caches)
+        values = (tokens, positions, seeds, temps, tks, tps)
+        live = self.batch_capacity if live_rows is None else int(live_rows)
+        tok = self._run("decode", lambda: self._compiled(
+            "decode", self._make_decode, _DECODE_TYPES, values), live)
+        return tok, caches
 
     # -- high-level generate --------------------------------------------
     def generate(self, ids, prompt_lens=None, max_new_tokens: int = 32,

@@ -2,17 +2,38 @@
 (``Model`` :160): ``prepare`` (:174), ``train_batch`` (:463),
 ``eval_batch`` (:637) and ``predict_batch`` (:658).
 
-The reference runs ``train_batch`` as one jitted XLA step over
-functional state; the port runs the same step eagerly on the network's
-device: forward, loss, backward, ``optimizer.step()`` and
-``clear_grad()``, with no host synchronisation inside.  The loss comes
-back as a 0-d device tensor, which ``float()`` reads, in the role of the
-reference's lazy loss scalar (``_LazyScalar``).  Inputs and labels may be
-numpy arrays or tensors; pass tensors already on the card to keep the
-host-to-device copy out of the step.  ``prepare(jit=...)`` and the
-constructor's ``inputs``/``labels`` (the reference's static input specs)
-are accepted and change nothing: the port has one engine and plans no
-memory.
+With ``prepare(jit=True)``, the default, the reference runs
+``train_batch`` (with ``update=True``), ``eval_batch`` and
+``predict_batch`` as jitted XLA steps cached per signature (:467-481,
+:637-680).  The port captures each in a CUDA graph per signature — the
+kind (``"train"``, ``"eval"``, ``"predict"``), the inputs' and labels'
+shapes and dtypes, and for training the AMP level and type — through an
+:class:`~paddle_tpu_torch.serving.bucketing.ExecutableCache` of
+:class:`~paddle_tpu_torch.graphs.StepGraph` entries.  The first call of a
+signature runs the step once, a real step, on a side stream, then
+captures it; later calls copy the batch into the graph's static inputs
+and replay it, one host call.  The train graph holds the forward, the
+loss, the backward and the optimizer step; the gradients stay fixed
+buffers, zeroed in place after each step, the optimizer updates its state
+in place and reads its learning rate from a device scalar, and the fused
+epilogue's seeds and the dropout masks are drawn anew at every replay
+(``random.SeedSlots``, the device generators registered with the graph),
+as the uncaptured step draws them.  So N calls leave the parameters as N
+uncaptured steps do.  A capture that fails raises and names its key; a
+parameter, gradient or optimizer slot replaced rather than updated in
+place makes the next call capture again.  The loss and the outputs are
+copies of the graph's outputs.  On the CPU an entry is the step function
+itself.
+
+``prepare(jit=False)``, and ``train_batch(update=False)`` either way,
+run the reference's eager engine: forward, loss, backward and (with
+``update``) ``optimizer.step()`` and ``clear_grad()``, with no host
+synchronisation inside.  The loss comes back as a 0-d device tensor,
+which ``float()`` reads, in the role of the reference's lazy loss scalar
+(``_LazyScalar``).  Inputs and labels may be numpy arrays or tensors;
+pass tensors already on the card to keep the host-to-device copy out of
+the step.  The constructor's ``inputs``/``labels`` (the reference's
+static input specs) are accepted and change nothing.
 
 ``prepare(amp_configs=...)`` (the reference's :189-215: ``"O1"``,
 ``"O2"`` or a dict with ``level``, ``dtype``, ``custom_white_list``,
@@ -34,13 +55,16 @@ callbacks.
 """
 from __future__ import annotations
 
+import itertools
 import os
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
 from ..amp import auto_cast, to_dtype
+from ..graphs import StepGraph
 from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
+from ..serving.bucketing import ExecutableCache
 
 __all__ = ["Model"]
 
@@ -70,9 +94,14 @@ class Model:
         self._loss = None
         self._amp = None
         self._scaler = None
+        self._jit = True
+        self._steps = ExecutableCache(name="hapi")
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=True, offload=False) -> "Model":
+        """Set the optimizer, the loss and AMP.  ``jit`` (the default)
+        captures the train (with ``update``), eval and predict steps per
+        signature; ``jit=False`` runs them eagerly."""
         if metrics:
             raise NotImplementedError(f"metrics {_NOT_PORTED}")
         self._amp, self._scaler = self._amp_settings(amp_configs)
@@ -81,6 +110,8 @@ class Model:
                                       f"{_NOT_PORTED}")
         self._optimizer = optimizer
         self._loss = loss
+        self._jit = bool(jit)
+        self._steps = ExecutableCache(name="hapi")
         if optimizer is not None:
             optimizer._name_parameters(
                 {id(p): n for n, p in self.network.named_parameters()})
@@ -152,7 +183,7 @@ class Model:
         grads, found = check_finite_and_unscale([p.grad for p in params],
                                                 sc["scale"])
         for p, g in zip(params, grads):
-            p.grad = g
+            p.grad.copy_(g)
         if sc["use_dynamic_loss_scaling"]:
             sc["scale"], sc["good"], sc["bad"] = update_loss_scaling(
                 found, sc["scale"], sc["good"], sc["bad"],
@@ -166,6 +197,70 @@ class Model:
     def _tensors(self, arrays) -> List[torch.Tensor]:
         dev = self._device()
         return [torch.as_tensor(a).to(dev) for a in _to_list(arrays)]
+
+    # -- captured steps ------------------------------------------------
+    def _bound(self, grads: bool):
+        """What a captured step reads and writes by address: parameters
+        and buffers; for training also the gradients and the optimizer's
+        state and learning rate."""
+        net = self.network
+        out = itertools.chain(net.parameters(), net.buffers())
+        if grads:
+            out = itertools.chain(
+                out, (p.grad for p in net.parameters() if p.grad is not None),
+                self._optimizer.bound_tensors())
+        return out
+
+    def _captured(self, kind: str, make: Callable, values: List,
+                  extra=()):
+        """Run the step ``make()`` on ``values`` through its entry, keyed
+        by ``kind``, the values' shapes and dtypes and ``extra``: the
+        first call of a key runs the step (a real step) and captures it,
+        later calls replay.  Returns the step's outputs, copied out of the
+        graph's static outputs."""
+        dev = self._device()
+        sig = tuple((tuple(v.shape), v.dtype) for v in (
+            v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+            for v in values))
+        key = (kind, sig) + tuple(extra)
+        made = []
+
+        def compile_fn():
+            inputs = [torch.zeros(shape, dtype=dt, device=dev)
+                      for shape, dt in sig]
+            exe = StepGraph(key, make(), inputs, values,
+                            bound=lambda: self._bound(kind == "train"))
+            made.append(exe)
+            return exe
+        exe = self._steps.get_or_compile(key, compile_fn,
+                                         valid=StepGraph.current)
+        if made:
+            out, exe.first_outputs = exe.first_outputs, None
+            return out
+        out = exe(*values)
+        if exe.graph is None:
+            return out
+        return tuple(o.clone() for o in out) if isinstance(out, tuple) \
+            else out.clone()
+
+    def _train_step(self, n_in: int) -> Callable:
+        """forward, loss, backward, optimizer step, gradients zeroed in
+        place; returns the loss."""
+        def step(*tensors):
+            ins, labs = list(tensors[:n_in]), list(tensors[n_in:])
+            outs = _to_list(self.network(*ins) if self._amp is None
+                            else self._forward_amp(ins))
+            loss = self._loss(*(outs + labs))
+            finite = True
+            if self._scaler is None:
+                loss.backward()
+            else:
+                finite = self._scaled_backward(loss)
+            if finite:
+                self._optimizer.step()
+            self._optimizer.clear_grad(set_to_zero=True)
+            return loss.detach()
+        return step
 
     def _pack_logs(self, loss, metrics: Dict) -> Dict:
         logs = {}
@@ -187,6 +282,16 @@ class Model:
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
         self.network.train()
+        if update and self._jit:
+            ins, labs = _to_list(inputs), _to_list(labels)
+            opt = self._optimizer
+            steps = opt._global_step
+            amp = None if self._amp is None else (self._amp["level"],
+                                                  self._amp["dtype"])
+            loss = self._captured("train", lambda: self._train_step(
+                len(ins)), ins + labs, (amp,))
+            opt._global_step = steps + 1
+            return self._pack_logs(loss, {})
         ins = self._tensors(inputs)
         outs = _to_list(self.network(*ins) if self._amp is None
                         else self._forward_amp(ins))
@@ -207,8 +312,17 @@ class Model:
         """``{"loss": float}`` of the batch in eval mode (``{}`` without
         labels or a loss)."""
         self.network.eval()
-        outs = _to_list(self.network(*self._tensors(inputs)))
-        labs = self._tensors(labels)
+        ins, labs = _to_list(inputs), _to_list(labels)
+        if self._loss is not None and labs and self._jit:
+            n = len(ins)
+
+            def make():
+                return lambda *t: self._loss(*(_to_list(
+                    self.network(*t[:n])) + list(t[n:])))
+            return self._pack_logs(float(self._captured(
+                "eval", make, ins + labs)), {})
+        outs = _to_list(self.network(*self._tensors(ins)))
+        labs = self._tensors(labs)
         loss = None
         if self._loss is not None and labs:
             loss = float(self._loss(*(outs + labs)))
@@ -218,7 +332,11 @@ class Model:
     def predict_batch(self, inputs) -> List:
         """The network's outputs in eval mode, as numpy arrays."""
         self.network.eval()
-        outs = _to_list(self.network(*self._tensors(inputs)))
+        if self._jit:
+            outs = self._captured("predict", lambda: lambda *t: tuple(
+                _to_list(self.network(*t))), _to_list(inputs))
+        else:
+            outs = _to_list(self.network(*self._tensors(inputs)))
         return [o.detach().cpu().numpy() for o in outs]
 
     # ------------------------------------------------------------------

@@ -49,7 +49,7 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attn_fwd",
            "flash_attention_ref", "reference_rows", "FWD_LAUNCHES",
            "BWD_LAUNCHES", "MODE_LAUNCHES", "NEG_INF", "HEAD_DIMS",
            "SM90_HEAD_DIMS", "SM90_FWD_LAUNCHES", "SM90_BWD_LAUNCHES",
-           "kernel_route", "tma_geometry"]
+           "kernel_route", "tma_geometry", "prepare_stream"]
 
 NEG_INF = -1e30
 # head dims the kernels are built at: every other d raises on the card
@@ -384,6 +384,14 @@ def _sched(device: torch.device, stream: int) -> int:
     if buf is None:
         buf = _SCHED[key] = torch.zeros(4, dtype=torch.int32, device=device)
     return buf.data_ptr()
+
+
+def prepare_stream(stream: torch.cuda.Stream) -> None:
+    """Make ``flash_attn_sm90``'s item counters for ``stream`` now.  A
+    CUDA graph captured on ``stream`` binds them by address; made at first
+    use inside the capture, they would come from the graph's memory pool
+    with their zero fill recorded into the graph."""
+    _sched(stream.device, stream.cuda_stream)
 
 
 def _strides(*tensors: torch.Tensor):

@@ -16,6 +16,12 @@ reference's ``_fused_bwd``, ``ops/fused_ops.py:62``, has no Pallas
 kernel).  x and the residual may differ in type (fp32 and bf16), as in
 the reference.  :data:`LAUNCHES` and :data:`BWD_LAUNCHES` count kernel
 launches.
+
+The kernels read the hash seed from device memory, so that a step captured
+in a CUDA graph draws new masks at every replay: the wrappers take the seed
+as an integer (put on the card by one fill) or as a 1-element int64 tensor
+on x's device (a slot of a captured step's seed vector,
+:class:`~paddle_tpu_torch.random.SeedSlots`).
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ def _kernel():
     if _lib is None:
         lib = _build.load("fused_ln")
         lib.fused_ln.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_uint32, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_float, ctypes.c_void_p]
         lib.fused_ln.restype = ctypes.c_int
         lib.fused_ln_error_string.argtypes = [ctypes.c_int]
@@ -63,7 +69,7 @@ def _kernel_bwd():
     if _lib_bwd is None:
         lib = _build.load("fused_ln_bwd")
         lib.fused_ln_bwd.argtypes = [ctypes.c_void_p] * 12 + [
-            ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_int,
+            ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_float, ctypes.c_void_p]
         lib.fused_ln_bwd.restype = ctypes.c_int
@@ -106,6 +112,27 @@ def hash_uniform(seed, shape: Tuple[int, ...], offset: int = 0, *,
     h = _mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _seed_on(seed, device: torch.device, p: float):
+    """The seed as the kernels read it: an int64 tensor of one element on
+    ``device`` (an integer is filled in there, with no host-to-device
+    copy), or None without dropout, where the kernels do not read it."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int64 or \
+                seed.device != device:
+            raise ValueError(f"a seed tensor must be one int64 on {device}; "
+                             f"got {tuple(seed.shape)} {seed.dtype} on "
+                             f"{seed.device}")
+        return seed
+    if p <= 0.0:
+        return None
+    return torch.full((1,), int(seed) & _M32, dtype=torch.int64,
+                      device=device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _f32(v: float) -> torch.Tensor:
@@ -175,8 +202,9 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
     """``x``, ``residual`` ``(N, D)``, each fp32 or bf16 (in their own
     types, as the reference's kernel reads them); ``bias``, ``gamma``,
-    ``beta`` ``(D,)``, each fp32 or bf16; ``seed`` an integer (its low 32
-    bits are the hash seed).  Returns a new ``(N, D)`` tensor in x's type.
+    ``beta`` ``(D,)``, each fp32 or bf16; ``seed`` an integer or a
+    1-element int64 tensor on x's device (its low 32 bits are the hash
+    seed).  Returns a new ``(N, D)`` tensor in x's type.
     CUDA tensors go through the kernel (contiguous inputs); CPU tensors
     take :func:`fused_ln_ref`."""
     global LAUNCHES
@@ -193,13 +221,14 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
         return out
     lib = _kernel()
     with torch.cuda.device(x.device):
+        seed_t = _seed_on(seed, x.device, p)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_ln(x.data_ptr(), residual.data_ptr(),
                            bias.data_ptr(), gamma.data_ptr(),
                            beta.data_ptr(), out.data_ptr(), N, D,
                            _DTYPE_CODES[x.dtype],
                            _DTYPE_CODES[residual.dtype], param_bf16,
-                           int(seed) & _M32, int(p > 0.0), p, 1.0 - p, eps,
+                           _ptr(seed_t), int(p > 0.0), p, 1.0 - p, eps,
                            stream)
     if err:
         raise RuntimeError(f"fused_ln launch failed: "
@@ -296,6 +325,7 @@ def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,
     codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[residual.dtype])
     lib = _kernel_bwd()
     with torch.cuda.device(x.device):
+        seed_t = _seed_on(seed, x.device, p)
         blocks = _bwd_blocks(x.device, N, D, codes)
         partial = torch.empty((blocks, 3, D), dtype=torch.float32,
                               device=x.device)
@@ -305,7 +335,7 @@ def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,
             bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             dx.data_ptr(), dres.data_ptr(), *(t.data_ptr() for t in grads),
             partial.data_ptr(), blocks, N, D, *codes, param_bf16,
-            int(seed) & _M32, int(p > 0.0), p, 1.0 - p, eps, stream)
+            _ptr(seed_t), int(p > 0.0), p, 1.0 - p, eps, stream)
     if err:
         raise RuntimeError(f"fused_ln_bwd launch failed: "
                            f"{lib.fused_ln_bwd_error_string(err).decode()} "

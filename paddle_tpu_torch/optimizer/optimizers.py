@@ -13,6 +13,11 @@ device and in its type:
   (all when it is None); SGD and Adam add ``wd·param`` to the gradient
   (the reference's ``L2Decay``).
 
+A step reads nothing from the host and rebinds nothing, so that
+``Model.prepare(jit=True)`` can capture it in a CUDA graph: the learning
+rate is a fp32 device scalar per device (:meth:`Optimizer.set_lr` fills
+it in place), and every slot of the optimizer state is updated in place.
+
 ``parameters`` takes tensors or ``(name, tensor)`` pairs; an unnamed
 tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
@@ -40,7 +45,7 @@ def _named(parameters):
 
 class Optimizer:
     """Base class: ``step()``, ``clear_grad()``, ``get_lr()``,
-    ``state_dict()`` and ``set_state_dict()``."""
+    ``set_lr()``, ``state_dict()`` and ``set_state_dict()``."""
 
     # L2 decay added to the gradient (SGD, Adam); AdamW decays decoupled
     _coupled_weight_decay = True
@@ -64,11 +69,28 @@ class Optimizer:
         self._learning_rate = float(learning_rate)
         self._weight_decay = float(weight_decay or 0.0)
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._lr_on: Dict[torch.device, torch.Tensor] = {}
         self._global_step = 0
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
         return self._learning_rate
+
+    def set_lr(self, value: float) -> None:
+        """Set the learning rate; the device scalars the steps read are
+        filled in place, so a captured step reads the new value."""
+        self._learning_rate = float(value)
+        for t in self._lr_on.values():
+            t.fill_(self._learning_rate)
+
+    def _lr(self, device: torch.device) -> torch.Tensor:
+        """The learning rate as the 0-d fp32 scalar on ``device`` a step
+        reads."""
+        t = self._lr_on.get(device)
+        if t is None:
+            t = self._lr_on[device] = torch.full(
+                (), self._learning_rate, dtype=torch.float32, device=device)
+        return t
 
     # -- state -------------------------------------------------------------
     def _name_parameters(self, names: Mapping[int, str]) -> None:
@@ -86,35 +108,49 @@ class Optimizer:
             self._state[key] = self._init_state_for(p.detach())
         return self._state[key]
 
-    def _update(self, param, grad, state, lr: float, name: str):
+    def _update(self, param, grad, state, lr: torch.Tensor, name: str):
+        """``(new parameter, new state)``; ``lr`` is a 0-d device
+        tensor."""
         raise NotImplementedError
+
+    def bound_tensors(self):
+        """The tensors a step reads and writes by address: the learning
+        rate scalars and every slot of the state."""
+        yield from self._lr_on.values()
+        for slot in self._state.values():
+            yield from slot.values()
 
     # -- eager step --------------------------------------------------------
     @torch.no_grad()
     def step(self) -> None:
         if self._params is None:
             raise ValueError("optimizer constructed without parameters")
-        lr = self.get_lr()
         for name, p in self._params:
             if not p.requires_grad or p.grad is None:
                 continue
             g = p.grad.to(p.dtype)
             if self._coupled_weight_decay and self._weight_decay:
                 g = g + self._weight_decay * p
-            new_p, self._state[id(p)] = self._update(p, g, self._slot(p), lr,
-                                                     name)
+            slot = self._slot(p)
+            new_p, new_state = self._update(p, g, slot, self._lr(p.device),
+                                            name)
+            for k, v in new_state.items():
+                slot[k].copy_(v)
             p.copy_(new_p)
         self._global_step += 1
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero: bool = False) -> None:
+        """Drop the gradients (``set_to_zero``: zero them in place, as a
+        captured step does, so that they stay where it reads them; one
+        multi-tensor launch per group of them)."""
+        grads = [p.grad for _, p in self._params or [] if p.grad is not None]
+        if set_to_zero:
+            if grads:
+                torch._foreach_zero_(grads)
+            return
         for _, p in self._params or []:
-            if p.grad is None:
-                continue
-            if set_to_zero:
-                p.grad.zero_()
-            else:
-                p.grad = None
+            p.grad = None
 
     # -- checkpointing -----------------------------------------------------
     def state_dict(self) -> Dict[str, object]:
@@ -132,8 +168,8 @@ class Optimizer:
             for k, cur in slot.items():
                 key = f"{name}_{k}"
                 if key in state_dict:
-                    slot[k] = torch.as_tensor(state_dict[key]).to(
-                        device=cur.device, dtype=cur.dtype).clone()
+                    cur.copy_(torch.as_tensor(state_dict[key]).to(
+                        device=cur.device, dtype=cur.dtype))
 
 
 class SGD(Optimizer):

@@ -2,10 +2,12 @@
 generation engine."""
 from .admission import (AdmissionController, DeadlineExceeded,
                         EngineClosed, RequestRejected)
-from .bucketing import next_bucket, seq_buckets
+from .bucketing import (BucketPolicy, ExecutableCache, bucket_shape,
+                        next_bucket, pad_batch, seq_buckets)
 from .engine import (GenerationEngine, GenerationEngineConfig,
                      GenerationStream)
 
 __all__ = ["AdmissionController", "DeadlineExceeded", "EngineClosed",
-           "RequestRejected", "next_bucket", "seq_buckets",
+           "RequestRejected", "BucketPolicy", "ExecutableCache",
+           "bucket_shape", "next_bucket", "pad_batch", "seq_buckets",
            "GenerationEngine", "GenerationEngineConfig", "GenerationStream"]

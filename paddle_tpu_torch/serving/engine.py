@@ -14,6 +14,15 @@ Because rows never interact and every step runs at the same
 ``(max_slots, ...)`` shapes as a solo
 :meth:`~paddle_tpu_torch.generation.GenerationSession.generate` over the
 same session, each stream equals the solo ``generate()`` of its prompt.
+
+Every step is one replay of a captured CUDA graph per prompt bucket (and
+one for decode), kept in the session's executable cache.  With
+``GenerationEngineConfig(warmup=True)`` the engine captures them all
+before it takes requests (``"async"``: on the scheduler thread, with
+:attr:`GenerationEngine.ready` False until done); otherwise each is
+captured at its first use.  Captures run on the thread that runs the
+steps; client threads only queue requests and read results, so no other
+thread touches the card while a graph is captured.
 """
 from __future__ import annotations
 
@@ -50,6 +59,11 @@ class GenerationEngineConfig:
     deadline_ms          default per-request deadline (sheds while
                          queued); None = none
     prompt_bucket_min    smallest prompt-length bucket
+    warmup               capture every prefill bucket and the decode step
+                         before serving: True in the constructor,
+                         "async" on the scheduler thread (``ready`` is
+                         False until it lands), False at first use
+    name                 the engine's name, given to its session
     """
 
     def __init__(self, max_slots: int = 4,
@@ -58,7 +72,9 @@ class GenerationEngineConfig:
                  max_queue: int = 128,
                  max_tokens_in_flight: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
-                 prompt_bucket_min: int = 8):
+                 prompt_bucket_min: int = 8,
+                 warmup=False,
+                 name: str = "serving"):
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
         self.max_slots = int(max_slots)
@@ -68,6 +84,8 @@ class GenerationEngineConfig:
         self.max_tokens_in_flight = max_tokens_in_flight
         self.deadline_ms = deadline_ms
         self.prompt_bucket_min = int(prompt_bucket_min)
+        self.warmup = warmup if warmup == "async" else bool(warmup)
+        self.name = str(name)
 
 
 class _GenRequest:
@@ -156,7 +174,9 @@ class GenerationEngine:
     Admission bounds the queue depth and the reserved tokens (prompt +
     max_new per request, returned at retirement).  :attr:`counts` holds
     the outcome counts (``completed``, ``cancelled``, ``failed``, and the
-    admission ones); the session keeps the step times."""
+    admission ones); the session keeps the step times.  :attr:`ready` is
+    False while an ``"async"`` warmup runs; :attr:`warmed_buckets` is the
+    number of steps the warmup left captured."""
 
     def __init__(self, model,
                  config: Optional[GenerationEngineConfig] = None):
@@ -165,7 +185,7 @@ class GenerationEngine:
         max_len = int(cfg.max_length or model.cfg.max_seq_len)
         self.session = GenerationSession(
             model, batch_capacity=cfg.max_slots, max_length=max_len,
-            prompt_bucket_min=cfg.prompt_bucket_min)
+            prompt_bucket_min=cfg.prompt_bucket_min, name=cfg.name)
         self.max_length = self.session.max_length
         S = self.slots = self.session.batch_capacity
         budget = cfg.max_tokens_in_flight or S * self.max_length
@@ -186,9 +206,56 @@ class GenerationEngine:
         self._cond = threading.Condition()
         self._stop = False
         self._closed = False
+        self.ready = False
+        self.warmed_buckets = 0
+        if cfg.warmup and cfg.warmup != "async":
+            self._warmup()
+        self.ready = cfg.warmup != "async"
         self._scheduler = threading.Thread(
             target=self._loop, name="generation-scheduler")
         self._scheduler.start()
+
+    # -- warmup ------------------------------------------------------------
+    def _warmup(self):
+        """One prefill per prompt bucket with every row masked out, then
+        one decode with ``live_rows=0``, over the engine's own caches:
+        each step is captured (the session's executable cache).  The
+        prefills leave the caches as they were, by construction; the
+        decode writes at position 0 of every row while every row is free,
+        and an admitted row's prefill rewrites the whole row.  A step that
+        fails is reported in a warning and raises again at its first
+        use."""
+        from .bucketing import seq_buckets
+        S = self.slots
+        seeds = np.zeros((S,), np.int64)
+        temps = np.zeros((S,), np.float32)
+        tks = np.zeros((S,), np.int32)
+        tps = np.ones((S,), np.float32)
+        errors = []
+        for pb in seq_buckets(self.max_length, self.config.prompt_bucket_min):
+            try:
+                self.session.prefill(
+                    self._caches, np.zeros((S, pb), np.int32),
+                    np.ones((S,), np.int32), np.zeros((S,), bool), seeds,
+                    temps, tks, tps)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append((f"prefill:{pb}", e))
+        try:
+            self.session.decode(self._caches, np.zeros((S,), np.int32),
+                                np.zeros((S,), np.int32), seeds, temps, tks,
+                                tps, live_rows=0)
+        except Exception as e:      # noqa: BLE001
+            errors.append(("decode", e))
+        self._finish_warmup(errors)
+
+    def _finish_warmup(self, errors):
+        if errors:
+            import warnings
+            warnings.warn(
+                f"{type(self).__name__} warmup failed for {len(errors)} "
+                f"step(s) (first: {errors[0][0]}: {errors[0][1]!r}); they "
+                "capture again at first use", RuntimeWarning, stacklevel=3)
+        self.warmed_buckets = len(self.session._cache)
 
     # -- client surface --------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -265,6 +332,11 @@ class GenerationEngine:
         return [i for i, r in enumerate(self._slot_req) if r is not None]
 
     def _loop(self):
+        if self.config.warmup == "async":
+            try:
+                self._warmup()
+            finally:
+                self.ready = not self._closed
         while True:
             with self._cond:
                 while not self._stop and not self._pending \

@@ -4,7 +4,8 @@
 
 Builds the full-width GPT (V 30528, D 768, L 12, H 12, max_seq_len 512)
 from seed 0, fills a :class:`GenerationSession` of 8 rows with 32-token
-prompts, and runs prefill and decode steps twice: first unprofiled, for
+prompts, and runs prefill and decode steps (replays of the session's
+captured CUDA graphs) twice: first unprofiled, for
 the host wall time per step, then under ``torch.profiler`` (CPU and CUDA
 activities), for the device time per step (the sum of the kernels' and
 copies' durations on the card), the device's idle share of an

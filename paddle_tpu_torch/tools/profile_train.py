@@ -2,6 +2,7 @@
 
     python3 -m paddle_tpu_torch.tools.profile_train [--eager | --encoder]
                                                     [--amp O1|O2]
+                                                    [--uncaptured]
                                                     [--steps 5] [--json PATH]
 
 Without a path option it builds the flagship compiled train step (V 30528,
@@ -14,7 +15,9 @@ fp32, on ids from ``np.random.RandomState(0)`` and labels rolled by one.
 With ``--encoder`` it trains the same way the encoder of
 :func:`build_encoder` at :data:`ENCODER` (``chip_smoke.py`` phase 11
 builds the same model).  ``--amp`` (with ``--eager`` or ``--encoder``)
-prepares the model with ``amp_configs`` at that level in bf16.  Either
+prepares the model with ``amp_configs`` at that level in bf16.  Those
+two paths run ``prepare(jit=True)``'s step, captured in a CUDA graph and
+replayed, unless ``--uncaptured`` asks for ``jit=False``.  Either
 way it takes two warm-up steps, then
 ``--steps`` steps unprofiled
 (host wall per step, ending in a synchronise) and ``--steps`` steps under
@@ -188,16 +191,16 @@ def build_encoder(cfg=ENCODER, device=None, seed_val: int = 0):
     return net
 
 
-def _eager_path(encoder: bool = False, amp=None):
+def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
     """Model.train_batch on the eager GPT (or the fused encoder), with
-    ``amp_configs=amp``: the same four callables."""
+    ``amp_configs=amp`` and ``jit``: the same four callables."""
     if encoder:
         net = build_encoder()
     else:
         net = GPT(GPTConfig(**WIDTH), seed=0)
     model = Model(net).prepare(
         AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-        CrossEntropyLoss(), amp_configs=amp)
+        CrossEntropyLoss(), amp_configs=amp, jit=jit)
     ids = np.random.RandomState(0).randint(0, WIDTH["vocab_size"],
                                            (EAGER_BATCH, SEQ))
     labels = np.roll(ids, -1, 1).reshape(EAGER_BATCH, SEQ, 1)
@@ -220,7 +223,7 @@ def _eager_path(encoder: bool = False, amp=None):
     return one, reset, counts, dict(
         path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
         dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
-        remat="none")
+        remat="none", captured=jit)
 
 
 def main(argv=None) -> int:
@@ -234,6 +237,9 @@ def main(argv=None) -> int:
     ap.add_argument("--amp", choices=("O1", "O2"),
                     help="with --eager or --encoder: prepare the model with "
                          "amp_configs at this level (bf16)")
+    ap.add_argument("--uncaptured", action="store_true",
+                    help="with --eager or --encoder: prepare(jit=False), "
+                         "the step run op by op")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the summary to PATH")
@@ -242,11 +248,12 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
-    if args.amp and not (args.eager or args.encoder):
-        ap.error("--amp takes --eager or --encoder")
+    if (args.amp or args.uncaptured) and not (args.eager or args.encoder):
+        ap.error("--amp and --uncaptured take --eager or --encoder")
     if args.eager or args.encoder:
         one, reset, counts, setup = _eager_path(encoder=args.encoder,
-                                                amp=args.amp)
+                                                amp=args.amp,
+                                                jit=not args.uncaptured)
     else:
         one, reset, counts, setup = _compiled_path()
 
@@ -293,7 +300,10 @@ def main(argv=None) -> int:
                  for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])],
         top=[dict(name=k[:120], ms_per_step=v[0] / n, calls_per_step=v[1] / n)
              for k, v in top])
-    print(f"{card}: {setup['path']} train step wall {wall_p50:.3f} ms p50 "
+    captured = {True: " (captured)", False: " (uncaptured)"}.get(
+        setup.get("captured"), "")
+    print(f"{card}: {setup['path']}{captured} train step wall "
+          f"{wall_p50:.3f} ms p50 "
           f"unprofiled "
           f"({report['profiled_wall_ms_p50']:.3f} profiled); device "
           f"{device_ms:.3f} ms/step; idle share {report['idle_share']:.4f}; "
