@@ -99,6 +99,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
             the same under AMP O1 (the epilogue on bf16 x and an fp32 or
             bf16 residual, attention on flash_attn_sm90) and O2 at L 2, as
             in phase 9
+12. fit     Model.fit at that GPT width as BERT-style fine-tuning runs it
+            (AdamW under LinearWarmup(PolynomialDecay(1e-4, 40), 4, 0,
+            1e-4), weight decay 0.01, ClipGradByGlobalNorm(1.0),
+            Accuracy): 136 sequences of T 512 from seed 0 in shuffled
+            batches of 32 (the last of 8), 2 epochs, eval_data 40 more,
+            verbose=0, prefetch_to_device=2, captured; fp32, then AMP O1.
+            Bit for bit equal to a hand loop of captured train_batch over
+            the same batches, to prefetch_to_device=0, to jit=False, and
+            to the runs without the metric (one with no prefetch); the
+            second epoch captures nothing and, without the metric, runs no
+            synchronising call (torch.cuda.set_sync_debug_mode("error"));
+            every replayed step launches 12 + 12 attention kernels;
+            evaluate equals an eval_batch loop.  Step ms p50 of each run
+            (with and without prefetch and metric), the hand loop's, the
+            idle share of fit (profile_train.profile), the graphs' pools
+            (the partial batch's too) and peak memory.  Then the fused
+            encoder under O1 for one epoch with eval_data: equal to its
+            hand loop and to jit=False, 24 + 24 epilogue and 12 + 12
+            attention launches a replayed step
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -272,6 +291,11 @@ DLOGITS_G, DLOGITS_ATOL, DLOGITS_BF16_ATOL_PER_G = 2.0, 1e-5, 1e-6
 ENCODER_SCORE_BATCH, ENCODER_BATCH = 8, 32          # T = max_len, 512
 # phases 9 and 11 under AMP: O1 at full width, O2 at this depth
 AMP_O2_LAYERS = 2
+# phase 12: Model.fit on the eager GPT (and the encoder) at full width,
+# 136 train sequences (4 batches of 32 and one of 8), 40 to evaluate (32
+# and 8); profile_train.profile over epochs of profile_steps full batches
+FIT = dict(width=GPT_WIDTH, batch=32, seq=512, train=136, eval=40,
+           profile_steps=4)
 
 
 def log(msg: str = ""):
@@ -2273,6 +2297,313 @@ def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
                 rows=rows)
 
 
+# -- phase 12 ------------------------------------------------------------------
+def _fit_watch(torch, reset, launches, strict_epoch=None):
+    """A callback that records, per train step, the loss (unread), the
+    batch size, CUDA events at the step's begin and end (read after the
+    run), the launch counts (reset at the step's begin) and whether the
+    step captured; per epoch the cache's compiles at its start and its
+    wall time from a synchronise at its start to one at its end.  In
+    ``strict_epoch`` every synchronising call raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class Watch(Callback):
+        def __init__(self):
+            super().__init__()
+            self.steps, self.compiles, self.wall_ms = [], [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+            self.compiles.append(self.model._steps.compiles)
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+            if epoch == strict_epoch:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_begin(self, step, logs=None):
+            reset()
+            self._made = self.model._steps.compiles
+            self._a = torch.cuda.Event(enable_timing=True)
+            self._a.record()
+
+        def on_train_batch_end(self, step, logs=None):
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            self.steps.append(dict(
+                epoch=self.epoch, size=logs["batch_size"], loss=logs["loss"],
+                events=(self._a, b), launches=launches(),
+                captured=self.model._steps.compiles != self._made))
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch == strict_epoch:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            self.wall_ms.append((time.perf_counter() - self._t0) * 1e3)
+
+    return Watch()
+
+
+def _step_ms(steps, epoch, batch):
+    """(p50 ms of the epoch's full-size steps, ms of its partial step or
+    None), CUDA events from each step's begin to its end."""
+    full = [s["events"][0].elapsed_time(s["events"][1]) for s in steps
+            if s["epoch"] == epoch and s["size"] == batch]
+    part = [s["events"][0].elapsed_time(s["events"][1]) for s in steps
+            if s["epoch"] == epoch and s["size"] != batch]
+    return pct(full, 50), (part[0] if part else None)
+
+
+FIT_VARIANTS = ("prefetch0", "uncaptured", "nometric", "nometric_prefetch0")
+
+
+def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
+             variants=FIT_VARIANTS, profile=True):
+    """``Model.fit`` on ``net`` as BERT-style fine-tuning runs it
+    (``profile_train.fit_recipe``: AdamW under a warmup and a linear
+    decay, weight decay 0.01, global-norm clip 1.0, ``Accuracy``), on
+    ``cfg["train"]`` sequences of token ids from ``np.random.RandomState(0)``
+    in shuffled batches of ``cfg["batch"]`` (the last one partial) and
+    ``cfg["eval"]`` more from seed 1 as ``eval_data``, ``verbose=0``,
+    ``prefetch_to_device=2``, captured (``jit=True``).  Every run starts
+    from the same weights and seeds (``paddle_tpu_torch.seed(0)``,
+    ``np.random.seed(0)``).  Checks, failing the run on any miss: ``fit``
+    equals a hand loop of captured ``train_batch`` over the same batches,
+    bit for bit in losses and parameters; the last epoch captures
+    nothing; every replayed step launches ``want``; ``evaluate`` equals
+    an ``eval_batch`` loop.  Each of ``variants`` must equal it bit for
+    bit too: ``prefetch0`` (``prefetch_to_device=0``), ``uncaptured``
+    (``jit=False``), ``nometric`` (no metric, no ``eval_data``, its last
+    epoch under ``torch.cuda.set_sync_debug_mode("error")``: no
+    synchronising call) and ``nometric_prefetch0``.  Logs each run's step
+    ms p50 (CUDA events around each step of the last epoch,
+    unsynchronised; the hand loop's synchronised as in phase 9), its
+    graphs' pools and its peak memory, and with ``profile`` the idle share
+    of ``fit`` without the metric (``profile_train.profile``); returns
+    the report."""
+    import gc
+    import numpy as np
+    import paddle_tpu_torch
+    from paddle_tpu_torch.io import BatchSampler, TensorDataset
+    from paddle_tpu_torch.tools import profile_train as pt
+    B, T = cfg["batch"], cfg["seq"]
+    vocab = next(m for m in net.modules()
+                 if isinstance(m, torch.nn.Embedding)).num_embeddings
+    train = pt.fit_data(cfg["train"], 0, vocab, T)
+    evald = pt.fit_data(cfg["eval"], 1, vocab, T)
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    last = epochs - 1
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def fresh(jit=True, metric=True):
+        net.load_state_dict(state0)
+        paddle_tpu_torch.seed(0)
+        np.random.seed(0)
+        return pt.fit_recipe(net, amp=amp, jit=jit, metric=metric)
+
+    def state():
+        return {k: v.clone() for k, v in net.state_dict().items()}
+
+    def fit(label, jit=True, metric=True, prefetch=2, strict=False,
+            keep=False):
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        model = fresh(jit, metric)
+        watch = _fit_watch(torch, reset, launches,
+                           strict_epoch=last if strict else None)
+        try:
+            model.fit(TensorDataset(train), eval_data=None if strict else
+                      TensorDataset(evald), batch_size=B, epochs=epochs,
+                      shuffle=True, verbose=0, prefetch_to_device=prefetch,
+                      callbacks=[watch])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            watch.set_model(None)
+        torch.cuda.synchronize()
+        ms, part_ms = _step_ms(watch.steps, last, B)
+        run = dict(label=label, losses=torch.stack([s["loss"]
+                                                    for s in watch.steps]),
+                   state=state(), watch=watch, step_ms_p50=ms,
+                   partial_step_ms=part_ms, epoch_wall_ms=watch.wall_ms,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+                   compiles=watch.compiles + [model._steps.compiles],
+                   pools={f"{k[0]} B {k[1][0][0][0]}": e.pool_bytes
+                          for k, e in model._steps.entries().items()})
+        log(f"  fit {label}: step ms p50 {ms:.3f} (last epoch, {B} rows; "
+            f"partial step {part_ms} ms), epoch wall ms "
+            f"{[round(w, 3) for w in watch.wall_ms]}, compiles at each "
+            f"epoch's start and the end {run['compiles']}, peak memory "
+            f"{run['peak_memory_bytes'] / 2**30:.3f} GiB allocated, "
+            f"{run['peak_reserved_bytes'] / 2**30:.3f} reserved, graph pools MiB "
+            f"{ {k: round(v / 2**20, 1) for k, v in run['pools'].items()} }")
+        if keep:
+            return run, model
+        del model
+        return run
+
+    def equal(a, b):
+        return bool(torch.equal(a["losses"], b["losses"])) and all(
+            torch.equal(v, b["state"][k]) for k, v in a["state"].items())
+
+    out = dict(config=dict(cfg, epochs=epochs, amp=amp))
+    main, model = fit("prefetch 2, metric", keep=True)
+    # evaluate against an eval_batch loop on the same model
+    got = model.evaluate(TensorDataset(evald), batch_size=B, verbose=0)
+    metric = model._metrics[0]
+    metric.reset()
+    losses = [model.eval_batch([evald[0][i:i + B]], [evald[1][i:i + B]])
+              ["loss"] for i in range(0, cfg["eval"], B)]
+    loop = {"loss": float(np.mean(losses)), "acc": metric.accumulate()}
+    log(f"  evaluate {got}; eval_batch loop {loop}")
+    if got != loop:
+        raise AssertionError("evaluate differs from an eval_batch loop")
+    del model
+    # the hand loop: captured train_batch over fit's batch order
+    release()
+    model = fresh(metric=False)
+    sched = model._optimizer._lr_scheduler
+    hand_losses, hand_ms = [], []
+    ds = TensorDataset(train)
+    for epoch in range(epochs):
+        for idx in BatchSampler(ds, shuffle=True, batch_size=B):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            hand_losses.append(model.train_batch(
+                [train[0][idx]], [train[1][idx]])["loss"])
+            b.record()
+            b.synchronize()
+            if epoch == last and len(idx) == B:
+                hand_ms.append(a.elapsed_time(b))
+            sched.step()
+    hand = dict(losses=torch.stack(hand_losses), state=state())
+    del model
+    watch = main["watch"]
+    steps_last = [s for s in watch.steps if s["epoch"] == last]
+    replayed = [s["launches"] for s in watch.steps if not s["captured"]]
+    checks = dict(
+        equals_hand_loop=equal(main, hand),
+        last_epoch_captures_nothing=(
+            main["compiles"][-1] == main["compiles"][last] if epochs > 1
+            else None),
+        last_epoch_steps_all_replays=(not any(
+            s["captured"] for s in steps_last) if epochs > 1 else None),
+        replayed_launches_as_expected=bool(replayed) and all(
+            c == want for c in replayed),
+        evaluate_equals_eval_batch_loop=True)
+    hand_p50 = pct(hand_ms, 50)
+    log(f"  fit = hand loop of captured train_batch, bit for bit: "
+        f"{checks['equals_hand_loop']}; hand loop step ms p50 "
+        f"{hand_p50:.3f} (synchronised per step); last epoch all replays: "
+        f"{checks['last_epoch_steps_all_replays']}; {len(replayed)} "
+        f"replayed steps launched {replayed[0] if replayed else None} each "
+        f"(expected {want})")
+    out.update(main={k: v for k, v in main.items()
+                     if k not in ("losses", "state", "watch")},
+               losses=main["losses"].tolist(), hand_step_ms_p50=hand_p50,
+               launches_per_step=replayed[0] if replayed else None,
+               evaluate=got)
+    labels = dict(prefetch0=("prefetch 0, metric", dict(prefetch=0)),
+                  uncaptured=("jit=False, metric", dict(jit=False)),
+                  nometric=("prefetch 2, no metric, last epoch under "
+                            "sync_debug_mode error",
+                            dict(metric=False, strict=True)),
+                  nometric_prefetch0=("prefetch 0, no metric",
+                                      dict(metric=False, prefetch=0)))
+    for name in variants:
+        label, kw = labels[name]
+        run = fit(label, **kw)
+        checks[f"equals_{name}"] = equal(main, run)
+        out[name] = {k: v for k, v in run.items()
+                     if k not in ("losses", "state", "watch")}
+        del run
+    log(f"  bit for bit against the first run: "
+        f"{ {k: v for k, v in checks.items() if k.startswith('equals_')} }")
+    if profile:
+        # the idle share of fit without the metric, prefetch 2
+        release()
+        net.load_state_dict(state0)
+        prof = pt.profile(*pt._fit_path(net, amp, True, cfg["profile_steps"],
+                                        2, False, batch=B, seq=T),
+                          steps=cfg["profile_steps"])
+        out["profile"] = {k: prof[k] for k in (
+            "wall_ms_p50", "device_ms_per_step", "idle_share",
+            "device_ops_per_step", "kernel_launches_per_step", "by_kind")}
+        log(f"  profile_train --fit ({cfg['profile_steps']} steps an epoch, "
+            f"no metric): wall {prof['wall_ms_p50']:.3f} ms a step, device "
+            f"{prof['device_ms_per_step']:.3f}, idle share "
+            f"{prof['idle_share']:.4f}")
+    out["checks"] = checks
+    failed = [k for k, v in checks.items() if v is False]
+    net.load_state_dict(state0)
+    del state0
+    release()
+    if failed:
+        raise AssertionError(f"fit failed its checks: {failed}")
+    return out
+
+
+def metric_ms(torch, B, T, V, dev="cuda"):
+    """``Accuracy().compute`` (top-1 by ``argmax``) against ``torch.topk(x,
+    1)`` on (B, T, V) logits, fp32 and bf16, CUDA events."""
+    from paddle_tpu_torch.metric import Accuracy
+    gen = torch.Generator(device=dev).manual_seed(0)
+    labels = torch.randint(0, V, (B, T, 1), generator=gen, device=dev)
+    acc, out = Accuracy(), {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((B, T, V), generator=gen, device=dev).to(dt)
+        out[_dtype_name(dt)] = dict(
+            compute_ms=time_ms(torch, lambda: acc.compute(x, labels)),
+            topk_ms=time_ms(torch, lambda: torch.topk(x, 1, dim=-1)),
+            same=bool(torch.equal(acc.compute(x, labels), torch.topk(
+                x, 1, dim=-1).indices == labels)))
+        del x
+    log(f"  Accuracy.compute on ({B}, {T}, {V}) logits against torch.topk "
+        f"k 1, ms: {out}")
+    return out
+
+
+def fit_gpt(torch, fa, dev, cfg, amp=None):
+    """:func:`fit_path` on the eager GPT of ``cfg["width"]`` (seed 0): L
+    forward and L backward attention launches a replayed step; in fp32
+    also :func:`metric_ms` at the step's shape."""
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    w = cfg["width"]
+    L, T = w["num_layers"], cfg["seq"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    mode = fa._pallas_mode(T, T, True)
+    out = fit_path(torch, net, cfg, lambda: _reset_attention(fa),
+                   lambda: _attention_launches(fa),
+                   _attention_want(L, mode, mode, amp), amp=amp)
+    del net
+    if amp is None:
+        out["metric_ms"] = metric_ms(torch, cfg["batch"], T, w["vocab_size"],
+                                     dev)
+    return out
+
+
+def fit_encoder(torch, fa, fl, dev, cfg, encoder_cfg, amp="O1"):
+    """:func:`fit_path` on the fused encoder for one epoch: 2L epilogue
+    launches each way and L + L non-causal attention launches a replayed
+    step."""
+    from paddle_tpu_torch.tools.profile_train import build_encoder
+    L, T = encoder_cfg["num_layers"], encoder_cfg["max_len"]
+    net = build_encoder(encoder_cfg, dev)
+    mode = fa._pallas_mode(T, T, False)
+    want = dict(_attention_want(L, mode, mode, amp), fused_ln=2 * L,
+                fused_ln_bwd=2 * L)
+    out = fit_path(torch, net, dict(cfg, seq=T),
+                   lambda: _reset_encoder(fa, fl),
+                   lambda: _encoder_launches(fa, fl), want, amp=amp,
+                   epochs=1, variants=("uncaptured",), profile=False)
+    del net
+    return out
+
+
 def _o2_gpt(cfg):
     """The eager config cut to AMP_O2_LAYERS layers."""
     w = cfg["width"]
@@ -2282,10 +2613,11 @@ def _o2_gpt(cfg):
 
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
-        encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN):
-    """Phases 3-11 on ``dev`` with a serving GPT of ``width``, the two
-    train configs, the eager train configs and the encoder; returns the
-    report and the ``kernels`` entries."""
+        encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
+        fit_cfg=FIT):
+    """Phases 3-12 on ``dev`` with a serving GPT of ``width``, the two
+    train configs, the eager train configs, the encoder and the fit
+    config; returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -2363,6 +2695,16 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                                               encoder_cfg["num_layers"]))
     enc_o2 = encoder_train(torch, fa, fl, build_encoder(o2_cfg, dev), o2_cfg,
                            dev, batch=encoder_batch, amp="O2")
+    torch.cuda.empty_cache()
+    log("== phase 12: Model.fit, the eager GPT at full width (fp32)")
+    fit_fp32 = fit_gpt(torch, fa, dev, fit_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 12: the same under AMP O1 (bf16)")
+    fit_o1 = fit_gpt(torch, fa, dev, fit_cfg, amp="O1")
+    torch.cuda.empty_cache()
+    log("== phase 12: the fused encoder under AMP O1, one epoch")
+    fit_enc = fit_encoder(torch, fa, fl, dev, fit_cfg, encoder_cfg)
+    torch.cuda.empty_cache()
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2377,6 +2719,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         timed_shape="bh 96, T 512, d 64, fp32, causal",
         launches_scoring=score["launches"], checks=len(checks),
         launches_eager_forward=eager["launches"]["fwd"],
+        launches_fit_step=fit_fp32["launches_per_step"]["fwd"],
         max_abs_err_bf16=max(c["max_abs_err"] for c in checks
                              if c["dtype"] == "bfloat16"
                              and c["inputs"] == "rand"),
@@ -2448,6 +2791,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               launches_dryrun=dl["flash_qkv_fwd"],
               launches_eager_amp_o1=eager_o1["launches"]["sm90_fwd"],
               launches_encoder_amp_o1=enc_o1["launches"]["sm90_fwd"],
+              launches_fit_step_amp_o1=fit_o1["launches_per_step"][
+                  "sm90_fwd"],
               fp32=fp32_rows("flash_qkv_fwd"), **sharp_fields),
         entry("flash_qkv_bwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
@@ -2469,6 +2814,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               launches_dryrun=dl["flash_qkv_bwd"],
               launches_eager_amp_o1=eager_o1["launches"]["sm90_bwd"],
               launches_encoder_amp_o1=enc_o1["launches"]["sm90_bwd"],
+              launches_fit_step_amp_o1=fit_o1["launches_per_step"][
+                  "sm90_bwd"],
               fp32=fp32_rows("flash_qkv_bwd"), **sharp_fields),
         entry("softmax_xent_fwd", "softmax_xent_sm90.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
@@ -2504,9 +2851,11 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     kernels += [
         split_entry("flash_attn_fwd_stream", 2, "flash_attn_fwd.cu",
                     f"{fa_py}:94", t8192["fwd stream"], "max_abs_err"),
-        split_entry("flash_attn_bwd_small", 6, "flash_attn_bwd.cu",
-                    f"{fa_py}:733", eager["launches"]["modes"]["bwd small"],
-                    "max_abs_err_grads"),
+        dict(split_entry("flash_attn_bwd_small", 6, "flash_attn_bwd.cu",
+                         f"{fa_py}:733",
+                         eager["launches"]["modes"]["bwd small"],
+                         "max_abs_err_grads"),
+             launches_fit_step=fit_fp32["launches_per_step"]["bwd"]),
         split_entry("flash_attn_bwd_tiled", 7, "flash_attn_bwd.cu",
                     f"{fa_py}:649", t1024["bwd small"], "max_abs_err_grads"),
         split_entry("flash_attn_bwd_dq", 8, "flash_attn_bwd.cu",
@@ -2549,6 +2898,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     layer_norm_ms=ln_time["layer_norm_ms"],
                     launches_scoring=enc_score["launches"]["fused_ln"],
                     launches_amp_o1=enc_o1["launches"]["fused_ln"],
+                    launches_fit_step_amp_o1=fit_enc["launches_per_step"][
+                        "fused_ln"],
                     mixed_type_checks=sum(r["dtype"] != r["residual_dtype"]
                                           for r in ln_checks),
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
@@ -2566,6 +2917,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          layer_norm_backward_ms=ln_bwd_time[
                              "layer_norm_backward_ms"],
                          launches_amp_o1=enc_o1["launches"]["fused_ln_bwd"],
+                         launches_fit_step_amp_o1=fit_enc[
+                             "launches_per_step"]["fused_ln_bwd"],
                          launches_scoring=enc_score["launches"][
                              "fused_ln_bwd"],
                          columns_rel_l2_vs_float64=max(
@@ -2597,7 +2950,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   encoder_train=enc_train, eager_amp_o1=eager_o1,
                   eager_amp_o2=eager_o2, encoder_amp_o1=enc_o1,
                   encoder_amp_o2=enc_o2, fused_ln_bwd_checks=ln_bwd_checks,
-                  fused_ln_bwd_timing=ln_bwd_time)
+                  fused_ln_bwd_timing=ln_bwd_time, fit=fit_fp32,
+                  fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc)
     return report, kernels
 
 

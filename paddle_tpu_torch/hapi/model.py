@@ -1,6 +1,8 @@
 """``paddle.Model`` — the counterpart of ``paddle_tpu/hapi/model.py``
 (``Model`` :160): ``prepare`` (:174), ``train_batch`` (:463),
-``eval_batch`` (:637) and ``predict_batch`` (:658).
+``eval_batch`` (:637), ``predict_batch`` (:658), ``fit`` (:988),
+``evaluate`` (:1298), ``predict`` (:1342), ``save`` and ``load``
+(:1363-1384).
 
 With ``prepare(jit=True)``, the default, the reference runs
 ``train_batch`` (with ``update=True``), ``eval_batch`` and
@@ -12,28 +14,51 @@ shapes and dtypes, and for training the AMP level and type — through an
 :class:`~paddle_tpu_torch.graphs.StepGraph` entries.  The first call of a
 signature runs the step once, a real step, on a side stream, then
 captures it; later calls copy the batch into the graph's static inputs
-and replay it, one host call.  The train graph holds the forward, the
-loss, the backward and the optimizer step; the gradients stay fixed
-buffers, zeroed in place after each step, the optimizer updates its state
-in place and reads its learning rate from a device scalar, and the fused
-epilogue's seeds and the dropout masks are drawn anew at every replay
-(``random.SeedSlots``, the device generators registered with the graph),
-as the uncaptured step draws them.  So N calls leave the parameters as N
-uncaptured steps do.  A capture that fails raises and names its key; a
-parameter, gradient or optimizer slot replaced rather than updated in
-place makes the next call capture again.  The loss and the outputs are
-copies of the graph's outputs.  On the CPU an entry is the step function
-itself.
+(device to device when the batch is already on the card) and replay it,
+one host call.  The train graph holds the forward, the loss, the
+backward, the gradient clip and the optimizer step; the gradients stay
+fixed buffers, zeroed in place after each step, the optimizer updates
+its state in place and reads its learning rate from a device scalar,
+which ``train_batch`` refreshes from the optimizer (and its scheduler)
+before each replay, outside the graph; the fused epilogue's seeds and
+the dropout masks are drawn anew at every replay (``random.SeedSlots``,
+the device generators registered with the graph), as the uncaptured step
+draws them.  So N calls leave the parameters as N uncaptured steps do.
+A capture that fails raises and names its key; a parameter, gradient or
+optimizer slot replaced rather than updated in place makes the next call
+capture again.  On the CPU an entry is the step function itself.
+
+A replay's outputs are the graph's static tensors, which its next replay
+overwrites: each caller reads them at once, before anything can replay
+the entry again — the loss is copied, ``eval_batch`` reads its loss,
+``predict_batch`` copies the outputs to the host, and with metrics
+(``prepare(metrics=...)``, :179-181) the train and eval graphs also hand
+out the network's outputs, on the first of which ``metric.compute`` runs
+right after the replay (``_update_metrics``, :675).  They are not
+copied: at the flagship width they are 2 GB of logits a step.
 
 ``prepare(jit=False)``, and ``train_batch(update=False)`` either way,
 run the reference's eager engine: forward, loss, backward and (with
 ``update``) ``optimizer.step()`` and ``clear_grad()``, with no host
 synchronisation inside.  The loss comes back as a 0-d device tensor,
 which ``float()`` reads, in the role of the reference's lazy loss scalar
-(``_LazyScalar``).  Inputs and labels may be numpy arrays or tensors;
-pass tensors already on the card to keep the host-to-device copy out of
-the step.  The constructor's ``inputs``/``labels`` (the reference's
-static input specs) are accepted and change nothing.
+(``_LazyScalar``); the callbacks take it as a number and read it only
+where the reference's would.  Inputs and labels may be numpy arrays or
+tensors.  The constructor's ``inputs`` (the reference's static input
+specs) say how many leading fields of a batch are inputs
+(``_split_batch``, :1290; one when not given).
+
+``fit`` runs the reference's loop (:988-1288): a ``DataLoader`` from a
+``Dataset``, the callbacks of ``config_callbacks`` (a progress bar at
+``verbose``, ``ModelCheckpoint`` with ``save_dir``, and
+``LRSchedulerCallback``, which steps the optimizer's scheduler after
+every batch), per epoch a fresh :class:`~paddle_tpu_torch.io.DevicePrefetcher`
+of depth ``prefetch_to_device`` (default ``FLAGS_prefetch_to_device``
+from the environment, else 2; 0 turns it off) onto the model's device,
+``train_batch`` per batch (with ``accumulate_grad_batches`` > 1,
+``train_batch(update=False)`` and an eager step on the boundary), the
+real batch size in the logs, ``evaluate`` every ``eval_freq`` epochs,
+and ``num_iters`` and ``stop_training``.
 
 ``prepare(amp_configs=...)`` (the reference's :189-215: ``"O1"``,
 ``"O2"`` or a dict with ``level``, ``dtype``, ``custom_white_list``,
@@ -47,11 +72,12 @@ so the gradients land on the fp32 leaves (:254-262).  fp16 engages the
 dynamic loss scaling (``ops/amp_ops.py``); on the card it raises, since
 the attention and epilogue kernels take fp32 and bf16 only.
 
-Not ported yet (``ROADMAP.md`` A3), and raising ``NotImplementedError``:
-metrics, ``offload=True``, the budget-driven remat of
-``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb``, and ``fit``,
-``evaluate`` and ``predict``, which need ``io.DataLoader`` and the
-callbacks.
+Not ported yet, and raising ``NotImplementedError`` with their
+``ROADMAP.md`` item: ``offload=True`` and the budget-driven remat of
+``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb`` (A3); ``fit``'s
+fault-tolerance hooks — ``checkpointer=``, ``FLAGS_anomaly_action`` and
+the supervisor's ``PADDLE_SUPERVISE_STORE`` (A8); ``save(training=False)``,
+the inference export (A6); ``summary`` (A3).
 """
 from __future__ import annotations
 
@@ -59,22 +85,42 @@ import itertools
 import os
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
+from .. import framework_io
 from ..amp import auto_cast, to_dtype
 from ..graphs import StepGraph
+from ..metric import Metric
 from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
 from ..serving.bucketing import ExecutableCache
+from .callbacks import config_callbacks
 
 __all__ = ["Model"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md A3)"
+_FAULT_TOLERANCE = ("is not ported yet (ROADMAP.md A8: fit's "
+                    "fault-tolerance hooks)")
 
 
 def _to_list(x) -> List:
     if x is None:
         return []
     return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _batch_len(ins) -> int:
+    """Samples in one batch (leading dim of the first input), 0 if moot."""
+    try:
+        return int(ins[0].shape[0])
+    except (IndexError, AttributeError, TypeError):
+        return 0
+
+
+def _prefetch_depth_flag() -> int:
+    """``FLAGS_prefetch_to_device`` from the environment (the reference's
+    flag, default 2)."""
+    return int(os.environ.get("FLAGS_prefetch_to_device", "2") or 0)
 
 
 def _remat_flags_set() -> bool:
@@ -90,8 +136,13 @@ class Model:
 
     def __init__(self, network: torch.nn.Module, inputs=None, labels=None):
         self.network = network
+        self._inputs = inputs
         self._optimizer = None
         self._loss = None
+        self._metrics: List[Metric] = []
+        self.stop_training = False
+        self._save_dir = None
+        self._last_prefetcher = None
         self._amp = None
         self._scaler = None
         self._jit = True
@@ -101,9 +152,12 @@ class Model:
                 amp_configs=None, jit=True, offload=False) -> "Model":
         """Set the optimizer, the loss and AMP.  ``jit`` (the default)
         captures the train (with ``update``), eval and predict steps per
-        signature; ``jit=False`` runs them eagerly."""
-        if metrics:
-            raise NotImplementedError(f"metrics {_NOT_PORTED}")
+        signature; ``jit=False`` runs them eagerly.  ``metrics`` are
+        ``paddle_tpu_torch.metric.Metric``s."""
+        self._metrics = _to_list(metrics)
+        for m in self._metrics:
+            if not isinstance(m, Metric):
+                raise TypeError(f"metric {m} is not a paddle Metric")
         self._amp, self._scaler = self._amp_settings(amp_configs)
         if offload:
             raise NotImplementedError(f"optimizer-state offload "
@@ -216,8 +270,9 @@ class Model:
         """Run the step ``make()`` on ``values`` through its entry, keyed
         by ``kind``, the values' shapes and dtypes and ``extra``: the
         first call of a key runs the step (a real step) and captures it,
-        later calls replay.  Returns the step's outputs, copied out of the
-        graph's static outputs."""
+        later calls replay.  Returns the step's outputs: after a replay
+        the graph's static outputs, which the caller reads before the
+        entry can replay again."""
         dev = self._device()
         sig = tuple((tuple(v.shape), v.dtype) for v in (
             v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
@@ -237,15 +292,12 @@ class Model:
         if made:
             out, exe.first_outputs = exe.first_outputs, None
             return out
-        out = exe(*values)
-        if exe.graph is None:
-            return out
-        return tuple(o.clone() for o in out) if isinstance(out, tuple) \
-            else out.clone()
+        return exe(*values)
 
     def _train_step(self, n_in: int) -> Callable:
-        """forward, loss, backward, optimizer step, gradients zeroed in
-        place; returns the loss."""
+        """forward, loss, backward, optimizer step (the clip inside it),
+        gradients zeroed in place; returns ``(loss,)``, and with metrics
+        the network's outputs after it."""
         def step(*tensors):
             ins, labs = list(tensors[:n_in]), list(tensors[n_in:])
             outs = _to_list(self.network(*ins) if self._amp is None
@@ -259,8 +311,31 @@ class Model:
             if finite:
                 self._optimizer.step()
             self._optimizer.clear_grad(set_to_zero=True)
-            return loss.detach()
+            return self._step_outputs(loss, outs)
         return step
+
+    def _step_outputs(self, loss, outs) -> tuple:
+        """``(loss,)``, with metrics also the outputs they compute on."""
+        keep = tuple(o.detach() for o in outs) if self._metrics else ()
+        return (loss.detach(),) + keep
+
+    def _update_metrics(self, outs, labels) -> Dict:
+        """Each metric's ``compute`` on the first output and the labels
+        (on the device), then its ``update`` (a host read); returns
+        ``{name: result}``."""
+        if not self._metrics:
+            return {}
+        results = {}
+        labels = self._tensors(labels)
+        for metric in self._metrics:
+            computed = metric.compute(outs[0], *labels)
+            if isinstance(computed, (list, tuple)):
+                res = metric.update(*computed)
+            else:
+                res = metric.update(computed)
+            names = metric.name()
+            results[names[0] if isinstance(names, list) else names] = res
+        return results
 
     def _pack_logs(self, loss, metrics: Dict) -> Dict:
         logs = {}
@@ -271,9 +346,9 @@ class Model:
 
     # ------------------------------------------------------------------
     def train_batch(self, inputs, labels=None, update: bool = True) -> Dict:
-        """One step on a batch: ``{"loss": 0-d device tensor}``.  With
-        ``update=False`` the gradients stay in the parameters' ``.grad``
-        and nothing is stepped."""
+        """One step on a batch: ``{"loss": 0-d device tensor}`` and each
+        metric's result.  With ``update=False`` the gradients stay in the
+        parameters' ``.grad`` and nothing is stepped."""
         if _remat_flags_set():
             raise NotImplementedError(f"budget-driven remat (FLAGS_program_"
                                       f"remat, FLAGS_remat_budget_mb) "
@@ -282,16 +357,23 @@ class Model:
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
         self.network.train()
-        if update and self._jit:
-            ins, labs = _to_list(inputs), _to_list(labels)
-            opt = self._optimizer
-            steps = opt._global_step
-            amp = None if self._amp is None else (self._amp["level"],
-                                                  self._amp["dtype"])
-            loss = self._captured("train", lambda: self._train_step(
-                len(ins)), ins + labs, (amp,))
-            opt._global_step = steps + 1
-            return self._pack_logs(loss, {})
+        ins, labs = _to_list(inputs), _to_list(labels)
+        if not (update and self._jit):
+            return self._train_batch_eager(ins, labs, update)
+        opt = self._optimizer
+        steps = opt._global_step
+        amp = None if self._amp is None else (self._amp["level"],
+                                              self._amp["dtype"])
+        opt._refresh_lr()                 # outside the graph
+        out = self._captured("train", lambda: self._train_step(len(ins)),
+                             ins + labs, (amp,))
+        opt._global_step = steps + 1
+        return self._pack_logs(out[0].clone(),
+                               self._update_metrics(out[1:], labs))
+
+    def _train_batch_eager(self, inputs, labels, update: bool = True) -> Dict:
+        """The eager engine's step: forward, loss, backward and, with
+        ``update``, ``optimizer.step()`` and ``clear_grad()``."""
         ins = self._tensors(inputs)
         outs = _to_list(self.network(*ins) if self._amp is None
                         else self._forward_amp(ins))
@@ -305,28 +387,33 @@ class Model:
             if finite:
                 self._optimizer.step()
             self._optimizer.clear_grad()
-        return self._pack_logs(loss.detach(), {})
+        return self._pack_logs(loss.detach(), self._update_metrics(
+            [o.detach() for o in outs], labels))
 
     @torch.no_grad()
     def eval_batch(self, inputs, labels=None) -> Dict:
-        """``{"loss": float}`` of the batch in eval mode (``{}`` without
-        labels or a loss)."""
+        """``{"loss": float}`` of the batch in eval mode (no loss without
+        labels or a loss function), and each metric's result."""
         self.network.eval()
         ins, labs = _to_list(inputs), _to_list(labels)
         if self._loss is not None and labs and self._jit:
             n = len(ins)
 
             def make():
-                return lambda *t: self._loss(*(_to_list(
-                    self.network(*t[:n])) + list(t[n:])))
-            return self._pack_logs(float(self._captured(
-                "eval", make, ins + labs)), {})
+                def step(*t):
+                    outs = _to_list(self.network(*t[:n]))
+                    return self._step_outputs(
+                        self._loss(*(outs + list(t[n:]))), outs)
+                return step
+            out = self._captured("eval", make, ins + labs)
+            return self._pack_logs(float(out[0]),
+                                   self._update_metrics(out[1:], labs))
         outs = _to_list(self.network(*self._tensors(ins)))
-        labs = self._tensors(labs)
         loss = None
         if self._loss is not None and labs:
-            loss = float(self._loss(*(outs + labs)))
-        return self._pack_logs(loss, {})
+            loss = float(self._loss(*(outs + self._tensors(labs))))
+        return self._pack_logs(
+            loss, self._update_metrics(outs, labs) if labs else {})
 
     @torch.no_grad()
     def predict_batch(self, inputs) -> List:
@@ -340,14 +427,206 @@ class Model:
         return [o.detach().cpu().numpy() for o in outs]
 
     # ------------------------------------------------------------------
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(f"Model.fit {_NOT_PORTED}: it needs "
-                                  "io.DataLoader and the callbacks")
+    def _epoch_input(self, loader, depth):
+        """(iterator, prefetcher or None) for one epoch over ``loader``: a
+        fresh :class:`~paddle_tpu_torch.io.DevicePrefetcher` of ``depth``
+        onto the model's device, unless ``depth`` is 0 or the loader runs
+        its own stage (which is pointed at the model's device)."""
+        from ..io import DataLoader, DevicePrefetcher
+        depth = int(_prefetch_depth_flag() if depth is None else depth or 0)
+        dev = self._device()
+        if getattr(loader, "prefetch_to_device", 0) > 0:
+            loader._device = dev
+            return iter(loader), None
+        if depth <= 0:
+            return iter(loader), None
+        if isinstance(loader, DataLoader):
+            pf = DevicePrefetcher.for_loader(loader, depth=depth, device=dev)
+        else:
+            pf = DevicePrefetcher(iter(loader), depth=depth, device=dev)
+        self._last_prefetcher = pf
+        return iter(pf), pf
 
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError(f"Model.evaluate {_NOT_PORTED}: it needs "
-                                  "io.DataLoader and the callbacks")
+    @staticmethod
+    def _check_fault_tolerance(checkpointer) -> None:
+        """The reference's fit hooks that wait for A8 raise rather than
+        being ignored."""
+        if checkpointer is not None:
+            raise NotImplementedError(f"fit(checkpointer=...), the "
+                                      f"checkpoint resume, "
+                                      f"{_FAULT_TOLERANCE}")
+        if os.environ.get("FLAGS_anomaly_action"):
+            raise NotImplementedError(f"FLAGS_anomaly_action, the nan/inf "
+                                      f"loss guard, {_FAULT_TOLERANCE}")
+        if os.environ.get("PADDLE_SUPERVISE_STORE"):
+            raise NotImplementedError(f"the supervised-launch heartbeat "
+                                      f"(PADDLE_SUPERVISE_STORE) "
+                                      f"{_FAULT_TOLERANCE}")
 
-    def predict(self, *args, **kwargs):
-        raise NotImplementedError(f"Model.predict {_NOT_PORTED}: it needs "
-                                  "io.DataLoader and the callbacks")
+    def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
+            eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
+            drop_last=False, shuffle=True, num_workers=0, callbacks=None,
+            accumulate_grad_batches=1, num_iters=None, checkpointer=None,
+            prefetch_to_device=None):
+        """Train on ``train_data`` (a ``Dataset`` or a loader) for
+        ``epochs``; see the module docstring."""
+        from ..io import DataLoader, Dataset
+        self._check_fault_tolerance(checkpointer)
+        self._save_dir = save_dir
+        if isinstance(train_data, Dataset):
+            train_loader = DataLoader(train_data, batch_size=batch_size,
+                                      shuffle=shuffle, drop_last=drop_last,
+                                      num_workers=num_workers)
+        else:
+            train_loader = train_data
+        if eval_data is not None and isinstance(eval_data, Dataset):
+            eval_loader = DataLoader(eval_data, batch_size=batch_size,
+                                     num_workers=num_workers)
+        else:
+            eval_loader = eval_data
+        try:
+            steps = len(train_loader)
+        except TypeError:
+            steps = None
+        cbks = config_callbacks(callbacks, model=self, epochs=epochs,
+                                batch_size=batch_size, steps=steps,
+                                log_freq=log_freq, verbose=verbose,
+                                save_freq=save_freq, save_dir=save_dir,
+                                metrics=["loss"] + [m.name() for m in
+                                                    self._metrics])
+        cbks.on_train_begin()
+        step_count = 0
+        for epoch in range(epochs):
+            cbks.on_epoch_begin(epoch)
+            for m in self._metrics:
+                m.reset()
+            logs = {}
+            it, pf = self._epoch_input(train_loader, prefetch_to_device)
+            try:
+                for step, batch in enumerate(it):
+                    cbks.on_train_batch_begin(step)
+                    ins, lbls = self._split_batch(batch)
+                    if accumulate_grad_batches > 1:
+                        # the gradients add up in .grad; the optimizer
+                        # steps on the boundary
+                        if (step + 1) % accumulate_grad_batches:
+                            logs = self.train_batch(ins, lbls, update=False)
+                        else:
+                            self.network.train()
+                            logs = self._train_batch_eager(ins, lbls)
+                    else:
+                        logs = self.train_batch(ins, lbls)
+                    step_count += 1
+                    # the real batch size, also of a partial last batch
+                    logs["batch_size"] = _batch_len(ins)
+                    cbks.on_train_batch_end(step, logs)
+                    if num_iters is not None and step_count >= num_iters:
+                        break
+            finally:
+                if pf is not None:
+                    pf.close()
+                else:
+                    lpf = getattr(train_loader, "_last_prefetcher", None)
+                    if lpf is not None:
+                        lpf.close()
+            cbks.on_epoch_end(epoch, logs)
+            if eval_loader is not None and epoch % eval_freq == 0:
+                self.evaluate(eval_loader, batch_size=batch_size,
+                              verbose=verbose, callbacks=cbks, _inner=True)
+            if cbks.stop_training or self.stop_training:
+                break
+            if num_iters is not None and step_count >= num_iters:
+                break
+        cbks.on_train_end()
+
+    def _split_batch(self, batch):
+        if isinstance(batch, (list, tuple)):
+            n_in = len(self._inputs) if self._inputs else 1
+            if len(batch) <= n_in:
+                return list(batch), []
+            return list(batch[:n_in]), list(batch[n_in:])
+        return [batch], []
+
+    def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
+                 num_workers=0, callbacks=None, num_samples=None,
+                 _inner=False):
+        """``{"loss": the mean of the batches' losses, <metric>: its
+        accumulated value}`` over ``eval_data``."""
+        from ..io import DataLoader, Dataset
+        if isinstance(eval_data, Dataset):
+            loader = DataLoader(eval_data, batch_size=batch_size,
+                                num_workers=num_workers)
+        else:
+            loader = eval_data
+        cbks = callbacks if _inner else config_callbacks(
+            callbacks, model=self, verbose=verbose, log_freq=log_freq,
+            mode="eval")
+        for m in self._metrics:
+            m.reset()
+        cbks.on_eval_begin()
+        losses = []
+        for step, batch in enumerate(loader):
+            cbks.on_eval_batch_begin(step)
+            ins, lbls = self._split_batch(batch)
+            logs = self.eval_batch(ins, lbls)
+            if "loss" in logs:
+                losses.append(logs["loss"])
+            logs["batch_size"] = _batch_len(ins)
+            cbks.on_eval_batch_end(step, logs)
+        final = {}
+        if losses:
+            final["loss"] = float(np.mean(losses))
+        for m in self._metrics:
+            names = m.name()
+            final[names[0] if isinstance(names, list) else names] = \
+                m.accumulate()
+        cbks.on_eval_end(final)
+        return final
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, verbose=1, callbacks=None):
+        """``predict_batch`` over ``test_data``: per batch a list of the
+        outputs as numpy arrays, or with ``stack_outputs`` one array per
+        output, the batches concatenated."""
+        from ..io import DataLoader, Dataset
+        if isinstance(test_data, Dataset):
+            loader = DataLoader(test_data, batch_size=batch_size,
+                                num_workers=num_workers)
+        else:
+            loader = test_data
+        outputs = []
+        for batch in loader:
+            ins, _ = self._split_batch(batch)
+            outputs.append(self.predict_batch(ins))
+        if stack_outputs and outputs:
+            return [np.concatenate([o[i] for o in outputs])
+                    for i in range(len(outputs[0]))]
+        return outputs
+
+    # ------------------------------------------------------------------
+    def save(self, path, training=True):
+        """``<path>.pdparams`` (the network's ``state_dict``) and, with an
+        optimizer, ``<path>.pdopt`` (its ``state_dict``), through
+        :mod:`~paddle_tpu_torch.framework_io`."""
+        if not training:
+            raise NotImplementedError(
+                "Model.save(training=False), the inference export through "
+                "jit.save, is not ported yet (ROADMAP.md A6)")
+        framework_io.save(self.network.state_dict(), path + ".pdparams")
+        if self._optimizer is not None:
+            framework_io.save(self._optimizer.state_dict(), path + ".pdopt")
+
+    def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        """Copy ``<path>.pdparams`` into the network (in place, so the
+        captured steps stay valid) and, unless ``reset_optimizer``,
+        ``<path>.pdopt`` into the optimizer."""
+        self.network.load_state_dict(
+            framework_io.load(path + ".pdparams"), strict=not skip_mismatch)
+        opt_path = path + ".pdopt"
+        if not reset_optimizer and self._optimizer is not None and \
+                os.path.exists(opt_path):
+            self._optimizer.set_state_dict(framework_io.load(opt_path))
+
+    def summary(self, input_size=None, dtype=None):
+        raise NotImplementedError(f"Model.summary (hapi/summary_mod.py) "
+                                  f"{_NOT_PORTED}")

@@ -15,21 +15,37 @@ device and in its type:
 
 A step reads nothing from the host and rebinds nothing, so that
 ``Model.prepare(jit=True)`` can capture it in a CUDA graph: the learning
-rate is a fp32 device scalar per device (:meth:`Optimizer.set_lr` fills
-it in place), and every slot of the optimizer state is updated in place.
+rate is a fp32 device scalar per device, and every slot of the optimizer
+state is updated in place.
+
+``learning_rate`` is a number or an
+:class:`~paddle_tpu_torch.optimizer.lr.LRScheduler` (:71-84): ``get_lr()``
+reads the scheduler, ``set_lr`` raises under one, and ``state_dict``
+carries its state as ``"LR_Scheduler"`` (:320-321).  The device scalars
+are refreshed from ``get_lr()`` only when the value changed
+(:meth:`Optimizer._refresh_lr`, the reference's ``_lr_dev_cache``,
+``hapi/model.py:435-442``): an eager ``step()`` refreshes first, a step
+being captured does not (a fill recorded in a graph would freeze the
+rate), and ``Model.train_batch`` refreshes before every replay.
+
+``grad_clip`` (``nn/clip.py``) clips the gradients in place at the start
+of ``step()``, on the device, before the update (:129-130).
 
 ``parameters`` takes tensors or ``(name, tensor)`` pairs; an unnamed
 tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
 reference's ``train_batch`` names them (``functional_state``).
-Learning-rate schedulers, ``grad_clip``, ``multi_precision``,
-``lazy_mode`` and regularizer objects raise ``NotImplementedError``.
+``multi_precision``, ``lazy_mode`` and regularizer objects raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
 import torch
+
+from ..nn.clip import ClipGradBase
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
 
@@ -54,11 +70,14 @@ class Optimizer:
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=False):
         if isinstance(learning_rate, bool) or not isinstance(
-                learning_rate, (int, float)):
-            raise NotImplementedError(f"learning-rate scheduling "
-                                      f"{_NOT_PORTED}; pass a number")
-        if grad_clip is not None:
-            raise NotImplementedError(f"grad_clip {_NOT_PORTED}")
+                learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a number or an "
+                            f"LRScheduler, got {type(learning_rate)}")
+        if grad_clip is not None and not isinstance(grad_clip,
+                                                    ClipGradBase):
+            raise TypeError(f"grad_clip must be one of nn.ClipGradByValue, "
+                            f"ClipGradByNorm, ClipGradByGlobalNorm; got "
+                            f"{type(grad_clip)}")
         if multi_precision:
             raise NotImplementedError(f"multi_precision {_NOT_PORTED}")
         if weight_decay is not None and not isinstance(weight_decay,
@@ -66,22 +85,42 @@ class Optimizer:
             raise NotImplementedError(f"regularizer objects {_NOT_PORTED}; "
                                       "pass weight_decay as a number")
         self._params = None if parameters is None else _named(parameters)
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate)
         self._weight_decay = float(weight_decay or 0.0)
+        self._grad_clip = grad_clip
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._lr_on: Dict[torch.device, torch.Tensor] = {}
+        self._lr_value = self.get_lr()      # what the device scalars hold
         self._global_step = 0
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
 
     def set_lr(self, value: float) -> None:
         """Set the learning rate; the device scalars the steps read are
         filled in place, so a captured step reads the new value."""
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
-        for t in self._lr_on.values():
-            t.fill_(self._learning_rate)
+        self._refresh_lr()
+
+    @property
+    def _lr_scheduler(self):
+        return self._learning_rate if isinstance(self._learning_rate,
+                                                 LRScheduler) else None
+
+    def _refresh_lr(self) -> None:
+        """Fill the device scalars with ``get_lr()`` if it changed since
+        the last fill (one fill launch per device, no host sync)."""
+        value = self.get_lr()
+        if value != self._lr_value:
+            self._lr_value = value
+            for t in self._lr_on.values():
+                t.fill_(value)
 
     def _lr(self, device: torch.device) -> torch.Tensor:
         """The learning rate as the 0-d fp32 scalar on ``device`` a step
@@ -89,7 +128,7 @@ class Optimizer:
         t = self._lr_on.get(device)
         if t is None:
             t = self._lr_on[device] = torch.full(
-                (), self._learning_rate, dtype=torch.float32, device=device)
+                (), self._lr_value, dtype=torch.float32, device=device)
         return t
 
     # -- state -------------------------------------------------------------
@@ -125,9 +164,14 @@ class Optimizer:
     def step(self) -> None:
         if self._params is None:
             raise ValueError("optimizer constructed without parameters")
-        for name, p in self._params:
-            if not p.requires_grad or p.grad is None:
-                continue
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            self._refresh_lr()
+        live = [(name, p) for name, p in self._params
+                if p.requires_grad and p.grad is not None]
+        if self._grad_clip is not None:
+            self._grad_clip._clip_([(p, p.grad) for _, p in live])
+        for name, p in live:
             g = p.grad.to(p.dtype)
             if self._coupled_weight_decay and self._weight_decay:
                 g = g + self._weight_decay * p
@@ -154,8 +198,11 @@ class Optimizer:
 
     # -- checkpointing -----------------------------------------------------
     def state_dict(self) -> Dict[str, object]:
-        """``{"global_step": n, "<name>_<slot>": tensor, ...}``."""
+        """``{"global_step": n, "<name>_<slot>": tensor, ...}``, and
+        ``"LR_Scheduler"``: the scheduler's state, under one."""
         out: Dict[str, object] = {"global_step": self._global_step}
+        if self._lr_scheduler is not None:
+            out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         for name, p in self._params or []:
             for k, v in self._state.get(id(p), {}).items():
                 out[f"{name}_{k}"] = v
@@ -163,6 +210,8 @@ class Optimizer:
 
     def set_state_dict(self, state_dict: Mapping[str, object]) -> None:
         self._global_step = int(state_dict.get("global_step", 0))
+        if self._lr_scheduler is not None and "LR_Scheduler" in state_dict:
+            self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
         for name, p in self._params or []:
             slot = self._slot(p)
             for k, cur in slot.items():

@@ -3,6 +3,8 @@
     python3 -m paddle_tpu_torch.tools.profile_train [--eager | --encoder]
                                                     [--amp O1|O2]
                                                     [--uncaptured]
+                                                    [--fit [--prefetch N]
+                                                     [--metric]]
                                                     [--steps 5] [--json PATH]
 
 Without a path option it builds the flagship compiled train step (V 30528,
@@ -21,12 +23,23 @@ replayed, unless ``--uncaptured`` asks for ``jit=False``.  Either
 way it takes two warm-up steps, then
 ``--steps`` steps unprofiled
 (host wall per step, ending in a synchronise) and ``--steps`` steps under
-``torch.profiler`` (CPU and CUDA activities).  Reports the device time
-per step (the sum of the kernels' and copies' durations on the card),
-the device's idle share of an unprofiled step (1 - device time /
-unprofiled wall), device ops and the port's kernel launches per step, the
-device time by kind of op, and the top ops by device time.  With
-``--json PATH`` it also writes the summary to PATH.
+``torch.profiler`` (CPU and CUDA activities).
+
+``--fit`` (the GPT, or with ``--encoder`` the encoder) runs ``Model.fit``
+instead of single steps: the model prepared with :func:`fit_recipe`
+(AdamW under ``LinearWarmup(PolynomialDecay(1e-4, 40), 4, 0, 1e-4)``,
+weight decay 0.01, ``ClipGradByGlobalNorm(1.0)``; ``--metric`` adds
+``Accuracy``), one epoch of ``--steps`` batches of 32 (:func:`fit_data`)
+per call, ``verbose=0``, ``prefetch_to_device=--prefetch`` (default 2):
+a warm-up epoch (it captures), two epochs unprofiled (wall from the
+epoch's start to a synchronise after it) and one under the profiler,
+every number per step.
+
+Reports the device time per step (the sum of the kernels' and copies'
+durations on the card), the device's idle share of an unprofiled step
+(1 - device time / unprofiled wall), device ops and the port's kernel
+launches per step, the device time by kind of op, and the top ops by
+device time.  With ``--json PATH`` it also writes the summary to PATH.
 """
 from __future__ import annotations
 
@@ -52,7 +65,10 @@ from ..ops import flash_attention_qkv as fq
 from ..ops import fused_ln as fl
 from ..ops import softmax_xent as sx
 from ..device import resolve_device
-from ..optimizer import AdamW
+from ..io import TensorDataset
+from ..metric import Accuracy
+from ..nn import ClipGradByGlobalNorm
+from ..optimizer import AdamW, lr
 from ..random import default_generator, seed
 
 WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
@@ -191,6 +207,19 @@ def build_encoder(cfg=ENCODER, device=None, seed_val: int = 0):
     return net
 
 
+def _eager_reset():
+    fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fl.LAUNCHES = 0
+    fa.SM90_FWD_LAUNCHES = fa.SM90_BWD_LAUNCHES = fl.BWD_LAUNCHES = 0
+
+
+def _eager_counts():
+    return dict(flash_attn_fwd=fa.FWD_LAUNCHES,
+                flash_attn_bwd=fa.BWD_LAUNCHES,
+                flash_attn_sm90_fwd=fa.SM90_FWD_LAUNCHES,
+                flash_attn_sm90_bwd=fa.SM90_BWD_LAUNCHES,
+                fused_ln=fl.LAUNCHES, fused_ln_bwd=fl.BWD_LAUNCHES)
+
+
 def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
     """Model.train_batch on the eager GPT (or the fused encoder), with
     ``amp_configs=amp`` and ``jit``: the same four callables."""
@@ -209,21 +238,105 @@ def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
     def one():
         model.train_batch([ids], [labels])
 
-    def reset():
-        fa.FWD_LAUNCHES = fa.BWD_LAUNCHES = fl.LAUNCHES = 0
-        fa.SM90_FWD_LAUNCHES = fa.SM90_BWD_LAUNCHES = fl.BWD_LAUNCHES = 0
-
-    def counts():
-        return dict(flash_attn_fwd=fa.FWD_LAUNCHES,
-                    flash_attn_bwd=fa.BWD_LAUNCHES,
-                    flash_attn_sm90_fwd=fa.SM90_FWD_LAUNCHES,
-                    flash_attn_sm90_bwd=fa.SM90_BWD_LAUNCHES,
-                    fused_ln=fl.LAUNCHES, fused_ln_bwd=fl.BWD_LAUNCHES)
-
-    return one, reset, counts, dict(
+    return one, _eager_reset, _eager_counts, dict(
         path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
         dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
         remat="none", captured=jit)
+
+
+def fit_recipe(net, amp=None, jit: bool = True, metric: bool = False):
+    """``Model(net)`` prepared as BERT-style fine-tuning is:
+    ``AdamW(LinearWarmup(PolynomialDecay(1e-4, 40), 4, 0, 1e-4),
+    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))``,
+    ``CrossEntropyLoss()``, ``Accuracy()`` with ``metric``."""
+    sched = lr.LinearWarmup(lr.PolynomialDecay(1e-4, 40), 4, 0, 1e-4)
+    return Model(net).prepare(
+        AdamW(sched, parameters=net.parameters(), weight_decay=0.01,
+              grad_clip=ClipGradByGlobalNorm(1.0)), CrossEntropyLoss(),
+        metrics=Accuracy() if metric else None, amp_configs=amp, jit=jit)
+
+
+def fit_data(n: int, seed_val: int = 0, vocab: int = WIDTH["vocab_size"],
+             seq: int = SEQ):
+    """``[ids, labels]``: ``n`` rows of ``seq`` token ids from
+    ``np.random.RandomState(seed_val)``, labels the ids rolled by one,
+    shaped (n, seq, 1)."""
+    ids = np.random.RandomState(seed_val).randint(0, vocab, (n, seq))
+    return [ids, np.roll(ids, -1, 1).reshape(n, seq, 1)]
+
+
+def _fit_path(net, amp, jit: bool, steps: int, prefetch: int, metric: bool,
+              batch: int = EAGER_BATCH, seq: int = SEQ):
+    """One epoch of ``Model.fit`` on ``net`` per call, ``steps`` full
+    batches of ``batch`` rows (:func:`fit_data` at the net's vocabulary)."""
+    model = fit_recipe(net, amp=amp, jit=jit, metric=metric)
+    vocab = next(m for m in net.modules()
+                 if isinstance(m, torch.nn.Embedding)).num_embeddings
+    data = TensorDataset(fit_data(steps * batch, vocab=vocab, seq=seq))
+
+    def one():
+        model.fit(data, batch_size=batch, epochs=1, shuffle=True, verbose=0,
+                  prefetch_to_device=prefetch)
+
+    return one, _eager_reset, _eager_counts, dict(
+        path=f"fit ({type(net).__name__})", batch=batch, seq=seq,
+        dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
+        remat="none", captured=jit, prefetch_to_device=prefetch,
+        metric=metric, steps_per_call=steps)
+
+
+def profile(one, reset, counts, setup, steps: int) -> dict:
+    """Time and profile ``one()`` as ``main`` does (a call is one step, or
+    with ``setup["steps_per_call"]`` that many: ``Model.fit``'s epoch) and
+    return the report, every number per step."""
+    card = torch.cuda.get_device_name(0)
+    per_call = setup.get("steps_per_call", 1)
+    fit = per_call > 1
+    calls = 2 if fit else steps
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / per_call
+
+    for _ in range(1 if fit else 2):
+        run()                                         # warm-up
+    reset()
+    wall = [run() for _ in range(calls)]
+    launches = {k: v / (calls * per_call) for k, v in counts().items()}
+    from torch.profiler import ProfilerActivity, profile as trace
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        prof_wall = [run() for _ in range(1 if fit else steps)]
+    events = _device_events(prof)
+    by_name = defaultdict(lambda: [0.0, 0])
+    by_kind = defaultdict(float)
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_name[e.name][0] += ms
+        by_name[e.name][1] += 1
+        by_kind[_kind(e.name)] += ms
+    n = len(prof_wall) * per_call
+    device_ms = sum(v[0] for v in by_name.values()) / n
+    prof_mean = statistics.fmean(prof_wall)
+    if device_ms > prof_mean:
+        raise RuntimeError(f"summed device time {device_ms:.3f} ms/step "
+                           f"exceeds the profiled steps' mean wall "
+                           f"{prof_mean:.3f} ms: the events are miscounted")
+    wall_p50 = statistics.median(wall)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return dict(
+        card=card, width=WIDTH, **setup, steps=n, wall_ms_p50=wall_p50,
+        profiled_wall_ms_p50=statistics.median(prof_wall),
+        device_ms_per_step=device_ms,
+        idle_share=1.0 - device_ms / wall_p50,
+        device_ops_per_step=len(events) / n, kernel_launches_per_step=launches,
+        by_kind=[dict(kind=k, ms_per_step=v / n, share=v / n / device_ms)
+                 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])],
+        top=[dict(name=k[:120], ms_per_step=v[0] / n, calls_per_step=v[1] / n)
+             for k, v in top])
 
 
 def main(argv=None) -> int:
@@ -240,6 +353,13 @@ def main(argv=None) -> int:
     ap.add_argument("--uncaptured", action="store_true",
                     help="with --eager or --encoder: prepare(jit=False), "
                          "the step run op by op")
+    ap.add_argument("--fit", action="store_true",
+                    help="profile Model.fit epochs of --steps batches (the "
+                         "GPT, or the encoder with --encoder)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="with --fit: prefetch_to_device")
+    ap.add_argument("--metric", action="store_true",
+                    help="with --fit: prepare with metrics=Accuracy()")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--json", metavar="PATH",
                     help="also write the summary to PATH")
@@ -248,58 +368,26 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     card = torch.cuda.get_device_name(0)
-    if (args.amp or args.uncaptured) and not (args.eager or args.encoder):
-        ap.error("--amp and --uncaptured take --eager or --encoder")
-    if args.eager or args.encoder:
+    if (args.amp or args.uncaptured) and not (args.eager or args.encoder
+                                              or args.fit):
+        ap.error("--amp and --uncaptured take --eager, --encoder or --fit")
+    if (args.metric or args.prefetch != 2) and not args.fit:
+        ap.error("--metric and --prefetch take --fit")
+    if args.fit:
+        net = build_encoder() if args.encoder else GPT(GPTConfig(**WIDTH),
+                                                       seed=0)
+        one, reset, counts, setup = _fit_path(
+            net, args.amp, not args.uncaptured, args.steps, args.prefetch,
+            args.metric)
+    elif args.eager or args.encoder:
         one, reset, counts, setup = _eager_path(encoder=args.encoder,
                                                 amp=args.amp,
                                                 jit=not args.uncaptured)
     else:
         one, reset, counts, setup = _compiled_path()
-
-    def run():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    for _ in range(2):
-        run()                                         # warm-up
-    reset()
-    wall = [run() for _ in range(args.steps)]
-    launches = {k: v / args.steps for k, v in counts().items()}
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_wall = [run() for _ in range(args.steps)]
-    events = _device_events(prof)
-    by_name = defaultdict(lambda: [0.0, 0])
-    by_kind = defaultdict(float)
-    for e in events:
-        ms = e.time_range.elapsed_us() / 1e3
-        by_name[e.name][0] += ms
-        by_name[e.name][1] += 1
-        by_kind[_kind(e.name)] += ms
-    n = args.steps
-    device_ms = sum(v[0] for v in by_name.values()) / n
-    prof_mean = statistics.fmean(prof_wall)
-    if device_ms > prof_mean:
-        raise RuntimeError(f"summed device time {device_ms:.3f} ms/step "
-                           f"exceeds the profiled steps' mean wall "
-                           f"{prof_mean:.3f} ms: the events are miscounted")
-    wall_p50 = statistics.median(wall)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    report = dict(
-        card=card, width=WIDTH, **setup, steps=n, wall_ms_p50=wall_p50,
-        profiled_wall_ms_p50=statistics.median(prof_wall),
-        device_ms_per_step=device_ms,
-        idle_share=1.0 - device_ms / wall_p50,
-        device_ops_per_step=len(events) / n, kernel_launches_per_step=launches,
-        by_kind=[dict(kind=k, ms_per_step=v / n, share=v / n / device_ms)
-                 for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])],
-        top=[dict(name=k[:120], ms_per_step=v[0] / n, calls_per_step=v[1] / n)
-             for k, v in top])
+    report = profile(one, reset, counts, setup, args.steps)
+    wall_p50, device_ms = report["wall_ms_p50"], report["device_ms_per_step"]
+    launches = report["kernel_launches_per_step"]
     captured = {True: " (captured)", False: " (uncaptured)"}.get(
         setup.get("captured"), "")
     print(f"{card}: {setup['path']}{captured} train step wall "

@@ -899,3 +899,98 @@ def test_sm90_head_refuses_an_operand_tma_cannot_describe(card):
         sx._launch_sm90_dlogits(x, w, lab, lse,
                                 torch.tensor(1.0, device="cuda"), out)
     assert _moved(before) == {}
+
+
+# -- Model.fit and its input pipeline on the card ----------------------------
+def _fit_data(n, seed=0, vocab=WIDTH["vocab_size"], T=64):
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, T))
+    return [ids, np.roll(ids, -1, 1).reshape(n, T, 1)]
+
+
+def test_prefetcher_lands_batches_on_the_card(card):
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    ds = TensorDataset(_fit_data(10))
+    plain = list(DataLoader(ds, batch_size=4))
+    loader = DataLoader(ds, batch_size=4, prefetch_to_device=2)
+    got = list(loader)
+    assert len(got) == 3 and loader._last_prefetcher.stats["produced"] == 3
+    for (gi, gl), (pi, pl) in zip(got, plain):
+        assert gi.is_cuda and gl.is_cuda and gi.dtype == torch.int64
+        assert torch.equal(gi.cpu(), pi) and torch.equal(gl.cpu(), pl)
+
+
+def test_a_batch_on_the_card_is_copied_device_to_device(card, monkeypatch):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                               CrossEntropyLoss())
+    ids, labels = (torch.from_numpy(a).cuda() for a in _fit_data(2))
+    model.train_batch([ids], [labels])             # captures
+
+    def refuse(*a, **k):
+        raise AssertionError("a batch on the card was pinned")
+    monkeypatch.setattr(torch.Tensor, "pin_memory", refuse)
+    loss = model.train_batch([ids], [labels])["loss"]
+    assert loss.is_cuda and torch.isfinite(loss)
+
+
+def _fit(jit=True, metric=False, prefetch=2, strict=False, epochs=2):
+    """Model.fit of the WIDTH GPT from seed 0 as the fine-tuning recipe:
+    (losses, parameters, the step cache's compiles per epoch start and
+    at the end, attention launches of each step)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.tools.profile_train import fit_recipe
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    paddle_tpu_torch.seed(0)
+    np.random.seed(0)
+    model = fit_recipe(net, jit=jit, metric=metric)
+    seen = dict(losses=[], compiles=[], launches=[])
+
+    class Watch(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            seen["compiles"].append(self.model._steps.compiles)
+            if strict and epoch == epochs - 1:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.f0, self.b0 = pfa.FWD_LAUNCHES, pfa.BWD_LAUNCHES
+
+        def on_train_batch_end(self, step, logs=None):
+            seen["losses"].append(logs["loss"])
+            seen["launches"].append((pfa.FWD_LAUNCHES - self.f0,
+                                     pfa.BWD_LAUNCHES - self.b0))
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.set_sync_debug_mode(0)
+
+    try:
+        model.fit(TensorDataset(_fit_data(10)), batch_size=4, epochs=epochs,
+                  verbose=0, prefetch_to_device=prefetch, callbacks=[Watch()])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    seen["compiles"].append(model._steps.compiles)
+    return (torch.stack(seen["losses"]),
+            {k: v.clone() for k, v in net.state_dict().items()},
+            seen["compiles"], seen["launches"])
+
+
+def test_fit_on_the_card_is_exact_captured_and_sync_free(card):
+    # the warmup moves the rate every step and the clip scales every
+    # gradient: a rate or a scale frozen at capture would part the captured
+    # run from the uncaptured one after its first replay
+    losses, state, compiles, launches = _fit(strict=True)
+    L = WIDTH["num_layers"]
+    assert compiles == [0, 2, 2]           # batches of 4 and 2, epoch 1 only
+    assert launches == [(L, L)] * 6
+    assert torch.isfinite(losses).all()
+    for kw in (dict(prefetch=0), dict(jit=False), dict(metric=True)):
+        other, other_state, _, _ = _fit(**kw)
+        assert torch.equal(other, losses), kw
+        assert all(torch.equal(v, other_state[k])
+                   for k, v in state.items()), kw
+

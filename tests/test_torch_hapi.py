@@ -33,6 +33,8 @@ from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
 from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.ops.loss import cross_entropy
+from paddle_tpu_torch.callbacks import ProfilerCallback
+from paddle_tpu_torch.io import TensorDataset
 from paddle_tpu_torch.optimizer import SGD, Adam, AdamW
 
 SMALL = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
@@ -269,25 +271,29 @@ def test_model_names_the_parameters_for_the_decay_rule():
     assert net.weight.grad is not None and float(logs["loss"]) >= 0
 
 
-@pytest.mark.parametrize("knob", [
-    "grad_clip", "multi_precision", "lazy_mode", "scheduler", "regularizer",
-    "amp", "offload", "metrics", "remat", "fit", "evaluate", "predict"])
-def test_knobs_not_ported_raise(monkeypatch, knob):
+# the knobs that still wait, each with the ROADMAP.md item its error names
+KNOBS = {"multi_precision": "A3", "lazy_mode": "A3", "regularizer": "A3",
+         "amp": "A3", "offload": "A3", "remat": "A3", "checkpointer": "A8",
+         "anomaly_action": "A8", "supervise_store": "A8",
+         "profiler_callback": "A8", "save_export": "A6", "summary": "A3"}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
     _, net = _linear_pair(3)
     params = list(net.parameters())
+    match = f"ROADMAP.md {KNOBS[knob]}"
     make = {
-        "grad_clip": lambda: AdamW(parameters=params, grad_clip=object()),
         "multi_precision": lambda: AdamW(parameters=params,
                                          multi_precision=True),
         "lazy_mode": lambda: Adam(parameters=params, lazy_mode=True),
-        "scheduler": lambda: AdamW(paddle.optimizer.lr.NoamDecay(8, 10),
-                                   parameters=params),
         "regularizer": lambda: SGD(parameters=params,
                                    weight_decay=paddle.regularizer.L2Decay(
                                        0.1)),
+        "profiler_callback": lambda: ProfilerCallback(),
     }
     if knob in make:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        with pytest.raises(NotImplementedError, match=match):
             make[knob]()
         return
     model = Model(net)
@@ -295,22 +301,33 @@ def test_knobs_not_ported_raise(monkeypatch, knob):
     if knob == "amp":
         # AMP is ported; its optimizers' fp32 master weights are not
         from paddle_tpu_torch.amp import decorate
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        with pytest.raises(NotImplementedError, match=match):
             decorate(net, optimizers=opt)
         return
-    prep = {"offload": dict(offload=True),
-            "metrics": dict(metrics=[object()])}
-    if knob in prep:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            model.prepare(opt, CrossEntropyLoss(), **prep[knob])
+    if knob == "offload":
+        with pytest.raises(NotImplementedError, match=match):
+            model.prepare(opt, CrossEntropyLoss(), offload=True)
         return
     model.prepare(opt, lambda out, y: out.sum())
+    data = TensorDataset([np.ones((2, 4), np.float32),
+                          np.zeros((2, 2), np.float32)])
+    fit = lambda **kw: model.fit(data, batch_size=2, verbose=0, **kw)  # noqa: E731
     if knob == "remat":
         monkeypatch.setenv("FLAGS_program_remat", "1")
         monkeypatch.setenv("FLAGS_remat_budget_mb", "64")
         call = lambda: model.train_batch([np.ones((1, 4), np.float32)],  # noqa: E731
                                          [np.zeros(1, np.float32)])
+    elif knob == "checkpointer":
+        call = lambda: fit(checkpointer=object())  # noqa: E731
+    elif knob == "anomaly_action":
+        monkeypatch.setenv("FLAGS_anomaly_action", "raise")
+        call = fit
+    elif knob == "supervise_store":
+        monkeypatch.setenv("PADDLE_SUPERVISE_STORE", "file:///nowhere")
+        call = fit
+    elif knob == "save_export":
+        call = lambda: model.save(str(tmp_path / "m"), training=False)  # noqa: E731
     else:
-        call = lambda: getattr(model, knob)(None)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
+        call = model.summary
+    with pytest.raises(NotImplementedError, match=match):
         call()

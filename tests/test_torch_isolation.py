@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import NoCudaDevice, resolve_device
+from paddle_tpu_torch.io import DevicePrefetcher
 from paddle_tpu_torch.incubate.nn import (FusedBiasDropoutResidualLayerNorm,
                                           FusedTransformerEncoderLayer)
 from paddle_tpu_torch.models import (GPT, GPTConfig, build_spmd_train_step,
@@ -56,7 +57,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.ops.loss, paddle_tpu_torch.incubate.nn, "
             "paddle_tpu_torch.incubate.nn.functional, "
             "paddle_tpu_torch.ops.fused_ops, paddle_tpu_torch.ops.fused_ln, "
-            "paddle_tpu_torch.random\n"
+            "paddle_tpu_torch.random, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.io.prefetch, paddle_tpu_torch.metric, "
+            "paddle_tpu_torch.callbacks, paddle_tpu_torch.hapi.callbacks, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.framework_io\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -90,6 +95,9 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(no_card):
         FusedBiasDropoutResidualLayerNorm(8)
     with pytest.raises(NoCudaDevice):
         fused_transformer_state_from_paddle_tpu({"ln_bias": np.zeros(8)})
+    with pytest.raises(NoCudaDevice):
+        DevicePrefetcher(iter([]), depth=2)
+    assert DevicePrefetcher(iter([]), device="cpu").device.type == "cpu"
     assert FusedTransformerEncoderLayer(
         8, 2, 16, device="cpu").ffn.linear1_weight.is_cpu
     with pytest.raises(ValueError, match="unsupported"):
