@@ -118,6 +118,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
             encoder under O1 for one epoch with eval_data: equal to its
             hand loop and to jit=False, 24 + 24 epilogue and 12 + 12
             attention launches a replayed step
+13. optim-  13a: phase 9's GPT under AMP O1, captured, once with each
+    izers   optimizer of OPTIMIZERS (Momentum with Nesterov and L2Decay,
+            LarsMomentum, Adamax, Adagrad, Adadelta, centered RMSProp with
+            momentum, Lamb, Ftrl, DecayedAdagrad, SGD with L1Decay, Adam
+            with lazy_mode, and AdamW through amp.decorate O2: bf16
+            parameters, fp32 masters): one step through the kernels,
+            counted, 3 captured steps against 3 uncaptured bit for bit
+            (parameters, every slot and master), a second captured run
+            repeating them and going on to 12 steps (the loss falls; step
+            ms p50 of the last 10), 12 + 12 flash_attn_sm90 launches a
+            replay, and optimizer.step()'s device time alone beside its
+            bound (the bytes it moves over 3.35 TB/s).  13b: phase
+            11's encoder trained with LAMB on bf16 parameters over fp32
+            masters (amp.decorate O2, prepare(amp_configs="O2")): every
+            parameter bf16 and equal to its master cast to bf16 after
+            every step, kernels against plain at the O1 tolerances,
+            captured = uncaptured, 24 + 24 epilogue and 12 + 12 attention
+            launches a replay, the loss falling; step ms p50 and peak
+            memory beside the same model undecorated (fp32 parameters,
+            bf16 views) and phase 11's O1 run
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -1952,10 +1972,16 @@ def _plain_attention(fa):
 
 def model_train(torch, net, ids, labels, names, reset, launches, want,
                 plain, note="", timed=True, amp=None, repeat=True,
-                dropout=False):
+                dropout=False, make_opt=None, decorate=False,
+                engines=("uncaptured", "captured"), update_ms=False,
+                plain_step=True):
     """The train path on ``net``: ``Model(net).prepare(AdamW(1e-3,
     weight_decay=0.01), CrossEntropyLoss(), amp_configs=amp, jit=...)
-    .train_batch`` on (ids, labels).  Step 1 (``update=False``, uncaptured
+    .train_batch`` on (ids, labels), or with the optimizer
+    ``make_opt(parameters)``; with ``decorate``, net and optimizer go
+    through ``amp.decorate(..., level="O2")`` first (bf16 parameters, fp32
+    masters), and every step must leave each parameter equal to its
+    master cast to bf16.  Step 1 (``update=False``, uncaptured
     in both engines) runs through the kernels with the counts ``reset``
     just before and ``launches()`` read just after (they must equal
     ``want``), then again inside ``plain()`` (the plain versions), held to
@@ -1967,25 +1993,47 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     within the tolerances above, reported), keep the parameters fp32, and
     count ``want`` launches in a replayed step; with ``dropout``, two more
     steps at learning rate 0 on one batch must differ (new masks at every
-    replay).  With ``timed``, each engine takes 12 steps on the batch (the
-    loss must fall): step ms p50, seq/s, peak memory.  Every run starts
-    from ``paddle_tpu_torch.seed``, so the fused epilogue's seeds and the
-    dropout masks repeat.  Returns the report."""
+    replay).  "Bit for bit" covers the parameters, every optimizer slot and
+    every master.  With ``timed``, each engine of ``engines`` takes 12
+    steps on the batch (the loss must fall): step ms p50, seq/s, peak
+    memory; when the captured engine is timed alone without dropout, its
+    model is the second captured run's, whose graph is already captured;
+    with ``update_ms`` also the device time of the captured engine's
+    ``optimizer.step()`` alone on one batch's gradients
+    (:func:`update_time`).  Without
+    ``plain_step`` step 1 runs through the kernels only.  Every run
+    starts from ``paddle_tpu_torch.seed``, so the fused epilogue's seeds
+    and the dropout masks repeat.  Returns the report."""
     import gc
     import numpy as np
     import paddle_tpu_torch
     from paddle_tpu_torch import Model
+    from paddle_tpu_torch import amp as pamp
     from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import AdamW
     dev = ids.device
     B = ids.shape[0]
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    make_opt = make_opt or (lambda params: AdamW(
+        1e-3, parameters=params, weight_decay=0.01))
+    param_dtype = torch.bfloat16 if decorate else torch.float32
 
     def fresh(jit=True):
         net.load_state_dict(state0)
-        return Model(net).prepare(
-            AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-            CrossEntropyLoss(), amp_configs=amp, jit=jit)
+        opt = make_opt(net.parameters())
+        if decorate:
+            pamp.decorate(net, opt, level="O2", dtype="bfloat16")
+        return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
+                                  jit=jit)
+
+    def tied(opt):
+        """Each parameter the optimizer stepped has a master and equals it
+        cast to its type, exactly (a post-LN encoder's unused pre-LN
+        parameters get no gradient and no master)."""
+        stepped = [p for p in net.parameters() if id(p) in opt._state]
+        return bool(stepped) and all(
+            id(p) in opt._master_weights and torch.equal(
+                p, opt._master_weights[id(p)].to(p.dtype)) for p in stepped)
 
     def release():
         gc.collect()
@@ -2016,31 +2064,127 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     if counts != want:
         raise AssertionError(f"the step launched {counts}; expected {want}")
 
-    with plain():
-        loss_p, grads_p = first_step(model)
+    if not plain_step:
+        loss_p, grads_p = loss_k, grads_k
+    else:
+        with plain():
+            loss_p, grads_p = first_step(model)
     d_loss = abs(loss_k - loss_p)
     rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
            for n in names}
-    log(f"  same step with the plain versions and the same seeds: loss "
-        f"{loss_p:.6f}, |difference| {d_loss:.3e} (limit rtol "
-        f"{loss_rtol:.0e}); grads relative L2 "
-        f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (limit "
-        f"{grad_rtol:.0e})")
+    if plain_step:
+        log(f"  same step with the plain versions and the same seeds: loss "
+            f"{loss_p:.6f}, |difference| {d_loss:.3e} (limit rtol "
+            f"{loss_rtol:.0e}); grads relative L2 "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (limit "
+            f"{grad_rtol:.0e})")
     if not (np.isfinite(loss_k) and d_loss <= loss_rtol * abs(loss_p)
             and all(v <= grad_rtol for v in rel.values())):
         raise AssertionError("the step through the kernels disagrees with "
                              "the step through the plain versions")
+    opt_name = type(model._optimizer).__name__
     del grads_k, grads_p, model
-    out = dict(loss_step1=loss_k, loss_step1_plain=loss_p,
-               loss_abs_diff=d_loss, loss_rtol=loss_rtol, grad_rel_l2=rel,
-               grad_rtol=grad_rtol, launches=counts, amp=amp)
-    if not repeat:
+    out = dict(loss_step1=loss_k, loss_step1_plain=loss_p if plain_step
+               else None, loss_abs_diff=d_loss, loss_rtol=loss_rtol,
+               grad_rel_l2=rel if plain_step else None, grad_rtol=grad_rtol,
+               launches=counts, amp=amp, optimizer=opt_name,
+               decorated=decorate)
+    continued = None
+    if repeat:
+        continued, fields = _captured_vs_uncaptured(
+            torch, net, ids, labels, fresh, tied if decorate else None,
+            reset, launches, want, loss_rtol, grad_rtol, param_dtype,
+            dropout)
+        out.update(fields)
+        # a dropout run ends at learning rate 0: time a fresh one
+        if dropout or not (timed and tuple(engines) == ("captured",)):
+            continued = None
+    if not timed:
         return out
 
-    # captured (jit=True) against uncaptured (jit=False): the same state,
-    # seeds and batches; the captured run twice
+    # per engine: 2 warm-ups (the captured engine's first one captures),
+    # then timed steps on one fixed batch; the loss falls
+    for engine in engines:
+        jit = engine == "captured"
+        release()
+        model, losses, times, ties, peak, reserved = _timed_steps(
+            torch, continued if jit and continued is not None else
+            fresh(jit), ids, labels, tied if decorate else None)
+        continued = None
+        step_ms = pct(times, 50)
+        seq_s = B / (step_ms / 1e3)
+        memory = f"{peak / 2**30:.3f} GiB, reserved {reserved / 2**30:.3f} GiB"
+        log(f"  {engine} (jit={jit}): losses over {len(losses)} steps: "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        log(f"  {engine}: step ms p50 {step_ms:.3f} (min {min(times):.3f}, "
+            f"max {max(times):.3f}, {TRAIN_TIMED} steps after "
+            f"{TRAIN_WARMUP} warm-ups, CUDA events); {seq_s:.2f} seq/s; "
+            f"peak memory {memory}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        if not all(ties):
+            raise AssertionError("a step left a parameter that is not its "
+                                 "master cast to bf16")
+        out[engine] = dict(losses=losses, step_ms=times, step_ms_p50=step_ms,
+                           seq_per_s=seq_s, peak_memory_bytes=peak,
+                           reserved_bytes=reserved)
+        if update_ms and jit:
+            out["update"] = update_time(torch, net, model, ids, labels)
+        del model
+    out.update(out[engines[-1]])
+    del state0
+    release()
+    return out
+
+
+def _timed_steps(torch, model, ids, labels, tied):
+    """TRAIN_WARMUP + TRAIN_TIMED steps of ``model`` on one batch, each
+    timed with CUDA events: (model, losses, times of the timed steps,
+    ties, peak allocated, reserved)."""
+    import paddle_tpu_torch
+    torch.cuda.reset_peak_memory_stats()
+    paddle_tpu_torch.seed(3)
+    losses, times, ties = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = model.train_batch([ids], [labels])["loss"]
+        b.record()
+        b.synchronize()
+        losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            times.append(a.elapsed_time(b))
+        if tied is not None:
+            ties.append(tied(model._optimizer))
+    return (model, losses, times, ties, torch.cuda.max_memory_allocated(),
+            torch.cuda.memory_reserved())
+
+
+def _train_state(net, opt):
+    """Copies of the parameters, every optimizer slot and every master."""
+    out = {f"param {n}": p.detach().clone()
+           for n, p in net.named_parameters()}
+    for n, p in net.named_parameters():
+        for k, v in opt._state.get(id(p), {}).items():
+            out[f"slot {n}_{k}"] = v.clone()
+        if id(p) in opt._master_weights:
+            out[f"master {n}"] = opt._master_weights[id(p)].clone()
+    return out
+
+
+def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
+                            launches, want, loss_rtol, grad_rtol,
+                            param_dtype, dropout):
+    """JIT_STEPS steps with jit=False, then twice with jit=True, from the
+    same state, seeds and batches (:func:`model_train`).  Returns the
+    second captured run's model and the report's fields."""
+    import gc
+    import paddle_tpu_torch
+    dev = ids.device
     batches = [(ids.roll(i, 0), labels.roll(i, 0)) for i in range(JIT_STEPS)]
     replay_counts = {}
+    ties = []
 
     def run_steps(jit, count=False):
         model = fresh(jit)
@@ -2054,37 +2198,46 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
             if count and i == 1:
                 sync(torch, dev)
                 replay_counts.update(launches())
+            if tied is not None:
+                ties.append(tied(model._optimizer))
+        state = _train_state(net, model._optimizer)
         if dropout:
             model._optimizer.set_lr(0.0)
             losses += [model.train_batch([ids], [labels])["loss"]
                        for _ in range(2)]
         captured = _all_captured(model._steps.entries().values())
-        return torch.stack(losses), {k: v.clone() for k, v in
-                                     net.state_dict().items()}, captured
+        return torch.stack(losses), state, captured, model
 
     runs = []
     for jit, count in ((False, False), (True, True), (True, False)):
         runs.append(run_steps(jit, count))
-        release()
-    (l_e, s_e, cap_e), (l_j, s_j, cap_j), (l_j2, s_j2, cap_j2) = runs
-    exact = bool(torch.equal(l_e, l_j)) and all(torch.equal(v, s_j[k])
-                                                for k, v in s_e.items())
+        if len(runs) < 3:
+            runs[-1] = runs[-1][:3]              # the model goes
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l_e, s_e, cap_e), (l_j, s_j, cap_j), (l_j2, s_j2, cap_j2, model) = runs
+    exact = bool(torch.equal(l_e, l_j)) and s_e.keys() == s_j.keys() and \
+        all(torch.equal(v, s_j[k]) for k, v in s_e.items())
     repeats = bool(torch.equal(l_j, l_j2)) and all(
         torch.equal(v, s_j2[k]) for k, v in s_j.items())
-    fp32 = all(v.dtype == torch.float32 for v in s_j.values()
-               if v.is_floating_point())
+    typed = all(v.dtype == param_dtype for k, v in s_j.items()
+                if k.startswith("param ") and v.is_floating_point())
+    masters = sum(k.startswith("master ") for k in s_j)
     d_losses = ((l_j - l_e).abs() / l_e.abs()).max().item()
     d_params = max(((s_j[k].float() - v.float()).norm()
                     / v.float().norm().clamp_min(1e-30)).item()
-                   for k, v in s_e.items() if v.is_floating_point())
+                   for k, v in s_e.items() if v.is_floating_point()
+                   and k in s_j)
     log(f"  {JIT_STEPS} steps{' (+ 2 at learning rate 0)' if dropout else ''}"
         f", jit=False / jit=True / jit=True: losses "
         f"{l_e.tolist()} / {l_j.tolist()} / {l_j2.tolist()}; captured "
         f"{cap_e} / {cap_j} / {cap_j2}")
-    log(f"  captured = uncaptured bit for bit (losses and parameters): "
-        f"{exact} (max loss rel diff {d_losses:.3e}, params rel L2 "
-        f"{d_params:.3e}); two captured runs bit for bit: {repeats}; "
-        f"parameters fp32: {fp32}; a replayed step's launches "
+    log(f"  captured = uncaptured bit for bit (losses, {len(s_e)} parameters"
+        f", slots and masters): {exact} (max loss rel diff {d_losses:.3e}, "
+        f"rel L2 {d_params:.3e}); two captured runs bit for bit: {repeats}; "
+        f"parameters {param_dtype}: {typed}; fp32 masters {masters}; every "
+        f"step's parameters = bf16(master): "
+        f"{all(ties) if ties else 'n/a'}; a replayed step's launches "
         f"{replay_counts} (expected {want})")
     if cap_e or not (cap_j and cap_j2):
         raise AssertionError("jit=True did not capture, or jit=False did")
@@ -2093,8 +2246,14 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     if not exact and not (d_losses <= loss_rtol and d_params <= grad_rtol):
         raise AssertionError("the captured steps differ from the uncaptured "
                              "ones beyond the tolerances")
-    if not fp32:
-        raise AssertionError("the step left parameters that are not fp32")
+    if not typed:
+        raise AssertionError(f"the step left parameters that are not "
+                             f"{param_dtype}")
+    if tied is not None and not (all(ties) and masters and all(
+            v.dtype == torch.float32 for k, v in s_j.items()
+            if k.startswith("master "))):
+        raise AssertionError("the decorated run lacks an fp32 master, or a "
+                             "parameter is not its master cast to bf16")
     if replay_counts != want:
         raise AssertionError(f"a replayed step counted {replay_counts}; "
                              f"expected {want}")
@@ -2108,55 +2267,16 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
             raise AssertionError("the captured step replayed the same "
                                  "dropout masks")
     del runs, s_e, s_j, s_j2
-    out.update(jit_steps=JIT_STEPS, deterministic=repeats,
-               captured_equals_uncaptured=exact,
-               captured_vs_uncaptured=dict(loss_rel=d_losses,
-                                           params_rel_l2=d_params),
-               losses_uncaptured=l_e.tolist(), losses_captured=l_j.tolist(),
-               replay_launches=replay_counts, masks_change=masks,
-               params_fp32=fp32)
-    if not timed:
-        return out
-
-    # per engine: 2 warm-ups (the captured engine's first one captures),
-    # then timed steps on one fixed batch; the loss falls
-    for engine, jit in (("uncaptured", False), ("captured", True)):
-        release()
-        torch.cuda.reset_peak_memory_stats()
-        model = fresh(jit)
-        paddle_tpu_torch.seed(3)
-        losses, times = [], []
-        for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            loss = model.train_batch([ids], [labels])["loss"]
-            b.record()
-            b.synchronize()
-            losses.append(loss.item())
-            if i >= TRAIN_WARMUP:
-                times.append(a.elapsed_time(b))
-        peak = torch.cuda.max_memory_allocated()
-        reserved = torch.cuda.memory_reserved()
-        step_ms = pct(times, 50)
-        seq_s = B / (step_ms / 1e3)
-        log(f"  {engine} (jit={jit}): losses over {len(losses)} steps: "
-            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-        log(f"  {engine}: step ms p50 {step_ms:.3f} (min {min(times):.3f}, "
-            f"max {max(times):.3f}, {TRAIN_TIMED} steps after "
-            f"{TRAIN_WARMUP} warm-ups, CUDA events); {seq_s:.2f} seq/s; "
-            f"peak memory {peak / 2**30:.3f} GiB, reserved "
-            f"{reserved / 2**30:.3f} GiB")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"the loss did not fall: {losses}")
-        out[engine] = dict(losses=losses, step_ms=times, step_ms_p50=step_ms,
-                           seq_per_s=seq_s, peak_memory_bytes=peak,
-                           reserved_bytes=reserved)
-        del model
-    out.update(out["captured"])
-    del state0
-    release()
-    return out
+    return model, dict(jit_steps=JIT_STEPS, deterministic=repeats,
+                captured_equals_uncaptured=exact,
+                captured_vs_uncaptured=dict(loss_rel=d_losses,
+                                            params_rel_l2=d_params),
+                losses_uncaptured=l_e.tolist(), losses_captured=l_j.tolist(),
+                replay_launches=replay_counts, masks_change=masks,
+                params_dtype=str(param_dtype), params_typed=typed,
+                params_fp32=typed and param_dtype == torch.float32,
+                masters=masters, params_tied_to_masters=(
+                    all(ties) if ties else None))
 
 
 def _batch(torch, vocab, B, T, dev):
@@ -2188,10 +2308,11 @@ def _attention_want(L, fwd_mode, bwd_mode, amp):
                 modes={f"fwd {fwd_mode}": L, f"bwd {bwd_mode}": L})
 
 
-def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True):
-    """The eager GPT of one config through :func:`model_train`; L forward
-    and L backward attention launches in the mode of its length (under
-    AMP all on flash_attn_sm90.cu)."""
+def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True,
+                **kw):
+    """The eager GPT of one config through :func:`model_train` (``kw``
+    passed on); L forward and L backward attention launches in the mode of
+    its length (under AMP all on flash_attn_sm90.cu)."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     w = cfg["width"]
     L, T = w["num_layers"], cfg["seq"]
@@ -2207,7 +2328,7 @@ def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True):
          f"blocks.{L - 1}.down.weight"),
         lambda: _reset_attention(fa), lambda: _attention_launches(fa),
         want, lambda: _plain_attention(fa), note=f"; rows {rows}",
-        timed=timed, amp=amp, repeat=repeat)
+        timed=timed, amp=amp, repeat=repeat, **kw)
     return dict(out, config=cfg, mode=mode, rows=rows)
 
 
@@ -2274,10 +2395,11 @@ def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
 
 
 def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
-                  timed=True, amp=None, repeat=True):
+                  timed=True, amp=None, repeat=True, **kw):
     """The encoder through :func:`model_train` at (batch, max_len), fp32
-    or under AMP: per step 2L fused-epilogue launches each way and L + L
-    non-causal attention launches (under AMP all on flash_attn_sm90.cu)."""
+    or under AMP (``kw`` passed on): per step 2L fused-epilogue launches
+    each way and L + L non-causal attention launches (under AMP all on
+    flash_attn_sm90.cu)."""
     L, T = cfg["num_layers"], cfg["max_len"]
     ids, labels = _batch(torch, cfg["vocab_size"], batch, T, dev)
     mode = fa._pallas_mode(T, T, False)
@@ -2292,7 +2414,7 @@ def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
         lambda: _reset_encoder(fa, fl), lambda: _encoder_launches(fa, fl),
         want, lambda: _plain_encoder_kernels(fa, fl),
         note=f"; attention rows {rows}, non-causal", timed=timed, amp=amp,
-        repeat=repeat, dropout=cfg["dropout_rate"] > 0)
+        repeat=repeat, dropout=cfg["dropout_rate"] > 0, **kw)
     return dict(out, config=dict(cfg, batch=batch, seq=T), mode=mode,
                 rows=rows)
 
@@ -2611,13 +2733,139 @@ def _o2_gpt(cfg):
                                                   w["num_layers"])))
 
 
+# -- phase 13 ------------------------------------------------------------------
+def update_bytes(net, opt) -> int:
+    """The bytes one ``opt.step()`` must move for ``net``'s gradients,
+    each input read once and each output written once: per element the
+    parameter (or its master) and every slot of its size read and
+    written, the gradient read, and a decorated parameter written from
+    its master."""
+    total = 0
+    for p in net.parameters():
+        if p.grad is None:
+            continue
+        master = opt._master_weights.get(id(p))
+        target = p if master is None else master
+        slots = sum(v.element_size() for v in opt._state[id(p)].values()
+                    if v.numel() == p.numel())
+        per = 2 * target.element_size() + p.grad.element_size() + 2 * slots
+        if master is not None:
+            per += p.element_size()
+        total += per * p.numel()
+    return total
+
+
+def update_time(torch, net, model, ids, labels):
+    """Device time of ``optimizer.step()`` alone (eager, 10 calls after 1,
+    ``profile_train.device_ms_per_call``) on the gradients of one
+    ``train_batch(update=False)``, beside its bound: ``update_bytes`` over
+    the memory rate (an update does a few tens of fp32 operations an
+    element, under a tenth of that time at 67 TFLOP/s)."""
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    opt = model._optimizer
+    model.train_batch([ids], [labels], update=False)
+    nbytes = update_bytes(net, opt)
+    n = sum(p.numel() for p in net.parameters() if p.grad is not None)
+    ms = device_ms_per_call(opt.step, reps=10, warmup=1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    opt.clear_grad()
+    log(f"  optimizer.step() alone: device {ms:.4f} ms for {n} parameters "
+        f"({len(list(net.parameters()))} tensors); bound {bound_ms:.4f} ms "
+        f"({nbytes / n:.1f} B an element over 3.35 TB/s), "
+        f"{bound_ms / ms:.1%} of it")
+    return dict(device_ms=ms, bound_ms=bound_ms, bound_by="bytes",
+                bytes=nbytes, bytes_per_element=nbytes / n, elements=n,
+                share_of_bound=bound_ms / ms)
+
+
+# phase 13a: every optimizer of the port on the eager GPT at full width,
+# captured (label, AMP level, decorated, factory of (optimizer module,
+# regularizer module, parameters)); each learning rate is one at which the
+# loss falls over 12 steps on one batch.  LarsMomentum's tokens match the
+# GPT's biases and LayerNorms (blocks.i.ln1, ln2, ln_f)
+OPTIMIZERS = (
+    ("Momentum", "O1", False, lambda o, r, P: o.Momentum(
+        0.01, 0.9, P, use_nesterov=True, weight_decay=r.L2Decay(1e-4))),
+    ("LarsMomentum", "O1", False, lambda o, r, P: o.LarsMomentum(
+        0.1, parameters=P, exclude_from_weight_decay=["bias", "ln"])),
+    ("Adamax", "O1", False, lambda o, r, P: o.Adamax(1e-3, parameters=P)),
+    ("Adagrad", "O1", False, lambda o, r, P: o.Adagrad(
+        0.01, parameters=P, initial_accumulator_value=0.1)),
+    ("Adadelta", "O1", False, lambda o, r, P: o.Adadelta(1.0,
+                                                          parameters=P)),
+    ("RMSProp", "O1", False, lambda o, r, P: o.RMSProp(
+        1e-4, parameters=P, centered=True, momentum=0.9)),
+    ("Lamb", "O1", False, lambda o, r, P: o.Lamb(1e-2, parameters=P)),
+    ("Ftrl", "O1", False, lambda o, r, P: o.Ftrl(
+        1e-5, l1=1e-4, l2=1e-4, parameters=P)),
+    ("DecayedAdagrad", "O1", False, lambda o, r, P: o.DecayedAdagrad(
+        2e-4, parameters=P)),
+    ("SGD", "O1", False, lambda o, r, P: o.SGD(
+        0.05, parameters=P, weight_decay=r.L1Decay(1e-5))),
+    ("Adam lazy_mode", "O1", False, lambda o, r, P: o.Adam(
+        1e-3, parameters=P, lazy_mode=True)),
+    ("AdamW decorated O2", "O2", True, lambda o, r, P: o.AdamW(
+        1e-3, parameters=P, weight_decay=0.01)))
+# phase 13b: LAMB as BERT pretraining runs it (You et al. 2019)
+LAMB_LR, LAMB_WD = 1e-2, 0.01
+
+
+def optimizers_path(torch, fa, dev, cfg, configs=OPTIMIZERS):
+    """Phase 13a: each optimizer through :func:`eager_train` (step 1
+    through the kernels, counted; captured against uncaptured, launches
+    per replay, the loss over 12 captured steps, step ms p50,
+    ``optimizer.step()``'s device time)."""
+    from paddle_tpu_torch import optimizer, regularizer
+    out = {}
+    for label, amp, decorate, make in configs:
+        torch.cuda.empty_cache()
+        how = ", amp.decorate: bf16 parameters, fp32 masters" \
+            if decorate else ""
+        log(f"== phase 13a: {label} (AMP {amp}{how})")
+        out[label] = eager_train(
+            torch, fa, dev, cfg, amp=amp, decorate=decorate,
+            make_opt=lambda P, make=make: make(optimizer, regularizer, P),
+            engines=("captured",), update_ms=True, plain_step=False)
+    log("  phase 13a: optimizer, captured step ms p50, step() device ms, "
+        "bound ms, share")
+    for label, r in out.items():
+        u = r["update"]
+        log(f"    {label}: {r['step_ms_p50']:.3f}, {u['device_ms']:.4f}, "
+            f"{u['bound_ms']:.4f}, {u['share_of_bound']:.1%}")
+    return out
+
+
+def lamb_o2(torch, fa, fl, dev, cfg, batch=ENCODER_BATCH):
+    """Phase 13b: the fused encoder trained with LAMB on bf16 parameters
+    over fp32 masters (``amp.decorate(net, Lamb(...), level="O2")``,
+    ``prepare(amp_configs="O2", jit=True)``) through
+    :func:`encoder_train`, then the same undecorated (fp32 parameters,
+    bf16 views) for its step time and memory."""
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.tools.profile_train import build_encoder
+
+    def make(params):
+        return Lamb(LAMB_LR, lamb_weight_decay=LAMB_WD, parameters=params)
+
+    out = {}
+    for key, decorate in (("decorated", True), ("undecorated", False)):
+        torch.cuda.empty_cache()
+        log(f"== phase 13b: LAMB O2, {key}")
+        out[key] = encoder_train(
+            torch, fa, fl, build_encoder(cfg, dev), cfg, dev, batch=batch,
+            amp="O2", make_opt=make, decorate=decorate, repeat=decorate,
+            engines=("captured",), update_ms=True)
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
-        fit_cfg=FIT):
-    """Phases 3-12 on ``dev`` with a serving GPT of ``width``, the two
-    train configs, the eager train configs, the encoder and the fit
-    config; returns the report and the ``kernels`` entries."""
+        fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS):
+    """Phases 3-13 on ``dev`` with a serving GPT of ``width``, the two
+    train configs, the eager train configs, the encoder, the fit config
+    and the optimizers of phase 13a; returns the report and the
+    ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -2705,6 +2953,18 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 12: the fused encoder under AMP O1, one epoch")
     fit_enc = fit_encoder(torch, fa, fl, dev, fit_cfg, encoder_cfg)
     torch.cuda.empty_cache()
+    opts = optimizers_path(torch, fa, dev, eager_cfg, optimizer_cfgs)
+    lamb = lamb_o2(torch, fa, fl, dev, encoder_cfg, encoder_batch)
+    torch.cuda.empty_cache()
+    dec, und = lamb["decorated"], lamb["undecorated"]
+    log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
+        f"decorated {dec['step_ms_p50']:.3f} / "
+        f"{dec['peak_memory_bytes'] / 2**30:.3f}, undecorated "
+        f"{und['step_ms_p50']:.3f} / {und['peak_memory_bytes'] / 2**30:.3f}"
+        f"; phase 11's O1 encoder (AdamW) {enc_o1['step_ms_p50']:.3f} / "
+        f"{enc_o1['peak_memory_bytes'] / 2**30:.3f}")
+    opt_sm90 = {k: {d: r["replay_launches"][f"sm90_{d}"]
+                    for d in ("fwd", "bwd")} for k, r in opts.items()}
     kernels = [dict(
         name="flash_attn_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -2793,6 +3053,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               launches_encoder_amp_o1=enc_o1["launches"]["sm90_fwd"],
               launches_fit_step_amp_o1=fit_o1["launches_per_step"][
                   "sm90_fwd"],
+              launches_optimizers_replay={k: v["fwd"]
+                                          for k, v in opt_sm90.items()},
+              launches_lamb_o2_replay=dec["replay_launches"]["sm90_fwd"],
               fp32=fp32_rows("flash_qkv_fwd"), **sharp_fields),
         entry("flash_qkv_bwd", "flash_attn_sm90.cu",
               "paddle_tpu/ops/pallas/flash_attention.py:303",
@@ -2816,6 +3079,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               launches_encoder_amp_o1=enc_o1["launches"]["sm90_bwd"],
               launches_fit_step_amp_o1=fit_o1["launches_per_step"][
                   "sm90_bwd"],
+              launches_optimizers_replay={k: v["bwd"]
+                                          for k, v in opt_sm90.items()},
+              launches_lamb_o2_replay=dec["replay_launches"]["sm90_bwd"],
               fp32=fp32_rows("flash_qkv_bwd"), **sharp_fields),
         entry("softmax_xent_fwd", "softmax_xent_sm90.cu",
               "paddle_tpu/ops/pallas/softmax_xent.py:48",
@@ -2900,6 +3166,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     launches_amp_o1=enc_o1["launches"]["fused_ln"],
                     launches_fit_step_amp_o1=fit_enc["launches_per_step"][
                         "fused_ln"],
+                    launches_lamb_o2_replay=dec["replay_launches"][
+                        "fused_ln"],
                     mixed_type_checks=sum(r["dtype"] != r["residual_dtype"]
                                           for r in ln_checks),
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
@@ -2919,6 +3187,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          launches_amp_o1=enc_o1["launches"]["fused_ln_bwd"],
                          launches_fit_step_amp_o1=fit_enc[
                              "launches_per_step"]["fused_ln_bwd"],
+                         launches_lamb_o2_replay=dec["replay_launches"][
+                             "fused_ln_bwd"],
                          launches_scoring=enc_score["launches"][
                              "fused_ln_bwd"],
                          columns_rel_l2_vs_float64=max(
@@ -2951,7 +3221,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   eager_amp_o2=eager_o2, encoder_amp_o1=enc_o1,
                   encoder_amp_o2=enc_o2, fused_ln_bwd_checks=ln_bwd_checks,
                   fused_ln_bwd_timing=ln_bwd_time, fit=fit_fp32,
-                  fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc)
+                  fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc,
+                  optimizers=opts, lamb_o2=lamb)
     return report, kernels
 
 

@@ -3,16 +3,19 @@
 A package beside the JAX reference (``paddle_tpu``), never importing it.
 It serves the flagship GPT (``models``, ``generation``, ``serving``),
 trains it through the compiled-trainer path (``models.gpt_spmd``) and
-through ``Model`` (``hapi``) with the port's losses (``nn``, ``ops.loss``)
-and optimizers (``optimizer``), and runs the fused transformer encoder
+through ``Model`` (``hapi``, with ``summary`` and ``flops``) with the
+port's losses (``nn``, ``ops.loss``), optimizers (``optimizer``) and
+regularizers (``regularizer``), and runs the fused transformer encoder
 layers (``incubate.nn``).  Attention, the LM head and the fused post-LN
 epilogue run through hand-written CUDA kernels (``csrc/``) built with
 nvcc at first use.  Entry points run on the card unless given
 ``device="cpu"``.  :func:`seed` reseeds the port's random state
 (``random``).
 """
+from . import regularizer
 from .device import NoCudaDevice, resolve_device
-from .hapi import Model
+from .hapi import Model, flops, summary
 from .random import seed
 
-__all__ = ["Model", "NoCudaDevice", "resolve_device", "seed"]
+__all__ = ["Model", "NoCudaDevice", "flops", "regularizer",
+           "resolve_device", "seed", "summary"]

@@ -306,23 +306,24 @@ amp_guard = auto_cast
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """O2 decoration: the models' fp32 parameters cast to ``dtype`` in
-    place.  With ``optimizers`` the reference also turns on their fp32
-    master weights (``multi_precision``), which the port's optimizers do
-    not have yet: that raises ``NotImplementedError``.
-    ``Model.prepare(amp_configs={"level": "O2"})`` keeps fp32 masters
-    without it."""
-    if optimizers is not None:
-        raise NotImplementedError(
-            "decorate(optimizers=...): the optimizers' fp32 master weights "
-            "(multi_precision) are not ported yet (ROADMAP.md A3); "
-            "Model.prepare(amp_configs={'level': 'O2'}) keeps fp32 masters "
-            "without them")
+    place (the same ``Parameter`` objects, so an optimizer built on them
+    keeps them), and each optimizer's fp32 master weights turned on
+    (``multi_precision``, or ``master_weight`` when it is given).
+    Returns ``models`` without optimizers, else ``(models, optimizers)``,
+    each as it was passed (one, or a list).  ``level`` and ``save_dtype``
+    are taken and not read, as in the reference."""
     low = to_dtype(dtype)
     for m in models if isinstance(models, (list, tuple)) else [models]:
         for p in m.parameters():
             if p.dtype == torch.float32:
                 p.data = p.data.to(low)
-    return models
+    if optimizers is None:
+        return models
+    for opt in optimizers if isinstance(optimizers, (list, tuple)) \
+            else [optimizers]:
+        opt._multi_precision = True if master_weight is None \
+            else master_weight
+    return models, optimizers
 
 
 class GradScaler:

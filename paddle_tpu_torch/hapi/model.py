@@ -65,10 +65,13 @@ and ``num_iters`` and ``stop_training``.
 ``custom_black_list`` and the fp16 scaler's settings) runs
 ``train_batch``'s forward under :func:`~paddle_tpu_torch.amp.auto_cast`,
 as the reference's step does (:618; the loss, eval and predict run
-outside it, as there).  O2 keeps the network's fp32 parameters as the
-masters the optimizer updates: the forward sees a low-type view of them
-cast inside the differentiated function (``torch.func.functional_call``),
-so the gradients land on the fp32 leaves (:254-262).  fp16 engages the
+outside it, as there).  O2 on fp32 parameters keeps them as the masters
+the optimizer updates: the forward sees a low-type view of them cast
+inside the differentiated function (``torch.func.functional_call``), so
+the gradients land on the fp32 leaves (:254-262).  A network that
+``amp.decorate`` cast to the low type runs its forward on those
+parameters as they are; its optimizer's fp32 masters (``multi_precision``)
+take the update.  fp16 engages the
 dynamic loss scaling (``ops/amp_ops.py``); on the card it raises, since
 the attention and epilogue kernels take fp32 and bf16 only.
 
@@ -77,7 +80,8 @@ Not ported yet, and raising ``NotImplementedError`` with their
 ``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb`` (A3); ``fit``'s
 fault-tolerance hooks — ``checkpointer=``, ``FLAGS_anomaly_action`` and
 the supervisor's ``PADDLE_SUPERVISE_STORE`` (A8); ``save(training=False)``,
-the inference export (A6); ``summary`` (A3).
+the inference export (A6).  ``summary`` (:1465) prints
+:func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
 """
 from __future__ import annotations
 
@@ -95,6 +99,7 @@ from ..metric import Metric
 from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
 from ..serving.bucketing import ExecutableCache
 from .callbacks import config_callbacks
+from .summary import summary as _summary
 
 __all__ = ["Model"]
 
@@ -628,5 +633,6 @@ class Model:
             self._optimizer.set_state_dict(framework_io.load(opt_path))
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError(f"Model.summary (hapi/summary_mod.py) "
-                                  f"{_NOT_PORTED}")
+        """:func:`~paddle_tpu_torch.hapi.summary.summary` of the network:
+        prints its table, returns the totals."""
+        return _summary(self.network, input_size, dtypes=dtype)

@@ -151,7 +151,7 @@ class GPT(nn.Module):
         B, T = ids.shape
         steps = torch.arange(T, device=self.device)
         if caches is None:
-            x = self.wte(ids) + self.wpe(steps)[None]
+            x = self.wte(ids) + self.wpe(steps[None])
             for blk in self.blocks:
                 x = blk(x)
             return self.head(self.ln_f(x))
@@ -160,7 +160,7 @@ class GPT(nn.Module):
                 raise ValueError(f"a prefill of {T} tokens overruns the "
                                  f"cache capacity {caches[0].capacity}")
             starts = None
-            x = self.wte(ids) + self.wpe(steps)[None]
+            x = self.wte(ids) + self.wpe(steps[None])
         else:
             starts = torch.as_tensor(positions, dtype=torch.long,
                                      device=self.device)

@@ -1,5 +1,9 @@
 """Optimizers — the counterpart of ``paddle_tpu/optimizer/optimizers.py``:
-``Optimizer`` (:52), ``SGD`` (:344), ``Adam`` (:422) and ``AdamW`` (:472).
+``Optimizer`` (:52), ``SGD`` (:344), ``Momentum`` (:355), ``LarsMomentum``
+and its alias ``Lars`` (:378-419), ``Adam`` (:422), ``AdamW`` (:472),
+``Adamax`` (:583), ``Adagrad`` (:607), ``Adadelta`` (:625), ``RMSProp``
+(:647), ``Lamb`` (:678), ``Ftrl`` (:714) and ``DecayedAdagrad`` (:752),
+with the reference's signatures and slot names.
 
 The arithmetic is the reference's, per parameter, on the parameter's
 device and in its type:
@@ -10,13 +14,28 @@ device and in its type:
   host;
 - AdamW decays the parameter by ``1 - lr·wd`` before the Adam update
   (:493-497), for the parameters ``apply_decay_param_fun(name)`` accepts
-  (all when it is None); SGD and Adam add ``wd·param`` to the gradient
-  (the reference's ``L2Decay``).
+  (all when it is None), and takes no regularizer;
+- the others add the regularizer's gradient to the gradient (:167-172):
+  the parameter's own ``regularizer`` attribute, else the optimizer's
+  ``weight_decay`` (a number is ``L2Decay``; ``regularizer.L1Decay`` and
+  ``L2Decay`` objects as they are);
+- a parameter's ``optimize_attr["learning_rate"]`` scales its rate
+  (:165-166).  The port has no ``ParamAttr`` yet (``ROADMAP.md`` A2):
+  ``regularizer`` and ``optimize_attr`` are plain attributes set on the
+  ``torch.nn.Parameter``.
+
+``multi_precision`` (also set by ``amp.decorate(optimizers=...)``) gives a
+bf16 or fp16 parameter an fp32 master at its first step, from which its
+slots are made (:90-99): the gradient is cast to fp32, the regularizer
+reads the master, the update runs on the master, and the result is
+copied back into the parameter in place (:171-179).  Masters are not in
+``state_dict``, as in the reference.
 
 A step reads nothing from the host and rebinds nothing, so that
 ``Model.prepare(jit=True)`` can capture it in a CUDA graph: the learning
-rate is a fp32 device scalar per device, and every slot of the optimizer
-state is updated in place.
+rate is a fp32 device scalar per device, trust ratios (``LarsMomentum``,
+``Lamb``) are ``torch.where`` on device norms, and every slot and master
+is updated in place.
 
 ``learning_rate`` is a number or an
 :class:`~paddle_tpu_torch.optimizer.lr.LRScheduler` (:71-84): ``get_lr()``
@@ -35,8 +54,12 @@ of ``step()``, on the device, before the update (:129-130).
 tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
 reference's ``train_batch`` names them (``functional_state``).
-``multi_precision``, ``lazy_mode`` and regularizer objects raise
-``NotImplementedError``.
+
+``lazy_mode`` (``Adam``, ``AdamW``) is taken with the reference's dense
+semantics: the reference reads it nowhere, and updates rows only for a
+``SelectedRows`` gradient, which only its eager core's sparse embedding
+makes.  A sparse gradient (``torch.nn.Embedding(sparse=True)``) reaching
+``step()`` raises: the row-sparse update waits for that core (A2).
 """
 from __future__ import annotations
 
@@ -45,11 +68,16 @@ from typing import Dict, Mapping
 import torch
 
 from ..nn.clip import ClipGradBase
+from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars", "LarsMomentum",
+           "Ftrl", "DecayedAdagrad"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md A3)"
+_SPARSE = ("a sparse gradient reached the optimizer: the row-sparse "
+           "(SelectedRows) update is not ported yet (ROADMAP.md A2)")
+_LOW = (torch.bfloat16, torch.float16)
 
 
 def _named(parameters):
@@ -59,11 +87,26 @@ def _named(parameters):
     return out
 
 
-class Optimizer:
-    """Base class: ``step()``, ``clear_grad()``, ``get_lr()``,
-    ``set_lr()``, ``state_dict()`` and ``set_state_dict()``."""
+def _wd_reg(weight_decay):
+    """The ``weight_decay`` argument as a regularizer, or None."""
+    if weight_decay is None:
+        return None
+    if isinstance(weight_decay, WeightDecayRegularizer):
+        return weight_decay
+    return L2Decay(float(weight_decay))
 
-    # L2 decay added to the gradient (SGD, Adam); AdamW decays decoupled
+
+def _norm(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(torch.square(t)))
+
+
+class Optimizer:
+    """Base class: ``step()``, ``minimize()``, ``clear_grad()``,
+    ``get_lr()``, ``set_lr()``, ``state_dict()`` and
+    ``set_state_dict()``."""
+
+    # the regularizer added to the gradient (all but AdamW, which decays
+    # decoupled)
     _coupled_weight_decay = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
@@ -78,18 +121,16 @@ class Optimizer:
             raise TypeError(f"grad_clip must be one of nn.ClipGradByValue, "
                             f"ClipGradByNorm, ClipGradByGlobalNorm; got "
                             f"{type(grad_clip)}")
-        if multi_precision:
-            raise NotImplementedError(f"multi_precision {_NOT_PORTED}")
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       (int, float)):
-            raise NotImplementedError(f"regularizer objects {_NOT_PORTED}; "
-                                      "pass weight_decay as a number")
         self._params = None if parameters is None else _named(parameters)
         self._learning_rate = learning_rate if isinstance(
             learning_rate, LRScheduler) else float(learning_rate)
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay_reg = _wd_reg(weight_decay)
+        self._weight_decay = (0.0 if self._weight_decay_reg is None
+                              else self._weight_decay_reg.coeff)
         self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._master_weights: Dict[int, torch.Tensor] = {}
         self._lr_on: Dict[torch.device, torch.Tensor] = {}
         self._lr_value = self.get_lr()      # what the device scalars hold
         self._global_step = 0
@@ -142,9 +183,14 @@ class Optimizer:
         return {}
 
     def _slot(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``p``'s slots, made at its first step from its fp32 master
+        (made then too) under ``multi_precision``, else from ``p``."""
         key = id(p)
         if key not in self._state:
-            self._state[key] = self._init_state_for(p.detach())
+            if self._multi_precision and p.dtype in _LOW:
+                self._master_weights[key] = p.detach().float()
+            self._state[key] = self._init_state_for(
+                self._master_weights.get(key, p.detach()))
         return self._state[key]
 
     def _update(self, param, grad, state, lr: torch.Tensor, name: str):
@@ -154,12 +200,27 @@ class Optimizer:
 
     def bound_tensors(self):
         """The tensors a step reads and writes by address: the learning
-        rate scalars and every slot of the state."""
+        rate scalars, every slot of the state and every master."""
         yield from self._lr_on.values()
         for slot in self._state.values():
             yield from slot.values()
+        yield from self._master_weights.values()
 
     # -- eager step --------------------------------------------------------
+    def _regularizer_for(self, p):
+        """The parameter's own regularizer, else the optimizer's; none for
+        a decoupled decay."""
+        if not self._coupled_weight_decay:
+            return None
+        reg = getattr(p, "regularizer", None)
+        return reg if reg is not None else self._weight_decay_reg
+
+    def _lr_for(self, p) -> torch.Tensor:
+        lr = self._lr(p.device)
+        scale = (getattr(p, "optimize_attr", None) or {}).get(
+            "learning_rate", 1.0)
+        return lr if scale == 1.0 else lr * scale
+
     @torch.no_grad()
     def step(self) -> None:
         if self._params is None:
@@ -169,19 +230,40 @@ class Optimizer:
             self._refresh_lr()
         live = [(name, p) for name, p in self._params
                 if p.requires_grad and p.grad is not None]
+        if any(p.grad.is_sparse for _, p in live):
+            raise NotImplementedError(_SPARSE)
         if self._grad_clip is not None:
             self._grad_clip._clip_([(p, p.grad) for _, p in live])
         for name, p in live:
-            g = p.grad.to(p.dtype)
-            if self._coupled_weight_decay and self._weight_decay:
-                g = g + self._weight_decay * p
             slot = self._slot(p)
-            new_p, new_state = self._update(p, g, slot, self._lr(p.device),
+            master = self._master_weights.get(id(p))
+            target = p if master is None else master
+            g = p.grad.to(target.dtype)
+            reg = self._regularizer_for(p)
+            if reg is not None and reg.coeff:
+                g = g + reg.grad(target)
+            new_p, new_state = self._update(target, g, slot, self._lr_for(p),
                                             name)
             for k, v in new_state.items():
                 slot[k].copy_(v)
-            p.copy_(new_p)
+            target.copy_(new_p)
+            if master is not None:
+                p.copy_(master)
         self._global_step += 1
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The eager ``minimize``: ``loss.backward()`` unless a gradient is
+        already there, then ``step()``; returns ``(None, None)``."""
+        if not isinstance(loss, torch.Tensor):
+            raise NotImplementedError(
+                f"minimize on a static program's variable ({type(loss)}): "
+                f"the static graph is not ported yet (ROADMAP.md A7)")
+        if loss.grad_fn is not None and all(
+                p.grad is None for _, p in self._params or []):
+            loss.backward()
+        self.step()
+        return None, None
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero: bool = False) -> None:
@@ -195,6 +277,8 @@ class Optimizer:
             return
         for _, p in self._params or []:
             p.grad = None
+
+    clear_gradients = clear_grad
 
     # -- checkpointing -----------------------------------------------------
     def state_dict(self) -> Dict[str, object]:
@@ -220,6 +304,8 @@ class Optimizer:
                     cur.copy_(torch.as_tensor(state_dict[key]).to(
                         device=cur.device, dtype=cur.dtype))
 
+    set_dict = set_state_dict
+
 
 class SGD(Optimizer):
     """``param - lr·grad`` (reference ``sgd_op.cc``)."""
@@ -228,16 +314,79 @@ class SGD(Optimizer):
         return param - lr * grad, state
 
 
+class Momentum(Optimizer):
+    """``v = μ·v + g``; ``param - lr·v``, or with Nesterov ``param -
+    lr·(g + μ·v)`` (reference ``momentum_op.h``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _init_state_for(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def _update(self, param, grad, state, lr, name):
+        v = self._momentum * state["velocity"] + grad
+        if self._use_nesterov:
+            new_p = param - lr * (grad + self._momentum * v)
+        else:
+            new_p = param - lr * v
+        return new_p, {"velocity": v}
+
+
+class LarsMomentum(Optimizer):
+    """LARS: momentum with the layer-wise trust ratio ``coeff·||w|| /
+    (||g|| + wd·||w|| + eps)`` (1 where a norm is 0) scaling the rate of
+    ``g + wd·w``; parameters whose name contains a token of
+    ``exclude_from_weight_decay`` get plain momentum, ``v = μ·v + lr·g``
+    (reference ``lars_momentum_op.cu``, ``lars_optimizer.py``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 lars_coeff=0.001, lars_weight_decay=0.0005,
+                 parameters=None, grad_clip=None, epsilon=1e-9,
+                 exclude_from_weight_decay=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_wd = lars_weight_decay
+        self._epsilon = epsilon
+        self._exclude = list(exclude_from_weight_decay or [])
+
+    def _init_state_for(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def _update(self, param, grad, state, lr, name):
+        if any(token in name for token in self._exclude):
+            v = self._momentum * state["velocity"] + lr * grad
+            return param - v, {"velocity": v}
+        w_norm, g_norm = _norm(param), _norm(grad)
+        local_lr = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self._lars_coeff * w_norm /
+            (g_norm + self._lars_wd * w_norm + self._epsilon), 1.0)
+        scaled = lr * local_lr * (grad + self._lars_wd * param)
+        v = self._momentum * state["velocity"] + scaled
+        return param - v, {"velocity": v}
+
+
+Lars = LarsMomentum
+
+
 class Adam(Optimizer):
     """Adam with the reference's bias correction folded into the step
-    size (``adam_op``)."""
+    size (``adam_op``).  ``lazy_mode`` is taken with the reference's dense
+    semantics (see the module's docstring)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
                  name=None):
-        if lazy_mode:
-            raise NotImplementedError(f"lazy_mode {_NOT_PORTED}")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1
@@ -287,3 +436,216 @@ class AdamW(Adam):
         wd = self._decay_for(name)
         decayed = param * (1.0 - lr * wd) if wd else param
         return super()._update(decayed, grad, state, lr, name)
+
+
+class Adamax(Optimizer):
+    """Adam on the infinity norm: ``u = max(β2·u, |g|)``, ``param -
+    lr/(1 - β1ᵗ)·m/(u + eps)``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _init_state_for(self, param):
+        return {"moment": torch.zeros_like(param),
+                "inf_norm": torch.zeros_like(param),
+                "beta1_pow": torch.ones((), dtype=torch.float32,
+                                        device=param.device)}
+
+    def _update(self, param, grad, state, lr, name):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        b1p = state["beta1_pow"] * b1
+        m = b1 * state["moment"] + (1 - b1) * grad
+        u = torch.maximum(b2 * state["inf_norm"], torch.abs(grad))
+        step_lr = (lr / (1 - b1p)).to(param.dtype)
+        new_p = param - step_lr * m / (u + eps)
+        return new_p.to(param.dtype), {"moment": m, "inf_norm": u,
+                                       "beta1_pow": b1p}
+
+
+class Adagrad(Optimizer):
+    """``acc += g²``; ``param - lr·g/(sqrt(acc) + eps)``, the accumulator
+    starting at ``initial_accumulator_value``."""
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state_for(self, param):
+        return {"moment": torch.full_like(param, self._init_acc)}
+
+    def _update(self, param, grad, state, lr, name):
+        acc = state["moment"] + torch.square(grad)
+        new_p = param - lr * grad / (torch.sqrt(acc) + self._epsilon)
+        return new_p, {"moment": acc}
+
+
+class Adadelta(Optimizer):
+    """Running averages of the squared gradient and the squared update;
+    ``param + lr·update`` with ``update = -sqrt(E[Δ²] + eps)/sqrt(E[g²] +
+    eps)·g``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _init_state_for(self, param):
+        return {"avg_squared_grad": torch.zeros_like(param),
+                "avg_squared_update": torch.zeros_like(param)}
+
+    def _update(self, param, grad, state, lr, name):
+        rho, eps = self._rho, self._epsilon
+        g2 = rho * state["avg_squared_grad"] + (1 - rho) * torch.square(grad)
+        update = -torch.sqrt(state["avg_squared_update"] + eps) / \
+            torch.sqrt(g2 + eps) * grad
+        u2 = rho * state["avg_squared_update"] + \
+            (1 - rho) * torch.square(update)
+        return param + lr * update, {"avg_squared_grad": g2,
+                                     "avg_squared_update": u2}
+
+
+class RMSProp(Optimizer):
+    """``E[g²]`` (``centered``: minus ``E[g]²``) normalises the gradient;
+    ``momentum`` accumulates the normalised step."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-06, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state_for(self, param):
+        s = {"mean_square": torch.zeros_like(param),
+             "momentum_acc": torch.zeros_like(param)}
+        if self._centered:
+            s["mean_grad"] = torch.zeros_like(param)
+        return s
+
+    def _update(self, param, grad, state, lr, name):
+        rho, eps = self._rho, self._epsilon
+        ms = rho * state["mean_square"] + (1 - rho) * torch.square(grad)
+        out_state = {"mean_square": ms}
+        if self._centered:
+            mg = rho * state["mean_grad"] + (1 - rho) * grad
+            denom = torch.sqrt(ms - torch.square(mg) + eps)
+            out_state["mean_grad"] = mg
+        else:
+            denom = torch.sqrt(ms + eps)
+        mom = self._momentum * state["momentum_acc"] + lr * grad / denom
+        out_state["momentum_acc"] = mom
+        return param - mom, out_state
+
+
+class Lamb(Optimizer):
+    """LAMB (reference ``lamb_op.h``): Adam's bias-corrected moments, cast
+    to the parameter's type, give ``r = m̂/(sqrt(v̂) + eps) + wd·w``; the
+    layer-wise trust ratio ``||w||/||r||`` (1 where a norm is 0) scales
+    the rate.
+
+    ``exclude_from_weight_decay_fn`` is stored and not read, as in the
+    reference (:688, :704): every parameter is decayed by
+    ``lamb_weight_decay``.  The port copies that gap rather than filling
+    it (``ROADMAP.md`` §C)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._lamb_wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state_for(self, param):
+        one = torch.ones((), dtype=torch.float32, device=param.device)
+        return {"moment1": torch.zeros_like(param),
+                "moment2": torch.zeros_like(param),
+                "beta1_pow": one, "beta2_pow": one.clone()}
+
+    def _update(self, param, grad, state, lr, name):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        b1p = state["beta1_pow"] * b1
+        b2p = state["beta2_pow"] * b2
+        m1 = b1 * state["moment1"] + (1 - b1) * grad
+        m2 = b2 * state["moment2"] + (1 - b2) * torch.square(grad)
+        # the fp32 powers promote the moments, as in the reference
+        m1_hat = (m1.float() / (1 - b1p)).to(param.dtype)
+        m2_hat = (m2.float() / (1 - b2p)).to(param.dtype)
+        r = m1_hat / (torch.sqrt(m2_hat) + eps) + self._lamb_wd * param
+        w_norm, r_norm = _norm(param), _norm(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        new_p = param - (lr * trust).to(param.dtype) * r
+        return new_p.to(param.dtype), {"moment1": m1, "moment2": m2,
+                                       "beta1_pow": b1p, "beta2_pow": b2p}
+
+
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference ``ftrl_op.h:150``): ``n += g²``; ``σ =
+    (n_new^-p - n_old^-p)/lr`` (``lr_power`` p, the root at -0.5); ``z +=
+    g - σ·w``; ``w = (l1·sign(z) - z)/(n_new^-p/lr + 2·l2)`` where ``|z| >
+    l1``, else 0.  ``l1`` and ``l2`` get ``1e-10`` added, as in the
+    reference."""
+
+    def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._l1 = float(l1) + 1e-10
+        self._l2 = float(l2) + 1e-10
+        self._lr_power = float(lr_power)
+
+    def _init_state_for(self, param):
+        return {"squared": torch.zeros_like(param),
+                "linear": torch.zeros_like(param)}
+
+    def _update(self, param, grad, state, lr, name):
+        l1, l2, p_ = self._l1, self._l2, self._lr_power
+        sq, lin = state["squared"], state["linear"]
+        new_sq = sq + torch.square(grad)
+        if p_ == -0.5:
+            sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+            y = torch.sqrt(new_sq) / lr + 2 * l2
+        else:
+            sigma = (new_sq ** (-p_) - sq ** (-p_)) / lr
+            y = new_sq ** (-p_) / lr + 2 * l2
+        new_lin = lin + grad - sigma * param
+        x = l1 * torch.sign(new_lin) - new_lin
+        new_p = torch.where(torch.abs(new_lin) > l1, x / y,
+                            torch.zeros_like(param))
+        return new_p.to(param.dtype), {"squared": new_sq,
+                                       "linear": new_lin}
+
+
+class DecayedAdagrad(Optimizer):
+    """``m = decay·m + (1 - decay)·g²``; ``param - lr·g/(sqrt(m) + eps)``
+    (reference ``decayed_adagrad_op.h:63``)."""
+
+    def __init__(self, learning_rate=0.001, decay=0.95, epsilon=1e-06,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._decay, self._epsilon = float(decay), float(epsilon)
+
+    def _init_state_for(self, param):
+        return {"moment": torch.zeros_like(param)}
+
+    def _update(self, param, grad, state, lr, name):
+        m = self._decay * state["moment"] + \
+            (1 - self._decay) * torch.square(grad)
+        new_p = param - lr * grad / (torch.sqrt(m) + self._epsilon)
+        return new_p, {"moment": m}

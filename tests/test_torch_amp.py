@@ -17,8 +17,10 @@
   keeps fp32 masters.
 - ``GradScaler``: bf16 passes through with one warning; fp16's scale
   state follows ``update_loss_scaling`` step for step.
-- What is refused: ``decorate`` with optimizers (``multi_precision``),
-  float16 on the card, levels other than O1 and O2.
+- What is refused: float16 on the card, levels other than O1 and O2.
+  ``decorate`` with optimizers turns on their fp32 masters
+  (``multi_precision``; held to the reference in
+  ``tests/test_torch_optimizers.py``).
 """
 import threading
 import warnings
@@ -304,8 +306,12 @@ def test_decorate_and_auto_cast_forms():
 def test_what_amp_refuses(monkeypatch):
     net = GPT(GPTConfig(**SMALL), device="cpu")
     opt = AdamW(parameters=net.parameters())
-    with pytest.raises(NotImplementedError, match="multi_precision"):
-        amp.decorate(net, optimizers=opt)
+    other = GPT(GPTConfig(**SMALL), device="cpu")
+    other_opt = AdamW(parameters=other.parameters())
+    assert amp.decorate([other], optimizers=[other_opt], master_weight=False
+                        ) == ([other], [other_opt])
+    assert other_opt._multi_precision is False
+    assert all(p.dtype == torch.bfloat16 for p in other.parameters())
     model = Model(net)
     with pytest.raises(ValueError, match="'O1' or 'O2'"):
         model.prepare(opt, CrossEntropyLoss(), amp_configs="O3")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig
 from paddle_tpu_torch.ops import flash_attention as pfa
@@ -994,3 +995,61 @@ def test_fit_on_the_card_is_exact_captured_and_sync_free(card):
         assert all(torch.equal(v, other_state[k])
                    for k, v in state.items()), kw
 
+
+
+# every optimizer of the port, built as chip_smoke.py phase 13a builds
+# them, and LAMB under amp.decorate as phase 13b does: (AMP level,
+# decorated, make(optimizer module, regularizer module, parameters))
+CARD_OPTIMIZERS = {label: (amp, decorate, make)
+                   for label, amp, decorate, make in chip_smoke.OPTIMIZERS}
+CARD_OPTIMIZERS["Lamb decorated O2"] = ("O2", True, lambda o, r, P: o.Lamb(
+    chip_smoke.LAMB_LR, chip_smoke.LAMB_WD, parameters=P))
+
+
+def _optimizer_run(make, jit, amp, decorate):
+    """Three train_batch steps of the GPT at WIDTH from seed 0: the
+    losses and copies of every parameter, slot and master."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model, regularizer
+    from paddle_tpu_torch import amp as pamp
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    opt = make(optimizer, regularizer, net.parameters())
+    if decorate:
+        net, opt = pamp.decorate(net, opt, level="O2")
+    model = Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
+                               jit=jit)
+    paddle_tpu_torch.seed(2)
+    rs = np.random.RandomState(0)
+    losses = []
+    for _ in range(3):
+        ids = rs.randint(0, WIDTH["vocab_size"], (4, 128))
+        labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
+        losses.append(model.train_batch([ids], [labels])["loss"])
+        if decorate:
+            for p in net.parameters():
+                assert torch.equal(p, opt._master_weights[id(p)].to(p.dtype))
+    state = {f"param {n}": p.detach().clone()
+             for n, p in net.named_parameters()}
+    state.update({f"slot {k}": v.clone() for k, v in
+                  opt.state_dict().items() if torch.is_tensor(v)})
+    state.update({f"master {n}": opt._master_weights[id(p)].clone()
+                  for n, p in net.named_parameters()
+                  if id(p) in opt._master_weights})
+    return torch.stack(losses), state, model._steps.compiles
+
+
+@pytest.mark.parametrize("case", list(CARD_OPTIMIZERS))
+def test_captured_optimizer_steps_equal_uncaptured(card, case):
+    amp, decorate, make = CARD_OPTIMIZERS[case]
+    (le, se, ce), (lj, sj, cj) = (_optimizer_run(make, jit, amp, decorate)
+                                  for jit in (False, True))
+    assert (ce, cj) == (0, 1)
+    assert torch.equal(le, lj), (le, lj)
+    assert se.keys() == sj.keys()
+    if decorate:
+        assert sum(k.startswith("master") for k in sj) == len(
+            [k for k in sj if k.startswith("param")])
+    for k in se:
+        assert torch.equal(se[k], sj[k]), k
