@@ -27,7 +27,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
             (and 12800), N 1 ... 16384, the same types and p: dx, dres by
             their type's grads atol, the column sums in fp32 against a
             float64 run of the plain backward, dx exactly 0 where the
-            forward dropped)
+            forward dropped); the fused optimizer update
+            (multi_tensor_update.cu) for every kind of UPDATE_CHECKS (the
+            twelve optimizers, Momentum with and without Nesterov,
+            RMSProp centered and not, Ftrl at lr_power -0.5 and -0.7,
+            LarsMomentum excluding names, AdamW's decay function
+            rejecting some) in five type setups (fp32, bf16 and fp16
+            over fp32 masters, bf16 and fp16 alone), three steps on the
+            GPT's 149 parameter shapes and numel 1, 3, 1023 (zeros) and
+            2^20 + 5, with L1 and L2 regularizers and lr scales on some
+            tensors: parameters, slots, powers and masters against the
+            plain version, 16-bit values by steps of their type and share
+            of the move, a check that must fail two planted mutations of
+            the plain version (the parameter's store skipped, the rate
+            halved)
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -53,7 +66,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
             D 768, p 0.1 and 0), each kernel's result held against its
             plain version there too; rows 3, 4, 10, 11, 12, the
             epilogue's backward and SDPA also in device time
-            (torch.profiler), with the share of the bound
+            (torch.profiler), with the share of the bound; and
+            optimizer.step() at the GPT's full width for each optimizer
+            of phase 13a, fp32 and decorated (bf16 over fp32 masters):
+            the update kernel, its plain version, the per-leaf path
+            (FLAGS_fused_optimizer=0) and, for Adam and AdamW in fp32,
+            torch._fused_adam(w)_, beside the bytes bound (one pass;
+            LarsMomentum and Lamb also at the kernel's two passes)
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, all of them flash_attn_sm90's, the fused head's
@@ -73,7 +92,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             versions; 3 steps with jit=True (captured in a CUDA graph,
             replayed) against jit=False from the same state and seeds, bit
             for bit, and a second captured run repeating bit for bit, with
-            12 + 12 launches counted in a replay; the loss falls over 12
+            12 + 12 launches counted in a replay and the optimizer's step
+            on the update kernel (one update launch per type setup and
+            the passes its kind adds); the loss falls over 12
             steps of each engine; step ms, seq/s, peak memory of both.
             Then the same under AMP O1 in bf16 (prepare(amp_configs="O1"):
             12 + 12 attention launches, all flash_attn_sm90's; against the
@@ -110,14 +131,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
             to the runs without the metric (one with no prefetch); the
             second epoch captures nothing and, without the metric, runs no
             synchronising call (torch.cuda.set_sync_debug_mode("error"));
-            every replayed step launches 12 + 12 attention kernels;
+            every replayed step launches 12 + 12 attention kernels and
+            AdamW's update once (and its powers' advance);
             evaluate equals an eval_batch loop.  Step ms p50 of each run
             (with and without prefetch and metric), the hand loop's, the
             idle share of fit (profile_train.profile), the graphs' pools
             (the partial batch's too) and peak memory.  Then the fused
             encoder under O1 for one epoch with eval_data: equal to its
-            hand loop and to jit=False, 24 + 24 epilogue and 12 + 12
-            attention launches a replayed step
+            hand loop and to jit=False, 24 + 24 epilogue, 12 + 12
+            attention and one update launch a replayed step
 13. optim-  13a: phase 9's GPT under AMP O1, captured, once with each
     izers   optimizer of OPTIMIZERS (Momentum with Nesterov and L2Decay,
             LarsMomentum, Adamax, Adagrad, Adadelta, centered RMSProp with
@@ -127,9 +149,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
             counted, 3 captured steps against 3 uncaptured bit for bit
             (parameters, every slot and master), a second captured run
             repeating them and going on to 12 steps (the loss falls; step
-            ms p50 of the last 10), 12 + 12 flash_attn_sm90 launches a
-            replay, and optimizer.step()'s device time alone beside its
-            bound (the bytes it moves over 3.35 TB/s).  13b: phase
+            ms p50 of the last 10), 12 + 12 flash_attn_sm90 launches and
+            the update kernel's launches a replay, and optimizer.step()'s
+            device time alone, through the kernel and per leaf
+            (FLAGS_fused_optimizer=0), beside its bound (the bytes it
+            moves over 3.35 TB/s).  13b: phase
             11's encoder trained with LAMB on bf16 parameters over fp32
             masters (amp.decorate O2, prepare(amp_configs="O2")): every
             parameter bf16 and equal to its master cast to bf16 after
@@ -147,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -316,6 +341,65 @@ AMP_O2_LAYERS = 2
 # and 8); profile_train.profile over epochs of profile_steps full batches
 FIT = dict(width=GPT_WIDTH, batch=32, seq=512, train=136, eval=40,
            profile_steps=4)
+# the fused optimizer update (ops/multi_tensor_update.py), phase 3: every
+# kind of the kernel and its variants, (label, make(optimizer module,
+# regularizer module, parameters)); update_params gives every third tensor
+# an L1Decay and the next an L2Decay of its own, every fourth an lr scale
+# of 0.5.  LarsMomentum excludes the GPT's biases and LayerNorms, AdamW's
+# decay function rejects the biases
+UPDATE_CHECKS = (
+    ("SGD", lambda o, r, P: o.SGD(0.05, parameters=P)),
+    ("Momentum", lambda o, r, P: o.Momentum(0.01, 0.9, P)),
+    ("Momentum Nesterov", lambda o, r, P: o.Momentum(0.01, 0.9, P,
+                                                     use_nesterov=True)),
+    ("LarsMomentum", lambda o, r, P: o.LarsMomentum(
+        0.1, parameters=P, exclude_from_weight_decay=["bias", "ln"])),
+    ("Adam", lambda o, r, P: o.Adam(1e-3, parameters=P)),
+    ("AdamW", lambda o, r, P: o.AdamW(
+        1e-3, parameters=P, weight_decay=0.01,
+        apply_decay_param_fun=lambda n: "bias" not in n)),
+    ("Adamax", lambda o, r, P: o.Adamax(1e-3, parameters=P)),
+    ("Adagrad", lambda o, r, P: o.Adagrad(0.01, parameters=P,
+                                          initial_accumulator_value=0.1)),
+    ("Adadelta", lambda o, r, P: o.Adadelta(1.0, parameters=P)),
+    ("RMSProp", lambda o, r, P: o.RMSProp(1e-3, parameters=P)),
+    ("RMSProp centered", lambda o, r, P: o.RMSProp(
+        1e-3, parameters=P, centered=True, momentum=0.9)),
+    ("Lamb", lambda o, r, P: o.Lamb(1e-2, parameters=P)),
+    ("Ftrl", lambda o, r, P: o.Ftrl(1e-2, l1=1e-4, l2=1e-4, parameters=P)),
+    ("Ftrl lr_power -0.7", lambda o, r, P: o.Ftrl(
+        1e-2, l1=1e-4, l2=1e-4, lr_power=-0.7, parameters=P)),
+    ("DecayedAdagrad", lambda o, r, P: o.DecayedAdagrad(2e-4,
+                                                        parameters=P)))
+# fp32 parameters; bf16 over fp32 masters (amp.decorate's
+# multi_precision); bf16 without masters (bf16 slots); the same in fp16
+UPDATE_SETUPS = ("fp32", "bf16 master", "bf16", "fp16 master", "fp16")
+# beside the GPT's 149 parameters: one element, a scalar tail, a tensor of
+# zeros (the trust ratios' "a norm is 0" branch) and one past 2^20
+UPDATE_EXTRA = (("numel_1", (1,)), ("numel_3", (3,)), ("zero_1023", (1023,)),
+                ("numel_1048581", (2 ** 20 + 5,)))
+UPDATE_STEPS = 3
+# fp32 values (parameters, slots, powers, masters): the tolerances of
+# tests/test_torch_optimizers.py; the kernel and its plain version run the
+# same fp32 operations and differ only where a norm sums in another order
+# or powf rounds otherwise.  16-bit values (bf16 and fp16 parameters and
+# slots): at most UPDATE_PAST_SHARE of a run's 16-bit elements more than
+# one step of their type apart (at max(|kernel|, |plain|)), and none
+# further than one step plus UPDATE_REL of the largest move in its tensor
+# (|plain - before| over the three steps).  Both round once from fp32
+# values that differ in their last bits (Lamb's and LarsMomentum's
+# norms), so a value may round across a boundary (one step); the next
+# step carries that on, and where w - lr·trust·r, or LarsMomentum's
+# velocity, cancels to a value far under its terms, one step of a term is
+# many of the result but a small share of the tensor's move.  A kernel
+# that skips the parameter's store or halves the rate fails this: phase 3
+# plants both mutations in the plain version and requires the check to
+# fail them.  Measured at the GPT's shapes (H100 80GB HBM3, 700 W): the
+# kernel puts at most 3.41e-6 of the elements past one step (LarsMomentum
+# in bf16; Lamb 1.6e-7, every other kind none), by at most 0.0026 of the
+# tensor's move (Lamb); the mutations put 0.0142-0.923 past one step
+UPDATE_ATOL, UPDATE_RTOL = 1e-6, 1e-5
+UPDATE_PAST_SHARE, UPDATE_REL = 1e-4, 2.0 ** -6
 
 
 def log(msg: str = ""):
@@ -918,6 +1002,245 @@ def check_dlogits(torch, sx, dev):
         raise AssertionError(f"{len(bad)} dlogits checks disagree with the "
                              f"plain version: {bad}")
     return results
+
+
+# -- the fused optimizer update (phases 3, 6, 13) -------------------------------
+def _update_route(route):
+    """What a fused step runs in: ``"kernel"`` as it is (the kernel on the
+    card, its plain version on the CPU), ``"plain"`` with the kernel's
+    plain version swapped in, ``"per_leaf"`` under
+    ``FLAGS_fused_optimizer=0``; and two planted mutations of the plain
+    version that the check of phase 3 must fail: ``"no_store"`` leaves
+    every parameter (and master) as it was, ``"half_lr"`` steps at half
+    the rate."""
+    from contextlib import nullcontext
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    ref = mtu.multi_tensor_update_ref
+
+    def no_store(spec, table, lr, update):
+        kept = [(t, t.clone()) for r in table.records
+                for t in (r.param, r.master) if t is not None]
+        ref(spec, table.records, lr, update)
+        for t, was in kept:
+            t.copy_(was)
+    plain = {"plain": lambda spec, table, lr, update: ref(
+                 spec, table.records, lr, update),
+             "half_lr": lambda spec, table, lr, update: ref(
+                 spec, table.records, lr * 0.5, update),
+             "no_store": no_store}
+    if route in plain:
+        return mock.patch.object(mtu, "multi_tensor_update", plain[route])
+    if route == "per_leaf":
+        return mock.patch.dict(os.environ, {"FLAGS_fused_optimizer": "0"})
+    return nullcontext()
+
+
+def update_shapes(torch, width, dev):
+    """(name, shape) of every parameter of the GPT at ``width``."""
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    net = GPT(GPTConfig(**width), device=dev, seed=0)
+    out = [(n, tuple(p.shape)) for n, p in net.named_parameters()]
+    del net
+    return out
+
+
+def update_dtype(torch, setup):
+    """The parameters' type in an UPDATE_SETUPS setup."""
+    return {"fp32": torch.float32, "bf16": torch.bfloat16,
+            "fp16": torch.float16}[setup.split()[0]]
+
+
+def update_params(torch, named, setup, dev, gen, attrs=True):
+    """Parameters of ``named`` ((name, shape) pairs), 0.1·N(0, 1) from
+    ``gen`` (zero where the name starts with "zero"), in ``setup``'s type
+    (:func:`update_dtype`); with ``attrs`` the regularizers and lr scales
+    of UPDATE_CHECKS's comment."""
+    from paddle_tpu_torch import regularizer
+    out = []
+    for i, (name, shape) in enumerate(named):
+        w = 0.1 * torch.randn(shape, generator=gen, device=dev)
+        if name.startswith("zero"):
+            w.zero_()
+        p = torch.nn.Parameter(w.to(update_dtype(torch, setup)))
+        if attrs and i % 3:
+            p.regularizer = (regularizer.L1Decay(1e-4) if i % 3 == 1
+                             else regularizer.L2Decay(1e-3))
+        if attrs and i % 4 == 3:
+            p.optimize_attr = {"learning_rate": 0.5}
+        out.append((name, p))
+    return out
+
+
+def update_grads(torch, params, gen):
+    """A gradient of 0.01·N(0, 1) from ``gen`` for every parameter."""
+    for _, p in params:
+        p.grad = (0.01 * torch.randn(p.shape, generator=gen,
+                                     device=p.device)).to(p.dtype)
+
+
+def update_optimizer(make, params, setup):
+    """``make(optimizer, regularizer, params)``, with fp32 masters under a
+    "... master" ``setup`` (``multi_precision``, as amp.decorate sets
+    it)."""
+    from paddle_tpu_torch import optimizer, regularizer
+    opt = make(optimizer, regularizer, params)
+    if setup.endswith("master"):
+        opt._multi_precision = True
+    return opt
+
+
+def update_run(torch, make, named, setup, dev, route, steps=UPDATE_STEPS,
+               seed=0):
+    """``steps`` steps of the optimizer ``make`` on update_params's
+    parameters by ``route`` (:func:`_update_route`), the same parameters
+    and gradients for every route.  Returns (copies of every parameter,
+    slot, power and master by key; under masters whether every parameter
+    equals its master cast to its type, else None).  ``steps`` 0 gives
+    the values before the first step, slots and masters made."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = update_params(torch, named, setup, dev, gen)
+    opt = update_optimizer(make, params, setup)
+    for _, p in params:
+        opt._slot(p)
+    for _ in range(steps):
+        update_grads(torch, params, gen)
+        with _update_route(route):
+            opt.step()
+    out = {}
+    for n, p in params:
+        out[f"param {n}"] = p.detach().clone()
+        for k, v in opt._state[id(p)].items():
+            out[f"slot {n}_{k}"] = v.clone()
+        if id(p) in opt._master_weights:
+            out[f"master {n}"] = opt._master_weights[id(p)].clone()
+    tied = all(torch.equal(p, opt._master_weights[id(p)].to(p.dtype))
+               for _, p in params) if setup.endswith("master") else None
+    return out, tied
+
+
+def ulp(torch, x, dtype):
+    """The step of ``dtype`` at each magnitude of ``x`` (fp32)."""
+    fi = torch.finfo(dtype)
+    step = torch.ldexp(torch.full_like(x, fi.eps),
+                       torch.frexp(x.abs()).exponent - 1)
+    return torch.clamp(step, min=fi.smallest_normal * fi.eps)
+
+
+def update_close(torch, got, want, base):
+    """Per key of ``want``: dict(err: max |got - want|, ok: every element
+    within its tolerance, n: elements, past: 16-bit elements more than one
+    step apart, steps: the worst one's distance in steps, share: the
+    worst distance past one step over the tensor's largest move).  fp32
+    values: UPDATE_ATOL + UPDATE_RTOL·|want|; 16-bit values: one step of
+    their type at max(|got|, |want|) plus UPDATE_REL·max|want - base|,
+    ``base`` the values before the steps (:func:`update_run` at ``steps``
+    0)."""
+    out = {}
+    for k, w in want.items():
+        g, w32 = got[k].float(), w.float()
+        d = (g - w32).abs()
+        row = dict(err=d.max().item(), n=d.numel(), past=0, steps=None,
+                   share=None)
+        if w.dtype in (torch.bfloat16, torch.float16):
+            step = ulp(torch, torch.maximum(g.abs(), w32.abs()), w.dtype)
+            move = (w32 - base[k].float()).abs().max()
+            over = (d - step).clamp(min=0)
+            tol = step + UPDATE_REL * move
+            row.update(past=int((over > 0).sum()),
+                       steps=(d / step).max().item(),
+                       share=(over.max() / move).item() if move > 0
+                       else float(over.max() > 0) * math.inf)
+        else:
+            tol = UPDATE_ATOL + UPDATE_RTOL * w32.abs()
+        row["ok"] = got[k].dtype == w.dtype and bool((d <= tol).all())
+        out[k] = row
+    return out
+
+
+def update_verdict(torch, got, want, base):
+    """(whether ``got`` passes :func:`update_close` against ``want``: every
+    value within its tolerance, and at most UPDATE_PAST_SHARE of the
+    16-bit elements past one step; the failing keys; the 16-bit share past
+    one step; the per-key rows)."""
+    rows = update_close(torch, got, want, base)
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    low = [r for k, r in rows.items() if want[k].dtype != torch.float32]
+    past = sum(r["past"] for r in low) / max(sum(r["n"] for r in low), 1)
+    return not bad and past <= UPDATE_PAST_SHARE, bad, past, rows
+
+
+def check_update_kernel(torch, dev, named=None, checks=UPDATE_CHECKS,
+                        setups=UPDATE_SETUPS):
+    """The fused optimizer update against its plain version on the card:
+    every kind of UPDATE_CHECKS in every setup of UPDATE_SETUPS, three
+    steps on the GPT's parameter shapes and UPDATE_EXTRA, every parameter,
+    slot, power and master held to :func:`update_close`; under masters
+    every parameter equal to its master cast to its type; the tensor of
+    zeros moved (a trust ratio over a zero norm is 1, not 0/0).  In the
+    16-bit setups without masters the two planted mutations of
+    :func:`_update_route` must each fail the same check."""
+    named = named or update_shapes(torch, GPT_WIDTH, dev) + list(UPDATE_EXTRA)
+    elements = sum(math.prod(shape) for _, shape in named)
+    rows = []
+    for label, make in checks:
+        for setup in setups:
+            got, tied = update_run(torch, make, named, setup, dev, "kernel")
+            want, _ = update_run(torch, make, named, setup, dev, "plain")
+            base, _ = update_run(torch, make, named, setup, dev, "plain",
+                                 steps=0)
+            sync(torch, dev)
+            ok, bad, past, errs = update_verdict(torch, got, want, base)
+            zero = [v for k, v in got.items() if k.startswith("param zero")]
+            moved = all(bool((v != 0).any()) for v in zero)
+            del got, zero
+            f32 = [e["err"] for k, e in errs.items()
+                   if want[k].dtype == torch.float32]
+            low = [e for k, e in errs.items()
+                   if want[k].dtype != torch.float32]
+            caught = {}
+            if setup in ("bf16", "fp16"):
+                for mutant in ("no_store", "half_lr"):
+                    wrong, _ = update_run(torch, make, named, setup, dev,
+                                          mutant)
+                    m_ok, m_bad, m_past, _ = update_verdict(
+                        torch, wrong, want, base)
+                    caught[mutant] = dict(failed=not m_ok, values=len(m_bad),
+                                          share_past_one_step=m_past)
+                    del wrong
+            ok = ok and tied is not False and moved and all(
+                c["failed"] for c in caught.values())
+            row = dict(
+                optimizer=label, setup=setup, tensors=len(named),
+                elements=elements, steps=UPDATE_STEPS, values=len(errs),
+                max_abs_err=max(f32, default=None),
+                max_abs_err_16bit=max((e["err"] for e in low), default=None),
+                max_steps_16bit=max((e["steps"] for e in low), default=None),
+                share_past_one_step=past if low else None,
+                max_move_share_past_one_step=max(
+                    (e["share"] for e in low), default=None),
+                mutants=caught or None, params_tied_to_masters=tied,
+                zero_tensor_moved=moved, failed=bad[:8], ok=ok)
+            rows.append(row)
+            mut = {k: f"{'fails' if c['failed'] else 'PASSES'} "
+                      f"({c['share_past_one_step']:.3g} past one step)"
+                   for k, c in caught.items()}
+            log(f"  update {label:18s} {setup:11s}: {len(errs)} values, "
+                f"fp32 max_abs_err {max(f32, default=0.0):.2e}, 16-bit "
+                f"{row['max_abs_err_16bit'] or 0.0:.2e} "
+                f"({row['max_steps_16bit'] or 0.0:.3g} steps; "
+                f"{row['share_past_one_step'] or 0.0:.3g} of the elements "
+                f"past one step, by at most "
+                f"{row['max_move_share_past_one_step'] or 0.0:.3g} of the "
+                f"tensor's move), mutants {mut or '-'}, tied {tied}, "
+                f"zero tensor moved {moved} "
+                f"{'ok' if ok else 'FAIL ' + str(bad[:4])}")
+            del want, base
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fused-update checks disagree with "
+                             f"the plain version, or pass a planted "
+                             f"mutation: {bad}")
+    return rows
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -2183,7 +2506,7 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
     import paddle_tpu_torch
     dev = ids.device
     batches = [(ids.roll(i, 0), labels.roll(i, 0)) for i in range(JIT_STEPS)]
-    replay_counts = {}
+    replay_counts, update_counts, update_want = {}, {}, {}
     ties = []
 
     def run_steps(jit, count=False):
@@ -2194,10 +2517,14 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
             if count and i == 1:                 # a replay, counted
                 sync(torch, dev)
                 reset()
+                _reset_update()
             losses.append(model.train_batch([b_ids], [b_labels])["loss"])
             if count and i == 1:
                 sync(torch, dev)
                 replay_counts.update(launches())
+                update_counts.update(_update_launches())
+                update_want.update(_update_want(model._optimizer,
+                                                net.parameters()))
             if tied is not None:
                 ties.append(tied(model._optimizer))
         state = _train_state(net, model._optimizer)
@@ -2238,7 +2565,8 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
         f"parameters {param_dtype}: {typed}; fp32 masters {masters}; every "
         f"step's parameters = bf16(master): "
         f"{all(ties) if ties else 'n/a'}; a replayed step's launches "
-        f"{replay_counts} (expected {want})")
+        f"{replay_counts} (expected {want}), update {update_counts} "
+        f"(expected {update_want})")
     if cap_e or not (cap_j and cap_j2):
         raise AssertionError("jit=True did not capture, or jit=False did")
     if not repeats:
@@ -2257,6 +2585,9 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
     if replay_counts != want:
         raise AssertionError(f"a replayed step counted {replay_counts}; "
                              f"expected {want}")
+    if update_counts != update_want or not update_counts["update"]:
+        raise AssertionError(f"a replayed step launched the update "
+                             f"{update_counts}; expected {update_want}")
     masks = None
     if dropout:
         masks = bool(l_j[-2] != l_j[-1]) and bool(l_e[-2] != l_e[-1])
@@ -2272,7 +2603,8 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
                 captured_vs_uncaptured=dict(loss_rel=d_losses,
                                             params_rel_l2=d_params),
                 losses_uncaptured=l_e.tolist(), losses_captured=l_j.tolist(),
-                replay_launches=replay_counts, masks_change=masks,
+                replay_launches=replay_counts,
+                replay_update_launches=update_counts, masks_change=masks,
                 params_dtype=str(param_dtype), params_typed=typed,
                 params_fp32=typed and param_dtype == torch.float32,
                 masters=masters, params_tied_to_masters=(
@@ -2306,6 +2638,35 @@ def _attention_want(L, fwd_mode, bwd_mode, amp):
     sm90 = L if amp else 0
     return dict(fwd=L, bwd=L, sm90_fwd=sm90, sm90_bwd=sm90,
                 modes={f"fwd {fwd_mode}": L, f"bwd {bwd_mode}": L})
+
+
+def _reset_update():
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    mtu.LAUNCHES.clear()
+    mtu.NORM_LAUNCHES = mtu.POW_LAUNCHES = 0
+
+
+def _update_launches():
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    return dict(update=dict(mtu.LAUNCHES), update_norms=mtu.NORM_LAUNCHES,
+                update_pows=mtu.POW_LAUNCHES)
+
+
+def _update_want(opt, params):
+    """The fused update's launches in one step of ``opt``: one update pass
+    in its kind per type setup (type, master or not) among ``params`` with
+    a gradient, as many norms passes (LarsMomentum, Lamb) and powers'
+    advances (the kinds with powers)."""
+    spec = opt._kernel_spec()
+    groups = len({(p.dtype, id(p) in opt._master_weights) for p in params
+                  if p.grad is not None})
+    return dict(update={spec.kind: groups},
+                update_norms=groups if spec.kind in ("lars", "lamb") else 0,
+                update_pows=groups if spec.betas else 0)
+
+
+# fit_recipe's AdamW on fp32 parameters: one group, one powers' advance
+FIT_UPDATE = dict(update={"adamw": 1}, update_norms=0, update_pows=1)
 
 
 def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True,
@@ -2698,9 +3059,11 @@ def fit_gpt(torch, fa, dev, cfg, amp=None):
     L, T = w["num_layers"], cfg["seq"]
     net = GPT(GPTConfig(**w), device=dev, seed=0)
     mode = fa._pallas_mode(T, T, True)
-    out = fit_path(torch, net, cfg, lambda: _reset_attention(fa),
-                   lambda: _attention_launches(fa),
-                   _attention_want(L, mode, mode, amp), amp=amp)
+    out = fit_path(torch, net, cfg,
+                   lambda: (_reset_attention(fa), _reset_update()),
+                   lambda: dict(_attention_launches(fa), **_update_launches()),
+                   dict(_attention_want(L, mode, mode, amp), **FIT_UPDATE),
+                   amp=amp)
     del net
     if amp is None:
         out["metric_ms"] = metric_ms(torch, cfg["batch"], T, w["vocab_size"],
@@ -2717,10 +3080,11 @@ def fit_encoder(torch, fa, fl, dev, cfg, encoder_cfg, amp="O1"):
     net = build_encoder(encoder_cfg, dev)
     mode = fa._pallas_mode(T, T, False)
     want = dict(_attention_want(L, mode, mode, amp), fused_ln=2 * L,
-                fused_ln_bwd=2 * L)
+                fused_ln_bwd=2 * L, **FIT_UPDATE)
     out = fit_path(torch, net, dict(cfg, seq=T),
-                   lambda: _reset_encoder(fa, fl),
-                   lambda: _encoder_launches(fa, fl), want, amp=amp,
+                   lambda: (_reset_encoder(fa, fl), _reset_update()),
+                   lambda: dict(_encoder_launches(fa, fl),
+                                **_update_launches()), want, amp=amp,
                    epochs=1, variants=("uncaptured",), profile=False)
     del net
     return out
@@ -2734,48 +3098,182 @@ def _o2_gpt(cfg):
 
 
 # -- phase 13 ------------------------------------------------------------------
-def update_bytes(net, opt) -> int:
-    """The bytes one ``opt.step()`` must move for ``net``'s gradients,
-    each input read once and each output written once: per element the
-    parameter (or its master) and every slot of its size read and
+def graph_ms(torch, fn, reps=10):
+    """Device time of one ``fn()``: ``fn`` run once on a side stream,
+    captured in a CUDA graph, and the graph replayed ``reps`` times between
+    two CUDA events: the card's time for the call's kernels and the gaps
+    between them, without the host's time to launch them.  (torch.profiler
+    recorded only some of the update kernel's launches, or none, once CUDA
+    graphs had run in the process: 0.0904 ms for a 0.79 ms bound.)"""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
+
+
+def update_bytes(params, opt, two_pass=False) -> int:
+    """The bytes one ``opt.step()`` must move for the gradients of
+    ``params``, each input read once and each output written once: per
+    element the parameter (or its master) and every slot read and
     written, the gradient read, and a decorated parameter written from
-    its master."""
+    its master.  With ``two_pass``, the bytes of the kernel's two passes
+    for the trust-ratio optimizers: LarsMomentum's norms pass reads the
+    parameter and the gradient once more; Lamb's norms pass reads the
+    parameter, gradient and moments and writes the moments, its update
+    pass reads the parameter and the moments again (40 B an element in
+    fp32 against the one pass's 28)."""
+    spec = opt._kernel_spec()
     total = 0
-    for p in net.parameters():
+    for p in params:
         if p.grad is None:
             continue
         master = opt._master_weights.get(id(p))
         target = p if master is None else master
-        slots = sum(v.element_size() for v in opt._state[id(p)].values()
-                    if v.numel() == p.numel())
+        slots = sum(opt._state[id(p)][k].element_size() for k in spec.slots)
         per = 2 * target.element_size() + p.grad.element_size() + 2 * slots
         if master is not None:
             per += p.element_size()
+        if two_pass and spec.kind == "lars":
+            per += target.element_size() + p.grad.element_size()
+        if two_pass and spec.kind == "lamb":
+            per += target.element_size() + slots
         total += per * p.numel()
     return total
 
 
 def update_time(torch, net, model, ids, labels):
-    """Device time of ``optimizer.step()`` alone (eager, 10 calls after 1,
-    ``profile_train.device_ms_per_call``) on the gradients of one
-    ``train_batch(update=False)``, beside its bound: ``update_bytes`` over
+    """Device time of ``optimizer.step()`` alone (:func:`graph_ms`, 10
+    replays) on the gradients of one ``train_batch(update=False)``,
+    through the kernel and (5 replays) the per-leaf path
+    (``FLAGS_fused_optimizer=0``), beside its bound: ``update_bytes`` over
     the memory rate (an update does a few tens of fp32 operations an
-    element, under a tenth of that time at 67 TFLOP/s)."""
-    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    element, under a tenth of that time at 67 TFLOP/s), for LarsMomentum
+    and Lamb also at the kernel's two passes."""
     opt = model._optimizer
     model.train_batch([ids], [labels], update=False)
-    nbytes = update_bytes(net, opt)
-    n = sum(p.numel() for p in net.parameters() if p.grad is not None)
-    ms = device_ms_per_call(opt.step, reps=10, warmup=1)
+    params = list(net.parameters())
+    nbytes = update_bytes(params, opt)
+    two = update_bytes(params, opt, two_pass=True)
+    n = sum(p.numel() for p in params if p.grad is not None)
+    ms = graph_ms(torch, opt.step)
+    with _update_route("per_leaf"):
+        leaf_ms = graph_ms(torch, opt.step, reps=5)
+    torch.cuda.empty_cache()
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     opt.clear_grad()
-    log(f"  optimizer.step() alone: device {ms:.4f} ms for {n} parameters "
-        f"({len(list(net.parameters()))} tensors); bound {bound_ms:.4f} ms "
-        f"({nbytes / n:.1f} B an element over 3.35 TB/s), "
-        f"{bound_ms / ms:.1%} of it")
-    return dict(device_ms=ms, bound_ms=bound_ms, bound_by="bytes",
-                bytes=nbytes, bytes_per_element=nbytes / n, elements=n,
+    log(f"  optimizer.step() alone: device {ms:.4f} ms through the kernel, "
+        f"{leaf_ms:.4f} per leaf, for {n} parameters "
+        f"({len(params)} tensors); bound {bound_ms:.4f} ms "
+        f"({nbytes / n:.1f} B an element over 3.35 TB/s; the kernel's "
+        f"passes {two / n:.1f} B), {bound_ms / ms:.1%} of it")
+    return dict(device_ms=ms, per_leaf_device_ms=leaf_ms, bound_ms=bound_ms,
+                bound_by="bytes", bytes=nbytes, bytes_per_element=nbytes / n,
+                two_pass_bound_ms=two / HBM_BYTES_PER_S * 1e3,
+                two_pass_bytes_per_element=two / n, elements=n,
                 share_of_bound=bound_ms / ms)
+
+
+def _library_adam(torch, opt, params, kind):
+    """``torch._fused_adam_`` / ``torch._fused_adamw_`` (never called by the
+    port) on copies of ``params`` with their gradients and fresh fp32
+    moments, at the optimizer's rate, betas, eps and decay: (ms with CUDA
+    events, device ms).  Its eps sits outside the folded bias correction
+    of the reference's Adam, so its result is held to nothing."""
+    ps = [p.detach().clone() for p in params]
+    grads = [p.grad for p in params]
+    m1 = [torch.zeros_like(p) for p in ps]
+    m2 = [torch.zeros_like(p) for p in ps]
+    steps = [torch.ones((), device=p.device) for p in ps]
+    fn = torch._fused_adamw_ if kind == "adamw" else torch._fused_adam_
+    wd = opt._weight_decay if kind == "adamw" else 0.0
+
+    def call():
+        fn(ps, grads, m1, m2, [], steps, lr=opt.get_lr(), beta1=opt._beta1,
+           beta2=opt._beta2, weight_decay=wd, eps=opt._epsilon,
+           amsgrad=False, maximize=False)
+    return time_ms(torch, call, reps=10, warmup=2), graph_ms(torch, call)
+
+
+def timing_update(torch, dev="cuda", configs=None,
+                  setups=("fp32", "bf16 master")):
+    """Phase 6's fused optimizer update: ``optimizer.step()`` on the GPT's
+    149 parameters at full width (random gradients), for each optimizer of
+    phase 13a, fp32 and decorated (bf16 over fp32 masters): the kernel
+    (CUDA events around the eager call, host time included, and device
+    time from :func:`graph_ms`), its plain version
+    (``multi_tensor_update_ref`` on the card, events), the per-leaf path
+    (``FLAGS_fused_optimizer=0``, events and device time), and in fp32 for
+    Adam and AdamW ``torch._fused_adam(w)_`` (:func:`_library_adam`);
+    beside the bound of :func:`update_bytes`, one pass and, for
+    LarsMomentum and Lamb, the kernel's two."""
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    named = update_shapes(torch, GPT_WIDTH, dev)
+    rows = []
+    for setup in setups:
+        for label, _, _, make in configs or OPTIMIZERS:
+            torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = update_params(torch, named, setup, dev, gen, attrs=False)
+            opt = update_optimizer(make, params, setup)
+            update_grads(torch, params, gen)
+            P = [p for _, p in params]
+            opt.step()                      # slots, masters, tables
+            sync(torch, dev)
+            before = sum(mtu.LAUNCHES.values())
+            opt.step()
+            launches = sum(mtu.LAUNCHES.values()) - before
+            ms = time_ms(torch, opt.step, reps=10, warmup=1)
+            device_ms = graph_ms(torch, opt.step)
+            with _update_route("plain"):
+                plain_ms = time_ms(torch, opt.step, reps=3, warmup=1)
+            with _update_route("per_leaf"):
+                leaf_ms = time_ms(torch, opt.step, reps=3, warmup=1)
+                leaf_device_ms = graph_ms(torch, opt.step, reps=3)
+            kind = opt._kernel_spec().kind
+            lib_ms = lib_device_ms = None
+            if setup == "fp32" and kind in ("adam", "adamw"):
+                lib_ms, lib_device_ms = _library_adam(torch, opt, P, kind)
+            nbytes, two = update_bytes(P, opt), update_bytes(P, opt, True)
+            n = sum(p.numel() for p in P)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(
+                optimizer=label, kind=kind, setup=setup, tensors=len(P),
+                elements=n, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                per_leaf_ms=leaf_ms, per_leaf_device_ms=leaf_device_ms,
+                library_ms=lib_ms, library_device_ms=lib_device_ms,
+                library=(f"torch._fused_{kind}_" if lib_ms is not None
+                         else None),
+                bound_ms=b_ms, bound_by="bytes", bytes_per_element=nbytes / n,
+                two_pass_bound_ms=two / HBM_BYTES_PER_S * 1e3,
+                two_pass_bytes_per_element=two / n,
+                share_of_bound=b_ms / device_ms, update_launches=launches))
+            log(f"  step() {label:20s} {setup:11s}: kernel {ms:.4f} ms, "
+                f"device {device_ms:.4f} ({b_ms / device_ms:.1%} of the "
+                f"{b_ms:.4f} ms bound, {nbytes / n:.0f} B an element; two "
+                f"passes {two / n:.0f} B); plain {plain_ms:.4f}; per leaf "
+                f"{leaf_ms:.4f}, device {leaf_device_ms:.4f}; library "
+                f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, device "
+                f"{lib_device_ms if lib_device_ms is None else round(lib_device_ms, 4)}"
+                f"; {launches} update launch(es) a step")
+            del params, opt, P
+            torch.cuda.empty_cache()
+    return rows
 
 
 # phase 13a: every optimizer of the port on the eager GPT at full width,
@@ -2826,12 +3324,13 @@ def optimizers_path(torch, fa, dev, cfg, configs=OPTIMIZERS):
             torch, fa, dev, cfg, amp=amp, decorate=decorate,
             make_opt=lambda P, make=make: make(optimizer, regularizer, P),
             engines=("captured",), update_ms=True, plain_step=False)
-    log("  phase 13a: optimizer, captured step ms p50, step() device ms, "
-        "bound ms, share")
+    log("  phase 13a: optimizer, captured step ms p50, step() device ms "
+        "(kernel, per leaf), bound ms, share, update launches a replay")
     for label, r in out.items():
         u = r["update"]
         log(f"    {label}: {r['step_ms_p50']:.3f}, {u['device_ms']:.4f}, "
-            f"{u['bound_ms']:.4f}, {u['share_of_bound']:.1%}")
+            f"{u['per_leaf_device_ms']:.4f}, {u['bound_ms']:.4f}, "
+            f"{u['share_of_bound']:.1%}, {r['replay_update_launches']}")
     return out
 
 
@@ -2861,11 +3360,13 @@ def lamb_o2(torch, fa, fl, dev, cfg, batch=ENCODER_BATCH):
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
-        fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS):
+        fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None):
     """Phases 3-13 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
-    and the optimizers of phase 13a; returns the report and the
-    ``kernels`` entries."""
+    and the optimizers of phase 13a (and of phase 6's update timing);
+    ``update_named`` the (name, shape) pairs of phase 3's update checks
+    (default: the GPT's parameters and UPDATE_EXTRA); returns the report
+    and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -2885,6 +3386,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     ln_checks = check_fused_ln(torch, fl, dev)
     mask_checks = check_fused_ln_mask(torch, fl, dev)
     ln_bwd_checks = check_fused_ln_bwd(torch, fl, dev)
+    update_checks = check_update_kernel(torch, dev, update_named)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -2903,6 +3405,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     ln_time = timing_fused_ln(torch, fl, encoder_cfg["dropout_rate"], dev)
     ln_bwd_time = timing_fused_ln_bwd(torch, fl, encoder_cfg["dropout_rate"],
                                       dev)
+    update_times = timing_update(torch, dev, optimizer_cfgs)
     del net
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
@@ -3205,6 +3708,38 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              max_abs_err_bf16=max(r["max_abs_err"] for r in ln_bwd_checks
                                   if r["dtype"] == r["residual_dtype"] ==
                                   "bfloat16"))]
+    adamw = next(r for r in update_times
+                 if r["kind"] == "adamw" and r["setup"] == "fp32")
+    kernels.append(dict(
+        name="multi_tensor_update", route="cuda",
+        source="paddle_tpu_torch/csrc/multi_tensor_update.cu",
+        replaces="paddle_tpu/optimizer/fused_update.py:91", tpu_kernel=None,
+        note="the optimizer update: the reference's is XLA (a jitted vmap "
+             "per group in eager steps, fusions in its jitted step), no "
+             "Pallas kernel",
+        launches=sum(eager["replay_update_launches"]["update"].values()),
+        max_abs_err=max(r["max_abs_err"] for r in update_checks
+                        if r["setup"] == "fp32"),
+        ms=adamw["ms"], plain_ms=adamw["plain_ms"],
+        bound_ms=adamw["bound_ms"], bound_by="bytes",
+        library_ms=adamw["library_ms"], library=adamw["library"],
+        timed_shape=f"AdamW step() on the GPT's {adamw['tensors']} "
+                    f"parameters, {adamw['elements']} elements, fp32",
+        device_ms=adamw["device_ms"], share_of_bound=adamw["share_of_bound"],
+        per_leaf_ms=adamw["per_leaf_ms"],
+        per_leaf_device_ms=adamw["per_leaf_device_ms"],
+        library_device_ms=adamw["library_device_ms"],
+        max_abs_err_16bit=max(r["max_abs_err_16bit"] for r in update_checks
+                              if r["max_abs_err_16bit"] is not None),
+        max_steps_16bit=max(r["max_steps_16bit"] for r in update_checks
+                            if r["max_steps_16bit"] is not None),
+        checks=len(update_checks),
+        launches_replay={"eager": eager["replay_update_launches"],
+                         "eager_amp_o1": eager_o1["replay_update_launches"],
+                         "fit_step": fit_fp32["launches_per_step"]["update"],
+                         "optimizers": {k: v["replay_update_launches"]
+                                        for k, v in opts.items()},
+                         "lamb_o2": dec["replay_update_launches"]}))
     report = dict(checks=checks, qkv_checks=qkv_checks,
                   fp64_checks=fp64_checks,
                   head_checks=head_checks, dlogits_checks=dlogits_checks,
@@ -3222,7 +3757,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   encoder_amp_o2=enc_o2, fused_ln_bwd_checks=ln_bwd_checks,
                   fused_ln_bwd_timing=ln_bwd_time, fit=fit_fp32,
                   fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc,
-                  optimizers=opts, lamb_o2=lamb)
+                  optimizers=opts, lamb_o2=lamb, update_checks=update_checks,
+                  update_timing=update_times)
     return report, kernels
 
 

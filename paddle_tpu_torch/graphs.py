@@ -61,7 +61,10 @@ COUNTERS = (("flash_attention", "FWD_LAUNCHES"),
             ("fused_ln", "BWD_LAUNCHES"),
             ("softmax_xent", "LAUNCHES"),
             ("softmax_xent", "DLOGITS_LAUNCHES"),
-            ("softmax_xent", "ROUTE_LAUNCHES"))
+            ("softmax_xent", "ROUTE_LAUNCHES"),
+            ("multi_tensor_update", "LAUNCHES"),
+            ("multi_tensor_update", "NORM_LAUNCHES"),
+            ("multi_tensor_update", "POW_LAUNCHES"))
 
 # one capture stream per device
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}

@@ -1,0 +1,343 @@
+"""The optimizer update over many tensors in one launch — the kernel
+behind :mod:`paddle_tpu_torch.optimizer.fused_update`, the counterpart of
+``paddle_tpu/optimizer/fused_update.py`` (no Pallas kernel: the reference
+runs the update as XLA fusions).
+
+A :class:`Spec` describes an optimizer's kernel functor: its kind (one of
+:data:`KINDS`), its hyperparameters in the functor's order, its flags, the
+names of its element slots and the betas of its per-tensor powers.  A
+:class:`Record` is one parameter of a step: the parameter, its gradient,
+its fp32 master (or None), its slots and powers, and what varies per
+tensor (the lr scale, an L1 or L2 regularizer, AdamW's decay for the
+name, LarsMomentum's exclusion).  A :class:`Table` is one group of
+records that share the types: on the card it holds the device table of
+records, the prefix table of chunks and, for the trust-ratio kinds, the
+norm buffers, made once and read by address, so that a captured step
+replays them.
+
+:func:`multi_tensor_update` launches ``csrc/multi_tensor_update.cu`` for a
+table on the card (or raises) and computes :func:`multi_tensor_update_ref`,
+its plain version, for CPU tensors.  The type setups the kernel takes:
+fp32 parameters; bf16 or fp16 parameters over fp32 masters (fp32 slots);
+bf16 or fp16 parameters without masters (slots in their type).  The
+plain version also takes fp64 on the CPU, computing in fp64.
+:data:`LAUNCHES` (by kind), :data:`NORM_LAUNCHES` and :data:`POW_LAUNCHES`
+count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["KINDS", "Spec", "Record", "Table", "multi_tensor_update",
+           "multi_tensor_update_ref", "LAUNCHES", "NORM_LAUNCHES",
+           "POW_LAUNCHES", "CHUNK"]
+
+# the kernel's kinds, in the order of its Kind enum
+KINDS = ("sgd", "momentum", "lars", "adam", "adamw", "adamax", "adagrad",
+         "adadelta", "rmsprop", "rmsprop_centered", "lamb", "ftrl",
+         "decayed_adagrad")
+_NORM_KINDS = ("lars", "lamb")
+# elements a block updates (a multiple of 256 threads x 8)
+CHUNK = 32768
+_REG = {None: 0, "L1Decay": 1, "L2Decay": 2}
+
+# kernel launches since import (plain integers; tests and the smoke run
+# reset them and read them back): the update pass by kind, the norms pass
+# (two launches, counted once) and the powers' advance
+LAUNCHES: Dict[str, int] = {}
+NORM_LAUNCHES = 0
+POW_LAUNCHES = 0
+
+_lib = None
+
+
+@dataclass(frozen=True)
+class Spec:
+    """An optimizer's kernel functor: ``kind`` (:data:`KINDS`), ``hyper``
+    (at most 8 numbers, the functor's ``h``), ``flags`` (Momentum 1:
+    Nesterov; Ftrl 1: ``lr_power`` other than -0.5), ``slots`` (the
+    element slots' names in the functor's order) and ``betas`` (the
+    factor of each per-tensor power, ``beta1_pow`` then ``beta2_pow``)."""
+    kind: str
+    hyper: Tuple[float, ...] = ()
+    flags: int = 0
+    slots: Tuple[str, ...] = ()
+    betas: Tuple[float, ...] = ()
+
+
+@dataclass
+class Record:
+    """One parameter of a step.  ``slots`` and ``pows`` follow the Spec's
+    ``slots`` and ``betas``; ``reg`` is None, ``"L1Decay"`` or
+    ``"L2Decay"`` with ``reg_coeff``; ``decay`` AdamW's weight decay for
+    this name (0.0: none); ``plain`` an excluded LarsMomentum name."""
+    name: str
+    param: torch.Tensor
+    grad: torch.Tensor
+    master: Optional[torch.Tensor]
+    slots: Tuple[torch.Tensor, ...]
+    pows: Tuple[torch.Tensor, ...] = ()
+    lr_scale: float = 1.0
+    reg: Optional[str] = None
+    reg_coeff: float = 0.0
+    decay: float = 0.0
+    plain: bool = False
+
+    @property
+    def target(self) -> torch.Tensor:
+        """The tensor the update steps: the master, else the parameter."""
+        return self.param if self.master is None else self.master
+
+
+class _Rec(ctypes.Structure):
+    """``Rec`` of csrc/multi_tensor_update.cu, field for field."""
+    _fields_ = [("w", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("p16", ctypes.c_void_p), ("s", ctypes.c_void_p * 3),
+                ("pw", ctypes.c_void_p * 2), ("n", ctypes.c_longlong),
+                ("lr_scale", ctypes.c_float), ("reg_coeff", ctypes.c_float),
+                ("decay", ctypes.c_float), ("reg", ctypes.c_int),
+                ("plain", ctypes.c_int), ("vec", ctypes.c_int)]
+
+
+assert ctypes.sizeof(_Rec) == 96
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = _build.load("multi_tensor_update")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mt_update.argtypes = [p, p, i, i, i, i, i, p, p, i, p, p]
+        lib.mt_update.restype = i
+        lib.mt_norms.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p]
+        lib.mt_norms.restype = i
+        lib.mt_pows.argtypes = [p, i, ctypes.c_float, ctypes.c_float, p]
+        lib.mt_pows.restype = i
+        lib.multi_tensor_update_error_string.argtypes = [i]
+        lib.multi_tensor_update_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+# the kernel's type setups: (parameter type, master type or None)
+_TYPES = ((torch.float32, None), (torch.bfloat16, torch.float32),
+          (torch.bfloat16, None), (torch.float16, torch.float32),
+          (torch.float16, None))
+
+
+def _types_code(r: Record) -> int:
+    """The kernel's type setup of a record on the card (its index in
+    ``_TYPES``); a TypeError naming the tensor otherwise."""
+    key = (r.param.dtype, None if r.master is None else r.master.dtype)
+    if key not in _TYPES:
+        raise TypeError(
+            f"multi_tensor_update: {r.name}: the kernel takes fp32 "
+            f"parameters and bf16 or fp16 parameters with or without fp32 "
+            f"masters; got a {key[0]} parameter with "
+            f"{'no master' if key[1] is None else 'a ' + str(key[1]) + ' master'}")
+    return _TYPES.index(key)
+
+
+def _check(spec: Spec, records: Sequence[Record]) -> torch.device:
+    """What the kernel and its plain version take alike; returns the
+    records' device."""
+    if spec.kind not in KINDS:
+        raise ValueError(f"multi_tensor_update: unknown kind {spec.kind!r}")
+    if not records:
+        raise ValueError("multi_tensor_update: an empty group")
+    device = records[0].param.device
+    for r in records:
+        w = r.target
+        tensors = {"parameter": r.param, "gradient": r.grad, "master":
+                   r.master, **dict(zip(spec.slots, r.slots))}
+        if len(r.slots) != len(spec.slots) or len(r.pows) != len(spec.betas):
+            raise ValueError(f"multi_tensor_update: {r.name}: {len(r.slots)} "
+                             f"slots and {len(r.pows)} powers where "
+                             f"{spec.kind} has {len(spec.slots)} and "
+                             f"{len(spec.betas)}")
+        for what, t in tensors.items():
+            if t is None:
+                continue
+            if t.device != device:
+                raise ValueError(f"multi_tensor_update: {r.name}'s {what} is "
+                                 f"on {t.device}, the group on {device}")
+            if t.numel() != r.param.numel():
+                raise ValueError(f"multi_tensor_update: {r.name}'s {what} "
+                                 f"has {t.numel()} elements, the parameter "
+                                 f"{r.param.numel()}")
+            if not t.is_contiguous():
+                raise ValueError(f"multi_tensor_update: {r.name}'s {what} "
+                                 f"is not contiguous")
+        if r.grad.dtype != r.param.dtype or any(s.dtype != w.dtype
+                                                for s in r.slots):
+            raise TypeError(f"multi_tensor_update: {r.name}: the gradient "
+                            f"must be in the parameter's type and the slots "
+                            f"in the {'master' if r.master is not None else 'parameter'}"
+                            f"'s; got {r.grad.dtype}, "
+                            f"{[s.dtype for s in r.slots]}")
+        if any(t.dtype != torch.float32 or t.numel() != 1 or t.device != device
+               for t in r.pows):
+            raise TypeError(f"multi_tensor_update: {r.name}: the powers must "
+                            f"be fp32 scalars on {device}")
+        if r.reg not in _REG:
+            raise ValueError(f"multi_tensor_update: {r.name}: regularizer "
+                             f"{r.reg!r}; the kernel adds L1Decay and "
+                             f"L2Decay")
+    return device
+
+
+class Table:
+    """One group of records of one type setup, checked, and on the card its
+    device tables (:meth:`tensors`), built here, outside any capture."""
+
+    def __init__(self, spec: Spec, records: Sequence[Record]):
+        self.spec = spec
+        self.records = tuple(records)
+        self.names = tuple(r.name for r in self.records)
+        self.device = _check(spec, self.records)
+        self.recs = self.prefix = self.partials = self.norms = None
+        self.nchunks = sum(-(-r.param.numel() // CHUNK) for r in self.records)
+        if self.device.type != "cuda":
+            return
+        codes = {_types_code(r) for r in self.records}
+        if len(codes) != 1:
+            raise TypeError(f"multi_tensor_update: a group of mixed type "
+                            f"setups {sorted(codes)}")
+        self.types = codes.pop()
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "multi_tensor_update: the device table would be built while "
+                "a CUDA graph is being captured (a host-to-device copy); run "
+                "the step once uncaptured first")
+        arr = (_Rec * len(self.records))()
+        prefix = [0]
+        for rec, r in zip(arr, self.records):
+            ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + [
+                s.data_ptr() for s in r.slots]
+            rec.w, rec.g = ptrs[0], ptrs[1]
+            rec.p16 = r.param.data_ptr() if r.master is not None else None
+            if rec.p16:
+                ptrs.append(rec.p16)
+            for k, s in enumerate(r.slots):
+                rec.s[k] = s.data_ptr()
+            for k, t in enumerate(r.pows):
+                rec.pw[k] = t.data_ptr()
+            rec.n = r.param.numel()
+            rec.lr_scale, rec.reg_coeff = r.lr_scale, r.reg_coeff
+            rec.decay, rec.reg = r.decay, _REG[r.reg]
+            rec.plain = int(r.plain)
+            rec.vec = int(all(p % 16 == 0 for p in ptrs))
+            prefix.append(prefix[-1] + -(-rec.n // CHUNK))
+        self.recs = torch.frombuffer(bytearray(arr), dtype=torch.uint8).to(
+            self.device)
+        self.prefix = torch.tensor(prefix, dtype=torch.int32).to(self.device)
+        if spec.kind in _NORM_KINDS:
+            self.partials = torch.empty(2 * max(self.nchunks, 1),
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self.norms = torch.empty(2 * len(self.records),
+                                     dtype=torch.float32, device=self.device)
+
+    def tensors(self):
+        """The device tensors a launch reads by address."""
+        return tuple(t for t in (self.recs, self.prefix, self.partials,
+                                 self.norms) if t is not None)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def multi_tensor_update(spec: Spec, table: Table, lr: torch.Tensor,
+                        update) -> None:
+    """Step every record of ``table`` in place with the learning rate
+    ``lr`` (a 0-d fp32 tensor on the table's device): parameters (or
+    masters, and the 16-bit parameters from them), slots and powers.  On
+    the card: the norms pass for LarsMomentum and Lamb, the update pass,
+    and the powers' advance where the kind has powers; CPU tensors take
+    :func:`multi_tensor_update_ref` with ``update``, the optimizer's
+    ``_update``."""
+    global NORM_LAUNCHES, POW_LAUNCHES
+    if table.device.type == "cpu":
+        multi_tensor_update_ref(spec, table.records, lr, update)
+        return
+    if table.device.type != "cuda":
+        raise ValueError(f"multi_tensor_update runs on CUDA or CPU, not "
+                         f"{table.device}")
+    if lr.dtype != torch.float32 or lr.numel() != 1 or \
+            lr.device != table.device:
+        raise ValueError(f"multi_tensor_update: the rate must be one fp32 "
+                         f"on {table.device}")
+    lib = _kernel()
+    kind = KINDS.index(spec.kind)
+    hyper = (ctypes.c_float * 8)(*spec.hyper)
+    n = len(table.records)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        if table.nchunks and spec.kind in _NORM_KINDS:
+            _raise(lib, "mt_norms", lib.mt_norms(
+                table.recs.data_ptr(), table.prefix.data_ptr(), n,
+                table.nchunks, CHUNK, kind, table.types, hyper, spec.flags,
+                table.partials.data_ptr(), table.norms.data_ptr(), stream))
+            NORM_LAUNCHES += 1
+        if table.nchunks:           # none: every tensor is empty
+            _raise(lib, "mt_update", lib.mt_update(
+                table.recs.data_ptr(), table.prefix.data_ptr(), n,
+                table.nchunks, CHUNK, kind, table.types, lr.data_ptr(),
+                hyper, spec.flags, _ptr(table.norms), stream))
+            LAUNCHES[spec.kind] = LAUNCHES.get(spec.kind, 0) + 1
+        if spec.betas:
+            b1, b2 = (tuple(spec.betas) + (1.0,))[:2]
+            _raise(lib, "mt_pows", lib.mt_pows(table.recs.data_ptr(), n, b1,
+                                               b2, stream))
+            POW_LAUNCHES += 1
+
+
+def _raise(lib, what: str, err: int) -> None:
+    if err:
+        raise RuntimeError(
+            f"multi_tensor_update: {what} launch failed: "
+            f"{lib.multi_tensor_update_error_string(err).decode()} "
+            f"(cudaError {err})")
+
+
+# -- the plain version ---------------------------------------------------------
+_POWS = ("beta1_pow", "beta2_pow")
+
+
+def multi_tensor_update_ref(spec: Spec, records: Sequence[Record],
+                            lr: torch.Tensor, update) -> None:
+    """Plain version of the kernel: ``update``, the optimizer's
+    per-parameter ``_update`` (the per-leaf path's arithmetic), on copies
+    of each record in fp32 (or wider for a wider parameter), each output
+    rounded once to its type when it is stored, as the kernel stores it.
+    Lamb's ratio reads its moments as their slots store them: the
+    kernel's update pass reads them back.  AdamW takes the record's
+    decay, which its decay function gave when the records were made."""
+    _check(spec, records)
+    for r in records:
+        w0 = r.target
+        acc = torch.promote_types(w0.dtype, torch.float32)
+        w = w0.to(acc)
+        g = r.grad.to(acc)
+        if r.reg == "L1Decay":
+            g = g + r.reg_coeff * torch.sign(w)
+        elif r.reg == "L2Decay":
+            g = g + r.reg_coeff * w
+        state = {k: t.to(acc) for k, t in zip(spec.slots, r.slots)}
+        state.update(zip(_POWS, r.pows))
+        kw = ({"stored": lambda t: t.to(w0.dtype).to(acc)}
+              if spec.kind == "lamb" else
+              {"decay": r.decay} if spec.kind == "adamw" else {})
+        new_w, new_state = update(w, g, state, lr * r.lr_scale, r.name, **kw)
+        for k, t in zip(spec.slots + _POWS, r.slots + r.pows):
+            t.copy_(new_state[k])
+        w0.copy_(new_w)
+        if r.master is not None:
+            r.param.copy_(r.master)

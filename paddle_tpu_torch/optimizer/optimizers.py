@@ -50,6 +50,15 @@ rate), and ``Model.train_batch`` refreshes before every replay.
 ``grad_clip`` (``nn/clip.py``) clips the gradients in place at the start
 of ``step()``, on the device, before the update (:129-130).
 
+``step()`` then hands the update to
+:func:`~paddle_tpu_torch.optimizer.fused_update.fused_step` (the
+reference's :119-125): every optimizer's step is one multi-tensor kernel
+launch per group of parameters (``ops/multi_tensor_update.py``), whose
+functor each class describes in :meth:`Optimizer._kernel_spec`.  The
+per-parameter ``_update`` below stays the per-leaf path, taken with
+``FLAGS_fused_optimizer=0`` or a regularizer other than ``L1Decay`` /
+``L2Decay``.
+
 ``parameters`` takes tensors or ``(name, tensor)`` pairs; an unnamed
 tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
@@ -63,12 +72,15 @@ makes.  A sparse gradient (``torch.nn.Embedding(sparse=True)``) reaching
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import torch
 
 from ..nn.clip import ClipGradBase
+from ..ops.multi_tensor_update import Spec
 from ..regularizer import L2Decay, WeightDecayRegularizer
+from . import fused_update
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
@@ -198,13 +210,27 @@ class Optimizer:
         tensor."""
         raise NotImplementedError
 
+    def _kernel_spec(self) -> Spec:
+        """The fused update's functor for this optimizer
+        (``ops/multi_tensor_update.py``): its kind, hyperparameters in the
+        functor's order, flags, element slots and the betas of its
+        powers."""
+        raise NotImplementedError
+
+    def _kernel_record(self, name: str) -> dict:
+        """What the fused update's record of parameter ``name`` carries
+        beyond its tensors (AdamW's decay, LarsMomentum's exclusion)."""
+        return {}
+
     def bound_tensors(self):
         """The tensors a step reads and writes by address: the learning
-        rate scalars, every slot of the state and every master."""
+        rate scalars, every slot of the state, every master and the fused
+        update's device tables and gradient buffers."""
         yield from self._lr_on.values()
         for slot in self._state.values():
             yield from slot.values()
         yield from self._master_weights.values()
+        yield from fused_update.bound_tensors(self)
 
     # -- eager step --------------------------------------------------------
     def _regularizer_for(self, p):
@@ -221,6 +247,12 @@ class Optimizer:
             "learning_rate", 1.0)
         return lr if scale == 1.0 else lr * scale
 
+    def _live(self):
+        """The ``(name, parameter)`` pairs a step updates: those with a
+        gradient."""
+        return [(name, p) for name, p in self._params
+                if p.requires_grad and p.grad is not None]
+
     @torch.no_grad()
     def step(self) -> None:
         if self._params is None:
@@ -228,12 +260,13 @@ class Optimizer:
         if not (torch.cuda.is_available()
                 and torch.cuda.is_current_stream_capturing()):
             self._refresh_lr()
-        live = [(name, p) for name, p in self._params
-                if p.requires_grad and p.grad is not None]
+        live = self._live()
         if any(p.grad.is_sparse for _, p in live):
             raise NotImplementedError(_SPARSE)
         if self._grad_clip is not None:
             self._grad_clip._clip_([(p, p.grad) for _, p in live])
+        if fused_update.fused_step(self):
+            return
         for name, p in live:
             slot = self._slot(p)
             master = self._master_weights.get(id(p))
@@ -310,6 +343,9 @@ class Optimizer:
 class SGD(Optimizer):
     """``param - lr·grad`` (reference ``sgd_op.cc``)."""
 
+    def _kernel_spec(self):
+        return Spec("sgd")
+
     def _update(self, param, grad, state, lr, name):
         return param - lr * grad, state
 
@@ -328,6 +364,10 @@ class Momentum(Optimizer):
 
     def _init_state_for(self, param):
         return {"velocity": torch.zeros_like(param)}
+
+    def _kernel_spec(self):
+        return Spec("momentum", (self._momentum,), int(self._use_nesterov),
+                    ("velocity",))
 
     def _update(self, param, grad, state, lr, name):
         v = self._momentum * state["velocity"] + grad
@@ -361,8 +401,18 @@ class LarsMomentum(Optimizer):
     def _init_state_for(self, param):
         return {"velocity": torch.zeros_like(param)}
 
+    def _excluded(self, name: str) -> bool:
+        return any(token in name for token in self._exclude)
+
+    def _kernel_spec(self):
+        return Spec("lars", (self._momentum, self._lars_coeff, self._lars_wd,
+                             self._epsilon), 0, ("velocity",))
+
+    def _kernel_record(self, name):
+        return {"plain": self._excluded(name)}
+
     def _update(self, param, grad, state, lr, name):
-        if any(token in name for token in self._exclude):
+        if self._excluded(name):
             v = self._momentum * state["velocity"] + lr * grad
             return param - v, {"velocity": v}
         w_norm, g_norm = _norm(param), _norm(grad)
@@ -400,6 +450,11 @@ class Adam(Optimizer):
                 "moment2": torch.zeros_like(param),
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
+    def _kernel_spec(self):
+        b1, b2 = self._beta1, self._beta2
+        return Spec("adam", (b1, 1 - b1, b2, 1 - b2, self._epsilon), 0,
+                    ("moment1", "moment2"), (b1, b2))
+
     def _update(self, param, grad, state, lr, name):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         b1p = state["beta1_pow"] * b1
@@ -432,8 +487,17 @@ class AdamW(Adam):
         fun = self._apply_decay_param_fun
         return self._weight_decay if fun is None or fun(name) else 0.0
 
-    def _update(self, param, grad, state, lr, name):
-        wd = self._decay_for(name)
+    def _kernel_spec(self):
+        return dataclasses.replace(super()._kernel_spec(), kind="adamw")
+
+    def _kernel_record(self, name):
+        return {"decay": float(self._decay_for(name))}
+
+    def _update(self, param, grad, state, lr, name, decay=None):
+        """``decay``: this name's weight decay as the fused update's
+        record holds it (its plain version), so that the decay function
+        is read once a step."""
+        wd = self._decay_for(name) if decay is None else decay
         decayed = param * (1.0 - lr * wd) if wd else param
         return super()._update(decayed, grad, state, lr, name)
 
@@ -454,6 +518,11 @@ class Adamax(Optimizer):
                 "inf_norm": torch.zeros_like(param),
                 "beta1_pow": torch.ones((), dtype=torch.float32,
                                         device=param.device)}
+
+    def _kernel_spec(self):
+        b1, b2 = self._beta1, self._beta2
+        return Spec("adamax", (b1, 1 - b1, b2, self._epsilon), 0,
+                    ("moment", "inf_norm"), (b1,))
 
     def _update(self, param, grad, state, lr, name):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
@@ -481,6 +550,9 @@ class Adagrad(Optimizer):
     def _init_state_for(self, param):
         return {"moment": torch.full_like(param, self._init_acc)}
 
+    def _kernel_spec(self):
+        return Spec("adagrad", (self._epsilon,), 0, ("moment",))
+
     def _update(self, param, grad, state, lr, name):
         acc = state["moment"] + torch.square(grad)
         new_p = param - lr * grad / (torch.sqrt(acc) + self._epsilon)
@@ -502,6 +574,10 @@ class Adadelta(Optimizer):
     def _init_state_for(self, param):
         return {"avg_squared_grad": torch.zeros_like(param),
                 "avg_squared_update": torch.zeros_like(param)}
+
+    def _kernel_spec(self):
+        return Spec("adadelta", (self._rho, 1 - self._rho, self._epsilon), 0,
+                    ("avg_squared_grad", "avg_squared_update"))
 
     def _update(self, param, grad, state, lr, name):
         rho, eps = self._rho, self._epsilon
@@ -532,6 +608,13 @@ class RMSProp(Optimizer):
         if self._centered:
             s["mean_grad"] = torch.zeros_like(param)
         return s
+
+    def _kernel_spec(self):
+        rho = self._rho
+        return Spec("rmsprop_centered" if self._centered else "rmsprop",
+                    (rho, 1 - rho, self._epsilon, self._momentum), 0,
+                    ("mean_square", "momentum_acc") + (
+                        ("mean_grad",) if self._centered else ()))
 
     def _update(self, param, grad, state, lr, name):
         rho, eps = self._rho, self._epsilon
@@ -574,12 +657,23 @@ class Lamb(Optimizer):
                 "moment2": torch.zeros_like(param),
                 "beta1_pow": one, "beta2_pow": one.clone()}
 
-    def _update(self, param, grad, state, lr, name):
+    def _kernel_spec(self):
+        b1, b2 = self._beta1, self._beta2
+        return Spec("lamb", (b1, 1 - b1, b2, 1 - b2, self._epsilon,
+                             self._lamb_wd), 0, ("moment1", "moment2"),
+                    (b1, b2))
+
+    def _update(self, param, grad, state, lr, name, stored=None):
+        """``stored``: the moments as their slots store them (the fused
+        update's plain version, which computes 16-bit slots in fp32: the
+        kernel's update pass reads the stored moments back)."""
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         b1p = state["beta1_pow"] * b1
         b2p = state["beta2_pow"] * b2
         m1 = b1 * state["moment1"] + (1 - b1) * grad
         m2 = b2 * state["moment2"] + (1 - b2) * torch.square(grad)
+        if stored is not None:
+            m1, m2 = stored(m1), stored(m2)
         # the fp32 powers promote the moments, as in the reference
         m1_hat = (m1.float() / (1 - b1p)).to(param.dtype)
         m2_hat = (m2.float() / (1 - b2p)).to(param.dtype)
@@ -612,6 +706,10 @@ class Ftrl(Optimizer):
         return {"squared": torch.zeros_like(param),
                 "linear": torch.zeros_like(param)}
 
+    def _kernel_spec(self):
+        return Spec("ftrl", (self._l1, 2 * self._l2, -self._lr_power),
+                    int(self._lr_power != -0.5), ("squared", "linear"))
+
     def _update(self, param, grad, state, lr, name):
         l1, l2, p_ = self._l1, self._l2, self._lr_power
         sq, lin = state["squared"], state["linear"]
@@ -643,6 +741,10 @@ class DecayedAdagrad(Optimizer):
 
     def _init_state_for(self, param):
         return {"moment": torch.zeros_like(param)}
+
+    def _kernel_spec(self):
+        return Spec("decayed_adagrad", (self._decay, 1 - self._decay,
+                                        self._epsilon), 0, ("moment",))
 
     def _update(self, param, grad, state, lr, name):
         m = self._decay * state["moment"] + \

@@ -16,6 +16,7 @@ from paddle_tpu_torch.models import GPT, GPTConfig
 from paddle_tpu_torch.ops import flash_attention as pfa
 from paddle_tpu_torch.ops import flash_attention_qkv as fq
 from paddle_tpu_torch.ops import fused_ln as fl
+from paddle_tpu_torch.ops import multi_tensor_update as mtu
 from paddle_tpu_torch.ops import softmax_xent as sx
 from paddle_tpu_torch.serving import GenerationEngine, GenerationEngineConfig
 
@@ -1023,6 +1024,7 @@ def _optimizer_run(make, jit, amp, decorate):
     paddle_tpu_torch.seed(2)
     rs = np.random.RandomState(0)
     losses = []
+    updates = sum(mtu.LAUNCHES.values())
     for _ in range(3):
         ids = rs.randint(0, WIDTH["vocab_size"], (4, 128))
         labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
@@ -1030,6 +1032,8 @@ def _optimizer_run(make, jit, amp, decorate):
         if decorate:
             for p in net.parameters():
                 assert torch.equal(p, opt._master_weights[id(p)].to(p.dtype))
+    torch.cuda.synchronize()
+    updates = sum(mtu.LAUNCHES.values()) - updates
     state = {f"param {n}": p.detach().clone()
              for n, p in net.named_parameters()}
     state.update({f"slot {k}": v.clone() for k, v in
@@ -1037,15 +1041,17 @@ def _optimizer_run(make, jit, amp, decorate):
     state.update({f"master {n}": opt._master_weights[id(p)].clone()
                   for n, p in net.named_parameters()
                   if id(p) in opt._master_weights})
-    return torch.stack(losses), state, model._steps.compiles
+    return torch.stack(losses), state, model._steps.compiles, updates
 
 
 @pytest.mark.parametrize("case", list(CARD_OPTIMIZERS))
 def test_captured_optimizer_steps_equal_uncaptured(card, case):
     amp, decorate, make = CARD_OPTIMIZERS[case]
-    (le, se, ce), (lj, sj, cj) = (_optimizer_run(make, jit, amp, decorate)
-                                  for jit in (False, True))
+    (le, se, ce, ue), (lj, sj, cj, uj) = (
+        _optimizer_run(make, jit, amp, decorate) for jit in (False, True))
     assert (ce, cj) == (0, 1)
+    # every step, replays included, on the update kernel: one group
+    assert (ue, uj) == (3, 3)
     assert torch.equal(le, lj), (le, lj)
     assert se.keys() == sj.keys()
     if decorate:
@@ -1053,3 +1059,112 @@ def test_captured_optimizer_steps_equal_uncaptured(card, case):
             [k for k in sj if k.startswith("param")])
     for k in se:
         assert torch.equal(se[k], sj[k]), k
+
+
+# the fused optimizer update at small shapes: a vector body with a scalar
+# tail, one element, a tensor of zeros, more than one chunk
+UPDATE_NAMED = (("blocks.0.attn.qkv.weight", (64, 192)),
+                ("blocks.0.attn.qkv.bias", (192,)),
+                ("blocks.0.ln1.weight", (64,)), ("numel_1", (1,)),
+                ("numel_3", (3,)), ("zero_1023", (1023,)),
+                ("wte.weight", (1001, 67)))
+
+
+def test_update_kernel_matches_plain_version(card):
+    rows = chip_smoke.check_update_kernel(torch, "cuda", UPDATE_NAMED)
+    assert len(rows) == len(chip_smoke.UPDATE_CHECKS) * len(
+        chip_smoke.UPDATE_SETUPS)
+    assert all(r["ok"] for r in rows)
+
+
+@pytest.mark.parametrize("label", ["Lamb", "LarsMomentum", "AdamW"])
+def test_update_kernel_repeats_bit_for_bit(card, label):
+    make = dict(chip_smoke.UPDATE_CHECKS)[label]
+    a, _ = chip_smoke.update_run(torch, make, UPDATE_NAMED, "fp32", "cuda",
+                                 "kernel")
+    b, _ = chip_smoke.update_run(torch, make, UPDATE_NAMED, "fp32", "cuda",
+                                 "kernel")
+    assert all(torch.equal(v, b[k]) for k, v in a.items())
+
+
+def test_update_tables_are_bound_and_never_built_in_a_capture(
+        card, monkeypatch):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.optimizer import fused_update
+    p = torch.nn.Parameter(torch.ones(5, device="cuda"))
+    opt = optimizer.Lamb(0.1, parameters=[p])
+    p.grad = torch.ones(5, device="cuda")
+    opt.step()
+    bound = {t.data_ptr() for t in opt.bound_tensors()}
+    (table,) = fused_update.tables(opt)
+    assert len(table.tensors()) == 4              # recs, prefix, norm buffers
+    assert {t.data_ptr() for t in table.tensors()} <= bound
+    old = p.grad                                  # kept: a new address
+    p.grad = torch.ones(5, device="cuda")         # a new gradient: rebuild
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="captured"):
+        opt.step()
+    del old
+
+
+def test_a_failing_update_build_raises(card, monkeypatch):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise _build.BuildError(f"nvcc failed on csrc/{name}.cu")
+    monkeypatch.setattr(mtu, "_lib", None)
+    monkeypatch.setattr(_build, "load", refuse)
+    p = torch.nn.Parameter(torch.ones(5, device="cuda"))
+    opt = optimizer.SGD(0.1, parameters=[p])
+    p.grad = torch.ones(5, device="cuda")
+    with pytest.raises(_build.BuildError, match="multi_tensor_update"):
+        opt.step()
+    assert torch.equal(p.detach(), torch.ones(5, device="cuda"))
+
+
+@pytest.mark.parametrize("grad", ["transposed", "bf16"])
+def test_update_kernel_steps_a_staged_gradient(card, grad):
+    """A gradient in another layout or type is copied into a bound buffer
+    in the parameter's type; the kernel steps it as the per-leaf path
+    steps the gradient itself, eager and captured."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.optimizer import fused_update
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(64, 48, generator=gen, device="cuda")
+    g = torch.randn(48, 64, generator=gen, device="cuda").t()
+    g = g if grad == "transposed" else g.contiguous().bfloat16()
+
+    def run(route, capture=False):
+        p = torch.nn.Parameter(w.clone())
+        if hasattr(p, "grad_dtype"):
+            p.grad_dtype = None
+        p.grad = g
+        opt = optimizer.Adam(0.1, parameters=[("w", p)])
+        with chip_smoke._update_route(route):
+            opt.step()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                opt.step()
+            torch.cuda.current_stream().wait_stream(side)
+            if capture:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    opt.step()
+                graph.replay()
+            else:
+                opt.step()
+        torch.cuda.synchronize()
+        return p.detach().clone(), opt
+    got, opt = run("kernel")
+    cap, _ = run("kernel", capture=True)
+    want, _ = run("per_leaf")
+    bufs = opt._fused_grads
+    assert len(bufs) == 1
+    assert {b.data_ptr() for b in bufs.values()} <= {
+        t.data_ptr() for t in opt.bound_tensors()}
+    assert fused_update.tables(opt)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    assert torch.equal(got, cap)
