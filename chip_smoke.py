@@ -40,7 +40,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
             plain version, 16-bit values by steps of their type and share
             of the move, a check that must fail two planted mutations of
             the plain version (the parameter's store skipped, the rate
-            halved)
+            halved).  fp16 (PR 13): attention at every shape and head dim
+            above in fp16 (tile kernels), forward with lse and backward,
+            and with raw scores past fp16's range (q, k ~ 60·N(0, 1));
+            the epilogue and its backward on fp16 x and residual, and fp16
+            beside fp32 each way, fp16 or fp32 parameters; the unscale
+            pass (mt_unscale) on the GPT's 149 gradient shapes and numel
+            1, 3, 2^20 + 5 in fp32, bf16 and fp16, with no non-finite
+            value and with an inf or nan planted at the first, a middle
+            and the last element (bit for bit, found_inf exact); the
+            update's skip flag for every kind and setup of UPDATE_CHECKS
+            (set: nothing moves; clear: the step without the flag, bit for
+            bit), kernel and plain version
 4. scoring  the full-width GPT (V 30528, D 768, L 12, H 12) scores
             (8, 512) through the kernel: 12 launches, logits against the
             same model with the plain attention swapped in
@@ -72,7 +83,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
             the update kernel, its plain version, the per-leaf path
             (FLAGS_fused_optimizer=0) and, for Adam and AdamW in fp32,
             torch._fused_adam(w)_, beside the bytes bound (one pass;
-            LarsMomentum and Lamb also at the kernel's two passes)
+            LarsMomentum and Lamb also at the kernel's two passes).  fp16
+            (PR 13): rows 1, 2 and 6-9 at those shapes (rows 1 and 6 also
+            in device time) beside bf16 rows 1 and 6 on flash_attn_sm90 at
+            B 32, T 512, and SDPA in each type; row 12 and its backward
+            at N 16384, D 768 in fp16 and fp16 x over an fp32 residual;
+            the unscale pass on the GPT's gradients (events, a replayed
+            graph, the plain version,
+            torch._amp_foreach_non_finite_check_and_unscale_) against its
+            bytes bound
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, all of them flash_attn_sm90's, the fused head's
@@ -162,6 +181,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
             launches a replay, the loss falling; step ms p50 and peak
             memory beside the same model undecorated (fp32 parameters,
             bf16 views) and phase 11's O1 run
+14. fp16    AMP in fp16 (PR 13): phase 9's GPT at full width under
+            prepare(amp_configs={"level": "O1", "dtype": "float16"}),
+            AdamW: one step through the kernels against the plain
+            versions, 3 captured steps against 3 uncaptured bit for bit
+            (parameters, slots, the scale, good and bad counts), 12 + 12
+            attention launches a replay, all on the tile kernels, one
+            unscale and one update launch, the loss falling over 12 steps
+            of each engine; step ms p50, seq/s, peak memory beside phase
+            9's bf16 O1.  A planted overflow (initial scale 2^40): that
+            step, and a replay planted the same way, move no parameter,
+            slot or power, the scale falls by 2^-30, the next steps
+            update.  Phase 11's encoder under fp16 O1 (24 + 24 epilogue
+            launches a replay on fp16 x, captured = uncaptured, the loss
+            falls), O2 at L 2 through amp.decorate(level="O2",
+            dtype="float16") (fp16 parameters equal to their fp32 masters
+            cast after every step), and one eager GradScaler loop of 3
+            steps on the GPT
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -201,7 +237,10 @@ GPT_WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
 KERNEL_SHAPES = [(1, 1), (7, 7), (8, 8), (16, 16), (32, 32), (64, 64),
                  (100, 100), (128, 128), (128, 256), (256, 256), (512, 512),
                  (1024, 1024)]
-ATOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_pallas_kernels.py
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2,   # tests/test_pallas_kernels.py
+        # fp16: the reference states none; bf16's, narrowed for fp16's
+        # three more mantissa bits (tests/test_torch_fp16_kernels.py)
+        "float16": 1e-2}
 # bf16 with a sharp softmax: q, k ~ 2·N(0, 1) and v ~ N(0, 1), so the
 # output spreads over several units and a flattened softmax (every row
 # near v's mean) misses it by more than 1.  Held to two bf16 ulps of the
@@ -210,6 +249,23 @@ ATOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_pallas_kernels.py
 # ulp where |out| > 2
 SHARP_SHAPES = [(32, 32), (512, 512)]
 SHARP_TOL, SHARP_MIN_STD = 1.6e-2, 0.5
+# fp16 with raw scores past fp16's range (65504): q, k ~ 60·N(0, 1) and v,
+# dO ~ N(0, 1) in fp16, so q·k reaches ~1e5 (std 28800 at d 64), which
+# only the fp32 accumulators hold, and each softmax row is all but one-hot.
+# The two versions sum products of ~3600 in another order (fp32 ulp 0.0078
+# at 1e5), so a scaled score differs by up to ~0.01: lse is held to
+# FP16_RANGE_LSE_RTOL of the largest |lse| (the scores' scale; measured on
+# the H100 1.46e-2 at a largest lse of ~1.6e4, 0.9e-6 of it), the output
+# to ATOL's fp16 atol.  The gradients are ill-conditioned there: where a
+# row's two best keys nearly tie, dS is of order one and moves with the
+# score's last bits, and measured against the plain version they differed
+# by up to 6.3e-2 relative L2.  So each of dq, dk, dv is held, with the
+# plain fp16 version, against a float64 run of the same inputs: its
+# relative L2 error at most FP16_RANGE_GRAD_RATIO times the plain
+# version's plus FP16_RANGE_GRAD_SLACK; every value finite
+FP16_RANGE_SCALE, FP16_RANGE_LSE_RTOL = 60.0, 4e-6
+FP16_RANGE_GRAD_RATIO, FP16_RANGE_GRAD_SLACK = 2.0, 1e-3
+FP16_RANGE_SHAPES = ((512, 512), (128, 256), (1000, 1000))
 SCORING_ATOL = 1e-3
 SLOTS, NEW_TOKENS, CLIENTS, REQUESTS, SAMPLED = 8, 64, 4, 16, 4
 
@@ -218,7 +274,8 @@ SLOTS, NEW_TOKENS, CLIENTS, REQUESTS, SAMPLED = 8, 64, 4, 16, 4
 # past the reference's packed kernels, which the port's take
 QKV_TS = (100, 128, 256, 512, 1024, 2048)
 QKV_LONG = ((4096, 64),)
-GRAD_ATOL = {"float32": 5e-5, "bfloat16": 5e-2}  # test_pallas_kernels.py
+GRAD_ATOL = {"float32": 5e-5, "bfloat16": 5e-2,  # test_pallas_kernels.py
+             "float16": 2e-2}                       # as ATOL's fp16
 LSE_ATOL = 1e-4
 # bf16 packed attention with sharp inputs (q, k ~ 2·N(0, 1), v and the
 # output gradient ~ N(0, 1)), where torch.rand's flat softmax would hide a
@@ -295,9 +352,15 @@ EAGER_LONG = (dict(width=dict(GPT_WIDTH, num_layers=2, max_seq_len=1024),
 EAGER_LOSS_RTOL, EAGER_GRAD_RTOL = 1e-4, 1e-4
 # kernels against plain versions over one bf16 step: each attention
 # output and the head's statistics differ in bf16 roundings, carried
-# through 12 blocks
-TRAIN_LOSS_RTOL = {"bfloat16": 1e-3, "float32": 1e-4}
-TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-4}   # relative L2
+# through 12 blocks.  fp16 (phase 14's O1 GPT and encoder, O2 at L 2):
+# measured on an H100 at most 9.2e-8 relative in the loss and 6.2e-3
+# relative L2 in a gradient (O2's fp16 wte); the limits keep ~2.4x of
+# headroom on the gradients and stay inside bf16's, so a step whose
+# attention ran in bf16 (~6e-3 to 1.6e-2 against its own plain version)
+# can fail them.
+TRAIN_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-5, "float32": 1e-4}
+TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float16": 1.5e-2,   # relative L2
+                   "float32": 1e-4}
 TRAIN_GRADS = ("blocks.qkv_w", "head_w", "wte")
 ADAM_B1 = 0.9
 
@@ -323,7 +386,8 @@ FUSED_LN_ATOL = 1e-5
 # against the plain version
 FUSED_LN_BWD_SHAPES = tuple((D, N) for D in (64, 100, 768, 1024, 1100, 4096)
                             for N in (1, 7, 1000, 16384)) + ((12800, 7),)
-FUSED_LN_BWD_COL_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
+FUSED_LN_BWD_COL_RTOL = {"float32": 1e-5, "bfloat16": 5e-2,
+                         "float16": 1e-2}
 # the head's dlogits (row 11): fp32 atol 1e-5 (tests/test_pallas_kernels.py
 # :322); bf16 each element within 1e-6·|g| plus one bf16 ulp of the plain
 # value (both round fp32 values whose products summed in another order; at
@@ -455,21 +519,42 @@ def ptxas_summary(report: str):
 
 
 # -- phase 3 -------------------------------------------------------------------
+def _fp16_range(torch, gen, dev, shape, k_shape):
+    """q (``shape``) and k, v (``k_shape``) in fp16 whose raw scores pass
+    fp16's range (FP16_RANGE_SCALE), v ~ N(0, 1); raises if no score
+    does."""
+    q, k = (FP16_RANGE_SCALE * torch.randn(sh, generator=gen, device=dev)
+            for sh in (shape, k_shape))
+    v = torch.randn(k_shape, generator=gen, device=dev).half()
+    q, k = q.half(), k.half()
+    raw = torch.einsum("...qhd,...khd->...hqk" if q.dim() == 4 else
+                       "bqd,bkd->bqk", q.float(), k.float()).abs().max()
+    if raw.item() <= 65504:
+        raise AssertionError(f"fp16-range inputs reach only {raw.item()}")
+    return q, k, v
+
+
 def check_kernels(torch, fa, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
+    types = (torch.float32, torch.bfloat16, torch.float16)
     cases = [(96, tq, tk, 64, causal, dtype)
              for tq, tk in KERNEL_SHAPES for causal in (False, True)
-             for dtype in (torch.float32, torch.bfloat16)]
+             for dtype in types]
     cases += [(96, 128, 128, d, True, dtype) for d in fa.HEAD_DIMS
-              if d != 64 for dtype in (torch.float32, torch.bfloat16)]
+              if d != 64 for dtype in types]
     cases = [c + ("rand",) for c in cases] + [
         (96, tq, tk, 64, causal, torch.bfloat16, "sharp")
-        for tq, tk in SHARP_SHAPES for causal in (False, True)]
+        for tq, tk in SHARP_SHAPES for causal in (False, True)] + [
+        (96, tq, tk, d, causal, torch.float16, "fp16_range")
+        for tq, tk in FP16_RANGE_SHAPES[:2] for d in (64, 128)
+        for causal in (False, True)]
     results = []
     for bh, tq, tk, d, causal, dtype, inputs in cases:
         if inputs == "rand":
             q, k, v = (torch.rand((bh, t, d), generator=gen, device=dev)
                        .to(dtype) for t in (tq, tk, tk))
+        elif inputs == "fp16_range":
+            q, k, v = _fp16_range(torch, gen, dev, (bh, tq, d), (bh, tk, d))
         else:
             q, k, v = (torch.randn((bh, t, d), generator=gen, device=dev)
                        .mul(s).to(dtype)
@@ -484,6 +569,9 @@ def check_kernels(torch, fa, dev):
         if inputs == "rand":
             tol = f"atol={ATOL[name]:.0e}"
             ok = ok and err <= ATOL[name]
+        elif inputs == "fp16_range":
+            tol = f"atol={ATOL[name]:.0e}, raw scores past 65504"
+            ok = ok and err <= ATOL[name] and bool(torch.isfinite(out).all())
         else:
             spread = ref.float().std().item()
             worst = (diff / (SHARP_TOL + SHARP_TOL * ref.float().abs())
@@ -646,14 +734,16 @@ def _split_operands(torch, gen, dev, B, tq, tk, H, d, dtype):
 
 def check_split_kernels(torch, fa, dev):
     """Rows 1, 2 and 6-9: the forward with lse and the backward on
-    (B, S, H, D) operands against their plain versions."""
+    (B, S, H, D) operands against their plain versions, fp32, bf16 and
+    fp16; then fp16 with scores past fp16's range (:func:`_fp16_range`)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     results = []
     for tq, tk in SPLIT_SHAPES:
         B, H = (2, 2) if max(tq, tk) <= 2048 else (1, 2)
         for d in fa.HEAD_DIMS:
             for causal in (False, True):
-                for dtype in (torch.float32, torch.bfloat16):
+                for dtype in (torch.float32, torch.bfloat16,
+                              torch.float16):
                     q, k, v, g = _split_operands(torch, gen, dev, B, tq, tk,
                                                  H, d, dtype)
                     out, lse = fa.flash_attn_fwd(q, k, v, causal=causal,
@@ -690,10 +780,77 @@ def check_split_kernels(torch, fa, dev):
                         f"{err_g:.2e} (atol {GRAD_ATOL[name]:.0e}) "
                         f"{'ok' if ok else 'FAIL'}")
                     del q, k, v, g, out, lse, grads, ref, ref_lse, ref_g
+    results += check_fp16_range(torch, fa, dev, gen)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} split-layout attention checks "
                              f"disagree with the plain versions: {bad}")
+    return results
+
+
+def check_fp16_range(torch, fa, dev, gen):
+    """fp16 forward with lse and backward whose raw scores pass fp16's
+    range (:func:`_fp16_range`), (B 2, H 2), d 64 and 128, causal and not:
+    each result finite, out within ATOL of the plain version (fp16), lse
+    within FP16_RANGE_LSE_RTOL of its largest value, dq, dk, dv as close to
+    a float64 run as FP16_RANGE_GRAD_RATIO times the plain version's."""
+    results = []
+    for tq, tk in FP16_RANGE_SHAPES:
+        for d in (64, 128):
+            for causal in (False, True):
+                q, k, v = _fp16_range(torch, gen, dev, (2, tq, 2, d),
+                                      (2, tk, 2, d))
+                g = torch.randn((2, tq, 2, d), generator=gen,
+                                device=dev).half()
+                rel = {}
+                out, lse = fa.flash_attn_fwd(q, k, v, causal=causal,
+                                             return_lse=True)
+                grads = fa.flash_attn_bwd(q, k, v, out, lse, g, causal=causal)
+                ref, ref_lse = fa.flash_attn_fwd_ref(q, k, v, causal=causal,
+                                                     return_lse=True)
+                ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                              causal=causal)
+                sync(torch, dev)
+                rel = {n: (a.float() - b.float()).abs().max().item()
+                       for n, a, b in zip(("out", "dq", "dk", "dv"),
+                                          (out,) + tuple(grads),
+                                          (ref,) + tuple(ref_g))}
+                err_lse = ((lse - ref_lse).abs().max()
+                           / ref_lse.abs().max()).item()
+                _, _, truth = _attention_fp64(torch, fa, q, k, v, g, causal)
+                rel_l2 = {n: (_rel_l2(fa._fold(a).double(), t),
+                              _rel_l2(fa._fold(b).double(), t))
+                          for n, a, b, t in zip(("dq", "dk", "dv"), grads,
+                                                ref_g, truth)}
+                del truth
+                finite = all(bool(torch.isfinite(t).all())
+                             for t in (out, lse) + tuple(grads))
+                mode = fa._pallas_mode(tq, tk, causal)
+                rows = (fa.reference_rows("fwd", mode, tk)
+                        + fa.reference_rows("bwd", mode, tk))
+                grad_abs = max(rel["dq"], rel["dk"], rel["dv"])
+                ok = finite and err_lse <= FP16_RANGE_LSE_RTOL and \
+                    rel["out"] <= ATOL["float16"] and all(
+                        kern <= FP16_RANGE_GRAD_RATIO * plain
+                        + FP16_RANGE_GRAD_SLACK
+                        for kern, plain in rel_l2.values())
+                results.append(dict(
+                    b=2, tq=tq, tk=tk, h=2, d=d, causal=causal,
+                    dtype="float16", inputs="fp16_range", mode=mode,
+                    rows=rows, errors=rel, rel_l2=rel_l2,
+                    max_abs_err=rel["out"],
+                    max_abs_err_lse=err_lse, max_abs_err_grads=grad_abs,
+                    finite=finite, ok=ok))
+                log(f"  flash_attn fp16 past its range tq={tq:4d} tk={tk:4d} "
+                    f"d={d:3d} causal={int(causal)} rows {rows}: max abs "
+                    f"{', '.join(f'{n} {x:.2e}' for n, x in rel.items())} "
+                    f"(atol out {ATOL['float16']:.0e}); rel L2 to float64 "
+                    f"kernel / plain "
+                    f"{', '.join(f'{n} {a:.2e} / {b:.2e}' for n, (a, b) in rel_l2.items())}"
+                    f" (limit {FP16_RANGE_GRAD_RATIO:g} x plain + "
+                    f"{FP16_RANGE_GRAD_SLACK:.0e}), lse {err_lse:.2e} of its "
+                    f"largest (limit {FP16_RANGE_LSE_RTOL:.0e}), finite "
+                    f"{finite} {'ok' if ok else 'FAIL'}")
     return results
 
 
@@ -768,16 +925,19 @@ def _bf16_ulp(torch, t):
 
 def _fused_ln_err(torch, out, ref):
     """The epilogue forward's agreement with its plain version: (max abs
-    error, limit text, ok) under the fp32 atol, or in bf16 each element
-    within that atol plus one bf16 ulp of the plain value."""
+    error, limit text, ok) under the fp32 atol, or in bf16 and fp16 each
+    element within that atol plus one ulp of the plain value in its
+    type."""
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if out.dtype == torch.float32:
         return err, f"atol {FUSED_LN_ATOL:.0e}", err <= FUSED_LN_ATOL
-    ulps = ((diff - FUSED_LN_ATOL).clamp_min(0.0)
-            / _bf16_ulp(torch, ref.float())).max().item()
-    return err, f"atol {FUSED_LN_ATOL:.0e} + {ulps:.2f} bf16 ulp (limit 1)", \
-        ulps <= 1.0
+    ulp = _bf16_ulp(torch, ref.float())
+    if out.dtype == torch.float16:      # 10 mantissa bits, not 7
+        ulp = torch.maximum(ulp / 8, torch.full_like(ulp, 2.0 ** -24))
+    ulps = ((diff - FUSED_LN_ATOL).clamp_min(0.0) / ulp).max().item()
+    return err, (f"atol {FUSED_LN_ATOL:.0e} + {ulps:.2f} "
+                 f"{_dtype_name(out.dtype)} ulp (limit 1)"), ulps <= 1.0
 
 
 def _dtype_name(dtype):
@@ -794,9 +954,11 @@ def _fused_ln_operands(torch, gen, dev, N, D, x_dt, r_dt, p_dt):
 
 
 def fused_ln_types(torch):
-    """(x, residual) type pairs the epilogue's kernels take."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    return ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16))
+    """(x, residual) type pairs the epilogue's kernels take: a 16-bit
+    type beside itself or fp32 (bf16 beside fp16 is no pair AMP makes)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    return ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16), (f16, f16),
+            (f16, f32), (f32, f16))
 
 
 def check_fused_ln(torch, fl, dev):
@@ -850,9 +1012,10 @@ def check_fused_ln_bwd(torch, fl, dev):
     """The epilogue's backward kernel against its plain version, every D,
     N, type pair and p, the seeds in turn, parameters in x's type or fp32:
     dx and dres by the atol of their type; dbias, dgamma, dbeta in fp32 at
-    relative L2 against a float64 run of the plain backward, in bf16
-    against the plain version; dx exactly 0 exactly where the forward
-    dropped."""
+    relative L2 against a float64 run of the plain backward, in bf16 and
+    fp16 against the plain version; dx exactly 0 exactly where the forward
+    dropped (fp16 dx: 0 wherever dropped, and elsewhere only where the
+    plain value is under fp16's smallest normal, 2^-14, and underflows)."""
     gen = torch.Generator(device=dev).manual_seed(12)
     results = []
     i = 0
@@ -883,8 +1046,9 @@ def check_fused_ln_bwd(torch, fl, dev):
                     col_tol = FUSED_LN_BWD_COL_RTOL["float32"]
                     col_vs = "float64"
                 else:
+                    low = x_dt if x_dt != torch.float32 else r_dt
                     truth, col_tol = ref[2:], FUSED_LN_BWD_COL_RTOL[
-                        "bfloat16"]
+                        _dtype_name(low)]
                     col_vs = "plain"
                 for name, a, w in zip(("dbias", "dgamma", "dbeta"), got[2:],
                                       truth):
@@ -894,6 +1058,14 @@ def check_fused_ln_bwd(torch, fl, dev):
                     torch.tensor(p, dtype=torch.float32) if p > 0 else \
                     torch.zeros((N, D), dtype=torch.bool, device=dev)
                 zero_where_dropped = bool(torch.equal(got[0] == 0, dropped))
+                if x_dt == torch.float16 and not zero_where_dropped:
+                    # fp16 dx also underflows to 0 where the plain value
+                    # is under fp16's smallest normal: 0 wherever dropped,
+                    # and every other 0 one the plain version nearly has
+                    other = (got[0] == 0) & ~dropped
+                    zero_where_dropped = bool(
+                        (got[0][dropped] == 0).all()) and bool(
+                        (ref[0].float()[other].abs() < 2.0 ** -14).all())
                 separate = got[0].data_ptr() != got[1].data_ptr()
                 ok = ok and zero_where_dropped and separate
                 results.append(dict(
@@ -909,7 +1081,8 @@ def check_fused_ln_bwd(torch, fl, dev):
                     f" p={p:.1f} params {_dtype_name(pdt):8s}: dx "
                     f"{errs['dx']:.2e} dres {errs['dres']:.2e} (atol by "
                     f"type: fp32 {GRAD_ATOL['float32']:.0e}, bf16 "
-                    f"{GRAD_ATOL['bfloat16']:.0e}); rel L2 vs {col_vs} dbias "
+                    f"{GRAD_ATOL['bfloat16']:.0e}, fp16 "
+                    f"{GRAD_ATOL['float16']:.0e}); rel L2 vs {col_vs} dbias "
                     f"{errs['dbias']:.1e} dgamma {errs['dgamma']:.1e} dbeta "
                     f"{errs['dbeta']:.1e} (limit {col_tol:.0e}); dx == 0 "
                     f"exactly where dropped: {zero_where_dropped} "
@@ -1017,16 +1190,16 @@ def _update_route(route):
     from paddle_tpu_torch.ops import multi_tensor_update as mtu
     ref = mtu.multi_tensor_update_ref
 
-    def no_store(spec, table, lr, update):
+    def no_store(spec, table, lr, update, found_inf=None):
         kept = [(t, t.clone()) for r in table.records
                 for t in (r.param, r.master) if t is not None]
-        ref(spec, table.records, lr, update)
+        ref(spec, table.records, lr, update, found_inf)
         for t, was in kept:
             t.copy_(was)
-    plain = {"plain": lambda spec, table, lr, update: ref(
-                 spec, table.records, lr, update),
-             "half_lr": lambda spec, table, lr, update: ref(
-                 spec, table.records, lr * 0.5, update),
+    plain = {"plain": lambda spec, table, lr, update, found_inf=None: ref(
+                 spec, table.records, lr, update, found_inf),
+             "half_lr": lambda spec, table, lr, update, found_inf=None: ref(
+                 spec, table.records, lr * 0.5, update, found_inf),
              "no_store": no_store}
     if route in plain:
         return mock.patch.object(mtu, "multi_tensor_update", plain[route])
@@ -1240,6 +1413,155 @@ def check_update_kernel(torch, dev, named=None, checks=UPDATE_CHECKS,
         raise AssertionError(f"{len(bad)} fused-update checks disagree with "
                              f"the plain version, or pass a planted "
                              f"mutation: {bad}")
+    return rows
+
+
+def _same_bits(torch, a, b):
+    """Bit for bit, NaN included (the integer view of each value)."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    n = a.element_size()
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a.view(ints[n]), b.view(ints[n])))
+
+
+# the unscale pass (mt_unscale) of phase 3: the GPT's gradients and
+# UPDATE_EXTRA's numel 1, 3 and 2^20 + 5, in each gradient type, with no
+# non-finite value and with one planted at the first element of the first
+# tensor, a middle element of a middle one and the last of the last; the
+# kernel and its plain version multiply by the same fp32 1/scale rounded to
+# the gradient's type, one rounding, so they agree bit for bit
+UNSCALE_PLANTS = ((None, None, None), (0, 0, "inf"), ("mid", "mid", "nan"),
+                  (-1, -1, "-inf"))
+UNSCALE_SCALE = 2.0 ** 12
+
+
+def check_unscale(torch, dev, named=None):
+    """The unscale pass against its plain version on the card: each
+    gradient type, each planted value of UNSCALE_PLANTS, the gradients
+    bit for bit and found_inf equal to the plant.  Returns the rows."""
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    named = named or update_shapes(torch, GPT_WIDTH, dev) + [
+        (n, s_) for n, s_ in UPDATE_EXTRA if not n.startswith("zero")]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    scale = torch.full((), UNSCALE_SCALE, device=dev)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        base = [(UNSCALE_SCALE * 1e-3 * torch.randn(
+            shape, generator=gen, device=dev)).to(dtype)
+            for _, shape in named]
+        for t_i, e_i, value in UNSCALE_PLANTS:
+            grads = [g.clone() for g in base]
+            if value is not None:
+                t = len(grads) // 2 if t_i == "mid" else t_i
+                flat = grads[t].view(-1)
+                e = flat.numel() // 2 if e_i == "mid" else e_i
+                flat[e] = float(value)
+            plain = [g.clone() for g in grads]
+            found = torch.ones((), dtype=torch.bool, device=dev)
+            found_ref = torch.zeros((), dtype=torch.bool, device=dev)
+            before = mtu.UNSCALE_LAUNCHES
+            mtu.multi_tensor_unscale(grads, scale, found)
+            mtu.multi_tensor_unscale_ref(plain, scale, found_ref)
+            sync(torch, dev)
+            launched = mtu.UNSCALE_LAUNCHES - before
+            same = all(_same_bits(torch, a, b) for a, b in zip(grads, plain))
+            err = max(((a.float() - b.float()).abs().nan_to_num(0.0).max()
+                       .item() for a, b in zip(grads, plain)), default=0.0)
+            want = value is not None
+            ok = same and bool(found) == want and bool(found_ref) == want \
+                and launched == 1
+            rows.append(dict(dtype=_dtype_name(dtype), tensors=len(named),
+                             elements=sum(g.numel() for g in grads),
+                             planted=value, found_inf=bool(found),
+                             bit_for_bit=same, max_abs_err=err,
+                             launches=launched, ok=ok))
+            log(f"  unscale {_dtype_name(dtype):8s} {len(named)} tensors "
+                f"({rows[-1]['elements']} elements), planted {value}: "
+                f"found_inf {bool(found)} (plain {bool(found_ref)}), bit for "
+                f"bit {same} (tolerance: exact), launches {launched} "
+                f"{'ok' if ok else 'FAIL'}")
+            del grads, plain
+        del base
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} unscale checks disagree with the "
+                             f"plain version: {bad}")
+    return rows
+
+
+def _skip_state(torch, opt, params):
+    out = {}
+    for n, p in params:
+        out[f"param {n}"] = p.detach().clone()
+        for k, v in opt._state[id(p)].items():
+            out[f"slot {n}_{k}"] = v.clone()
+        if id(p) in opt._master_weights:
+            out[f"master {n}"] = opt._master_weights[id(p)].clone()
+    return out
+
+
+def update_skip_run(torch, make, named, setup, dev, route, found):
+    """One step of ``make`` by ``route``, then one with ``found`` (None,
+    False, True) as ``step(found_inf=...)``: the state before and after
+    the second."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    params = update_params(torch, named, setup, dev, gen)
+    opt = update_optimizer(make, params, setup)
+    with _update_route(route):
+        update_grads(torch, params, gen)
+        opt.step()
+        before = _skip_state(torch, opt, params)
+        update_grads(torch, params, gen)
+        opt.step(found_inf=None if found is None else torch.full(
+            (), found, dtype=torch.bool, device=dev))
+    return before, _skip_state(torch, opt, params)
+
+
+def check_update_skip(torch, dev, named=None, checks=UPDATE_CHECKS,
+                      setups=UPDATE_SETUPS):
+    """The skip flag for every kind of UPDATE_CHECKS in every setup, on the
+    kernel and on its plain version on the card: set, every parameter,
+    slot, power and master bit for bit as before the step; clear, bit for
+    bit what the step gives without the flag.  At the GPT's first six
+    shapes and UPDATE_EXTRA."""
+    named = named or update_shapes(torch, GPT_WIDTH, dev)[:6] + list(
+        UPDATE_EXTRA)
+    rows = []
+    for label, make in checks:
+        for setup in setups:
+            row = dict(optimizer=label, setup=setup, tensors=len(named))
+            for route in ("kernel", "plain"):
+                before, skipped = update_skip_run(torch, make, named, setup,
+                                                  dev, route, True)
+                _, plain = update_skip_run(torch, make, named, setup, dev,
+                                           route, None)
+                _, clear = update_skip_run(torch, make, named, setup, dev,
+                                           route, False)
+                sync(torch, dev)
+                kept = [k for k in before
+                        if not _same_bits(torch, skipped[k], before[k])]
+                differ = [k for k in plain
+                          if not _same_bits(torch, clear[k], plain[k])]
+                moved = sum(not _same_bits(torch, plain[k], before[k])
+                            for k in plain)
+                row[route] = dict(values=len(before), set_moved=kept[:4],
+                                  clear_differs=differ[:4], step_moved=moved)
+                del before, skipped, plain, clear
+            row["ok"] = all(not row[r]["set_moved"]
+                            and not row[r]["clear_differs"]
+                            and row[r]["step_moved"] for r in ("kernel",
+                                                               "plain"))
+            rows.append(row)
+            log(f"  update skip {label:18s} {setup:11s}: set flag moved "
+                f"{row['kernel']['set_moved'] or 'nothing'} of "
+                f"{row['kernel']['values']} values (plain "
+                f"{row['plain']['set_moved'] or 'nothing'}); clear flag "
+                f"differs {row['kernel']['clear_differs'] or 'nowhere'} "
+                f"(plain {row['plain']['clear_differs'] or 'nowhere'}); "
+                f"tolerance: bit for bit {'ok' if row['ok'] else 'FAIL'}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} skip-flag checks failed: {bad}")
     return rows
 
 
@@ -1783,19 +2105,28 @@ def _time_head(torch, sx, gen, dev, dt, N, D, V):
         bytes=el * (N * D + D * V) + 4.0 * N + 8.0 * N)
 
 
-def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
-    """Rows 2, 6, 7, 8 and 9 at the eager train path's shapes (H 12, d 64,
-    fp32, causal, head views of one packed projection), each result also
-    held against its plain version there.  The streaming rows 8 and 9 are
-    the backward's passes timed apart: delta + dQ, and dK/dV."""
+def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING,
+                         dtype=None):
+    """Rows 1 (T <= 512), 2, 6, 7, 8 and 9 at the eager train path's
+    shapes (H 12, d 64, causal, head views of one packed projection), in
+    ``dtype`` (fp32 by default), each result also held against its plain
+    version there.  The streaming rows 8 and 9 are the backward's passes
+    timed apart: delta + dQ, and dK/dV.  In a 16-bit type rows 1 and 6
+    also in device time (torch.profiler), and the bound at the tensor
+    cores' rate."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    dtype = dtype or torch.float32
+    name = _dtype_name(dtype)
     gen = torch.Generator(device=dev).manual_seed(7)
     H, d = 12, 64
     rows = {}
     for B, T in shapes:
-        qkv = torch.randn((B, T, 3, H, d), generator=gen, device=dev)
+        qkv = torch.randn((B, T, 3, H, d), generator=gen,
+                          device=dev).to(dtype)
         q, k, v = qkv.unbind(2)
-        g = torch.randn((B, T, H, d), generator=gen, device=dev)
+        g = torch.randn((B, T, H, d), generator=gen, device=dev).to(dtype)
+        route = fa.kernel_route(dtype, d, q, k, v)
         with torch.no_grad():
             out, lse = fa.flash_attn_fwd(q, k, v, causal=True,
                                          return_lse=True)
@@ -1804,9 +2135,10 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
                                                  return_lse=True)
             ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
                                           causal=True)
-            err_f = max((out - ref).abs().max().item(),
-                        (lse - ref_lse).abs().max().item())
-            err_b = max((a - b).abs().max().item()
+            err_out = (out.float() - ref.float()).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            err_f = max(err_out, err_lse)
+            err_b = max((a.float() - b.float()).abs().max().item()
                         for a, b in zip(grads, ref_g))
             del ref, ref_lse, ref_g, grads
             fwd_ms = time_ms(torch, lambda: fa.flash_attn_fwd(
@@ -1830,6 +2162,12 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
             qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
             lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True))
+            dev_fwd = dev_bwd = None
+            if dtype != torch.float32 and T <= fa.SMALL_BWD_T_MAX:
+                dev_fwd = device_ms_per_call(lambda: fa.flash_attn_fwd(
+                    q, k, v, causal=True, return_lse=True))
+                dev_bwd = device_ms_per_call(lambda: fa.flash_attn_bwd(
+                    q, k, v, out, lse, g, causal=True))
         qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
         gh = g.transpose(1, 2)
 
@@ -1843,59 +2181,81 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
                 torch, lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=True))
         names_fb = library_kernels(torch, sdpa_fwd_bwd)
-        n_el = 4.0 * B * T * H * d            # bytes of one operand, fp32
+        el = torch.empty((), dtype=dtype).element_size()
+        n_el = 1.0 * el * B * T * H * d       # bytes of one operand
         stats = 4.0 * B * H * T               # bytes of lse (or delta)
         # flops of one causal T x T x d product (half of 2*T*T*d): the
         # forward needs 2 (S, PV), the backward 5 (S, dP, dV, dQ, dK); the
         # dQ pass runs 3 of them, the dK/dV pass 4
         prod = 1.0 * B * H * T * T * d
-        shape = f"B {B}, T {T}, H {H}, d {d}, fp32, causal"
+        shape = f"B {B}, T {T}, H {H}, d {d}, {name}, causal"
         lib_note = "F.scaled_dot_product_attention forward + backward on " \
                    "(B, H, T, d) views"
-        common = dict(shape=shape, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-                      max_abs_err_fwd=err_f, max_abs_err_bwd=err_b,
-                      library_fwd_ms=lib_fwd, library_kernels=names_fb,
+        kernel = ("flash_attn_sm90" if route == "sm90" else "flash_attn")
+        common = dict(shape=shape, dtype=name, route=route, fwd_ms=fwd_ms,
+                      bwd_ms=bwd_ms, max_abs_err_fwd=err_f,
+                      max_abs_err_bwd=err_b, library_fwd_ms=lib_fwd,
+                      library_kernels=names_fb,
                       library_fwd_kernels=names_fwd)
+        # the lse is held to SPLIT_LSE_ATOL, a 16-bit output to ATOL
+        fwd_atol = SPLIT_LSE_ATOL if dtype == torch.float32 else ATOL[name]
+        err_fwd = err_f if dtype == torch.float32 else err_out
+        common["max_abs_err_lse"] = err_lse
         mode = fa._pallas_mode(T, T, True)
         if mode == "stream":
-            rows[2] = dict(common, kernel="flash_attn_fwd (with lse)",
+            rows[2] = dict(common, kernel=f"{kernel}_fwd (with lse)",
                            ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd,
                            library="F.scaled_dot_product_attention forward "
                                    "on (B, H, T, d) views",
-                           max_abs_err=err_f, atol=SPLIT_LSE_ATOL,
+                           max_abs_err=err_fwd, atol=fwd_atol,
                            flops=2 * prod, bytes=4 * n_el + stats)
             # plain: the whole plain backward (no plain version of one pass)
-            rows[8] = dict(common, kernel="flash_attn_bwd passes delta + dQ",
+            rows[8] = dict(common, kernel=f"{kernel}_bwd passes delta + dQ",
                            ms=dq_ms, plain_ms=bwd_plain, library_ms=lib_fb,
                            library=lib_note, max_abs_err=err_b,
-                           atol=GRAD_ATOL["float32"], flops=3 * prod,
+                           atol=GRAD_ATOL[name], flops=3 * prod,
                            bytes=6 * n_el + stats)
-            rows[9] = dict(common, kernel="flash_attn_bwd pass dK/dV",
+            rows[9] = dict(common, kernel=f"{kernel}_bwd pass dK/dV",
                            ms=dkv_ms, plain_ms=bwd_plain, library_ms=lib_fb,
                            library=lib_note, max_abs_err=err_b,
-                           atol=GRAD_ATOL["float32"], flops=4 * prod,
+                           atol=GRAD_ATOL[name], flops=4 * prod,
                            bytes=6 * n_el + 2 * stats)
         else:
+            if T <= fa.SMALL_BWD_T_MAX:
+                rows[1] = dict(common, kernel=f"{kernel}_fwd (with lse)",
+                               ms=fwd_ms, plain_ms=fwd_plain,
+                               library_ms=lib_fwd, device_ms=dev_fwd,
+                               library="F.scaled_dot_product_attention "
+                                       "forward on (B, H, T, d) views",
+                               max_abs_err=err_fwd, atol=fwd_atol,
+                               flops=2 * prod, bytes=4 * n_el + stats)
             row = fa.reference_rows("bwd", mode, T)[0]
-            rows[row] = dict(common, kernel="flash_attn_bwd", ms=bwd_ms,
+            rows[row] = dict(common, kernel=f"{kernel}_bwd", ms=bwd_ms,
                              plain_ms=bwd_plain, library_ms=lib_fb,
                              library=lib_note, max_abs_err=err_b,
-                             atol=GRAD_ATOL["float32"], flops=5 * prod,
+                             atol=GRAD_ATOL[name], flops=5 * prod,
                              bytes=8 * n_el + stats, dq_pass_ms=dq_ms,
-                             dkv_pass_ms=dkv_ms)
+                             dkv_pass_ms=dkv_ms,
+                             device_ms=dev_bwd if row == 6 else None)
         del qkv, q, k, v, g, out, lse, dq, dk, dv, delta, qg, kg, vg, gh
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
     for row, r in sorted(rows.items()):
-        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"],
-                                             FP32_FLOPS_PER_S)
-        r["bound_3xtf32_ms"] = bound_3xtf32(r["flops"], r["bytes"])
-        r["ok"] = r["max_abs_err"] <= r["atol"]
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["bytes"], peak)
+        if dtype == torch.float32:
+            r["bound_3xtf32_ms"] = bound_3xtf32(r["flops"], r["bytes"])
+        r["ok"] = r["max_abs_err"] <= r["atol"] and \
+            r["max_abs_err_lse"] <= SPLIT_LSE_ATOL
+        device = "" if r.get("device_ms") is None else \
+            f" (device {r['device_ms']:.4f} ms)"
+        extra = "" if dtype != torch.float32 else \
+            f"; 3xTF32 bound {r['bound_3xtf32_ms']:.4f} ms"
         log(f"  row {row} {r['kernel']} ({r['shape']}): kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP at 67 TFLOP/s "
-            f"fp32, {r['bytes'] / 1e6:.2f} MB at 3.35 TB/s); forward "
-            f"{r['fwd_ms']:.4f} ms, backward {r['bwd_ms']:.4f} ms; 3xTF32 "
-            f"bound {r['bound_3xtf32_ms']:.4f} ms; max_abs_err "
+            f"{r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['flops'] / 1e9:.2f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s {name}, {r['bytes'] / 1e6:.2f} MB at "
+            f"3.35 TB/s); forward {r['fwd_ms']:.4f} ms, backward "
+            f"{r['bwd_ms']:.4f} ms{extra}; max_abs_err "
             f"vs plain {r['max_abs_err']:.3e} (atol {r['atol']:.0e}) "
             f"{'ok' if r['ok'] else 'FAIL'}; SDPA's kernels "
             f"{kernels_line(r['library_kernels'])}")
@@ -1906,7 +2266,7 @@ def timing_split_kernels(torch, fa, dev="cuda", shapes=SPLIT_TIMING):
     return rows
 
 
-def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
+def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768, types=None):
     """Row 12 at the encoder's shape (N = B 32 x T 512, D 768, fp32) with
     the train path's p 0.1, and p 0 (scoring): CUDA events around one
     call and device time alone (``torch.profiler``, 10 calls), its share
@@ -1914,16 +2274,20 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
     (``library_ms`` None); ``F.layer_norm`` on the precomputed
     ``residual + x + bias`` is timed beside it as a smaller function (one
     (N, D) tensor read and one written, against the kernel's two read and
-    one written)."""
+    one written).  ``types``: (x, residual, parameters), fp32 by
+    default; the bytes bound counts each in its type."""
     import torch.nn.functional as F
     from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    x_dt, r_dt, p_dt = types or (torch.float32,) * 3
     gen = torch.Generator(device=dev).manual_seed(10)
-    x, r = (torch.randn((N, D), generator=gen, device=dev) for _ in range(2))
-    b, g, be = (torch.randn(D, generator=gen, device=dev) for _ in range(3))
+    x, r = (torch.randn((N, D), generator=gen, device=dev).to(t)
+            for t in (x_dt, r_dt))
+    b, g, be = (torch.randn(D, generator=gen, device=dev).to(p_dt)
+                for _ in range(3))
     with torch.no_grad():
         out = fl.fused_ln(x, r, b, g, be, 3, p=p, eps=1e-5)
         ref = fl.fused_ln_ref(x, r, b, g, be, 3, p=p, eps=1e-5)
-        err = (out - ref).abs().max().item()
+        err, tol, ok = _fused_ln_err(torch, out, ref)
         del out, ref
 
         def kernel(p_):
@@ -1935,51 +2299,62 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768):
         plain = time_ms(torch, lambda: fl.fused_ln_ref(x, r, b, g, be, 3,
                                                        p=p, eps=1e-5),
                         reps=5)
-        z = r + x + b
-        lib = time_ms(torch, lambda: F.layer_norm(z, (D,), g, be, 1e-5))
-    nbytes = 4.0 * (3 * N * D + 3 * D)
+        z = (r.float() + x.float() + b.float()).to(x_dt)
+        lib = time_ms(torch, lambda: F.layer_norm(
+            z, (D,), g.to(x_dt), be.to(x_dt), 1e-5))
+    el = {t: torch.empty((), dtype=t).element_size()
+          for t in (x_dt, r_dt, p_dt)}
+    nbytes = 1.0 * N * D * (2 * el[x_dt] + el[r_dt]) + 3.0 * D * el[p_dt]
     b_ms, b_by = bound(10.0 * N * D, nbytes, FP32_FLOPS_PER_S)
+    names = "/".join(_dtype_name(t) for t in (x_dt, r_dt, p_dt))
     row = dict(ms=ms, ms_p0=ms_p0, device_ms=dev_ms, device_ms_p0=dev_ms_p0,
                share_of_bound=b_ms / dev_ms, share_of_bound_p0=b_ms /
                dev_ms_p0, plain_ms=plain, library_ms=None,
                library="none (no PyTorch call computes LayerNorm(residual "
                        "+ dropout(x + bias)))", layer_norm_ms=lib,
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
-               atol=FUSED_LN_ATOL, shape=f"N {N}, D {D}, fp32, p {p}")
-    row["ok"] = err <= FUSED_LN_ATOL
+               atol=FUSED_LN_ATOL, tolerance=tol,
+               shape=f"N {N}, D {D}, {names} (x/residual/params), p {p}"
+               if types else f"N {N}, D {D}, fp32, p {p}")
+    row["ok"] = ok
     log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms events, "
         f"{dev_ms:.4f} ms device ({row['share_of_bound']:.1%} of the bound) "
         f"(p 0: {ms_p0:.4f} events, {dev_ms_p0:.4f} device, "
         f"{row['share_of_bound_p0']:.1%}), plain {plain:.4f} ms, "
         f"F.layer_norm on the precomputed sum (a smaller function) "
         f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB "
-        f"at 3.35 TB/s); max_abs_err vs plain {err:.3e} (atol "
-        f"{FUSED_LN_ATOL:.0e}) {'ok' if row['ok'] else 'FAIL'}")
+        f"at 3.35 TB/s); max_abs_err vs plain {err:.3e} ({tol}) "
+        f"{'ok' if row['ok'] else 'FAIL'}")
     if not row["ok"]:
         raise AssertionError("fused_ln disagrees with its plain version at "
                              "the encoder's shape")
     return row
 
 
-def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768):
+def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768,
+                        types=None):
     """The epilogue's backward kernel (both launches) at the encoder's
     shape, fp32, p 0.1 and p 0: CUDA events, device time, the plain
     version, the bound (g, x, residual read, dx, dres written, the (D,)
     vectors read and written once) and the share of it in device time.
     No PyTorch call computes the function; ATen's LayerNorm backward on
     the precomputed sum (g and z read, dz written, no dropout, no second
-    output) is timed beside it as a smaller function."""
+    output) is timed beside it as a smaller function.  ``types``: (x,
+    residual, parameters), fp32 by default; dx and dres are held to the
+    grads atol of their types."""
     from paddle_tpu_torch.tools.profile_train import device_ms_per_call
+    x_dt, r_dt, p_dt = types or (torch.float32,) * 3
     gen = torch.Generator(device=dev).manual_seed(13)
-    x, r, g = (torch.randn((N, D), generator=gen, device=dev)
-               for _ in range(3))
-    b, gam, be = (torch.randn(D, generator=gen, device=dev)
+    x, r, g = (torch.randn((N, D), generator=gen, device=dev).to(t)
+               for t in (x_dt, r_dt, x_dt))
+    b, gam, be = (torch.randn(D, generator=gen, device=dev).to(p_dt)
                   for _ in range(3))
     args = (g, x, r, b, gam, be, 3)
+    atol = max(GRAD_ATOL[_dtype_name(t)] for t in (x_dt, r_dt))
     with torch.no_grad():
         got = fl.fused_ln_bwd(*args, p=p, eps=1e-5)
         ref = fl.fused_ln_bwd_ref(*args, p=p, eps=1e-5)
-        err = max((a - w).abs().max().item() for a, w in
+        err = max((a.float() - w.float()).abs().max().item() for a, w in
                   zip(got[:2], ref[:2]))
         del got, ref
 
@@ -1992,13 +2367,17 @@ def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768):
         plain = time_ms(torch, lambda: fl.fused_ln_bwd_ref(*args, p=p,
                                                            eps=1e-5),
                         reps=5)
-        z = r + x + b
-        _, mean, rstd = torch.ops.aten.native_layer_norm(z, (D,), gam, be,
+        z = (r.float() + x.float() + b.float()).to(x_dt)
+        gz, bz = gam.to(x_dt), be.to(x_dt)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(z, (D,), gz, bz,
                                                          1e-5)
         lib = time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
-            g, z, (D,), mean, rstd, gam, be, [True, True, True]))
-    nbytes = 4.0 * (5 * N * D + 6 * D)
+            g, z, (D,), mean, rstd, gz, bz, [True, True, True]))
+    el = {t: torch.empty((), dtype=t).element_size()
+          for t in (x_dt, r_dt, p_dt)}
+    nbytes = 1.0 * N * D * (3 * el[x_dt] + 2 * el[r_dt]) + 6.0 * D * el[p_dt]
     b_ms, b_by = bound(30.0 * N * D, nbytes, FP32_FLOPS_PER_S)
+    names = "/".join(_dtype_name(t) for t in (x_dt, r_dt, p_dt))
     row = dict(ms=ms, ms_p0=ms_p0, device_ms=dev_ms, device_ms_p0=dev_ms_p0,
                share_of_bound=b_ms / dev_ms,
                share_of_bound_p0=b_ms / dev_ms_p0, plain_ms=plain,
@@ -2006,8 +2385,10 @@ def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768):
                library="none (no PyTorch call computes the epilogue's "
                        "backward)", layer_norm_backward_ms=lib,
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
-               atol=GRAD_ATOL["float32"], shape=f"N {N}, D {D}, fp32, p {p}")
-    row["ok"] = err <= GRAD_ATOL["float32"]
+               atol=atol,
+               shape=f"N {N}, D {D}, {names} (x/residual/params), p {p}"
+               if types else f"N {N}, D {D}, fp32, p {p}")
+    row["ok"] = err <= atol
     log(f"  fused_ln_bwd ({row['shape']}): kernel {ms:.4f} ms events, "
         f"{dev_ms:.4f} ms device ({row['share_of_bound']:.1%} of the bound) "
         f"(p 0: {ms_p0:.4f} events, {dev_ms_p0:.4f} device, "
@@ -2015,11 +2396,88 @@ def timing_fused_ln_bwd(torch, fl, p, dev="cuda", N=16384, D=768):
         f"LayerNorm backward on the precomputed sum (a smaller function) "
         f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB "
         f"at 3.35 TB/s); max_abs_err vs plain {err:.3e} (atol "
-        f"{GRAD_ATOL['float32']:.0e}) {'ok' if row['ok'] else 'FAIL'}")
+        f"{atol:.0e}) {'ok' if row['ok'] else 'FAIL'}")
     if not row["ok"]:
         raise AssertionError("fused_ln_bwd disagrees with its plain version "
                              "at the encoder's shape")
     return row
+
+
+def timing_unscale(torch, dev="cuda"):
+    """The unscale pass on the GPT's 149 fp32 gradients at full width
+    (132,340,224 elements, the O1 step's): CUDA events around one call of
+    ``multi_tensor_unscale`` (its device tables cached), device time as a
+    replayed CUDA graph of the call (:func:`graph_ms`), the plain version,
+    and ``torch._amp_foreach_non_finite_check_and_unscale_``, PyTorch's
+    own call for the same function (timed here, used nowhere in the port),
+    beside the bytes bound (each gradient read and written once)."""
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    gen = torch.Generator(device=dev).manual_seed(16)
+    grads = [torch.randn(shape, generator=gen, device=dev)
+             for _, shape in update_shapes(torch, GPT_WIDTH, dev)]
+    plain = [g.clone() for g in grads]
+    scale = torch.full((), UNSCALE_SCALE, device=dev)
+    found = torch.zeros((), dtype=torch.bool, device=dev)
+    found_ref = torch.zeros((), dtype=torch.bool, device=dev)
+    cache = {}
+    mtu.multi_tensor_unscale(grads, scale, found, cache)
+    mtu.multi_tensor_unscale_ref(plain, scale, found_ref)
+    sync(torch, dev)
+    same = all(_same_bits(torch, a, b) for a, b in zip(grads, plain))
+    del plain
+    ms = time_ms(torch, lambda: mtu.multi_tensor_unscale(grads, scale,
+                                                         found, cache))
+    device_ms = graph_ms(torch, lambda: mtu.multi_tensor_unscale(
+        grads, scale, found, cache))
+    plain_ms = time_ms(torch, lambda: mtu.multi_tensor_unscale_ref(
+        grads, scale, found), reps=5)
+    inv = torch.full((1,), 1.0 / UNSCALE_SCALE, device=dev)
+    flag = torch.zeros((1,), device=dev)
+    library = torch._amp_foreach_non_finite_check_and_unscale_
+    lib = time_ms(torch, lambda: library(grads, flag, inv))
+    n = sum(g.numel() for g in grads)
+    nbytes = 8.0 * n
+    b_ms, b_by = bound(2.0 * n, nbytes, FP32_FLOPS_PER_S)
+    row = dict(kernel="mt_unscale", tensors=len(grads), elements=n, ms=ms,
+               device_ms=device_ms, share_of_bound=b_ms / device_ms,
+               plain_ms=plain_ms, library_ms=lib,
+               library="torch._amp_foreach_non_finite_check_and_unscale_",
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, bit_for_bit=same,
+               max_abs_err=0.0 if same else float("nan"),
+               shape=f"the GPT's {len(grads)} fp32 gradients, {n} elements",
+               ok=same)
+    log(f"  unscale ({row['shape']}): kernel {ms:.4f} ms events, "
+        f"{device_ms:.4f} ms device (replayed graph, "
+        f"{row['share_of_bound']:.1%} of the bound), plain {plain_ms:.4f} ms, "
+        f"{row['library']} {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes / 1e9:.3f} GB at 3.35 TB/s); bit for bit against the plain "
+        f"version: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the unscale pass disagrees with its plain "
+                             "version at the GPT's shapes")
+    del grads
+    return row
+
+
+def timing_fp16(torch, fa, fl, p, dev="cuda"):
+    """Phase 6's fp16 rows: attention (rows 1, 2, 6-9) in fp16 at
+    SPLIT_TIMING's shapes and rows 1 and 6 in bf16 (flash_attn_sm90) at
+    B 32, T 512 beside them; the epilogue and its backward in fp16 (x,
+    residual and parameters) and fp16 x beside an fp32 residual and
+    parameters, p ``p``; the unscale pass."""
+    f16, f32 = torch.float16, torch.float32
+    return dict(
+        split=timing_split_kernels(torch, fa, dev, dtype=f16),
+        split_bf16=timing_split_kernels(torch, fa, dev, SPLIT_TIMING[:1],
+                                        dtype=torch.bfloat16),
+        fused_ln=timing_fused_ln(torch, fl, p, dev, types=(f16, f16, f16)),
+        fused_ln_mixed=timing_fused_ln(torch, fl, p, dev,
+                                       types=(f16, f32, f32)),
+        fused_ln_bwd=timing_fused_ln_bwd(torch, fl, p, dev,
+                                         types=(f16, f16, f16)),
+        fused_ln_bwd_mixed=timing_fused_ln_bwd(torch, fl, p, dev,
+                                               types=(f16, f32, f32)),
+        unscale=timing_unscale(torch, dev))
 
 
 def timing_dlogits(torch, sx, cfg, dev="cuda"):
@@ -2302,13 +2760,14 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     weight_decay=0.01), CrossEntropyLoss(), amp_configs=amp, jit=...)
     .train_batch`` on (ids, labels), or with the optimizer
     ``make_opt(parameters)``; with ``decorate``, net and optimizer go
-    through ``amp.decorate(..., level="O2")`` first (bf16 parameters, fp32
-    masters), and every step must leave each parameter equal to its
-    master cast to bf16.  Step 1 (``update=False``, uncaptured
-    in both engines) runs through the kernels with the counts ``reset``
+    through ``amp.decorate(..., level="O2")`` first (bf16 parameters, or
+    ``decorate``'s type when it is one, over fp32 masters), and every step
+    must leave each parameter equal to its master cast to its type.
+    Step 1 (``update=False``, uncaptured in both engines) runs through
+    the kernels with the counts ``reset``
     just before and ``launches()`` read just after (they must equal
     ``want``), then again inside ``plain()`` (the plain versions), held to
-    the fp32 tolerances, or under AMP to the compiled bf16 step's.  With
+    the fp32 tolerances, or under AMP to its type's (``TRAIN_*_RTOL``).  With
     ``repeat``: JIT_STEPS steps on rolled batches with ``jit=False``
     (uncaptured), then twice with ``jit=True`` (a step captured in a CUDA
     graph and replayed), from the same state and seeds; the captured runs
@@ -2339,13 +2798,15 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
     make_opt = make_opt or (lambda params: AdamW(
         1e-3, parameters=params, weight_decay=0.01))
-    param_dtype = torch.bfloat16 if decorate else torch.float32
+    # decorate: True (bf16) or the low type
+    low = decorate if isinstance(decorate, torch.dtype) else torch.bfloat16
+    param_dtype = low if decorate else torch.float32
 
     def fresh(jit=True):
         net.load_state_dict(state0)
         opt = make_opt(net.parameters())
         if decorate:
-            pamp.decorate(net, opt, level="O2", dtype="bfloat16")
+            pamp.decorate(net, opt, level="O2", dtype=_dtype_name(low))
         return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
                                   jit=jit)
 
@@ -2362,10 +2823,12 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
         gc.collect()
         torch.cuda.empty_cache()
 
+    amp_dtype = amp.get("dtype", "bfloat16") if isinstance(amp, dict) \
+        else "bfloat16"
     loss_rtol = EAGER_LOSS_RTOL if amp is None else \
-        TRAIN_LOSS_RTOL["bfloat16"]
+        TRAIN_LOSS_RTOL[amp_dtype]
     grad_rtol = EAGER_GRAD_RTOL if amp is None else \
-        TRAIN_GRAD_RTOL["bfloat16"]
+        TRAIN_GRAD_RTOL[amp_dtype]
 
     def first_step(model):
         paddle_tpu_torch.seed(1)
@@ -2393,14 +2856,15 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
         with plain():
             loss_p, grads_p = first_step(model)
     d_loss = abs(loss_k - loss_p)
-    rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm()).item()
-           for n in names}
+    # in fp32: under fp16 the gradients of update=False are still scaled
+    rel = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+               / grads_p[n].float().norm()).item() for n in names}
     if plain_step:
         log(f"  same step with the plain versions and the same seeds: loss "
             f"{loss_p:.6f}, |difference| {d_loss:.3e} (limit rtol "
-            f"{loss_rtol:.0e}); grads relative L2 "
+            f"{loss_rtol:g}); grads relative L2 "
             f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())} (limit "
-            f"{grad_rtol:.0e})")
+            f"{grad_rtol:g})")
     if not (np.isfinite(loss_k) and d_loss <= loss_rtol * abs(loss_p)
             and all(v <= grad_rtol for v in rel.values())):
         raise AssertionError("the step through the kernels disagrees with "
@@ -2447,7 +2911,7 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
             raise AssertionError(f"the loss did not fall: {losses}")
         if not all(ties):
             raise AssertionError("a step left a parameter that is not its "
-                                 "master cast to bf16")
+                                 "master cast to its type")
         out[engine] = dict(losses=losses, step_ms=times, step_ms_p50=step_ms,
                            seq_per_s=seq_s, peak_memory_bytes=peak,
                            reserved_bytes=reserved)
@@ -2496,6 +2960,16 @@ def _train_state(net, opt):
     return out
 
 
+def _scaler_state(model):
+    """Copies of the fp16 loss scaler's device state (scale, good, bad,
+    found_inf), empty without one."""
+    sc = model._scaler
+    if sc is None:
+        return {}
+    return {f"scaler {k}": sc[k].clone()
+            for k in ("scale", "good", "bad", "found_inf")}
+
+
 def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
                             launches, want, loss_rtol, grad_rtol,
                             param_dtype, dropout):
@@ -2523,11 +2997,13 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
                 sync(torch, dev)
                 replay_counts.update(launches())
                 update_counts.update(_update_launches())
-                update_want.update(_update_want(model._optimizer,
-                                                net.parameters()))
+                update_want.update(_update_want(
+                    model._optimizer, net.parameters(),
+                    model._scaler is not None))
             if tied is not None:
                 ties.append(tied(model._optimizer))
         state = _train_state(net, model._optimizer)
+        state.update(_scaler_state(model))
         if dropout:
             model._optimizer.set_lr(0.0)
             losses += [model.train_batch([ids], [labels])["loss"]
@@ -2563,7 +3039,7 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
         f", slots and masters): {exact} (max loss rel diff {d_losses:.3e}, "
         f"rel L2 {d_params:.3e}); two captured runs bit for bit: {repeats}; "
         f"parameters {param_dtype}: {typed}; fp32 masters {masters}; every "
-        f"step's parameters = bf16(master): "
+        f"step's parameters = master cast: "
         f"{all(ties) if ties else 'n/a'}; a replayed step's launches "
         f"{replay_counts} (expected {want}), update {update_counts} "
         f"(expected {update_want})")
@@ -2581,7 +3057,8 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
             v.dtype == torch.float32 for k, v in s_j.items()
             if k.startswith("master "))):
         raise AssertionError("the decorated run lacks an fp32 master, or a "
-                             "parameter is not its master cast to bf16")
+                             "parameter is not its master cast to its "
+                             "type")
     if replay_counts != want:
         raise AssertionError(f"a replayed step counted {replay_counts}; "
                              f"expected {want}")
@@ -2632,10 +3109,20 @@ def _attention_launches(fa):
                 modes=dict(fa.MODE_LAUNCHES))
 
 
+def _amp_dtype(amp):
+    """The low type of an ``amp_configs`` value ("bfloat16" by default,
+    as ``Model.prepare`` reads it), None without AMP."""
+    if not amp:
+        return None
+    return amp.get("dtype", "bfloat16") if isinstance(amp, dict) \
+        else "bfloat16"
+
+
 def _attention_want(L, fwd_mode, bwd_mode, amp):
-    """L forward and L backward launches in their modes; under AMP (bf16
-    at d 64) every one of them on flash_attn_sm90.cu, else none."""
-    sm90 = L if amp else 0
+    """L forward and L backward launches in their modes; under AMP in
+    bf16 (at d 64) every one of them on flash_attn_sm90.cu, else (fp32,
+    fp16) none."""
+    sm90 = L if _amp_dtype(amp) == "bfloat16" else 0
     return dict(fwd=L, bwd=L, sm90_fwd=sm90, sm90_bwd=sm90,
                 modes={f"fwd {fwd_mode}": L, f"bwd {bwd_mode}": L})
 
@@ -2643,30 +3130,35 @@ def _attention_want(L, fwd_mode, bwd_mode, amp):
 def _reset_update():
     from paddle_tpu_torch.ops import multi_tensor_update as mtu
     mtu.LAUNCHES.clear()
-    mtu.NORM_LAUNCHES = mtu.POW_LAUNCHES = 0
+    mtu.NORM_LAUNCHES = mtu.POW_LAUNCHES = mtu.UNSCALE_LAUNCHES = 0
 
 
 def _update_launches():
     from paddle_tpu_torch.ops import multi_tensor_update as mtu
     return dict(update=dict(mtu.LAUNCHES), update_norms=mtu.NORM_LAUNCHES,
-                update_pows=mtu.POW_LAUNCHES)
+                update_pows=mtu.POW_LAUNCHES,
+                update_unscale=mtu.UNSCALE_LAUNCHES)
 
 
-def _update_want(opt, params):
+def _update_want(opt, params, scaled=False):
     """The fused update's launches in one step of ``opt``: one update pass
     in its kind per type setup (type, master or not) among ``params`` with
     a gradient, as many norms passes (LarsMomentum, Lamb) and powers'
-    advances (the kinds with powers)."""
+    advances (the kinds with powers); with fp16 loss scaling (``scaled``)
+    one unscale pass per gradient type."""
+    params = [p for p in params if p.grad is not None]
     spec = opt._kernel_spec()
-    groups = len({(p.dtype, id(p) in opt._master_weights) for p in params
-                  if p.grad is not None})
+    groups = len({(p.dtype, id(p) in opt._master_weights) for p in params})
     return dict(update={spec.kind: groups},
                 update_norms=groups if spec.kind in ("lars", "lamb") else 0,
-                update_pows=groups if spec.betas else 0)
+                update_pows=groups if spec.betas else 0,
+                update_unscale=len({p.grad.dtype for p in params})
+                if scaled else 0)
 
 
 # fit_recipe's AdamW on fp32 parameters: one group, one powers' advance
-FIT_UPDATE = dict(update={"adamw": 1}, update_norms=0, update_pows=1)
+FIT_UPDATE = dict(update={"adamw": 1}, update_norms=0, update_pows=1,
+                  update_unscale=0)
 
 
 def eager_train(torch, fa, dev, cfg, timed=True, amp=None, repeat=True,
@@ -3357,16 +3849,248 @@ def lamb_o2(torch, fa, fl, dev, cfg, batch=ENCODER_BATCH):
     return out
 
 
+# -- phase 14 -----------------------------------------------------------------
+# AMP in fp16 through Model.prepare, the reference's settings but for the
+# initial scale: 2^12 keeps the first steps clear of an overflow at full
+# width (the default 2^15 is an option; the planted overflow below is
+# where one is tested)
+FP16_O1 = {"level": "O1", "dtype": "float16", "init_loss_scaling": 2.0 ** 12}
+FP16_O2 = dict(FP16_O1, level="O2")
+# the planted overflow: a scale far past fp16's range, cut by 2^-30 at the
+# first non-finite step (decr_every_n_nan_or_inf 1) to one far inside it
+OVERFLOW = dict(FP16_O1, init_loss_scaling=2.0 ** 40,
+                decr_every_n_nan_or_inf=1, decr_ratio=2.0 ** -30)
+
+
+def _slots_initial(torch, opt, net):
+    """Whether every slot of ``opt`` is as AdamW makes it: moments zero,
+    powers one (no update has reached them)."""
+    for p in net.parameters():
+        for k, v in opt._state.get(id(p), {}).items():
+            if k.endswith("_pow") and not bool((v == 1).all()):
+                return False
+            if k.startswith("moment") and bool(v.any()):
+                return False
+    return bool(opt._state)
+
+
+def fp16_overflow(torch, fa, dev, cfg):
+    """The planted overflow on the full-width GPT under fp16 O1, captured:
+    step 1 (the real step before the capture) starts at OVERFLOW's scale
+    2^40, where the fp16 gradients are inf: no parameter moves, every
+    slot stays as made (moments 0, powers 1), the scale falls to 2^10.
+    Step 2 (a replay) updates.  Then the scale is set to 2^40 again in
+    place and step 3, a replay, overflows: every parameter, slot and power
+    bit for bit as before it, the scale 2^10 again; step 4 updates.  The
+    optimizer's step count advances on every step, as the reference's
+    does.  Returns the report."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    w = cfg["width"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    opt = AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01)
+    model = Model(net).prepare(opt, CrossEntropyLoss(),
+                               amp_configs=dict(OVERFLOW), jit=True)
+    ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], cfg["seq"],
+                         dev)
+    rows = []
+
+    def step(i):
+        before = _train_state(net, opt)
+        _reset_update()
+        loss = model.train_batch([ids], [labels])["loss"]
+        sync(torch, dev)
+        after = _train_state(net, opt)
+        sc = model._scaler
+        kept = [k for k in before if not _same_bits(torch, after[k],
+                                                    before[k])]
+        row = dict(step=i, loss=loss.item(), found_inf=bool(
+            model._amp_found_inf), scale=sc["scale"].item(),
+            good=int(sc["good"]), bad=int(sc["bad"]),
+            moved=len(kept), values=len(before),
+            slots_initial=_slots_initial(torch, opt, net),
+            global_step=opt._global_step, launches=_update_launches())
+        rows.append(row)
+        log(f"  overflow run step {i}: found_inf {row['found_inf']}, scale "
+            f"{row['scale']:.6g}, good {row['good']}, bad {row['bad']}, "
+            f"values moved {row['moved']} of {row['values']} (before the "
+            f"step: {len(before)}), slots as made {row['slots_initial']}, "
+            f"loss {row['loss']:.5f}, step count {row['global_step']}, "
+            f"launches {row['launches']}")
+        return row
+
+    first = step(1)
+    second = step(2)
+    model._scaler["scale"].fill_(OVERFLOW["init_loss_scaling"])
+    third = step(3)
+    fourth = step(4)
+    want_scale = OVERFLOW["init_loss_scaling"] * OVERFLOW["decr_ratio"]
+    ok = (first["found_inf"] and first["moved"] == 0 and
+          first["slots_initial"] and first["scale"] == want_scale
+          and (first["good"], first["bad"]) == (0, 0)
+          and not second["found_inf"] and second["moved"] > 0
+          and second["good"] == 1 and third["found_inf"]
+          and third["moved"] == 0 and third["scale"] == want_scale
+          and (third["good"], third["bad"]) == (0, 0)
+          and not fourth["found_inf"] and fourth["moved"] > 0
+          and [r["global_step"] for r in rows] == [1, 2, 3, 4]
+          and all(math.isfinite(r["loss"]) for r in rows)
+          and third["launches"]["update"] == {"adamw": 1}
+          and third["launches"]["update_unscale"] == 1
+          and _all_captured(model._steps.entries().values()))
+    log(f"  the overflow steps (1, and 3, a replay) moved nothing, the scale "
+        f"fell to {want_scale:.6g} and the next steps updated: {ok}")
+    if not ok:
+        raise AssertionError(f"the planted overflow: {rows}")
+    del model, net, opt
+    return dict(steps=rows, ok=ok, config=OVERFLOW)
+
+
+def grad_scaler_loop(torch, fa, dev, cfg, steps=3):
+    """The eager ``GradScaler`` loop on the full-width GPT: ``auto_cast``
+    O1 fp16 forward, ``scaler.scale(loss).backward()``, ``scaler.step``
+    (one host read of the flag) and ``clear_grad``, ``steps`` times; each
+    step launches L + L attention kernels (none on flash_attn_sm90), one
+    unscale and one update pass, and the loss stays finite."""
+    from paddle_tpu_torch import amp as pamp
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    w = cfg["width"]
+    L = w["num_layers"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    opt = AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01)
+    scaler = pamp.GradScaler(init_loss_scaling=FP16_O1["init_loss_scaling"])
+    loss_fn = CrossEntropyLoss()
+    ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], cfg["seq"],
+                         dev)
+    mode = fa._pallas_mode(cfg["seq"], cfg["seq"], True)
+    want = dict(_attention_want(L, mode, mode, FP16_O1),
+                update={"adamw": 1}, update_norms=0, update_pows=1,
+                update_unscale=1)
+    rows = []
+    for i in range(steps):
+        sync(torch, dev)
+        _reset_attention(fa)
+        _reset_update()
+        with pamp.auto_cast(level="O1", dtype="float16"):
+            out = net(ids)
+        loss = loss_fn(out, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        sync(torch, dev)
+        counts = dict(_attention_launches(fa), **_update_launches())
+        rows.append(dict(loss=loss.item(), scale=scaler.state_dict()["scale"],
+                         launches=counts))
+        del out, loss
+    ok = all(r["launches"] == want for r in rows) and all(
+        math.isfinite(r["loss"]) for r in rows)
+    log(f"  GradScaler loop, {steps} eager steps: losses "
+        f"{[round(r['loss'], 5) for r in rows]}, scale "
+        f"{rows[-1]['scale']}, launches a step {rows[-1]['launches']} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the GradScaler loop: {rows}")
+    del net, opt
+    return dict(steps=rows, ok=ok)
+
+
+def _epilogue_types(torch, fl, run):
+    """The (x, residual, parameter) types of every fused_ln launch during
+    ``run()``, recorded by a wrapper around the kernel's wrapper."""
+    seen = set()
+    real = fl.fused_ln
+
+    def record(x, residual, bias, gamma, beta, *a, **kw):
+        seen.add((_dtype_name(x.dtype), _dtype_name(residual.dtype),
+                  _dtype_name(gamma.dtype)))
+        return real(x, residual, bias, gamma, beta, *a, **kw)
+    with mock.patch.object(fl, "fused_ln", record):
+        run()
+    return sorted(seen)
+
+
+def fp16_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch,
+              bf16_o1=None):
+    """Phase 14: AMP in fp16.  The full-width GPT under FP16_O1 through
+    :func:`eager_train` (a step through the kernels against the plain
+    versions, 3 captured steps equal to 3 uncaptured bit for bit with the
+    scaler's state, L + L attention launches a replay on the tile kernels,
+    one unscale and one update launch, the loss falling over 12 steps of
+    each engine, step ms, seq/s, peak memory); the planted overflow
+    (:func:`fp16_overflow`); the encoder under FP16_O1 (2L + 2L epilogue
+    launches a replay, on fp16 x), captured; O2 at AMP_O2_LAYERS through
+    ``amp.decorate(level="O2", dtype="float16")``: fp16 parameters equal
+    to their fp32 masters cast after every step; the eager GradScaler loop
+    (:func:`grad_scaler_loop`)."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools.profile_train import build_encoder
+    log("== phase 14: the GPT at full width under AMP O1 in fp16")
+    gpt = eager_train(torch, fa, dev, cfg, amp=dict(FP16_O1))
+    if bf16_o1 is not None:
+        log(f"  phase 14 against phase 9's bf16 O1: captured step ms p50 "
+            f"{gpt['captured']['step_ms_p50']:.3f} / "
+            f"{bf16_o1['captured']['step_ms_p50']:.3f}, seq/s "
+            f"{gpt['captured']['seq_per_s']:.2f} / "
+            f"{bf16_o1['captured']['seq_per_s']:.2f}, peak GiB "
+            f"{gpt['captured']['peak_memory_bytes'] / 2**30:.3f} / "
+            f"{bf16_o1['captured']['peak_memory_bytes'] / 2**30:.3f}")
+    torch.cuda.empty_cache()
+    log("== phase 14: a planted overflow (fp16 O1, captured)")
+    overflow = fp16_overflow(torch, fa, dev, cfg)
+    torch.cuda.empty_cache()
+    log("== phase 14: the fused encoder under AMP O1 in fp16")
+    enc_net = build_encoder(encoder_cfg, dev)
+    T = encoder_cfg["max_len"]
+    ids, labels = _batch(torch, encoder_cfg["vocab_size"], 2, T, dev)
+
+    def one_step():
+        model = Model(enc_net).prepare(
+            AdamW(1e-3, parameters=enc_net.parameters()), CrossEntropyLoss(),
+            amp_configs=dict(FP16_O1), jit=False)
+        model.train_batch([ids], [labels], update=False)
+        for p in enc_net.parameters():
+            p.grad = None
+    types = _epilogue_types(torch, fl, one_step)
+    log(f"  the epilogue's (x, residual, parameters) types under fp16 O1: "
+        f"{types}")
+    if not types or any(x != "float16" for x, _, _ in types):
+        raise AssertionError(f"fp16 O1 reached the epilogue with {types}")
+    enc = encoder_train(torch, fa, fl, enc_net, encoder_cfg, dev,
+                        batch=encoder_batch, amp=dict(FP16_O1),
+                        engines=("captured",))
+    enc["epilogue_types"] = types
+    del enc_net
+    torch.cuda.empty_cache()
+    log(f"== phase 14: AMP O2 in fp16 through amp.decorate at L "
+        f"{AMP_O2_LAYERS}")
+    o2 = eager_train(torch, fa, dev, _o2_gpt(cfg), amp=dict(FP16_O2),
+                     decorate=torch.float16, engines=("captured",))
+    torch.cuda.empty_cache()
+    log("== phase 14: the eager GradScaler loop")
+    scaler = grad_scaler_loop(torch, fa, dev, cfg)
+    torch.cuda.empty_cache()
+    return dict(gpt=gpt, overflow=overflow, encoder=enc, o2=o2,
+                grad_scaler=scaler)
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
-        fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None):
-    """Phases 3-13 on ``dev`` with a serving GPT of ``width``, the two
+        fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
+        unscale_named=None, skip_named=None):
+    """Phases 3-14 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
-    ``update_named`` the (name, shape) pairs of phase 3's update checks
-    (default: the GPT's parameters and UPDATE_EXTRA); returns the report
-    and the ``kernels`` entries."""
+    ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
+    shape) pairs of phase 3's update, unscale and skip-flag checks
+    (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
+    returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -3387,6 +4111,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     mask_checks = check_fused_ln_mask(torch, fl, dev)
     ln_bwd_checks = check_fused_ln_bwd(torch, fl, dev)
     update_checks = check_update_kernel(torch, dev, update_named)
+    unscale_checks = check_unscale(torch, dev, unscale_named)
+    skip_checks = check_update_skip(torch, dev, skip_named)
     log("== phase 4: full-width scoring")
     net = GPT(GPTConfig(**width), device=dev, seed=0)
     score = scoring(torch, fa, net)
@@ -3406,6 +4132,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     ln_bwd_time = timing_fused_ln_bwd(torch, fl, encoder_cfg["dropout_rate"],
                                       dev)
     update_times = timing_update(torch, dev, optimizer_cfgs)
+    fp16_times = timing_fp16(torch, fa, fl, encoder_cfg["dropout_rate"], dev)
     del net
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
@@ -3459,6 +4186,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     opts = optimizers_path(torch, fa, dev, eager_cfg, optimizer_cfgs)
     lamb = lamb_o2(torch, fa, fl, dev, encoder_cfg, encoder_batch)
     torch.cuda.empty_cache()
+    fp16 = fp16_path(torch, fa, fl, dev, eager_cfg, encoder_cfg,
+                     encoder_batch, eager_o1)
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
         f"decorated {dec['step_ms_p50']:.3f} / "
@@ -3597,13 +4326,24 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               matmul_ms=train_times["softmax_xent_fwd"]["matmul_ms"],
               checks=len(head_checks), **tile_route(head_checks, "fwd"))]
 
+    s16 = fp16_times["split"]
+
+    def fp16_fields(t):
+        return {k: t.get(k) for k in (
+            "shape", "kernel", "ms", "device_ms", "plain_ms", "library_ms",
+            "library", "bound_ms", "bound_by", "max_abs_err")}
+
     def split_entry(name, row, source, replaces, launches, key):
         t = split_times[row]
         worst_fp32 = max(c[key] for c in split_checks
                          if row in c["rows"] and c["dtype"] == "float32")
         worst_bf16 = max(c[key] for c in split_checks
                          if row in c["rows"] and c["dtype"] == "bfloat16")
+        worst_fp16 = max(c[key] for c in split_checks
+                         if row in c["rows"] and c["dtype"] == "float16"
+                         and c.get("inputs", "rand") == "rand")
         return dict(name=name, route="cuda",
+                    max_abs_err_fp16=worst_fp16, fp16=fp16_fields(s16[row]),
                     source=f"paddle_tpu_torch/csrc/{source}",
                     replaces=replaces, row=row, launches=launches,
                     max_abs_err=worst_fp32, ms=t["ms"],
@@ -3740,6 +4480,94 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          "optimizers": {k: v["replay_update_launches"]
                                         for k, v in opts.items()},
                          "lamb_o2": dec["replay_update_launches"]}))
+    # fp16 (PR 13): rows 1 and 6 on the tile kernels, row 12 and its
+    # backward, the unscale pass; launches from phase 14's replays
+    g16, e16 = fp16["gpt"], fp16["encoder"]
+    b16 = fp16_times["split_bf16"]
+    rand16 = [c for c in checks + split_checks
+              if c["dtype"] == "float16"
+              and c.get("inputs", "rand") == "rand"]
+    range16 = [c for c in checks + split_checks
+               if c.get("inputs") == "fp16_range"]
+
+    def fp16_attention(name, source, replaces, row, direction, err_key):
+        t = s16[row]
+        return dict(
+            name=name, route="cuda",
+            source=f"paddle_tpu_torch/csrc/{source}", replaces=replaces,
+            row=row, launches=g16["replay_launches"][direction],
+            max_abs_err=max(c[err_key] for c in rand16
+                            if err_key in c and row in c.get(
+                                "rows", fa.reference_rows(
+                                    "fwd", "small", c["tk"]))),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library=t["library"], device_ms=t["device_ms"],
+            timed_shape=t["shape"], max_abs_err_timed_shape=t["max_abs_err"],
+            max_abs_err_past_fp16_range=max(c[err_key] for c in range16
+                                            if err_key in c),
+            launches_step1=g16["launches"][direction],
+            launches_encoder_replay=e16["replay_launches"][direction],
+            launches_sm90_replay=g16["replay_launches"][f"sm90_{direction}"],
+            bf16_sm90=fp16_fields(b16[row]),
+            checks=len(rand16) + len(range16))
+
+    def fp16_epilogue(name, source, replaces, launch_key, t, mixed, rows,
+                      **extra):
+        return dict(
+            name=name, route="cuda",
+            source=f"paddle_tpu_torch/csrc/{source}", replaces=replaces,
+            launches=e16["replay_launches"][launch_key],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if "float16" in (r["dtype"], r["residual_dtype"])),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            library=t["library"], device_ms=t["device_ms"],
+            share_of_bound=t["share_of_bound"], timed_shape=t["shape"],
+            ms_p0=t["ms_p0"], device_ms_p0=t["device_ms_p0"],
+            x_fp16_residual_fp32=fp16_fields(mixed),
+            checks=sum("float16" in (r["dtype"], r["residual_dtype"])
+                       for r in rows),
+            launches_step1=e16["launches"][launch_key], **extra)
+
+    u16 = fp16_times["unscale"]
+    kernels += [
+        fp16_attention("flash_attn_fwd_fp16", "flash_attn_fwd.cu",
+                       f"{fa_py}:205", 1, "fwd", "max_abs_err"),
+        fp16_attention("flash_attn_bwd_small_fp16", "flash_attn_bwd.cu",
+                       f"{fa_py}:733", 6, "bwd", "max_abs_err_grads"),
+        fp16_epilogue("fused_ln_fp16", "fused_ln.cu",
+                      "paddle_tpu/ops/pallas/fused_ln.py:55", "fused_ln",
+                      fp16_times["fused_ln"], fp16_times["fused_ln_mixed"],
+                      ln_checks, layer_norm_ms=fp16_times["fused_ln"][
+                          "layer_norm_ms"],
+                      epilogue_types=e16["epilogue_types"]),
+        fp16_epilogue("fused_ln_bwd_fp16", "fused_ln_bwd.cu",
+                      "paddle_tpu/ops/fused_ops.py:62", "fused_ln_bwd",
+                      fp16_times["fused_ln_bwd"],
+                      fp16_times["fused_ln_bwd_mixed"], ln_bwd_checks,
+                      tpu_kernel=None,
+                      layer_norm_backward_ms=fp16_times["fused_ln_bwd"][
+                          "layer_norm_backward_ms"]),
+        dict(name="multi_tensor_unscale", route="cuda",
+             source="paddle_tpu_torch/csrc/multi_tensor_update.cu",
+             replaces="paddle_tpu/ops/amp_ops.py:16", tpu_kernel=None,
+             note="check_finite_and_unscale and the jitted step's unscale "
+                  "(paddle_tpu/hapi/model.py:301-311) are XLA, no Pallas "
+                  "kernel",
+             launches=g16["replay_update_launches"]["update_unscale"],
+             max_abs_err=max(r["max_abs_err"] for r in unscale_checks),
+             ms=u16["ms"], plain_ms=u16["plain_ms"],
+             bound_ms=u16["bound_ms"], bound_by=u16["bound_by"],
+             library_ms=u16["library_ms"], library=u16["library"],
+             device_ms=u16["device_ms"],
+             share_of_bound=u16["share_of_bound"], timed_shape=u16["shape"],
+             checks=len(unscale_checks), skip_checks=len(skip_checks),
+             launches_replay={k: fp16[k]["replay_update_launches"]
+                              for k in ("gpt", "encoder", "o2")},
+             overflow_steps=[dict(found_inf=r["found_inf"],
+                                  scale=r["scale"], moved=r["moved"])
+                             for r in fp16["overflow"]["steps"]])]
     report = dict(checks=checks, qkv_checks=qkv_checks,
                   fp64_checks=fp64_checks,
                   head_checks=head_checks, dlogits_checks=dlogits_checks,
@@ -3758,7 +4586,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   fused_ln_bwd_timing=ln_bwd_time, fit=fit_fp32,
                   fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc,
                   optimizers=opts, lamb_o2=lamb, update_checks=update_checks,
-                  update_timing=update_times)
+                  update_timing=update_times, unscale_checks=unscale_checks,
+                  update_skip_checks=skip_checks, fp16_timing=fp16_times,
+                  fp16=fp16)
     return report, kernels
 
 

@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
-from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
+from ..ops.amp_ops import update_loss_scaling_
+from ..ops.multi_tensor_update import multi_tensor_unscale
 
 __all__ = ["auto_cast", "amp_guard", "amp_op", "GradScaler", "AmpScaler",
            "decorate", "WHITE_LIST", "BLACK_LIST", "classify_op",
@@ -332,8 +333,16 @@ class GradScaler:
     bfloat16 has float32's exponent range, so under a bf16 ``auto_cast``
     (or for a bf16 loss) :meth:`scale` passes the loss through, warns
     once, and ``unscale_`` and ``update`` do nothing for that step; fp16
-    keeps the whole state machine (:func:`~paddle_tpu_torch.ops.amp_ops.
-    update_loss_scaling`) on device tensors."""
+    keeps the whole state machine on device tensors, which move to the
+    loss's device at the first :meth:`scale`: ``unscale_`` is the unscale
+    pass (:func:`~paddle_tpu_torch.ops.multi_tensor_update.
+    multi_tensor_unscale`, one kernel launch per gradient type on the
+    card, in place) and
+    ``update`` :func:`~paddle_tpu_torch.ops.amp_ops.update_loss_scaling_`
+    in place.  ``step`` reads the flag on the host to skip the
+    optimizer's step, as the reference's eager API does
+    (``self._found_inf = bool(found)``); ``Model``'s fp16 steps skip on
+    the device instead."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=1000,
@@ -348,6 +357,8 @@ class GradScaler:
         self._good = torch.zeros((), dtype=torch.int32)
         self._bad = torch.zeros((), dtype=torch.int32)
         self._found_inf = False
+        self._found_dev = None          # the unscale pass's device flag
+        self._tables = {}               # its device tables (grad_tables)
         self._already_unscaled = False
         self._skip_scaling = False      # latched by a bf16 scale()
         self._bf16_warned = False
@@ -379,21 +390,30 @@ class GradScaler:
             self._skip_scaling = True
             return var
         self._skip_scaling = False
-        self._scale = self._scale.to(var.device)
+        self._to(var.device)
         return var * self._scale.to(var.dtype)
+
+    def _to(self, device) -> None:
+        """The state on ``device`` (moved once, at the first scale)."""
+        if self._scale.device != device:
+            self._scale, self._good, self._bad = (
+                t.to(device) for t in (self._scale, self._good, self._bad))
+            self._found_dev = None
+        if self._found_dev is None:
+            self._found_dev = torch.zeros((), dtype=torch.bool,
+                                          device=device)
 
     def unscale_(self, optimizer):
         if not self._enable or self._already_unscaled or \
                 self._skip_scaling:
             return
-        params = [p for _, p in (optimizer._params or [])
-                  if p.grad is not None]
-        unscaled, found = check_finite_and_unscale(
-            [p.grad for p in params], self._scale)
-        self._found_inf = bool(found)
+        grads = [p.grad for _, p in (optimizer._params or [])
+                 if p.grad is not None]
+        self._to(grads[0].device if grads else self._scale.device)
+        multi_tensor_unscale(grads, self._scale, self._found_dev,
+                             self._tables)
+        self._found_inf = bool(self._found_dev)
         self._already_unscaled = True
-        for p, g in zip(params, unscaled):
-            p.grad = g
 
     def step(self, optimizer):
         if not self._enable:
@@ -411,10 +431,12 @@ class GradScaler:
         self._already_unscaled = False
         if not (self._enable and self._dynamic) or self._skip_scaling:
             return
-        self._scale, self._good, self._bad = update_loss_scaling(
-            torch.tensor(self._found_inf), self._scale, self._good,
-            self._bad, self._incr_every_n_steps, self._decr_every_n,
-            self._incr_ratio, self._decr_ratio)
+        self._to(self._scale.device)
+        self._found_dev.fill_(self._found_inf)
+        update_loss_scaling_(self._found_dev, self._scale, self._good,
+                             self._bad, self._incr_every_n_steps,
+                             self._decr_every_n, self._incr_ratio,
+                             self._decr_ratio)
         self._found_inf = False
 
     def state_dict(self):
@@ -425,11 +447,12 @@ class GradScaler:
                 "good_steps": int(self._good), "bad_steps": int(self._bad)}
 
     def load_state_dict(self, state):
-        self._scale = torch.tensor(float(state["scale"]))
+        dev = self._scale.device
+        self._scale = torch.tensor(float(state["scale"]), device=dev)
         self._good = torch.tensor(int(state.get("good_steps", 0)),
-                                  dtype=torch.int32)
+                                  dtype=torch.int32, device=dev)
         self._bad = torch.tensor(int(state.get("bad_steps", 0)),
-                                 dtype=torch.int32)
+                                 dtype=torch.int32, device=dev)
         self._incr_ratio = state.get("incr_ratio", self._incr_ratio)
         self._decr_ratio = state.get("decr_ratio", self._decr_ratio)
         self._incr_every_n_steps = state.get(

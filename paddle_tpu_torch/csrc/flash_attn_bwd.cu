@@ -22,18 +22,18 @@
 // packed projection go straight into their column blocks of one
 // (B, T, 3F) tensor and those of split views into (B, S, H, D) tensors,
 // with no fold or unfold copy.  Head dims D in {16, 32, 64, 80, 96, 128}:
-// fp32 at all of them, bf16 at 16, 32, 80 and 96 (bf16 at D 64 and 128
-// runs flash_attn_sm90.cu); causal masking bottom-right aligned (query i
-// sees key j iff j <= i + Tk - Tq, with Tq <= Tk), or none; any Tq and Tk,
-// masked at the ragged edge.  P = exp(s - lse) is cast to dO's type for
+// fp32 and fp16 at all of them, bf16 at 16, 32, 80 and 96 (bf16 at D 64
+// and 128 runs flash_attn_sm90.cu); causal masking bottom-right aligned
+// (query i sees key j iff j <= i + Tk - Tq, with Tq <= Tk), or none; any
+// Tq and Tk, masked at the ragged edge.  P = exp(s - lse) is cast to dO's type for
 // dV and dS = P (dP - delta) to q's type for dQ and dK, every product
 // accumulating in fp32, as in the reference.
 //
 // What bounds it on an H100: per (batch, head) the causal backward needs
 // 5*Tq*Tk*D flops (S, dP, dV, dQ, dK, half of each square product) on
 // 4*(Tq + Tk)*D elements read and written; the two passes below recompute
-// S and dP, 7*Tq*Tk*D in all.  bf16 runs on mma.sync m16n8k16 (ldmatrix
-// operands, fp32 accumulators): bound by the bytes up to T ~ 512 and by
+// S and dP, 7*Tq*Tk*D in all.  bf16 and fp16 run on mma.sync m16n8k16
+// (ldmatrix operands, fp32 accumulators): bound by the bytes up to T ~ 512 and by
 // the arithmetic above.  fp32 runs on the tensor cores in split precision
 // (3xTF32, tile_common.cuh: three tf32 products per fp32 product, an
 // effective 165 TFLOP/s), bound by the arithmetic past T ~ 100, within
@@ -61,8 +61,11 @@
 // A operand.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_common.cuh"
 
@@ -417,7 +420,8 @@ cudaError_t run(const void* const* ptrs, const long long* st, const void* lse,
     case 96:
       return launch<T, 96>(a, B, passes, stream);
   }
-  if constexpr (sizeof(T) == 4) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
+  // bf16 at d 64 / 128 runs flash_attn_sm90.cu; fp32 and fp16 run here
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
     switch (d) {
       case 64:
         return launch<T, 64>(a, B, passes, stream);
@@ -435,7 +439,7 @@ cudaError_t run(const void* const* ptrs, const long long* st, const void* lse,
 // (B, H, Tq) fp32; delta is (B, H, Tq) fp32 scratch that the delta pass
 // fills and the other two read.  passes: bit mask of 1 (delta), 2 (dK/dV)
 // and 4 (dQ); 7 runs the whole backward.  dtype: 0 = float32, 1 =
-// bfloat16.  Returns a cudaError_t (0 = all launched).
+// bfloat16, 2 = float16.  Returns a cudaError_t (0 = all launched).
 extern "C" int flash_attn_bwd(const void* const* ptrs,
                               const long long* strides, const void* lse,
                               void* delta, int B, int H, int tq, int tk,
@@ -454,6 +458,9 @@ extern "C" int flash_attn_bwd(const void* const* ptrs,
     case 1:
       return (int)run<__nv_bfloat16>(ptrs, strides, lse, delta, B, H, tq, tk,
                                      d, causal, scale, passes, s);
+    case 2:
+      return (int)run<__half>(ptrs, strides, lse, delta, B, H, tq, tk, d,
+                              causal, scale, passes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,17 +17,19 @@
 // head) with a contiguous last axis, so head-split views of a fused
 // projection, the packed projection itself and folded (B*H, T, D)
 // tensors are read where they lie, with no copy.  Head dims D in {16, 32,
-// 64, 80, 96, 128}: fp32 at all of them, bf16 at 16, 32, 80 and 96 (bf16
-// at D 64 and 128 runs flash_attn_sm90.cu).  Causal masking is
+// 64, 80, 96, 128}: fp32 and fp16 at all of them, bf16 at 16, 32, 80 and
+// 96 (bf16 at D 64 and 128 runs flash_attn_sm90.cu).  Causal masking is
 // bottom-right aligned as in the reference: query i sees key j iff
 // j <= i + (Tk - Tq); causal with Tq > Tk (fully masked rows) is refused.
 // Any Tq and Tk: the ragged edge is masked here, where the TPU kernels
 // needed multiples of 128.  Softmax statistics are fp32, masked scores
 // take the finite NEG_INF = -1e30, and p is cast to v's type before the
-// P V product, as in the reference.
+// P V product, as in the reference.  The scale multiplies the fp32 scores
+// (never a 16-bit operand), so fp16 inputs whose products pass fp16's
+// range (65504) give what the plain version's fp32 scores give.
 //
 // What bounds it on an H100: per (batch, head) the causal forward does
-// 2*Tq*Tk*D flops on 2*(Tq + Tk)*D elements.  bf16 runs on mma.sync
+// 2*Tq*Tk*D flops on 2*(Tq + Tk)*D elements.  bf16 and fp16 run on mma.sync
 // m16n8k16 (~295 flops per byte of device memory at the tensor cores'
 // rate): bound by the bytes up to T ~ 512 at D = 64 and by the arithmetic
 // above.  fp32 runs on the tensor cores in split precision (3xTF32,
@@ -50,8 +52,11 @@
 // tile.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_common.cuh"
 
@@ -294,7 +299,8 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
     case 96:
       return launch<T, 96>(a, B, stream);
   }
-  if constexpr (sizeof(T) == 4) {  // bf16 at d 64 / 128: flash_attn_sm90.cu
+  // bf16 at d 64 / 128 runs flash_attn_sm90.cu; fp32 and fp16 run here
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
     switch (d) {
       case 64:
         return launch<T, 64>(a, B, stream);
@@ -326,6 +332,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     case 1:
       return (int)run<__nv_bfloat16>(q, k, v, o, lse, strides, B, H, tq, tk,
                                      d, causal, scale, s);
+    case 2:
+      return (int)run<__half>(q, k, v, o, lse, strides, B, H, tq, tk, d,
+                              causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,8 +9,9 @@
 //   out = (z - mean) * rsqrt(var + eps) * gamma + beta   in x's type
 //
 // with mean and the centred variance of each row in fp32.  x and residual
-// are each fp32 or bf16, in their own types, as the reference's kernel
-// reads them; bias, gamma and beta each fp32 or bf16.  The dropout mask is
+// are each fp32, bf16 or fp16, in their own types, as the reference's
+// kernel reads them (fused_ln_common.cuh `by_types` names the pairs); bias,
+// gamma and beta each fp32, bf16 or fp16.  The dropout mask is
 // the reference's Murmur3-finaliser hash of the element index mod 2^32
 // (ops/pallas/fused_ln.py:33), bit for bit: the backward (fused_ln_bwd.cu)
 // recomputes it from (seed, index) and no mask is stored.  The shared
@@ -22,15 +23,15 @@
 //
 // Design: for D <= 1024 one warp per row holds the row in registers (at
 // most 32 values a lane), loaded 16 bytes at a time where D and the
-// alignment allow (fp32: 4 values, bf16: 8; x and residual of different
-// types: 4 values, 16 and 8 bytes), else one value at a time.  The hash
-// runs in registers; mean and centred variance come from two warp shuffle
-// reductions over the registers, with no second read of the row.  Longer
-// rows take one 256-thread block per row: the row's z values wait in 48 KB
-// of dynamic shared memory (D <= 12288, opted in beyond the default
-// limit, which the block sums' static array also takes from), else each
-// pass recomputes them from x and the residual.  Eight rows per 256-thread
-// block on the warp path.
+// alignment allow (fp32: 4 values, bf16 and fp16: 8; x and residual of
+// different types: 4 values, 16 and 8 bytes), else one value at a time.
+// The hash runs in registers; mean and centred variance come from two
+// warp shuffle reductions over the registers, with no second read of the
+// row.  Longer rows take one 256-thread block per row: the row's z
+// values wait in 48 KB of dynamic shared memory (D <= 12288, opted in
+// beyond the default limit, which the block sums' static array also takes
+// from), else each pass recomputes them from x and the residual.  Eight
+// rows per 256-thread block on the warp path.
 
 #include "fused_ln_common.cuh"
 
@@ -87,7 +88,8 @@ __global__ void __launch_bounds__(THREADS) fused_ln_warp(Args args) {
     }
   }
   const float rstd = rsqrtf(warp_sum(sq) / (float)a.D + a.eps);
-  const bool g16 = a.param_bf16 & 2, b16 = a.param_bf16 & 4;
+  const int gc = param_code(a.param_types, 1),
+            bc = param_code(a.param_types, 2);
 #pragma unroll
   for (int c = 0; c < CHUNKS; ++c) {
     const int col0 = (c * 32 + lane) * VEC;
@@ -95,8 +97,8 @@ __global__ void __launch_bounds__(THREADS) fused_ln_warp(Args args) {
       float y[VEC];
 #pragma unroll
       for (int v = 0; v < VEC; ++v)
-        y[v] = z[c][v] * rstd * param(a.gamma, col0 + v, g16) +
-               param(a.beta, col0 + v, b16);
+        y[v] = z[c][v] * rstd * param(a.gamma, col0 + v, gc) +
+               param(a.beta, col0 + v, bc);
       store<TX, VEC>(orow + col0, y);
     }
   }
@@ -137,11 +139,12 @@ __global__ void __launch_bounds__(THREADS) fused_ln_row(Args args,
     sq += d * d;
   }
   const float rstd = rsqrtf(block_sum(sq, red) / (float)a.D + a.eps);
-  const bool g16 = a.param_bf16 & 2, b16 = a.param_bf16 & 4;
+  const int gc = param_code(a.param_types, 1),
+            bc = param_code(a.param_types, 2);
   for (int col = threadIdx.x; col < a.D; col += THREADS)
     orow[col] = from_f32<TX>((zval(col) - mean) * rstd *
-                                 param(a.gamma, col, g16) +
-                             param(a.beta, col, b16));
+                                 param(a.gamma, col, gc) +
+                             param(a.beta, col, bc));
 }
 
 template <typename TX, typename TR>
@@ -167,43 +170,32 @@ cudaError_t run(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename TX>
-cudaError_t run_res(const Args& a, int res_dtype, cudaStream_t s) {
-  switch (res_dtype) {
-    case 0:
-      return run<TX, float>(a, s);
-    case 1:
-      return run<TX, __nv_bfloat16>(a, s);
-    default:
-      return cudaErrorInvalidValue;
+template <typename TX, typename TR>
+struct Run {
+  static cudaError_t call(const Args* a, cudaStream_t s) {
+    return run<TX, TR>(*a, s);
   }
-}
+};
 
 }  // namespace
 
-// dtype (x, out) and res_dtype (residual): 0 = float32, 1 = bfloat16.
-// param_bf16: bit 0 bias, bit 1 gamma, bit 2 beta are bf16 (else fp32).
+// dtype (x, out) and res_dtype (residual): 0 = float32, 1 = bfloat16,
+// 2 = float16, in the pairs of `by_types`.  param_types: the type codes of
+// bias (bits 0-1), gamma (2-3) and beta (4-5).
 // seed: one int64 in device memory, read only with dropout.  Returns a cudaError_t (0 = launched).
 extern "C" int fused_ln(const void* x, const void* res, const void* bias,
                         const void* gamma, const void* beta, void* out, int N,
-                        int D, int dtype, int res_dtype, int param_bf16,
+                        int D, int dtype, int res_dtype, int param_types,
                         const unsigned long long* seed, int dropout,
                         float p, float q, float eps, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   const Args a{
-      {x, res, bias, gamma, beta, N, D, param_bf16, seed, 0u, dropout, p, q,
-       eps},
+      {x, res, bias, gamma, beta, N, D, param_types, seed, 0u, dropout, p,
+       q, eps},
       out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)run_res<float>(a, res_dtype, s);
-    case 1:
-      return (int)run_res<__nv_bfloat16>(a, res_dtype, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)fln::by_types<Run>(dtype, res_dtype, &a,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* fused_ln_error_string(int code) {

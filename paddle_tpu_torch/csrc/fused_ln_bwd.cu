@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_warp(Args args) {
 
   const int first = blockIdx.x * args.rows_per_block;
   const int last = min(a.N, first + args.rows_per_block);
-  const bool g16 = a.param_bf16 & 2;
+  const int gc = param_code(a.param_types, 1);
   for (int row = first + warp; row < last; row += WARPS) {
     const size_t base = (size_t)row * D;
     const TX* xr = static_cast<const TX*>(a.x) + base;
@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_warp(Args args) {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           z[c][v] *= rstd;
-          const float gg = gv[c][v] * param(a.gamma, col0 + v, g16);
+          const float gg = gv[c][v] * param(a.gamma, col0 + v, gc);
           sa += gg;
           sb += gg * z[c][v];
         }
@@ -155,7 +155,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_warp(Args args) {
         float dz[VEC], dh[VEC];
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
-          const float gg = gv[c][v] * param(a.gamma, col0 + v, g16);
+          const float gg = gv[c][v] * param(a.gamma, col0 + v, gc);
           dz[v] = rstd * (gg - ma - z[c][v] * mb);
           if (a.dropout)
             dh[v] = (keep_bits >> (c * VEC + v)) & 1u ? dz[v] / a.q : 0.f;
@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_row(Args args,
   __shared__ float red[WARPS];
   const Inputs a = with_seed(args.in);
   const int D = a.D;
-  const bool g16 = a.param_bf16 & 2;
+  const int gc = param_code(a.param_types, 1);
   float* mine = args.partial + (size_t)blockIdx.x * 3 * D;
   for (int col = threadIdx.x; col < 3 * D; col += THREADS) mine[col] = 0.f;
   __syncthreads();  // a column's three sums were zeroed by other threads
@@ -233,7 +233,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_row(Args args,
     for (int col = threadIdx.x; col < D; col += THREADS) {
       bool keep;
       const float y = (zval(col, keep) - mean) * rstd;
-      const float gg = to_f32(gr[col]) * param(a.gamma, col, g16);
+      const float gg = to_f32(gr[col]) * param(a.gamma, col, gc);
       sa += gg;
       sb += gg * y;
     }
@@ -243,7 +243,7 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_row(Args args,
       bool keep;
       const float y = (zval(col, keep) - mean) * rstd;
       const float gv = to_f32(gr[col]);
-      const float gg = gv * param(a.gamma, col, g16);
+      const float gg = gv * param(a.gamma, col, gc);
       const float dz = rstd * (gg - ma - y * mb);
       const float dh = a.dropout ? (keep ? dz / a.q : 0.f) : dz;
       static_cast<TX*>(args.dx)[base + col] = from_f32<TX>(dh);
@@ -260,17 +260,14 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_row(Args args,
 // parameter's type.
 __global__ void __launch_bounds__(THREADS)
     ln_bwd_fold(const float* partial, int blocks, int D, void* dbias,
-                void* dgamma, void* dbeta, int param_bf16) {
+                void* dgamma, void* dbeta, int param_types) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= 3 * D) return;
   float s = 0.f;
   for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * 3 * D + i];
   const int k = i / D, col = i - k * D;
-  void* out = k == 0 ? dbias : (k == 1 ? dgamma : dbeta);
-  if ((param_bf16 >> k) & 1)
-    static_cast<__nv_bfloat16*>(out)[col] = __float2bfloat16_rn(s);
-  else
-    static_cast<float*>(out)[col] = s;
+  store_code(k == 0 ? dbias : (k == 1 ? dgamma : dbeta), col,
+             param_code(param_types, k), s);
 }
 
 // The warp kernel's shared memory at this D and vector width (1 pads D
@@ -341,20 +338,48 @@ cudaError_t run(const Args& a, int blocks, void* dbias, void* dgamma,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ln_bwd_fold<<<(3 * in.D + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      a.partial, blocks, in.D, dbias, dgamma, dbeta, in.param_bf16);
+      a.partial, blocks, in.D, dbias, dgamma, dbeta, in.param_types);
   return cudaGetLastError();
 }
 
-// The one switch over the two types: 0 = float32, 1 = bfloat16.
-template <template <typename, typename> class F, typename... A>
-cudaError_t by_types(int dtype, int res_dtype, A... args) {
-  if (dtype == 0 && res_dtype == 0) return F<float, float>::call(args...);
-  if (dtype == 0 && res_dtype == 1)
-    return F<float, __nv_bfloat16>::call(args...);
-  if (dtype == 1 && res_dtype == 0)
-    return F<__nv_bfloat16, float>::call(args...);
-  if (dtype == 1 && res_dtype == 1)
-    return F<__nv_bfloat16, __nv_bfloat16>::call(args...);
+// ops/_build.py PARTS compiles this source in three parts, one object
+// per x type, BUILD_PART 0, 1, 2 (fp32, bf16, fp16), and links them: one
+// unit of all seven type pairs took nvcc ~67 s on the H100 machine's
+// CPU, three at once ~30 s for every source.  Each part defines its x
+// type's kernels and two entry points; part 0 also the library's, which
+// pick a part by x type.
+#ifndef BUILD_PART
+#error "compile with -DBUILD_PART=0, 1 or 2 (ops/_build.py PARTS)"
+#endif
+
+template <int K>
+struct PartX;
+template <>
+struct PartX<F32> {
+  using T = float;
+};
+template <>
+struct PartX<BF16> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct PartX<F16> {
+  using T = __half;
+};
+
+// F<TX, TR>::call(args...) for x of part K's type and the residual's type
+// code: fp32, or x's 16-bit type, or either 16-bit type beside fp32 x
+// (fused_ln_common.cuh `by_types` names the pairs).
+template <int K, template <typename, typename> class F, typename... A>
+cudaError_t by_res(int res_dtype, A... args) {
+  using TX = typename PartX<K>::T;
+  if (res_dtype == F32) return F<TX, float>::call(args...);
+  if constexpr (K == F32) {
+    if (res_dtype == BF16) return F<TX, __nv_bfloat16>::call(args...);
+    if (res_dtype == F16) return F<TX, __half>::call(args...);
+  } else if (res_dtype == K) {
+    return F<TX, TX>::call(args...);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -367,13 +392,44 @@ struct Resident {
 
 template <typename TX, typename TR>
 struct Run {
-  static cudaError_t call(const Args* a, int blocks, void* dbias,
+  static cudaError_t call(const void* a, int blocks, void* dbias,
                           void* dgamma, void* dbeta, cudaStream_t s) {
-    return run<TX, TR>(*a, blocks, dbias, dgamma, dbeta, s);
+    return run<TX, TR>(*static_cast<const Args*>(a), blocks, dbias, dgamma,
+                       dbeta, s);
   }
 };
 
 }  // namespace
+
+// This part's entry points, named for it (fused_ln_bwd_part<K>, ...);
+// `a` is an Args of this file.
+#define PART_NAME(name) PART_NAME_(name, BUILD_PART)
+#define PART_NAME_(name, k) PART_NAME__(name, k)
+#define PART_NAME__(name, k) name##k
+
+extern "C" int PART_NAME(fused_ln_bwd_resident_part)(int res_dtype, int D,
+                                                     int* blocks) {
+  return (int)by_res<BUILD_PART, Resident>(res_dtype, D, blocks);
+}
+
+extern "C" int PART_NAME(fused_ln_bwd_part)(int res_dtype, const void* a,
+                                            int blocks, void* dbias,
+                                            void* dgamma, void* dbeta,
+                                            void* s) {
+  return (int)by_res<BUILD_PART, Run>(res_dtype, a, blocks, dbias, dgamma,
+                                      dbeta, static_cast<cudaStream_t>(s));
+}
+
+#if BUILD_PART == 0
+// The other parts' entry points, which the library's call.
+extern "C" {
+int fused_ln_bwd_resident_part1(int res_dtype, int D, int* blocks);
+int fused_ln_bwd_resident_part2(int res_dtype, int D, int* blocks);
+int fused_ln_bwd_part1(int res_dtype, const void* a, int blocks,
+                       void* dbias, void* dgamma, void* dbeta, void* s);
+int fused_ln_bwd_part2(int res_dtype, const void* a, int blocks,
+                       void* dbias, void* dgamma, void* dbeta, void* s);
+}
 
 // The number of blocks of fused_ln_bwd that fit on the current device at
 // once for rows of D values of these types: the most `blocks` worth
@@ -382,12 +438,18 @@ extern "C" int fused_ln_bwd_resident(int D, int dtype, int res_dtype,
                                      int* blocks) {
   cudaGetLastError();
   if (D <= 0) return (int)cudaErrorInvalidValue;
-  return (int)by_types<Resident>(dtype, res_dtype, D, blocks);
+  switch (dtype) {
+    case fln::F32: return fused_ln_bwd_resident_part0(res_dtype, D, blocks);
+    case fln::BF16: return fused_ln_bwd_resident_part1(res_dtype, D, blocks);
+    case fln::F16: return fused_ln_bwd_resident_part2(res_dtype, D, blocks);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // g, x, dx in `dtype`; residual, dres in `res_dtype` (0 = float32,
-// 1 = bfloat16); param_bf16: bit 0 bias/dbias, bit 1 gamma/dgamma, bit 2
-// beta/dbeta are bf16 (else fp32).  `partial` holds blocks x 3 x D fp32.
+// 1 = bfloat16, 2 = float16, in the pairs of `by_types`); param_types:
+// the type codes of bias/dbias (bits 0-1), gamma/dgamma (2-3) and
+// beta/dbeta (4-5).  `partial` holds blocks x 3 x D fp32.
 // seed: one int64 in device memory, read only with dropout.  Two launches
 // on `stream`: the rows, then the fold of the column sums.  Returns a
 // cudaError_t (0 = launched).
@@ -396,19 +458,31 @@ extern "C" int fused_ln_bwd(const void* g, const void* x, const void* res,
                             const void* beta, void* dx, void* dres,
                             void* dbias, void* dgamma, void* dbeta,
                             float* partial, int blocks, int N, int D,
-                            int dtype, int res_dtype, int param_bf16,
+                            int dtype, int res_dtype, int param_types,
                             const unsigned long long* seed, int dropout,
                             float p, float q, float eps, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (N <= 0 || D <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   const Args a{
-      {x, res, bias, gamma, beta, N, D, param_bf16, seed, 0u, dropout, p, q,
-       eps},
+      {x, res, bias, gamma, beta, N, D, param_types, seed, 0u, dropout, p,
+       q, eps},
       g, dx, dres, partial, (N + blocks - 1) / blocks};
-  return (int)by_types<Run>(dtype, res_dtype, &a, blocks, dbias, dgamma,
-                            dbeta, static_cast<cudaStream_t>(stream));
+  switch (dtype) {
+    case fln::F32:
+      return fused_ln_bwd_part0(res_dtype, &a, blocks, dbias, dgamma, dbeta,
+                                stream);
+    case fln::BF16:
+      return fused_ln_bwd_part1(res_dtype, &a, blocks, dbias, dgamma, dbeta,
+                                stream);
+    case fln::F16:
+      return fused_ln_bwd_part2(res_dtype, &a, blocks, dbias, dgamma, dbeta,
+                                stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* fused_ln_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif

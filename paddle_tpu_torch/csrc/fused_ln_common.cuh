@@ -3,14 +3,16 @@
 // reference's dropout hash, the 4-, 8- and 16-byte row loads and stores,
 // and the warp and block sums.
 //
-// x and the residual each arrive as fp32 or bf16 (the reference's kernel
-// reads each in its own type, ops/pallas/fused_ln.py:58,63); bias, gamma
-// and beta each as fp32 or bf16 (bit 0, 1, 2 of `param_bf16`).  All
-// arithmetic is fp32.
+// x and the residual each arrive as fp32, bf16 or fp16 (the reference's
+// kernel reads each in its own type, ops/pallas/fused_ln.py:58,63), in the
+// pairs AMP makes (`by_types`: one 16-bit type beside itself or fp32);
+// bias, gamma and beta each as fp32, bf16 or fp16 (a 2-bit type code each
+// in `param_types`).  All arithmetic is fp32.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,7 +38,7 @@ struct Inputs {
   const void* gamma;
   const void* beta;
   int N, D;
-  int param_bf16;  // bit 0 bias, bit 1 gamma, bit 2 beta
+  int param_types;  // type codes: bits 0-1 bias, 2-3 gamma, 4-5 beta
   // The hash seed lives in device memory (its low 32 bits): a captured
   // CUDA graph replays the launch with its arguments frozen, and reads
   // there the seed its step wrote before the replay.  `seed` is that
@@ -66,9 +68,30 @@ __device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t idx) {
   return (float)(h >> 8) * (1.0f / 16777216.0f);
 }
 
-__device__ __forceinline__ float param(const void* v, int col, bool bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(v)[col])
-              : static_cast<const float*>(v)[col];
+// Type codes, of the tensors and of the parameters in `param_types`.
+constexpr int F32 = 0, BF16 = 1, F16 = 2;
+
+// The type code of parameter k (0 bias, 1 gamma, 2 beta).
+__host__ __device__ __forceinline__ int param_code(int types, int k) {
+  return (types >> (2 * k)) & 3;
+}
+
+__device__ __forceinline__ float param(const void* v, int col, int code) {
+  if (code == BF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(v)[col]);
+  if (code == F16) return __half2float(static_cast<const __half*>(v)[col]);
+  return static_cast<const float*>(v)[col];
+}
+
+// One value stored in the type of `code`.
+__device__ __forceinline__ void store_code(void* v, int col, int code,
+                                           float x) {
+  if (code == BF16)
+    static_cast<__nv_bfloat16*>(v)[col] = __float2bfloat16_rn(x);
+  else if (code == F16)
+    static_cast<__half*>(v)[col] = __float2half_rn(x);
+  else
+    static_cast<float*>(v)[col] = x;
 }
 
 // Whether dropout keeps element (row, col): the index wraps mod 2^32, as
@@ -82,7 +105,7 @@ __device__ __forceinline__ bool kept(const Inputs& a, int row, int col) {
 // (true without dropout).
 __device__ __forceinline__ float pre_norm(const Inputs& a, float xv, float rv,
                                           int row, int col, bool& keep) {
-  float h = xv + param(a.bias, col, a.param_bf16 & 1);
+  float h = xv + param(a.bias, col, param_code(a.param_types, 0));
   keep = true;
   if (a.dropout) {
     keep = kept(a, row, col);
@@ -158,8 +181,27 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// F<TX, TR>::call(args...) for the (x, residual) type codes: fp32 with
+// fp32, bf16 or fp16; bf16 or fp16 with itself or fp32.  A bf16 beside an
+// fp16 is no pair AMP makes: cudaErrorInvalidValue.
+template <template <typename, typename> class F, typename... A>
+cudaError_t by_types(int dtype, int res_dtype, A... args) {
+  switch (dtype * 3 + res_dtype) {
+    case F32 * 3 + F32: return F<float, float>::call(args...);
+    case F32 * 3 + BF16: return F<float, __nv_bfloat16>::call(args...);
+    case F32 * 3 + F16: return F<float, __half>::call(args...);
+    case BF16 * 3 + F32: return F<__nv_bfloat16, float>::call(args...);
+    case BF16 * 3 + BF16:
+      return F<__nv_bfloat16, __nv_bfloat16>::call(args...);
+    case F16 * 3 + F32: return F<__half, float>::call(args...);
+    case F16 * 3 + F16: return F<__half, __half>::call(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Values a lane loads at once on the warp path: 16 bytes of a type when x
-// and the residual share it, else 4 (16 bytes of fp32, 8 of bf16); 1 when
+// and the residual share it, else 4 (16 bytes of fp32, 8 of bf16 or
+// fp16); 1 when
 // D or an operand's alignment does not allow it.
 template <typename TX, typename TR>
 constexpr int vec_width() {

@@ -25,7 +25,8 @@
 // at which 67 TFLOP/s would bind.  Each thread moves 16-byte vectors (4
 // fp32, 8 bf16 or fp16; a 16-bit gradient under an fp32 master 8 bytes),
 // with a scalar tail; a tensor whose pointers are not all 16-byte aligned
-// goes element by element.
+// goes element by element.  The unscale pass below is bound by bytes as
+// well: each gradient element read once and written once (8 B in fp32).
 //
 // Arithmetic: fp32 in registers, each operation rounded as the per-leaf
 // PyTorch code rounds it (`__fmul_rn` and friends: nvcc would contract
@@ -46,6 +47,20 @@
 // bit for bit.  `mt_pows` advances each tensor's beta powers after the
 // update pass has read them, one thread a tensor: the blocks of a tensor
 // all read the old power, so none may write it.
+//
+// Loss scaling under fp16 AMP (the reference's jitted step,
+// paddle_tpu/hapi/model.py:296-331, and ops/amp_ops.py:16
+// check_finite_and_unscale, both XLA): `mt_unscale` multiplies every
+// gradient of a group in place by inv = 1/scale, read from the fp32 device
+// scalar of the scale and rounded to the gradient's type, as the jitted
+// step's `g * inv.astype(g.dtype)` does, and sets a device flag when any
+// gradient element is not finite.  Every block that finds one stores the
+// same value (true) into the flag, so its result does not depend on the
+// order of the stores; the caller clears it before the first group.
+// `mt_update`, `mt_norms` and `mt_pows` take that flag as `skip`: set, they
+// return before writing anything, so parameters, masters, slots and powers
+// keep their values, the reference's `jnp.where(found_inf, old, new)` over
+// (params, opt_state), with no read of the flag on the host.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -512,11 +527,18 @@ __device__ __forceinline__ void update_at(const Rec& r, long long i,
   if (T::master) store<typename T::G, V>(r.p16, i, w);
 }
 
+// the skip flag (null: never skip)
+__device__ __forceinline__ bool skipped(const unsigned char* skip) {
+  return skip != nullptr && *skip != 0;
+}
+
 template <int K, int TC>
 __global__ void __launch_bounds__(THREADS)
     mt_update_kernel(const Rec* recs, const int* prefix, int n, int chunk,
-                     const float* lr, Hyper h, const float* norms) {
+                     const float* lr, Hyper h, const float* norms,
+                     const unsigned char* skip) {
   constexpr int V = 16 / sizeof(typename Types<TC>::W);
+  if (skipped(skip)) return;
   const int t = tensor_of(prefix, n, blockIdx.x);
   const Rec r = recs[t];
   Ctx c{};
@@ -595,8 +617,9 @@ __device__ __forceinline__ void norms_at(const Rec& r, long long i,
 template <int K, int TC>
 __global__ void __launch_bounds__(THREADS)
     mt_norms_kernel(const Rec* recs, const int* prefix, int n, int chunk,
-                    Hyper h, float* partials) {
+                    Hyper h, float* partials, const unsigned char* skip) {
   constexpr int V = 16 / sizeof(typename Types<TC>::W);
+  if (skipped(skip)) return;  // Lamb would store its moments
   const int t = tensor_of(prefix, n, blockIdx.x);
   const Rec r = recs[t];
   Ctx c{};
@@ -629,7 +652,9 @@ __global__ void __launch_bounds__(THREADS)
 
 // one block a tensor: its partials folded in block order
 __global__ void __launch_bounds__(THREADS)
-    mt_fold_kernel(const int* prefix, const float* partials, float* norms) {
+    mt_fold_kernel(const int* prefix, const float* partials, float* norms,
+                   const unsigned char* skip) {
+  if (skipped(skip)) return;
   const int t = blockIdx.x;
   float a = 0.f, b = 0.f;
   for (int i = prefix[t] + threadIdx.x; i < prefix[t + 1]; i += THREADS) {
@@ -644,9 +669,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // one thread a tensor: β1ᵗ⁺¹ = β1ᵗ·β1, β2ᵗ⁺¹ = β2ᵗ·β2
-__global__ void mt_pows_kernel(const Rec* recs, int n, float b1, float b2) {
+__global__ void mt_pows_kernel(const Rec* recs, int n, float b1, float b2,
+                               const unsigned char* skip) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
+  if (t >= n || skipped(skip)) return;
   float* p1 = recs[t].pw[0];
   float* p2 = recs[t].pw[1];
   if (p1) *p1 = mul(*p1, b1);
@@ -661,20 +687,22 @@ struct Launch {
   Hyper h;
   float* norms;
   float* partials;
+  const unsigned char* skip;
   cudaStream_t s;
 };
 
 template <int K, int TC>
 void launch_update(const Launch& a) {
   mt_update_kernel<K, TC><<<a.nchunks, THREADS, 0, a.s>>>(
-      a.recs, a.prefix, a.n, a.chunk, a.lr, a.h, a.norms);
+      a.recs, a.prefix, a.n, a.chunk, a.lr, a.h, a.norms, a.skip);
 }
 
 template <int K, int TC>
 void launch_norms(const Launch& a) {
   mt_norms_kernel<K, TC><<<a.nchunks, THREADS, 0, a.s>>>(
-      a.recs, a.prefix, a.n, a.chunk, a.h, a.partials);
-  mt_fold_kernel<<<a.n, THREADS, 0, a.s>>>(a.prefix, a.partials, a.norms);
+      a.recs, a.prefix, a.n, a.chunk, a.h, a.partials, a.skip);
+  mt_fold_kernel<<<a.n, THREADS, 0, a.s>>>(a.prefix, a.partials, a.norms,
+                                           a.skip);
 }
 
 template <int K>
@@ -722,9 +750,19 @@ bool update_kind(const Launch& a, int kind, int types) {
 
 Launch launch_args(const void* recs, const int* prefix, int n, int nchunks,
                    int chunk, const float* lr, const float* hyper, int flags,
-                   float* norms, float* partials, void* stream) {
-  Launch a{static_cast<const Rec*>(recs), prefix, n, nchunks, chunk, lr, {},
-           norms, partials, static_cast<cudaStream_t>(stream)};
+                   float* norms, float* partials, const void* skip,
+                   void* stream) {
+  Launch a{static_cast<const Rec*>(recs),
+           prefix,
+           n,
+           nchunks,
+           chunk,
+           lr,
+           {},
+           norms,
+           partials,
+           static_cast<const unsigned char*>(skip),
+           static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 8; ++i) a.h.h[i] = hyper[i];
   a.h.flags = flags;
   return a;
@@ -734,6 +772,53 @@ bool shape_ok(int n, int nchunks, int chunk) {
   return n > 0 && nchunks > 0 && chunk > 0 && chunk % (THREADS * 8) == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The unscale pass: the gradients of a group (Rec.w, Rec.n, Rec.vec; the
+// other fields unread) times inv = 1/scale in their type G, in place
+// ---------------------------------------------------------------------------
+template <typename G, int V>
+__device__ __forceinline__ bool unscale_at(const Rec& r, long long i,
+                                           float inv) {
+  float g[V];
+  load<G, V>(r.w, i, g);
+  bool bad = false;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    // not finite: the exponent's bits all set (inf, nan)
+    bad |= (__float_as_uint(g[v]) & 0x7f800000u) == 0x7f800000u;
+    g[v] = mul(g[v], inv);  // exact for 16-bit G, rounded once when stored
+  }
+  store<G, V>(r.w, i, g);
+  return bad;
+}
+
+template <typename G>
+__global__ void __launch_bounds__(THREADS)
+    mt_unscale_kernel(const Rec* recs, const int* prefix, int n, int chunk,
+                      const float* scale, unsigned char* found) {
+  constexpr int V = 16 / sizeof(G);
+  const int t = tensor_of(prefix, n, blockIdx.x);
+  const Rec r = recs[t];
+  const float inv = rounded<G>(dvd(1.f, *scale));
+  const long long start = (long long)(blockIdx.x - prefix[t]) * chunk;
+  const long long end = min(r.n, start + chunk);
+  bool bad = false;
+  if (r.vec) {
+    for (long long i = start + (long long)threadIdx.x * V; i < end;
+         i += (long long)THREADS * V) {
+      if (i + V <= end) {
+        bad |= unscale_at<G, V>(r, i, inv);
+      } else {
+        for (long long j = i; j < end; ++j) bad |= unscale_at<G, 1>(r, j, inv);
+      }
+    }
+  } else {
+    for (long long i = start + threadIdx.x; i < end; i += THREADS)
+      bad |= unscale_at<G, 1>(r, i, inv);
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *found = 1;
+}
+
 }  // namespace
 
 // The update pass of one group: `recs` (n Recs) and `prefix` (n + 1 chunk
@@ -741,16 +826,19 @@ bool shape_ok(int n, int nchunks, int chunk) {
 // scalar, `hyper` 8 floats on the host, `norms` 2n floats from mt_norms
 // (LarsMomentum, Lamb; else unread).  kind: the Kind enum; types: 0 fp32,
 // 1 bf16 over fp32 masters, 2 bf16, 3 fp16 over fp32 masters, 4 fp16.
-// chunk: elements a block, a multiple of 2048.  Returns a cudaError_t (0 = launched).
+// chunk: elements a block, a multiple of 2048.  skip: a bool in device
+// memory (set: write nothing), or null.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int mt_update(const void* recs, const int* prefix, int n,
                          int nchunks, int chunk, int kind, int types,
                          const float* lr, const float* hyper, int flags,
-                         const float* norms, void* stream) {
+                         const float* norms, const void* skip,
+                         void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (!shape_ok(n, nchunks, chunk)) return (int)cudaErrorInvalidValue;
   const Launch a = launch_args(recs, prefix, n, nchunks, chunk, lr, hyper,
                                flags, const_cast<float*>(norms), nullptr,
-                               stream);
+                               skip, stream);
   if (!update_kind(a, kind, types)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -758,15 +846,15 @@ extern "C" int mt_update(const void* recs, const int* prefix, int n,
 // The norms pass of LarsMomentum and Lamb (Lamb also stores its new
 // moments): per chunk two partial sums of squares into `partials`
 // (2·nchunks floats), then one block a tensor folds them into `norms`
-// (2n floats).  Two launches.
+// (2n floats).  Two launches; skip as mt_update's.
 extern "C" int mt_norms(const void* recs, const int* prefix, int n,
                         int nchunks, int chunk, int kind, int types,
                         const float* hyper, int flags, float* partials,
-                        float* norms, void* stream) {
+                        float* norms, const void* skip, void* stream) {
   cudaGetLastError();
   if (!shape_ok(n, nchunks, chunk)) return (int)cudaErrorInvalidValue;
   const Launch a = launch_args(recs, prefix, n, nchunks, chunk, nullptr,
-                               hyper, flags, norms, partials, stream);
+                               hyper, flags, norms, partials, skip, stream);
   bool ok = false;
   if (kind == LARS) ok = norms_types<LARS>(a, types);
   if (kind == LAMB) ok = norms_types<LAMB>(a, types);
@@ -775,14 +863,47 @@ extern "C" int mt_norms(const void* recs, const int* prefix, int n,
 }
 
 // Each tensor's beta powers advanced once: beta1_pow ·= b1, beta2_pow ·= b2
-// (a null pointer in the Rec is left alone).
+// (a null pointer in the Rec is left alone); skip as mt_update's.
 extern "C" int mt_pows(const void* recs, int n, float b1, float b2,
-                       void* stream) {
+                       const void* skip, void* stream) {
   cudaGetLastError();
   if (n <= 0) return (int)cudaErrorInvalidValue;
   mt_pows_kernel<<<(n + 127) / 128, 128, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Rec*>(recs), n, b1, b2);
+      static_cast<const Rec*>(recs), n, b1, b2,
+      static_cast<const unsigned char*>(skip));
+  return (int)cudaGetLastError();
+}
+
+// The unscale pass of one group of gradients: `recs` (n Recs whose `w` is
+// the gradient) and `prefix` as mt_update's; dtype, the gradients' type: 0
+// float32, 1 bfloat16, 2 float16; `scale` the fp32 device scalar of the
+// loss scale; `found` a bool in device memory, set (never cleared) when an
+// element is not finite.  One launch.
+extern "C" int mt_unscale(const void* recs, const int* prefix, int n,
+                          int nchunks, int chunk, int dtype,
+                          const float* scale, void* found, void* stream) {
+  cudaGetLastError();
+  if (!shape_ok(n, nchunks, chunk)) return (int)cudaErrorInvalidValue;
+  const Rec* r = static_cast<const Rec*>(recs);
+  unsigned char* f = static_cast<unsigned char*>(found);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      mt_unscale_kernel<float>
+          <<<nchunks, THREADS, 0, s>>>(r, prefix, n, chunk, scale, f);
+      break;
+    case 1:
+      mt_unscale_kernel<__nv_bfloat16>
+          <<<nchunks, THREADS, 0, s>>>(r, prefix, n, chunk, scale, f);
+      break;
+    case 2:
+      mt_unscale_kernel<__half>
+          <<<nchunks, THREADS, 0, s>>>(r, prefix, n, chunk, scale, f);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

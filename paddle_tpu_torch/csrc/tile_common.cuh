@@ -7,11 +7,12 @@
 //   flash_attn_fwd.cu and flash_attn_bwd.cu;
 // - warp-level 16 x (8*NT) products over operands in shared memory, all
 //   with fp32 accumulators in one layout:
-//   `warp_mma` (the LM-head kernels): bf16 on the tensor cores (ldmatrix
-//   and mma.sync m16n8k16), fp32 on FMAs;
-//   `attn_mma` (the attention kernels): bf16 as `warp_mma`, fp32 on the
-//   tensor cores in split precision (3xTF32, mma.sync m16n8k8), which
-//   keeps fp32 accuracy (see `WarpMma3xTf32`).
+//   `warp_mma` (the LM-head kernels): bf16 and fp16 on the tensor cores
+//   (ldmatrix and mma.sync m16n8k16, the instruction's type from the
+//   operands'), fp32 on FMAs;
+//   `attn_mma` (the attention kernels): bf16 and fp16 as `warp_mma`, fp32
+//   on the tensor cores in split precision (3xTF32, mma.sync m16n8k8),
+//   which keeps fp32 accuracy (see `WarpMma3xTf32`).
 //
 // Accumulator layout (the mma.sync m16n8k16 and m16n8k8 C fragment): in a
 // warp, lane (g = lane / 4, t = lane % 4) owns, for each 8-column block j,
@@ -20,8 +21,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tile {
 
@@ -32,6 +36,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -42,6 +47,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // Two neighbouring columns (col, col + 1) of one row, stored as T.
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
@@ -50,6 +59,9 @@ __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* dst, float a, float b) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
 }
 
 // ---- attention operands ----------------------------------------------------
@@ -154,13 +166,23 @@ __device__ void copy_rows_async(const T* __restrict__ src, size_t ld,
 template <typename T, int NT, bool BT>
 struct WarpMma;
 
+// c += a b on m16n8k16 with fp32 accumulators; T names the operands'
+// 16-bit type (bf16 or fp16), whose fragments are laid out alike
+template <typename T>
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
                                           const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
@@ -194,14 +216,13 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
       : "r"(smem_addr(p)));
 }
 
-// bf16 operands come in by ldmatrix: one x4 load gives the A fragment of a
-// 16 x 16 step, one more the B fragments of two 8-column blocks (.trans
-// when B is stored [k][n]), and an x2 load the last block when NT is odd.
-// Row strides and column offsets are multiples of 8 elements, so every
-// row address is 16-byte aligned.
-template <int NT, bool BT>
-struct WarpMma<__nv_bfloat16, NT, BT> {
-  using T = __nv_bfloat16;
+// 16-bit operands (bf16 or fp16) come in by ldmatrix: one x4 load gives
+// the A fragment of a 16 x 16 step, one more the B fragments of two
+// 8-column blocks (.trans when B is stored [k][n]), and an x2 load the
+// last block when NT is odd.  Row strides and column offsets are multiples
+// of 8 elements, so every row address is 16-byte aligned.
+template <typename T, int NT, bool BT>
+struct WarpMma16 {
   __device__ static void run(float (&c)[NT][4], const T* A, int lda,
                              const T* B, int ldb, int m0, int n0, int K) {
     const int lane = threadIdx.x & 31;
@@ -217,8 +238,8 @@ struct WarpMma<__nv_bfloat16, NT, BT> {
         else      // B(k, n) = B[k * ldb + n]
           ldsm_x4_trans(b,
                         B + (k0 + r8 + hi8 * 8) * ldb + n0 + 8 * j + hi16 * 8);
-        mma_16816(c[j], a, b);
-        mma_16816(c[j + 1], a, b + 2);
+        mma_16816<T>(c[j], a, b);
+        mma_16816<T>(c[j + 1], a, b + 2);
       }
       if constexpr (NT % 2 == 1) {  // lanes 0..15 address the two halves
         uint32_t b[2];
@@ -226,11 +247,15 @@ struct WarpMma<__nv_bfloat16, NT, BT> {
           ldsm_x2(b, B + (n0 + 8 * (NT - 1) + r8) * ldb + k0 + hi8 * 8);
         else
           ldsm_x2_trans(b, B + (k0 + r8 + hi8 * 8) * ldb + n0 + 8 * (NT - 1));
-        mma_16816(c[NT - 1], a, b);
+        mma_16816<T>(c[NT - 1], a, b);
       }
     }
   }
 };
+template <int NT, bool BT>
+struct WarpMma<__nv_bfloat16, NT, BT> : WarpMma16<__nv_bfloat16, NT, BT> {};
+template <int NT, bool BT>
+struct WarpMma<__half, NT, BT> : WarpMma16<__half, NT, BT> {};
 
 template <int NT, bool BT>
 struct WarpMma<float, NT, BT> {
@@ -427,8 +452,8 @@ __device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A,
   WarpMma<T, NT, BT>::run(c, A, lda, B, ldb, m0, n0, K);
 }
 
-// The attention kernels' product: bf16 as warp_mma, fp32 in 3xTF32.  K is
-// a multiple of 16 (bf16) or 8 (fp32).
+// The attention kernels' product: bf16 and fp16 as warp_mma, fp32 in
+// 3xTF32.  K is a multiple of 16 (16-bit types) or 8 (fp32).
 template <typename T, int NT, bool BT>
 __device__ __forceinline__ void attn_mma(float (&c)[NT][4], const T* A,
                                          int lda, const T* B, int ldb, int m0,
@@ -443,8 +468,8 @@ __device__ __forceinline__ void attn_mma(float (&c)[NT][4], const T* A,
 constexpr size_t SMEM_PER_BLOCK = 227 * 1024;
 
 // Shared-memory row padding that keeps 16-byte row alignment and spreads a
-// warp's reads over the banks: 8 elements for bf16, 4 for fp32 (operand
-// tiles of D + 4 words, 4 mod 8, for the 3xTF32 reads above).
+// warp's reads over the banks: 8 elements for bf16 and fp16, 4 for fp32
+// (operand tiles of D + 4 words, 4 mod 8, for the 3xTF32 reads above).
 template <typename T>
 constexpr int pad() {
   return sizeof(T) == 2 ? 8 : 4;

@@ -64,7 +64,8 @@ COUNTERS = (("flash_attention", "FWD_LAUNCHES"),
             ("softmax_xent", "ROUTE_LAUNCHES"),
             ("multi_tensor_update", "LAUNCHES"),
             ("multi_tensor_update", "NORM_LAUNCHES"),
-            ("multi_tensor_update", "POW_LAUNCHES"))
+            ("multi_tensor_update", "POW_LAUNCHES"),
+            ("multi_tensor_update", "UNSCALE_LAUNCHES"))
 
 # one capture stream per device
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}

@@ -72,8 +72,21 @@ the gradients land on the fp32 leaves (:254-262).  A network that
 ``amp.decorate`` cast to the low type runs its forward on those
 parameters as they are; its optimizer's fp32 masters (``multi_precision``)
 take the update.  fp16 engages the
-dynamic loss scaling (``ops/amp_ops.py``); on the card it raises, since
-the attention and epilogue kernels take fp32 and bf16 only.
+dynamic loss scaling of the reference's jitted step (:296-331), on the
+device and captured with the step: the scale (fp32), the good and bad
+counts (int32) and ``found_inf`` (bool) are 0-d tensors on the model's
+device, written in place and bound by address; a step scales the loss,
+runs the backward, unscales the gradients and checks them in one pass per
+type (``ops/multi_tensor_update.multi_tensor_unscale``, the unscale kernel
+on the card), hands ``found_inf`` to ``optimizer.step``, which then writes
+nothing on overflow, and moves the scale state
+(``update_loss_scaling_``).  A ``train_batch(update=False)`` (``fit``'s
+``accumulate_grad_batches``) leaves its gradients scaled, and the step
+that updates unscales and checks their sum once.  No step reads the
+flag on the host, so the captured and the eager fp16 steps are one code
+path; ``_amp_found_inf`` is the last step's flag, a device tensor, as in
+the reference (:581).
+The optimizer's step count advances on an overflow too (:595-596).
 
 Not ported yet, and raising ``NotImplementedError`` with their
 ``ROADMAP.md`` item: ``offload=True`` and the budget-driven remat of
@@ -96,7 +109,8 @@ from .. import framework_io
 from ..amp import auto_cast, to_dtype
 from ..graphs import StepGraph
 from ..metric import Metric
-from ..ops.amp_ops import check_finite_and_unscale, update_loss_scaling
+from ..ops.amp_ops import update_loss_scaling_
+from ..ops.multi_tensor_update import multi_tensor_unscale
 from ..serving.bucketing import ExecutableCache
 from .callbacks import config_callbacks
 from .summary import summary as _summary
@@ -150,6 +164,7 @@ class Model:
         self._last_prefetcher = None
         self._amp = None
         self._scaler = None
+        self._amp_found_inf = None
         self._jit = True
         self._steps = ExecutableCache(name="hapi")
 
@@ -164,6 +179,7 @@ class Model:
             if not isinstance(m, Metric):
                 raise TypeError(f"metric {m} is not a paddle Metric")
         self._amp, self._scaler = self._amp_settings(amp_configs)
+        self._amp_found_inf = None
         if offload:
             raise NotImplementedError(f"optimizer-state offload "
                                       f"{_NOT_PORTED}")
@@ -197,19 +213,13 @@ class Model:
                    custom_black_list=cfg.get("custom_black_list"))
         if dtype == torch.bfloat16:
             return amp, None
-        if self._device().type == "cuda":
-            raise NotImplementedError(
-                "AMP in float16 on the card: the kernels of "
-                "ops/flash_attention.py (_check_cuda) and ops/fused_ln.py "
-                "take fp32 and bf16 only; fp16 kernels are not ported yet "
-                "(ROADMAP.md A3); use dtype 'bfloat16'")
         # fp16's exponent range needs dynamic loss scaling (:198-213);
-        # bf16 shares fp32's range and never engages it
+        # bf16 shares fp32's range and never engages it.  The state is
+        # made on the model's device at the first step (_scaler_state, as
+        # the reference makes it, :492-500) and written in place.
         scaler = dict(
-            scale=torch.tensor(float(cfg.get("init_loss_scaling",
-                                             2.0 ** 15))),
-            good=torch.zeros((), dtype=torch.int32),
-            bad=torch.zeros((), dtype=torch.int32),
+            init_loss_scaling=float(cfg.get("init_loss_scaling", 2.0 ** 15)),
+            scale=None, good=None, bad=None, found_inf=None, tables={},
             incr_ratio=float(cfg.get("incr_ratio", 2.0)),
             decr_ratio=float(cfg.get("decr_ratio", 0.5)),
             incr_every_n_steps=int(cfg.get("incr_every_n_steps", 1000)),
@@ -232,23 +242,48 @@ class Model:
             return torch.func.functional_call(self.network, view,
                                               tuple(inputs))
 
-    def _scaled_backward(self, loss: torch.Tensor) -> bool:
-        """fp16: backward of the loss times the scale, the gradients
-        unscaled, and the scale state moved (``update_loss_scaling``).
-        Returns whether every gradient was finite."""
+    def _scaler_state(self) -> None:
+        """Make the fp16 scaler's device state at the first step, outside
+        any capture: the scale, the good and bad counts and the flag."""
         sc = self._scaler
-        (loss.float() * sc["scale"].to(loss.device)).backward()
-        params = [p for p in self.network.parameters() if p.grad is not None]
-        grads, found = check_finite_and_unscale([p.grad for p in params],
-                                                sc["scale"])
-        for p, g in zip(params, grads):
-            p.grad.copy_(g)
+        if sc is None or sc["scale"] is not None:
+            return
+        dev = self._device()
+        sc["scale"] = torch.full((), sc["init_loss_scaling"],
+                                 dtype=torch.float32, device=dev)
+        sc["good"] = torch.zeros((), dtype=torch.int32, device=dev)
+        sc["bad"] = torch.zeros((), dtype=torch.int32, device=dev)
+        sc["found_inf"] = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def _backward_and_step(self, loss: torch.Tensor, update: bool) -> None:
+        """The backward and, with ``update``, ``optimizer.step()``; under
+        fp16 the reference's loss scaling (:296-331) around them, all on
+        the device: the backward of the fp32 loss times the scale and,
+        with ``update``, the gradients unscaled in place and checked
+        (``found_inf``), the step skipped on the device where it is set,
+        the scale state moved.  Without ``update`` the gradients stay
+        scaled and add up in ``.grad`` under the one scale of the window
+        (only an update moves it), so the step that updates unscales and
+        checks their whole sum once."""
+        sc = self._scaler
+        if sc is None:
+            loss.backward()
+            if update:
+                self._optimizer.step()
+            return
+        (loss.float() * sc["scale"]).backward()
+        if not update:
+            return
+        multi_tensor_unscale(
+            [p.grad for p in self.network.parameters() if p.grad is not None],
+            sc["scale"], sc["found_inf"], sc["tables"])
+        self._amp_found_inf = sc["found_inf"]
+        self._optimizer.step(found_inf=sc["found_inf"])
         if sc["use_dynamic_loss_scaling"]:
-            sc["scale"], sc["good"], sc["bad"] = update_loss_scaling(
-                found, sc["scale"], sc["good"], sc["bad"],
+            update_loss_scaling_(
+                sc["found_inf"], sc["scale"], sc["good"], sc["bad"],
                 sc["incr_every_n_steps"], sc["decr_every_n_nan_or_inf"],
                 sc["incr_ratio"], sc["decr_ratio"])
-        return not bool(found)
 
     def _device(self) -> torch.device:
         return next(self.network.parameters()).device
@@ -260,14 +295,22 @@ class Model:
     # -- captured steps ------------------------------------------------
     def _bound(self, grads: bool):
         """What a captured step reads and writes by address: parameters
-        and buffers; for training also the gradients and the optimizer's
-        state and learning rate."""
+        and buffers; for training also the gradients, the optimizer's
+        state and learning rate, and under fp16 the scaler's state and the
+        unscale pass's device tables."""
         net = self.network
         out = itertools.chain(net.parameters(), net.buffers())
         if grads:
             out = itertools.chain(
                 out, (p.grad for p in net.parameters() if p.grad is not None),
                 self._optimizer.bound_tensors())
+            sc = self._scaler
+            if sc is not None:
+                out = itertools.chain(
+                    out, (sc[k] for k in ("scale", "good", "bad",
+                                          "found_inf")),
+                    (t for table in sc["tables"].get("tables", ())
+                     for t in table.tensors()))
         return out
 
     def _captured(self, kind: str, make: Callable, values: List,
@@ -308,13 +351,7 @@ class Model:
             outs = _to_list(self.network(*ins) if self._amp is None
                             else self._forward_amp(ins))
             loss = self._loss(*(outs + labs))
-            finite = True
-            if self._scaler is None:
-                loss.backward()
-            else:
-                finite = self._scaled_backward(loss)
-            if finite:
-                self._optimizer.step()
+            self._backward_and_step(loss, update=True)
             self._optimizer.clear_grad(set_to_zero=True)
             return self._step_outputs(loss, outs)
         return step
@@ -362,6 +399,7 @@ class Model:
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
         self.network.train()
+        self._scaler_state()              # outside the graph
         ins, labs = _to_list(inputs), _to_list(labels)
         if not (update and self._jit):
             return self._train_batch_eager(ins, labs, update)
@@ -379,18 +417,13 @@ class Model:
     def _train_batch_eager(self, inputs, labels, update: bool = True) -> Dict:
         """The eager engine's step: forward, loss, backward and, with
         ``update``, ``optimizer.step()`` and ``clear_grad()``."""
+        self._scaler_state()
         ins = self._tensors(inputs)
         outs = _to_list(self.network(*ins) if self._amp is None
                         else self._forward_amp(ins))
         loss = self._loss(*(outs + self._tensors(labels)))
-        finite = True
-        if self._scaler is None:
-            loss.backward()
-        else:
-            finite = self._scaled_backward(loss)
+        self._backward_and_step(loss, update)
         if update:
-            if finite:
-                self._optimizer.step()
             self._optimizer.clear_grad()
         return self._pack_logs(loss.detach(), self._update_metrics(
             [o.detach() for o in outs], labels))

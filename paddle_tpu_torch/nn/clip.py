@@ -3,7 +3,7 @@
 
 An optimizer built with ``grad_clip=`` clips its parameters' gradients
 in place at the start of every ``step()``: after the fp16 loss scaler
-has unscaled them (``Model``'s ``_scaled_backward``), before the update,
+has unscaled them (``Model``'s ``_backward_and_step``), before the update,
 as the reference's optimizer does.  A parameter whose ``need_clip``
 attribute is false keeps its gradient, and is left out of the global
 norm.

@@ -7,6 +7,12 @@ The library's file name carries a digest of its source, of every shared
 header (``csrc/*.cuh``) and of the flags, so an edited source or header
 builds anew and an unchanged one is reused by later processes of the same
 checkout.  Nothing is prebuilt or checked in.
+
+A source named in :data:`PARTS` compiles in parts, each with
+``-DBUILD_PART=<k>`` into an object of its own, all at once, and the
+objects link into its library: nvcc compiles one translation unit on one
+core, and ``csrc/fused_ln_bwd.cu``'s seven type pairs took it ~67 s in
+one unit, the longest build of all (on the H100 machine's CPU).
 """
 from __future__ import annotations
 
@@ -20,8 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "BuildError", "nvcc", "library_path",
-           "build", "load"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "PARTS", "BuildError", "nvcc",
+           "library_path", "build", "load"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -32,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel sources by name (csrc/<name>.cu)
 SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+# sources compiled in parts (BUILD_PART 0 .. n - 1), then linked
+PARTS = {"fused_ln_bwd": 3}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,16 +70,18 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode() + b"\0%d" % PARTS.get(name, 0))
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     """Compile every named source that is not built yet, one ``nvcc``
-    process per source, all started together.  Returns, per name, the
-    library path, the seconds its build took (0.0 when it was already
-    built) and the compiler's report (``-Xptxas -v``: registers, shared
-    memory, spills).  Raises :class:`BuildError` with nvcc's stderr."""
+    process per source (per part of a source of :data:`PARTS`, whose
+    objects then link into its library), all started together.  Returns,
+    per name, the library path, the seconds its build took (0.0 when it
+    was already built) and the compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills).  Raises :class:`BuildError` with
+    nvcc's stderr; the sources that built keep their libraries."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: Dict[str, dict] = {}
     procs = {}
@@ -82,21 +92,43 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             out[name] = {"path": str(lib), "seconds": 0.0, "report": ""}
             continue
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        src = str(CSRC_DIR / f"{name}.cu")
+        if name in PARTS:
+            objs = [lib.with_name(f"{lib.stem}.{os.getpid()}.{k}.o")
+                    for k in range(PARTS[name])]
+            cmds = [[nvcc(), *(f for f in NVCC_FLAGS if f != "-shared"),
+                     f"-DBUILD_PART={k}", "-c", "-o", str(obj), src]
+                    for k, obj in enumerate(objs)]
+        else:
+            objs, cmds = [], [[nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
+        procs[name] = (lib, tmp, objs, [subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in cmds])
     failures = []
-    for name, (lib, tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed on csrc/{name}.cu "
-                            f"(exit {proc.returncode}):\n{stderr}")
+    for name, (lib, tmp, objs, running) in procs.items():
+        reports, errors = [], []
+        for proc in running:
+            stdout, stderr = proc.communicate()
+            reports.append((stdout + stderr).strip())
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on csrc/{name}.cu "
+                              f"(exit {proc.returncode}):\n{stderr}")
+        if objs and not errors:
+            link = subprocess.run(
+                [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                errors.append(f"nvcc failed to link csrc/{name}.cu "
+                              f"(exit {link.returncode}):\n{link.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if errors:
+            failures += errors
             continue
         os.replace(tmp, lib)       # atomic: a concurrent reader sees all
         out[name] = {"path": str(lib),
                      "seconds": time.perf_counter() - t0,
-                     "report": (stdout + stderr).strip()}
+                     "report": "\n".join(reports)}
     if failures:
         raise BuildError("\n".join(failures))
     return out

@@ -1,21 +1,43 @@
 """AMP support ops — the counterparts of ``paddle_tpu/ops/amp_ops.py``:
 ``check_finite_and_unscale`` (:16) and ``update_loss_scaling`` (:32), the
 dynamic loss-scale state machine, on device tensors and without reading
-anything back to the host."""
+anything back to the host.
+
+A step that is captured in a CUDA graph reads and writes its state by
+address, so it takes the in-place forms: the unscale pass
+:func:`~paddle_tpu_torch.ops.multi_tensor_update.multi_tensor_unscale`
+(``csrc/multi_tensor_update.cu`` on the card) and
+:func:`update_loss_scaling_`.
+"""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ["check_finite_and_unscale", "update_loss_scaling"]
+from . import multi_tensor_update as _mtu
+
+__all__ = ["check_finite_and_unscale", "update_loss_scaling",
+           "update_loss_scaling_"]
 
 
 def check_finite_and_unscale(xs: Sequence[torch.Tensor],
                              scale: torch.Tensor
                              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Each of ``xs`` divided by ``scale``, and a 0-d bool tensor that is
-    true when any of them holds a non-finite value."""
+    """Each of ``xs`` unscaled, and a 0-d bool tensor that is true when any
+    of them holds a non-finite value.  CUDA tensors of the kernel's types
+    (fp32, bf16, fp16) are copied and go through the unscale pass, which
+    multiplies by ``1/scale`` rounded to each tensor's type (the
+    reference's jitted step): for a scale that is a power of two whose
+    inverse the type holds, that is exactly the division by ``scale`` of
+    the reference op, which every other tensor takes (on the CPU, or of
+    another type)."""
+    if xs and all(x.is_cuda and x.dtype in _mtu.GRAD_CODES for x in xs):
+        outs = [x.clone(memory_format=torch.contiguous_format) for x in xs]
+        found = torch.zeros((), dtype=torch.bool, device=xs[0].device)
+        _mtu.multi_tensor_unscale(
+            outs, scale.to(xs[0].device, torch.float32), found)
+        return outs, found
     found = torch.zeros((), dtype=torch.bool, device=scale.device)
     outs = []
     for x in xs:
@@ -49,3 +71,18 @@ def update_loss_scaling(found_inf, prev_loss_scaling, num_good_steps,
     new_good = torch.where(reset, torch.zeros_like(new_good), new_good)
     new_bad = torch.where(reset, torch.zeros_like(new_bad), new_bad)
     return (new_scale, new_good.to(torch.int32), new_bad.to(torch.int32))
+
+
+def update_loss_scaling_(found_inf: torch.Tensor, scale: torch.Tensor,
+                         good: torch.Tensor, bad: torch.Tensor,
+                         incr_every_n_steps: int,
+                         decr_every_n_nan_or_inf: int, incr_ratio: float,
+                         decr_ratio: float) -> None:
+    """:func:`update_loss_scaling` written into ``scale``, ``good`` and
+    ``bad`` (0-d fp32, int32, int32 tensors on one device) in place: a
+    dozen scalar ops on the device, captured with the step."""
+    new = update_loss_scaling(found_inf, scale, good, bad,
+                              incr_every_n_steps, decr_every_n_nan_or_inf,
+                              incr_ratio, decr_ratio)
+    for t, v in zip((scale, good, bad), new):
+        t.copy_(v)

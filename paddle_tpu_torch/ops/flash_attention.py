@@ -16,8 +16,8 @@ made in either direction:
 
 Those two are built at the head dims of :data:`HEAD_DIMS` (16, 32, 64,
 80, 96, 128) and carry fp32 (on the tensor cores in split precision,
-3xTF32 ``mma.sync``) and bf16 at head dims 16, 32, 80 and 96
-(``mma.sync``).  bf16 at head dims 64 and 128 goes to
+3xTF32 ``mma.sync``), fp16 at every one of them and bf16 at head dims 16,
+32, 80 and 96 (``mma.sync``).  bf16 at head dims 64 and 128 goes to
 ``csrc/flash_attn_sm90.cu``, the same
 forward and backward built for Hopper on ``wgmma`` and TMA tile loads
 (:func:`kernel_route`); its operands are described to TMA by
@@ -58,7 +58,7 @@ SM90_HEAD_DIMS = (64, 128)   # bf16 head dims of csrc/flash_attn_sm90.cu
 SMALL_T_MAX = 1024      # flash_attention.py:43
 MID_T_MAX = 4096        # flash_attention.py:52
 SMALL_BWD_T_MAX = 512   # flash_attention.py:1011: longer keys take row 7
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the backward's launches (csrc/flash_attn_bwd.cu `passes`)
 PASS_DELTA, PASS_DKV, PASS_DQ = 1, 2, 4
 ALL_PASSES = PASS_DELTA | PASS_DKV | PASS_DQ
@@ -302,7 +302,8 @@ def _check_head_dim(name: str, d: int) -> None:
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: the kernel takes fp32 or bf16; got {dtype}")
+        raise TypeError(f"{name}: the kernel takes fp32, bf16 or fp16; got "
+                        f"{dtype}")
     _check_head_dim(name, tensors[0].shape[-1])
     for t in tensors:
         if t.dtype != dtype:
@@ -356,8 +357,9 @@ def kernel_route(dtype: torch.dtype, head_dim: int,
     """Which CUDA library takes an attention launch: ``"sm90"``
     (``csrc/flash_attn_sm90.cu``, wgmma and TMA) for bf16 at a head dim of
     :data:`SM90_HEAD_DIMS`, else ``"tile"`` (``csrc/flash_attn_fwd.cu`` /
-    ``flash_attn_bwd.cu``: fp32 in 3xTF32, bf16 at d 16, 32, 80 and 96,
-    all on ``mma.sync``).
+    ``flash_attn_bwd.cu``: fp32 in 3xTF32, fp16 at every head dim, bf16 at
+    d 16, 32, 80 and 96, all on ``mma.sync``; fp16 on
+    ``flash_attn_sm90.cu`` is queued, ``ROADMAP.md`` §B item 1a).
     A pure function of the type, the head dim and the operands' layouts:
     an ``"sm90"`` operand that TMA cannot describe (:func:`tma_geometry`)
     raises ``ValueError``; it is never sent to the other library."""
@@ -483,7 +485,7 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous tensor of q's shape and type.  With ``return_lse`` it
     returns ``(out, lse)``, lse fp32 ``(BH, Tq)`` or ``(B, H, Sq)``.
 
-    CUDA tensors go through the kernel (fp32 or bf16, d in
+    CUDA tensors go through the kernel (fp32, bf16 or fp16, d in
     :data:`HEAD_DIMS`, any strides with a contiguous last axis and 16-byte
     aligned rows); anything else it refuses raises.  CPU tensors take
     :func:`flash_attn_fwd_ref`.  Causal attention with ``Tq > Tk`` is

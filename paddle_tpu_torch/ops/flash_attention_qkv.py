@@ -137,7 +137,9 @@ def flash_qkv_bwd_ref(qkv: torch.Tensor, out: torch.Tensor,
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype = tensors[0].dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"{name} takes fp32 or bf16; got {dtype}")
+        raise TypeError(f"{name} takes fp32 or bf16; got {dtype} (fp16 "
+                        f"waits for the compiled step's fp16, ROADMAP.md "
+                        f"§B item 1b)")
     for t in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed types {dtype} and {t.dtype}")

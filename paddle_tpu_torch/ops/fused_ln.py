@@ -13,9 +13,9 @@ CUDA tensors (or raises) and computes :func:`fused_ln_ref`, its plain
 version, on CPU tensors; :func:`fused_ln_bwd` does the same for the
 backward with ``csrc/fused_ln_bwd.cu`` and :func:`fused_ln_bwd_ref` (the
 reference's ``_fused_bwd``, ``ops/fused_ops.py:62``, has no Pallas
-kernel).  x and the residual may differ in type (fp32 and bf16), as in
-the reference.  :data:`LAUNCHES` and :data:`BWD_LAUNCHES` count kernel
-launches.
+kernel).  x and the residual may differ in type (a 16-bit type, bf16 or
+fp16, beside fp32), as in the reference.  :data:`LAUNCHES` and
+:data:`BWD_LAUNCHES` count kernel launches.
 
 The kernels read the hash seed from device memory, so that a step captured
 in a CUDA graph draws new masks at every replay: the wrappers take the seed
@@ -35,7 +35,8 @@ from . import _build
 __all__ = ["hash_uniform", "fused_ln_ref", "fused_ln", "fused_ln_bwd_ref",
            "fused_ln_bwd", "LAUNCHES", "BWD_LAUNCHES"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LOW = (torch.bfloat16, torch.float16)
 _M32 = 0xFFFFFFFF
 
 # kernel launches since import, forward and backward (plain integers;
@@ -182,27 +183,36 @@ def _check(name: str, tensors, x: torch.Tensor, residual: torch.Tensor,
 
 def _check_cuda(name: str, tensors, x: torch.Tensor, residual: torch.Tensor,
                 vectors) -> int:
-    """What the kernels take: x and residual each fp32 or bf16, bias,
-    gamma, beta each fp32 or bf16, contiguous.  Returns the parameters'
-    bf16 bits (bit 0 bias, 1 gamma, 2 beta)."""
+    """What the kernels take: x and residual each fp32, bf16 or fp16, in
+    the pairs AMP makes (one 16-bit type beside itself or fp32: bf16 beside
+    fp16 is refused), bias, gamma, beta each fp32, bf16 or fp16,
+    contiguous.  Returns the parameters' type codes, two bits each (bits
+    0-1 bias, 2-3 gamma, 4-5 beta)."""
     if x.dtype not in _DTYPE_CODES or residual.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: the kernel takes x and residual each fp32 "
-                        f"or bf16; got {x.dtype}, {residual.dtype}")
+        raise TypeError(f"{name}: the kernel takes x and residual each "
+                        f"fp32, bf16 or fp16; got {x.dtype}, "
+                        f"{residual.dtype}")
+    if x.dtype in _LOW and residual.dtype in _LOW and \
+            x.dtype != residual.dtype:
+        raise TypeError(f"{name}: x {x.dtype} beside a {residual.dtype} "
+                        f"residual is no pair AMP makes; the kernel takes "
+                        f"a 16-bit type beside itself or fp32")
     if any(t.dtype not in _DTYPE_CODES for t in vectors):
-        raise TypeError(f"{name}: bias, gamma, beta must each be fp32 or "
-                        f"bf16; got {[t.dtype for t in vectors]}")
+        raise TypeError(f"{name}: bias, gamma, beta must each be fp32, bf16 "
+                        f"or fp16; got {[t.dtype for t in vectors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    return sum(1 << i for i, t in enumerate(vectors)
-               if t.dtype == torch.bfloat16)
+    return sum(_DTYPE_CODES[t.dtype] << (2 * i)
+               for i, t in enumerate(vectors))
 
 
 def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
              gamma: torch.Tensor, beta: torch.Tensor, seed, *, p: float,
              eps: float) -> torch.Tensor:
-    """``x``, ``residual`` ``(N, D)``, each fp32 or bf16 (in their own
-    types, as the reference's kernel reads them); ``bias``, ``gamma``,
-    ``beta`` ``(D,)``, each fp32 or bf16; ``seed`` an integer or a
+    """``x``, ``residual`` ``(N, D)``, each fp32, bf16 or fp16 (in their
+    own types, as the reference's kernel reads them; a 16-bit type beside
+    itself or fp32); ``bias``, ``gamma``, ``beta`` ``(D,)``, each fp32,
+    bf16 or fp16; ``seed`` an integer or a
     1-element int64 tensor on x's device (its low 32 bits are the hash
     seed).  Returns a new ``(N, D)`` tensor in x's type.
     CUDA tensors go through the kernel (contiguous inputs); CPU tensors
@@ -214,7 +224,7 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return fused_ln_ref(x, residual, bias, gamma, beta, seed, p=p,
                             eps=eps)
-    param_bf16 = _check_cuda("fused_ln", tensors, x, residual, vectors)
+    param_types = _check_cuda("fused_ln", tensors, x, residual, vectors)
     N, D = x.shape
     out = torch.empty_like(x)
     if N == 0 or D == 0:
@@ -227,7 +237,7 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
                            bias.data_ptr(), gamma.data_ptr(),
                            beta.data_ptr(), out.data_ptr(), N, D,
                            _DTYPE_CODES[x.dtype],
-                           _DTYPE_CODES[residual.dtype], param_bf16,
+                           _DTYPE_CODES[residual.dtype], param_types,
                            _ptr(seed_t), int(p > 0.0), p, 1.0 - p, eps,
                            stream)
     if err:
@@ -313,7 +323,7 @@ def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,
     if x.device.type == "cpu":
         return fused_ln_bwd_ref(g, x, residual, bias, gamma, beta, seed, p=p,
                                 eps=eps)
-    param_bf16 = _check_cuda("fused_ln_bwd", tensors, x, residual, vectors)
+    param_types = _check_cuda("fused_ln_bwd", tensors, x, residual, vectors)
     if g.dtype != x.dtype:
         raise TypeError(f"fused_ln_bwd: g must be in x's type {x.dtype}; "
                         f"got {g.dtype}")
@@ -334,7 +344,7 @@ def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,
             g.data_ptr(), x.data_ptr(), residual.data_ptr(),
             bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             dx.data_ptr(), dres.data_ptr(), *(t.data_ptr() for t in grads),
-            partial.data_ptr(), blocks, N, D, *codes, param_bf16,
+            partial.data_ptr(), blocks, N, D, *codes, param_types,
             _ptr(seed_t), int(p > 0.0), p, 1.0 - p, eps, stream)
     if err:
         raise RuntimeError(f"fused_ln_bwd launch failed: "

@@ -23,6 +23,20 @@ bf16 or fp16 parameters without masters (slots in their type).  The
 plain version also takes fp64 on the CPU, computing in fp64.
 :data:`LAUNCHES` (by kind), :data:`NORM_LAUNCHES` and :data:`POW_LAUNCHES`
 count launches.
+
+Loss scaling under fp16 AMP adds a pass and a flag (the reference's
+jitted step, ``paddle_tpu/hapi/model.py:296-331``, in XLA):
+:func:`multi_tensor_unscale` multiplies a step's gradients in place by
+``1/scale`` (read from the scale's fp32 device scalar and rounded to each
+gradient's type, the jitted step's ``g * inv.astype(g.dtype)``) and sets a
+device bool ``found_inf`` when any element is not finite, one launch per
+group of one type (:class:`GradTable`, counted in
+:data:`UNSCALE_LAUNCHES`); its plain version is
+:func:`multi_tensor_unscale_ref`.  :func:`multi_tensor_update` takes that
+flag as ``found_inf``: set, every launch returns before writing, so
+parameters, masters, slots and powers keep their values (the reference's
+``jnp.where(found_inf, old, new)``), and the plain version keeps them
+through ``torch.where``.  Nothing reads the flag on the host.
 """
 from __future__ import annotations
 
@@ -36,7 +50,9 @@ from . import _build
 
 __all__ = ["KINDS", "Spec", "Record", "Table", "multi_tensor_update",
            "multi_tensor_update_ref", "LAUNCHES", "NORM_LAUNCHES",
-           "POW_LAUNCHES", "CHUNK"]
+           "POW_LAUNCHES", "CHUNK", "GradTable", "grad_tables", "GRAD_CODES",
+           "multi_tensor_unscale", "multi_tensor_unscale_ref",
+           "UNSCALE_LAUNCHES"]
 
 # the kernel's kinds, in the order of its Kind enum
 KINDS = ("sgd", "momentum", "lars", "adam", "adamw", "adamax", "adagrad",
@@ -53,6 +69,7 @@ _REG = {None: 0, "L1Decay": 1, "L2Decay": 2}
 LAUNCHES: Dict[str, int] = {}
 NORM_LAUNCHES = 0
 POW_LAUNCHES = 0
+UNSCALE_LAUNCHES = 0
 
 _lib = None
 
@@ -113,12 +130,14 @@ def _kernel():
     if _lib is None:
         lib = _build.load("multi_tensor_update")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mt_update.argtypes = [p, p, i, i, i, i, i, p, p, i, p, p]
+        lib.mt_update.argtypes = [p, p, i, i, i, i, i, p, p, i, p, p, p]
         lib.mt_update.restype = i
-        lib.mt_norms.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p]
+        lib.mt_norms.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p, p]
         lib.mt_norms.restype = i
-        lib.mt_pows.argtypes = [p, i, ctypes.c_float, ctypes.c_float, p]
+        lib.mt_pows.argtypes = [p, i, ctypes.c_float, ctypes.c_float, p, p]
         lib.mt_pows.restype = i
+        lib.mt_unscale.argtypes = [p, p, i, i, i, i, p, p, p]
+        lib.mt_unscale.restype = i
         lib.multi_tensor_update_error_string.argtypes = [i]
         lib.multi_tensor_update_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -210,13 +229,7 @@ class Table:
             raise TypeError(f"multi_tensor_update: a group of mixed type "
                             f"setups {sorted(codes)}")
         self.types = codes.pop()
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "multi_tensor_update: the device table would be built while "
-                "a CUDA graph is being captured (a host-to-device copy); run "
-                "the step once uncaptured first")
         arr = (_Rec * len(self.records))()
-        prefix = [0]
         for rec, r in zip(arr, self.records):
             ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + [
                 s.data_ptr() for s in r.slots]
@@ -233,10 +246,8 @@ class Table:
             rec.decay, rec.reg = r.decay, _REG[r.reg]
             rec.plain = int(r.plain)
             rec.vec = int(all(p % 16 == 0 for p in ptrs))
-            prefix.append(prefix[-1] + -(-rec.n // CHUNK))
-        self.recs = torch.frombuffer(bytearray(arr), dtype=torch.uint8).to(
-            self.device)
-        self.prefix = torch.tensor(prefix, dtype=torch.int32).to(self.device)
+        self.recs, self.prefix = _upload("multi_tensor_update", arr,
+                                         self.device)
         if spec.kind in _NORM_KINDS:
             self.partials = torch.empty(2 * max(self.nchunks, 1),
                                         dtype=torch.float32,
@@ -250,22 +261,52 @@ class Table:
                                  self.norms) if t is not None)
 
 
+def _upload(what: str, arr, device: torch.device
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The records ``arr`` (a ctypes array of :class:`_Rec`) and the prefix
+    table of their chunks, copied to ``device``: a host-to-device copy, so
+    never while a CUDA graph is being captured."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what}: the device table would be built while a CUDA graph is "
+            f"being captured (a host-to-device copy); run the step once "
+            f"uncaptured first")
+    prefix = [0]
+    for rec in arr:
+        prefix.append(prefix[-1] + -(-rec.n // CHUNK))
+    return (torch.frombuffer(bytearray(arr), dtype=torch.uint8).to(device),
+            torch.tensor(prefix, dtype=torch.int32).to(device))
+
+
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _check_flag(name: str, flag: Optional[torch.Tensor],
+                device: torch.device) -> None:
+    if flag is not None and (flag.dtype != torch.bool or flag.numel() != 1
+                             or flag.device != device):
+        raise ValueError(f"{name}: found_inf must be one bool on {device}; "
+                         f"got {tuple(flag.shape)} {flag.dtype} on "
+                         f"{flag.device}")
+
+
 def multi_tensor_update(spec: Spec, table: Table, lr: torch.Tensor,
-                        update) -> None:
+                        update, found_inf: Optional[torch.Tensor] = None
+                        ) -> None:
     """Step every record of ``table`` in place with the learning rate
     ``lr`` (a 0-d fp32 tensor on the table's device): parameters (or
     masters, and the 16-bit parameters from them), slots and powers.  On
     the card: the norms pass for LarsMomentum and Lamb, the update pass,
     and the powers' advance where the kind has powers; CPU tensors take
     :func:`multi_tensor_update_ref` with ``update``, the optimizer's
-    ``_update``."""
+    ``_update``.  ``found_inf``, a bool on the table's device (or None),
+    read on the device by every launch: when it is set nothing is
+    written."""
     global NORM_LAUNCHES, POW_LAUNCHES
+    _check_flag("multi_tensor_update", found_inf, table.device)
     if table.device.type == "cpu":
-        multi_tensor_update_ref(spec, table.records, lr, update)
+        multi_tensor_update_ref(spec, table.records, lr, update, found_inf)
         return
     if table.device.type != "cuda":
         raise ValueError(f"multi_tensor_update runs on CUDA or CPU, not "
@@ -274,6 +315,7 @@ def multi_tensor_update(spec: Spec, table: Table, lr: torch.Tensor,
             lr.device != table.device:
         raise ValueError(f"multi_tensor_update: the rate must be one fp32 "
                          f"on {table.device}")
+    skip = _ptr(found_inf)
     lib = _kernel()
     kind = KINDS.index(spec.kind)
     hyper = (ctypes.c_float * 8)(*spec.hyper)
@@ -284,18 +326,19 @@ def multi_tensor_update(spec: Spec, table: Table, lr: torch.Tensor,
             _raise(lib, "mt_norms", lib.mt_norms(
                 table.recs.data_ptr(), table.prefix.data_ptr(), n,
                 table.nchunks, CHUNK, kind, table.types, hyper, spec.flags,
-                table.partials.data_ptr(), table.norms.data_ptr(), stream))
+                table.partials.data_ptr(), table.norms.data_ptr(), skip,
+                stream))
             NORM_LAUNCHES += 1
         if table.nchunks:           # none: every tensor is empty
             _raise(lib, "mt_update", lib.mt_update(
                 table.recs.data_ptr(), table.prefix.data_ptr(), n,
                 table.nchunks, CHUNK, kind, table.types, lr.data_ptr(),
-                hyper, spec.flags, _ptr(table.norms), stream))
+                hyper, spec.flags, _ptr(table.norms), skip, stream))
             LAUNCHES[spec.kind] = LAUNCHES.get(spec.kind, 0) + 1
         if spec.betas:
             b1, b2 = (tuple(spec.betas) + (1.0,))[:2]
             _raise(lib, "mt_pows", lib.mt_pows(table.recs.data_ptr(), n, b1,
-                                               b2, stream))
+                                               b2, skip, stream))
             POW_LAUNCHES += 1
 
 
@@ -312,15 +355,21 @@ _POWS = ("beta1_pow", "beta2_pow")
 
 
 def multi_tensor_update_ref(spec: Spec, records: Sequence[Record],
-                            lr: torch.Tensor, update) -> None:
+                            lr: torch.Tensor, update,
+                            found_inf: Optional[torch.Tensor] = None
+                            ) -> None:
     """Plain version of the kernel: ``update``, the optimizer's
     per-parameter ``_update`` (the per-leaf path's arithmetic), on copies
     of each record in fp32 (or wider for a wider parameter), each output
     rounded once to its type when it is stored, as the kernel stores it.
     Lamb's ratio reads its moments as their slots store them: the
     kernel's update pass reads them back.  AdamW takes the record's
-    decay, which its decay function gave when the records were made."""
+    decay, which its decay function gave when the records were made.
+    With ``found_inf`` set every output keeps its value
+    (``torch.where`` on the device, no host read)."""
     _check(spec, records)
+    _check_flag("multi_tensor_update_ref", found_inf,
+                records[0].param.device)
     for r in records:
         w0 = r.target
         acc = torch.promote_types(w0.dtype, torch.float32)
@@ -337,7 +386,130 @@ def multi_tensor_update_ref(spec: Spec, records: Sequence[Record],
               {"decay": r.decay} if spec.kind == "adamw" else {})
         new_w, new_state = update(w, g, state, lr * r.lr_scale, r.name, **kw)
         for k, t in zip(spec.slots + _POWS, r.slots + r.pows):
-            t.copy_(new_state[k])
-        w0.copy_(new_w)
+            t.copy_(_kept(found_inf, t, new_state[k]))
+        w0.copy_(_kept(found_inf, w0, new_w))
         if r.master is not None:
-            r.param.copy_(r.master)
+            r.param.copy_(_kept(found_inf, r.param, r.master))
+
+
+def _kept(found_inf, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new``, or ``old`` where ``found_inf`` is set, in old's type."""
+    new = new.to(old.dtype)
+    return new if found_inf is None else torch.where(found_inf, old, new)
+
+
+# -- the unscale pass ---------------------------------------------------------
+# the gradient types the kernel takes, by its type code
+GRAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+class GradTable:
+    """The gradients of one unscale launch: one type on one device,
+    contiguous; on the card the device table of their records (``w`` the
+    gradient) and the prefix table of chunks, built here, outside any
+    capture, and read by address."""
+
+    def __init__(self, grads: Sequence[torch.Tensor]):
+        self.device = grads[0].device
+        self.dtype = grads[0].dtype
+        for g in grads:
+            if g.device != self.device or g.dtype != self.dtype:
+                raise ValueError(f"multi_tensor_unscale: a group of "
+                                 f"{self.dtype} on {self.device} holds a "
+                                 f"{g.dtype} gradient on {g.device}")
+            if not g.is_contiguous():
+                raise ValueError("multi_tensor_unscale: gradients must be "
+                                 "contiguous")
+        self.n = len(grads)
+        self.nchunks = sum(-(-g.numel() // CHUNK) for g in grads)
+        self.recs = self.prefix = None
+        if self.device.type != "cuda":
+            return
+        if self.dtype not in GRAD_CODES:
+            raise TypeError(f"multi_tensor_unscale: the kernel takes fp32, "
+                            f"bf16 or fp16 gradients; got {self.dtype}")
+        arr = (_Rec * self.n)()
+        for rec, g in zip(arr, grads):
+            rec.w, rec.n = g.data_ptr(), g.numel()
+            rec.vec = int(g.data_ptr() % 16 == 0)
+        self.recs, self.prefix = _upload("multi_tensor_unscale", arr,
+                                         self.device)
+
+    def tensors(self):
+        """The device tensors a launch reads by address."""
+        return tuple(t for t in (self.recs, self.prefix) if t is not None)
+
+
+def grad_tables(grads: Sequence[torch.Tensor], cache: Optional[dict] = None
+                ) -> Tuple[GradTable, ...]:
+    """The gradients by type, one :class:`GradTable` each, in the order
+    of their first member; kept in ``cache`` (a dict) keyed by the
+    gradients' addresses, types and sizes, and rebuilt when the key
+    changes."""
+    key = tuple((g.data_ptr(), g.dtype, g.numel(), g.device) for g in grads)
+    if cache is not None and cache.get("key") == key:
+        return cache["tables"]
+    groups: Dict[Tuple, list] = {}
+    for g in grads:
+        groups.setdefault((g.device, g.dtype), []).append(g)
+    tables = tuple(GradTable(group) for group in groups.values())
+    if cache is not None:
+        cache["key"], cache["tables"] = key, tables
+    return tables
+
+
+def multi_tensor_unscale(grads: Sequence[torch.Tensor], scale: torch.Tensor,
+                         found_inf: torch.Tensor,
+                         cache: Optional[dict] = None) -> None:
+    """Every gradient times ``1/scale`` in place, in its type, and
+    ``found_inf`` (a bool on their device, cleared first) set when any
+    element is not finite.  ``scale`` is an fp32 scalar on the gradients'
+    device.  CUDA tensors go through ``mt_unscale``, one launch per type
+    (tables kept in ``cache``, see :func:`grad_tables`); CPU tensors take
+    :func:`multi_tensor_unscale_ref`."""
+    global UNSCALE_LAUNCHES
+    if not grads:
+        found_inf.zero_()
+        return
+    device = grads[0].device
+    _check_flag("multi_tensor_unscale", found_inf, device)
+    if scale.dtype != torch.float32 or scale.numel() != 1 or \
+            scale.device != device:
+        raise ValueError(f"multi_tensor_unscale: the scale must be one fp32 "
+                         f"on {device}")
+    if device.type == "cpu":
+        grad_tables(grads)                      # the same checks
+        multi_tensor_unscale_ref(grads, scale, found_inf)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"multi_tensor_unscale runs on CUDA or CPU, not "
+                         f"{device}")
+    tables = grad_tables(grads, cache)
+    lib = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        found_inf.zero_()
+        for t in tables:
+            if not t.nchunks:                   # every gradient is empty
+                continue
+            _raise(lib, "mt_unscale", lib.mt_unscale(
+                t.recs.data_ptr(), t.prefix.data_ptr(), t.n, t.nchunks,
+                CHUNK, GRAD_CODES[t.dtype], scale.data_ptr(),
+                found_inf.data_ptr(), stream))
+            UNSCALE_LAUNCHES += 1
+
+
+def multi_tensor_unscale_ref(grads: Sequence[torch.Tensor],
+                             scale: torch.Tensor,
+                             found_inf: torch.Tensor) -> None:
+    """Plain version of the unscale pass: ``found_inf`` = any element not
+    finite (read before the multiply), then each gradient times ``1/scale``
+    rounded to its type, in place, as the reference's jitted step computes
+    ``g * inv.astype(g.dtype)``."""
+    inv = torch.reciprocal(scale.reshape(()).float())
+    found = torch.zeros((), dtype=torch.bool, device=found_inf.device)
+    for g in grads:
+        found = found | ~torch.isfinite(g).all()
+    for g in grads:
+        g.mul_(inv.to(g.dtype))
+    found_inf.copy_(found.reshape(found_inf.shape))

@@ -29,6 +29,11 @@ A gradient that is not in its parameter's type, or not contiguous, is
 copied each step into a buffer of the optimizer's (made at the first
 step, read by address like the tables); the kernel reads that.
 
+``step(found_inf=...)`` (fp16 loss scaling) hands every launch a device
+bool: set, the launches write nothing (``ops/multi_tensor_update.py``).
+The flag is a launch argument, read by address like the learning rate,
+and not part of the tables' cache key.
+
 It returns False — the caller then takes the per-leaf path — in the
 reference's remaining cases only, decided before any launch and counted
 in :data:`ROUTES`: ``FLAGS_fused_optimizer`` off (``0``, ``false``,
@@ -162,10 +167,11 @@ def bound_tensors(opt):
     yield from getattr(opt, "_fused_grads", {}).values()
 
 
-def fused_step(opt) -> bool:
+def fused_step(opt, found_inf=None) -> bool:
     """The fused step over the optimizer's live parameters, after
-    ``step()``'s clip.  Returns False when the per-leaf path must take the
-    step (the module docstring), True when it was taken."""
+    ``step()``'s clip, skipped on the device where ``found_inf`` (a bool
+    tensor, or None) is set.  Returns False when the per-leaf path must
+    take the step (the module docstring), True when it was taken."""
     if not _flag_on():
         ROUTES["per_leaf_flag"] += 1
         return False
@@ -194,7 +200,7 @@ def fused_step(opt) -> bool:
         table.records = tuple(group)
         try:
             mtu.multi_tensor_update(spec, table, opt._lr(table.device),
-                                    opt._update)
+                                    opt._update, found_inf=found_inf)
         finally:
             table.records = ()
     opt._global_step += 1

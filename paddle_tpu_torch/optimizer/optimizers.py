@@ -50,7 +50,13 @@ rate), and ``Model.train_batch`` refreshes before every replay.
 ``grad_clip`` (``nn/clip.py``) clips the gradients in place at the start
 of ``step()``, on the device, before the update (:129-130).
 
-``step()`` then hands the update to
+``step(found_inf=None)`` takes a device bool from fp16 loss scaling
+(``Model.prepare(amp_configs={"dtype": "float16"})``): where it is set the
+step leaves parameters, masters and slots as they were, on the device,
+as the reference's jitted step does (``hapi/model.py:311-315``); the
+optimizer's ``_global_step`` advances either way (:595-596).
+
+``step()`` hands the update to
 :func:`~paddle_tpu_torch.optimizer.fused_update.fused_step` (the
 reference's :119-125): every optimizer's step is one multi-tensor kernel
 launch per group of parameters (``ops/multi_tensor_update.py``), whose
@@ -254,7 +260,10 @@ class Optimizer:
                 if p.requires_grad and p.grad is not None]
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, found_inf: torch.Tensor = None) -> None:
+        """One update of every parameter with a gradient; nothing moves
+        where ``found_inf`` (a 0-d bool on the parameters' device) is
+        set."""
         if self._params is None:
             raise ValueError("optimizer constructed without parameters")
         if not (torch.cuda.is_available()
@@ -265,7 +274,7 @@ class Optimizer:
             raise NotImplementedError(_SPARSE)
         if self._grad_clip is not None:
             self._grad_clip._clip_([(p, p.grad) for _, p in live])
-        if fused_update.fused_step(self):
+        if fused_update.fused_step(self, found_inf):
             return
         for name, p in live:
             slot = self._slot(p)
@@ -277,6 +286,10 @@ class Optimizer:
                 g = g + reg.grad(target)
             new_p, new_state = self._update(target, g, slot, self._lr_for(p),
                                             name)
+            if found_inf is not None:
+                new_state = {k: torch.where(found_inf, slot[k], v)
+                             for k, v in new_state.items()}
+                new_p = torch.where(found_inf, target, new_p)
             for k, v in new_state.items():
                 slot[k].copy_(v)
             target.copy_(new_p)

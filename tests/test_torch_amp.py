@@ -17,7 +17,8 @@
   keeps fp32 masters.
 - ``GradScaler``: bf16 passes through with one warning; fp16's scale
   state follows ``update_loss_scaling`` step for step.
-- What is refused: float16 on the card, levels other than O1 and O2.
+- What is refused: levels other than O1 and O2, dtypes other than bf16
+  and fp16; float16 prepares on the card (since the fp16 kernels).
   ``decorate`` with optimizers turns on their fp32 masters
   (``multi_precision``; held to the reference in
   ``tests/test_torch_optimizers.py``).
@@ -315,10 +316,17 @@ def test_what_amp_refuses(monkeypatch):
     model = Model(net)
     with pytest.raises(ValueError, match="'O1' or 'O2'"):
         model.prepare(opt, CrossEntropyLoss(), amp_configs="O3")
-    monkeypatch.setattr(Model, "_device", lambda self: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="fp32 and bf16 only"):
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
         model.prepare(opt, CrossEntropyLoss(),
-                      amp_configs={"dtype": "float16"})
+                      amp_configs={"level": "O1", "dtype": "float32"})
+    # fp16 on the card prepares: the scaler's device state is made at the
+    # first step, on the model's device
+    monkeypatch.setattr(Model, "_device", lambda self: torch.device("cuda"))
+    model.prepare(opt, CrossEntropyLoss(),
+                  amp_configs={"dtype": "float16", "init_loss_scaling": 8.0})
+    assert model._amp["dtype"] == torch.float16
+    assert model._scaler["init_loss_scaling"] == 8.0
+    assert model._scaler["scale"] is None
     model.prepare(opt, CrossEntropyLoss(), amp_configs={"level": "O2"})
 
 

@@ -69,8 +69,9 @@ def test_kernel_refuses_what_it_does_not_take(card):
     x = torch.rand(2, 64, 8, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         pfa.flash_attn_fwd(x, x, x)
-    h = torch.rand(2, 8, 64, device="cuda", dtype=torch.float16)
-    with pytest.raises(TypeError, match="fp32 or bf16"):
+    # fp16 runs on the tile kernels since the fp16 slice; fp64 is refused
+    h = torch.rand(2, 8, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
         pfa.flash_attn_fwd(h, h, h)
 
 
@@ -1168,3 +1169,140 @@ def test_update_kernel_steps_a_staged_gradient(card, grad):
     assert fused_update.tables(opt)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
     assert torch.equal(got, cap)
+
+
+# -- fp16 (AMP in fp16 on the card) ------------------------------------------
+F16 = torch.float16
+
+
+def test_fp16_attention_kernels_match_plain_versions(card):
+    # the tile kernels in fp16 at every built head dim, forward with lse and
+    # backward, causal and not, Tq < Tk, and raw scores past fp16's range
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    before = pfa.FWD_LAUNCHES, pfa.SM90_FWD_LAUNCHES
+    for tq, tk in ((7, 7), (128, 128), (100, 300), (600, 600)):
+        for d in pfa.HEAD_DIMS:
+            for causal in (False, True):
+                q, k, v, g = chip_smoke._split_operands(
+                    torch, gen, "cuda", 2, tq, tk, 2, d, F16)
+                out, lse = pfa.flash_attn_fwd(q, k, v, causal=causal,
+                                              return_lse=True)
+                grads = pfa.flash_attn_bwd(q, k, v, out, lse, g,
+                                           causal=causal)
+                ref, ref_lse = pfa.flash_attn_fwd_ref(q, k, v, causal=causal,
+                                                      return_lse=True)
+                ref_g = pfa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
+                                               causal=causal)
+                torch.cuda.synchronize()
+                case = (tq, tk, d, causal)
+                assert out.dtype == F16, case
+                torch.testing.assert_close(
+                    out.float(), ref.float(), rtol=0,
+                    atol=chip_smoke.ATOL["float16"],
+                    msg=lambda m: f"{case} {m}")
+                torch.testing.assert_close(lse, ref_lse, rtol=0,
+                                           atol=chip_smoke.SPLIT_LSE_ATOL)
+                for a, b in zip(grads, ref_g):
+                    torch.testing.assert_close(
+                        a.float(), b.float(), rtol=0,
+                        atol=chip_smoke.GRAD_ATOL["float16"],
+                        msg=lambda m: f"{case} {m}")
+    assert pfa.FWD_LAUNCHES - before[0] == 4 * len(pfa.HEAD_DIMS) * 2
+    assert pfa.SM90_FWD_LAUNCHES == before[1]          # all on the tile
+    rows = chip_smoke.check_fp16_range(torch, pfa, "cuda", gen)
+    assert rows and all(r["ok"] for r in rows)
+
+
+def test_fp16_epilogue_matches_plain_version(card):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for x_dt, r_dt in chip_smoke.fused_ln_types(torch):
+        if F16 not in (x_dt, r_dt):
+            continue
+        for D, N in ((768, 1000), (1100, 7)):
+            for p_dt in (torch.float32, F16):
+                x, r, b, gam, be = chip_smoke._fused_ln_operands(
+                    torch, gen, "cuda", N, D, x_dt, r_dt, p_dt)
+                out = fl.fused_ln(x, r, b, gam, be, 5, p=0.1, eps=1e-5)
+                ref = fl.fused_ln_ref(x, r, b, gam, be, 5, p=0.1, eps=1e-5)
+                err, tol, ok = chip_smoke._fused_ln_err(torch, out, ref)
+                assert ok and out.dtype == x_dt, (x_dt, r_dt, D, err, tol)
+                g = torch.randn((N, D), generator=gen, device="cuda").to(x_dt)
+                got = fl.fused_ln_bwd(g, x, r, b, gam, be, 5, p=0.1, eps=1e-5)
+                want = fl.fused_ln_bwd_ref(g, x, r, b, gam, be, 5, p=0.1,
+                                           eps=1e-5)
+                for a, w in zip(got, want):
+                    assert a.dtype == w.dtype
+                    name = chip_smoke._dtype_name(a.dtype)
+                    if a.dim() == 2:
+                        torch.testing.assert_close(
+                            a.float(), w.float(), rtol=0,
+                            atol=chip_smoke.GRAD_ATOL[name])
+                    else:
+                        assert chip_smoke._rel_l2(a, w) <= \
+                            chip_smoke.FUSED_LN_BWD_COL_RTOL["float16"]
+    x = torch.ones(2, 8, device="cuda", dtype=F16)
+    with pytest.raises(TypeError, match="no pair AMP makes"):
+        fl.fused_ln(x, x.bfloat16(), x[0], x[0], x[0], 0, p=0.0, eps=1e-5)
+
+
+def test_unscale_kernel_matches_plain_version(card):
+    rows = chip_smoke.check_unscale(torch, "cuda", list(UPDATE_NAMED))
+    assert len(rows) == 3 * len(chip_smoke.UNSCALE_PLANTS)
+    assert all(r["ok"] for r in rows)
+
+
+def test_update_skip_flag_moves_nothing(card):
+    rows = chip_smoke.check_update_skip(torch, "cuda", list(UPDATE_NAMED))
+    assert len(rows) == len(chip_smoke.UPDATE_CHECKS) * len(
+        chip_smoke.UPDATE_SETUPS)
+    assert all(r["ok"] for r in rows)
+
+
+def _fp16_run(jit, amp):
+    """Three fp16 train_batch steps of the GPT at WIDTH: the losses, every
+    parameter, slot and the scaler's state, the update and unscale
+    launches."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    opt = AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01)
+    model = Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
+                               jit=jit)
+    paddle_tpu_torch.seed(2)
+    rs = np.random.RandomState(0)
+    losses, found = [], []
+    launches = (sum(mtu.LAUNCHES.values()), mtu.UNSCALE_LAUNCHES)
+    for _ in range(3):
+        ids = rs.randint(0, WIDTH["vocab_size"], (4, 128))
+        labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
+        losses.append(model.train_batch([ids], [labels])["loss"])
+        found.append(model._amp_found_inf.clone())
+    torch.cuda.synchronize()
+    launches = (sum(mtu.LAUNCHES.values()) - launches[0],
+                mtu.UNSCALE_LAUNCHES - launches[1])
+    state = chip_smoke._train_state(net, opt)
+    state.update(chip_smoke._scaler_state(model))
+    return torch.stack(losses), torch.stack(found), state, launches, \
+        model._steps.compiles
+
+
+def test_fp16_captured_steps_equal_uncaptured(card):
+    (le, fe, se, ue, ce), (lj, fj, sj, uj, cj) = (
+        _fp16_run(jit, dict(chip_smoke.FP16_O1)) for jit in (False, True))
+    assert (ce, cj) == (0, 1)
+    assert ue == uj == (3, 3)          # one update, one unscale a step
+    assert torch.equal(le, lj) and torch.equal(fe, fj)
+    assert not fe.any()
+    assert se.keys() == sj.keys() and "scaler scale" in se
+    for k in se:
+        assert torch.equal(se[k], sj[k]), k
+
+
+def test_fp16_overflow_in_a_replay_moves_nothing(card):
+    cfg = dict(width=WIDTH, batch=4, seq=128)
+    report = chip_smoke.fp16_overflow(torch, pfa, "cuda", cfg)
+    assert report["ok"]
+    assert [r["found_inf"] for r in report["steps"]] == [True, False, True,
+                                                         False]

@@ -467,7 +467,7 @@ def test_a_failing_launch_raises_rather_than_stepping_per_leaf(monkeypatch):
     opt = popt.Adam(0.1, parameters=named)
     named[0][1].grad = torch.ones(4)
 
-    def fail(spec, table, lr, update):
+    def fail(spec, table, lr, update, found_inf=None):
         raise RuntimeError("multi_tensor_update: mt_update launch failed")
     monkeypatch.setattr(mtu, "multi_tensor_update", fail)
     with pytest.raises(RuntimeError, match="launch failed"):

@@ -147,6 +147,32 @@ def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
             "softmax_xent_dlogits", "fused_ln"} <= set(_build.SOURCES)
 
 
+def test_a_failing_source_leaves_the_others_built(tmp_path, monkeypatch):
+    # a stand-in for nvcc: fails on csrc/bad.cu, else writes its output
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\n" + (
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "if any(a.endswith('bad.cu') for a in args):\n"
+        "    sys.exit('bad.cu: error')\n"
+        "open(args[args.index('-o') + 1], 'w').close()\n"))
+    fake.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("bad", "fused_ln_bwd", "good"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    with pytest.raises(_build.BuildError, match="bad.cu"):
+        _build.build(["bad", "fused_ln_bwd", "good"])
+    assert not _build.library_path("bad").exists()
+    # the parted source linked its objects, and none is left behind
+    assert _build.library_path("fused_ln_bwd").exists()
+    assert _build.library_path("good").exists()
+    assert not list((tmp_path / "build").glob("*.o"))
+
+
 def _run_smoke(script, cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
