@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             at every shape the serving, scoring and train paths give it
             and around them (packed attention T 100 ... 2048 at every
             built head dim, d 16/32/64/80/96/128, and T 4096 at d 64; bf16
-            at d 64/128 on flash_attn_sm90, also with sharp inputs;
+            and fp16 at d 64/128 on flash_attn_sm90 (each check holds the
+            route, kernel_route, and its launch counters), also with sharp
+            inputs;
             split-layout forward with lse and backward T 128 ... 8192 and
             Tq < Tk, every built head dim; the fp32 kernels and the plain
             fp32 versions against float64, causal, T 1024 ... 8192; LM
@@ -40,9 +42,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             plain version, 16-bit values by steps of their type and share
             of the move, a check that must fail two planted mutations of
             the plain version (the parameter's store skipped, the rate
-            halved).  fp16 (PR 13): attention at every shape and head dim
-            above in fp16 (tile kernels), forward with lse and backward,
-            and with raw scores past fp16's range (q, k ~ 60·N(0, 1));
+            halved).  fp16 (on flash_attn_sm90 at d 64/128, the tile
+            kernels elsewhere): attention at every shape and head dim
+            above in fp16, forward with lse and backward, and with raw
+            scores past fp16's range (q, k ~ 60·N(0, 1));
             the epilogue and its backward on fp16 x and residual, and fp16
             beside fp32 each way, fp16 or fp32 parameters; the unscale
             pass (mt_unscale) on the GPT's 149 gradient shapes and numel
@@ -84,9 +87,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             (FLAGS_fused_optimizer=0) and, for Adam and AdamW in fp32,
             torch._fused_adam(w)_, beside the bytes bound (one pass;
             LarsMomentum and Lamb also at the kernel's two passes).  fp16
-            (PR 13): rows 1, 2 and 6-9 at those shapes (rows 1 and 6 also
-            in device time) beside bf16 rows 1 and 6 on flash_attn_sm90 at
-            B 32, T 512, and SDPA in each type; row 12 and its backward
+            and bf16: rows 1, 2 and 6-9 at those shapes, all on
+            flash_attn_sm90 (rows 1 and 6 also in device time), and SDPA
+            in each type; row 12 and its backward
             at N 16384, D 768 in fp16 and fp16 x over an fp32 residual;
             the unscale pass on the GPT's gradients (events, a replayed
             graph, the plain version,
@@ -186,7 +189,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
             AdamW: one step through the kernels against the plain
             versions, 3 captured steps against 3 uncaptured bit for bit
             (parameters, slots, the scale, good and bad counts), 12 + 12
-            attention launches a replay, all on the tile kernels, one
+            attention launches a replay, all on flash_attn_sm90, one
             unscale and one update launch, the loss falling over 12 steps
             of each engine; step ms p50, seq/s, peak memory beside phase
             9's bf16 O1.  A planted overflow (initial scale 2^40): that
@@ -500,6 +503,8 @@ def ptxas_summary(report: str):
             args = re.findall(r"Li(\d+)E", m.group(1))
             if "bfloat16" in m.group(1):
                 args.insert(0, "bf16")
+            elif "__half" in m.group(1):
+                args.insert(0, "fp16")
             elif re.search(r"I(?:K)?fLi", m.group(1)):
                 args.insert(0, "fp32")
             name = (k.group(1) if k else m.group(1)) + (
@@ -534,6 +539,25 @@ def _fp16_range(torch, gen, dev, shape, k_shape):
     return q, k, v
 
 
+def _route(fa, dtype, *operands):
+    """The library an attention launch on ``operands`` takes
+    (``fa.kernel_route``) and the flash_attn_sm90 launches (forward,
+    backward) counted so far; :func:`_routed_ok` holds a call to them."""
+    ops = [fa._as_bshd(x) for x in operands]
+    return (fa.kernel_route(dtype, ops[0].shape[-1], *ops),
+            fa.SM90_FWD_LAUNCHES, fa.SM90_BWD_LAUNCHES)
+
+
+def _routed_ok(fa, route, bwd=True):
+    """Whether the calls since ``route = _route(...)`` launched
+    flash_attn_sm90 once a direction (forward, and the backward if
+    ``bwd``) where the route is "sm90", and never where it is "tile"."""
+    name, fwd0, bwd0 = route
+    want = int(name == "sm90")
+    return (fa.SM90_FWD_LAUNCHES - fwd0 == want
+            and fa.SM90_BWD_LAUNCHES - bwd0 == (want if bwd else 0))
+
+
 def check_kernels(torch, fa, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     types = (torch.float32, torch.bfloat16, torch.float16)
@@ -559,13 +583,15 @@ def check_kernels(torch, fa, dev):
             q, k, v = (torch.randn((bh, t, d), generator=gen, device=dev)
                        .mul(s).to(dtype)
                        for t, s in ((tq, 2.0), (tk, 2.0), (tk, 1.0)))
+        route = _route(fa, dtype, q, k, v)
         out = fa.flash_attn_fwd(q, k, v, causal=causal)
+        routed = _routed_ok(fa, route, bwd=False)
         ref = fa.flash_attention_ref(q, k, v, causal=causal)
         sync(torch, dev)
         diff = (out.float() - ref.float()).abs()
         err = diff.max().item()
         name = str(dtype).replace("torch.", "")
-        ok = out.dtype == dtype and out.shape == q.shape
+        ok = out.dtype == dtype and out.shape == q.shape and routed
         if inputs == "rand":
             tol = f"atol={ATOL[name]:.0e}"
             ok = ok and err <= ATOL[name]
@@ -580,10 +606,11 @@ def check_kernels(torch, fa, dev):
                    f"ref_std={spread:.3f}")
             ok = ok and worst <= 1.0 and spread >= SHARP_MIN_STD
         results.append(dict(bh=bh, tq=tq, tk=tk, d=d, causal=causal,
-                            dtype=name, inputs=inputs, max_abs_err=err,
-                            tolerance=tol, ok=ok))
+                            dtype=name, inputs=inputs, route=route[0],
+                            routed=routed, max_abs_err=err, tolerance=tol,
+                            ok=ok))
         log(f"  flash_attn_fwd bh={bh} tq={tq} tk={tk} d={d} "
-            f"causal={int(causal)} {name:8s} {inputs:5s} "
+            f"causal={int(causal)} {name:8s} {inputs:5s} {route[0]:4s} "
             f"max_abs_err={err:.3e} {tol} {'ok' if ok else 'FAIL'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -746,10 +773,12 @@ def check_split_kernels(torch, fa, dev):
                               torch.float16):
                     q, k, v, g = _split_operands(torch, gen, dev, B, tq, tk,
                                                  H, d, dtype)
+                    route = _route(fa, dtype, q, k, v)
                     out, lse = fa.flash_attn_fwd(q, k, v, causal=causal,
                                                  return_lse=True)
                     grads = fa.flash_attn_bwd(q, k, v, out, lse, g,
                                               causal=causal)
+                    routed = _routed_ok(fa, route)
                     ref, ref_lse = fa.flash_attn_fwd_ref(
                         q, k, v, causal=causal, return_lse=True)
                     ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
@@ -767,15 +796,17 @@ def check_split_kernels(torch, fa, dev):
                           and all(a.shape == x.shape for a, x in
                                   zip(grads, (q, k, v)))
                           and err <= ATOL[name] and err_lse <= SPLIT_LSE_ATOL
-                          and err_g <= GRAD_ATOL[name])
+                          and err_g <= GRAD_ATOL[name] and routed)
                     results.append(dict(b=B, tq=tq, tk=tk, h=H, d=d,
                                         causal=causal, dtype=name, mode=mode,
-                                        rows=rows, max_abs_err=err,
+                                        rows=rows, route=route[0],
+                                        routed=routed, max_abs_err=err,
                                         max_abs_err_lse=err_lse,
                                         max_abs_err_grads=err_g, ok=ok))
                     log(f"  flash_attn tq={tq:4d} tk={tk:4d} d={d:3d} "
-                        f"causal={int(causal)} {name:8s} {mode:6s} rows "
-                        f"{rows} out {err:.2e} (atol {ATOL[name]:.0e}) lse "
+                        f"causal={int(causal)} {name:8s} {mode:6s} "
+                        f"{route[0]:4s} rows {rows} out {err:.2e} (atol "
+                        f"{ATOL[name]:.0e}) lse "
                         f"{err_lse:.2e} (atol {SPLIT_LSE_ATOL:.0e}) dq/dk/dv "
                         f"{err_g:.2e} (atol {GRAD_ATOL[name]:.0e}) "
                         f"{'ok' if ok else 'FAIL'}")
@@ -802,10 +833,11 @@ def check_fp16_range(torch, fa, dev, gen):
                                       (2, tk, 2, d))
                 g = torch.randn((2, tq, 2, d), generator=gen,
                                 device=dev).half()
-                rel = {}
+                route = _route(fa, torch.float16, q, k, v)
                 out, lse = fa.flash_attn_fwd(q, k, v, causal=causal,
                                              return_lse=True)
                 grads = fa.flash_attn_bwd(q, k, v, out, lse, g, causal=causal)
+                routed = _routed_ok(fa, route)
                 ref, ref_lse = fa.flash_attn_fwd_ref(q, k, v, causal=causal,
                                                      return_lse=True)
                 ref_g = fa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
@@ -829,7 +861,8 @@ def check_fp16_range(torch, fa, dev, gen):
                 rows = (fa.reference_rows("fwd", mode, tk)
                         + fa.reference_rows("bwd", mode, tk))
                 grad_abs = max(rel["dq"], rel["dk"], rel["dv"])
-                ok = finite and err_lse <= FP16_RANGE_LSE_RTOL and \
+                ok = finite and routed and \
+                    err_lse <= FP16_RANGE_LSE_RTOL and \
                     rel["out"] <= ATOL["float16"] and all(
                         kern <= FP16_RANGE_GRAD_RATIO * plain
                         + FP16_RANGE_GRAD_SLACK
@@ -837,12 +870,14 @@ def check_fp16_range(torch, fa, dev, gen):
                 results.append(dict(
                     b=2, tq=tq, tk=tk, h=2, d=d, causal=causal,
                     dtype="float16", inputs="fp16_range", mode=mode,
-                    rows=rows, errors=rel, rel_l2=rel_l2,
+                    rows=rows, route=route[0], routed=routed, errors=rel,
+                    rel_l2=rel_l2,
                     max_abs_err=rel["out"],
                     max_abs_err_lse=err_lse, max_abs_err_grads=grad_abs,
                     finite=finite, ok=ok))
                 log(f"  flash_attn fp16 past its range tq={tq:4d} tk={tk:4d} "
-                    f"d={d:3d} causal={int(causal)} rows {rows}: max abs "
+                    f"d={d:3d} causal={int(causal)} {route[0]} rows {rows}: "
+                    f"max abs "
                     f"{', '.join(f'{n} {x:.2e}' for n, x in rel.items())} "
                     f"(atol out {ATOL['float16']:.0e}); rel L2 to float64 "
                     f"kernel / plain "
@@ -2460,15 +2495,15 @@ def timing_unscale(torch, dev="cuda"):
 
 
 def timing_fp16(torch, fa, fl, p, dev="cuda"):
-    """Phase 6's fp16 rows: attention (rows 1, 2, 6-9) in fp16 at
-    SPLIT_TIMING's shapes and rows 1 and 6 in bf16 (flash_attn_sm90) at
-    B 32, T 512 beside them; the epilogue and its backward in fp16 (x,
+    """Phase 6's 16-bit rows: attention (rows 1, 2, 6-9, d 64, all on
+    flash_attn_sm90) in fp16 and in bf16 at SPLIT_TIMING's shapes, rows 1
+    and 6 also in device time; the epilogue and its backward in fp16 (x,
     residual and parameters) and fp16 x beside an fp32 residual and
     parameters, p ``p``; the unscale pass."""
     f16, f32 = torch.float16, torch.float32
     return dict(
         split=timing_split_kernels(torch, fa, dev, dtype=f16),
-        split_bf16=timing_split_kernels(torch, fa, dev, SPLIT_TIMING[:1],
+        split_bf16=timing_split_kernels(torch, fa, dev,
                                         dtype=torch.bfloat16),
         fused_ln=timing_fused_ln(torch, fl, p, dev, types=(f16, f16, f16)),
         fused_ln_mixed=timing_fused_ln(torch, fl, p, dev,
@@ -3119,10 +3154,10 @@ def _amp_dtype(amp):
 
 
 def _attention_want(L, fwd_mode, bwd_mode, amp):
-    """L forward and L backward launches in their modes; under AMP in
-    bf16 (at d 64) every one of them on flash_attn_sm90.cu, else (fp32,
-    fp16) none."""
-    sm90 = L if _amp_dtype(amp) == "bfloat16" else 0
+    """L forward and L backward launches in their modes; under AMP (bf16
+    or fp16, at d 64) every one of them on flash_attn_sm90.cu, in fp32
+    none."""
+    sm90 = L if _amp_dtype(amp) in ("bfloat16", "float16") else 0
     return dict(fwd=L, bwd=L, sm90_fwd=sm90, sm90_bwd=sm90,
                 modes={f"fwd {fwd_mode}": L, f"bwd {bwd_mode}": L})
 
@@ -3952,8 +3987,8 @@ def grad_scaler_loop(torch, fa, dev, cfg, steps=3):
     """The eager ``GradScaler`` loop on the full-width GPT: ``auto_cast``
     O1 fp16 forward, ``scaler.scale(loss).backward()``, ``scaler.step``
     (one host read of the flag) and ``clear_grad``, ``steps`` times; each
-    step launches L + L attention kernels (none on flash_attn_sm90), one
-    unscale and one update pass, and the loss stays finite."""
+    step launches L + L attention kernels (all on flash_attn_sm90, d 64),
+    one unscale and one update pass, and the loss stays finite."""
     from paddle_tpu_torch import amp as pamp
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.nn import CrossEntropyLoss
@@ -4018,9 +4053,9 @@ def fp16_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch,
     """Phase 14: AMP in fp16.  The full-width GPT under FP16_O1 through
     :func:`eager_train` (a step through the kernels against the plain
     versions, 3 captured steps equal to 3 uncaptured bit for bit with the
-    scaler's state, L + L attention launches a replay on the tile kernels,
-    one unscale and one update launch, the loss falling over 12 steps of
-    each engine, step ms, seq/s, peak memory); the planted overflow
+    scaler's state, L + L attention launches a replay on flash_attn_sm90
+    (d 64), one unscale and one update launch, the loss falling over 12
+    steps of each engine, step ms, seq/s, peak memory); the planted overflow
     (:func:`fp16_overflow`); the encoder under FP16_O1 (2L + 2L epilogue
     launches a replay, on fp16 x), captured; O2 at AMP_O2_LAYERS through
     ``amp.decorate(level="O2", dtype="float16")``: fp16 parameters equal
@@ -4326,12 +4361,12 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               matmul_ms=train_times["softmax_xent_fwd"]["matmul_ms"],
               checks=len(head_checks), **tile_route(head_checks, "fwd"))]
 
-    s16 = fp16_times["split"]
+    s16, b16 = fp16_times["split"], fp16_times["split_bf16"]
 
-    def fp16_fields(t):
+    def timing_fields(t):
         return {k: t.get(k) for k in (
-            "shape", "kernel", "ms", "device_ms", "plain_ms", "library_ms",
-            "library", "bound_ms", "bound_by", "max_abs_err")}
+            "shape", "kernel", "route", "ms", "device_ms", "plain_ms",
+            "library_ms", "library", "bound_ms", "bound_by", "max_abs_err")}
 
     def split_entry(name, row, source, replaces, launches, key):
         t = split_times[row]
@@ -4342,8 +4377,12 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         worst_fp16 = max(c[key] for c in split_checks
                          if row in c["rows"] and c["dtype"] == "float16"
                          and c.get("inputs", "rand") == "rand")
+        # d 64's bf16 and fp16 run flash_attn_sm90 (their checks: every
+        # built head dim, the 16-bit ones at d 64 / 128 on that source)
         return dict(name=name, route="cuda",
-                    max_abs_err_fp16=worst_fp16, fp16=fp16_fields(s16[row]),
+                    max_abs_err_fp16=worst_fp16, fp16=timing_fields(s16[row]),
+                    bf16=timing_fields(b16[row]),
+                    source_16bit="paddle_tpu_torch/csrc/flash_attn_sm90.cu",
                     source=f"paddle_tpu_torch/csrc/{source}",
                     replaces=replaces, row=row, launches=launches,
                     max_abs_err=worst_fp32, ms=t["ms"],
@@ -4480,36 +4519,39 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          "optimizers": {k: v["replay_update_launches"]
                                         for k, v in opts.items()},
                          "lamb_o2": dec["replay_update_launches"]}))
-    # fp16 (PR 13): rows 1 and 6 on the tile kernels, row 12 and its
-    # backward, the unscale pass; launches from phase 14's replays
+    # fp16: rows 1 and 6 on flash_attn_sm90 (d 64; the tile kernels at
+    # the other head dims), row 12 and its backward, the unscale pass;
+    # launches from phase 14's replays
     g16, e16 = fp16["gpt"], fp16["encoder"]
-    b16 = fp16_times["split_bf16"]
     rand16 = [c for c in checks + split_checks
               if c["dtype"] == "float16"
               and c.get("inputs", "rand") == "rand"]
     range16 = [c for c in checks + split_checks
                if c.get("inputs") == "fp16_range"]
 
-    def fp16_attention(name, source, replaces, row, direction, err_key):
+    def fp16_attention(name, replaces, row, direction, err_key):
         t = s16[row]
         return dict(
             name=name, route="cuda",
-            source=f"paddle_tpu_torch/csrc/{source}", replaces=replaces,
-            row=row, launches=g16["replay_launches"][direction],
+            source="paddle_tpu_torch/csrc/flash_attn_sm90.cu",
+            replaces=replaces,
+            row=row,
+            launches=g16["replay_launches"][f"sm90_{direction}"],
             max_abs_err=max(c[err_key] for c in rand16
-                            if err_key in c and row in c.get(
-                                "rows", fa.reference_rows(
-                                    "fwd", "small", c["tk"]))),
+                            if err_key in c and c["route"] == "sm90"
+                            and row in c.get("rows", fa.reference_rows(
+                                "fwd", "small", c["tk"]))),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             library=t["library"], device_ms=t["device_ms"],
             timed_shape=t["shape"], max_abs_err_timed_shape=t["max_abs_err"],
             max_abs_err_past_fp16_range=max(c[err_key] for c in range16
                                             if err_key in c),
-            launches_step1=g16["launches"][direction],
-            launches_encoder_replay=e16["replay_launches"][direction],
-            launches_sm90_replay=g16["replay_launches"][f"sm90_{direction}"],
-            bf16_sm90=fp16_fields(b16[row]),
+            launches_wrapper=g16["replay_launches"][direction],
+            launches_step1=g16["launches"][f"sm90_{direction}"],
+            launches_encoder_replay=e16["replay_launches"][
+                f"sm90_{direction}"],
+            bf16=timing_fields(b16[row]),
             checks=len(rand16) + len(range16))
 
     def fp16_epilogue(name, source, replaces, launch_key, t, mixed, rows,
@@ -4525,17 +4567,17 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
             library=t["library"], device_ms=t["device_ms"],
             share_of_bound=t["share_of_bound"], timed_shape=t["shape"],
             ms_p0=t["ms_p0"], device_ms_p0=t["device_ms_p0"],
-            x_fp16_residual_fp32=fp16_fields(mixed),
+            x_fp16_residual_fp32=timing_fields(mixed),
             checks=sum("float16" in (r["dtype"], r["residual_dtype"])
                        for r in rows),
             launches_step1=e16["launches"][launch_key], **extra)
 
     u16 = fp16_times["unscale"]
     kernels += [
-        fp16_attention("flash_attn_fwd_fp16", "flash_attn_fwd.cu",
-                       f"{fa_py}:205", 1, "fwd", "max_abs_err"),
-        fp16_attention("flash_attn_bwd_small_fp16", "flash_attn_bwd.cu",
-                       f"{fa_py}:733", 6, "bwd", "max_abs_err_grads"),
+        fp16_attention("flash_attn_fwd_fp16", f"{fa_py}:205", 1, "fwd",
+                       "max_abs_err"),
+        fp16_attention("flash_attn_bwd_small_fp16", f"{fa_py}:733", 6, "bwd",
+                       "max_abs_err_grads"),
         fp16_epilogue("fused_ln_fp16", "fused_ln.cu",
                       "paddle_tpu/ops/pallas/fused_ln.py:55", "fused_ln",
                       fp16_times["fused_ln"], fp16_times["fused_ln_mixed"],

@@ -22,8 +22,8 @@
 // packed projection go straight into their column blocks of one
 // (B, T, 3F) tensor and those of split views into (B, S, H, D) tensors,
 // with no fold or unfold copy.  Head dims D in {16, 32, 64, 80, 96, 128}:
-// fp32 and fp16 at all of them, bf16 at 16, 32, 80 and 96 (bf16 at D 64
-// and 128 runs flash_attn_sm90.cu); causal masking bottom-right aligned
+// fp32 at all of them, bf16 and fp16 at 16, 32, 80 and 96 (both at D 64
+// and 128 run flash_attn_sm90.cu); causal masking bottom-right aligned
 // (query i sees key j iff j <= i + Tk - Tq, with Tq <= Tk), or none; any
 // Tq and Tk, masked at the ragged edge.  P = exp(s - lse) is cast to dO's type for
 // dV and dS = P (dP - delta) to q's type for dQ and dK, every product
@@ -420,8 +420,8 @@ cudaError_t run(const void* const* ptrs, const long long* st, const void* lse,
     case 96:
       return launch<T, 96>(a, B, passes, stream);
   }
-  // bf16 at d 64 / 128 runs flash_attn_sm90.cu; fp32 and fp16 run here
-  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+  // bf16 and fp16 at d 64 / 128 run flash_attn_sm90.cu; fp32 runs here
+  if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 64:
         return launch<T, 64>(a, B, passes, stream);

@@ -17,8 +17,8 @@
 // head) with a contiguous last axis, so head-split views of a fused
 // projection, the packed projection itself and folded (B*H, T, D)
 // tensors are read where they lie, with no copy.  Head dims D in {16, 32,
-// 64, 80, 96, 128}: fp32 and fp16 at all of them, bf16 at 16, 32, 80 and
-// 96 (bf16 at D 64 and 128 runs flash_attn_sm90.cu).  Causal masking is
+// 64, 80, 96, 128}: fp32 at all of them, bf16 and fp16 at 16, 32, 80 and
+// 96 (both at D 64 and 128 run flash_attn_sm90.cu).  Causal masking is
 // bottom-right aligned as in the reference: query i sees key j iff
 // j <= i + (Tk - Tq); causal with Tq > Tk (fully masked rows) is refused.
 // Any Tq and Tk: the ragged edge is masked here, where the TPU kernels
@@ -299,8 +299,8 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
     case 96:
       return launch<T, 96>(a, B, stream);
   }
-  // bf16 at d 64 / 128 runs flash_attn_sm90.cu; fp32 and fp16 run here
-  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+  // bf16 and fp16 at d 64 / 128 run flash_attn_sm90.cu; fp32 runs here
+  if constexpr (std::is_same<T, float>::value) {
     switch (d) {
       case 64:
         return launch<T, 64>(a, B, stream);
@@ -315,7 +315,8 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o,
 
 // strides: 12 element strides, (batch, row, head) of q, k, v and out in
 // that order.  lse: (B, H, Tq) fp32, or null for no lse.  dtype: 0 =
-// float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const long long* strides,
                               int B, int H, int tq, int tk, int d, int dtype,

@@ -1,18 +1,25 @@
-// bf16 flash attention, forward and backward, built for Hopper (sm_90a) on
-// wgmma and TMA.
+// Flash attention in bf16 and fp16, forward and backward, built for Hopper
+// (sm_90a) on wgmma and TMA.
 //
-// Replaces, for bf16 operands with head dim 64 or 128, the TPU kernels of
-// paddle_tpu/ops/pallas/flash_attention.py that the compiled train step
-// runs, and every other bf16 attention of the port at those head dims:
+// Replaces, for bf16 and fp16 operands with head dim 64 or 128, the TPU
+// kernels of paddle_tpu/ops/pallas/flash_attention.py that the compiled
+// train step runs, and every other 16-bit attention of the port at those
+// head dims:
 //   _qkv_fwd_kernel      row 3 (:276): the packed forward, here on head
-//                        views of the (B, T, 3F) projection;
+//                        views of the (B, T, 3F) projection (bf16: the
+//                        packed path refuses fp16);
 //   _qkv_bwd_kernel      row 4 (:303) and _qkv_mid_bwd_kernel row 5
 //                        (:442): the packed backward, writing the packed
-//                        (B, T, 3F) gradient in place;
-//   and the bf16 split-layout calls of rows 1, 2 and 6-9.
-// fp32 stays on flash_attn_fwd.cu / flash_attn_bwd.cu (FMAs, 2e-5 parity);
-// bf16 at head dim 32 stays on their mma.sync path (a 64-byte swizzle is
-// later work).
+//                        (B, T, 3F) gradient in place (bf16);
+//   and the split-layout calls of rows 1, 2 and 6-9 in bf16 and in fp16
+//   (AMP in fp16: Model's O1 / O2 steps and the GradScaler loop).
+// The element type T is a template parameter of every kernel here: bf16
+// and fp16 are both 2 bytes, so the tiles, the 128-byte swizzle, the
+// 64-element halves and the k16 depth are one design; only the wgmma type
+// names, the TMA data type and the roundings to T differ (sm90_common.cuh).
+// fp32 stays on flash_attn_fwd.cu / flash_attn_bwd.cu (3xTF32, 2e-5
+// parity); bf16 and fp16 at head dims 16, 32, 80 and 96 stay on their
+// mma.sync path (d 32 needs a 64-byte swizzle, later work).
 //
 // What it computes is what flash_attn_fwd.cu and flash_attn_bwd.cu compute:
 // operands (B, S, H, D) addressed by (batch, row, head) strides with a
@@ -21,12 +28,17 @@
 // key j iff j <= i + Tk - Tq; causal with Tq > Tk refused); masked scores
 // NEG_INF = -1e30; any Tq, Tk, the ragged edge masked (a TMA box past the
 // end is filled with zeros, and a zero score is not -1e30, so keys >= Tk are
-// masked by index); fp32 softmax statistics, P rounded to bf16 before P V,
-// dS rounded to bf16 before dQ and dK, every product accumulating in fp32.
+// masked by index); operands in T, scores and softmax statistics in fp32
+// with the scale multiplying the fp32 scores (so no fp16 score is ever
+// held: raw scores past fp16's 65504 are exact), P rounded to T before
+// P V, dS = P (dP - delta) rounded to T before dQ and dK, every product
+// accumulating in fp32 (the reference's rounding points,
+// flash_attention.py:139, :226, :336, :341, :482, :486).
 //
 // What bounds it on an H100: the causal forward at the train shape (B 128,
-// T 512, H 12, d 64) moves 4 B T H d bf16 elements (0.12 ms at 3.35 TB/s)
-// and does 2 B H T^2 d flops (0.05 ms at 989 TFLOP/s): bytes bound at
+// T 512, H 12, d 64) moves 4 B T H d 16-bit elements (0.12 ms at 3.35
+// TB/s) and does 2 B H T^2 d flops (0.05 ms at 989 TFLOP/s, bf16 and fp16
+// alike): bytes bound at
 // short T, tensor-core bound past T ~ 1k.  At d 64 the exponentials of the
 // softmax cost as much as the products (16 ex2 an SM a clock against 4096
 // flops).  The earlier mma.sync kernels reached 13% of the bound:
@@ -69,15 +81,22 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace sm90;
-using bf16 = __nv_bfloat16;
+
+// the element type codes of the C entry points (ops/flash_attention.py
+// _DTYPE_CODES; 0, fp32, is flash_attn_fwd.cu's alone)
+constexpr int DTYPE_BF16 = 1, DTYPE_F16 = 2;
+constexpr int ERR_DTYPE = 19999;  // a type code that is neither
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -108,8 +127,9 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ void store_pair(bf16* dst, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(a, b);
 }
 
 // K-major descriptor of k16 step k of an operand tile (rows x D) at `tile`
@@ -125,10 +145,10 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int k) {
   return desc_sw128(tile + k * 16 * 128, rows * 128, 1024);
 }
 
-// Writes a 64 x D accumulator (times `mult`) of the warpgroup as bf16 to
+// Writes a 64 x D accumulator (times `mult`) of the warpgroup as T to
 // rows (row0, row0 + 8) of this thread, skipping rows >= nrows.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* base,
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], T* base,
                                            long long ld, int row0, int nrows,
                                            float mult) {
   const int q = threadIdx.x & 3;
@@ -136,7 +156,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], bf16* base
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= nrows) continue;
-    bf16* dst = base + (long long)row * ld;
+    T* dst = base + (long long)row * ld;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store_pair(dst + 8 * j + 2 * q, acc[4 * j + 2 * r] * mult,
@@ -185,9 +205,18 @@ __device__ __forceinline__ int key_end(int causal, int m0, int rows, int tq,
 // says the tile crosses the diagonal or Tk (a separate pass, so inner
 // tiles pay nothing for it), the running max and (per thread, partial)
 // sum updated, sc replaced by exp(scale (score - max)) = 2^(score *
-// scale_log2 - max * scale_log2), one FFMA and one ex2 an element, and
-// corr by the factor the output must take.
-template <int BN>
+// scale_log2 - base), one FFMA and one ex2 an element, base = fl(max *
+// scale_log2), and corr by the factor the output must take.
+//
+// In fp16 the exponent also loses base's rounding residual (which the
+// FFMA gives exactly), one FADD more an element, so the max's own weight
+// is exactly 1: otherwise it is 2^residual, up to 2^(+-1e-3) where raw
+// scores pass fp16's range, and rounded to fp16 for P V that error made O
+// disagree with P by ~5e-4, which dP - delta, a difference that cancels
+// for rows near one-hot, turned into 5-8x the plain version's dq / dk
+// error.  bf16 keeps the one-FFMA form: its 8-bit mantissa rounds
+// 2^residual to 1 there, and the FADD cost it ~5% at T 8192.
+template <typename T, int BN>
 __device__ __forceinline__ void online_softmax(
     float (&sc)[BN / 2], float (&m_run)[2], float (&l_run)[2],
     float (&corr)[2], bool edge, int n0, int row0, int qd, int tk, int causal,
@@ -204,7 +233,7 @@ __device__ __forceinline__ void online_softmax(
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i)
     mx[(i / 2) & 1] = fmaxf(mx[(i / 2) & 1], sc[i]);
-  float rs[2] = {0.f, 0.f}, base[2];
+  float rs[2] = {0.f, 0.f}, base[2], res[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -212,12 +241,15 @@ __device__ __forceinline__ void online_softmax(
     corr[r] = ex2((m_run[r] - mx[r]) * scale_log2);
     m_run[r] = mx[r];
     base[r] = mx[r] * scale_log2;
+    res[r] = fmaf(mx[r], scale_log2, -base[r]);
   }
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
-    const float e = ex2(fmaf(sc[i], scale_log2, -base[(i / 2) & 1]));
+    const int r = (i / 2) & 1;
+    const float x = fmaf(sc[i], scale_log2, -base[r]);
+    const float e = ex2(kF16<T> ? x - res[r] : x);
     sc[i] = e;
-    rs[(i / 2) & 1] += e;
+    rs[r] += e;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
@@ -239,19 +271,20 @@ struct Fwd {
   static constexpr int SMEM = 1024 + BARS + 8 * (5 + 2 * STAGES);
 };
 
+template <typename T>
 struct FwdParams {
   CUtensorMap mq, mk, mv;
-  bf16* o;
+  T* o;
   long long o_b, o_s, o_h;
   float* lse;  // (B, H, Tq) or null
   int H, BH, tq, tk, causal, tiles, items;
   int* sched;  // item counter and exit count, zero at launch
-  float scale_log2;
+  float scale, scale_log2;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-fwd_kernel(const __grid_constant__ FwdParams p) {
+fwd_kernel(const __grid_constant__ FwdParams<T> p) {
   using C = Fwd<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Smem sm(smem_raw);
@@ -339,7 +372,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
       zero(o);
       float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
       float sc[C::BN / 2];
-      uint32_t pa[C::BN / 4];  // P of the tile before, bf16 A fragments
+      uint32_t pa[C::BN / 4];  // P of the tile before, A fragments in T
 
       // Tile j's S = Q K^T is issued together with tile j-1's O += P V,
       // and tile j's softmax runs while P V is still on the tensor cores.
@@ -350,7 +383,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss<C::BN>(sc, kmajor(sQb, C::BM, cw * 64, k),
+          wgmma_ss<T, C::BN>(sc, kmajor(sQb, C::BM, cw * 64, k),
                           kmajor(sKV + stage * 2 * C::KV_BYTES, C::BN, 0, k),
                           k > 0);
         wgmma_commit();
@@ -358,7 +391,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
       };
       auto softmax = [&](int j, float (&corr)[2]) {
         const int n0 = j * C::BN;
-        online_softmax<C::BN>(
+        online_softmax<T, C::BN>(
             sc, m_run, l_run, corr,
             n0 + C::BN > p.tk || (p.causal && n0 + C::BN - 1 > wg_row + offset),
             n0, row0, qd, p.tk, p.causal, offset, p.scale_log2);
@@ -372,7 +405,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         float corr[2];
         softmax(0, corr);
       }
-      pack_a<C::BN>(sc, pa);
+      pack_a<T, C::BN>(sc, pa);
       ++c;
       for (int j = 1; j < n_tiles; ++j, ++c) {
         const int s = c % C::STAGES;
@@ -383,7 +416,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < C::BN / 16; ++k)
-          wgmma_rs<D>(o, &pa[4 * k], mnmajor(sV, C::BN, k));
+          wgmma_rs<T, D>(o, &pa[4 * k], mnmajor(sV, C::BN, k));
         wgmma_commit();
         fence_regs(o);
         wgmma_wait<1>();
@@ -396,7 +429,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         if (lane == 0) mbar_arrive(kv_empty + 8 * s_prev);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) & 1];
-        pack_a<C::BN>(sc, pa);
+        pack_a<T, C::BN>(sc, pa);
         s_prev = s;
       }
       {  // the last tile's O += P V
@@ -404,7 +437,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < C::BN / 16; ++k)
-          wgmma_rs<D>(o, &pa[4 * k], mnmajor(sV, C::BN, k));
+          wgmma_rs<T, D>(o, &pa[4 * k], mnmajor(sV, C::BN, k));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
@@ -418,7 +451,7 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
       }
-      bf16* ob = p.o + b * p.o_b + h * p.o_h;
+      T* ob = p.o + b * p.o_b + h * p.o_h;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
@@ -428,20 +461,25 @@ fwd_kernel(const __grid_constant__ FwdParams p) {
         for (int i = 0; i < D / 8; ++i)
           store_pair(ob + (long long)row * p.o_s + 8 * i + 2 * qd,
                      o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+        // fp16: lse = max * scale + ln(sum), rounded once (max * scale
+        // exact in the FFMA), so the backward's exp(score * scale - lse)
+        // agrees with it to lse's own rounding; bf16: through log2 units
         if (qd == 0 && p.lse != nullptr)
           p.lse[(long long)bh * p.tq + row] =
-              (m_run[r] * p.scale_log2 + log2f(l_run[r])) * LN2;
+              kF16<T> ? fmaf(m_run[r], p.scale, log2f(l_run[r]) * LN2)
+                      : (m_run[r] * p.scale_log2 + log2f(l_run[r])) * LN2;
       }
     }
   }
 }
 
 // ---- backward ------------------------------------------------------------------
+template <typename T>
 struct BwdParams {
   CUtensorMap mq, mk, mv, mdo;
-  const bf16* o;
-  const bf16* dout;
-  bf16 *dq, *dk, *dv;
+  const T* o;
+  const T* dout;
+  T *dq, *dk, *dv;
   long long o_b, o_s, o_h, do_b, do_s, do_h;
   long long dq_b, dq_s, dq_h, dk_b, dk_s, dk_h, dv_b, dv_s, dv_h;
   const float* lse;  // (B, H, Tq)
@@ -451,10 +489,37 @@ struct BwdParams {
   float scale, scale_log2;
 };
 
+// The backward's P = exp(score * scale - lse) from lse_stat(lse), the form
+// the passes keep each query's lse in.  fp16: in natural units, as the
+// forward's lse is, the FFMA forming score * scale - lse with one rounding
+// of a small result, so P agrees with that lse to its own rounding.  bf16:
+// 2^(score * scale_log2 - lse * log2(e)), one FMUL less an element, whose
+// roundings of lse * log2(e) and of scale_log2 times the score (~1e-3
+// each where raw scores pass fp16's range, 5-8x the plain version's
+// gradient error there in fp16) bf16's own rounding of P and dS hides.
+template <typename T>
+__device__ __forceinline__ float lse_stat(float lse) {
+  return kF16<T> ? lse : lse * LOG2E;
+}
+template <typename T>
+__device__ __forceinline__ float exp_shifted(float score, float stat,
+                                             const BwdParams<T>& p) {
+  return kF16<T> ? ex2(fmaf(score, p.scale, -stat) * LOG2E)
+                 : ex2(fmaf(score, p.scale_log2, -stat));
+}
+
 // -- pass 1: delta = rowsum(dO * O), D / 8 threads a row, 16-byte loads ----
-template <int D>
-__global__ void __launch_bounds__(256) delta_kernel(const BwdParams p,
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float2 to_float2(__half2 v) {
+  return __half22float2(v);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256) delta_kernel(const BwdParams<T> p,
                                                     int rows) {
+  using T2 = std::conditional_t<kF16<T>, __half2, __nv_bfloat162>;
   constexpr int G = D / 8;  // threads per row
   const int r = blockIdx.x * (256 / G) + threadIdx.x / G;
   const int c = (threadIdx.x % G) * 8;
@@ -467,11 +532,11 @@ __global__ void __launch_bounds__(256) delta_kernel(const BwdParams p,
     const uint4 y =
         *reinterpret_cast<const uint4*>(p.dout + b * p.do_b + t * p.do_s +
                                         h * p.do_h + c);
-    const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const T2* xs = reinterpret_cast<const T2*>(&x);
+    const T2* ys = reinterpret_cast<const T2*>(&y);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 u = __bfloat1622float2(xs[i]), v = __bfloat1622float2(ys[i]);
+      const float2 u = to_float2(xs[i]), v = to_float2(ys[i]);
       acc = fmaf(u.x, v.x, fmaf(u.y, v.y, acc));
     }
   }
@@ -493,16 +558,16 @@ struct Dkv {
   static constexpr int STAGES =
       4 * KV_BYTES + 3 * (2 * QO_BYTES + 2 * BM * 4) <= 200 * 1024 ? 3 : 2;
   static constexpr int STAGE = 2 * QO_BYTES;   // Q, then dO
-  static constexpr int STATS = 2 * BM * 4;     // lse * log2(e), then delta
+  static constexpr int STATS = 2 * BM * 4;     // lse_stat, then delta
   static constexpr int RING_OFF = 4 * KV_BYTES;  // two (K, V) buffers
   static constexpr int STATS_OFF = RING_OFF + STAGES * STAGE;
   static constexpr int BARS = STATS_OFF + STAGES * STATS;
   static constexpr int SMEM = 1024 + BARS + 8 * (5 + 2 * STAGES);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-dkv_kernel(const __grid_constant__ BwdParams p) {
+dkv_kernel(const __grid_constant__ BwdParams<T> p) {
   using C = Dkv<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Smem sm(smem_raw);
@@ -585,7 +650,7 @@ dkv_kernel(const __grid_constant__ BwdParams p) {
           float* st = sm.ptr<float>(sStats + s * C::STATS);
           for (int e = lane; e < C::BM; e += 32) {
             const int m = m0 + e;
-            st[e] = m < p.tq ? lse[m] * LOG2E : 0.f;
+            st[e] = m < p.tq ? lse_stat<T>(lse[m]) : 0.f;
             st[C::BM + e] = m < p.tq ? delta[m] : 0.f;
           }
           mbar_arrive(full);
@@ -625,12 +690,12 @@ dkv_kernel(const __grid_constant__ BwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss<C::BM>(st, kmajor(sK, C::BN, cw * 64, k),
+          wgmma_ss<T, C::BM>(st, kmajor(sK, C::BN, cw * 64, k),
                           kmajor(sQ, C::BM, 0, k), k > 0);
         wgmma_commit();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss<C::BM>(dpt, kmajor(sV, C::BN, cw * 64, k),
+          wgmma_ss<T, C::BM>(dpt, kmajor(sV, C::BN, cw * 64, k),
                           kmajor(sdO, C::BM, 0, k), k > 0);
         wgmma_commit();
         wgmma_wait<1>();  // S^T is in; dP^T may still run
@@ -638,14 +703,14 @@ dkv_kernel(const __grid_constant__ BwdParams p) {
 
         // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - delta); the
         // statistics are indexed by query, the column
-        const float* lse2 = sm.ptr<float>(sStats + s * C::STATS);
-        const float* dl = lse2 + C::BM;
+        const float* lse = sm.ptr<float>(sStats + s * C::STATS);
+        const float* dl = lse + C::BM;
         const bool edge = m0 + C::BM > p.tq || wg_key + 64 > p.tk ||
                           (p.causal && wg_key + 63 > m0 + offset);
 #pragma unroll
         for (int e = 0; e < C::BM / 2; ++e)
-          st[e] = ex2(fmaf(st[e], p.scale_log2,
-                           -lse2[8 * (e / 4) + 2 * qd + (e & 1)]));
+          st[e] = exp_shifted(st[e], lse[8 * (e / 4) + 2 * qd + (e & 1)],
+                              p);
         if (edge) {
 #pragma unroll
           for (int e = 0; e < C::BM / 2; ++e) {
@@ -657,26 +722,26 @@ dkv_kernel(const __grid_constant__ BwdParams p) {
           }
         }
         uint32_t pa[C::BM / 4], dsa[C::BM / 4];
-        pack_a<C::BM>(st, pa);
+        pack_a<T, C::BM>(st, pa);
 
         // dV += P^T dO (dO read transposed) runs while dS^T is formed
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < C::BM / 16; ++k)
-          wgmma_rs<D>(dv, &pa[4 * k], mnmajor(sdO, C::BM, k));
+          wgmma_rs<T, D>(dv, &pa[4 * k], mnmajor(sdO, C::BM, k));
         wgmma_commit();
         wgmma_wait<1>();  // dP^T is in
         fence_regs(dpt);
 #pragma unroll
         for (int e = 0; e < C::BM / 2; ++e)
           dpt[e] = st[e] * (dpt[e] - dl[8 * (e / 4) + 2 * qd + (e & 1)]);
-        pack_a<C::BM>(dpt, dsa);
+        pack_a<T, C::BM>(dpt, dsa);
 
         // dK += dS^T Q (Q read transposed)
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < C::BM / 16; ++k)
-          wgmma_rs<D>(dk, &dsa[4 * k], mnmajor(sQ, C::BM, k));
+          wgmma_rs<T, D>(dk, &dsa[4 * k], mnmajor(sQ, C::BM, k));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -709,9 +774,9 @@ struct Dq {
   static constexpr int SMEM = 1024 + BARS + 8 * (5 + 2 * STAGES);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 1)
-dq_kernel(const __grid_constant__ BwdParams p) {
+dq_kernel(const __grid_constant__ BwdParams<T> p) {
   using C = Dq<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const Smem sm(smem_raw);
@@ -798,12 +863,12 @@ dq_kernel(const __grid_constant__ BwdParams p) {
       const int wg_row = m0 + cw * 64;
       const int row0 = wg_row + (t / 32) * 16 + lane / 4;  // and row0 + 8
       const uint32_t sQ = sQOb + qb * 2 * C::Q_BYTES, sdO = sQ + C::Q_BYTES;
-      float lse2[2], dl[2];
+      float lse[2], dl[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         const long long i = (long long)bh * p.tq + row;
-        lse2[r] = row < p.tq ? p.lse[i] * LOG2E : 0.f;
+        lse[r] = row < p.tq ? lse_stat<T>(p.lse[i]) : 0.f;
         dl[r] = row < p.tq ? p.delta[i] : 0.f;
       }
       float dq[D / 2];
@@ -819,12 +884,12 @@ dq_kernel(const __grid_constant__ BwdParams p) {
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss<C::BN>(sc, kmajor(sQ, C::BM, cw * 64, k),
+          wgmma_ss<T, C::BN>(sc, kmajor(sQ, C::BM, cw * 64, k),
                           kmajor(sK, C::BN, 0, k), k > 0);
         wgmma_commit();
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss<C::BN>(dp, kmajor(sdO, C::BM, cw * 64, k),
+          wgmma_ss<T, C::BN>(dp, kmajor(sdO, C::BM, cw * 64, k),
                           kmajor(sV, C::BN, 0, k), k > 0);
         wgmma_commit();
         wgmma_wait<1>();  // S is in; dP may still run
@@ -834,7 +899,7 @@ dq_kernel(const __grid_constant__ BwdParams p) {
                           (p.causal && n0 + C::BN - 1 > wg_row + offset);
 #pragma unroll
         for (int e = 0; e < C::BN / 2; ++e)
-          sc[e] = ex2(fmaf(sc[e], p.scale_log2, -lse2[(e / 2) & 1]));
+          sc[e] = exp_shifted(sc[e], lse[(e / 2) & 1], p);
         if (edge) {
 #pragma unroll
           for (int e = 0; e < C::BN / 2; ++e) {
@@ -850,13 +915,13 @@ dq_kernel(const __grid_constant__ BwdParams p) {
         for (int e = 0; e < C::BN / 2; ++e)
           dp[e] = sc[e] * (dp[e] - dl[(e / 2) & 1]);
         uint32_t dsa[C::BN / 4];
-        pack_a<C::BN>(dp, dsa);
+        pack_a<T, C::BN>(dp, dsa);
 
         // dQ += dS K (K read transposed)
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < C::BN / 16; ++k)
-          wgmma_rs<D>(dq, &dsa[4 * k], mnmajor(sK, C::BN, k));
+          wgmma_rs<T, D>(dq, &dsa[4 * k], mnmajor(sK, C::BN, k));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -895,60 +960,64 @@ int grid_for(int items) {
   return items < sms ? items : sms;
 }
 
-template <int D>
-int launch_fwd(FwdParams& p, const void* q, const void* k, const void* v,
+template <typename T, int D>
+int launch_fwd(FwdParams<T>& p, const void* q, const void* k, const void* v,
                const Geometry* g, cudaStream_t stream) {
   using C = Fwd<D>;
   int err;
-  if ((err = encode_operand(&p.mq, q, g[0], C::BM)) ||
-      (err = encode_operand(&p.mk, k, g[1], C::BN)) ||
-      (err = encode_operand(&p.mv, v, g[2], C::BN)))
+  constexpr CUtensorMapDataType type = tma_type<T>();
+  if ((err = encode_operand(&p.mq, q, g[0], C::BM, type)) ||
+      (err = encode_operand(&p.mk, k, g[1], C::BN, type)) ||
+      (err = encode_operand(&p.mv, v, g[2], C::BN, type)))
     return err;
   p.tiles = (p.tq + C::BM - 1) / C::BM;
   p.items = p.BH * p.tiles;
-  cudaError_t e = allow_smem<fwd_kernel<D>>(C::SMEM);
+  cudaError_t e = allow_smem<fwd_kernel<T, D>>(C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  fwd_kernel<D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
+  fwd_kernel<T, D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd(BwdParams& p, const void* const* ptrs, const Geometry* g,
+template <typename T, int D>
+int launch_bwd(BwdParams<T>& p, const void* const* ptrs, const Geometry* g,
                int passes, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = tma_type<T>();
   cudaError_t e;
   if (passes & PASS_DELTA) {
     const int rows = p.BH * p.tq;
     constexpr int per_block = 256 / (D / 8);
-    delta_kernel<D><<<(rows + per_block - 1) / per_block, 256, 0, stream>>>(
-        p, rows);
+    delta_kernel<T, D>
+        <<<(rows + per_block - 1) / per_block, 256, 0, stream>>>(p, rows);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   int err;
   if (passes & PASS_DKV) {
     using C = Dkv<D>;
-    if ((err = encode_operand(&p.mq, ptrs[0], g[0], C::BM)) ||
-        (err = encode_operand(&p.mk, ptrs[1], g[1], C::BN)) ||
-        (err = encode_operand(&p.mv, ptrs[2], g[2], C::BN)) ||
-        (err = encode_operand(&p.mdo, ptrs[4], g[4], C::BM)))
+    if ((err = encode_operand(&p.mq, ptrs[0], g[0], C::BM, type)) ||
+        (err = encode_operand(&p.mk, ptrs[1], g[1], C::BN, type)) ||
+        (err = encode_operand(&p.mv, ptrs[2], g[2], C::BN, type)) ||
+        (err = encode_operand(&p.mdo, ptrs[4], g[4], C::BM, type)))
       return err;
     p.tiles = (p.tk + C::BN - 1) / C::BN;
     p.items = p.BH * p.tiles;
-    if ((e = allow_smem<dkv_kernel<D>>(C::SMEM)) != cudaSuccess) return (int)e;
-    dkv_kernel<D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
+    if ((e = allow_smem<dkv_kernel<T, D>>(C::SMEM)) != cudaSuccess)
+      return (int)e;
+    dkv_kernel<T, D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (passes & PASS_DQ) {
     using C = Dq<D>;
-    if ((err = encode_operand(&p.mq, ptrs[0], g[0], C::BM)) ||
-        (err = encode_operand(&p.mk, ptrs[1], g[1], C::BN)) ||
-        (err = encode_operand(&p.mv, ptrs[2], g[2], C::BN)) ||
-        (err = encode_operand(&p.mdo, ptrs[4], g[4], C::BM)))
+    if ((err = encode_operand(&p.mq, ptrs[0], g[0], C::BM, type)) ||
+        (err = encode_operand(&p.mk, ptrs[1], g[1], C::BN, type)) ||
+        (err = encode_operand(&p.mv, ptrs[2], g[2], C::BN, type)) ||
+        (err = encode_operand(&p.mdo, ptrs[4], g[4], C::BM, type)))
       return err;
     p.tiles = (p.tq + C::BM - 1) / C::BM;
     p.items = p.BH * p.tiles;
-    if ((e = allow_smem<dq_kernel<D>>(C::SMEM)) != cudaSuccess) return (int)e;
+    if ((e = allow_smem<dq_kernel<T, D>>(C::SMEM)) != cudaSuccess)
+      return (int)e;
     p.sched += 2;  // the dQ pass's own counter pair
-    dq_kernel<D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
+    dq_kernel<T, D><<<grid_for(p.items), THREADS, C::SMEM, stream>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   return 0;
@@ -960,24 +1029,13 @@ bool bad_sizes(int B, int H, int tq, int tk, int causal) {
          (long long)B * H > 0x7fffffffLL;
 }
 
-}  // namespace
-
-// geo: 7 values per operand, [D, H, S, B, byte stride of H, of S, of B]
-// (sm90_common.cuh Geometry), for q, k, v and out in that order.  lse:
-// (B, H, Tq) fp32, or null.  d: 64 or 128.  sched: two int32, zero, that
-// the launch leaves zero (the item counter and its exit count; one pair
-// per stream).  Returns 0 when launched, a
-// cudaError_t, or an sm90 error code (flash_sm90_error_string).
-extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, const long long* geo, int B,
-                              int H, int tq, int tk, int d, int causal,
-                              float scale, void* sched, void* stream) {
-  cudaGetLastError();  // launch errors below are this call's own
-  if (bad_sizes(B, H, tq, tk, causal)) return (int)cudaErrorInvalidValue;
-  Geometry g[4];
-  for (int i = 0; i < 4; ++i) g[i] = geometry(geo + 7 * i);
-  FwdParams p;
-  p.o = static_cast<bf16*>(o);
+// One forward launch in element type T (operands checked by the caller).
+template <typename T>
+int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+            const Geometry* g, int B, int H, int tq, int tk, int d,
+            int causal, float scale, void* sched, cudaStream_t stream) {
+  FwdParams<T> p;
+  p.o = static_cast<T*>(o);
   p.o_b = g[3].eb();
   p.o_s = g[3].es();
   p.o_h = g[3].eh();
@@ -988,39 +1046,29 @@ extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
   p.tq = tq;
   p.tk = tk;
   p.causal = causal;
+  p.scale = scale;
   p.scale_log2 = scale * LOG2E;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_fwd<64>(p, q, k, v, g, s);
+      return launch_fwd<T, 64>(p, q, k, v, g, stream);
     case 128:
-      return launch_fwd<128>(p, q, k, v, g, s);
+      return launch_fwd<T, 128>(p, q, k, v, g, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// ptrs: q, k, v, out, dout, dq, dk, dv; geo: 7 values per operand in the
-// same order.  lse is the forward's (B, H, Tq) fp32; delta is (B, H, Tq)
-// fp32 scratch that the delta pass fills and the other two read.  passes:
-// bit mask of 1 (delta), 2 (dK/dV) and 4 (dQ).  sched: four int32, zero,
-// that the launches leave zero (the dK/dV and the dQ pass's counter pairs;
-// one set per stream).
-extern "C" int flash_sm90_bwd(const void* const* ptrs, const long long* geo,
-                              const void* lse, void* delta, int B, int H,
-                              int tq, int tk, int d, int causal, float scale,
-                              int passes, void* sched, void* stream) {
-  cudaGetLastError();
-  if (bad_sizes(B, H, tq, tk, causal) || passes < 0 || passes > 7)
-    return (int)cudaErrorInvalidValue;
-  Geometry g[8];
-  for (int i = 0; i < 8; ++i) g[i] = geometry(geo + 7 * i);
-  BwdParams p;
-  p.o = static_cast<const bf16*>(ptrs[3]);
-  p.dout = static_cast<const bf16*>(ptrs[4]);
-  p.dq = static_cast<bf16*>(const_cast<void*>(ptrs[5]));
-  p.dk = static_cast<bf16*>(const_cast<void*>(ptrs[6]));
-  p.dv = static_cast<bf16*>(const_cast<void*>(ptrs[7]));
+// The backward's launches in element type T, as flash_sm90_bwd.
+template <typename T>
+int run_bwd(const void* const* ptrs, const Geometry* g, const void* lse,
+            void* delta, int B, int H, int tq, int tk, int d, int causal,
+            float scale, int passes, void* sched, cudaStream_t stream) {
+  BwdParams<T> p;
+  p.o = static_cast<const T*>(ptrs[3]);
+  p.dout = static_cast<const T*>(ptrs[4]);
+  p.dq = static_cast<T*>(const_cast<void*>(ptrs[5]));
+  p.dk = static_cast<T*>(const_cast<void*>(ptrs[6]));
+  p.dv = static_cast<T*>(const_cast<void*>(ptrs[7]));
   p.o_b = g[3].eb(), p.o_s = g[3].es(), p.o_h = g[3].eh();
   p.do_b = g[4].eb(), p.do_s = g[4].es(), p.do_h = g[4].eh();
   p.dq_b = g[5].eb(), p.dq_s = g[5].es(), p.dq_h = g[5].eh();
@@ -1037,14 +1085,73 @@ extern "C" int flash_sm90_bwd(const void* const* ptrs, const long long* geo,
   p.tiles = p.items = 0;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return launch_bwd<64>(p, ptrs, g, passes, s);
+      return launch_bwd<T, 64>(p, ptrs, g, passes, stream);
     case 128:
-      return launch_bwd<128>(p, ptrs, g, passes, s);
+      return launch_bwd<T, 128>(p, ptrs, g, passes, stream);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// geo: 7 values per operand, [D, H, S, B, byte stride of H, of S, of B]
+// (sm90_common.cuh Geometry), for q, k, v and out in that order.  lse:
+// (B, H, Tq) fp32, or null.  d: 64 or 128.  dtype: the operands' type,
+// DTYPE_BF16 (1) or DTYPE_F16 (2); any other code returns ERR_DTYPE.
+// sched: two int32, zero, that the launch leaves zero (the item counter
+// and its exit count; one pair per stream).  Returns 0 when launched, a
+// cudaError_t, or an sm90 error code (flash_sm90_error_string).
+extern "C" int flash_sm90_fwd(const void* q, const void* k, const void* v,
+                              void* o, void* lse, const long long* geo, int B,
+                              int H, int tq, int tk, int d, int dtype,
+                              int causal, float scale, void* sched,
+                              void* stream) {
+  cudaGetLastError();  // launch errors below are this call's own
+  if (bad_sizes(B, H, tq, tk, causal)) return (int)cudaErrorInvalidValue;
+  Geometry g[4];
+  for (int i = 0; i < 4; ++i) g[i] = geometry(geo + 7 * i);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DTYPE_BF16:
+      return run_fwd<__nv_bfloat16>(q, k, v, o, lse, g, B, H, tq, tk, d,
+                                    causal, scale, sched, s);
+    case DTYPE_F16:
+      return run_fwd<__half>(q, k, v, o, lse, g, B, H, tq, tk, d, causal,
+                             scale, sched, s);
+    default:
+      return ERR_DTYPE;
+  }
+}
+
+// ptrs: q, k, v, out, dout, dq, dk, dv; geo: 7 values per operand in the
+// same order.  lse is the forward's (B, H, Tq) fp32; delta is (B, H, Tq)
+// fp32 scratch that the delta pass fills and the other two read.  dtype
+// as flash_sm90_fwd's.  passes: bit mask of 1 (delta), 2 (dK/dV) and 4
+// (dQ).  sched: four int32, zero, that the launches leave zero (the dK/dV
+// and the dQ pass's counter pairs; one set per stream).
+extern "C" int flash_sm90_bwd(const void* const* ptrs, const long long* geo,
+                              const void* lse, void* delta, int B, int H,
+                              int tq, int tk, int d, int dtype, int causal,
+                              float scale, int passes, void* sched,
+                              void* stream) {
+  cudaGetLastError();
+  if (bad_sizes(B, H, tq, tk, causal) || passes < 0 || passes > 7)
+    return (int)cudaErrorInvalidValue;
+  Geometry g[8];
+  for (int i = 0; i < 8; ++i) g[i] = geometry(geo + 7 * i);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DTYPE_BF16:
+      return run_bwd<__nv_bfloat16>(ptrs, g, lse, delta, B, H, tq, tk, d,
+                                    causal, scale, passes, sched, s);
+    case DTYPE_F16:
+      return run_bwd<__half>(ptrs, g, lse, delta, B, H, tq, tk, d, causal,
+                             scale, passes, sched, s);
+    default:
+      return ERR_DTYPE;
   }
 }
 
@@ -1054,5 +1161,7 @@ extern "C" const char* flash_sm90_error_string(int code) {
   if (code >= ERR_ENCODE && code < ERR_ENCODE + 10000)
     return "cuTensorMapEncodeTiled refused an operand (CUresult = code - "
            "20001)";
+  if (code == ERR_DTYPE)
+    return "flash_attn_sm90 takes type codes 1 (bf16) and 2 (fp16)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -9,23 +9,26 @@
 //   bulk group (`bulk_commit`, `bulk_wait_read`), after the writing
 //   threads' `fence_async_smem`;
 // - wgmma (`wgmma_ss`, `wgmma_ss_mn`, `wgmma_rs`): a warpgroup's
-//   asynchronous 64 x N x 16 bf16 product with fp32 accumulators, A from
-//   shared memory (SS) or from registers (RS), B from shared memory,
-//   K-major (`wgmma_ss`) or MN-major (`wgmma_ss_mn`, `wgmma_rs`), and the
-//   fence / commit / wait that order them;
+//   asynchronous 64 x N x 16 product of bf16 or fp16 operands (the type a
+//   template parameter, the instruction picked at compile time) with fp32
+//   accumulators, A from shared memory (SS) or from registers (RS), B from
+//   shared memory, K-major (`wgmma_ss`) or MN-major (`wgmma_ss_mn`,
+//   `wgmma_rs`), and the fence / commit / wait that order them;
 // - named barriers (`named_sync`) for a subset of the block's warps;
 // - the shared-memory matrix descriptor of a tile that TMA wrote with the
 //   128-byte swizzle (`desc_sw128`);
 // - `setmaxnreg` (register hand-over between warpgroups);
 // - the host side of TMA: `cuTensorMapEncodeTiled`, a driver-API call,
 //   reached through dlopen of the driver so the library links against the
-//   runtime alone, the 4-D (D, H, S, B) bf16 attention operand map and a
-//   2-D map of a row-major bf16 matrix (`encode_matrix`).
+//   runtime alone, the 4-D (D, H, S, B) attention operand map
+//   (`encode_operand`) and a 2-D map of a row-major matrix
+//   (`encode_matrix`), each in the TMA data type it is given (`tma_type`).
 //
 // Tile layout that every kernel here shares: an operand tile of R rows
-// and D columns (bf16) lives in D / 64 "halves" of R x 64 elements, each
-// half R rows of 128 bytes, 1024-byte aligned, written by one TMA box
-// (64, 1, R, 1) with CU_TENSOR_MAP_SWIZZLE_128B.  Read as a K-major wgmma
+// and D columns (bf16 or fp16, 2 bytes an element) lives in D / 64
+// "halves" of R x 64 elements, each half R rows of 128 bytes, 1024-byte
+// aligned, written by one TMA box (64, 1, R, 1) with
+// CU_TENSOR_MAP_SWIZZLE_128B.  Read as a K-major wgmma
 // operand (D is the reduction axis: Q and K in Q K^T) a k16 step is the
 // half's base + 32 bytes per step, leading offset unused, stride 1024
 // bytes per 8 rows.  Read as an MN-major operand (rows are the reduction
@@ -39,15 +42,18 @@
 // (16w + g, 8j + 2q + 1), (16w + g + 8, 8j + 2q), (16w + g + 8,
 // 8j + 2q + 1).  The register A fragment of one k16 step is that of
 // mma.sync m16n8k16 for the warp's 16 rows, so the accumulator of columns
-// 16k .. 16k + 15, rounded to bf16 pairs, is the A operand of step k
-// (`pack_a`).
+// 16k .. 16k + 15, rounded to pairs of the element type, is the A operand
+// of step k (`pack_a`).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -195,127 +201,156 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #define SM90_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define SM90_F16(i) SM90_F4(i), SM90_F4(i + 4), SM90_F4(i + 8), SM90_F4(i + 12)
 
+// The products' element type T: bf16 or fp16.  Both are 2 bytes, so the
+// tiles, the swizzle, the k16 depth and the fragment layouts are the same;
+// only the instruction's type names (and the TMA data type) differ.
+template <typename T>
+constexpr bool kF16 = std::is_same<T, __half>::value;
+
+// ASM(TY), with TY the PTX name of T ("bf16" or "f16"), picked at compile
+// time.
+#define SM90_TYPED(T, ASM)                                          \
+  if constexpr (kF16<T>) {                                          \
+    ASM("f16");                                                     \
+  } else {                                                          \
+    static_assert(std::is_same<T, __nv_bfloat16>::value,            \
+                  "the sm90 products take bf16 or fp16 operands");  \
+    ASM("bf16");                                                    \
+  }
+
+#define SM90_SS32(TY)                                                        \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %18, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"                                     \
+      "}\n"                                                                  \
+      : SM90_F16(0)                                                          \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define SM90_SS64(TY)                                                        \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %34, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                      \
+      "}\n"                                                                  \
+      : SM90_F16(0), SM90_F16(16)                                            \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define SM90_SS128(TY)                                                       \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %66, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "  \
+      "1, 0, 0;\n"                                                           \
+      "}\n"                                                                  \
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)                \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define SM90_RS64(TY)                                                        \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %37, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"        \
+      "}\n"                                                                  \
+      : SM90_F16(0), SM90_F16(16)                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define SM90_RS128(TY)                                                       \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %69, 0;\n"                                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "  \
+      "%67}, %68, p, 1, 1, 1;\n"                                             \
+      "}\n"                                                                  \
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define SM90_SS_MN256(TY)                                                    \
+  asm volatile(                                                              \
+      "{\n"                                                                  \
+      ".reg .pred p;\n"                                                      \
+      "setp.ne.b32 p, %130, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "    \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "    \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "    \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "   \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "   \
+      "%127}, %128, %129, p, 1, 1, 0, 1;\n"                                  \
+      "}\n"                                                                  \
+      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48), SM90_F16(64), \
+        SM90_F16(80), SM90_F16(96), SM90_F16(112)                            \
+      : "l"(da), "l"(db), "r"(scale_d))
+
 // d (64 x N) += A (64 x 16, shared, K-major) * B (16 x N, shared, K-major);
-// scale_d = 0 overwrites d.
-template <int N>
+// scale_d = 0 overwrites d.  N: 32, 64 or 128.
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : SM90_F16(0)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : SM90_F16(0), SM90_F16(16)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)
-      : "l"(da), "l"(db), "r"(scale_d));
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N 32, 64, 128");
+  if constexpr (N == 32) {
+    SM90_TYPED(T, SM90_SS32)
+  } else if constexpr (N == 64) {
+    SM90_TYPED(T, SM90_SS64)
+  } else {
+    SM90_TYPED(T, SM90_SS128)
+  }
 }
 
 // d (64 x N) += A (64 x 16, registers: a[0..3] as `pack_a` gives them) *
-// B (16 x N, shared, MN-major: N contiguous, read transposed).
-template <int N>
+// B (16 x N, shared, MN-major: N contiguous, read transposed).  N: 64 or
+// 128.
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : SM90_F16(0), SM90_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
-      "1, 1;\n"
-      "}\n"
-      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N 64 or 128");
+  if constexpr (N == 64) {
+    SM90_TYPED(T, SM90_RS64)
+  } else {
+    SM90_TYPED(T, SM90_RS128)
+  }
 }
 
 // d (64 x N) += A (64 x 16, shared, K-major) * B (16 x N, shared,
 // MN-major: N contiguous, read transposed); scale_d = 0 overwrites d.
-template <int N>
+// N: 256.
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
-                                            uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_ss_mn<256>(float (&d)[128], uint64_t da,
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : SM90_F16(0), SM90_F16(16), SM90_F16(32), SM90_F16(48), SM90_F16(64),
-        SM90_F16(80), SM90_F16(96), SM90_F16(112)
-      : "l"(da), "l"(db), "r"(scale_d));
+                                            uint64_t db, int scale_d) {
+  static_assert(N == 256, "wgmma_ss_mn: N 256");
+  SM90_TYPED(T, SM90_SS_MN256)
 }
 
+#undef SM90_SS_MN256
+#undef SM90_RS128
+#undef SM90_RS64
+#undef SM90_SS128
+#undef SM90_SS64
+#undef SM90_SS32
+#undef SM90_TYPED
 #undef SM90_F16
 #undef SM90_F4
 
@@ -327,21 +362,29 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two fp32 values rounded to a pair of T (to nearest even), lo in the low
+// half: one 32-bit register of an A fragment, or two adjacent elements.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 // The A fragments of the K / 16 steps of an accumulator d (64 x K, the
-// layout above) rounded to bf16: a[4k .. 4k + 3] is step k.
-template <int K>
+// layout above) rounded to T: a[4k .. 4k + 3] is step k.
+template <typename T, int K>
 __device__ __forceinline__ void pack_a(const float (&d)[K / 2],
                                        uint32_t (&a)[K / 4]) {
 #pragma unroll
   for (int k = 0; k < K / 16; ++k) {
-    a[4 * k + 0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
-    a[4 * k + 1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
-    a[4 * k + 2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
-    a[4 * k + 3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+    a[4 * k + 0] = pack2<T>(d[8 * k + 0], d[8 * k + 1]);
+    a[4 * k + 1] = pack2<T>(d[8 * k + 2], d[8 * k + 3]);
+    a[4 * k + 2] = pack2<T>(d[8 * k + 4], d[8 * k + 5]);
+    a[4 * k + 3] = pack2<T>(d[8 * k + 6], d[8 * k + 7]);
   }
 }
 
@@ -378,7 +421,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// One (B, S, H, D) bf16 attention operand as the wrappers describe it:
+// The TMA data type of T (bf16 or fp16).
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// One (B, S, H, D) 16-bit attention operand as the wrappers describe it:
 // dims (D, H, S, B), innermost first, and the byte strides of H, S and B.
 struct Geometry {
   long long dims[4];
@@ -393,10 +443,12 @@ inline Geometry geometry(const long long* g) {
   return Geometry{{g[0], g[1], g[2], g[3]}, {g[4], g[5], g[6]}};
 }
 
-// The 4-D map of an operand with box (64, 1, rows, 1) and the 128-byte
-// swizzle.  Returns 0, or ERR_NO_DRIVER / ERR_ENCODE + CUresult.
+// The 4-D map of an operand of elements `type` (bf16 or fp16) with box
+// (64, 1, rows, 1) and the 128-byte swizzle.  Returns 0, or ERR_NO_DRIVER /
+// ERR_ENCODE + CUresult.
 inline int encode_operand(CUtensorMap* map, const void* base,
-                          const Geometry& g, int rows) {
+                          const Geometry& g, int rows,
+                          CUtensorMapDataType type) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_DRIVER;
   const cuuint64_t dims[4] = {(cuuint64_t)g.dims[0], (cuuint64_t)g.dims[1],
@@ -406,7 +458,7 @@ inline int encode_operand(CUtensorMap* map, const void* base,
                                  (cuuint64_t)g.strides[2]};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -415,19 +467,20 @@ inline int encode_operand(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-// The 2-D map of a row-major bf16 matrix (rows x cols, `row_bytes` apart)
-// with box (64 columns, `box_rows` rows) and the 128-byte swizzle: the
-// box is one "half" of the layout above.  Returns 0, or ERR_NO_DRIVER /
-// ERR_ENCODE + CUresult.
+// The 2-D map of a row-major matrix of elements `type` (a 16-bit type;
+// rows x cols, `row_bytes` apart) with box (64 columns, `box_rows` rows)
+// and the 128-byte swizzle: the box is one "half" of the layout above.
+// Returns 0, or ERR_NO_DRIVER / ERR_ENCODE + CUresult.
 inline int encode_matrix(CUtensorMap* map, const void* base, long long rows,
-                         long long cols, long long row_bytes, int box_rows) {
+                         long long cols, long long row_bytes, int box_rows,
+                         CUtensorMapDataType type) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_DRIVER;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, type, 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -176,7 +176,7 @@ __device__ __forceinline__ void dlogits_row(const float (&acc)[BN / 2], int h,
       if (8 * j + 1 == lc) y1 -= 1.f;
     }
     st_shared(dst + (j / 8) * OUT_BOX + (((j % 8) ^ g) << 4),
-              pack_bf16(y0 * gs, y1 * gs));
+              pack2<__nv_bfloat16>(y0 * gs, y1 * gs));
   }
 }
 
@@ -256,9 +256,9 @@ __device__ __forceinline__ void run_tiles(const Params& p) {
           // x: K-major, a k16 step is 32 bytes along the row; w: MN-major,
           // a k16 step is 16 rows (2048 bytes), the next 64 columns one
           // box further (leading offset)
-          wgmma_ss_mn<BN>(acc, desc_sw128(sx + k * 32, 16, 1024),
-                          desc_sw128(sw + k * 2048, W_BOX, 1024),
-                          kc > 0 || k > 0);
+          wgmma_ss_mn<__nv_bfloat16, BN>(
+              acc, desc_sw128(sx + k * 32, 16, 1024),
+              desc_sw128(sw + k * 2048, W_BOX, 1024), kc > 0 || k > 0);
         wgmma_commit();
         if (kc > 0) {  // the chunk before is read
           wgmma_wait<1>();
@@ -368,11 +368,12 @@ int launch(Params& p, const void* x, const void* w, void* out, int D,
            cudaStream_t stream) {
   using C = Cfg<DLOGITS>;
   int err;
-  if ((err = encode_matrix(&p.mx, x, p.rows, D, 2LL * D, BM)) ||
-      (err = encode_matrix(&p.mw, w, D, p.V, 2LL * p.V, BK)))
+  constexpr CUtensorMapDataType type = tma_type<__nv_bfloat16>();
+  if ((err = encode_matrix(&p.mx, x, p.rows, D, 2LL * D, BM, type)) ||
+      (err = encode_matrix(&p.mw, w, D, p.V, 2LL * p.V, BK, type)))
     return err;
   if (DLOGITS && (err = encode_matrix(&p.mo, out, p.rows, p.V, 2LL * p.V,
-                                      BM / 2)))
+                                      BM / 2, type)))
     return err;
   p.nrt = (p.rows + BM - 1) / BM;
   p.nvt = (p.V + BN - 1) / BN;

@@ -15,11 +15,12 @@ made in either direction:
   through :mod:`.flash_attention_qkv`).
 
 Those two are built at the head dims of :data:`HEAD_DIMS` (16, 32, 64,
-80, 96, 128) and carry fp32 (on the tensor cores in split precision,
-3xTF32 ``mma.sync``), fp16 at every one of them and bf16 at head dims 16,
-32, 80 and 96 (``mma.sync``).  bf16 at head dims 64 and 128 goes to
-``csrc/flash_attn_sm90.cu``, the same
-forward and backward built for Hopper on ``wgmma`` and TMA tile loads
+80, 96, 128) and carry fp32 at every one of them (on the tensor cores in
+split precision, 3xTF32 ``mma.sync``) and bf16 and fp16 at head dims 16,
+32, 80 and 96 (``mma.sync``).  bf16 and fp16 at head dims 64 and 128
+(:data:`SM90_HEAD_DIMS`) go to ``csrc/flash_attn_sm90.cu``, the same
+forward and backward built for Hopper on ``wgmma`` and TMA tile loads,
+the element type a template parameter of its kernels
 (:func:`kernel_route`); its operands are described to TMA by
 :func:`tma_geometry`, and an operand TMA cannot describe raises.
 
@@ -54,11 +55,15 @@ __all__ = ["flash_attention", "FlashAttention", "flash_attn_fwd",
 NEG_INF = -1e30
 # head dims the kernels are built at: every other d raises on the card
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-SM90_HEAD_DIMS = (64, 128)   # bf16 head dims of csrc/flash_attn_sm90.cu
+# head dims at which bf16 and fp16 run csrc/flash_attn_sm90.cu
+SM90_HEAD_DIMS = (64, 128)
 SMALL_T_MAX = 1024      # flash_attention.py:43
 MID_T_MAX = 4096        # flash_attention.py:52
 SMALL_BWD_T_MAX = 512   # flash_attention.py:1011: longer keys take row 7
+# the kernels' type codes (flash_attn_sm90.cu DTYPE_BF16 / DTYPE_F16; 0
+# is the tile kernels' alone)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 # the backward's launches (csrc/flash_attn_bwd.cu `passes`)
 PASS_DELTA, PASS_DKV, PASS_DQ = 1, 2, 4
 ALL_PASSES = PASS_DELTA | PASS_DKV | PASS_DQ
@@ -84,12 +89,12 @@ def _lib(name: str) -> ctypes.CDLL:
         lib = _build.load(name)
         if name == "flash_attn_sm90":
             lib.flash_sm90_fwd.argtypes = [ctypes.c_void_p] * 5 + [
-                _STRIDES] + [ctypes.c_int] * 6 + [ctypes.c_float] + [
+                _STRIDES] + [ctypes.c_int] * 7 + [ctypes.c_float] + [
                 ctypes.c_void_p] * 2
             lib.flash_sm90_fwd.restype = ctypes.c_int
             lib.flash_sm90_bwd.argtypes = [
                 ctypes.POINTER(ctypes.c_void_p), _STRIDES, ctypes.c_void_p,
-                ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p] + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2
             lib.flash_sm90_bwd.restype = ctypes.c_int
             err = lib.flash_sm90_error_string
@@ -315,7 +320,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def tma_geometry(x: torch.Tensor, rows: int = 64) -> Dict[str, tuple]:
-    """How TMA reads a ``(B, S, H, D)`` bf16 operand of
+    """How TMA reads a ``(B, S, H, D)`` bf16 or fp16 operand of
     ``csrc/flash_attn_sm90.cu``: ``dims`` ``(D, H, S, B)``, innermost
     first; ``strides``, the byte strides of H, S and B; ``box``
     ``(64, 1, rows, 1)``, one 128-byte-swizzled half of a ``rows``-row tile
@@ -355,14 +360,14 @@ def _tma_dims(x: torch.Tensor) -> Tuple[int, ...]:
 def kernel_route(dtype: torch.dtype, head_dim: int,
                  *operands: torch.Tensor) -> str:
     """Which CUDA library takes an attention launch: ``"sm90"``
-    (``csrc/flash_attn_sm90.cu``, wgmma and TMA) for bf16 at a head dim of
-    :data:`SM90_HEAD_DIMS`, else ``"tile"`` (``csrc/flash_attn_fwd.cu`` /
-    ``flash_attn_bwd.cu``: fp32 in 3xTF32, fp16 at every head dim, bf16 at
-    d 16, 32, 80 and 96, all on ``mma.sync``; fp16 on
-    ``flash_attn_sm90.cu`` is queued, ``ROADMAP.md`` §B item 1a).
-    A pure function of the type, the head dim and the operands' layouts:
-    an ``"sm90"`` operand that TMA cannot describe (:func:`tma_geometry`)
-    raises ``ValueError``; it is never sent to the other library."""
+    (``csrc/flash_attn_sm90.cu``, wgmma and TMA) for bf16 and fp16 at a
+    head dim of :data:`SM90_HEAD_DIMS`, else ``"tile"``
+    (``csrc/flash_attn_fwd.cu`` / ``flash_attn_bwd.cu``: fp32 in 3xTF32 at
+    every head dim, bf16 and fp16 at d 16, 32, 80 and 96, all on
+    ``mma.sync``).  A pure function of the type, the head dim and the
+    operands' layouts: an ``"sm90"`` operand that TMA cannot describe
+    (:func:`tma_geometry`) raises ``ValueError``; it is never sent to the
+    other library, which is not built for those types at those dims."""
     if _sm90_geometry(dtype, head_dim, *operands) is None:
         return "tile"
     return "sm90"
@@ -372,7 +377,7 @@ def _sm90_geometry(dtype: torch.dtype, head_dim: int, *tensors):
     """None where :func:`kernel_route` says ``"tile"``; else the
     :func:`tma_geometry` dims and byte strides of each operand, 7 values
     each, as the C array ``flash_attn_sm90`` takes."""
-    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
+    if dtype not in _SM90_DTYPES or head_dim not in SM90_HEAD_DIMS:
         return None
     vals = sum((_tma_dims(t) for t in tensors), ())
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -426,7 +431,7 @@ def _launch_fwd(q4, k4, v4, out4, lse, causal: bool,
             err = lib.flash_sm90_fwd(
                 q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
                 None if lse is None else lse.data_ptr(),
-                geo, B, H, tq, k4.shape[1], d,
+                geo, B, H, tq, k4.shape[1], d, _DTYPE_CODES[q4.dtype],
                 int(bool(causal)), _scale(d, scale), sched, stream)
         _raise_on(err, lib, "flash_attn_sm90 forward")
         SM90_FWD_LAUNCHES += 1
@@ -462,8 +467,8 @@ def _launch_bwd(q4, k4, v4, out4, lse, dout4, dq4, dk4, dv4, delta,
             sched = _sched(q4.device, stream)
             err = lib.flash_sm90_bwd(
                 ptrs, geo, lse.data_ptr(), delta.data_ptr(), B,
-                H, tq, k4.shape[1], d, int(bool(causal)), _scale(d, scale),
-                passes, sched, stream)
+                H, tq, k4.shape[1], d, _DTYPE_CODES[q4.dtype],
+                int(bool(causal)), _scale(d, scale), passes, sched, stream)
         _raise_on(err, lib, "flash_attn_sm90 backward")
         SM90_BWD_LAUNCHES += 1
         return

@@ -24,7 +24,10 @@ attention kernel calls of the serving and train paths, at their shapes:
   (backward row 6), B 32, T 1024 (row 7) and B 1, T 8192 (forward row 2,
   backward rows 8 + 9), and at B 4, T 2048, H 12 with the other head
   dims of the tile kernels, fp32 at 16, 80, 96 and 128 and bf16 at 16,
-  32, 80 and 96, whose shared-memory tiles differ from d 64's;
+  32, 80 and 96, whose shared-memory tiles differ from d 64's; the same
+  three split shapes in bf16 and fp16 and B 4, T 2048 at d 128 in both
+  (``flash_attn_sm90``'s types and head dims; a checkout that routes fp16
+  elsewhere times its own route, named in ``*_route``);
 - the LM head at the compiled step's shapes, bf16: ``softmax_xent_fwd``
   at N 65536, D 768, V 30528 (row 10) and ``softmax_xent_dlogits`` on one
   4096-row chunk (row 11), with the route each took where the checkout
@@ -42,6 +45,7 @@ them; each run prints one JSON line and, with ``--json``, writes it.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -65,20 +69,16 @@ def _time_ms(torch, fn, reps=25, warmup=3):
 
 
 def _device_ms(torch, fn, reps=10):
-    # kept here, not imported: the checkout under test may predate
-    # paddle_tpu_torch.tools.profile_train.device_ms_per_call
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / reps
+    # this tool's own timer (tools/device_time.py, torch alone), loaded by
+    # path: the checkout under test may lack it or hold an older one
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "device_time.py")
+    spec = importlib.util.spec_from_file_location("_kernel_ab_timer", path)
+    timer = sys.modules.get(spec.name)
+    if timer is None:
+        timer = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(timer)
+    return timer.device_ms_per_call(fn, reps=reps)
 
 
 def main(argv=None) -> int:
@@ -192,11 +192,16 @@ def _time_attention(torch, fa, fq, gen, out):
         out["row1_flash_attn_fwd_device_ms"] = _device_ms(
             torch, lambda: fa.flash_attn_fwd(q, k, v, causal=True))
         del q, k, v
-        f32, b16 = torch.float32, torch.bfloat16
+        f32, b16, f16 = torch.float32, torch.bfloat16, torch.float16
+        names = {f32: "fp32", b16: "bf16", f16: "fp16"}
         for B, T, d, dt in ((32, 512, 64, f32), (32, 1024, 64, f32),
                             (1, 8192, 64, f32), *((4, 2048, d, f32) for d in
                                                   (16, 80, 96, 128)),
-                            *((4, 2048, d, b16) for d in (16, 32, 80, 96))):
+                            *((4, 2048, d, b16) for d in (16, 32, 80, 96)),
+                            *((B, T, d, dt) for dt in (b16, f16)
+                              for B, T, d in ((32, 512, 64), (32, 1024, 64),
+                                              (1, 8192, 64),
+                                              (4, 2048, 128)))):
             q, k, v = torch.randn((B, T, 3, 12, d), generator=gen,
                                   device="cuda").to(dt).unbind(2)
             g = torch.randn((B, T, 12, d), generator=gen,
@@ -215,10 +220,12 @@ def _time_attention(torch, fa, fq, gen, out):
                 fa.flash_attn_bwd(q, k, v, o, lse, g, causal=True)
 
             for name, fn in (("fwd", split_fwd), ("bwd", split_bwd)):
-                key = (f"split_{name}_{'fp32' if dt == f32 else 'bf16'}"
-                       f"_b{B}_t{T}" + (f"_d{d}" if d != 64 else ""))
+                key = (f"split_{name}_{names[dt]}_b{B}_t{T}"
+                       + (f"_d{d}" if d != 64 else ""))
                 out[f"{key}_ms"] = _time_ms(torch, fn)
                 out[f"{key}_device_ms"] = _device_ms(torch, fn)
+                if hasattr(fa, "kernel_route"):
+                    out[f"{key}_route"] = fa.kernel_route(dt, d, q, k, v)
             del q, k, v, g, o, lse
         for key, B, T, H, d, dt in (
                 ("bf16_b128_t512", 128, 512, 12, 64, torch.bfloat16),

@@ -70,6 +70,7 @@ from ..metric import Accuracy
 from ..nn import ClipGradByGlobalNorm
 from ..optimizer import AdamW, lr
 from ..random import default_generator, seed
+from .device_time import device_ms_per_call
 
 WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
              num_heads=12, max_seq_len=512)
@@ -108,25 +109,6 @@ def _kind(name: str) -> str:
 def _device_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def device_ms_per_call(fn, reps: int = 10, warmup: int = 3) -> float:
-    """Device time of one ``fn()``: every kernel it launches, summed from
-    a ``torch.profiler`` trace of ``reps`` calls (host time between the
-    launches is not counted, unlike CUDA events around a call)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = _device_events(prof)
-    if not events:
-        raise RuntimeError("the profiler recorded no device time")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
 
 
 def _compiled_path():

@@ -69,7 +69,8 @@ def test_kernel_refuses_what_it_does_not_take(card):
     x = torch.rand(2, 64, 8, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         pfa.flash_attn_fwd(x, x, x)
-    # fp16 runs on the tile kernels since the fp16 slice; fp64 is refused
+    # fp16 runs on the kernels (flash_attn_sm90 at d 64 / 128, the tile
+    # kernels elsewhere); fp64 is refused
     h = torch.rand(2, 8, 64, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
         pfa.flash_attn_fwd(h, h, h)
@@ -643,16 +644,19 @@ def test_packed_attention_past_2048_on_the_card(card):
 
 
 def test_sm90_refuses_an_operand_tma_cannot_describe(card):
+    # bf16 and fp16 alike: never sent to the tile kernels, which are not
+    # built for them at d 64
     n = 128 * 2 * 64
-    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device="cuda")
-    q = flat[1:1 + n].view(1, 128, 2, 64)          # base 2 bytes off
-    out = torch.empty((1, 128, 2, 64), dtype=torch.bfloat16, device="cuda")
-    before = pfa.SM90_FWD_LAUNCHES
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pfa._launch_fwd(q, q, q, out, None, False, None)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        pfa.flash_attn_fwd(q, q, q)
-    assert pfa.SM90_FWD_LAUNCHES == before
+    for dt in (torch.bfloat16, torch.float16):
+        flat = torch.zeros(n + 8, dtype=dt, device="cuda")
+        q = flat[1:1 + n].view(1, 128, 2, 64)          # base 2 bytes off
+        out = torch.empty((1, 128, 2, 64), dtype=dt, device="cuda")
+        before = pfa.SM90_FWD_LAUNCHES, pfa.FWD_LAUNCHES
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pfa._launch_fwd(q, q, q, out, None, False, None)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pfa.flash_attn_fwd(q, q, q)
+        assert (pfa.SM90_FWD_LAUNCHES, pfa.FWD_LAUNCHES) == before
 
 
 # -- head dims 16, 80 and 96 (fault C4) and the fp32 product -----------------------
@@ -1176,19 +1180,25 @@ F16 = torch.float16
 
 
 def test_fp16_attention_kernels_match_plain_versions(card):
-    # the tile kernels in fp16 at every built head dim, forward with lse and
-    # backward, causal and not, Tq < Tk, and raw scores past fp16's range
+    # fp16 at every built head dim, forward with lse and backward, causal
+    # and not, Tq < Tk, and raw scores past fp16's range: d 64 and 128 on
+    # flash_attn_sm90, the rest on the tile kernels
     gen = torch.Generator(device="cuda").manual_seed(21)
-    before = pfa.FWD_LAUNCHES, pfa.SM90_FWD_LAUNCHES
+    before = pfa.FWD_LAUNCHES, pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES
     for tq, tk in ((7, 7), (128, 128), (100, 300), (600, 600)):
         for d in pfa.HEAD_DIMS:
             for causal in (False, True):
                 q, k, v, g = chip_smoke._split_operands(
                     torch, gen, "cuda", 2, tq, tk, 2, d, F16)
+                sm90 = pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES
                 out, lse = pfa.flash_attn_fwd(q, k, v, causal=causal,
                                               return_lse=True)
                 grads = pfa.flash_attn_bwd(q, k, v, out, lse, g,
                                            causal=causal)
+                want = (1, 1) if d in pfa.SM90_HEAD_DIMS else (0, 0)
+                assert (pfa.SM90_FWD_LAUNCHES - sm90[0],
+                        pfa.SM90_BWD_LAUNCHES - sm90[1]) == want, \
+                    (tq, tk, d, causal)
                 ref, ref_lse = pfa.flash_attn_fwd_ref(q, k, v, causal=causal,
                                                       return_lse=True)
                 ref_g = pfa.flash_attn_bwd_ref(q, k, v, ref, ref_lse, g,
@@ -1208,9 +1218,13 @@ def test_fp16_attention_kernels_match_plain_versions(card):
                         atol=chip_smoke.GRAD_ATOL["float16"],
                         msg=lambda m: f"{case} {m}")
     assert pfa.FWD_LAUNCHES - before[0] == 4 * len(pfa.HEAD_DIMS) * 2
-    assert pfa.SM90_FWD_LAUNCHES == before[1]          # all on the tile
+    # d 64 and 128 on flash_attn_sm90, each launch of both directions
+    n_sm90 = 4 * len(pfa.SM90_HEAD_DIMS) * 2
+    assert (pfa.SM90_FWD_LAUNCHES - before[1],
+            pfa.SM90_BWD_LAUNCHES - before[2]) == (n_sm90, n_sm90)
+    # each row also holds its route: ok needs flash_attn_sm90's launches
     rows = chip_smoke.check_fp16_range(torch, pfa, "cuda", gen)
-    assert rows and all(r["ok"] for r in rows)
+    assert rows and all(r["ok"] and r["route"] == "sm90" for r in rows)
 
 
 def test_fp16_epilogue_matches_plain_version(card):

@@ -9,8 +9,10 @@ seeds and are held against the reference:
   ``FlashAttention`` autograd), against ``paddle_tpu``'s
   ``flash_attention`` under ``jax.vjp``, both on its XLA math (the CPU
   default) and in Pallas interpret mode (``PADDLE_PALLAS_FORCE=1``, as
-  ``tests/test_pallas_kernels.py`` runs it), at head dims 16 and 64,
-  causal and not;
+  ``tests/test_pallas_kernels.py`` runs it), at head dims 16, 64 and 128
+  (the last two the Hopper kernel's on the card), causal and not, and at
+  a ragged length past one 128-row tile (T 200, where the reference
+  takes its XLA math in both modes);
 - the fused epilogue's forward and backward in fp16 (x and residual fp16,
   or fp16 x beside an fp32 residual, with fp16 or fp32 parameters),
   against ``paddle_tpu/ops/fused_ops.py``'s ``_fused`` and its vjp with
@@ -58,17 +60,12 @@ N, EPS, SEED = 8, 1e-5, 41
 
 
 # -- attention -------------------------------------------------------------------
-@pytest.mark.parametrize("pallas", [False, True])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64])
-def test_attention_fp16_matches_the_reference(d, causal, pallas,
-                                              monkeypatch):
-    monkeypatch.setenv("PADDLE_PALLAS_FORCE", "1" if pallas else "0")
-    B, T, H = 2, 128, 2
-    rs = np.random.RandomState(d + 2 * causal)
+def _attention_fp16_case(B, T, H, d, causal, seed):
+    """The port's fp16 attention, forward and gradients, against the
+    reference's under ``jax.vjp`` on the same numpy inputs; returns the
+    worst errors of the output and of the gradients."""
+    rs = np.random.RandomState(seed)
     q, k, v, g = (rs.randn(B, T, H, d).astype(np.float16) for _ in range(4))
-    mode = rfa._pallas_mode(T, T, causal)[0]
-    assert mode == ("small" if pallas else "xla")
     out, vjp = jax.vjp(lambda a, b, c: rfa.flash_attention(
         a, b, c, causal=causal), *(jnp.asarray(a) for a in (q, k, v)))
     want = (out,) + vjp(jnp.asarray(g))
@@ -84,9 +81,37 @@ def test_attention_fp16_matches_the_reference(d, causal, pallas,
         errs.append(err)
         assert err <= (ATTN_FWD_ATOL if name == "out" else ATTN_GRAD_ATOL), \
             (name, err)
+    return errs[0], max(errs[1:])
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_attention_fp16_matches_the_reference(d, causal, pallas,
+                                              monkeypatch):
+    monkeypatch.setenv("PADDLE_PALLAS_FORCE", "1" if pallas else "0")
+    B, T, H = 2, 128, 2
+    mode = rfa._pallas_mode(T, T, causal)[0]
+    assert mode == ("small" if pallas else "xla")
+    out, grads = _attention_fp16_case(B, T, H, d, causal, d + 2 * causal)
     print(f"attention fp16 d {d} causal {causal} "
-          f"{'pallas' if pallas else 'xla'}: worst out {errs[0]:.3g}, "
-          f"grads {max(errs[1:]):.3g}")
+          f"{'pallas' if pallas else 'xla'}: worst out {out:.3g}, "
+          f"grads {grads:.3g}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_fp16_ragged_length_matches_the_reference(d, causal,
+                                                            monkeypatch):
+    # T 200: one full 128-row tile and a ragged one, masked by index in the
+    # kernels; the reference takes its XLA math at an unaligned length in
+    # both modes, so one mode covers it
+    monkeypatch.setenv("PADDLE_PALLAS_FORCE", "1")
+    B, T, H = 2, 200, 2
+    assert rfa._pallas_mode(T, T, causal)[0] == "xla"
+    out, grads = _attention_fp16_case(B, T, H, d, causal, d + 2 * causal + 1)
+    print(f"attention fp16 T {T} d {d} causal {causal}: worst out "
+          f"{out:.3g}, grads {grads:.3g}")
 
 
 def test_attention_fp16_scores_past_the_type_range_stay_finite():

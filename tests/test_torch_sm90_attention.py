@@ -1,15 +1,18 @@
 """The routing and TMA geometry of paddle_tpu_torch's Hopper attention
-kernels (``csrc/flash_attn_sm90.cu``), and packed attention past the old
-length limit, on the CPU.
+kernels (``csrc/flash_attn_sm90.cu``, bf16 and fp16), and packed attention
+past the old length limit, on the CPU.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  What surrounds them is plain Python and is checked here:
 which library a launch goes to, how each operand is described to TMA
-(checked against numbers worked out by hand), and that
+(checked against numbers worked out by hand), the type codes the C entry
+points take, and that
 ``flash_attention_qkv`` takes sequences longer than 2048, held against the
 JAX package's ``flash_attention_qkv`` (its split path at that length).
 """
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +42,17 @@ def test_bf16_routes_by_head_dim(d, route):
     assert fa.kernel_route(torch.bfloat16, d, q, k, v) == route
 
 
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fp16_routes_as_bf16_by_head_dim(d):
+    # fp16 takes the Hopper kernel where bf16 does (d 64 and 128) and the
+    # tile kernels elsewhere, on the same operands
+    _, (q, k, v) = _packed_views(2, 100, 2, d, torch.float16)
+    route = fa.kernel_route(torch.float16, d, q, k, v)
+    assert route == ("sm90" if d in (64, 128) else "tile")
+    assert route == fa.kernel_route(torch.bfloat16, d,
+                                    *(x.bfloat16() for x in (q, k, v)))
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_fp32_stays_on_the_fma_kernels(d):
     _, (q, k, v) = _packed_views(2, 100, 2, d, torch.float32)
@@ -46,16 +60,18 @@ def test_fp32_stays_on_the_fma_kernels(d):
 
 
 def test_an_operand_tma_cannot_describe_raises():
-    # a head stride of 68 bf16 elements is 136 bytes: no multiple of 16
-    x = torch.zeros((2, 10, 2, 68), dtype=torch.bfloat16)[..., :64]
-    with pytest.raises(ValueError, match="TMA cannot describe"):
-        fa.kernel_route(torch.bfloat16, 64, x)
-    # a base 2 bytes past a 16-byte boundary
-    flat = torch.zeros(2 * 10 * 2 * 64 + 8, dtype=torch.bfloat16)
-    y = flat[1:1 + 2 * 10 * 2 * 64].view(2, 10, 2, 64)
-    assert y.data_ptr() % 16
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fa.kernel_route(torch.bfloat16, 64, y)
+    for dt in (torch.bfloat16, torch.float16):
+        # a head stride of 68 16-bit elements is 136 bytes: no multiple
+        # of 16
+        x = torch.zeros((2, 10, 2, 68), dtype=dt)[..., :64]
+        with pytest.raises(ValueError, match="TMA cannot describe"):
+            fa.kernel_route(dt, 64, x)
+        # a base 2 bytes past a 16-byte boundary
+        flat = torch.zeros(2 * 10 * 2 * 64 + 8, dtype=dt)
+        y = flat[1:1 + 2 * 10 * 2 * 64].view(2, 10, 2, 64)
+        assert y.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.kernel_route(dt, 64, y)
     # the FMA kernels' route never looks at TMA
     assert fa.kernel_route(torch.float32, 64, x.float()) == "tile"
 
@@ -95,7 +111,38 @@ def test_geometry_array_the_kernel_takes():
     _, (q, k, v) = _packed_views(2, 8, 2, 64)
     geo = fa._sm90_geometry(torch.bfloat16, 64, q, k)
     assert list(geo) == [64, 2, 8, 2, 128, 768, 6144] * 2
+    # fp16 is 2 bytes too: the same array for the same shape
+    _, (q16, k16, _v) = _packed_views(2, 8, 2, 64, torch.float16)
+    assert list(fa._sm90_geometry(torch.float16, 64, q16, k16)) == list(geo)
     assert fa._sm90_geometry(torch.float32, 64, q.float()) is None
+
+
+def test_type_codes_match_the_c_entry_points():
+    # the wrapper passes _DTYPE_CODES[dtype]; flash_attn_sm90.cu takes
+    # DTYPE_BF16 and DTYPE_F16 and refuses every other code, the tile
+    # kernels switch on 0 (fp32), 1 (bf16) and 2 (fp16)
+    csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
+    sm90 = (csrc / "flash_attn_sm90.cu").read_text()
+    codes = dict(re.findall(r"DTYPE_(BF16|F16) = (\d+)", sm90))
+    assert {"BF16": int(codes["BF16"]), "F16": int(codes["F16"])} == {
+        "BF16": fa._DTYPE_CODES[torch.bfloat16],
+        "F16": fa._DTYPE_CODES[torch.float16]}
+    for name, entry in (("flash_sm90_fwd", "run_fwd"),
+                        ("flash_sm90_bwd", "run_bwd")):
+        body = sm90[sm90.index(f'extern "C" int {name}('):]
+        body = body[:body.index("\n}\n")]
+        assert re.findall(r"case (DTYPE_\w+):\s+return (\w+)<(\w+)>",
+                          body) == [("DTYPE_BF16", entry, "__nv_bfloat16"),
+                                    ("DTYPE_F16", entry, "__half")]
+        assert "default:\n      return ERR_DTYPE;" in body
+    for src in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
+        text = (csrc / src).read_text()
+        types = dict(re.findall(r"case (\d):\s+return \(int\)run<(\w+)>",
+                                text))
+        assert types == {str(fa._DTYPE_CODES[torch.float32]): "float",
+                         str(fa._DTYPE_CODES[torch.bfloat16]):
+                             "__nv_bfloat16",
+                         str(fa._DTYPE_CODES[torch.float16]): "__half"}
 
 
 # -- packed attention past T 2048 ---------------------------------------------
