@@ -12,17 +12,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels  each kernel against its plain PyTorch version on the card,
             at every shape the serving, scoring and train paths give it
             and around them (packed attention T 100 ... 2048 at every
-            built head dim, d 16/32/64/80/96/128, and T 4096 at d 64; bf16
-            and fp16 at d 64/128 on flash_attn_sm90 (each check holds the
-            route, kernel_route, and its launch counters), also with sharp
-            inputs;
+            built head dim, d 16/32/64/80/96/128, and T 4096 at d 64, in
+            fp32, bf16 and fp16; bf16 and fp16 at d 64/128 on
+            flash_attn_sm90 (each check holds the route, kernel_route,
+            and its launch counters), also with sharp inputs;
             split-layout forward with lse and backward T 128 ... 8192 and
             Tq < Tk, every built head dim; the fp32 kernels and the plain
             fp32 versions against float64, causal, T 1024 ... 8192; LM
             head forward and dlogits up to N 4096, V 30528, on both
-            routes (bf16 on softmax_xent_sm90.cu, fp32 and bf16 V 700 on
-            the tile kernels), N and V past the sm90 tile, labels 0,
-            V - 1, -1 and V; the fused epilogue at D 64 ... 12800, N 1
+            routes (bf16 and fp16 on softmax_xent_sm90.cu, fp32 and the
+            16-bit types at V 700 on the tile kernels), N and V past the
+            sm90 tile, labels 0, V - 1, -1 and V, and fp16 dlogits at g =
+            1/65536 (the fp16 step's g/N: every label value a subnormal,
+            kept); the fused epilogue at D 64 ... 12800, N 1
             ... 16384, p 0 / 0.1 / 0.5, x and residual of one type or
             mixed (fp32 and bf16), and its dropout mask against the hash
             bit for bit; the epilogue's backward kernel at D 64 ... 4096
@@ -80,7 +82,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
             D 768, p 0.1 and 0), each kernel's result held against its
             plain version there too; rows 3, 4, 10, 11, 12, the
             epilogue's backward and SDPA also in device time
-            (torch.profiler), with the share of the bound; and
+            (torch.profiler), with the share of the bound; rows 3, 4, 10
+            and 11 again in fp16 at the compiled step's shapes, and rows
+            3 and 5 in fp16 at B 8, T 1024; and
             optimizer.step() at the GPT's full width for each optimizer
             of phase 13a, fp32 and decorated (bf16 over fp32 masters):
             the update kernel, its plain version, the per-leaf path
@@ -100,13 +104,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
             launches, all of them flash_attn_sm90's, the fused head's
             forward and 16 dlogits launches, all softmax_xent_sm90's)
             against the
-            same step with the plain versions swapped in; two runs of two
+            same step with the plain versions swapped in, every gradient
+            finite; two runs of two
             steps repeat bit for bit; the loss falls over 12 steps on one
-            batch; step ms, seq/s, MFU and peak memory
+            batch; step ms, seq/s, MFU and peak memory.  Then the same in
+            fp16 (compute_dtype=float16, no loss scaling, as the
+            reference), and one step each under remat "ctx_ffn" and
+            "dots" (bf16) held bit for bit to the "ctx" step, with their
+            attention launches (12 + 12; "dots" 24 + 12), peak memory and
+            step ms
 8. train    T 1024 at reduced depth (L 2, B 8, fp32, remat "full"): one
    long     step through the kernels (2 dlogits launches, the head on
             the tile kernels) against the
-            plain versions; the same for the reference's dryrun model
+            plain versions; the same in fp16 (row 5 on flash_attn_sm90,
+            the head on softmax_xent_sm90); the same for the reference's
+            dryrun model
             (V 128, hidden 32, 2 heads: head dim 16, L 4, B 4, T 16)
 9. eager    Model(GPT).prepare(AdamW, CrossEntropyLoss).train_batch at
             full width (B 32, T 512, fp32): one step through the kernels
@@ -308,12 +320,20 @@ SHARP_GRAD_RTOL = 2e-2
 # column of dlogits loses 1)
 HEAD_SHAPES = ((256, 64, 512), (256, 64, 700), (4096, 768, 30528),
                (1000, 768, 30528), (4096, 64, 520), (130, 40, 264))
-HEAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# fp16: the same fp32 sums (1e-4 is bf16's, 0.0128 of a bf16 step at 1;
+# fp16's, no looser by that ratio, would be 1.25e-5)
+HEAD_ATOL = {"float32": 1e-5, "bfloat16": 1e-4, "float16": 1e-5}
 
 # the train path (bench.py:119-124): BERT-base GPT, B 128, T 512, bf16
 TRAIN = dict(width=dict(vocab_size=30528, hidden_size=768, num_layers=12,
                         num_heads=12, max_seq_len=512),
              batch=128, seq=512, dtype="bfloat16", remat="ctx")
+# the same step in fp16 (the reference's compute_dtype=float16: no
+# loss scaling, so the head's dlogits (p - 1)·g/N at g/N = 1/65536 are fp16
+# subnormals, and every other gradient of the trunk is near fp16's range's
+# foot); and the two remat policies besides "ctx", in bf16
+TRAIN_FP16 = dict(TRAIN, dtype="float16")
+REMAT_POLICIES, REMAT_TIMED = ("ctx_ffn", "dots"), 5
 # rows 3 and 4 in fp32 (the tile kernels' packed path, T <= 512): the
 # compiled step's width at B 32, fp32; timed only
 TRAIN_FP32 = dict(width=dict(vocab_size=30528, hidden_size=768,
@@ -328,6 +348,8 @@ DRYRUN = dict(width=dict(vocab_size=128, hidden_size=32, num_layers=4,
 TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
                              num_layers=2, num_heads=12, max_seq_len=1024),
                   batch=8, seq=1024, dtype="float32", remat="full")
+# row 5 in fp16 (phase 8): the same shape through the Hopper kernels
+TRAIN_LONG_FP16 = dict(TRAIN_LONG, dtype="float16")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # phases 9 and 11: steps of Model.train_batch with jit=True (captured in a
 # CUDA graph) against jit=False, on the batch rolled by 0, 1, 2 rows
@@ -365,6 +387,18 @@ TRAIN_LOSS_RTOL = {"bfloat16": 1e-3, "float16": 1e-5, "float32": 1e-4}
 TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float16": 1.5e-2,   # relative L2
                    "float32": 1e-4}
 TRAIN_GRADS = ("blocks.qkv_w", "head_w", "wte")
+# the compiled step in fp16 has no loss scaling (as the reference's): g/N
+# is 1/65536 at B 128, T 512, the head's dlogits are fp16 subnormals
+# ((p - 1)·g/N at the label, 0 elsewhere), and the trunk's gradients
+# (~1e-7 and less) lie at fp16's subnormal foot, a few steps of 2^-24
+# each, where the two versions' last-bit differences are whole steps: on
+# an H100 they differ by 0.77 (qkv_w) and 0.86 (wte) relative L2 while
+# the losses agree exactly.  So the unscaled step holds the head's
+# gradient alone (it reads the subnormal dlogits in fp32), and the same
+# backward is held again with the loss gradient scaled by the step's
+# token count N (g/N = 1, every gradient normal in fp16), every name of
+# TRAIN_GRADS at fp16's TRAIN_GRAD_RTOL
+FP16_UNSCALED_HELD = ("head_w",)
 ADAM_B1 = 0.9
 
 # the fused epilogue (row 12): the warp path (D <= 1024, 16-byte and
@@ -397,6 +431,12 @@ FUSED_LN_BWD_COL_RTOL = {"float32": 1e-5, "bfloat16": 5e-2,
 # the label p - 1 cancels).  A typical element, |g|/V, is 30 times that
 # atol at V 30528, so a wrong softmax term fails
 DLOGITS_G, DLOGITS_ATOL, DLOGITS_BF16_ATOL_PER_G = 2.0, 1e-5, 1e-6
+# fp16 (rows 10 and 11 in fp16) as bf16, one fp16 step; and g =
+# 1/65536, the full-width step's g/N, where the label column's (p - 1)·g
+# is an fp16 subnormal (~1.5e-5 against fp16's smallest normal 6.1e-5)
+# that the kernel's cast must keep, not flush to 0
+DLOGITS_SUBNORMAL_G = 2.0 ** -16
+DLOGITS_SUBNORMAL_SHAPES = ((4096, 768, 30528), (256, 64, 700))
 # the encoder path (phase 11): profile_train.ENCODER, BERT-base
 # (bert-base-uncased) at the flagship vocabulary (bench.py:1027-1029),
 # built by profile_train.build_encoder
@@ -469,7 +509,14 @@ UPDATE_ATOL, UPDATE_RTOL = 1e-6, 1e-5
 UPDATE_PAST_SHARE, UPDATE_REL = 1e-4, 2.0 ** -6
 
 
+# the run's start (main() sets it): each "== phase" line carries the
+# seconds since, so a slow run shows which phase took the time
+_RUN_START = []
+
+
 def log(msg: str = ""):
+    if msg.startswith("== ") and _RUN_START:
+        msg += f"  [{time.perf_counter() - _RUN_START[0]:.1f} s]"
     print(msg, flush=True)
 
 
@@ -632,8 +679,11 @@ def _qkv_case(torch, fq, gen, dev, T, d, causal, dtype, inputs):
         qkv = qkv.reshape(2, T, 3 * H * d)
         g = torch.randn((2, T, H * d), generator=gen, device=dev)
     qkv, g = qkv.to(dtype), g.to(dtype)
+    route = (fq._fa.kernel_route(dtype, d, *fq._views(qkv, H)),
+             fq._fa.SM90_FWD_LAUNCHES, fq._fa.SM90_BWD_LAUNCHES)
     out, lse = fq.flash_qkv_fwd(qkv, H, causal=causal)
     dqkv = fq.flash_qkv_bwd(qkv, out, lse, g, H, causal=causal)
+    routed = _routed_ok(fq._fa, route)
     ref, ref_lse = fq.flash_qkv_fwd_ref(qkv, H, causal=causal)
     ref_d = fq.flash_qkv_bwd_ref(qkv, ref, ref_lse, g, H, causal=causal)
     sync(torch, dev)
@@ -643,10 +693,10 @@ def _qkv_case(torch, fq, gen, dev, T, d, causal, dtype, inputs):
     err_lse = (lse - ref_lse).abs().max().item()
     err_d = (dqkv.float() - ref_d.float()).abs().max().item()
     ok = (out.dtype == dtype and dqkv.shape == qkv.shape
-          and err_lse <= LSE_ATOL)
+          and err_lse <= LSE_ATOL and routed)
     r = dict(b=2, t=T, h=H, d=d, causal=causal, dtype=name, inputs=inputs,
-             max_abs_err=err, max_abs_err_lse=err_lse,
-             max_abs_err_dqkv=err_d)
+             route=route[0], routed=routed, max_abs_err=err,
+             max_abs_err_lse=err_lse, max_abs_err_dqkv=err_d)
     if inputs == "rand":
         ok = ok and err <= ATOL[name] and err_d <= GRAD_ATOL[name]
         tol = (f"out atol {ATOL[name]:.0e}, lse atol {LSE_ATOL:.0e}, dqkv "
@@ -670,21 +720,27 @@ def _qkv_case(torch, fq, gen, dev, T, d, causal, dtype, inputs):
                f"{SHARP_GRAD_RTOL:.0e})")
     r.update(tolerance=tol, ok=ok)
     log(f"  flash_qkv T={T:4d} H={H:2d} d={d:3d} causal={int(causal)} "
-        f"{name:8s} {inputs:5s} out {err:.2e} lse {err_lse:.2e} dqkv "
-        f"{err_d:.2e}; {tol} {'ok' if ok else 'FAIL'}")
+        f"{name:8s} {inputs:5s} {route[0]:4s} out {err:.2e} lse "
+        f"{err_lse:.2e} dqkv {err_d:.2e}; {tol} {'ok' if ok else 'FAIL'}")
     return r
 
 
 def check_qkv_kernels(torch, fq, dev):
     """Rows 3/4/5: forward, lse and dqkv against the plain versions; bf16
-    at d 64 and 128 runs on flash_attn_sm90, the rest on the tile
-    kernels."""
+    and fp16 at d 64 and 128 run on flash_attn_sm90, the rest on the tile
+    kernels (each check holds its route and the SM90 launches it took).
+    The fp16 cases (the compiled step's) come after the fp32 and bf16
+    ones, so those draw the inputs they drew before."""
     gen = torch.Generator(device=dev).manual_seed(3)
     shapes = [(T, d) for T in QKV_TS for d in fq.HEAD_DIMS] + list(QKV_LONG)
     cases = [(T, d, causal, dtype, "rand") for T, d in shapes
              for causal in (False, True)
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(T, d, causal, torch.bfloat16, "sharp") for T, d in SHARP_QKV
+              for causal in (False, True)]
+    cases += [(T, d, causal, torch.float16, "rand") for T, d in shapes
+              for causal in (False, True)]
+    cases += [(T, d, causal, torch.float16, "sharp") for T, d in SHARP_QKV
               for causal in (False, True)]
     results = [_qkv_case(torch, fq, gen, dev, *c) for c in cases]
     bad = [r for r in results if not r["ok"]]
@@ -713,12 +769,14 @@ def _routed(sx, x, w, before, kind):
 
 
 def check_head_kernel(torch, sx, dev):
-    """Row 10 on both routes: lse and at against the plain version."""
+    """Row 10 on both routes: lse and at against the plain version, fp32,
+    bf16 and fp16 (the 16-bit types on softmax_xent_sm90.cu where TMA
+    can describe their rows)."""
     import numpy as np
     rs = np.random.RandomState(4)
     results = []
     for N, D, V in HEAD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = torch.from_numpy(rs.randn(N, D).astype(np.float32)).to(
                 dev, dtype)
             w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
@@ -958,6 +1016,13 @@ def _bf16_ulp(torch, t):
     return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-30))) - 7)
 
 
+def _fp16_step(torch, t):
+    """One fp16 step at each value of the fp32 tensor ``t``: 2^-24 (the
+    subnormal spacing) below fp16's smallest normal, 0 included."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -14)))
+                      - 10)
+
+
 def _fused_ln_err(torch, out, ref):
     """The epilogue forward's agreement with its plain version: (max abs
     error, limit text, ok) under the fp32 atol, or in bf16 and fp16 each
@@ -1161,50 +1226,72 @@ def check_fused_ln_mask(torch, fl, dev, N=4096, D=768):
 
 def _dlogits_err(torch, out, ref, g):
     """Row 11's agreement with its plain version: (max_abs_err, limit
-    text, ok) under the fp32 atol, or in bf16 each element's error against
-    1e-6·|g| plus one bf16 ulp of the plain value."""
+    text, ok) under the fp32 atol, or in bf16 and fp16 each element's
+    error against 1e-6·|g| plus one step of its type at the plain value
+    (fp16's subnormal step, 2^-24, below its smallest normal)."""
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if out.dtype == torch.float32:
         return err, f"atol {DLOGITS_ATOL:.0e}", err <= DLOGITS_ATOL
     atol = DLOGITS_BF16_ATOL_PER_G * abs(float(g))
-    ulps = ((diff - atol).clamp_min(0.0)
-            / _bf16_ulp(torch, ref.float())).max().item()
-    return err, f"atol {atol:.1e} + {ulps:.2f} bf16 ulp (limit 1)", \
-        ulps <= 1.0
+    if out.dtype == torch.bfloat16:
+        step = _bf16_ulp(torch, ref.float())
+    else:
+        step = _fp16_step(torch, ref.float())
+    ulps = ((diff - atol).clamp_min(0.0) / step).max().item()
+    return err, (f"atol {atol:.1e} + {ulps:.2f} {_dtype_name(out.dtype)} "
+                 f"ulp (limit 1)"), ulps <= 1.0
+
+
+def _label_column(torch, out, lab):
+    """dlogits at each row's label (rows whose label lies in [0, V))."""
+    V = out.shape[1]
+    rows = torch.nonzero((lab >= 0) & (lab < V))[:, 0]
+    return out[rows, lab[rows].long()].float()
 
 
 def check_dlogits(torch, sx, dev):
     """Row 11 on both routes: the head's dlogits against the plain
-    version."""
+    version, fp32, bf16 and fp16; then fp16 at g = 1/65536 on both
+    routes, where every label value must stay a non-zero subnormal."""
     import numpy as np
     rs = np.random.RandomState(9)
+    cases = [(N, D, V, dtype, DLOGITS_G) for N, D, V in HEAD_SHAPES
+             for dtype in (torch.float32, torch.bfloat16, torch.float16)]
+    cases += [(N, D, V, torch.float16, DLOGITS_SUBNORMAL_G)
+              for N, D, V in DLOGITS_SUBNORMAL_SHAPES]
     results = []
-    for N, D, V in HEAD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.from_numpy(rs.randn(N, D).astype(np.float32)).to(
-                dev, dtype)
-            w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
-                np.float32)).to(dev, dtype)
-            lab = _head_labels(torch, rs, N, V, dev, torch.int32)
-            lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
-            g = torch.tensor(DLOGITS_G, device=dev)
-            before = dict(sx.ROUTE_LAUNCHES)
-            out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
-            route, counted = _routed(sx, x, w, before, "dlogits")
-            ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
-            sync(torch, dev)
-            name = str(dtype).replace("torch.", "")
-            err, tol, ok = _dlogits_err(torch, out, ref, DLOGITS_G)
-            ok = ok and out.dtype == dtype and out.shape == (N, V) \
-                and counted
-            results.append(dict(n=N, d=D, v=V, dtype=name, route=route,
-                                g=DLOGITS_G, max_abs_err=err, tolerance=tol,
-                                ok=ok))
-            log(f"  softmax_xent_dlogits N={N} D={D} V={V} {name:8s} "
-                f"{route:5s} max_abs_err={err:.3e} ({tol}) "
-                f"{'ok' if ok else 'FAIL'}")
-            del x, w, out, ref
+    for N, D, V, dtype, g_val in cases:
+        x = torch.from_numpy(rs.randn(N, D).astype(np.float32)).to(
+            dev, dtype)
+        w = torch.from_numpy((rs.randn(D, V) * 0.05).astype(
+            np.float32)).to(dev, dtype)
+        lab = _head_labels(torch, rs, N, V, dev, torch.int32)
+        lse, _ = sx.softmax_xent_fwd_ref(x, w, lab)
+        g = torch.tensor(g_val, device=dev)
+        before = dict(sx.ROUTE_LAUNCHES)
+        out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+        route, counted = _routed(sx, x, w, before, "dlogits")
+        ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+        sync(torch, dev)
+        name = str(dtype).replace("torch.", "")
+        err, tol, ok = _dlogits_err(torch, out, ref, g_val)
+        ok = ok and out.dtype == dtype and out.shape == (N, V) and counted
+        r = dict(n=N, d=D, v=V, dtype=name, route=route, g=g_val,
+                 max_abs_err=err, tolerance=tol)
+        if g_val == DLOGITS_SUBNORMAL_G:
+            col = _label_column(torch, out, lab)
+            kept = bool(((col < 0) & (col > -2.0 ** -14)).all())
+            tol += f"; label column subnormal and kept: {kept}"
+            r.update(label_subnormal_kept=kept, tolerance=tol,
+                     label_min_abs=col.abs().min().item())
+            ok = ok and kept
+        r["ok"] = ok
+        results.append(r)
+        log(f"  softmax_xent_dlogits N={N} D={D} V={V} {name:8s} "
+            f"g={g_val:.3g} {route:5s} max_abs_err={err:.3e} ({tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        del x, w, out, ref
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} dlogits checks disagree with the "
@@ -2067,7 +2154,8 @@ def timing_train_kernels(torch, fq, sx, cfg, dev="cuda", head=True):
         fwd_plus_bwd_device_ms=dev_fwd + dev_bwd,
         library_device_ms=dev_lib_fb, library_kernels=lib_names_fb)
     del qkv, g, out, lse, dqkv, q, k, v, qg, kg, vg, go
-    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    rate = (BF16_FLOPS_PER_S if dt in (torch.bfloat16, torch.float16)
+            else FP32_FLOPS_PER_S)
     if head:
         rows["softmax_xent_fwd"] = _time_head(torch, sx, gen, dev, dt, N, D,
                                               V)
@@ -2499,8 +2587,9 @@ def timing_fp16(torch, fa, fl, p, dev="cuda"):
     flash_attn_sm90) in fp16 and in bf16 at SPLIT_TIMING's shapes, rows 1
     and 6 also in device time; the epilogue and its backward in fp16 (x,
     residual and parameters) and fp16 x beside an fp32 residual and
-    parameters, p ``p``; the unscale pass."""
-    f16, f32 = torch.float16, torch.float32
+    parameters, and in bf16 (x, residual and parameters), p ``p``; the
+    unscale pass."""
+    f16, f32, b16 = torch.float16, torch.float32, torch.bfloat16
     return dict(
         split=timing_split_kernels(torch, fa, dev, dtype=f16),
         split_bf16=timing_split_kernels(torch, fa, dev,
@@ -2512,15 +2601,20 @@ def timing_fp16(torch, fa, fl, p, dev="cuda"):
                                          types=(f16, f16, f16)),
         fused_ln_bwd_mixed=timing_fused_ln_bwd(torch, fl, p, dev,
                                                types=(f16, f32, f32)),
+        fused_ln_bf16=timing_fused_ln(torch, fl, p, dev,
+                                      types=(b16, b16, b16)),
+        fused_ln_bwd_bf16=timing_fused_ln_bwd(torch, fl, p, dev,
+                                              types=(b16, b16, b16)),
         unscale=timing_unscale(torch, dev))
 
 
 def timing_dlogits(torch, sx, cfg, dev="cuda"):
     """Row 11 at one chunk of the compiled step's head backward (C 4096,
-    D 768, V 30528, bf16); library: the chunk's pb as the step formed it
-    before the kernel (``matmul_f32``, which is ``torch.mm(...,
-    out_dtype=float32)`` for bf16 on the card, ``exp``, the label index,
-    the scale and the cast).  CUDA events and device time."""
+    D 768, V 30528, in ``cfg``'s type); library: the chunk's pb as the
+    step formed it before the kernel (``matmul_f32``, which is
+    ``torch.mm(..., out_dtype=float32)`` for bf16 and fp16 on the card,
+    ``exp``, the label index, the scale and the cast).  CUDA events and
+    device time."""
     from paddle_tpu_torch.tools.profile_train import device_ms_per_call
     w_ = cfg["width"]
     D, V = w_["hidden_size"], w_["vocab_size"]
@@ -2557,7 +2651,8 @@ def timing_dlogits(torch, sx, cfg, dev="cuda"):
     el = x.element_size()
     flops = 2.0 * C * D * V
     nbytes = el * (C * D + D * V + C * V) + 8.0 * C
-    rate = BF16_FLOPS_PER_S if dt == torch.bfloat16 else FP32_FLOPS_PER_S
+    rate = (BF16_FLOPS_PER_S if dt in (torch.bfloat16, torch.float16)
+            else FP32_FLOPS_PER_S)
     b_ms, b_by = bound(flops, nbytes, rate)
     per_step = N // C
     row = dict(ms=ms, device_ms=dev_ms, route=sx._route(x, w),
@@ -2637,6 +2732,51 @@ def _grads_after_one_step(opt, names):
     return {n: m[n] / (1 - ADAM_B1) for n in names}
 
 
+def _scaled_grads(torch, cfg, params, ids, labels):
+    """TRAIN_GRADS of the step's loss with its token count N as the output
+    gradient (the step's own backward, only g scaled: g/N = 1)."""
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.models.gpt_spmd import _leaves, _rebuild, loss_fn
+    live = {k: v.detach().requires_grad_()
+            for k, v in _leaves(params).items()}
+    loss = loss_fn(_rebuild(params, live), ids, labels,
+                   GPTConfig(**cfg["width"]),
+                   compute_dtype=getattr(torch, cfg["dtype"]),
+                   remat_policy=cfg["remat"])
+    g = torch.full((), float(ids.numel()), device=loss.device)
+    grads = torch.autograd.grad(loss, [live[n] for n in TRAIN_GRADS], g)
+    return loss.detach(), dict(zip(TRAIN_GRADS, grads))
+
+
+def _fp16_scaled_grads(torch, fq, sx, cfg, params, ids, labels):
+    """The fp16 step's backward through the kernels against the plain
+    versions with the loss gradient scaled by the token count N (g/N =
+    1), so that fp16 holds the trunk's gradients: relative L2 of
+    TRAIN_GRADS within fp16's TRAIN_GRAD_RTOL; the kernels' launches
+    counted as in the step."""
+    _reset(fq, sx)
+    loss_k, grads_k = _scaled_grads(torch, cfg, params, ids, labels)
+    launches = _launches(fq, sx)
+    with _plain_kernels(fq, sx):
+        loss_p, grads_p = _scaled_grads(torch, cfg, params, ids, labels)
+    rel = {n: ((grads_k[n] - grads_p[n]).float().norm()
+               / grads_p[n].float().norm()).item() for n in TRAIN_GRADS}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    ok = finite and all(v <= TRAIN_GRAD_RTOL["float16"]
+                        for v in rel.values())
+    log(f"  the same backward with the loss gradient scaled by "
+        f"{ids.numel()} (g/N = 1): grads relative L2 kernels "
+        f"against plain {', '.join(f'{k} {v:.3e}' for k, v in rel.items())}"
+        f" (limit {TRAIN_GRAD_RTOL['float16']:.0e}), finite {finite}; "
+        f"launches {launches}")
+    if not ok:
+        raise AssertionError("the fp16 step's scaled backward through the "
+                             "kernels disagrees with the plain versions")
+    return dict(scale=ids.numel(), grad_rel_l2=rel, finite=finite,
+                launches=launches, loss=loss_k.item(),
+                loss_plain=loss_p.item())
+
+
 def train(torch, fq, sx, dev, cfg, timed=True):
     """One config of the train path; returns its report."""
     import numpy as np
@@ -2659,15 +2799,16 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     loss_k, _, opt_k = step(*_clone_state(*state0), ids, labels)
     sync(torch, dev)
     launches = _launches(fq, sx)
-    fwd_per_step = L * (2 if cfg["remat"] == "full" else 1)
+    fwd_per_step = L * (2 if cfg["remat"] in ("full", "dots") else 1)
     chunks = B * T // sx._chunk(B * T)
-    # bf16 at d 64 / 128: every attention launch is flash_attn_sm90's
-    sm90 = (name == "bfloat16"
-            and D // w["num_heads"] in fq._fa.SM90_HEAD_DIMS)
+    # bf16 and fp16 at d 64 / 128: every attention launch is
+    # flash_attn_sm90's
+    sixteen = name in ("bfloat16", "float16")
+    sm90 = sixteen and D // w["num_heads"] in fq._fa.SM90_HEAD_DIMS
     want_sm90 = (fwd_per_step, L) if sm90 else (0, 0)
-    # the head: bf16 with D and V multiples of 8 on softmax_xent_sm90.cu,
+    # the head: 16-bit with D and V multiples of 8 on softmax_xent_sm90.cu,
     # the rest (fp32 here) on the tile kernels; every launch on that route
-    head = "sm90" if name == "bfloat16" and D % 8 == 0 and V % 8 == 0 \
+    head = "sm90" if sixteen and D % 8 == 0 and V % 8 == 0 \
         else "tile"
     other = "tile" if head == "sm90" else "sm90"
     head_ok = (launches[f"softmax_xent_{head}_fwd"]
@@ -2691,6 +2832,18 @@ def train(torch, fq, sx, dev, cfg, timed=True):
                              f"{want_sm90}) / >= 1 / {chunks} (head route "
                              f"{head})")
     grads_k = _grads_after_one_step(opt_k, TRAIN_GRADS)
+    # every leaf's gradient finite (fp16 has no loss scaling here, as in
+    # the reference: an overflow shows as a non-finite first moment)
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    nonfinite = {k: int((~torch.isfinite(v)).sum().item())
+                 for k, v in _leaves(opt_k["m"]).items()}
+    bad_leaves = {k: n for k, n in nonfinite.items() if n}
+    log(f"  non-finite gradient elements after step 1: "
+        f"{sum(nonfinite.values())} of "
+        f"{sum(v.numel() for v in _leaves(opt_k['m']).values())}"
+        + (f" in {bad_leaves}" if bad_leaves else ""))
+    if bad_leaves:
+        raise AssertionError(f"non-finite gradients in {bad_leaves}")
     del opt_k
 
     with _plain_kernels(fq, sx):
@@ -2702,11 +2855,14 @@ def train(torch, fq, sx, dev, cfg, timed=True):
                / grads_p[n].float().norm()).item() for n in TRAIN_GRADS}
     rtol = TRAIN_LOSS_RTOL[name]
     loss_ok = d_loss <= rtol * abs(loss_p.item())
-    grads_ok = all(v <= TRAIN_GRAD_RTOL[name] for v in rel.values())
+    # fp16 with no loss scaling: the trunk's gradients underflow (below)
+    # and only the head's is held here; held = every name elsewhere
+    held = FP16_UNSCALED_HELD if name == "float16" else TRAIN_GRADS
+    grads_ok = all(rel[n] <= TRAIN_GRAD_RTOL[name] for n in held)
     log(f"  same step with the plain versions: loss {loss_p.item():.6f}, "
         f"|difference| {d_loss:.3e} (limit rtol {rtol:.0e}); grads "
         f"relative L2 {', '.join(f'{k} {v:.3e}' for k, v in rel.items())} "
-        f"(limit {TRAIN_GRAD_RTOL[name]:.0e})")
+        f"(limit {TRAIN_GRAD_RTOL[name]:.0e} on {', '.join(held)})")
     finite = bool(torch.isfinite(loss_k).item())
     if not (loss_ok and grads_ok and finite):
         raise AssertionError("the step through the kernels disagrees with "
@@ -2714,12 +2870,15 @@ def train(torch, fq, sx, dev, cfg, timed=True):
     del grads_k, grads_p
     out = dict(config=cfg, loss_step1=loss_k.item(),
                loss_step1_plain=loss_p.item(), loss_abs_diff=d_loss,
-               grad_rel_l2=rel, launches=launches)
+               grad_rel_l2=rel, grads_held=list(held), launches=launches,
+               nonfinite_grad_elements=sum(nonfinite.values()))
+    if name == "float16":
+        out["scaled"] = _fp16_scaled_grads(torch, fq, sx, cfg, state0[0],
+                                           ids, labels)
     if not timed:
         return out
 
     # two runs of two steps from the same state repeat bit for bit
-    from paddle_tpu_torch.models.gpt_spmd import _leaves
     runs = []
     for _ in range(2):
         p, o = _clone_state(*state0)
@@ -2765,12 +2924,91 @@ def train(torch, fq, sx, dev, cfg, timed=True):
         f"{max(times):.3f}, {TRAIN_TIMED} steps after {TRAIN_WARMUP} "
         f"warm-ups, CUDA events); {seq_s:.2f} seq/s; MFU {mfu:.4f} "
         f"(bench.py:187 FLOP count, non-causal attention, against 989 "
-        f"TFLOP/s bf16); peak memory {peak / 2**30:.3f} GiB")
+        f"TFLOP/s, the bf16 and fp16 peak); peak memory "
+        f"{peak / 2**30:.3f} GiB")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     out.update(losses=losses, step_ms=times, step_ms_p50=step_ms,
                seq_per_s=seq_s, mfu=mfu, flops_per_token=flops_tok,
                peak_memory_bytes=peak, deterministic=same)
+    return out
+
+
+def remat_policies(torch, fq, sx, dev, cfg, policies=REMAT_POLICIES):
+    """Phase 7's other remat policies: one step of ``cfg`` under "ctx" and
+    under each of ``policies`` from the same state (``init_fn(0)``) and
+    batch, each held bit for bit to the "ctx" step, loss and every
+    parameter (the kernels repeat bit for bit, and a kept value is the
+    result of the same launch on the same inputs, its backward the same
+    calls autograd makes); each policy's launches (attention forward L
+    under "ctx" and "ctx_ffn", 2 L under "dots", whose kept products leave
+    the attention output to the recompute; backward L; the head as in
+    phase 7), peak memory over that step (``max_memory_allocated``, the
+    state included), and step ms p50 of REMAT_TIMED more steps."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, build_spmd_train_step
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    w = cfg["width"]
+    L, V = w["num_layers"], w["vocab_size"]
+    B, T = cfg["batch"], cfg["seq"]
+    rng = np.random.RandomState(0)                # bench.py:137-139
+    ids = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    labels = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    chunks = B * T // sx._chunk(B * T)
+    out, ctx_state = {}, None
+    for policy in ("ctx",) + tuple(policies):
+        step, init_fn = build_spmd_train_step(
+            GPTConfig(**w), compute_dtype=getattr(torch, cfg["dtype"]),
+            remat_policy=policy, device=dev)
+        params, opt = init_fn(0)
+        sync(torch, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(fq, sx)
+        loss, params, opt = step(params, opt, ids, labels)
+        sync(torch, dev)
+        launches = _launches(fq, sx)
+        peak = torch.cuda.max_memory_allocated()
+        fwd = L * (2 if policy == "dots" else 1)
+        want = dict(flash_qkv_fwd=fwd, flash_qkv_bwd=L,
+                    flash_attn_sm90_fwd=fwd, flash_attn_sm90_bwd=L,
+                    softmax_xent_sm90_fwd=1, softmax_xent_sm90_dlogits=chunks)
+        launched_ok = all(launches[k] == v for k, v in want.items())
+        state = (loss.clone(), {k: v.clone()
+                                for k, v in _leaves(params).items()})
+        if ctx_state is None:
+            ctx_state, same = state, True
+        else:
+            same = bool(torch.equal(state[0], ctx_state[0])) and all(
+                torch.equal(v, ctx_state[1][k]) for k, v in state[1].items())
+        del state
+        times = []
+        for _ in range(REMAT_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, params, opt = step(params, opt, ids, labels)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out[policy] = dict(loss_step1=loss.item(), equals_ctx=same,
+                           launches=launches, expected_launches=want,
+                           peak_memory_bytes=peak, step_ms=times,
+                           step_ms_p50=pct(times, 50))
+        log(f"  remat {policy:8s}: step 1 loss {loss.item():.6f}, bit for "
+            f"bit the \"ctx\" step: {same}; attention launches "
+            f"{launches['flash_qkv_fwd']} + {launches['flash_qkv_bwd']} "
+            f"(flash_attn_sm90 {launches['flash_attn_sm90_fwd']} + "
+            f"{launches['flash_attn_sm90_bwd']}; expected {fwd} + {L}), "
+            f"head sm90 {launches['softmax_xent_sm90_fwd']} + "
+            f"{launches['softmax_xent_sm90_dlogits']}; peak memory "
+            f"{peak / 2**30:.3f} GiB; step ms p50 {pct(times, 50):.3f} "
+            f"({REMAT_TIMED} steps, CUDA events)")
+        del step, params, opt, loss
+        if not (same and launched_ok):
+            raise AssertionError(f"remat {policy!r}: equals ctx {same}, "
+                                 f"launches {launches}, expected {want}")
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4118,14 +4356,17 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
-        unscale_named=None, skip_named=None):
+        unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
+        long_fp16_cfg=TRAIN_LONG_FP16):
     """Phases 3-14 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
     shape) pairs of phase 3's update, unscale and skip-flag checks
     (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
-    returns the report and the ``kernels`` entries."""
+    ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
+    and 8 (phase 7's remat policies run ``train_cfg``); returns the report
+    and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -4140,11 +4381,14 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     qkv_checks = check_qkv_kernels(torch, fq, dev)
     head_checks = check_head_kernel(torch, sx, dev)
     dlogits_checks = check_dlogits(torch, sx, dev)
+    log("== phase 3: split-layout attention, then against float64")
     split_checks = check_split_kernels(torch, fa, dev)
     fp64_checks = check_fp64_truth(torch, fa, dev)
+    log("== phase 3: the fused epilogue and its backward")
     ln_checks = check_fused_ln(torch, fl, dev)
     mask_checks = check_fused_ln_mask(torch, fl, dev)
     ln_bwd_checks = check_fused_ln_bwd(torch, fl, dev)
+    log("== phase 3: the optimizer update, unscale and skip flag")
     update_checks = check_update_kernel(torch, dev, update_named)
     unscale_checks = check_unscale(torch, dev, unscale_named)
     skip_checks = check_update_skip(torch, dev, skip_named)
@@ -4163,6 +4407,15 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                                       head=False)
     split_times = timing_split_kernels(torch, fa, dev)
     dlogits_time = timing_dlogits(torch, sx, train_cfg, dev)
+    log("== phase 6: the compiled step's kernels in fp16")
+    # rows 3, 4, 10 and 11 in fp16 at the same shapes, beside the bf16
+    # rows above in this call
+    train_times_fp16 = timing_train_kernels(torch, fq, sx, train_fp16_cfg,
+                                            dev)
+    long_times_fp16 = timing_train_kernels(torch, fq, sx, long_fp16_cfg,
+                                           dev, head=False)
+    dlogits_time_fp16 = timing_dlogits(torch, sx, train_fp16_cfg, dev)
+    log("== phase 6: the epilogue, the update, the 16-bit rows")
     ln_time = timing_fused_ln(torch, fl, encoder_cfg["dropout_rate"], dev)
     ln_bwd_time = timing_fused_ln_bwd(torch, fl, encoder_cfg["dropout_rate"],
                                       dev)
@@ -4172,8 +4425,24 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     torch.cuda.empty_cache()
     log("== phase 7: train at full width")
     trained = train(torch, fq, sx, dev, train_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 7: the same step in fp16 (compute_dtype=float16)")
+    trained_fp16 = train(torch, fq, sx, dev, train_fp16_cfg)
+    log(f"  phase 7 fp16 against bf16: step ms p50 "
+        f"{trained_fp16['step_ms_p50']:.3f} / {trained['step_ms_p50']:.3f}"
+        f", seq/s {trained_fp16['seq_per_s']:.2f} / "
+        f"{trained['seq_per_s']:.2f}, peak GiB "
+        f"{trained_fp16['peak_memory_bytes'] / 2**30:.3f} / "
+        f"{trained['peak_memory_bytes'] / 2**30:.3f}")
+    torch.cuda.empty_cache()
+    log(f"== phase 7: remat policies {', '.join(REMAT_POLICIES)} against "
+        f"\"ctx\" ({train_cfg['dtype']})")
+    remat = remat_policies(torch, fq, sx, dev, train_cfg)
     log("== phase 8: train at T 1024, reduced depth")
     trained_long = train(torch, fq, sx, dev, long_cfg, timed=False)
+    log("== phase 8: the same in fp16 (row 5 on flash_attn_sm90)")
+    trained_long_fp16 = train(torch, fq, sx, dev, long_fp16_cfg,
+                              timed=False)
     log("== phase 8: the reference's dryrun model (head dim 16)")
     trained_dryrun = train(torch, fq, sx, dev, dryrun_cfg, timed=False)
     torch.cuda.empty_cache()
@@ -4453,7 +4722,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                     mixed_type_checks=sum(r["dtype"] != r["residual_dtype"]
                                           for r in ln_checks),
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
-                    mask_checks=len(mask_checks)),
+                    mask_checks=len(mask_checks),
+                    bf16=timing_fields(fp16_times["fused_ln_bf16"])),
         dict(timed_entry("fused_ln_bwd", "fused_ln_bwd.cu",
                          "paddle_tpu/ops/fused_ops.py:62",
                          enc_train["launches"]["fused_ln_bwd"], ln_bwd_time,
@@ -4480,7 +4750,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                              if r["columns_against"] == "float64"),
                          dx_zero_exactly_where_dropped=all(
                              r["dx_zero_exactly_where_dropped"]
-                             for r in ln_bwd_checks)),
+                             for r in ln_bwd_checks),
+                         bf16=timing_fields(fp16_times[
+                             "fused_ln_bwd_bf16"])),
              max_abs_err=max(r["max_abs_err"] for r in ln_bwd_checks
                              if r["dtype"] == r["residual_dtype"] ==
                              "float32"),
@@ -4519,6 +4791,94 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          "optimizers": {k: v["replay_update_launches"]
                                         for k, v in opts.items()},
                          "lamb_o2": dec["replay_update_launches"]}))
+    # fp16 rows 3, 4 (and 5 at T 1024), 10 and 11: the compiled
+    # step in fp16, on flash_attn_sm90 and softmax_xent_sm90
+    t16, tl16 = train_times_fp16, trained_fp16["launches"]
+    ll16 = trained_long_fp16["launches"]
+    qkv16 = [r for r in qkv_checks if r["dtype"] == "float16"]
+
+    def t1024(key):
+        # rows 3 / 5 in fp16 at B 8, T 1024 (phase 8's shape)
+        t = long_times_fp16[key]
+        return {k: t[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by", "fwd_plus_bwd_ms",
+            "fwd_plus_bwd_device_ms", "max_abs_err") if k in t}
+
+    def fp16_row(name, source, replaces, launches, t, err, checks_,
+                 **extra):
+        return dict(name=name, route="cuda",
+                    source=f"paddle_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"], library=t["library"],
+                    device_ms=t["device_ms"], timed_shape=t["shape"],
+                    max_abs_err_timed_shape=t["max_abs_err"],
+                    checks=len(checks_), **extra)
+
+    kernels += [
+        fp16_row("flash_qkv_fwd_fp16", "flash_attn_sm90.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:276",
+                 tl16["flash_attn_sm90_fwd"], t16["flash_qkv_fwd"],
+                 worst(qkv_checks, "max_abs_err", "float16"), qkv16,
+                 launches_wrapper=tl16["flash_qkv_fwd"],
+                 library_device_ms=t16["flash_qkv_fwd"][
+                     "library_device_ms"],
+                 max_abs_err_lse=max(r["max_abs_err_lse"] for r in qkv16),
+                 tile_source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+                 launches_t1024=ll16["flash_attn_sm90_fwd"],
+                 t1024=t1024("flash_qkv_fwd"),
+                 bf16=timing_fields(train_times["flash_qkv_fwd"])),
+        fp16_row("flash_qkv_bwd_fp16", "flash_attn_sm90.cu",
+                 "paddle_tpu/ops/pallas/flash_attention.py:303",
+                 tl16["flash_attn_sm90_bwd"], t16["flash_qkv_bwd"],
+                 worst(qkv_checks, "max_abs_err_dqkv", "float16"), qkv16,
+                 replaces_also="paddle_tpu/ops/pallas/flash_attention.py"
+                               ":442",
+                 launches_wrapper=tl16["flash_qkv_bwd"],
+                 fwd_plus_bwd_ms=t16["flash_qkv_bwd"]["fwd_plus_bwd_ms"],
+                 fwd_plus_bwd_device_ms=t16["flash_qkv_bwd"][
+                     "fwd_plus_bwd_device_ms"],
+                 library_device_ms=t16["flash_qkv_bwd"][
+                     "library_device_ms"],
+                 tile_source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+                 launches_t1024=ll16["flash_attn_sm90_bwd"],
+                 t1024=t1024("flash_qkv_bwd"),
+                 bf16=timing_fields(train_times["flash_qkv_bwd"])),
+        fp16_row("softmax_xent_fwd_fp16", "softmax_xent_sm90.cu",
+                 "paddle_tpu/ops/pallas/softmax_xent.py:48",
+                 tl16["softmax_xent_sm90_fwd"], t16["softmax_xent_fwd"],
+                 routed(head_checks, "sm90", "float16"),
+                 [r for r in head_checks if r["dtype"] == "float16"],
+                 launches_wrapper=tl16["softmax_xent_fwd"],
+                 share_of_bound=t16["softmax_xent_fwd"]["share_of_bound"],
+                 matmul_ms=t16["softmax_xent_fwd"]["matmul_ms"],
+                 tile_source="paddle_tpu_torch/csrc/softmax_xent_fwd.cu",
+                 max_abs_err_tile_fp16=routed(head_checks, "tile",
+                                              "float16"),
+                 launches_t1024=ll16["softmax_xent_sm90_fwd"],
+                 bf16=timing_fields(train_times["softmax_xent_fwd"])),
+        fp16_row("softmax_xent_dlogits_fp16", "softmax_xent_sm90.cu",
+                 "paddle_tpu/ops/pallas/softmax_xent.py:132",
+                 tl16["softmax_xent_sm90_dlogits"], dlogits_time_fp16,
+                 routed(dlogits_checks, "sm90", "float16"),
+                 [r for r in dlogits_checks if r["dtype"] == "float16"],
+                 launches_wrapper=tl16["softmax_xent_dlogits"],
+                 share_of_bound=dlogits_time_fp16["share_of_bound"],
+                 ms_per_step=dlogits_time_fp16["ms_per_step"],
+                 bound_per_step_ms=dlogits_time_fp16["bound_per_step_ms"],
+                 tile_source="paddle_tpu_torch/csrc/softmax_xent_dlogits.cu",
+                 max_abs_err_tile_fp16=routed(dlogits_checks, "tile",
+                                              "float16"),
+                 subnormal_label_checks=[
+                     dict(n=r["n"], v=r["v"], route=r["route"],
+                          kept=r["label_subnormal_kept"],
+                          label_min_abs=r["label_min_abs"])
+                     for r in dlogits_checks
+                     if "label_subnormal_kept" in r],
+                 launches_t1024=ll16["softmax_xent_sm90_dlogits"],
+                 bf16=timing_fields(dlogits_time))]
     # fp16: rows 1 and 6 on flash_attn_sm90 (d 64; the tile kernels at
     # the other head dims), row 12 and its backward, the unscale pass;
     # launches from phase 14's replays
@@ -4630,7 +4990,11 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   optimizers=opts, lamb_o2=lamb, update_checks=update_checks,
                   update_timing=update_times, unscale_checks=unscale_checks,
                   update_skip_checks=skip_checks, fp16_timing=fp16_times,
-                  fp16=fp16)
+                  fp16=fp16, train_fp16=trained_fp16,
+                  train_long_fp16=trained_long_fp16, remat=remat,
+                  train_fp16_timing=train_times_fp16,
+                  train_long_fp16_timing=long_times_fp16,
+                  dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 
 
@@ -4652,6 +5016,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    _RUN_START[:] = [t_start]
     log("== phase 1: card")
     card = card_line()
     kind = torch.cuda.get_device_name(0)

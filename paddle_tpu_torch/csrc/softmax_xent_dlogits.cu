@@ -6,20 +6,20 @@
 //
 //   out[c, v] = (exp(x[c] . w[:, v] - lse[c]) - (v == labels[c])) * g
 //
-// x (C, D), w (D, V) fp32 or bf16, labels (C,) int32, lse (C,) fp32 (saved
-// by the forward kernel), g one fp32 value on the device (the loss
+// x (C, D), w (D, V) fp32, bf16 or fp16, labels (C,) int32, lse (C,) fp32
+// (saved by the forward kernel), g one fp32 value on the device (the loss
 // gradient over N, read where it lies so the step never syncs); out (C, V)
 // in x's type, with no pad columns.  The product is accumulated in fp32;
-// the epilogue computes in fp32 and casts once.  A label outside [0, V)
-// subtracts nothing.
+// the epilogue computes in fp32 and casts once (round to nearest, fp16
+// subnormals kept).  A label outside [0, V) subtracts nothing.
 //
 // What bounds it on an H100: 2*C*D*V flops against (C*D + D*V + C*V)
 // elements.  At the compiled step's chunk (C 4096, D 768, V 30528, bf16)
 // that is 1.92e11 flops (0.194 ms at 989 TFLOP/s) against 306 MB
-// (0.091 ms at 3.35 TB/s): bound by arithmetic.  In bf16 the product runs
-// on the tensor cores (mma.sync m16n8k16, fp32 accumulators, operands from
-// shared memory by ldmatrix; tile_common.cuh), fp32 on FMAs.  wgmma, TMA
-// and a pipeline of chunk loads are later work.
+// (0.091 ms at 3.35 TB/s): bound by arithmetic.  In bf16 and fp16 the
+// product runs on the tensor cores (mma.sync m16n8k16, fp32 accumulators,
+// operands from shared memory by ldmatrix; tile_common.cuh), fp32 on FMAs.
+// wgmma, TMA and a pipeline of chunk loads are later work.
 //
 // Design: one 256-thread block per 64-row x 128-column tile of out; the
 // grid runs the row tiles fastest, so the blocks in flight share one
@@ -30,6 +30,7 @@
 // row stride allows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -133,7 +134,8 @@ cudaError_t run(const void* x, const void* w, const int* labels,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
+// (0 = launched).
 extern "C" int softmax_xent_dlogits(const void* x, const void* w,
                                     const int* labels, const float* lse,
                                     const float* g, void* out, int C, int D,
@@ -147,6 +149,8 @@ extern "C" int softmax_xent_dlogits(const void* x, const void* w,
       return (int)run<float>(x, w, labels, lse, g, out, C, D, V, s);
     case 1:
       return (int)run<__nv_bfloat16>(x, w, labels, lse, g, out, C, D, V, s);
+    case 2:
+      return (int)run<__half>(x, w, labels, lse, g, out, C, D, V, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

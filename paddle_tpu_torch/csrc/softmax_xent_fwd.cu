@@ -10,15 +10,15 @@
 //   at[n]  = logits[n, labels[n]]               (N,) fp32
 //
 // so that loss = mean(lse - at) without an (N, V) logits tensor in device
-// memory.  fp32 or bf16 inputs; labels int32.  Columns v >= V are masked
+// memory.  fp32, bf16 or fp16 inputs; labels int32.  Columns v >= V are masked
 // here (no padded copy of w is made); a label outside [0, V) leaves at[n]
 // as the caller initialised it.
 //
 // What bounds it on an H100: 2*N*D*V flops on (N*D + D*V) elements; at the
 // flagship shape (N 65536, D 768, V 30528) that is 3.07 TFLOP against
 // 148 MB, far above the card's ~295 flops per byte, so the kernel is bound
-// by arithmetic.  In bf16 the product runs on the tensor cores (mma.sync
-// m16n8k16 with fp32 accumulators, operands from shared memory by
+// by arithmetic.  In bf16 and fp16 the product runs on the tensor cores
+// (mma.sync m16n8k16 with fp32 accumulators, operands from shared memory by
 // ldmatrix); fp32 runs on FMAs.  wgmma, TMA and a pipeline of chunk loads
 // are later work.
 //
@@ -32,6 +32,7 @@
 // writes its logit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,7 +175,8 @@ cudaError_t run(const void* x, const void* w, const int* labels, float* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t
+// (0 = launched).
 extern "C" int softmax_xent_fwd(const void* x, const void* w,
                                 const int* labels, float* lse, float* at,
                                 int N, int D, int V, int dtype,
@@ -187,6 +189,8 @@ extern "C" int softmax_xent_fwd(const void* x, const void* w,
       return (int)run<float>(x, w, labels, lse, at, N, D, V, s);
     case 1:
       return (int)run<__nv_bfloat16>(x, w, labels, lse, at, N, D, V, s);
+    case 2:
+      return (int)run<__half>(x, w, labels, lse, at, N, D, V, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

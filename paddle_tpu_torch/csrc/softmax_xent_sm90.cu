@@ -1,7 +1,8 @@
-// The fused LM head's two kernels for bf16 operands, built for Hopper
-// (sm_90a) on TMA and wgmma.
+// The fused LM head's two kernels for 16-bit operands (bf16 or fp16, the
+// element type a template parameter), built for Hopper (sm_90a) on TMA and
+// wgmma.
 //
-// Replaces, for bf16 x and w whose rows TMA can describe (D and V
+// Replaces, for bf16 or fp16 x and w whose rows TMA can describe (D and V
 // multiples of 8, 16-byte aligned bases; ops/softmax_xent.py `_route`),
 // the TPU kernels of paddle_tpu/ops/pallas/softmax_xent.py:
 //   _fwd_kernel (:48, launched by softmax_xent_fwd :104), row 10:
@@ -9,10 +10,15 @@
 //     (0 for a label outside [0, V), as the caller initialised it);
 //   _dlogits_kernel (:132, launched by softmax_xent_dlogits :163), row 11:
 //     out[c, v] = (exp(logits[c, v] - lse[c]) - (v == labels[c])) * g,
-//     cast once to bf16, g one fp32 value read on the device;
+//     cast once to x's type (round to nearest, subnormals kept: fp16's
+//     label column at g = 1/65536 is one), g one fp32 value read on the
+//     device;
 // with logits = x @ w, x (rows, D), w (D, V), accumulated in fp32 and
-// never written to device memory.  fp32 operands and bf16 ones TMA cannot
-// describe stay on softmax_xent_fwd.cu / softmax_xent_dlogits.cu.
+// never written to device memory.  fp32 operands and 16-bit ones TMA
+// cannot describe stay on softmax_xent_fwd.cu / softmax_xent_dlogits.cu.
+// bf16 and fp16 share the tiles, the swizzle and the instruction count:
+// only wgmma's type names, the TMA data type and the output's pack differ
+// (sm90_common.cuh `wgmma_ss_mn<T>`, `tma_type<T>`, `pack2<T>`).
 //
 // What bounds it on an H100: 2 rows D V flops.  The forward at the
 // compiled step's shape (N 65536, D 768, V 30528) is 3.07 TFLOP against
@@ -59,7 +65,7 @@
 //   chunk's 32 row tiles most SMs idle; the partials cost ~126 MB of
 //   traffic (~0.04 ms) at the flagship shape and a second launch.
 // - dlogits epilogue: exp, the label's -1 (in the tile that holds it) and
-//   the scale on the fragment, the bf16 tile staged in shared memory in
+//   the scale on the fragment, the 16-bit tile staged in shared memory in
 //   the TMA box layout (128-byte swizzle, conflict-free), then TMA stores
 //   of 64-column boxes, which clip the rows and columns past the edge; the
 //   staging buffer is reused once the store before it has read it, so the
@@ -68,6 +74,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,11 +84,16 @@ namespace {
 
 using namespace sm90;
 
+// the element type codes of the C entry points (ops/softmax_xent.py
+// _DTYPE_CODES; 0, fp32, is the tile kernels' alone)
+constexpr int DTYPE_BF16 = 1, DTYPE_F16 = 2;
+constexpr int ERR_DTYPE = 19999;  // a type code that is neither
+
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF = -3.402823466e38f;  // -FLT_MAX
 constexpr int BM = 128;       // rows per tile (two consumer warpgroups)
 constexpr int BN = 256;       // vocabulary columns per tile
-constexpr int BK = 64;        // depth of a chunk: one 128-byte row of bf16
+constexpr int BK = 64;        // depth of a chunk: one 128-byte row
 constexpr int GROUP = 16;     // row tiles per raster group
 constexpr int THREADS = 384;  // 2 consumer warpgroups + a producer one
 // registers a thread of a consumer / of the producer warpgroup keeps
@@ -159,11 +171,11 @@ __device__ __forceinline__ void tile_stats(const float (&acc)[BN / 2], int h,
 }
 
 // dlogits of row h of this thread's fragment into the staging buffer:
-// (exp(logit - lse) - [column == label]) * g as bf16 pairs, at `dst` (the
+// (exp(logit - lse) - [column == label]) * g as pairs of T, at `dst` (the
 // row's 128-byte line in box 0, plus this lane's 4 bytes) in box j / 8,
 // 16-byte chunk j % 8 swizzled by the row % 8 (= g).  LABEL: the label is
 // this tile's local column lc + 2 q (lc relative to this lane's pairs).
-template <bool LABEL>
+template <typename T, bool LABEL>
 __device__ __forceinline__ void dlogits_row(const float (&acc)[BN / 2], int h,
                                             int g, float lb, float gs,
                                             int lc, uint32_t dst) {
@@ -176,11 +188,11 @@ __device__ __forceinline__ void dlogits_row(const float (&acc)[BN / 2], int h,
       if (8 * j + 1 == lc) y1 -= 1.f;
     }
     st_shared(dst + (j / 8) * OUT_BOX + (((j % 8) ^ g) << 4),
-              pack2<__nv_bfloat16>(y0 * gs, y1 * gs));
+              pack2<T>(y0 * gs, y1 * gs));
   }
 }
 
-template <bool DLOGITS>
+template <typename T, bool DLOGITS>
 __device__ __forceinline__ void run_tiles(const Params& p) {
   using C = Cfg<DLOGITS>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -256,7 +268,7 @@ __device__ __forceinline__ void run_tiles(const Params& p) {
           // x: K-major, a k16 step is 32 bytes along the row; w: MN-major,
           // a k16 step is 16 rows (2048 bytes), the next 64 columns one
           // box further (leading offset)
-          wgmma_ss_mn<__nv_bfloat16, BN>(
+          wgmma_ss_mn<T, BN>(
               acc, desc_sw128(sx + k * 32, 16, 1024),
               desc_sw128(sw + k * 2048, W_BOX, 1024), kc > 0 || k > 0);
         wgmma_commit();
@@ -315,9 +327,9 @@ __device__ __forceinline__ void run_tiles(const Params& p) {
           const int lc = lt >= 0 && lt < BN ? lt - 2 * q : -1;
           const uint32_t dst = stage_out + r * 128 + q * 4;
           if (lc < 0)
-            dlogits_row<false>(acc, h, g, lb, gs, lc, dst);
+            dlogits_row<T, false>(acc, h, g, lb, gs, lc, dst);
           else
-            dlogits_row<true>(acc, h, g, lb, gs, lc, dst);
+            dlogits_row<T, true>(acc, h, g, lb, gs, lc, dst);
         }
         fence_async_smem();
         named_sync(1 + cw, 128);
@@ -333,14 +345,16 @@ __device__ __forceinline__ void run_tiles(const Params& p) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 sxent_fwd_kernel_sm90(const __grid_constant__ Params p) {
-  run_tiles<false>(p);
+  run_tiles<T, false>(p);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 sxent_dlogits_kernel_sm90(const __grid_constant__ Params p) {
-  run_tiles<true>(p);
+  run_tiles<T, true>(p);
 }
 
 // lse[n] from the forward's partials, folded in tile order.
@@ -363,12 +377,12 @@ sxent_fwd_kernel_lse(const float* __restrict__ part, float* __restrict__ lse,
 // Encodes the maps, fills the tile counts and launches the persistent
 // grid: one block per SM, at most one per tile.  Returns 0, a cudaError_t
 // or an sm90 error code.
-template <bool DLOGITS>
+template <typename T, bool DLOGITS>
 int launch(Params& p, const void* x, const void* w, void* out, int D,
            cudaStream_t stream) {
   using C = Cfg<DLOGITS>;
   int err;
-  constexpr CUtensorMapDataType type = tma_type<__nv_bfloat16>();
+  constexpr CUtensorMapDataType type = tma_type<T>();
   if ((err = encode_matrix(&p.mx, x, p.rows, D, 2LL * D, BM, type)) ||
       (err = encode_matrix(&p.mw, w, D, p.V, 2LL * p.V, BK, type)))
     return err;
@@ -381,7 +395,8 @@ int launch(Params& p, const void* x, const void* w, void* out, int D,
   if ((long long)p.nrt * p.nvt > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   p.tiles = p.nrt * p.nvt;
-  auto kernel = DLOGITS ? sxent_dlogits_kernel_sm90 : sxent_fwd_kernel_sm90;
+  auto kernel =
+      DLOGITS ? sxent_dlogits_kernel_sm90<T> : sxent_fwd_kernel_sm90<T>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -396,18 +411,33 @@ bool bad_sizes(int rows, int D, int V) {
   return rows <= 0 || D <= 0 || V <= 0 || D % 8 || V % 8;
 }
 
+// launch<T, DLOGITS> for the type code `dtype`, or ERR_DTYPE
+template <bool DLOGITS>
+int launch_typed(int dtype, Params& p, const void* x, const void* w,
+                 void* out, int D, cudaStream_t stream) {
+  switch (dtype) {
+    case DTYPE_BF16:
+      return launch<__nv_bfloat16, DLOGITS>(p, x, w, out, D, stream);
+    case DTYPE_F16:
+      return launch<__half, DLOGITS>(p, x, w, out, D, stream);
+    default:
+      return ERR_DTYPE;
+  }
+}
+
 }  // namespace
 
-// x (N, D), w (D, V) bf16, row-major, 16-byte aligned, D and V multiples
-// of 8; labels (N,) int32; lse, at (N,) fp32, at zeroed by the caller;
-// part fp32 scratch of 2 * ceil(V / 256) * N values.  Two launches: the
-// tiles, then the fold of the partials into lse.  Returns 0 when
-// launched, a cudaError_t, or an sm90 error code
+// x (N, D), w (D, V) of one 16-bit type, row-major, 16-byte aligned, D and
+// V multiples of 8; dtype their type code, DTYPE_BF16 (1) or DTYPE_F16
+// (2), any other returns ERR_DTYPE; labels (N,) int32; lse, at (N,) fp32,
+// at zeroed by the caller; part fp32 scratch of 2 * ceil(V / 256) * N
+// values.  Two launches: the tiles, then the fold of the partials into
+// lse.  Returns 0 when launched, a cudaError_t, or an sm90 error code
 // (softmax_xent_sm90_error_string).
 extern "C" int softmax_xent_sm90_fwd(const void* x, const void* w,
                                      const int* labels, float* lse, float* at,
                                      float* part, int N, int D, int V,
-                                     void* stream) {
+                                     int dtype, void* stream) {
   cudaGetLastError();  // launch errors below are this call's own
   if (bad_sizes(N, D, V)) return (int)cudaErrorInvalidValue;
   Params p = {};
@@ -417,18 +447,20 @@ extern "C" int softmax_xent_sm90_fwd(const void* x, const void* w,
   p.rows = N;
   p.V = V;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch<false>(p, x, w, nullptr, D, s);
+  const int err = launch_typed<false>(dtype, p, x, w, nullptr, D, s);
   if (err) return err;
   sxent_fwd_kernel_lse<<<(N + 255) / 256, 256, 0, s>>>(part, lse, N, p.nvt);
   return (int)cudaGetLastError();
 }
 
-// x (C, D), w (D, V) bf16 as above; labels (C,) int32; lse (C,) fp32; g
-// one fp32 value on the device; out (C, V) bf16, 16-byte aligned.
+// x (C, D), w (D, V) and dtype as above; labels (C,) int32; lse (C,)
+// fp32; g one fp32 value on the device; out (C, V) of x's type, 16-byte
+// aligned.
 extern "C" int softmax_xent_sm90_dlogits(const void* x, const void* w,
                                          const int* labels, const float* lse,
                                          const float* g, void* out, int C,
-                                         int D, int V, void* stream) {
+                                         int D, int V, int dtype,
+                                         void* stream) {
   cudaGetLastError();
   if (bad_sizes(C, D, V)) return (int)cudaErrorInvalidValue;
   Params p = {};
@@ -437,7 +469,8 @@ extern "C" int softmax_xent_sm90_dlogits(const void* x, const void* w,
   p.g = g;
   p.rows = C;
   p.V = V;
-  return launch<true>(p, x, w, out, D, static_cast<cudaStream_t>(stream));
+  return launch_typed<true>(dtype, p, x, w, out, D,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* softmax_xent_sm90_error_string(int code) {
@@ -446,5 +479,7 @@ extern "C" const char* softmax_xent_sm90_error_string(int code) {
   if (code >= ERR_ENCODE && code < ERR_ENCODE + 10000)
     return "cuTensorMapEncodeTiled refused an operand (CUresult = code - "
            "20001)";
+  if (code == ERR_DTYPE)
+    return "softmax_xent_sm90 takes type codes 1 (bf16) and 2 (fp16)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -12,9 +12,10 @@ reference's:
 - attention straight from the packed QKV projection
   (:func:`~paddle_tpu_torch.ops.flash_attention_qkv.flash_attention_qkv`,
   kernels in both directions on the card);
-- with ``compute_dtype`` bf16, every fp32 master is cast to bf16 before the
-  trunk (the LayerNorms too; no autocast) and grads land on the fp32
-  masters through the casts;
+- with ``compute_dtype`` bf16 or fp16, every fp32 master is cast to that
+  type before the trunk (the LayerNorms too; no autocast, and in fp16 no
+  loss scaling, as in the reference) and grads land on the fp32 masters
+  through the casts;
 - the loss: on a CUDA device the fused LM head
   (:func:`~paddle_tpu_torch.ops.softmax_xent.softmax_xent_loss`, as the
   reference does on one accelerator), on the CPU the chunked
@@ -22,14 +23,30 @@ reference's:
 - AdamW that decays every leaf, with eps outside the square root and bias
   corrections from the fp32 step count held in ``opt_state["step"]``.
 
-Remat policies: ``"none"``; ``"full"``, which recomputes each block for
-its backward (the attention forward kernel runs twice per block);
-``"ctx"``, which keeps each block's attention output and log-sum-exp and
-recomputes the rest, so the attention forward runs once.
+Remat policies (the reference's five), with the attention forward
+kernel's launches per block and step:
+
+- ``"none"``: autograd keeps what the backward needs; 1;
+- ``"full"``: each block is recomputed for its backward; 2;
+- ``"ctx"``: each block keeps its attention output and log-sum-exp (the
+  reference's ``"attn_ctx"``) and recomputes the rest; 1;
+- ``"ctx_ffn"``: as ``"ctx"``, and keeps the GELU output (the reference's
+  ``"ffn_up"``), so the recompute skips the GELU; its derivative still
+  needs the up projection's output, which is recomputed, as the reference
+  recomputes it; 1;
+- ``"dots"``: keeps the output of every product (the reference's
+  ``dots_saveable``: the QKV, output, up and down projections) and
+  recomputes the rest, the attention among it, since its kernel is no
+  product; 2.  The reference keeps three of the four, because XLA never
+  recomputes the down projection, whose output no gradient reads; the
+  port's recompute replays the whole block, so it keeps that output too
+  rather than multiply again.
+
+The last three run :class:`_KeepRemat`.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,13 +61,16 @@ __all__ = ["init_gpt_params", "make_block_fn", "trunk", "forward",
            "chunked_ce", "loss_fn", "adamw_update", "build_spmd_train_step",
            "init_opt_state", "REMAT_POLICIES", "CE_CHUNK"]
 
-REMAT_POLICIES = ("none", "full", "ctx")
+REMAT_POLICIES = ("none", "full", "ctx", "ctx_ffn", "dots")
+# the values each keeping policy saves from a block's forward
+# (:class:`_KeepRemat`), by the reference's names where it has them
+_KEPT = {"ctx": ("attn_ctx",), "ctx_ffn": ("attn_ctx", "ffn_up"),
+         "dots": ("qkv", "out", "up", "down")}
 CE_CHUNK = 4096       # rows per chunk of the CPU cross-entropy
 _LATER = ("see ROADMAP.md A5 (distributed): only the one-device path is "
           "ported")
 
 Params = Dict[str, object]
-Attend = Callable[[torch.Tensor], torch.Tensor]
 
 
 def _glorot(gen: torch.Generator, shape: Sequence[int], device
@@ -118,84 +138,172 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
+class _Sites:
+    """The block's named points, computed plainly: the attention (the
+    kernels in both directions), each product by its name (``"qkv"``,
+    ``"out"``, ``"up"``, ``"down"``) and the GELU.  :class:`_KeepRemat`
+    records and replays them through its subclasses."""
+
+    def attend(self, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        return fq.flash_attention_qkv(qkv, heads, causal=True)
+
+    def product(self, name: str, a: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+        return a @ w
+
+    def gelu(self, h: torch.Tensor) -> torch.Tensor:
+        return F.gelu(h, approximate="tanh")
+
+
+_PLAIN = _Sites()
+
+
 def make_block_fn(cfg: GPTConfig):
-    """``block_fn(p, x, attend)``: one pre-LN block over ``x (B, T, D)``
-    with the layer's weights ``p``; ``attend(qkv)`` computes the causal
-    attention of the packed projection (``None``: the kernels)."""
+    """``block_fn(p, x, sites)``: one pre-LN block over ``x (B, T, D)``
+    with the layer's weights ``p``; ``sites`` (:class:`_Sites`, the
+    default) computes its attention, products and GELU."""
     heads = cfg.num_heads
 
     def block_fn(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                 attend: Optional[Attend] = None) -> torch.Tensor:
+                 sites: _Sites = _PLAIN) -> torch.Tensor:
         y = _layernorm(x, p["ln1_g"], p["ln1_b"])
-        qkv = y @ p["qkv_w"] + p["qkv_b"]
-        if attend is None:
-            ctx = fq.flash_attention_qkv(qkv, heads, causal=True)
-        else:
-            ctx = attend(qkv)
-        x = x + ctx @ p["out_w"] + p["out_b"]
+        qkv = sites.product("qkv", y, p["qkv_w"]) + p["qkv_b"]
+        ctx = sites.attend(qkv, heads)
+        x = x + sites.product("out", ctx, p["out_w"]) + p["out_b"]
         y = _layernorm(x, p["ln2_g"], p["ln2_b"])
-        up = F.gelu(y @ p["up_w"] + p["up_b"], approximate="tanh")
-        return x + up @ p["down_w"] + p["down_b"]
+        up = sites.gelu(sites.product("up", y, p["up_w"]) + p["up_b"])
+        return x + sites.product("down", up, p["down_w"]) + p["down_b"]
 
     return block_fn
 
 
-class _CtxRemat(torch.autograd.Function):
-    """A block whose backward recomputes it from its input, keeping the
-    attention output and lse of the forward: the recompute reuses them
-    (``FlashQKV`` with ``saved``), so the attention forward kernel runs
-    once per block and step.  The counterpart of the reference's
-    ``save_only_these_names("attn_ctx")`` policy."""
+class _Record(_Sites):
+    """The forward of :class:`_KeepRemat`: computes plainly (the attention
+    forward kernel alone) and keeps the values of ``names``."""
+
+    def __init__(self, names: Sequence[str]):
+        self.names, self.kept = names, {}
+
+    def attend(self, qkv, heads):
+        out, lse = fq.flash_qkv_fwd(qkv, heads, causal=True)
+        if "attn_ctx" in self.names:
+            self.kept["attn_ctx"] = (out, lse)
+        return out
+
+    def product(self, name, a, w):
+        y = a @ w
+        if name in self.names:
+            self.kept[name] = (y,)
+        return y
+
+    def gelu(self, h):
+        y = super().gelu(h)
+        if "ffn_up" in self.names:
+            self.kept["ffn_up"] = (y,)
+        return y
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``a @ w`` whose value was kept: the forward returns it, the
+    backward is autograd's for the product (``a`` folded to rows)."""
 
     @staticmethod
-    def forward(ctx, block_fn, heads, names, x, *weights):
-        kept = []
+    def forward(ctx, a, w, kept):
+        ctx.save_for_backward(a, w)
+        return kept
 
-        def attend(qkv):
-            out, lse = fq.flash_qkv_fwd(qkv, heads, causal=True)
-            kept.extend((out, lse))
-            return out
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        return (g2.mm(w.t()).reshape(a.shape),
+                a.reshape(-1, a.shape[-1]).t().mm(g2), None)
 
+
+class _KeptGelu(torch.autograd.Function):
+    """``gelu(h)`` whose value was kept: the forward returns it, the
+    backward is autograd's for the tanh GELU, from ``h``."""
+
+    @staticmethod
+    def forward(ctx, h, kept):
+        ctx.save_for_backward(h)
+        return kept
+
+    @staticmethod
+    def backward(ctx, g):
+        h, = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, h, approximate="tanh"), None
+
+
+class _Replay(_Sites):
+    """The recompute of :class:`_KeepRemat`'s backward: a kept value is
+    returned with its own backward, the rest is computed again."""
+
+    def __init__(self, kept: Mapping[str, Tuple[torch.Tensor, ...]]):
+        self.kept = kept
+
+    def attend(self, qkv, heads):
+        return fq.flash_attention_qkv(qkv, heads, causal=True,
+                                      saved=self.kept.get("attn_ctx"))
+
+    def product(self, name, a, w):
+        if name not in self.kept:
+            return a @ w
+        return _KeptProduct.apply(a, w, *self.kept[name])
+
+    def gelu(self, h):
+        if "ffn_up" not in self.kept:
+            return super().gelu(h)
+        return _KeptGelu.apply(h, *self.kept["ffn_up"])
+
+
+class _KeepRemat(torch.autograd.Function):
+    """A block whose backward recomputes it from its input, keeping the
+    forward's values named in ``keep`` (:data:`_KEPT`): the recompute returns
+    them instead of computing them again (``FlashQKV`` with ``saved`` for
+    the attention), each with its own backward.  The counterpart of the
+    reference's ``jax.checkpoint`` policies ``save_only_these_names``
+    (``"ctx"``, ``"ctx_ffn"``) and ``dots_saveable`` (``"dots"``)."""
+
+    @staticmethod
+    def forward(ctx, block_fn, names, keep, x, *weights):
+        record = _Record(keep)
         with torch.no_grad():
-            y = block_fn(dict(zip(names, weights)), x, attend)
-        ctx.block_fn, ctx.heads, ctx.names = block_fn, heads, names
-        ctx.save_for_backward(x, *weights, *kept)
+            y = block_fn(dict(zip(names, weights)), x, record)
+        kept = tuple(record.kept.items())
+        ctx.block_fn, ctx.names = block_fn, names
+        ctx.kept = tuple((k, len(v)) for k, v in kept)
+        ctx.save_for_backward(x, *weights, *(t for _, v in kept for t in v))
         return y
 
     @staticmethod
     def backward(ctx, gy):
         x, *rest = ctx.saved_tensors
-        weights, (out, lse) = rest[:-2], rest[-2:]
+        weights, values = rest[:len(ctx.names)], rest[len(ctx.names):]
+        kept, i = {}, 0
+        for k, n in ctx.kept:
+            kept[k], i = tuple(values[i:i + n]), i + n
         inputs = [x.detach().requires_grad_()] + [
             w.detach().requires_grad_() for w in weights]
-
-        def attend(qkv):
-            return fq.flash_attention_qkv(qkv, ctx.heads, causal=True,
-                                          saved=(out, lse))
-
         with torch.enable_grad():
             y = ctx.block_fn(dict(zip(ctx.names, inputs[1:])), inputs[0],
-                             attend)
+                             _Replay(kept))
         grads = torch.autograd.grad(y, inputs, gy)
         return (None, None, None) + tuple(grads)
 
 
-def _run_block(block_fn, heads: int, p: Dict[str, torch.Tensor],
-               x: torch.Tensor, remat_policy: str) -> torch.Tensor:
+def _run_block(block_fn, p: Dict[str, torch.Tensor], x: torch.Tensor,
+               remat_policy: str) -> torch.Tensor:
     if remat_policy == "none":
         return block_fn(p, x)
     if remat_policy == "full":
         return checkpoint(block_fn, p, x, use_reentrant=False)
     names = tuple(p)
-    return _CtxRemat.apply(block_fn, heads, names, x,
-                           *(p[n] for n in names))
+    return _KeepRemat.apply(block_fn, names, _KEPT[remat_policy], x,
+                            *(p[n] for n in names))
 
 
 def _check_remat(remat_policy: str) -> None:
-    if remat_policy in ("ctx_ffn", "dots"):
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r} is not ported yet (ROADMAP.md "
-            f"A1); the port has {REMAT_POLICIES}")
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat_policy!r}; the port "
                          f"has {REMAT_POLICIES}")
@@ -205,7 +313,8 @@ def trunk(params: Params, ids: torch.Tensor, cfg: GPTConfig, *,
           compute_dtype: torch.dtype = torch.float32,
           remat_policy: str = "full") -> torch.Tensor:
     """Embeddings, the blocks and the final LayerNorm: ``(B, T, D)`` in
-    ``compute_dtype``.  In bf16 every fp32 parameter is cast first."""
+    ``compute_dtype``.  In bf16 and fp16 every fp32 parameter is cast
+    first."""
     _check_remat(remat_policy)
     if compute_dtype != torch.float32:
         params = _rebuild(params, {
@@ -216,7 +325,7 @@ def trunk(params: Params, ids: torch.Tensor, cfg: GPTConfig, *,
     block_fn = make_block_fn(cfg)
     for i in range(cfg.num_layers):
         p_i = {k: v[i] for k, v in layers.items()}
-        x = _run_block(block_fn, cfg.num_heads, p_i, x, remat_policy)
+        x = _run_block(block_fn, p_i, x, remat_policy)
     return _layernorm(x, params["ln_f_g"], params["ln_f_b"])
 
 
@@ -322,8 +431,9 @@ def build_spmd_train_step(cfg: GPTConfig, mesh: Optional[Mapping] = None,
                                   + _LATER)
     if offload:
         raise NotImplementedError("optimizer-state offload; " + _LATER)
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype {compute_dtype}: fp32 or bf16")
+    if compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"compute_dtype {compute_dtype}: fp32, bf16 or "
+                         f"fp16")
     _check_remat(remat_policy)
     opts = dict(compute_dtype=compute_dtype, remat_policy=remat_policy)
 

@@ -10,13 +10,14 @@ stream K/V at any T and are built at every head dim of ``HEAD_DIMS``).
 and split); the result is ``ctx (B, T, H·d)``.  :class:`FlashQKV` is the
 autograd function: its forward is :func:`flash_qkv_fwd` and its backward
 :func:`flash_qkv_bwd`.  These wrappers launch the attention kernels of
-:mod:`.flash_attention` (bf16 at d 64 / 128: ``csrc/flash_attn_sm90.cu``;
-otherwise ``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``; see
-``kernel_route``) on head views of the packed projection, which
-those kernels read, and of the packed gradient, which they write, by
-stride: no head-split copy is made in either direction.  On a CUDA tensor
-each wrapper launches its kernel or raises; on a CPU tensor it computes
-its plain PyTorch version
+:mod:`.flash_attention` (bf16 and fp16 at d 64 / 128:
+``csrc/flash_attn_sm90.cu``; fp32 at every built head dim, and bf16 and
+fp16 at the others: ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu``; see ``kernel_route``) on head views of the
+packed projection, which those kernels read, and of the packed gradient,
+which they write, by stride: no head-split copy is made in either
+direction.  On a CUDA tensor each wrapper launches its kernel or raises;
+on a CPU tensor it computes its plain PyTorch version
 (:func:`flash_qkv_fwd_ref`, :func:`flash_qkv_bwd_ref`).
 :func:`flash_attention_qkv_ref` is the plain differentiable function the
 tests hold both against.  :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES`
@@ -35,7 +36,7 @@ __all__ = ["flash_attention_qkv", "flash_attention_qkv_ref", "FlashQKV",
            "flash_qkv_fwd", "flash_qkv_bwd", "flash_qkv_fwd_ref",
            "flash_qkv_bwd_ref", "FWD_LAUNCHES", "BWD_LAUNCHES", "HEAD_DIMS"]
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 # kernel launches since import (plain integers; tests and the smoke run
 # reset them to 0 and read them back)
@@ -137,9 +138,7 @@ def flash_qkv_bwd_ref(qkv: torch.Tensor, out: torch.Tensor,
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype = tensors[0].dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"{name} takes fp32 or bf16; got {dtype} (fp16 "
-                        f"waits for the compiled step's fp16, ROADMAP.md "
-                        f"§B item 1b)")
+        raise TypeError(f"{name} takes fp32, bf16 or fp16; got {dtype}")
     for t in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed types {dtype} and {t.dtype}")

@@ -9,8 +9,8 @@ launches a hand-written kernel (or raises), on a CPU tensor it computes
 ``(softmax(x @ w) - onehot(labels)) · g`` from the saved lse in x's type:
 a kernel on a CUDA tensor, :func:`softmax_xent_dlogits_ref` on a CPU
 tensor.  Which CUDA source runs is :func:`_route`'s choice, made before
-any launch: ``csrc/softmax_xent_sm90.cu`` (TMA and wgmma) for bf16
-operands TMA can describe, else ``csrc/softmax_xent_fwd.cu`` /
+any launch: ``csrc/softmax_xent_sm90.cu`` (TMA and wgmma) for bf16 and
+fp16 operands TMA can describe, else ``csrc/softmax_xent_fwd.cu`` /
 ``csrc/softmax_xent_dlogits.cu`` (``mma.sync`` tiles).  A launch on either
 route that fails raises; it is never retried on the other.
 :func:`softmax_xent_loss` is the mean cross-entropy as an autograd
@@ -34,7 +34,10 @@ __all__ = ["softmax_xent_fwd", "softmax_xent_fwd_ref", "softmax_xent_dlogits",
            "matmul_f32", "LAUNCHES", "DLOGITS_LAUNCHES", "ROUTE_LAUNCHES",
            "BWD_CHUNK", "SM90_BN"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' type codes (the sm90 source takes 1 and 2, the tile
+# kernels all three)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SM90_DTYPES = (torch.bfloat16, torch.float16)
 BWD_CHUNK = 4096      # rows per backward chunk (the reference's C)
 
 # the sm90 kernels' vocabulary columns per tile (csrc/softmax_xent_sm90.cu
@@ -57,8 +60,8 @@ _ENTRY_POINTS = {
     "softmax_xent_dlogits": ("softmax_xent_dlogits_error_string", {
         "softmax_xent_dlogits": _P * 6 + _I * 4 + _P}),
     "softmax_xent_sm90": ("softmax_xent_sm90_error_string", {
-        "softmax_xent_sm90_fwd": _P * 6 + _I * 3 + _P,
-        "softmax_xent_sm90_dlogits": _P * 6 + _I * 3 + _P}),
+        "softmax_xent_sm90_fwd": _P * 6 + _I * 4 + _P,
+        "softmax_xent_sm90_dlogits": _P * 6 + _I * 4 + _P}),
 }
 
 _libs = {}
@@ -85,13 +88,13 @@ def _kernel(name: str = "softmax_xent_fwd"):
 def _route(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which CUDA source takes a head launch on ``x (rows, D)`` and ``w
     (D, V)``: ``"sm90"`` (``csrc/softmax_xent_sm90.cu``, TMA and wgmma)
-    when both are bf16 and contiguous with rows TMA can describe (``D``
-    and ``V`` multiples of 8, so 16-byte row strides, and 16-byte aligned
-    bases), else ``"tile"`` (``csrc/softmax_xent_fwd.cu`` /
-    ``softmax_xent_dlogits.cu``: fp32, and bf16 such as V 700).  A pure
-    function of the types, shapes and layouts."""
+    when both are bf16, or both fp16, and contiguous with rows TMA can
+    describe (``D`` and ``V`` multiples of 8, so 16-byte row strides, and
+    16-byte aligned bases), else ``"tile"`` (``csrc/softmax_xent_fwd.cu``
+    / ``softmax_xent_dlogits.cu``: fp32, and 16-bit rows such as V 700).
+    A pure function of the types, shapes and layouts."""
     D, V = w.shape
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 \
+    if x.dtype not in _SM90_DTYPES or w.dtype != x.dtype \
             or not (x.is_contiguous() and w.is_contiguous()) \
             or D % 8 or V % 8 or x.data_ptr() % 16 or w.data_ptr() % 16:
         return "tile"
@@ -112,7 +115,7 @@ def _launch_sm90_fwd(x, w, lab, lse, at) -> None:
         err = lib.softmax_xent_sm90_fwd(x.data_ptr(), w.data_ptr(),
                                         lab.data_ptr(), lse.data_ptr(),
                                         at.data_ptr(), part.data_ptr(), N, D,
-                                        V, stream)
+                                        V, _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, lib, "softmax_xent_fwd (sm90)")
     ROUTE_LAUNCHES["sm90_fwd"] += 1
 
@@ -126,17 +129,18 @@ def _launch_sm90_dlogits(x, w, labels, lse, g, out) -> None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.softmax_xent_sm90_dlogits(
             x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), out.data_ptr(), C, D, w.shape[1], stream)
+            g.data_ptr(), out.data_ptr(), C, D, w.shape[1],
+            _DTYPE_CODES[x.dtype], stream)
     _raise_on(err, lib, "softmax_xent_dlogits (sm90)")
     ROUTE_LAUNCHES["sm90_dlogits"] += 1
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated and returned in fp32 from operands of one type
-    (the reference's ``preferred_element_type=float32``): bf16 operands on
-    the card go to cuBLAS with an fp32 output, anything else is multiplied
-    in fp32 (a bf16 value is exact in fp32)."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
+    (the reference's ``preferred_element_type=float32``): bf16 and fp16
+    operands on the card go to cuBLAS with an fp32 output, anything else
+    is multiplied in fp32 (a 16-bit value is exact in fp32)."""
+    if a.is_cuda and a.dtype in _SM90_DTYPES:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 
@@ -170,7 +174,7 @@ def softmax_xent_fwd_ref(x: torch.Tensor, w: torch.Tensor,
 
 def softmax_xent_fwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``x (N, D)``, ``w (D, V)`` of one type (fp32 or bf16), ``labels
+    """``x (N, D)``, ``w (D, V)`` of one type (fp32, bf16 or fp16), ``labels
     (N,)`` integers -> ``(lse (N,), at (N,))`` in fp32;
     ``loss = mean(lse - at)``.  CUDA tensors go through the kernel; CPU
     tensors take :func:`softmax_xent_fwd_ref`."""
@@ -190,8 +194,8 @@ def softmax_xent_fwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
         raise ValueError(f"softmax_xent_fwd runs on CUDA or CPU, not "
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"the kernel takes fp32 or bf16 x and w of one "
-                        f"type; got {x.dtype}, {w.dtype}")
+        raise TypeError(f"the kernel takes fp32, bf16 or fp16 x and w of "
+                        f"one type; got {x.dtype}, {w.dtype}")
     if labels.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"labels must be integers; got {labels.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -247,7 +251,7 @@ def softmax_xent_dlogits(x: torch.Tensor, w: torch.Tensor,
                          labels: torch.Tensor, lse: torch.Tensor,
                          g: torch.Tensor) -> torch.Tensor:
     """``(softmax(x @ w) - onehot(labels)) · g`` in x's type from the saved
-    ``lse``: ``x (C, D)``, ``w (D, V)`` of one type (fp32 or bf16),
+    ``lse``: ``x (C, D)``, ``w (D, V)`` of one type (fp32, bf16 or fp16),
     ``labels (C,)`` integers (int32 on the card), ``lse (C,)`` fp32, ``g``
     a one-element fp32 tensor, read where it lies (no host sync).  Returns
     ``(C, V)``.  CUDA tensors go through the kernel; CPU tensors take
@@ -271,8 +275,8 @@ def softmax_xent_dlogits(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"softmax_xent_dlogits runs on CUDA or CPU, not "
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"the kernel takes fp32 or bf16 x and w of one "
-                        f"type; got {x.dtype}, {w.dtype}")
+        raise TypeError(f"the kernel takes fp32, bf16 or fp16 x and w of "
+                        f"one type; got {x.dtype}, {w.dtype}")
     if labels.dtype != torch.int32 or lse.dtype != torch.float32 \
             or g.dtype != torch.float32:
         raise TypeError(f"softmax_xent_dlogits takes int32 labels and fp32 "

@@ -28,7 +28,7 @@ FP32_ATOL, BF16_ATOL = 2e-5, 3e-2                # tests/test_pallas_kernels.py
 GRAD_ATOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 # the head kernel and its plain version both sum exact products of the
 # inputs in fp32 and differ only in the order of the sums
-HEAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+HEAD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4, torch.float16: 1e-5}
 
 
 @pytest.fixture
@@ -194,12 +194,19 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
     qkv = torch.rand(2, 8, 3 * 2 * 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fq.flash_qkv_fwd(qkv, 2)
-    with pytest.raises(TypeError, match="fp32 or bf16"):
-        fq.flash_qkv_fwd(torch.rand(2, 8, 192, device="cuda").half(), 1)
+    # fp16 runs (since the compiled step's fp16); mixed types raise
+    qkv = torch.rand(2, 8, 3 * 64, device="cuda").half()
+    out, lse = fq.flash_qkv_fwd(qkv, 1)
+    with pytest.raises(TypeError, match="mixed types"):
+        fq.flash_qkv_bwd(qkv, out, lse, out.bfloat16(), 1)
     x = torch.rand(4, 8, device="cuda")
-    with pytest.raises(TypeError, match="fp32 or bf16"):
-        sx.softmax_xent_fwd(x, torch.rand(8, 5, device="cuda").half(),
-                            torch.zeros(4, dtype=torch.int64, device="cuda"))
+    lab = torch.zeros(4, dtype=torch.int64, device="cuda")
+    for xt, wt in ((torch.float32, torch.float16),
+                   (torch.bfloat16, torch.float16),
+                   (torch.float16, torch.bfloat16)):
+        with pytest.raises(TypeError, match="of one type"):
+            sx.softmax_xent_fwd(x.to(xt), torch.rand(8, 8, device="cuda")
+                                .to(wt), lab)
 
 
 def _split_cases():
@@ -841,6 +848,41 @@ def test_sm90_head_kernels_match_plain_versions(card):
             (case, err.max().item())
 
 
+def test_sm90_head_kernels_match_plain_versions_in_fp16(card):
+    # fp16 rows TMA can describe take softmax_xent_sm90.cu, V 700 the tile
+    # kernels; at g = 1/65536 (the full-width step's g/N) the label column
+    # is an fp16 subnormal, which the kernel's cast keeps
+    rs = np.random.RandomState(5)
+    for N, D, V in SM90_HEAD_SHAPES + ((256, 64, 700),):
+        x, w, lab = _head_inputs(rs, N, D, V, torch.float16)
+        route = "tile" if V % 8 else "sm90"
+        for g_val in (0.37, 2.0 ** -16):
+            case = (N, D, V, g_val)
+            before = _routes()
+            lse, at = sx.softmax_xent_fwd(x, w, lab)
+            g = torch.tensor(g_val, device="cuda")
+            out = sx.softmax_xent_dlogits(x, w, lab, lse, g)
+            torch.cuda.synchronize()
+            assert _moved(before) == {f"{route}_fwd": 1,
+                                      f"{route}_dlogits": 1}, case
+            ref_lse, ref_at = sx.softmax_xent_fwd_ref(x, w, lab)
+            torch.testing.assert_close(lse, ref_lse, rtol=0,
+                                       atol=HEAD_ATOL[torch.float16],
+                                       msg=lambda m: f"{case}: {m}")
+            torch.testing.assert_close(at, ref_at, rtol=0,
+                                       atol=HEAD_ATOL[torch.float16],
+                                       msg=lambda m: f"{case}: {m}")
+            ref = sx.softmax_xent_dlogits_ref(x, w, lab, lse, g)
+            assert out.dtype == torch.float16 and out.shape == (N, V), case
+            err = (out.float() - ref.float()).abs()
+            step = torch.clamp(_bf16_ulp(ref.float()) / 8, min=2.0 ** -24)
+            assert (err <= 1e-6 * g_val + step).all(), \
+                (case, err.max().item())
+            rows = torch.arange(N, device="cuda")[4:]
+            label = out[rows, lab[4:].long()].float()
+            assert bool((label < 0).all()), case
+
+
 def test_sm90_head_kernels_repeat_bit_for_bit(card):
     rs = np.random.RandomState(4)
     x, w, lab = _head_inputs(rs, 4096, 768, 30528)
@@ -850,6 +892,50 @@ def test_sm90_head_kernels_repeat_bit_for_bit(card):
     g = torch.tensor(1.0 / 4096, device="cuda")
     assert torch.equal(sx.softmax_xent_dlogits(x, w, lab, first[0], g),
                        sx.softmax_xent_dlogits(x, w, lab, first[0], g))
+
+
+def test_compiled_fp16_step_runs_on_the_sm90_kernels(card):
+    from paddle_tpu_torch.models import build_spmd_train_step
+    cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    step, init_fn = build_spmd_train_step(cfg, compute_dtype=torch.float16,
+                                          remat_policy="ctx", device="cuda")
+    params, opt = init_fn(0)
+    rs = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rs.randint(0, 1000, (64, 128))).cuda()
+                   for _ in range(2))
+    before = _routes()
+    f0 = (pfa.SM90_FWD_LAUNCHES, pfa.SM90_BWD_LAUNCHES)
+    loss, _, _ = step(params, opt, ids, labels)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss).item()
+    assert _moved(before) == {"sm90_fwd": 1, "sm90_dlogits": 2}
+    assert (pfa.SM90_FWD_LAUNCHES - f0[0], pfa.SM90_BWD_LAUNCHES - f0[1]) \
+        == (2, 2)
+
+
+@pytest.mark.parametrize("policy", ["ctx_ffn", "dots"])
+def test_compiled_step_remat_policies_equal_ctx(card, policy):
+    # a kept value is the result of the same launch on the same inputs,
+    # and each kept value's backward makes autograd's own calls
+    from paddle_tpu_torch.models import build_spmd_train_step
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    cfg = GPTConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    rs = np.random.RandomState(1)
+    ids, labels = (torch.from_numpy(rs.randint(0, 1000, (16, 128))).cuda()
+                   for _ in range(2))
+    out = {}
+    for name in ("ctx", policy):
+        step, init_fn = build_spmd_train_step(
+            cfg, compute_dtype=torch.bfloat16, remat_policy=name,
+            device="cuda")
+        params, opt = init_fn(0)
+        loss, params, _ = step(params, opt, ids, labels)
+        out[name] = (loss, _leaves(params))
+    assert torch.equal(out["ctx"][0], out[policy][0])
+    for k, v in out["ctx"][1].items():
+        assert torch.equal(v, out[policy][1][k]), k
 
 
 def test_compiled_bf16_step_head_takes_the_sm90_route(card):

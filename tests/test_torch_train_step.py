@@ -250,8 +250,7 @@ def test_forward_logits_give_the_loss():
     dict(mesh={"dp": 2}), dict(mesh={"dp": 1, "pp": 2}),
     dict(mesh={"sharding": 2}),
     dict(num_microbatches=2), dict(schedule_mode="1F1B"),
-    dict(offload=True), dict(remat_policy="ctx_ffn"),
-    dict(remat_policy="dots")])
+    dict(offload=True)])
 def test_paths_not_ported_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
         build_spmd_train_step(GPTConfig(**WIDTH), device="cpu", **kwargs)
