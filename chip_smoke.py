@@ -96,9 +96,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
             in each type; row 12 and its backward
             at N 16384, D 768 in fp16 and fp16 x over an fp32 residual;
             the unscale pass on the GPT's gradients (events, a replayed
-            graph, the plain version,
-            torch._amp_foreach_non_finite_check_and_unscale_) against its
-            bytes bound
+            graph, the plain version, and
+            torch._amp_foreach_non_finite_check_and_unscale_ in events and
+            a replayed graph, the two graphs in alternating rounds)
+            against its bytes bound
 7. train    the flagship train step at full width (B 128, T 512, bf16,
             remat "ctx"): one step through the kernels (12 + 12 attention
             launches, all of them flash_attn_sm90's, the fused head's
@@ -539,6 +540,36 @@ def card_line() -> str:
 
 
 # -- phase 2 -------------------------------------------------------------------
+_MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"),
+                  ("f", "fp32"))
+
+
+def _template_args(rest: str):
+    """The template arguments at the start of a mangled name's tail
+    (``I...E``): fp32, bf16, fp16 and integers, a substitution (``S1_``)
+    read as the type before it."""
+    if not rest.startswith("I"):
+        return []
+    out, i = [], 1
+    while i < len(rest) and rest[i] not in "E":
+        m = re.match(r"Li(\d+)E|K?(S\d*_)", rest[i:])
+        if m:
+            if m.group(1):
+                out.append(m.group(1))
+            elif out:
+                out.append(out[-1])
+            i += m.end()
+            continue
+        for code, name in _MANGLED_TYPES:
+            if rest.startswith(code, i):
+                out.append(name)
+                i += len(code)
+                break
+        else:
+            break
+    return out
+
+
 def ptxas_summary(report: str):
     """Each kernel of one ``nvcc -Xptxas -v`` report: a short name (the
     kernel and its integer template arguments), registers, spill bytes."""
@@ -546,15 +577,10 @@ def ptxas_summary(report: str):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]*kernel[a-z0-9_]*)", m.group(1))
-            args = re.findall(r"Li(\d+)E", m.group(1))
-            if "bfloat16" in m.group(1):
-                args.insert(0, "bf16")
-            elif "__half" in m.group(1):
-                args.insert(0, "fp16")
-            elif re.search(r"I(?:K)?fLi", m.group(1)):
-                args.insert(0, "fp32")
-            name = (k.group(1) if k else m.group(1)) + (
+            k = re.search(r"\d(ln_bwd_[a-z]+)(?=[IE])|"
+                          r"([a-z_]*kernel[a-z0-9_]*)", m.group(1))
+            args = _template_args(m.group(1)[k.end():]) if k else []
+            name = (k.group(1) or k.group(2) if k else m.group(1)) + (
                 f"<{','.join(args)}>" if args else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -2530,9 +2556,10 @@ def timing_unscale(torch, dev="cuda"):
     """The unscale pass on the GPT's 149 fp32 gradients at full width
     (132,340,224 elements, the O1 step's): CUDA events around one call of
     ``multi_tensor_unscale`` (its device tables cached), device time as a
-    replayed CUDA graph of the call (:func:`graph_ms`), the plain version,
-    and ``torch._amp_foreach_non_finite_check_and_unscale_``, PyTorch's
-    own call for the same function (timed here, used nowhere in the port),
+    replayed CUDA graph of the call, the plain version, and
+    ``torch._amp_foreach_non_finite_check_and_unscale_``, PyTorch's own
+    call for the same function (timed here, used nowhere in the port) the
+    same two ways, the two graphs in alternating rounds (:func:`graphs_ms`),
     beside the bytes bound (each gradient read and written once)."""
     from paddle_tpu_torch.ops import multi_tensor_update as mtu
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -2548,22 +2575,32 @@ def timing_unscale(torch, dev="cuda"):
     sync(torch, dev)
     same = all(_same_bits(torch, a, b) for a, b in zip(grads, plain))
     del plain
-    ms = time_ms(torch, lambda: mtu.multi_tensor_unscale(grads, scale,
-                                                         found, cache))
-    device_ms = graph_ms(torch, lambda: mtu.multi_tensor_unscale(
-        grads, scale, found, cache))
-    plain_ms = time_ms(torch, lambda: mtu.multi_tensor_unscale_ref(
-        grads, scale, found), reps=5)
     inv = torch.full((1,), 1.0 / UNSCALE_SCALE, device=dev)
     flag = torch.zeros((1,), device=dev)
     library = torch._amp_foreach_non_finite_check_and_unscale_
-    lib = time_ms(torch, lambda: library(grads, flag, inv))
+
+    def kernel():
+        mtu.multi_tensor_unscale(grads, scale, found, cache)
+
+    def lib_call():
+        library(grads, flag, inv)
+
+    plain_ms = time_ms(torch, lambda: mtu.multi_tensor_unscale_ref(
+        grads, scale, found), reps=5)
+    # the two calls' device times in alternating rounds (graphs_ms): timed
+    # first, right after phase 6's attention timings, the pass read 15%
+    # slow and the library, timed later, did not
+    (device_ms, rounds), (lib_device, lib_rounds) = graphs_ms(
+        torch, (kernel, lib_call))
+    ms, lib = time_ms(torch, kernel), time_ms(torch, lib_call)
     n = sum(g.numel() for g in grads)
     nbytes = 8.0 * n
     b_ms, b_by = bound(2.0 * n, nbytes, FP32_FLOPS_PER_S)
     row = dict(kernel="mt_unscale", tensors=len(grads), elements=n, ms=ms,
                device_ms=device_ms, share_of_bound=b_ms / device_ms,
                plain_ms=plain_ms, library_ms=lib,
+               library_device_ms=lib_device, device_ms_rounds=rounds,
+               library_device_ms_rounds=lib_rounds,
                library="torch._amp_foreach_non_finite_check_and_unscale_",
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, bit_for_bit=same,
                max_abs_err=0.0 if same else float("nan"),
@@ -2572,7 +2609,11 @@ def timing_unscale(torch, dev="cuda"):
     log(f"  unscale ({row['shape']}): kernel {ms:.4f} ms events, "
         f"{device_ms:.4f} ms device (replayed graph, "
         f"{row['share_of_bound']:.1%} of the bound), plain {plain_ms:.4f} ms, "
-        f"{row['library']} {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{row['library']} {lib:.4f} ms events, {lib_device:.4f} ms device "
+        f"(replayed graph; the median of {len(rounds)} alternating rounds, "
+        f"the pass's first and last {rounds[0]:.4f} / {rounds[-1]:.4f} ms, "
+        f"the library's {lib_rounds[0]:.4f} / {lib_rounds[-1]:.4f}), "
+        f"bound {b_ms:.4f} ms ({b_by}; "
         f"{nbytes / 1e9:.3f} GB at 3.35 TB/s); bit for bit against the plain "
         f"version: {same} {'ok' if same else 'FAIL'}")
     if not same:
@@ -3863,13 +3904,9 @@ def _o2_gpt(cfg):
 
 
 # -- phase 13 ------------------------------------------------------------------
-def graph_ms(torch, fn, reps=10):
-    """Device time of one ``fn()``: ``fn`` run once on a side stream,
-    captured in a CUDA graph, and the graph replayed ``reps`` times between
-    two CUDA events: the card's time for the call's kernels and the gaps
-    between them, without the host's time to launch them.  (torch.profiler
-    recorded only some of the update kernel's launches, or none, once CUDA
-    graphs had run in the process: 0.0904 ms for a 0.79 ms bound.)"""
+def _captured(torch, fn):
+    """``fn`` run once on a side stream, then captured in a CUDA graph,
+    replayed once."""
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(cur)
@@ -3881,6 +3918,12 @@ def graph_ms(torch, fn, reps=10):
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(torch, graph, reps):
+    """``graph`` replayed ``reps`` times between two CUDA events: ms a
+    replay."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -3888,8 +3931,39 @@ def graph_ms(torch, fn, reps=10):
         graph.replay()
     b.record()
     b.synchronize()
-    del graph
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(torch, fn, reps=10):
+    """Device time of one ``fn()``: ``fn`` captured in a CUDA graph
+    (:func:`_captured`) and the graph replayed ``reps`` times between two
+    CUDA events: the card's time for the call's kernels and the gaps
+    between them, without the host's time to launch them.  (torch.profiler
+    recorded only some of the update kernel's launches, or none, once CUDA
+    graphs had run in the process: 0.0904 ms for a 0.79 ms bound.)"""
+    graph = _captured(torch, fn)
+    ms = _replay_ms(torch, graph, reps)
+    del graph
+    return ms
+
+
+def graphs_ms(torch, fns, rounds=16, reps=10):
+    """Device times of several calls timed alike: each ``fn`` captured as
+    in :func:`graph_ms`, then ``rounds`` rounds in which each graph is
+    replayed ``reps`` times between two events, the order reversed every
+    other round (A B, B A, ...).  Returns, for each ``fn``, the median
+    round and the list of its rounds.  A card that has just run other work
+    can stream slower for some tens of ms, and a call timed first alone
+    would carry all of it."""
+    import numpy as np
+    graphs = [_captured(torch, fn) for fn in fns]
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            times[k].append(_replay_ms(torch, graphs[k], reps))
+    del graphs
+    return [(float(np.median(ts)), ts) for ts in times]
 
 
 def update_bytes(params, opt, two_pass=False) -> int:
@@ -4963,6 +5037,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              bound_ms=u16["bound_ms"], bound_by=u16["bound_by"],
              library_ms=u16["library_ms"], library=u16["library"],
              device_ms=u16["device_ms"],
+             library_device_ms=u16["library_device_ms"],
              share_of_bound=u16["share_of_bound"], timed_shape=u16["shape"],
              checks=len(unscale_checks), skip_checks=len(skip_checks),
              launches_replay={k: fp16[k]["replay_update_launches"]

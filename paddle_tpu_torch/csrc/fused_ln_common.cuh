@@ -56,16 +56,20 @@ __device__ __forceinline__ Inputs with_seed(Inputs in) {
   return in;
 }
 
-// Uniform [0, 1) from the Murmur3 finaliser of the element index mod 2^32
-// (the reference's hash_uniform, ops/pallas/fused_ln.py:33, bit for bit).
-__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t idx) {
+// The Murmur3 finaliser of the element index mod 2^32 under the seed.
+__device__ __forceinline__ uint32_t hash_bits(uint32_t seed, uint32_t idx) {
   uint32_t h = (idx ^ seed) * 0x9E3779B1u;
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return (float)(h >> 8) * (1.0f / 16777216.0f);
+  return h ^ (h >> 16);
+}
+
+// Uniform [0, 1) from its top 24 bits (the reference's hash_uniform,
+// ops/pallas/fused_ln.py:33, bit for bit).
+__device__ __forceinline__ float hash_uniform(uint32_t seed, uint32_t idx) {
+  return (float)(hash_bits(seed, idx) >> 8) * (1.0f / 16777216.0f);
 }
 
 // Type codes, of the tensors and of the parameters in `param_types`.

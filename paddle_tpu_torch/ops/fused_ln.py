@@ -286,8 +286,9 @@ def fused_ln_bwd_ref(g: torch.Tensor, x: torch.Tensor,
 def _bwd_blocks(device: torch.device, N: int, D: int, codes) -> int:
     """Blocks of the backward's first launch: as many as fit on the card
     at once (asked of the kernel's library once per device, D and types),
-    and no more than the rows need (eight rows a block at once on the warp
-    path, one on the row path)."""
+    and no more than the rows need (a block per eight rows at most on the
+    warp paths, whose blocks take 8 or 16 rows at once, one per row on the
+    row path)."""
     key = (device.index, D, codes)
     fit = _RESIDENT.get(key)
     if fit is None:
@@ -311,7 +312,8 @@ def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,
     forward's inputs as :func:`fused_ln` takes them.  Returns ``(dx, dres,
     dbias, dgamma, dbeta)``, new tensors each in its input's type.  CUDA
     tensors go through ``csrc/fused_ln_bwd.cu`` (two launches: the rows,
-    then the fold of the column sums, counted once in
+    on ``ln_bwd_tile`` for 16-bit x at D <= 1024, then the fold of the
+    column sums, counted once in
     :data:`BWD_LAUNCHES`); CPU tensors take :func:`fused_ln_bwd_ref`."""
     global BWD_LAUNCHES
     vectors = (bias, gamma, beta)

@@ -41,6 +41,7 @@ through ``torch.where``.  Nothing reads the flag on the host.
 from __future__ import annotations
 
 import ctypes
+import operator
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -136,7 +137,7 @@ def _kernel():
         lib.mt_norms.restype = i
         lib.mt_pows.argtypes = [p, i, ctypes.c_float, ctypes.c_float, p, p]
         lib.mt_pows.restype = i
-        lib.mt_unscale.argtypes = [p, p, i, i, i, i, p, p, p]
+        lib.mt_unscale.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
         lib.mt_unscale.restype = i
         lib.multi_tensor_update_error_string.argtypes = [i]
         lib.multi_tensor_update_error_string.restype = ctypes.c_char_p
@@ -406,8 +407,9 @@ GRAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 class GradTable:
     """The gradients of one unscale launch: one type on one device,
     contiguous; on the card the device table of their records (``w`` the
-    gradient) and the prefix table of chunks, built here, outside any
-    capture, and read by address."""
+    gradient), the prefix table of chunks and the launch's fold word (zero
+    between launches), built here, outside any capture, and read by
+    address."""
 
     def __init__(self, grads: Sequence[torch.Tensor]):
         self.device = grads[0].device
@@ -422,7 +424,7 @@ class GradTable:
                                  "contiguous")
         self.n = len(grads)
         self.nchunks = sum(-(-g.numel() // CHUNK) for g in grads)
-        self.recs = self.prefix = None
+        self.recs = self.prefix = self.fold = None
         if self.device.type != "cuda":
             return
         if self.dtype not in GRAD_CODES:
@@ -434,19 +436,26 @@ class GradTable:
             rec.vec = int(g.data_ptr() % 16 == 0)
         self.recs, self.prefix = _upload("multi_tensor_unscale", arr,
                                          self.device)
+        self.fold = torch.zeros(1, dtype=torch.int64, device=self.device)
 
     def tensors(self):
         """The device tensors a launch reads by address."""
-        return tuple(t for t in (self.recs, self.prefix) if t is not None)
+        return tuple(t for t in (self.recs, self.prefix, self.fold)
+                     if t is not None)
+
+
+_DTYPE_OF = operator.attrgetter("dtype")
 
 
 def grad_tables(grads: Sequence[torch.Tensor], cache: Optional[dict] = None
                 ) -> Tuple[GradTable, ...]:
     """The gradients by type, one :class:`GradTable` each, in the order
     of their first member; kept in ``cache`` (a dict) keyed by the
-    gradients' addresses, types and sizes, and rebuilt when the key
-    changes."""
-    key = tuple((g.data_ptr(), g.dtype, g.numel(), g.device) for g in grads)
+    gradients' addresses, sizes and types (an address names its device),
+    and rebuilt when the key changes."""
+    key = (tuple(map(torch.Tensor.data_ptr, grads)),
+           tuple(map(torch.Tensor.numel, grads)),
+           tuple(map(_DTYPE_OF, grads)))
     if cache is not None and cache.get("key") == key:
         return cache["tables"]
     groups: Dict[Tuple, list] = {}
@@ -462,10 +471,11 @@ def multi_tensor_unscale(grads: Sequence[torch.Tensor], scale: torch.Tensor,
                          found_inf: torch.Tensor,
                          cache: Optional[dict] = None) -> None:
     """Every gradient times ``1/scale`` in place, in its type, and
-    ``found_inf`` (a bool on their device, cleared first) set when any
-    element is not finite.  ``scale`` is an fp32 scalar on the gradients'
-    device.  CUDA tensors go through ``mt_unscale``, one launch per type
-    (tables kept in ``cache``, see :func:`grad_tables`); CPU tensors take
+    ``found_inf`` (a bool on their device) set to whether any element is
+    not finite.  ``scale`` is an fp32 scalar on the gradients' device.
+    CUDA tensors go through ``mt_unscale``, one launch per type (tables
+    kept in ``cache``, see :func:`grad_tables`; the first launch writes
+    the flag, the others OR into it); CPU tensors take
     :func:`multi_tensor_unscale_ref`."""
     global UNSCALE_LAUNCHES
     if not grads:
@@ -488,15 +498,18 @@ def multi_tensor_unscale(grads: Sequence[torch.Tensor], scale: torch.Tensor,
     lib = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        found_inf.zero_()
+        first = 1
         for t in tables:
             if not t.nchunks:                   # every gradient is empty
                 continue
             _raise(lib, "mt_unscale", lib.mt_unscale(
                 t.recs.data_ptr(), t.prefix.data_ptr(), t.n, t.nchunks,
                 CHUNK, GRAD_CODES[t.dtype], scale.data_ptr(),
-                found_inf.data_ptr(), stream))
+                found_inf.data_ptr(), t.fold.data_ptr(), first, stream))
             UNSCALE_LAUNCHES += 1
+            first = 0
+        if first:                               # nothing launched
+            found_inf.zero_()
 
 
 def multi_tensor_unscale_ref(grads: Sequence[torch.Tensor],

@@ -34,10 +34,15 @@ attention kernel calls of the serving and train paths, at their shapes:
   has one.  ``--head`` times these two rows alone;
 - with ``--epilogue`` instead, the fused epilogue alone at the encoder's
   shape, N 16384, D 768, p 0.1: ``fused_ln`` (row 12) in fp32 and its
-  backward ``fused_ln_bwd`` with x and the residual fp32, bf16, and bf16
-  with an fp32 residual (the encoder's first layer under AMP O1), each
-  backward held against its plain version (``*_max_abs_err``, dx and
-  dres).
+  backward ``fused_ln_bwd`` with x and the residual fp32, bf16, fp16,
+  and bf16 or fp16 over an fp32 residual (the encoder's first layer
+  under AMP O1), the parameters in x's type where the residual shares
+  it, else fp32, each backward held against its plain version
+  (``*_max_abs_err``, dx and dres); and the unscale pass
+  (``multi_tensor_unscale``) on the GPT's 149 gradients in fp32, bf16
+  and fp16, beside ``torch._amp_foreach_non_finite_check_and_unscale_``
+  where it takes the type, both also as a replayed CUDA graph
+  (``*_graph_ms``: the card's time without the host's).
 
 Run it on two checkouts in turns (A, B, B, A) inside one call to compare
 them; each run prints one JSON line and, with ``--json``, writes it.
@@ -126,7 +131,7 @@ def main(argv=None) -> int:
 def _time_epilogue(torch, gen, out):
     from paddle_tpu_torch.ops import fused_ln as fl
     N, D, p = 16384, 768, 0.1
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     b, gam, be = (torch.randn(D, generator=gen, device="cuda")
                   for _ in range(3))
     with torch.no_grad():
@@ -139,10 +144,14 @@ def _time_epilogue(torch, gen, out):
         out["row12_fused_ln_fp32_ms"] = _time_ms(torch, fwd)
         out["row12_fused_ln_fp32_device_ms"] = _device_ms(torch, fwd)
         for name, x_dt, r_dt in (("fp32", f32, f32), ("bf16", bf16, bf16),
-                                 ("bf16_x_fp32_res", bf16, f32)):
+                                 ("bf16_x_fp32_res", bf16, f32),
+                                 ("fp16", f16, f16),
+                                 ("fp16_x_fp32_res", f16, f32)):
             g, x, r = (torch.randn((N, D), generator=gen, device="cuda")
                        for _ in range(3))
-            args = (g.to(x_dt), x.to(x_dt), r.to(r_dt), b, gam, be, 3)
+            p_dt = x_dt if r_dt == x_dt else f32
+            args = (g.to(x_dt), x.to(x_dt), r.to(r_dt), b.to(p_dt),
+                    gam.to(p_dt), be.to(p_dt), 3)
 
             def bwd():
                 return fl.fused_ln_bwd(*args, p=p, eps=1e-5)
@@ -156,6 +165,44 @@ def _time_epilogue(torch, gen, out):
             del got, ref
             out[f"{key}_ms"] = _time_ms(torch, bwd)
             out[f"{key}_device_ms"] = _device_ms(torch, bwd)
+    _time_unscale(torch, gen, out)
+
+
+def _time_unscale(torch, gen, out):
+    import chip_smoke
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    shapes = [s for _, s in chip_smoke.update_shapes(
+        torch, chip_smoke.GPT_WIDTH, "cuda")]
+    library = torch._amp_foreach_non_finite_check_and_unscale_
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                     ("fp16", torch.float16)):
+        grads = [torch.randn(s, generator=gen, device="cuda").to(dt)
+                 for s in shapes]
+        scale = torch.full((), 4096.0, device="cuda")
+        found = torch.zeros((), dtype=torch.bool, device="cuda")
+        cache = {}
+
+        def kernel():
+            mtu.multi_tensor_unscale(grads, scale, found, cache)
+
+        key = f"unscale_{name}"
+        out[f"{key}_ms"] = _time_ms(torch, kernel)
+        out[f"{key}_graph_ms"] = chip_smoke.graph_ms(torch, kernel, reps=20)
+        inv = torch.full((1,), 1.0 / 4096.0, device="cuda")
+        flag = torch.zeros((1,), device="cuda")
+
+        def lib():
+            library(grads, flag, inv)
+
+        try:
+            lib()
+        except (NotImplementedError, RuntimeError) as e:
+            out[f"{key}_library_error"] = str(e).splitlines()[0]
+        else:
+            out[f"{key}_library_ms"] = _time_ms(torch, lib)
+            out[f"{key}_library_graph_ms"] = chip_smoke.graph_ms(
+                torch, lib, reps=20)
+        del grads
 
 
 def _time_head(torch, gen, out):

@@ -1351,6 +1351,94 @@ def test_unscale_kernel_matches_plain_version(card):
     assert all(r["ok"] for r in rows)
 
 
+def test_unscale_clears_a_set_flag_and_replays_with_its_own_flag(card):
+    # the kernel writes found_inf itself (no fill launch): a flag set
+    # before an eager call reads false after finite gradients, and a
+    # captured call replayed with a planted inf, then without, reads true,
+    # then false; the fold word is zero again after every launch
+    grads = [torch.ones(1000, device="cuda"),
+             torch.ones(70000, device="cuda", dtype=torch.bfloat16),
+             torch.ones(33, device="cuda", dtype=torch.float16)]
+    scale = torch.full((), 2.0, device="cuda")
+    found = torch.ones((), dtype=torch.bool, device="cuda")
+    cache = {}
+    before = mtu.UNSCALE_LAUNCHES
+    mtu.multi_tensor_unscale(grads, scale, found, cache)
+    torch.cuda.synchronize()
+    assert mtu.UNSCALE_LAUNCHES == before + 3 and not bool(found)
+    assert all(bool((g == 0.5).all()) for g in grads)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mtu.multi_tensor_unscale(grads, scale, found, cache)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mtu.multi_tensor_unscale(grads, scale, found, cache)
+    seen = []
+    for plant in (1, None, 0, None, 2):
+        for g in grads:
+            g.fill_(1.0)
+        if plant is not None:
+            grads[plant].view(-1)[-1] = float("inf")
+        graph.replay()
+        torch.cuda.synchronize()
+        seen.append(bool(found))
+    assert seen == [True, False, True, False, True]
+    assert all(int(t.fold.abs().sum()) == 0 for t in cache["tables"])
+
+
+def test_unscale_matches_plain_version_at_ragged_sizes(card):
+    # sizes that end mid-vector and mid-chunk, a NaN in one: bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        grads = [torch.randn(n, generator=gen, device="cuda").to(dtype)
+                 for n in (1, 3, 40000, 2**20 + 5, 70001)]
+        grads[3][12345] = float("nan")
+        plain = [g.clone() for g in grads]
+        found = torch.zeros((), dtype=torch.bool, device="cuda")
+        found_ref = torch.zeros((), dtype=torch.bool, device="cuda")
+        mtu.multi_tensor_unscale(grads, torch.full((), 8.0, device="cuda"),
+                                 found)
+        mtu.multi_tensor_unscale_ref(plain, torch.full((), 8.0,
+                                                       device="cuda"),
+                                     found_ref)
+        torch.cuda.synchronize()
+        assert bool(found) and bool(found_ref)
+        assert all(chip_smoke._same_bits(torch, a, b)
+                   for a, b in zip(grads, plain))
+
+
+@pytest.mark.parametrize("x_dt,r_dt", [(BF16, BF16), (BF16, F32),
+                                       (F16, F16), (F16, F32)])
+def test_16bit_backward_at_the_encoders_shape(card, x_dt, r_dt):
+    # the 16-bit warp path at N 16384, D 768, p 0.1: dx and dres by their
+    # type's grads atol, the column sums by FUSED_LN_BWD_COL_RTOL against
+    # the plain version, dx 0 wherever the forward dropped, and a second
+    # call equal to the first bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    p_dt = x_dt if r_dt == x_dt else F32
+    args = _ln_operands(gen, 16384, 768, x_dt, r_dt, p_dt) + (11,)
+    got = fl.fused_ln_bwd(*args, p=0.1, eps=1e-5)
+    again = fl.fused_ln_bwd(*args, p=0.1, eps=1e-5)
+    want = fl.fused_ln_bwd_ref(*args, p=0.1, eps=1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    low = chip_smoke._dtype_name(x_dt)
+    for a, w in zip(got[:2], want[:2]):
+        assert a.dtype == w.dtype
+        torch.testing.assert_close(
+            a.float(), w.float(), rtol=0,
+            atol=chip_smoke.GRAD_ATOL[chip_smoke._dtype_name(a.dtype)])
+    for a, w in zip(got[2:], want[2:]):
+        assert a.dtype == p_dt
+        assert chip_smoke._rel_l2(a, w) <= \
+            chip_smoke.FUSED_LN_BWD_COL_RTOL[low]
+    dropped = fl.hash_uniform(11, (16384, 768), device="cuda") < \
+        torch.tensor(0.1)
+    assert bool((got[0][dropped] == 0).all())
+
+
 def test_update_skip_flag_moves_nothing(card):
     rows = chip_smoke.check_update_skip(torch, "cuda", list(UPDATE_NAMED))
     assert len(rows) == len(chip_smoke.UPDATE_CHECKS) * len(

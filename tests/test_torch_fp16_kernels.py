@@ -300,3 +300,24 @@ def test_the_unscale_pass_takes_one_type_per_table():
         mtu.grad_tables([torch.ones(4, 4).t()])
     with pytest.raises(ValueError, match="found_inf must be one bool"):
         mtu.multi_tensor_unscale(grads, torch.tensor(2.0), torch.tensor(0))
+
+
+@pytest.mark.parametrize("change", ["address", "size", "type", "none"])
+def test_unscale_tables_follow_each_gradients_address_size_and_type(change):
+    # the cache key holds every gradient's address, size and type: the
+    # tables a launch reads by address are rebuilt when any of them moves
+    grads = [torch.ones(3), torch.ones(8), torch.ones(4, dtype=F16)]
+    cache = {}
+    tables = mtu.grad_tables(grads, cache)
+    if change == "address":
+        grads[1] = torch.ones(8)
+    elif change == "size":
+        grads[1].resize_(6)                  # the same storage, shrunk
+    elif change == "type":
+        grads[1] = grads[1].view(torch.int32)   # the same address and size
+    again = mtu.grad_tables(grads, cache)
+    assert (again is tables) == (change == "none")
+    assert sum(t.n for t in again) == 3
+    if change != "none":
+        assert [(t.dtype, t.n) for t in again] == [
+            (t.dtype, t.n) for t in mtu.grad_tables(grads)]

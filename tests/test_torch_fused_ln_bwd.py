@@ -144,3 +144,29 @@ def test_backward_wrapper_refuses_mismatched_shapes():
         fl.fused_ln_bwd(x, x, torch.rand(4, 7), v, v, v, 0, p=0.0, eps=EPS)
     with pytest.raises(ValueError, match="bias, gamma, beta"):
         fl.fused_ln_bwd(x, x, x, torch.rand(7), v, v, 0, p=0.0, eps=EPS)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN48_GLOBAL__N__a663b1bf_15_fused_ln_bwd_cu_2d28513d11ln_bwd_tileI13"
+     "__nv_bfloat16S1_Li3EEEvNS_4ArgsE", "ln_bwd_tile<bf16,bf16,3>"),
+    ("_ZN48_GLOBAL__N__a663b1bf_15_fused_ln_bwd_cu_b421008711ln_bwd_tileI6"
+     "__halffLi4EEEvNS_4ArgsE", "ln_bwd_tile<fp16,fp32,4>"),
+    ("_ZN48_GLOBAL__N__a663b1bf_15_fused_ln_bwd_cu_5a2f61ab11ln_bwd_warpIf6"
+     "__halfLi4EEEvNS_4ArgsE", "ln_bwd_warp<fp32,fp16,4>"),
+    ("_ZN48_GLOBAL__N__a663b1bf_15_fused_ln_bwd_cu_2d28513d11ln_bwd_foldEPKfi"
+     "iPvS2_S2_i", "ln_bwd_fold"),
+    ("_ZN55_GLOBAL__N__2a3cb492_22_multi_tensor_update_cu_9f45e0b217mt_unscal"
+     "e_kernelIfEEvPKNS_3RecEPKiiiiPKfPhPyi", "mt_unscale_kernel<fp32>"),
+])
+def test_the_build_report_names_each_backward_kernel_by_its_types(mangled,
+                                                                   name):
+    # chip_smoke.py phase 2 prints every kernel's registers and spills
+    # under these names, one per instantiation of the epilogue's backward
+    import chip_smoke
+    report = (f"ptxas info    : Compiling entry function '{mangled}' for "
+              f"'sm_90a'\nptxas info    : Function properties for "
+              f"{mangled}\n    8 bytes stack frame, 12 bytes spill stores, "
+              f"4 bytes spill loads\nptxas info    : Used 128 registers, "
+              f"used 1 barriers\n")
+    assert chip_smoke.ptxas_summary(report) == [dict(
+        kernel=name, registers=128, spill_stores=12, spill_loads=4)]
