@@ -449,6 +449,10 @@ AMP_O2_LAYERS = 2
 # and 8); profile_train.profile over epochs of profile_steps full batches
 FIT = dict(width=GPT_WIDTH, batch=32, seq=512, train=136, eval=40,
            profile_steps=4)
+# and under AMP O1 in fp16 (the default loss scaling), one epoch with the
+# gradients of two batches summed before each update
+FIT_FP16 = {"level": "O1", "dtype": "float16"}
+FIT_ACCUMULATE = 2
 # the fused optimizer update (ops/multi_tensor_update.py), phase 3: every
 # kind of the kernel and its variants, (label, make(optimizer module,
 # regularizer module, parameters)); update_params gives every third tensor
@@ -577,7 +581,7 @@ def ptxas_summary(report: str):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d(ln_bwd_[a-z]+)(?=[IE])|"
+            k = re.search(r"\d((?:ln_bwd|ln_fwd|fused_ln)_[a-z]+)(?=[IE])|"
                           r"([a-z_]*kernel[a-z0-9_]*)", m.group(1))
             args = _template_args(m.group(1)[k.end():]) if k else []
             name = (k.group(1) or k.group(2) if k else m.group(1)) + (
@@ -1087,11 +1091,27 @@ def fused_ln_types(torch):
             (f16, f32), (f32, f16))
 
 
+def fused_ln_route(torch, D, x_dt):
+    """The forward kernel that rows of D values in x's type take, operands
+    16-byte aligned: ``"tile"`` (ln_fwd_tile: 16-bit x, D <= 1024, D % 8
+    == 0), ``"warp"`` (fused_ln_warp, the other rows up to D 1024) or
+    ``"row"`` (fused_ln_row)."""
+    if D > 1024:
+        return "row"
+    return "tile" if x_dt != torch.float32 and D % 8 == 0 else "warp"
+
+
 def check_fused_ln(torch, fl, dev):
     """Row 12: the fused epilogue against its plain version, every D, N,
     pair of x and residual types (the same, and each mixed with the
     other, fault C6), p, the seeds in turn, bias/gamma/beta in x's type
-    or fp32."""
+    or fp32 in turn, and each launch on the kernel its rows take
+    (:func:`fused_ln_route`, read from ``fl.ROUTE_LAUNCHES``).  Where the
+    16-bit tile takes the rows (D <= 1024) the check runs once more with
+    the other parameter type, so that every AMP triple (x, residual,
+    parameters: the 16-bit type beside itself or fp32, parameters in x's
+    type or fp32; O1 hands fp32 parameters) is held at every D, N and
+    p."""
     gen = torch.Generator(device=dev).manual_seed(8)
     results = []
     i = 0
@@ -1100,33 +1120,44 @@ def check_fused_ln(torch, fl, dev):
             for x_dt, r_dt in fused_ln_types(torch):
                 for p in FUSED_LN_PS:
                     seed = FUSED_LN_SEEDS[i % len(FUSED_LN_SEEDS)]
-                    pdt = x_dt if i % 2 else torch.float32
+                    pdts = (x_dt if i % 2 else torch.float32,)
                     i += 1
-                    x, r, b, g, be = _fused_ln_operands(
-                        torch, gen, dev, N, D, x_dt, r_dt, pdt)
-                    out = fl.fused_ln(x, r, b, g, be, seed, p=p, eps=1e-5)
-                    ref = fl.fused_ln_ref(x, r, b, g, be, seed, p=p,
-                                          eps=1e-5)
-                    sync(torch, dev)
-                    err, tol, ok = _fused_ln_err(torch, out, ref)
-                    ok = ok and out.dtype == x_dt and out.shape == x.shape
-                    results.append(dict(
-                        n=N, d=D, dtype=_dtype_name(x_dt),
-                        residual_dtype=_dtype_name(r_dt), p=p, seed=seed,
-                        param_dtype=_dtype_name(pdt), max_abs_err=err,
-                        tolerance=tol, ok=ok))
-                    log(f"  fused_ln N={N:5d} D={D:5d} x "
-                        f"{_dtype_name(x_dt):8s} residual "
-                        f"{_dtype_name(r_dt):8s} p={p:.1f} seed={seed:10d} "
-                        f"params {results[-1]['param_dtype']:8s} "
-                        f"max_abs_err={err:.2e} {tol} "
-                        f"{'ok' if ok else 'FAIL'}")
-                    del x, r, out, ref
+                    route = fused_ln_route(torch, D, x_dt)
+                    if route == "tile":         # the other parameter type
+                        pdts += (torch.float32 if pdts[0] == x_dt
+                                 else x_dt,)
+                    for pdt in pdts:
+                        results.append(_fused_ln_case(
+                            torch, fl, gen, dev, N, D, x_dt, r_dt, pdt, p,
+                            seed, route))
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} fused-epilogue checks disagree "
                              f"with the plain version: {bad}")
     return results
+
+
+def _fused_ln_case(torch, fl, gen, dev, N, D, x_dt, r_dt, pdt, p, seed,
+                   route):
+    x, r, b, g, be = _fused_ln_operands(torch, gen, dev, N, D, x_dt, r_dt,
+                                        pdt)
+    before = fl.ROUTE_LAUNCHES[route]
+    out = fl.fused_ln(x, r, b, g, be, seed, p=p, eps=1e-5)
+    ref = fl.fused_ln_ref(x, r, b, g, be, seed, p=p, eps=1e-5)
+    sync(torch, dev)
+    err, tol, ok = _fused_ln_err(torch, out, ref)
+    routed = fl.ROUTE_LAUNCHES[route] == before + 1
+    ok = ok and out.dtype == x_dt and out.shape == x.shape and routed
+    row = dict(n=N, d=D, dtype=_dtype_name(x_dt),
+               residual_dtype=_dtype_name(r_dt), p=p, seed=seed,
+               param_dtype=_dtype_name(pdt), route=route, routed=routed,
+               max_abs_err=err, tolerance=tol, ok=ok)
+    log(f"  fused_ln N={N:5d} D={D:5d} x {_dtype_name(x_dt):8s} residual "
+        f"{_dtype_name(r_dt):8s} p={p:.1f} seed={seed:10d} params "
+        f"{row['param_dtype']:8s} max_abs_err={err:.2e} {tol} on {route}"
+        f"{'' if routed else ' (NOT LAUNCHED THERE)'} "
+        f"{'ok' if ok else 'FAIL'}")
+    return row
 
 
 def _rel_l2(a, b):
@@ -1222,27 +1253,38 @@ def check_fused_ln_bwd(torch, fl, dev):
 
 
 def check_fused_ln_mask(torch, fl, dev, N=4096, D=768):
-    """Row 12's dropout mask bit for bit: with x = 1, residual = bias =
-    beta = 0 and gamma = 1 an output is positive exactly where the element
-    was kept, which must be where the plain hash is >= p."""
-    one = torch.ones((N, D), device=dev)
-    zero = torch.zeros((N, D), device=dev)
+    """Row 12's dropout mask bit for bit, in each kernel's x type (fp32 on
+    fused_ln_warp, bf16 and fp16 on ln_fwd_tile): with x = 1, residual =
+    bias = beta = 0 and gamma = 1 an output is positive exactly where the
+    element was kept, which must be where the plain hash is >= p."""
     results = []
-    for p in (0.1, 0.5):
-        for seed in FUSED_LN_SEEDS:
-            out = fl.fused_ln(one, zero, zero[0], one[0], zero[0], seed, p=p,
-                              eps=1e-5)
-            keep = fl.hash_uniform(seed, (N, D), device=dev) >= \
-                torch.tensor(p, dtype=torch.float32)
-            signed = bool((out != 0).all().item())
-            same = bool(torch.equal(out > 0, keep))
-            kept = keep.float().mean().item()
-            results.append(dict(n=N, d=D, p=p, seed=seed, kept_share=kept,
-                                every_sign_defined=signed, equal=same,
-                                ok=same and signed))
-            log(f"  fused_ln mask N={N} D={D} p={p:.1f} seed={seed:10d}: "
-                f"kept {kept:.4f}, signs equal to the hash's keep bits: "
-                f"{same} {'ok' if same and signed else 'FAIL'}")
+    for x_dt in (torch.float32, torch.bfloat16, torch.float16):
+        one = torch.ones((N, D), device=dev, dtype=x_dt)
+        zero = torch.zeros((N, D), device=dev, dtype=x_dt)
+        vec_one = torch.ones(D, device=dev)
+        vec_zero = torch.zeros(D, device=dev)
+        route = fused_ln_route(torch, D, x_dt)
+        for p in (0.1, 0.5):
+            for seed in FUSED_LN_SEEDS:
+                before = fl.ROUTE_LAUNCHES[route]
+                out = fl.fused_ln(one, zero, vec_zero, vec_one, vec_zero,
+                                  seed, p=p, eps=1e-5)
+                keep = fl.hash_uniform(seed, (N, D), device=dev) >= \
+                    torch.tensor(p, dtype=torch.float32)
+                signed = bool((out != 0).all().item())
+                same = bool(torch.equal(out > 0, keep))
+                routed = fl.ROUTE_LAUNCHES[route] == before + 1
+                kept = keep.float().mean().item()
+                ok = same and signed and routed
+                results.append(dict(n=N, d=D, dtype=_dtype_name(x_dt), p=p,
+                                    seed=seed, route=route, routed=routed,
+                                    kept_share=kept,
+                                    every_sign_defined=signed, equal=same,
+                                    ok=ok))
+                log(f"  fused_ln mask N={N} D={D} x {_dtype_name(x_dt):8s} "
+                    f"p={p:.1f} seed={seed:10d} on {route}: kept "
+                    f"{kept:.4f}, signs equal to the hash's keep bits: "
+                    f"{same} {'ok' if ok else 'FAIL'}")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"the kernel's dropout mask differs from the "
@@ -2434,7 +2476,10 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768, types=None):
     b, g, be = (torch.randn(D, generator=gen, device=dev).to(p_dt)
                 for _ in range(3))
     with torch.no_grad():
+        before = dict(fl.ROUTE_LAUNCHES)
         out = fl.fused_ln(x, r, b, g, be, 3, p=p, eps=1e-5)
+        route = next(k for k, v in fl.ROUTE_LAUNCHES.items()
+                     if v != before[k])
         ref = fl.fused_ln_ref(x, r, b, g, be, 3, p=p, eps=1e-5)
         err, tol, ok = _fused_ln_err(torch, out, ref)
         del out, ref
@@ -2462,11 +2507,11 @@ def timing_fused_ln(torch, fl, p, dev="cuda", N=16384, D=768, types=None):
                library="none (no PyTorch call computes LayerNorm(residual "
                        "+ dropout(x + bias)))", layer_norm_ms=lib,
                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
-               atol=FUSED_LN_ATOL, tolerance=tol,
+               atol=FUSED_LN_ATOL, tolerance=tol, route=route,
                shape=f"N {N}, D {D}, {names} (x/residual/params), p {p}"
                if types else f"N {N}, D {D}, fp32, p {p}")
     row["ok"] = ok
-    log(f"  fused_ln ({row['shape']}): kernel {ms:.4f} ms events, "
+    log(f"  fused_ln ({row['shape']}) on {route}: kernel {ms:.4f} ms events, "
         f"{dev_ms:.4f} ms device ({row['share_of_bound']:.1%} of the bound) "
         f"(p 0: {ms_p0:.4f} events, {dev_ms_p0:.4f} device, "
         f"{row['share_of_bound_p0']:.1%}), plain {plain:.4f} ms, "
@@ -2629,7 +2674,8 @@ def timing_fp16(torch, fa, fl, p, dev="cuda"):
     and 6 also in device time; the epilogue and its backward in fp16 (x,
     residual and parameters) and fp16 x beside an fp32 residual and
     parameters, and in bf16 (x, residual and parameters), p ``p``; the
-    unscale pass."""
+    epilogue's forward also in O1's triples (fp16 or bf16 x and residual,
+    fp32 parameters); the unscale pass."""
     f16, f32, b16 = torch.float16, torch.float32, torch.bfloat16
     return dict(
         split=timing_split_kernels(torch, fa, dev, dtype=f16),
@@ -2644,6 +2690,10 @@ def timing_fp16(torch, fa, fl, p, dev="cuda"):
                                                types=(f16, f32, f32)),
         fused_ln_bf16=timing_fused_ln(torch, fl, p, dev,
                                       types=(b16, b16, b16)),
+        fused_ln_o1=timing_fused_ln(torch, fl, p, dev,
+                                    types=(f16, f16, f32)),
+        fused_ln_bf16_o1=timing_fused_ln(torch, fl, p, dev,
+                                         types=(b16, b16, f32)),
         fused_ln_bwd_bf16=timing_fused_ln_bwd(torch, fl, p, dev,
                                               types=(b16, b16, b16)),
         unscale=timing_unscale(torch, dev))
@@ -3514,11 +3564,24 @@ def _plain_encoder_kernels(fa, fl):
 def _reset_encoder(fa, fl):
     _reset_attention(fa)
     fl.LAUNCHES = fl.BWD_LAUNCHES = 0
+    for k in fl.ROUTE_LAUNCHES:
+        fl.ROUTE_LAUNCHES[k] = 0
 
 
 def _encoder_launches(fa, fl):
+    """The encoder path's launches: attention, the epilogue's forward
+    (``fused_ln_tile`` of them on ln_fwd_tile) and backward."""
     return dict(_attention_launches(fa), fused_ln=fl.LAUNCHES,
+                fused_ln_tile=fl.ROUTE_LAUNCHES["tile"],
                 fused_ln_bwd=fl.BWD_LAUNCHES)
+
+
+def _epilogue_want(L, amp, backward=True):
+    """2L epilogue launches each way (none backward in scoring); under AMP
+    (16-bit x) every forward on ln_fwd_tile, in fp32 none."""
+    return dict(fused_ln=2 * L,
+                fused_ln_tile=2 * L if _amp_dtype(amp) else 0,
+                fused_ln_bwd=2 * L if backward else 0)
 
 
 def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
@@ -3543,7 +3606,7 @@ def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
     err = float(np.abs(logits - plain).max())
     finite = bool(np.isfinite(logits).all())
     want = dict(fwd=L, bwd=0, sm90_fwd=0, sm90_bwd=0, modes={"fwd small": L},
-                fused_ln=2 * L, fused_ln_bwd=0)
+                **_epilogue_want(L, None, backward=False))
     log(f"  predict_batch logits {logits.shape} finite={finite} "
         f"max_abs_err_vs_plain={err:.3e} (atol {SCORING_ATOL:.0e}) "
         f"launches {launches} (expected {want}); {ms:.3f} ms with the "
@@ -3572,8 +3635,7 @@ def encoder_train(torch, fa, fl, net, cfg, dev="cuda", batch=ENCODER_BATCH,
     mode = fa._pallas_mode(T, T, False)
     rows = dict(fwd=fa.reference_rows("fwd", mode, T),
                 bwd=fa.reference_rows("bwd", mode, T))
-    want = dict(_attention_want(L, mode, mode, amp), fused_ln=2 * L,
-                fused_ln_bwd=2 * L)
+    want = dict(_attention_want(L, mode, mode, amp), **_epilogue_want(L, amp))
     out = model_train(
         torch, net, ids, labels,
         ("layers.0.fused_attn.qkv_weight", "layers.0.ffn.ln2_scale",
@@ -3620,8 +3682,8 @@ def _fit_watch(torch, reset, launches, strict_epoch=None):
             b = torch.cuda.Event(enable_timing=True)
             b.record()
             self.steps.append(dict(
-                epoch=self.epoch, size=logs["batch_size"], loss=logs["loss"],
-                events=(self._a, b), launches=launches(),
+                epoch=self.epoch, step=step, size=logs["batch_size"],
+                loss=logs["loss"], events=(self._a, b), launches=launches(),
                 captured=self.model._steps.compiles != self._made))
 
         def on_epoch_end(self, epoch, logs=None):
@@ -3647,7 +3709,7 @@ FIT_VARIANTS = ("prefetch0", "uncaptured", "nometric", "nometric_prefetch0")
 
 
 def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
-             variants=FIT_VARIANTS, profile=True):
+             variants=FIT_VARIANTS, profile=True, accumulate=1):
     """``Model.fit`` on ``net`` as BERT-style fine-tuning runs it
     (``profile_train.fit_recipe``: AdamW under a warmup and a linear
     decay, weight decay 0.01, global-norm clip 1.0, ``Accuracy``), on
@@ -3660,7 +3722,13 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
     equals a hand loop of captured ``train_batch`` over the same batches,
     bit for bit in losses and parameters; the last epoch captures
     nothing; every replayed step launches ``want``; ``evaluate`` equals
-    an ``eval_batch`` loop.  Each of ``variants`` must equal it bit for
+    an ``eval_batch`` loop.  With ``accumulate`` > 1 ``fit`` runs
+    ``accumulate_grad_batches``: every step eager, the optimizer stepping
+    on each ``accumulate``-th batch of an epoch; the hand loop then calls
+    ``train_batch(update=False)`` and an updating ``train_batch`` of an
+    uncaptured model (``jit=False``) in the same turns, and a step that
+    does not update must launch ``want`` without the update's passes.
+    Each of ``variants`` must equal it bit for
     bit too: ``prefetch0`` (``prefetch_to_device=0``), ``uncaptured``
     (``jit=False``), ``nometric`` (no metric, no ``eval_data``, its last
     epoch under ``torch.cuda.set_sync_debug_mode("error")``: no
@@ -3683,12 +3751,23 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
     state0 = {k: v.clone() for k, v in net.state_dict().items()}
     last = epochs - 1
 
+    def updates(step):
+        # fit's boundary: the optimizer steps on every accumulate-th batch
+        return (step + 1) % accumulate == 0
+
+    def want_at(step):
+        return want if updates(step) else dict(
+            want, update={}, update_norms=0, update_pows=0,
+            update_unscale=0)
+
     def release():
         gc.collect()
         torch.cuda.empty_cache()
 
     def fresh(jit=True, metric=True):
         net.load_state_dict(state0)
+        for p in net.parameters():   # an accumulating run leaves its last
+            p.grad = None            # batches' gradients unstepped
         paddle_tpu_torch.seed(0)
         np.random.seed(0)
         return pt.fit_recipe(net, amp=amp, jit=jit, metric=metric)
@@ -3707,12 +3786,17 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
             model.fit(TensorDataset(train), eval_data=None if strict else
                       TensorDataset(evald), batch_size=B, epochs=epochs,
                       shuffle=True, verbose=0, prefetch_to_device=prefetch,
-                      callbacks=[watch])
+                      callbacks=[watch], accumulate_grad_batches=accumulate)
         finally:
             torch.cuda.set_sync_debug_mode(0)
             watch.set_model(None)
         torch.cuda.synchronize()
         ms, part_ms = _step_ms(watch.steps, last, B)
+        by_kind = {} if accumulate == 1 else {
+            f"step_ms_p50_{kind}": _step_ms(
+                [s for s in watch.steps if updates(s["step"]) == upd], last,
+                B)[0] for kind, upd in (("updating", True),
+                                        ("accumulating", False))}
         run = dict(label=label, losses=torch.stack([s["loss"]
                                                     for s in watch.steps]),
                    state=state(), watch=watch, step_ms_p50=ms,
@@ -3721,9 +3805,12 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
                    peak_reserved_bytes=torch.cuda.max_memory_reserved(),
                    compiles=watch.compiles + [model._steps.compiles],
                    pools={f"{k[0]} B {k[1][0][0][0]}": e.pool_bytes
-                          for k, e in model._steps.entries().items()})
+                          for k, e in model._steps.entries().items()},
+                   **by_kind)
         log(f"  fit {label}: step ms p50 {ms:.3f} (last epoch, {B} rows; "
-            f"partial step {part_ms} ms), epoch wall ms "
+            f"partial step {part_ms} ms{'' if not by_kind else '; '}"
+            f"{', '.join(f'{k} {v:.3f}' for k, v in by_kind.items())}), "
+            f"epoch wall ms "
             f"{[round(w, 3) for w in watch.wall_ms]}, compiles at each "
             f"epoch's start and the end {run['compiles']}, peak memory "
             f"{run['peak_memory_bytes'] / 2**30:.3f} GiB allocated, "
@@ -3738,7 +3825,8 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
         return bool(torch.equal(a["losses"], b["losses"])) and all(
             torch.equal(v, b["state"][k]) for k, v in a["state"].items())
 
-    out = dict(config=dict(cfg, epochs=epochs, amp=amp))
+    out = dict(config=dict(cfg, epochs=epochs, amp=amp,
+                           accumulate_grad_batches=accumulate))
     main, model = fit("prefetch 2, metric", keep=True)
     # evaluate against an eval_batch loop on the same model
     got = model.evaluate(TensorDataset(evald), batch_size=B, verbose=0)
@@ -3751,19 +3839,22 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
     if got != loop:
         raise AssertionError("evaluate differs from an eval_batch loop")
     del model
-    # the hand loop: captured train_batch over fit's batch order
+    # the hand loop: captured train_batch over fit's batch order (with
+    # accumulation uncaptured, update=False between the updating steps)
     release()
-    model = fresh(metric=False)
+    model = fresh(jit=accumulate == 1, metric=False)
     sched = model._optimizer._lr_scheduler
     hand_losses, hand_ms = [], []
     ds = TensorDataset(train)
     for epoch in range(epochs):
-        for idx in BatchSampler(ds, shuffle=True, batch_size=B):
+        for step, idx in enumerate(BatchSampler(ds, shuffle=True,
+                                                batch_size=B)):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             hand_losses.append(model.train_batch(
-                [train[0][idx]], [train[1][idx]])["loss"])
+                [train[0][idx]], [train[1][idx]],
+                update=updates(step))["loss"])
             b.record()
             b.synchronize()
             if epoch == last and len(idx) == B:
@@ -3773,7 +3864,7 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
     del model
     watch = main["watch"]
     steps_last = [s for s in watch.steps if s["epoch"] == last]
-    replayed = [s["launches"] for s in watch.steps if not s["captured"]]
+    replayed = [s for s in watch.steps if not s["captured"]]
     checks = dict(
         equals_hand_loop=equal(main, hand),
         last_epoch_captures_nothing=(
@@ -3782,20 +3873,28 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
         last_epoch_steps_all_replays=(not any(
             s["captured"] for s in steps_last) if epochs > 1 else None),
         replayed_launches_as_expected=bool(replayed) and all(
-            c == want for c in replayed),
+            s["launches"] == want_at(s["step"]) for s in replayed),
         evaluate_equals_eval_batch_loop=True)
+    updating = [s["launches"] for s in replayed if updates(s["step"])]
+    micro = [s["launches"] for s in replayed if not updates(s["step"])]
     hand_p50 = pct(hand_ms, 50)
-    log(f"  fit = hand loop of captured train_batch, bit for bit: "
+    how = "captured " if accumulate == 1 else ""
+    log(f"  fit = hand loop of {how}train_batch, bit for bit: "
         f"{checks['equals_hand_loop']}; hand loop step ms p50 "
         f"{hand_p50:.3f} (synchronised per step); last epoch all replays: "
-        f"{checks['last_epoch_steps_all_replays']}; {len(replayed)} "
-        f"replayed steps launched {replayed[0] if replayed else None} each "
-        f"(expected {want})")
+        f"{checks['last_epoch_steps_all_replays']}; {len(updating)} "
+        f"{'replayed' if accumulate == 1 else 'updating'} steps launched "
+        f"{updating[0] if updating else None} each (expected {want})"
+        + (f", {len(micro)} accumulating steps "
+           f"{micro[0] if micro else None} (expected {want_at(0)})"
+           if accumulate > 1 else ""))
     out.update(main={k: v for k, v in main.items()
                      if k not in ("losses", "state", "watch")},
                losses=main["losses"].tolist(), hand_step_ms_p50=hand_p50,
-               launches_per_step=replayed[0] if replayed else None,
+               launches_per_step=updating[0] if updating else None,
                evaluate=got)
+    if accumulate > 1:
+        out["launches_per_accumulating_step"] = micro[0] if micro else None
     labels = dict(prefetch0=("prefetch 0, metric", dict(prefetch=0)),
                   uncaptured=("jit=False, metric", dict(jit=False)),
                   nometric=("prefetch 2, no metric, last epoch under "
@@ -3817,7 +3916,8 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
         release()
         net.load_state_dict(state0)
         prof = pt.profile(*pt._fit_path(net, amp, True, cfg["profile_steps"],
-                                        2, False, batch=B, seq=T),
+                                        2, False, batch=B, seq=T,
+                                        accumulate=accumulate),
                           steps=cfg["profile_steps"])
         out["profile"] = {k: prof[k] for k in (
             "wall_ms_p50", "device_ms_per_step", "idle_share",
@@ -3856,7 +3956,14 @@ def metric_ms(torch, B, T, V, dev="cuda"):
     return out
 
 
-def fit_gpt(torch, fa, dev, cfg, amp=None):
+def _fit_update(amp):
+    """fit_recipe's update launches in an updating step: FIT_UPDATE, and
+    under fp16 loss scaling one unscale pass (the fp32 gradients)."""
+    return dict(FIT_UPDATE, update_unscale=int(_amp_dtype(amp) == "float16"))
+
+
+def fit_gpt(torch, fa, dev, cfg, amp=None, accumulate=1, epochs=2,
+            variants=FIT_VARIANTS):
     """:func:`fit_path` on the eager GPT of ``cfg["width"]`` (seed 0): L
     forward and L backward attention launches a replayed step; in fp32
     also :func:`metric_ms` at the step's shape."""
@@ -3868,8 +3975,10 @@ def fit_gpt(torch, fa, dev, cfg, amp=None):
     out = fit_path(torch, net, cfg,
                    lambda: (_reset_attention(fa), _reset_update()),
                    lambda: dict(_attention_launches(fa), **_update_launches()),
-                   dict(_attention_want(L, mode, mode, amp), **FIT_UPDATE),
-                   amp=amp)
+                   dict(_attention_want(L, mode, mode, amp),
+                        **_fit_update(amp)),
+                   amp=amp, epochs=epochs, variants=variants,
+                   accumulate=accumulate)
     del net
     if amp is None:
         out["metric_ms"] = metric_ms(torch, cfg["batch"], T, w["vocab_size"],
@@ -3877,23 +3986,31 @@ def fit_gpt(torch, fa, dev, cfg, amp=None):
     return out
 
 
-def fit_encoder(torch, fa, fl, dev, cfg, encoder_cfg, amp="O1"):
+def fit_encoder(torch, fa, fl, dev, cfg, encoder_cfg, amp="O1",
+                accumulate=1, profile=False):
     """:func:`fit_path` on the fused encoder for one epoch: 2L epilogue
-    launches each way and L + L non-causal attention launches a replayed
-    step."""
+    launches each way (the forward's on ln_fwd_tile) and L + L non-causal
+    attention launches a replayed step; the (x, residual, parameters)
+    types of the epilogue's launches (:func:`_epilogue_types`)."""
     from paddle_tpu_torch.tools.profile_train import build_encoder
     L, T = encoder_cfg["num_layers"], encoder_cfg["max_len"]
     net = build_encoder(encoder_cfg, dev)
     mode = fa._pallas_mode(T, T, False)
-    want = dict(_attention_want(L, mode, mode, amp), fused_ln=2 * L,
-                fused_ln_bwd=2 * L, **FIT_UPDATE)
-    out = fit_path(torch, net, dict(cfg, seq=T),
-                   lambda: (_reset_encoder(fa, fl), _reset_update()),
-                   lambda: dict(_encoder_launches(fa, fl),
-                                **_update_launches()), want, amp=amp,
-                   epochs=1, variants=("uncaptured",), profile=False)
+    want = dict(_attention_want(L, mode, mode, amp), **_epilogue_want(L, amp),
+                **_fit_update(amp))
+    done = {}
+
+    def run():
+        done["out"] = fit_path(
+            torch, net, dict(cfg, seq=T),
+            lambda: (_reset_encoder(fa, fl), _reset_update()),
+            lambda: dict(_encoder_launches(fa, fl), **_update_launches()),
+            want, amp=amp, epochs=1, profile=profile, accumulate=accumulate,
+            variants=("uncaptured",) if accumulate == 1 else ())
+    types = _epilogue_types(torch, fl, run)
+    log(f"  the epilogue's (x, residual, parameters) types: {types}")
     del net
-    return out
+    return dict(done["out"], epilogue_types=types)
 
 
 def _o2_gpt(cfg):
@@ -4561,6 +4678,17 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 12: the fused encoder under AMP O1, one epoch")
     fit_enc = fit_encoder(torch, fa, fl, dev, fit_cfg, encoder_cfg)
     torch.cuda.empty_cache()
+    log(f"== phase 12: the GPT under AMP O1 in fp16, accumulate_grad_batches "
+        f"{FIT_ACCUMULATE}, one epoch")
+    fit_fp16 = fit_gpt(torch, fa, dev, fit_cfg, amp=dict(FIT_FP16),
+                       accumulate=FIT_ACCUMULATE, epochs=1, variants=())
+    torch.cuda.empty_cache()
+    log(f"== phase 12: the fused encoder under AMP O1 in fp16, "
+        f"accumulate_grad_batches {FIT_ACCUMULATE}, one epoch")
+    fit_enc_fp16 = fit_encoder(torch, fa, fl, dev, fit_cfg, encoder_cfg,
+                               amp=dict(FIT_FP16), accumulate=FIT_ACCUMULATE,
+                               profile=True)
+    torch.cuda.empty_cache()
     opts = optimizers_path(torch, fa, dev, eager_cfg, optimizer_cfgs)
     lamb = lamb_o2(torch, fa, fl, dev, encoder_cfg, encoder_batch)
     torch.cuda.empty_cache()
@@ -4793,6 +4921,11 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                         "fused_ln"],
                     launches_lamb_o2_replay=dec["replay_launches"][
                         "fused_ln"],
+                    tile_kernel="ln_fwd_tile (16-bit x)",
+                    launches_tile_amp_o1=enc_o1["launches"]["fused_ln_tile"],
+                    launches_tile_lamb_o2_replay=dec["replay_launches"][
+                        "fused_ln_tile"],
+                    bf16_o1=timing_fields(fp16_times["fused_ln_bf16_o1"]),
                     mixed_type_checks=sum(r["dtype"] != r["residual_dtype"]
                                           for r in ln_checks),
                     mask_checks_equal=sum(r["equal"] for r in mask_checks),
@@ -5017,7 +5150,16 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                       fp16_times["fused_ln"], fp16_times["fused_ln_mixed"],
                       ln_checks, layer_norm_ms=fp16_times["fused_ln"][
                           "layer_norm_ms"],
-                      epilogue_types=e16["epilogue_types"]),
+                      epilogue_types=e16["epilogue_types"],
+                      tile_kernel="ln_fwd_tile",
+                      launches_tile=e16["replay_launches"]["fused_ln_tile"],
+                      o1=timing_fields(fp16_times["fused_ln_o1"]),
+                      launches_fit_step_fp16=fit_enc_fp16[
+                          "launches_per_step"]["fused_ln"],
+                      launches_tile_fit_step_fp16=fit_enc_fp16[
+                          "launches_per_step"]["fused_ln_tile"],
+                      fit_fp16_epilogue_types=fit_enc_fp16[
+                          "epilogue_types"]),
         fp16_epilogue("fused_ln_bwd_fp16", "fused_ln_bwd.cu",
                       "paddle_tpu/ops/fused_ops.py:62", "fused_ln_bwd",
                       fp16_times["fused_ln_bwd"],
@@ -5042,6 +5184,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              checks=len(unscale_checks), skip_checks=len(skip_checks),
              launches_replay={k: fp16[k]["replay_update_launches"]
                               for k in ("gpt", "encoder", "o2")},
+             launches_fit_step_fp16={
+                 k: r["launches_per_step"]["update_unscale"]
+                 for k, r in (("gpt", fit_fp16),
+                              ("encoder", fit_enc_fp16))},
              overflow_steps=[dict(found_inf=r["found_inf"],
                                   scale=r["scale"], moved=r["moved"])
                              for r in fp16["overflow"]["steps"]])]
@@ -5062,6 +5208,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   encoder_amp_o2=enc_o2, fused_ln_bwd_checks=ln_bwd_checks,
                   fused_ln_bwd_timing=ln_bwd_time, fit=fit_fp32,
                   fit_amp_o1=fit_o1, fit_encoder_amp_o1=fit_enc,
+                  fit_fp16=fit_fp16, fit_encoder_fp16=fit_enc_fp16,
                   optimizers=opts, lamb_o2=lamb, update_checks=update_checks,
                   update_timing=update_times, unscale_checks=unscale_checks,
                   update_skip_checks=skip_checks, fp16_timing=fp16_times,

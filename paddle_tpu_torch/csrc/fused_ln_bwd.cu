@@ -43,7 +43,9 @@
 // blocks that fit on the card at once (occupancy API), one wave.
 //
 // - 16-bit x (ln_bwd_tile; D <= 1024, D % 8 == 0, operands 16-byte
-//   aligned): a lane holds the same 8-column chunks in every row, so its
+//   aligned), on the row tile of fused_ln_common.cuh that the forward's
+//   ln_fwd_tile runs too (its ring, parameter staging and row prologue):
+//   a lane holds the same 8-column chunks in every row, so its
 //   column sums stay in registers (3 x 8 floats a chunk).  Each warp's
 //   next rows move into its ring in shared memory on cp.async while it
 //   computes the current one (three rows beside a 16-bit residual, two
@@ -207,27 +209,11 @@ __global__ void __launch_bounds__(THREADS) ln_bwd_warp(Args args) {
 }
 
 // ---------------------------------------------------------------------------
-// The 16-bit warp path: x bf16 or fp16 (the residual in x's type or fp32),
-// D <= 1024, D % 8 == 0, every row operand 16-byte aligned
+// The 16-bit warp path: the row tile of fused_ln_common.cuh (x bf16 or
+// fp16, the residual in x's type or fp32, D <= 1024, D % 8 == 0, every
+// row operand 16-byte aligned); a lane's share of the column sums stays
+// in registers, 3 x NC x 8 floats.
 // ---------------------------------------------------------------------------
-// A lane holds chunks c < NC of TILE_VEC columns, starting at (32c + lane)
-// * TILE_VEC, the same columns in every row its warp takes: its share of
-// the column sums stays in registers, 3 x NC x 8 floats.
-constexpr int TILE_VEC = 8;
-constexpr int TILE_COLS = 32 * TILE_VEC;  // the columns of one chunk index
-
-// 16-byte pieces of 8 values of T: 1 for a 16-bit type, 2 for fp32
-template <typename T>
-__host__ __device__ constexpr int pieces() {
-  return (int)sizeof(T) / 2;
-}
-
-// 16-byte slots of one row of the ring: x, residual, g pieces of NC chunks
-template <typename TX, typename TR>
-__host__ __device__ constexpr int stage_slots(int nc) {
-  return nc * 32 * (2 * pieces<TX>() + pieces<TR>());
-}
-
 // Warps of a block, a row each: 16 (one block an SM, 128 registers a
 // thread) while NC < 4; at NC 4 the sums take more, 8.
 template <int NC>
@@ -243,85 +229,28 @@ __host__ __device__ constexpr int tile_stages() {
   return sizeof(TR) == 2 ? 3 : 2;
 }
 
-// Dynamic shared memory of ln_bwd_tile: every warp's ring, then bias and
-// gamma in fp32 (NC x 256 each)
+// Dynamic shared memory of ln_bwd_tile: every warp's ring (x, residual
+// and g), then bias and gamma in fp32 (NC x 256 each)
 template <typename TX, typename TR, int NC>
 __host__ __device__ constexpr size_t tile_smem() {
   return (size_t)tile_warps<NC>() * tile_stages<TR>() *
-             stage_slots<TX, TR>(NC) * 16 +
+             ring_slots<TX, TR, 2>(NC) * 16 +
          2 * (size_t)NC * TILE_COLS * sizeof(float);
 }
 
-// Piece h of chunk c of the lane's values of one operand sits at slot
-// (c * P + h) * 32 + lane of the operand's part of a stage (and of the
-// fp32 bias and gamma, P = 2): 32 lanes read 32 consecutive 16-byte slots.
-template <typename T>
-__device__ __forceinline__ void copy8(uint4* part, int c, int lane,
-                                      const T* src) {
-#pragma unroll
-  for (int h = 0; h < pieces<T>(); ++h)
-    tile::cp_async16(part + (c * pieces<T>() + h) * 32 + lane,
-                     reinterpret_cast<const uint4*>(src) + h, true);
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack8(const uint4* part, int c, int lane,
-                                        float (&v)[TILE_VEC]) {
-  constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-  for (int h = 0; h < pieces<T>(); ++h) {
-    const uint4 raw = part[(c * pieces<T>() + h) * 32 + lane];
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) v[h * PER + i] = to_f32(e[i]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* dst, const float (&v)[TILE_VEC]) {
-  constexpr int PER = 16 / sizeof(T);
-#pragma unroll
-  for (int h = 0; h < pieces<T>(); ++h) {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) e[i] = from_f32<T>(v[h * PER + i]);
-    reinterpret_cast<uint4*>(dst)[h] = raw;
-  }
-}
-
-// The sums of a and b over the warp, their shuffles interleaved.
-__device__ __forceinline__ void warp_sum2(float& a, float& b) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-}
-
-// Dropout keeps an element when hash_uniform(seed, idx) >= p, that is
-// when (h >> 8) * 2^-24 >= p for the hash's 32 bits h: both sides exact,
-// so when (h >> 8) >= ceil(p * 2^24) (at most 2^24: none kept).
-__device__ __forceinline__ uint32_t keep_floor(float p) {
-  return (uint32_t)fminf(ceilf(p * 16777216.0f), 16777216.0f);
-}
-
-// One warp per row, each lane NC chunks of 8 columns.  A warp's next rows
-// move into its ring on cp.async while it computes the current one; each
-// lane copies and reads back only its own 16-byte pieces, so no barrier
-// orders the ring.  Bias and gamma wait in shared memory in fp32, read
-// once from device memory per block.  At the end the block's warps add
-// their registers' column sums in warp order, one gradient at a time
-// through shared memory, into the block's row of the scratch.
+// One warp per row, each lane NC chunks of 8 columns, the rows through
+// the warp's ring; bias and gamma wait in shared memory in
+// fp32, read once from device memory per block.  At the end the block's
+// warps add their registers' column sums in warp order, one gradient at a
+// time through shared memory, into the block's row of the scratch.
 template <typename TX, typename TR, int NC>
 __global__ void __launch_bounds__(tile_warps<NC>() * 32, 1)
     ln_bwd_tile(Args args) {
   constexpr int W = tile_warps<NC>();
   constexpr int ST = tile_stages<TR>();
-  constexpr int SLOTS = stage_slots<TX, TR>(NC);
+  constexpr int SLOTS = ring_slots<TX, TR, 2>(NC);
   static_assert(tile_smem<TX, TR, NC>() <= 232448, "one block an SM");
-  constexpr int XS = 0;                         // x's part of a stage
-  constexpr int RS = NC * 32 * pieces<TX>();    // the residual's
+  constexpr int RS = NC * 32 * pieces<TX>();       // the residual's part
   constexpr int GS = RS + NC * 32 * pieces<TR>();  // g's
   extern __shared__ uint4 smem[];
   const Inputs a = with_seed(args.in);
@@ -331,47 +260,18 @@ __global__ void __launch_bounds__(tile_warps<NC>() * 32, 1)
   const int first = blockIdx.x * args.rows_per_block;
   const int last = min(a.N, first + args.rows_per_block);
   uint4* ring = smem + warp * ST * SLOTS;
-  const TX* xg = static_cast<const TX*>(a.x);
-  const TR* rg = static_cast<const TR*>(a.res);
-  const TX* gg_in = static_cast<const TX*>(args.g);
   auto fetch = [&](int row, int s) {
-    uint4* st = ring + s * SLOTS;
-    const size_t base = (size_t)row * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col0 = (c * 32 + lane) * TILE_VEC;
-      if (col0 < D) {
-        copy8<TX>(st + XS, c, lane, xg + base + col0);
-        copy8<TR>(st + RS, c, lane, rg + base + col0);
-        copy8<TX>(st + GS, c, lane, gg_in + base + col0);
-      }
-    }
+    copy_row<TX, TR, NC, 2>(ring + s * SLOTS, lane, D, (size_t)row * D, a.x,
+                            a.res, args.g);
   };
   // the warp's first ST - 1 rows in flight before anything waits
-  int row = first + warp;
-#pragma unroll
-  for (int k = 0; k < ST - 1; ++k) {
-    if (row + k * W < last) fetch(row + k * W, k);
-    tile::cp_async_commit();
-  }
+  ring_prefetch<ST>(first + warp, last, W, fetch);
 
-  float4* params = reinterpret_cast<float4*>(smem + W * ST * SLOTS);
-  {
-    // bias and gamma in the lanes' layout: column (32c + l) * 8 + v at
-    // float (((2c + v / 4) * 32 + l) * 4 + v % 4), zero past D
-    float* ps = reinterpret_cast<float*>(params);
-    const int bc = param_code(a.param_types, 0);
-    const int gc = param_code(a.param_types, 1);
-    for (int col = threadIdx.x; col < NC * TILE_COLS; col += W * 32) {
-      const int k = col / TILE_VEC, v = col % TILE_VEC;
-      const int at = ((2 * (k / 32) + v / 4) * 32 + k % 32) * 4 + v % 4;
-      ps[at] = col < D ? param(a.bias, col, bc) : 0.f;
-      ps[NC * TILE_COLS + at] = col < D ? param(a.gamma, col, gc) : 0.f;
-    }
-  }
+  float* ps = reinterpret_cast<float*>(smem + W * ST * SLOTS);
+  stage_params<NC, 2>(ps, a, threadIdx.x, W * 32);
   __syncthreads();
-  const float4* bias_s = params;
-  const float4* gamma_s = params + 2 * NC * 32;
+  const float4* bias_s = reinterpret_cast<const float4*>(ps);
+  const float4* gamma_s = bias_s + 2 * NC * 32;
 
   const uint32_t floor_keep = keep_floor(a.p);
   const float inv_q = 1.0f / a.q;
@@ -382,76 +282,24 @@ __global__ void __launch_bounds__(tile_warps<NC>() * 32, 1)
     for (int v = 0; v < TILE_VEC; ++v)
       s_bias[c][v] = s_gamma[c][v] = s_beta[c][v] = 0.f;
 
-  for (int s = 0; row < last; row += W, s = s + 1 == ST ? 0 : s + 1) {
-    // the row ST - 1 ahead into the stage the previous row left
-    const int ahead = row + (ST - 1) * W;
-    if (ahead < last) fetch(ahead, s == 0 ? ST - 1 : s - 1);
-    tile::cp_async_commit();
-    tile::cp_async_wait<ST - 1>();  // this lane's pieces of `row` landed
+  for (int row = first + warp, s = 0; row < last;
+       row += W, s = ring_next<ST>(s)) {
+    ring_advance<ST>(row, s, last, W, fetch);
     const uint4* st = ring + s * SLOTS;
-    const uint32_t idx0 = (uint32_t)row * (uint32_t)D;
-
-    // z = residual + dropout(x + bias), the keep bits, the row's mean
+    // z = residual + dropout(x + bias) centred, the keep bits, rstd
     float z[NC][TILE_VEC];
-    uint32_t keep_bits = 0;
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col0 = (c * 32 + lane) * TILE_VEC;
-      if (col0 < D) {
-        float xv[TILE_VEC], rv[TILE_VEC];
-        unpack8<TX>(st + XS, c, lane, xv);
-        unpack8<TR>(st + RS, c, lane, rv);
-        const float4 b0 = bias_s[(2 * c) * 32 + lane];
-        const float4 b1 = bias_s[(2 * c + 1) * 32 + lane];
-        const float bv[TILE_VEC] = {b0.x, b0.y, b0.z, b0.w,
-                                    b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int v = 0; v < TILE_VEC; ++v) {
-          float h = xv[v] + bv[v];
-          if (a.dropout) {
-            const bool keep =
-                (hash_bits(a.seed, idx0 + (uint32_t)(col0 + v)) >> 8) >=
-                floor_keep;
-            keep_bits |= (uint32_t)keep << (c * TILE_VEC + v);
-            // the forward's true division, for every lane: a select, not
-            // a branch that splits the warp
-            const float hq = h / a.q;
-            h = keep ? hq : 0.f;
-          }
-          z[c][v] = rv[v] + h;
-          sum += z[c][v];
-        }
-      } else {
-#pragma unroll
-        for (int v = 0; v < TILE_VEC; ++v) z[c][v] = 0.f;
-      }
-    }
-    const float mean = warp_sum(sum) / (float)D;
-    float sq = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if ((c * 32 + lane) * TILE_VEC < D) {
-#pragma unroll
-        for (int v = 0; v < TILE_VEC; ++v) {
-          z[c][v] -= mean;
-          sq += z[c][v] * z[c][v];
-        }
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / (float)D + a.eps);
+    uint32_t keep_bits;
+    const float rstd = tile_row<TX, TR, NC>(a, st, st + RS, bias_s, lane,
+                                            row, floor_keep, z, keep_bits);
 
     // z becomes y = (z - mean) * rstd; the two row means of the backward
     float sa = 0.f, sb = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if ((c * 32 + lane) * TILE_VEC < D) {
-        float gv[TILE_VEC];
+        float gv[TILE_VEC], gm[TILE_VEC];
         unpack8<TX>(st + GS, c, lane, gv);
-        const float4 g0 = gamma_s[(2 * c) * 32 + lane];
-        const float4 g1 = gamma_s[(2 * c + 1) * 32 + lane];
-        const float gm[TILE_VEC] = {g0.x, g0.y, g0.z, g0.w,
-                                    g1.x, g1.y, g1.z, g1.w};
+        param8(gamma_s, c, lane, gm);
 #pragma unroll
         for (int v = 0; v < TILE_VEC; ++v) {
           z[c][v] *= rstd;
@@ -471,12 +319,9 @@ __global__ void __launch_bounds__(tile_warps<NC>() * 32, 1)
     for (int c = 0; c < NC; ++c) {
       const int col0 = (c * 32 + lane) * TILE_VEC;
       if (col0 < D) {
-        float gv[TILE_VEC];
+        float gv[TILE_VEC], gm[TILE_VEC];
         unpack8<TX>(st + GS, c, lane, gv);
-        const float4 g0 = gamma_s[(2 * c) * 32 + lane];
-        const float4 g1 = gamma_s[(2 * c + 1) * 32 + lane];
-        const float gm[TILE_VEC] = {g0.x, g0.y, g0.z, g0.w,
-                                    g1.x, g1.y, g1.z, g1.w};
+        param8(gamma_s, c, lane, gm);
         float dz[TILE_VEC], dh[TILE_VEC];
 #pragma unroll
         for (int v = 0; v < TILE_VEC; ++v) {
@@ -632,17 +477,6 @@ size_t warp_smem(int D, int vec) {
   return (size_t)WARPS * 3 * span(D, vec) * sizeof(float);
 }
 
-// The vector width of the warp kernel's vector path: vec_width, or 1
-// where every row the vector path could take goes to ln_bwd_tile (16-bit
-// x beside itself: D % 8 == 0), so that only the value-by-value path is
-// built.
-template <typename TX, typename TR>
-constexpr int warp_vec() {
-  return sizeof(TX) == 2 && vec_width<TX, TR>() % TILE_VEC == 0
-             ? 1
-             : vec_width<TX, TR>();
-}
-
 template <typename TX, typename TR>
 cudaError_t prepare_warp() {
   const int most = (int)warp_smem(WARP_MAX_D, 1);
@@ -653,17 +487,6 @@ cudaError_t prepare_warp() {
   return cudaFuncSetAttribute(ln_bwd_warp<TX, TR, 1>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               most);
-}
-
-// The chunks a lane of the 16-bit warp path holds for rows of D, or 0
-// where the path does not take x of type TX or rows of D.  Rows of up to
-// 768 values take the 3-chunk kernel, its chunks past D idle, and longer
-// ones the 4-chunk kernel: two kernels a type pair, for the build's time
-// (nvcc compiles each fully unrolled).
-template <typename TX>
-int tile_chunks(int D) {
-  if (sizeof(TX) != 2 || D > WARP_MAX_D || D % TILE_VEC != 0) return 0;
-  return D <= 3 * TILE_COLS ? 3 : 4;
 }
 
 // f(kernel, its dynamic shared memory, its threads) for the 16-bit kernel

@@ -59,6 +59,7 @@ COUNTERS = (("flash_attention", "FWD_LAUNCHES"),
             ("flash_attention_qkv", "BWD_LAUNCHES"),
             ("fused_ln", "LAUNCHES"),
             ("fused_ln", "BWD_LAUNCHES"),
+            ("fused_ln", "ROUTE_LAUNCHES"),
             ("softmax_xent", "LAUNCHES"),
             ("softmax_xent", "DLOGITS_LAUNCHES"),
             ("softmax_xent", "ROUTE_LAUNCHES"),

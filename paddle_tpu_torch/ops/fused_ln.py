@@ -15,7 +15,11 @@ backward with ``csrc/fused_ln_bwd.cu`` and :func:`fused_ln_bwd_ref` (the
 reference's ``_fused_bwd``, ``ops/fused_ops.py:62``, has no Pallas
 kernel).  x and the residual may differ in type (a 16-bit type, bf16 or
 fp16, beside fp32), as in the reference.  :data:`LAUNCHES` and
-:data:`BWD_LAUNCHES` count kernel launches.
+:data:`BWD_LAUNCHES` count kernel launches, :data:`ROUTE_LAUNCHES` the
+forward's by the kernel that ran: ``"tile"`` (``ln_fwd_tile``, 16-bit x
+at D <= 1024, D % 8 == 0, 16-byte aligned rows), ``"warp"``
+(``fused_ln_warp``, the other rows up to D 1024) or ``"row"``
+(``fused_ln_row``, longer rows).
 
 The kernels read the hash seed from device memory, so that a step captured
 in a CUDA graph draws new masks at every replay: the wrappers take the seed
@@ -33,7 +37,7 @@ import torch
 from . import _build
 
 __all__ = ["hash_uniform", "fused_ln_ref", "fused_ln", "fused_ln_bwd_ref",
-           "fused_ln_bwd", "LAUNCHES", "BWD_LAUNCHES"]
+           "fused_ln_bwd", "LAUNCHES", "BWD_LAUNCHES", "ROUTE_LAUNCHES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LOW = (torch.bfloat16, torch.float16)
@@ -43,11 +47,15 @@ _M32 = 0xFFFFFFFF
 # tests and the smoke run reset them to 0 and read them back)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# the forward's launches by the kernel the library reports it ran (reset
+# each value to 0)
+ROUTE_LAUNCHES = {"tile": 0, "warp": 0, "row": 0}
+_ROUTES = ("tile", "warp", "row")
 
 _lib = None
 _lib_bwd = None
-# blocks of the backward that fit on the card at once, by (device index,
-# D, type codes)
+# blocks that fit on the card at once, by (direction, device index, D,
+# type codes): the backward's first launch, the forward's tile
 _RESIDENT = {}
 
 
@@ -57,8 +65,12 @@ def _kernel():
         lib = _build.load("fused_ln")
         lib.fused_ln.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
         lib.fused_ln.restype = ctypes.c_int
+        lib.fused_ln_resident.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fused_ln_resident.restype = ctypes.c_int
         lib.fused_ln_error_string.argtypes = [ctypes.c_int]
         lib.fused_ln_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -215,8 +227,9 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
     bf16 or fp16; ``seed`` an integer or a
     1-element int64 tensor on x's device (its low 32 bits are the hash
     seed).  Returns a new ``(N, D)`` tensor in x's type.
-    CUDA tensors go through the kernel (contiguous inputs); CPU tensors
-    take :func:`fused_ln_ref`."""
+    CUDA tensors go through ``csrc/fused_ln.cu`` (contiguous inputs; one
+    launch, counted in :data:`LAUNCHES` and by kernel in
+    :data:`ROUTE_LAUNCHES`); CPU tensors take :func:`fused_ln_ref`."""
     global LAUNCHES
     vectors = (bias, gamma, beta)
     tensors = (x, residual, *vectors)
@@ -229,22 +242,24 @@ def fused_ln(x: torch.Tensor, residual: torch.Tensor, bias: torch.Tensor,
     out = torch.empty_like(x)
     if N == 0 or D == 0:
         return out
+    codes = (_DTYPE_CODES[x.dtype], _DTYPE_CODES[residual.dtype])
     lib = _kernel()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         seed_t = _seed_on(seed, x.device, p)
+        blocks = _resident("fwd", x.device, D, codes)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_ln(x.data_ptr(), residual.data_ptr(),
                            bias.data_ptr(), gamma.data_ptr(),
-                           beta.data_ptr(), out.data_ptr(), N, D,
-                           _DTYPE_CODES[x.dtype],
-                           _DTYPE_CODES[residual.dtype], param_types,
-                           _ptr(seed_t), int(p > 0.0), p, 1.0 - p, eps,
-                           stream)
+                           beta.data_ptr(), out.data_ptr(), N, D, *codes,
+                           param_types, _ptr(seed_t), int(p > 0.0), p,
+                           1.0 - p, eps, blocks, ctypes.byref(route), stream)
     if err:
         raise RuntimeError(f"fused_ln launch failed: "
                            f"{lib.fused_ln_error_string(err).decode()} "
                            f"(cudaError {err})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[_ROUTES[route.value]] += 1
     return out
 
 
@@ -283,26 +298,35 @@ def fused_ln_bwd_ref(g: torch.Tensor, x: torch.Tensor,
             gf.sum(0).to(beta.dtype))
 
 
-def _bwd_blocks(device: torch.device, N: int, D: int, codes) -> int:
-    """Blocks of the backward's first launch: as many as fit on the card
-    at once (asked of the kernel's library once per device, D and types),
-    and no more than the rows need (a block per eight rows at most on the
-    warp paths, whose blocks take 8 or 16 rows at once, one per row on the
-    row path)."""
-    key = (device.index, D, codes)
+def _resident(direction: str, device: torch.device, D: int, codes) -> int:
+    """Blocks that fit on the card at once, asked of the kernel's library
+    once per direction, device, D and types: the backward's first launch
+    (``fused_ln_bwd_resident``) or the forward's 16-bit tile
+    (``fused_ln_resident``, 0 where the tile does not take the rows)."""
+    key = (direction, device.index, D, codes)
     fit = _RESIDENT.get(key)
     if fit is None:
-        lib = _kernel_bwd()
+        lib = _kernel() if direction == "fwd" else _kernel_bwd()
+        name = "fused_ln" if direction == "fwd" else "fused_ln_bwd"
         out = ctypes.c_int(0)
-        err = lib.fused_ln_bwd_resident(D, *codes, ctypes.byref(out))
+        err = getattr(lib, f"{name}_resident")(D, *codes, ctypes.byref(out))
         if err:
             raise RuntimeError(
-                f"fused_ln_bwd occupancy query failed: "
-                f"{lib.fused_ln_bwd_error_string(err).decode()} "
+                f"{name} occupancy query failed: "
+                f"{getattr(lib, f'{name}_error_string')(err).decode()} "
                 f"(cudaError {err})")
         fit = _RESIDENT[key] = out.value
+    return fit
+
+
+def _bwd_blocks(device: torch.device, N: int, D: int, codes) -> int:
+    """Blocks of the backward's first launch: as many as fit on the card
+    at once, and no more than the rows need (a block per eight rows at
+    most on the warp paths, whose blocks take 8 or 16 rows at once, one
+    per row on the row path)."""
     rows_at_once = 8 if D <= 1024 else 1
-    return max(1, min(fit, -(-N // rows_at_once)))
+    return max(1, min(_resident("bwd", device, D, codes),
+                      -(-N // rows_at_once)))
 
 
 def fused_ln_bwd(g: torch.Tensor, x: torch.Tensor, residual: torch.Tensor,

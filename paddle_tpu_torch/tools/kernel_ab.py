@@ -33,12 +33,19 @@ attention kernel calls of the serving and train paths, at their shapes:
   4096-row chunk (row 11), with the route each took where the checkout
   has one.  ``--head`` times these two rows alone;
 - with ``--epilogue`` instead, the fused epilogue alone at the encoder's
-  shape, N 16384, D 768, p 0.1: ``fused_ln`` (row 12) in fp32 and its
-  backward ``fused_ln_bwd`` with x and the residual fp32, bf16, fp16,
-  and bf16 or fp16 over an fp32 residual (the encoder's first layer
-  under AMP O1), the parameters in x's type where the residual shares
-  it, else fp32, each backward held against its plain version
-  (``*_max_abs_err``, dx and dres); and the unscale pass
+  shape, N 16384, D 768: ``fused_ln`` (row 12) at p 0.1 and p 0 with x,
+  residual and parameters fp32, bf16 or fp16 each alike, AMP O1's
+  triples (bf16 or fp16 x and residual, fp32 parameters) and bf16 or
+  fp16 x over an fp32 residual and parameters (the encoder's first
+  layer under O1), with the kernel it ran (``*_route``, where the
+  checkout reports one); its backward ``fused_ln_bwd`` at p 0.1 with x
+  and the residual fp32, bf16, fp16, and bf16 or fp16 over an fp32
+  residual, the parameters in x's type where the residual shares it,
+  else fp32; each call held against its plain version
+  (``*_max_abs_err``; the backward's dx and dres), and the SHA-256 of
+  its outputs' bytes (``*_sha256``: two checkouts' equal digests are
+  equal bits, the inputs being the same from the same seed); and the
+  unscale pass
   (``multi_tensor_unscale``) on the GPT's 149 gradients in fp32, bf16
   and fp16, beside ``torch._amp_foreach_non_finite_check_and_unscale_``
   where it takes the type, both also as a replayed CUDA graph
@@ -50,6 +57,7 @@ them; each run prints one JSON line and, with ``--json``, writes it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -128,21 +136,52 @@ def main(argv=None) -> int:
     return 0
 
 
+def _digest(torch, tensors):
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _time_epilogue(torch, gen, out):
     from paddle_tpu_torch.ops import fused_ln as fl
-    N, D, p = 16384, 768, 0.1
+    N, D = 16384, 768
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     b, gam, be = (torch.randn(D, generator=gen, device="cuda")
                   for _ in range(3))
+    routes = getattr(fl, "ROUTE_LAUNCHES", None)
     with torch.no_grad():
-        x, r = (torch.randn((N, D), generator=gen, device="cuda")
-                for _ in range(2))
+        # the forward: (name, x, residual, parameters)
+        for name, x_dt, r_dt, p_dt in (
+                ("fp32", f32, f32, f32), ("bf16", bf16, bf16, bf16),
+                ("bf16_o1", bf16, bf16, f32),
+                ("bf16_x_fp32_res", bf16, f32, f32),
+                ("fp16", f16, f16, f16), ("fp16_o1", f16, f16, f32),
+                ("fp16_x_fp32_res", f16, f32, f32)):
+            x, r = (torch.randn((N, D), generator=gen, device="cuda")
+                    for _ in range(2))
+            args = (x.to(x_dt), r.to(r_dt), b.to(p_dt), gam.to(p_dt),
+                    be.to(p_dt), 3)
+            for p in (0.1, 0.0):
+                key = f"fused_ln_{name}_p{p:g}"
 
-        def fwd():
-            fl.fused_ln(x, r, b, gam, be, 3, p=p, eps=1e-5)
+                def fwd():
+                    return fl.fused_ln(*args, p=p, eps=1e-5)
 
-        out["row12_fused_ln_fp32_ms"] = _time_ms(torch, fwd)
-        out["row12_fused_ln_fp32_device_ms"] = _device_ms(torch, fwd)
+                before = dict(routes) if routes is not None else None
+                got = fwd()
+                if routes is not None:
+                    out[f"{key}_route"] = next(
+                        k for k, v in routes.items() if v != before[k])
+                ref = fl.fused_ln_ref(*args, p=p, eps=1e-5)
+                out[f"{key}_max_abs_err"] = (
+                    got.float() - ref.float()).abs().max().item()
+                out[f"{key}_sha256"] = _digest(torch, (got,))
+                del got, ref
+                out[f"{key}_ms"] = _time_ms(torch, fwd)
+                out[f"{key}_device_ms"] = _device_ms(torch, fwd)
+        p = 0.1
         for name, x_dt, r_dt in (("fp32", f32, f32), ("bf16", bf16, bf16),
                                  ("bf16_x_fp32_res", bf16, f32),
                                  ("fp16", f16, f16),
@@ -162,6 +201,7 @@ def _time_epilogue(torch, gen, out):
             out[f"{key}_max_abs_err"] = max(
                 (a.float() - w.float()).abs().max().item()
                 for a, w in zip(got[:2], ref[:2]))
+            out[f"{key}_sha256"] = _digest(torch, got)
             del got, ref
             out[f"{key}_ms"] = _time_ms(torch, bwd)
             out[f"{key}_device_ms"] = _device_ms(torch, bwd)

@@ -1,7 +1,8 @@
 """Where a train step's time goes on the card.
 
     python3 -m paddle_tpu_torch.tools.profile_train [--eager | --encoder]
-                                                    [--amp O1|O2]
+                                                    [--amp O1|O2
+                                                     [--amp-dtype float16]]
                                                     [--uncaptured]
                                                     [--fit [--prefetch N]
                                                      [--metric]]
@@ -17,7 +18,8 @@ fp32, on ids from ``np.random.RandomState(0)`` and labels rolled by one.
 With ``--encoder`` it trains the same way the encoder of
 :func:`build_encoder` at :data:`ENCODER` (``chip_smoke.py`` phase 11
 builds the same model).  ``--amp`` (with ``--eager`` or ``--encoder``)
-prepares the model with ``amp_configs`` at that level in bf16.  Those
+prepares the model with ``amp_configs`` at that level in bf16, or in
+fp16 with ``--amp-dtype float16`` (the default loss scaling).  Those
 two paths run ``prepare(jit=True)``'s step, captured in a CUDA graph and
 replayed, unless ``--uncaptured`` asks for ``jit=False``.  Either
 way it takes two warm-up steps, then
@@ -90,9 +92,10 @@ KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",
            "::dkv_kernel<", "::dq_kernel<", "::delta_kernel<")),
          ("softmax_xent_fwd (row 10)", ("sxent_fwd_kernel",)),
          ("softmax_xent_dlogits (row 11)", ("sxent_dlogits_kernel",)),
-         ("fused_ln (row 12)", ("fused_ln_warp", "fused_ln_row")),
+         ("fused_ln (row 12)", ("fused_ln_warp", "fused_ln_row",
+                                "ln_fwd_tile")),
          ("fused_ln_bwd (the epilogue's backward)",
-          ("ln_bwd_warp", "ln_bwd_row", "ln_bwd_fold")),
+          ("ln_bwd_warp", "ln_bwd_row", "ln_bwd_fold", "ln_bwd_tile")),
          ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_",
                                        "xmma", "nvjet")),
          ("copies and casts", ("copy", "Copy", "Memcpy", "Memset")),
@@ -222,8 +225,17 @@ def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
 
     return one, _eager_reset, _eager_counts, dict(
         path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
-        dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
-        remat="none", captured=jit)
+        dtype=_amp_label(amp), remat="none", captured=jit)
+
+
+def _amp_label(amp) -> str:
+    """The types of a run prepared with ``amp_configs=amp`` (a level, or a
+    dict with the level and the type; bf16 by default)."""
+    if amp is None:
+        return "float32"
+    level, low = (amp["level"], amp.get("dtype", "bfloat16")) \
+        if isinstance(amp, dict) else (amp, "bfloat16")
+    return f"float32, AMP {level} {low}"
 
 
 def fit_recipe(net, amp=None, jit: bool = True, metric: bool = False):
@@ -248,9 +260,12 @@ def fit_data(n: int, seed_val: int = 0, vocab: int = WIDTH["vocab_size"],
 
 
 def _fit_path(net, amp, jit: bool, steps: int, prefetch: int, metric: bool,
-              batch: int = EAGER_BATCH, seq: int = SEQ):
+              batch: int = EAGER_BATCH, seq: int = SEQ,
+              accumulate: int = 1):
     """One epoch of ``Model.fit`` on ``net`` per call, ``steps`` full
-    batches of ``batch`` rows (:func:`fit_data` at the net's vocabulary)."""
+    batches of ``batch`` rows (:func:`fit_data` at the net's vocabulary),
+    ``accumulate_grad_batches=accumulate``.  ``amp``: an ``amp_configs``
+    value (a level, or a dict with the level and the type)."""
     model = fit_recipe(net, amp=amp, jit=jit, metric=metric)
     vocab = next(m for m in net.modules()
                  if isinstance(m, torch.nn.Embedding)).num_embeddings
@@ -258,13 +273,14 @@ def _fit_path(net, amp, jit: bool, steps: int, prefetch: int, metric: bool,
 
     def one():
         model.fit(data, batch_size=batch, epochs=1, shuffle=True, verbose=0,
-                  prefetch_to_device=prefetch)
+                  prefetch_to_device=prefetch,
+                  accumulate_grad_batches=accumulate)
 
     return one, _eager_reset, _eager_counts, dict(
         path=f"fit ({type(net).__name__})", batch=batch, seq=seq,
-        dtype="float32" if amp is None else f"float32, AMP {amp} bfloat16",
-        remat="none", captured=jit, prefetch_to_device=prefetch,
-        metric=metric, steps_per_call=steps)
+        dtype=_amp_label(amp), remat="none", captured=jit, prefetch_to_device=prefetch,
+        metric=metric, steps_per_call=steps,
+        accumulate_grad_batches=accumulate)
 
 
 def profile(one, reset, counts, setup, steps: int) -> dict:
@@ -332,6 +348,10 @@ def main(argv=None) -> int:
     ap.add_argument("--amp", choices=("O1", "O2"),
                     help="with --eager or --encoder: prepare the model with "
                          "amp_configs at this level (bf16)")
+    ap.add_argument("--amp-dtype", choices=("bfloat16", "float16"),
+                    default="bfloat16",
+                    help="with --amp: the low type (float16: with the "
+                         "default loss scaling)")
     ap.add_argument("--uncaptured", action="store_true",
                     help="with --eager or --encoder: prepare(jit=False), "
                          "the step run op by op")
@@ -355,15 +375,19 @@ def main(argv=None) -> int:
         ap.error("--amp and --uncaptured take --eager, --encoder or --fit")
     if (args.metric or args.prefetch != 2) and not args.fit:
         ap.error("--metric and --prefetch take --fit")
+    if args.amp_dtype != "bfloat16" and not args.amp:
+        ap.error("--amp-dtype takes --amp")
+    amp = args.amp if args.amp_dtype == "bfloat16" else dict(
+        level=args.amp, dtype=args.amp_dtype)
     if args.fit:
         net = build_encoder() if args.encoder else GPT(GPTConfig(**WIDTH),
                                                        seed=0)
         one, reset, counts, setup = _fit_path(
-            net, args.amp, not args.uncaptured, args.steps, args.prefetch,
+            net, amp, not args.uncaptured, args.steps, args.prefetch,
             args.metric)
     elif args.eager or args.encoder:
         one, reset, counts, setup = _eager_path(encoder=args.encoder,
-                                                amp=args.amp,
+                                                amp=amp,
                                                 jit=not args.uncaptured)
     else:
         one, reset, counts, setup = _compiled_path()

@@ -529,16 +529,19 @@ def test_encoder_train_step_never_reaches_a_plain_epilogue(card):
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, 97, (4, 128))).cuda()
     labels = ids.roll(-1, 1)[..., None]
-    for amp in (None, "O1", "O2"):
+    for amp in (None, "O1", "O2", {"level": "O1", "dtype": "float16"}):
         model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
                                    CrossEntropyLoss(), amp_configs=amp)
         f0, b0 = fl.LAUNCHES, fl.BWD_LAUNCHES
+        t0 = fl.ROUTE_LAUNCHES["tile"]
         with mock.patch.object(fl, "fused_ln_ref", refuse), \
                 mock.patch.object(fl, "fused_ln_bwd_ref", refuse):
             loss = model.train_batch([ids], [labels])["loss"]
         torch.cuda.synchronize()
         assert torch.isfinite(loss)
         assert (fl.LAUNCHES - f0, fl.BWD_LAUNCHES - b0) == (4, 4), amp
+        # under AMP every forward has 16-bit x: all on ln_fwd_tile
+        assert fl.ROUTE_LAUNCHES["tile"] - t0 == (4 if amp else 0), amp
 
 
 def test_amp_o1_steps_run_bf16_attention_on_sm90(card):
@@ -1437,6 +1440,93 @@ def test_16bit_backward_at_the_encoders_shape(card, x_dt, r_dt):
     dropped = fl.hash_uniform(11, (16384, 768), device="cuda") < \
         torch.tensor(0.1)
     assert bool((got[0][dropped] == 0).all())
+
+
+# -- csrc/fused_ln.cu ln_fwd_tile: the 16-bit forward on the row tile ---------
+# (x, residual, parameters): a 16-bit type beside itself or fp32, the
+# parameters in x's type or fp32 (AMP O1 hands fp32 ones)
+FWD_TILE_TRIPLES = tuple((x, r, p) for x in (BF16, F16) for r in (x, F32)
+                         for p in (x, F32))
+
+
+def test_fwd_tile_matches_plain_version_for_every_16bit_triple(card):
+    # the plain version is the check, not the parent kernel's bits (the
+    # tile sums a row in another order): each element within 1e-5 plus
+    # one ulp of its type (chip_smoke._fused_ln_err); every launch on
+    # ln_fwd_tile
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    i = 0
+    for x_dt, r_dt, p_dt in FWD_TILE_TRIPLES:
+        for N in (1, 7, 1000, 16384):
+            for D in (64, 768, 1024):
+                for p in (0.0, 0.1):
+                    i += 1
+                    x, r, b, gam, be = chip_smoke._fused_ln_operands(
+                        torch, gen, "cuda", N, D, x_dt, r_dt, p_dt)
+                    tile = fl.ROUTE_LAUNCHES["tile"]
+                    out = fl.fused_ln(x, r, b, gam, be, i, p=p, eps=1e-5)
+                    torch.cuda.synchronize()
+                    assert fl.ROUTE_LAUNCHES["tile"] == tile + 1
+                    ref = fl.fused_ln_ref(x, r, b, gam, be, i, p=p, eps=1e-5)
+                    err, tol, ok = chip_smoke._fused_ln_err(torch, out, ref)
+                    assert ok and out.dtype == x_dt, (
+                        x_dt, r_dt, p_dt, N, D, p, err, tol)
+
+
+def _unaligned(t):
+    # t's values in a contiguous tensor 2 bytes past a 16-byte boundary
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("x_dt,r_dt", [(BF16, BF16), (F16, F32)])
+def test_an_unaligned_16bit_view_takes_the_warp_kernel(card, x_dt, r_dt):
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, r, b, gam, be = chip_smoke._fused_ln_operands(
+        torch, gen, "cuda", 1000, 768, x_dt, r_dt, F32)
+    for operands in ((_unaligned(x), r), (x, _unaligned(r))):
+        assert operands[0].data_ptr() % 16 or operands[1].data_ptr() % 16
+        warp = fl.ROUTE_LAUNCHES["warp"]
+        out = fl.fused_ln(*operands, b, gam, be, 9, p=0.1, eps=1e-5)
+        torch.cuda.synchronize()
+        assert fl.ROUTE_LAUNCHES["warp"] == warp + 1
+        ref = fl.fused_ln_ref(*operands, b, gam, be, 9, p=0.1, eps=1e-5)
+        err, tol, ok = chip_smoke._fused_ln_err(torch, out, ref)
+        assert ok, (err, tol)
+
+
+def test_fwd_tile_repeats_bit_for_bit(card):
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    for x_dt, r_dt, p_dt in FWD_TILE_TRIPLES:
+        args = chip_smoke._fused_ln_operands(torch, gen, "cuda", 16384, 768,
+                                             x_dt, r_dt, p_dt) + (7,)
+        first = fl.fused_ln(*args, p=0.1, eps=1e-5)
+        second = fl.fused_ln(*args, p=0.1, eps=1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), (x_dt, r_dt, p_dt)
+
+
+@pytest.mark.parametrize("x_dt", [BF16, F16])
+def test_fwd_tile_drops_where_the_hash_is_under_p(card, x_dt):
+    # x = 1, residual = bias = beta = 0, gamma = 1: an output is positive
+    # exactly where the element was kept, so the dropped elements are
+    # those with hash_uniform < p
+    N, D = 1000, 768
+    one = torch.ones((N, D), device="cuda", dtype=x_dt)
+    zero = torch.zeros((N, D), device="cuda", dtype=x_dt)
+    v1, v0 = torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")
+    for p in (0.1, 0.5):
+        for seed in (0, 2**31 - 2, 0xFFFFFFFF):
+            tile = fl.ROUTE_LAUNCHES["tile"]
+            out = fl.fused_ln(one, zero, v0, v1, v0, seed, p=p, eps=1e-5)
+            torch.cuda.synchronize()
+            assert fl.ROUTE_LAUNCHES["tile"] == tile + 1
+            dropped = fl.hash_uniform(seed, (N, D), device="cuda") < \
+                torch.tensor(p)
+            assert bool((out != 0).all())
+            assert torch.equal(out < 0, dropped), (x_dt, p, seed)
 
 
 def test_update_skip_flag_moves_nothing(card):

@@ -71,7 +71,7 @@ def _pair():
     return ref, net
 
 
-def _ref_model(ref, metrics=True):
+def _ref_model(ref, metrics=True, amp=None):
     sched = paddle.optimizer.lr.LinearWarmup(
         paddle.optimizer.lr.PolynomialDecay(5e-3, 8), 3, 0.0, 5e-3)
     model = paddle.Model(ref)
@@ -79,16 +79,17 @@ def _ref_model(ref, metrics=True):
         sched, parameters=ref.parameters(), weight_decay=0.01,
         grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0)),
         paddle.nn.CrossEntropyLoss(),
-        metrics=paddle.metric.Accuracy() if metrics else None)
+        metrics=paddle.metric.Accuracy() if metrics else None,
+        amp_configs=amp)
     return model
 
 
-def _port_model(net, metrics=True, jit=True):
+def _port_model(net, metrics=True, jit=True, amp=None):
     sched = lr.LinearWarmup(lr.PolynomialDecay(5e-3, 8), 3, 0.0, 5e-3)
     return Model(net).prepare(
         AdamW(sched, parameters=net.parameters(), weight_decay=0.01,
               grad_clip=ClipGradByGlobalNorm(1.0)), CrossEntropyLoss(),
-        metrics=Accuracy() if metrics else None, jit=jit)
+        metrics=Accuracy() if metrics else None, jit=jit, amp_configs=amp)
 
 
 class _Record(Callback):
@@ -256,6 +257,69 @@ def test_accumulation_and_num_iters_track_the_reference(kw):
         # the boundary counts batches within an epoch: batch 1 of each
         # epoch steps, batch 2's gradients carry into the next epoch
         assert model._optimizer._global_step == 2
+
+
+# fit under AMP O1 in fp16 with accumulate_grad_batches 2.  The
+# reference's own run cannot be the truth: its accumulation rides the eager
+# tape (paddle_tpu/hapi/model.py:1176-1182), whose AMP backward raises (an
+# fp16 cotangent into an fp32 output's vjp), so the port's fp16 run is held
+# against the reference's fp32 run of the same recipe and batches, at fp16
+# O1's rounding: losses rtol 2^-11 (one fp16 rounding; measured 1.5e-5),
+# and the parameters as tests/test_torch_fp16_model.py holds them after
+# AdamW steps (the error's L2 norm at most FP16_PARAM_REL_L2 of the
+# reference's move, at most FP16_PARAM_SHARE of the elements further than
+# 1e-4, none further than 6e-3, the sum of the two updates' rates, 1.67e-3
+# and 4.38e-3: AdamW moves a weight whose gradient is rounding noise by
+# the rate either way; measured 0.028, 0.34%, 5.1e-3).
+FP16_LOSS_RTOL = 2.0 ** -11
+FP16_PARAM_REL_L2, FP16_PARAM_SHARE, FP16_PARAM_CLOSE, FP16_PARAM_ATOL = \
+    5e-2, 1e-2, 1e-4, 6e-3
+
+
+def test_fp16_accumulation_tracks_the_reference():
+    ref, net = _pair()
+    amp = {"level": "O1", "dtype": "float16"}
+    rmodel = _ref_model(ref, metrics=False)
+    ref_losses = []
+    np.random.seed(3)
+    rmodel.fit(paddle.io.TensorDataset(TRAIN), batch_size=BATCH, epochs=2,
+               verbose=0, callbacks=[_ref_recorder(ref_losses)],
+               accumulate_grad_batches=2)
+    model = _port_model(net, metrics=False, amp=amp)
+    rec = _Record()
+    np.random.seed(3)
+    model.fit(TensorDataset(TRAIN), batch_size=BATCH, epochs=2, verbose=0,
+              callbacks=[rec], accumulate_grad_batches=2)
+    # two updates (batch 2 of each epoch), both finite at the default
+    # scale 2^15, and every micro-batch's loss
+    assert model._optimizer._global_step == 2
+    assert not bool(model._amp_found_inf)
+    assert float(model._scaler["scale"]) == 2.0 ** 15
+    np.testing.assert_allclose([float(v) for v in rec.losses], ref_losses,
+                               rtol=FP16_LOSS_RTOL)
+    want = _ref_state(ref)
+    start = _ref_state(_pair()[0])
+    got = _as_reference(net.state_dict())
+    err = np.concatenate([(got[k] - w).ravel() for k, w in want.items()])
+    move = np.concatenate([(w - start[k]).ravel() for k, w in want.items()])
+    rel = np.linalg.norm(err) / np.linalg.norm(move)
+    share = float((np.abs(err) > FP16_PARAM_CLOSE).mean())
+    print(f"fp16 fit, accumulate 2: relative L2 {rel:.3g}, {share:.2%} past "
+          f"{FP16_PARAM_CLOSE}, worst {np.abs(err).max():.3g}")
+    assert rel <= FP16_PARAM_REL_L2
+    assert share <= FP16_PARAM_SHARE
+    assert np.abs(err).max() <= FP16_PARAM_ATOL
+
+
+def test_the_references_fp16_accumulation_raises():
+    # the reason the test above holds the port against the reference's
+    # fp32 run: the reference's eager AMP backward fails
+    ref, _ = _pair()
+    rmodel = _ref_model(ref, metrics=False,
+                        amp={"level": "O1", "dtype": "float16"})
+    with pytest.raises(ValueError, match="VJP"):
+        rmodel.fit(paddle.io.TensorDataset(TRAIN), batch_size=BATCH,
+                   epochs=1, verbose=0, accumulate_grad_batches=2)
 
 
 # -- the callbacks, on a Linear(4, 2) regression in both packages -----------

@@ -136,11 +136,15 @@ def test_attention_fp16_scores_past_the_type_range_stay_finite():
 
 
 # -- the fused epilogue ------------------------------------------------------------
-# (x, residual, bias, gamma, beta): AMP O2's all-fp16, and O1's fp16 x
-# beside an fp32 residual with fp32 or fp16 parameters
+# (x, residual, bias, gamma, beta): AMP O2's all-fp16, O1's fp16 x beside
+# an fp32 residual with fp32 or fp16 parameters, and O1's triples with
+# every parameter fp32 (the layer's, which O1 does not cast): fp16 x over
+# an fp16 residual (most layers) and over an fp32 one (the first)
 EPILOGUE_TYPES = {"fp16": (F16, F16, F16, F16, F16),
                   "x_fp16": (F16, F32, F16, F32, F32),
-                  "x_fp16_params_fp16": (F16, F32, F16, F16, F16)}
+                  "x_fp16_params_fp16": (F16, F32, F16, F16, F16),
+                  "o1": (F16, F16, F32, F32, F32),
+                  "o1_residual_fp32": (F16, F32, F32, F32, F32)}
 _JNP = {F16: jnp.float16, F32: jnp.float32}
 
 

@@ -84,6 +84,66 @@ def test_bf16_inputs_match_the_reference(p):
     assert (np.abs(got.float().numpy() - want) <= ulp).all()
 
 
+@pytest.mark.parametrize("p", [0.0, 0.4])
+def test_bf16_inputs_with_fp32_parameters_match_the_reference(p):
+    # AMP O1's triple: bf16 x and residual, bias, gamma and beta all fp32
+    # (the layer's fp32 parameters, which O1 does not cast)
+    x, r, b, g, be = _inputs(4, N=24, D=256)
+    want = np.asarray(rfl.fused_ln_pallas(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(r, jnp.bfloat16),
+        jnp.asarray(b), jnp.asarray(g), jnp.asarray(be), 11, p=p, eps=1e-5,
+        interpret=True).astype(jnp.float32))
+    got = fl.fused_ln(torch.from_numpy(x).bfloat16(),
+                      torch.from_numpy(r).bfloat16(),
+                      *(torch.from_numpy(v) for v in (b, g, be)), 11, p=p,
+                      eps=1e-5)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN44_GLOBAL__N__365dd7d5_11_fused_ln_cu_6e1f8c2a11ln_fwd_tileI13"
+     "__nv_bfloat16S1_Li3EEEvNS_4ArgsE", "ln_fwd_tile<bf16,bf16,3>"),
+    ("_ZN44_GLOBAL__N__365dd7d5_11_fused_ln_cu_6e1f8c2a11ln_fwd_tileI6"
+     "__halffLi4EEEvNS_4ArgsE", "ln_fwd_tile<fp16,fp32,4>"),
+    ("_ZN44_GLOBAL__N__365dd7d5_11_fused_ln_cu_6e1f8c2a13fused_ln_warpIf6"
+     "__halfLi4EEEvNS_4ArgsE", "fused_ln_warp<fp32,fp16,4>"),
+    ("_ZN44_GLOBAL__N__365dd7d5_11_fused_ln_cu_6e1f8c2a12fused_ln_rowIffEEv"
+     "NS_4ArgsEi", "fused_ln_row<fp32,fp32>"),
+])
+def test_the_build_report_names_each_forward_kernel_by_its_types(mangled,
+                                                                  name):
+    # chip_smoke.py phase 2 prints every kernel's registers and spills
+    # under these names, one per instantiation of the epilogue's forward
+    import chip_smoke
+    report = (f"ptxas info    : Compiling entry function '{mangled}' for "
+              f"'sm_90a'\nptxas info    : Function properties for "
+              f"{mangled}\n    0 bytes stack frame, 0 bytes spill stores, "
+              f"0 bytes spill loads\nptxas info    : Used 72 registers, "
+              f"used 1 barriers\n")
+    assert chip_smoke.ptxas_summary(report) == [dict(
+        kernel=name, registers=72, spill_stores=0, spill_loads=0)]
+
+
+@pytest.mark.parametrize("kernel,kind", [
+    ("void (anonymous namespace)::ln_fwd_tile<__half, __half, 3>(("
+     "anonymous namespace)::Args)", "fused_ln (row 12)"),
+    ("void (anonymous namespace)::fused_ln_warp<float, float, 4>(("
+     "anonymous namespace)::Args)", "fused_ln (row 12)"),
+    ("void (anonymous namespace)::ln_bwd_tile<__nv_bfloat16, float, 3>(("
+     "anonymous namespace)::Args)", "fused_ln_bwd (the epilogue's backward)"),
+    ("void (anonymous namespace)::ln_bwd_fold(float const*, int, int, void*, "
+     "void*, void*, int)", "fused_ln_bwd (the epilogue's backward)"),
+])
+def test_profile_train_files_each_epilogue_kernel_under_its_row(kernel,
+                                                                  kind):
+    # tools/profile_train.py's device time by kind: a kernel it does not
+    # know lands in "other elementwise"
+    from paddle_tpu_torch.tools import profile_train
+    assert profile_train._kind(kernel) == kind
+
+
 def test_gradients_match_the_reference_vjp():
     x, r, b, g, be = _inputs(2, N=12, D=48)
     cot = np.random.RandomState(3).randn(12, 48).astype(np.float32)
