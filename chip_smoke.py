@@ -84,7 +84,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
             epilogue's backward and SDPA also in device time
             (torch.profiler), with the share of the bound; rows 3, 4, 10
             and 11 again in fp16 at the compiled step's shapes, and rows
-            3 and 5 in fp16 at B 8, T 1024; and
+            3 and 5 in fp16 and in bf16 at B 8, T 1024; and
             optimizer.step() at the GPT's full width for each optimizer
             of phase 13a, fp32 and decorated (bf16 over fp32 masters):
             the update kernel, its plain version, the per-leaf path
@@ -214,6 +214,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
             dtype="float16") (fp16 parameters equal to their fp32 masters
             cast after every step), and one eager GradScaler loop of 3
             steps on the GPT
+15. remat,  the budget remat (FLAGS_program_remat, FLAGS_remat_budget_mb
+    offload set through set_flags): phase 9's GPT and phase 11's dropout
+            encoder under AMP O1, 3 captured steps each with and without
+            it, bit for bit (parameters and slots), a replayed remat step
+            launching each forward kernel twice (attention rows 1, the
+            epilogue row 12) and each backward once, the reference's
+            warning; step ms p50 over 10 steps, peak memory and graph
+            pool beside the run without it.  Optimizer-state offload
+            (prepare(offload=True)): that GPT with AdamW, 3 captured steps
+            bit for bit those of offload=False, every slot pinned host
+            memory (cudaPointerGetAttributes), a replayed step launching
+            the update pass once per stage of the staged route, step ms,
+            peak memory, optimizer.step()'s device time on both routes
+            (staged, in place) against the bound of the pinned 1 GiB copy
+            rates measured each way and both at once; LAMB on the
+            decorated O2 encoder at L 2 (slots pinned, masters on the
+            card) and build_spmd_train_step(offload=True) at L 2, each bit
+            for bit against offload=False; the seconds the phase took
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -230,6 +248,7 @@ import subprocess
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -351,6 +370,8 @@ TRAIN_LONG = dict(width=dict(vocab_size=30528, hidden_size=768,
                   batch=8, seq=1024, dtype="float32", remat="full")
 # row 5 in fp16 (phase 8): the same shape through the Hopper kernels
 TRAIN_LONG_FP16 = dict(TRAIN_LONG, dtype="float16")
+# rows 3 and 5 in bf16 at that shape (phase 6 times them beside fp16's)
+TRAIN_LONG_BF16 = dict(TRAIN_LONG, dtype="bfloat16")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # phases 9 and 11: steps of Model.train_batch with jit=True (captured in a
 # CUDA graph) against jit=False, on the batch rolled by 0, 1, 2 rows
@@ -1394,8 +1415,21 @@ def _update_route(route):
     if route in plain:
         return mock.patch.object(mtu, "multi_tensor_update", plain[route])
     if route == "per_leaf":
-        return mock.patch.dict(os.environ, {"FLAGS_fused_optimizer": "0"})
+        return port_flags({"FLAGS_fused_optimizer": False})
     return nullcontext()
+
+
+@contextmanager
+def port_flags(flags):
+    """The port's runtime flags set (``paddle_tpu_torch.set_flags``) for
+    the block, then restored."""
+    from paddle_tpu_torch.utils.flags import get_flags, set_flags
+    was = get_flags(list(flags))
+    set_flags(flags)
+    try:
+        yield
+    finally:
+        set_flags(was)
 
 
 def update_shapes(torch, width, dev):
@@ -4543,13 +4577,455 @@ def fp16_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch,
                 grad_scaler=scaler)
 
 
+# -- phase 15 -----------------------------------------------------------------
+# the budget remat as a user turns it on (the port has no planner yet, so
+# any budget engages it), and the steps each run takes: PHASE15_STEPS
+# compared bit for bit (the second one a replay, counted), then
+# PHASE15_TIMED timed
+REMAT_FLAGS = {"FLAGS_program_remat": True, "FLAGS_remat_budget_mb": 4096}
+PHASE15_STEPS, PHASE15_TIMED = 3, 10
+# the pinned copies whose rates bound an offloaded update
+COPY_BYTES = 1 << 30
+# phase 15's LAMB encoder and build_spmd_train_step: L 2
+PHASE15_LAYERS = 2
+
+
+def _host_state(net, opt):
+    """Host copies of the parameters, every optimizer slot and master
+    (after a synchronise: an offloaded update writes host slots
+    asynchronously)."""
+    import torch
+    torch.cuda.synchronize()
+    out = {f"param {n}": p.detach().cpu() for n, p in net.named_parameters()}
+    for n, p in net.named_parameters():
+        for k, v in opt._state.get(id(p), {}).items():
+            out[f"slot {n}_{k}"] = v.clone() if v.device.type == "cpu" \
+                else v.cpu()
+        if id(p) in opt._master_weights:
+            out[f"master {n}"] = opt._master_weights[id(p)].cpu()
+    return out
+
+
+def _same_run(torch, a, b):
+    """Whether two phase-15 runs agree bit for bit: losses, parameters,
+    slots and masters."""
+    return a["losses"] == b["losses"] and a["state"].keys() == \
+        b["state"].keys() and all(torch.equal(v, b["state"][k])
+                                  for k, v in a["state"].items())
+
+
+def phase15_run(torch, make_net, make_opt, ids, labels, amp, remat=False,
+                offload=False, decorate=False, reset=None, launches=None,
+                timed=True, update=False):
+    """A fresh ``Model(make_net())`` prepared with ``make_opt``'s optimizer
+    (through ``amp.decorate(..., level="O2")`` with ``decorate``),
+    ``amp_configs=amp``, ``jit=True`` and ``offload``, trained under
+    REMAT_FLAGS with ``remat``: PHASE15_STEPS captured steps on the batch
+    rolled by 0, 1, 2 rows from ``paddle_tpu_torch.seed(2)`` (the second,
+    a replay, counted with ``reset`` / ``launches`` and the update's
+    counters), the state copied to the host, then with ``timed``
+    PHASE15_TIMED steps on the batch, each between CUDA events.  Peak
+    allocated memory from before the first step (which runs the step and
+    captures it); the graph pool's growth at the capture.  With ``update``
+    also ``optimizer.step()``'s device time (:func:`update_time`)."""
+    import gc
+    import warnings
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch import amp as pamp
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = make_net()
+    opt = make_opt(net.parameters())
+    if decorate:
+        pamp.decorate(net, opt, level="O2")
+    model = Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
+                               offload=offload)
+    dev = ids.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paddle_tpu_torch.seed(2)
+    losses, counts, times = [], None, []
+    with port_flags(REMAT_FLAGS if remat else {}), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(PHASE15_STEPS):
+            if i == 1 and reset is not None:
+                sync(torch, dev)
+                reset()
+                _reset_update()
+            losses.append(model.train_batch([ids.roll(i, 0)],
+                                            [labels.roll(i, 0)])["loss"])
+            if i == 1 and reset is not None:
+                sync(torch, dev)
+                counts = dict(launches(), **_update_launches())
+        state = _host_state(net, opt)
+        for _ in range(PHASE15_TIMED if timed else 0):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model.train_batch([ids], [labels])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        resident = torch.cuda.memory_allocated()
+        upd = update_time(torch, net, model, ids, labels) if update else None
+        if update and offload:
+            upd["routes_device_ms"] = offload_routes_ms(torch, model, ids,
+                                                        labels)
+    entries = list(model._steps.entries().values())
+    out = dict(losses=[float(v) for v in torch.stack(losses).cpu()],
+               state=state, launches=counts, step_ms=times,
+               step_ms_p50=pct(times, 50) if times else None,
+               peak_memory_bytes=peak, resident_bytes=resident,
+               pool_bytes=sum(getattr(e, "pool_bytes", 0) for e in entries),
+               captured=_all_captured(entries),
+               warnings=sorted({str(w.message) for w in caught}),
+               update=upd, remat_active=model._remat_active)
+    if offload:
+        # the host slots, and the masters on the card (a run's device
+        # tensors kept past it would count in the next run's memory);
+        # the parameters' sizes, which set the staged route's stages
+        out.update(slots=[t for s in opt._state.values() for t in s.values()],
+                   masters=list(opt._master_weights.values()),
+                   sizes=[p.numel() for _, p in opt._params
+                          if p.requires_grad])
+    del model, net, opt
+    return out
+
+
+def offload_routes_ms(torch, model, ids, labels):
+    """Device times of an offloaded ``optimizer.step()`` on its two routes,
+    staged and in place (``mtu._STAGE_OFFLOAD`` patched to False), each
+    captured and the two graphs replayed in alternating rounds
+    (:func:`graphs_ms`, 6 rounds of 5): ``{"staged": ms, "in_place":
+    ms}``."""
+    from unittest import mock
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    opt = model._optimizer
+    model.train_batch([ids], [labels], update=False)
+    tables = {}
+
+    def step(staged):
+        def fn():
+            with mock.patch.object(mtu, "_STAGE_OFFLOAD", staged):
+                opt._fused_tables = tables.get(staged)
+                opt.step()
+                tables[staged] = opt._fused_tables   # each graph's own
+        return fn
+    try:
+        (staged, _), (in_place, _) = graphs_ms(
+            torch, [step(True), step(False)], rounds=6, reps=5)
+    finally:
+        opt._fused_tables = None
+        opt.clear_grad()
+        del tables
+        torch.cuda.empty_cache()
+    return dict(staged=staged, in_place=in_place)
+
+
+def _remat_want(want):
+    """A remat step's launches: each forward kernel twice (the forward and
+    the recompute), the backward kernels once."""
+    out = dict(want, fwd=2 * want["fwd"], sm90_fwd=2 * want["sm90_fwd"],
+               modes={k: 2 * v if k.startswith("fwd") else v
+                      for k, v in want["modes"].items()})
+    for k in ("fused_ln", "fused_ln_tile"):
+        if k in want:
+            out[k] = 2 * want[k]
+    return out
+
+
+def _remat_pair(torch, label, base, rem, want, update_want):
+    """Phase 15's remat verdict on one model: bit for bit, the launches of
+    a replayed remat step, the warning; step ms and peak memory beside the
+    run without remat."""
+    same = _same_run(torch, base, rem)
+    rwant = dict(_remat_want(want), **update_want)
+    bwant = dict(want, **update_want)
+    warned = any("planner peak unknown" in m for m in rem["warnings"])
+    gib = 2 ** 30
+    log(f"  {label}: {PHASE15_STEPS} captured steps with remat = without, "
+        f"bit for bit (losses, {len(base['state'])} parameters and slots): "
+        f"{same}; losses {rem['losses']}")
+    log(f"  {label}: a replayed remat step launched {rem['launches']} "
+        f"(expected {rwant}); without remat {base['launches']} (expected "
+        f"{bwant}); the reference's warning: {warned}")
+    log(f"  {label}: step ms p50 {rem['step_ms_p50']:.3f} with remat / "
+        f"{base['step_ms_p50']:.3f} without ({PHASE15_TIMED} captured "
+        f"steps, CUDA events); peak allocated "
+        f"{rem['peak_memory_bytes'] / gib:.3f} / "
+        f"{base['peak_memory_bytes'] / gib:.3f} GiB; graph pool "
+        f"{rem['pool_bytes'] / gib:.3f} / {base['pool_bytes'] / gib:.3f} "
+        f"GiB; {card_line()}")
+    if not (same and rem["captured"] and base["captured"]):
+        raise AssertionError(f"{label}: the remat steps are not the steps "
+                             f"without remat, bit for bit (or not "
+                             f"captured)")
+    if rem["launches"] != rwant or base["launches"] != bwant:
+        raise AssertionError(f"{label}: launches {rem['launches']} / "
+                             f"{base['launches']}; expected {rwant} / "
+                             f"{bwant}")
+    if not (warned and rem["remat_active"]):
+        raise AssertionError(f"{label}: the remat did not engage with the "
+                             f"reference's warning")
+    return dict(bit_for_bit=same, launches=rem["launches"],
+                launches_without=base["launches"], losses=rem["losses"],
+                step_ms_p50=rem["step_ms_p50"],
+                step_ms_p50_without=base["step_ms_p50"],
+                step_ms=rem["step_ms"], step_ms_without=base["step_ms"],
+                peak_memory_bytes=rem["peak_memory_bytes"],
+                peak_memory_bytes_without=base["peak_memory_bytes"],
+                pool_bytes=rem["pool_bytes"],
+                pool_bytes_without=base["pool_bytes"])
+
+
+def copy_rates(torch, nbytes=COPY_BYTES, reps=5):
+    """Pinned host-to-device and device-to-host copies of ``nbytes``, each
+    between CUDA events, and both at once on two streams (``"both"``: GB/s
+    each way), the median of ``reps`` after one warm-up: ms and GB/s."""
+    host = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    card = [torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+            for _ in range(2)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    pairs = {"h2d": [(card[0], host[0])], "d2h": [(host[0], card[0])],
+             "both": [(card[0], host[0]), (host[1], card[1])]}
+    out = {}
+    for name, copies in pairs.items():
+        times = []
+        for _ in range(reps + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for stream, (dst, src) in zip(streams, copies):
+                stream.wait_event(a)
+                with torch.cuda.stream(stream):
+                    dst.copy_(src, non_blocking=True)
+                torch.cuda.current_stream().wait_stream(stream)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = pct(times[1:], 50)
+        out[name] = dict(ms=ms, gb_per_s=nbytes / (ms / 1e3) / 1e9,
+                         bytes=nbytes)
+    del host, card, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _offload_bound(upd, slot_bytes, rates):
+    """The offloaded update's bound: the largest of its card bytes over the
+    memory rate, its host slots' bytes (read once, written once) over the
+    measured pinned copy rate each way alone, and over the rate each way
+    with both at once (the update moves both together)."""
+    card = upd["bytes"] - 2 * slot_bytes
+    times = dict(hbm=card / HBM_BYTES_PER_S * 1e3)
+    for k in ("h2d", "d2h", "both"):
+        times[k] = slot_bytes / (rates[k]["gb_per_s"] * 1e9) * 1e3
+    by = max(times, key=times.get)
+    return dict(bound_ms=times[by], bound_by=by, parts_ms=times,
+                slot_bytes=slot_bytes, card_bytes=card)
+
+
+def offload_spmd(torch, dev, layers=PHASE15_LAYERS, batch=8, seq=512,
+                 steps=2):
+    """``build_spmd_train_step(offload=True)`` on one card against
+    ``offload=False``: ``steps`` bf16 steps at L ``layers``, bit for bit
+    (the reference's offload acts only under a "sharding" axis)."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, build_spmd_train_step
+    from paddle_tpu_torch.models.gpt_spmd import _leaves
+    cfg = GPTConfig(**dict(GPT_WIDTH, num_layers=layers))
+    rng = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                (batch, seq))).to(dev)
+                   for _ in range(2))
+    runs = []
+    for offload in (False, True):
+        step, init = build_spmd_train_step(cfg, compute_dtype=torch.bfloat16,
+                                           offload=offload,
+                                           remat_policy="ctx", device=dev)
+        params, opt = init(0)
+        losses = []
+        for _ in range(steps):
+            loss, params, opt = step(params, opt, ids, labels)
+            losses.append(float(loss))
+        state = {f"p {k}": v.cpu() for k, v in _leaves(params).items()}
+        state.update({f"o {k}": v.cpu() for k, v in _leaves(opt).items()})
+        runs.append(dict(losses=losses, state=state))
+        del params, opt
+    same = _same_run(torch, *runs)
+    log(f"  build_spmd_train_step(offload=True) at L {layers}, B {batch}, "
+        f"T {seq}, bf16: {steps} steps bit for bit those of offload=False: "
+        f"{same}; losses {runs[1]['losses']}")
+    if not same:
+        raise AssertionError("build_spmd_train_step(offload=True) differs "
+                             "from offload=False on one device")
+    return dict(bit_for_bit=same, losses=runs[1]["losses"], layers=layers,
+                batch=batch, seq=seq)
+
+
+def remat_offload_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch):
+    """Phase 15: the budget remat of ``Model``'s captured step on the GPT
+    (phase 9's shape) and the dropout encoder (phase 11's) under AMP O1,
+    each against the same steps without it; optimizer-state offload on
+    that GPT with AdamW (slots pinned, the update reading them in place,
+    its device time against the PCIe bound of the measured pinned copy
+    rates), on LAMB over the decorated O2 encoder at L 2, and in
+    ``build_spmd_train_step`` at L 2."""
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    from paddle_tpu_torch.optimizer import AdamW, Lamb
+    from paddle_tpu_torch.tools.profile_train import build_encoder
+    t0 = time.perf_counter()
+    w = cfg["width"]
+    L, T = w["num_layers"], cfg["seq"]
+    ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], T, dev)
+    mode = fa._pallas_mode(T, T, True)
+    gpt_want = _attention_want(L, mode, mode, "O1")
+
+    def gpt():
+        return GPT(GPTConfig(**w), device=dev, seed=0)
+
+    def adamw(params):
+        return AdamW(1e-3, parameters=params, weight_decay=0.01)
+    att = dict(reset=lambda: _reset_attention(fa),
+               launches=lambda: _attention_launches(fa))
+    upd_want = dict(update={"adamw": 1}, update_norms=0, update_pows=1,
+                    update_unscale=0)
+    log("== phase 15: remat, the GPT under AMP O1 (without, then with)")
+    base = phase15_run(torch, gpt, adamw, ids, labels, "O1", update=True,
+                       **att)
+    rem = phase15_run(torch, gpt, adamw, ids, labels, "O1", remat=True,
+                      **att)
+    out = dict(gpt_remat=_remat_pair(torch, "GPT O1", base, rem, gpt_want,
+                                     upd_want))
+    del rem
+    log("== phase 15: remat, the fused encoder under AMP O1 (dropout "
+        f"{encoder_cfg['dropout_rate']})")
+    EL, ET = encoder_cfg["num_layers"], encoder_cfg["max_len"]
+    e_ids, e_labels = _batch(torch, encoder_cfg["vocab_size"], encoder_batch,
+                             ET, dev)
+    e_mode = fa._pallas_mode(ET, ET, False)
+    enc_want = dict(_attention_want(EL, e_mode, e_mode, "O1"),
+                    **_epilogue_want(EL, "O1"))
+    enc_att = dict(reset=lambda: _reset_encoder(fa, fl),
+                   launches=lambda: _encoder_launches(fa, fl))
+    runs = [phase15_run(torch, lambda: build_encoder(encoder_cfg, dev), adamw,
+                        e_ids, e_labels, "O1", remat=on, **enc_att)
+            for on in (False, True)]
+    out["encoder_remat"] = _remat_pair(torch, "encoder O1", *runs, enc_want,
+                                       upd_want)
+    del runs
+    log("== phase 15: offload, the GPT under AMP O1 with AdamW")
+    rates = copy_rates(torch)
+    log(f"  pinned copies of {COPY_BYTES / 2**30:.0f} GiB: host to device "
+        f"{rates['h2d']['gb_per_s']:.2f} GB/s ({rates['h2d']['ms']:.3f} ms)"
+        f", device to host {rates['d2h']['gb_per_s']:.2f} GB/s "
+        f"({rates['d2h']['ms']:.3f} ms), both at once "
+        f"{rates['both']['gb_per_s']:.2f} GB/s each way "
+        f"({rates['both']['ms']:.3f} ms); {card_line()}")
+    off = phase15_run(torch, gpt, adamw, ids, labels, "O1", offload=True,
+                      update=True, **att)
+    # one fp32 group, staged: one launch of the update pass per stage
+    stages = len(mtu.stage_cuts(off["sizes"], mtu.STAGE_ELEMENTS))
+    off_want = dict(gpt_want, **dict(upd_want, update={"adamw": stages}))
+    same = _same_run(torch, base, off)
+    pinned = bool(off["slots"]) and all(
+        t.device.type == "cpu" and t.is_pinned() for t in off["slots"])
+    mapped = [mtu.device_address(t) for t in off["slots"]]
+    at_same = all(m == t.data_ptr() for m, t in zip(mapped, off["slots"]))
+    slot_bytes = sum(t.numel() * t.element_size() for t in off["slots"])
+    bound = _offload_bound(off["update"], slot_bytes, rates)
+    u, ub = off["update"], base["update"]
+    routes = u["routes_device_ms"]
+    gib = 2 ** 30
+    log(f"  offload: {PHASE15_STEPS} captured steps = offload=False, bit "
+        f"for bit: {same}; {len(off['slots'])} slots, all pinned host "
+        f"memory: {pinned}, read at their own address "
+        f"(cudaPointerGetAttributes): {at_same}; a replayed step launched "
+        f"{off['launches']} (expected {off_want}: {stages} stages of "
+        f"{mtu.STAGE_ELEMENTS} elements)")
+    log(f"  offload: step ms p50 {off['step_ms_p50']:.3f} / "
+        f"{base['step_ms_p50']:.3f} without; peak allocated "
+        f"{off['peak_memory_bytes'] / gib:.3f} / "
+        f"{base['peak_memory_bytes'] / gib:.3f} GiB, resident after the "
+        f"steps {off['resident_bytes'] / gib:.3f} / "
+        f"{base['resident_bytes'] / gib:.3f} GiB, graph pool "
+        f"{off['pool_bytes'] / gib:.3f} / {base['pool_bytes'] / gib:.3f} "
+        f"GiB (slots {slot_bytes / gib:.3f} GiB); optimizer.step() device "
+        f"{u['device_ms']:.4f} ms staged alone; in alternating rounds "
+        f"{routes['staged']:.4f} staged, {routes['in_place']:.4f} in place "
+        f"({ub['device_ms']:.4f} without offload), bound "
+        f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+        f"({bound['bound_ms'] / routes['staged']:.1%} of it staged, "
+        f"{bound['bound_ms'] / routes['in_place']:.1%} in place; "
+        f"parts {({k: round(v, 4) for k, v in bound['parts_ms'].items()})})"
+        f"; {card_line()}")
+    if not (same and pinned and off["captured"]):
+        raise AssertionError("offload: the steps differ from offload=False, "
+                             "or a slot is not pinned host memory")
+    if off["launches"] != off_want:
+        raise AssertionError(f"offload: launches {off['launches']}")
+    out["gpt_offload"] = dict(
+        bit_for_bit=same, slots_pinned=pinned, slots=len(off["slots"]),
+        slot_bytes=slot_bytes, mapped_at_host_address=at_same,
+        launches=off["launches"], stages=stages,
+        step_ms_p50=off["step_ms_p50"],
+        step_ms_p50_without=base["step_ms_p50"], step_ms=off["step_ms"],
+        peak_memory_bytes=off["peak_memory_bytes"],
+        peak_memory_bytes_without=base["peak_memory_bytes"],
+        resident_bytes=off["resident_bytes"],
+        resident_bytes_without=base["resident_bytes"],
+        pool_bytes=off["pool_bytes"], pool_bytes_without=base["pool_bytes"],
+        update=u, update_without=ub,
+        bound=bound, routes_device_ms=routes,
+        share_of_bound=bound["bound_ms"] / routes["staged"],
+        share_of_bound_in_place=bound["bound_ms"] / routes["in_place"],
+        copy_rates=rates)
+    del base, off
+    log(f"== phase 15: offload, LAMB on the decorated O2 encoder at L "
+        f"{PHASE15_LAYERS}")
+    small = dict(encoder_cfg, num_layers=PHASE15_LAYERS)
+
+    def lamb(params):
+        return Lamb(LAMB_LR, lamb_weight_decay=LAMB_WD, parameters=params)
+    runs = [phase15_run(torch, lambda: build_encoder(small, dev), lamb,
+                        e_ids, e_labels, "O2", offload=on, decorate=True,
+                        timed=False) for on in (False, True)]
+    same = _same_run(torch, *runs)
+    pinned = all(t.is_pinned() for t in runs[1]["slots"])
+    on_card = bool(runs[1]["masters"]) and all(
+        m.is_cuda for m in runs[1]["masters"])
+    log(f"  LAMB O2 decorated, offloaded: {PHASE15_STEPS} captured steps = "
+        f"offload=False bit for bit: {same}; slots pinned: {pinned}; "
+        f"{len(runs[1]['masters'])} fp32 masters on the card: {on_card}")
+    if not (same and pinned and on_card):
+        raise AssertionError("offload: LAMB O2 differs from offload=False, "
+                             "or its slots / masters are misplaced")
+    out["lamb_o2_offload"] = dict(bit_for_bit=same, slots_pinned=pinned,
+                                  masters_on_card=on_card,
+                                  losses=runs[1]["losses"])
+    del runs
+    log(f"== phase 15: build_spmd_train_step(offload=True) at L "
+        f"{PHASE15_LAYERS}")
+    out["spmd_offload"] = offload_spmd(torch, dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 took {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16):
-    """Phases 3-14 on ``dev`` with a serving GPT of ``width``, the two
+    """Phases 3-15 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -4604,6 +5080,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     train_times_fp16 = timing_train_kernels(torch, fq, sx, train_fp16_cfg,
                                             dev)
     long_times_fp16 = timing_train_kernels(torch, fq, sx, long_fp16_cfg,
+                                           dev, head=False)
+    log("== phase 6: rows 3 and 5 in bf16 at T 1024 (beside fp16's)")
+    long_times_bf16 = timing_train_kernels(torch, fq, sx, TRAIN_LONG_BF16,
                                            dev, head=False)
     dlogits_time_fp16 = timing_dlogits(torch, sx, train_fp16_cfg, dev)
     log("== phase 6: the epilogue, the update, the 16-bit rows")
@@ -4694,6 +5173,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     torch.cuda.empty_cache()
     fp16 = fp16_path(torch, fa, fl, dev, eager_cfg, encoder_cfg,
                      encoder_batch, eager_o1)
+    ro = remat_offload_path(torch, fa, fl, dev, eager_cfg, encoder_cfg,
+                            encoder_batch)
+    off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
         f"decorated {dec['step_ms_p50']:.3f} / "
@@ -4763,6 +5245,14 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     ll = trained_long["launches"]
     dl = trained_dryrun["launches"]
 
+    def t1024_of(times, key):
+        # rows 3 / 5 at B 8, T 1024 (phase 8's shape) in one type
+        t = times[key]
+        return {k: t[k] for k in (
+            "shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by", "fwd_plus_bwd_ms",
+            "fwd_plus_bwd_device_ms", "max_abs_err") if k in t}
+
     def fp32_rows(key):
         # the fp32 path of a packed kernel: row 3 / 4 at T 512 (B 32) and
         # rows 3 / 5 at T 1024 (B 8), the bound and SDPA's kernels (the
@@ -4785,6 +5275,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               library_device_ms=train_times["flash_qkv_fwd"][
                   "library_device_ms"],
               fp32_source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
+              t1024_bf16=t1024_of(long_times_bf16, "flash_qkv_fwd"),
               launches_t1024=ll["flash_qkv_fwd"], checks=len(qkv_checks),
               launches_dryrun=dl["flash_qkv_fwd"],
               launches_eager_amp_o1=eager_o1["launches"]["sm90_fwd"],
@@ -4811,6 +5302,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
               library_device_ms=train_times["flash_qkv_bwd"][
                   "library_device_ms"],
               fp32_source="paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+              t1024_bf16=t1024_of(long_times_bf16, "flash_qkv_bwd"),
               launches_t1024=ll["flash_qkv_bwd"], checks=len(qkv_checks),
               launches_dryrun=dl["flash_qkv_bwd"],
               launches_eager_amp_o1=eager_o1["launches"]["sm90_bwd"],
@@ -4997,7 +5489,16 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          "fit_step": fit_fp32["launches_per_step"]["update"],
                          "optimizers": {k: v["replay_update_launches"]
                                         for k, v in opts.items()},
-                         "lamb_o2": dec["replay_update_launches"]}))
+                         "lamb_o2": dec["replay_update_launches"]},
+        launches_offloaded=sum(off["launches"]["update"].values()),
+        offload_stages=off["stages"],
+        device_ms_offloaded=off["routes_device_ms"]["staged"],
+        device_ms_offloaded_in_place=off["routes_device_ms"]["in_place"],
+        offload_bound_ms=off["bound"]["bound_ms"],
+        offload_bound_by=off["bound"]["bound_by"],
+        share_of_offload_bound=off["share_of_bound"],
+        offload_copy_rates_gb_per_s={k: v["gb_per_s"] for k, v in
+                                     off["copy_rates"].items()}))
     # fp16 rows 3, 4 (and 5 at T 1024), 10 and 11: the compiled
     # step in fp16, on flash_attn_sm90 and softmax_xent_sm90
     t16, tl16 = train_times_fp16, trained_fp16["launches"]
@@ -5006,11 +5507,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
 
     def t1024(key):
         # rows 3 / 5 in fp16 at B 8, T 1024 (phase 8's shape)
-        t = long_times_fp16[key]
-        return {k: t[k] for k in (
-            "shape", "ms", "device_ms", "plain_ms", "library_ms",
-            "library_device_ms", "bound_ms", "bound_by", "fwd_plus_bwd_ms",
-            "fwd_plus_bwd_device_ms", "max_abs_err") if k in t}
+        return t1024_of(long_times_fp16, key)
 
     def fp16_row(name, source, replaces, launches, t, err, checks_,
                  **extra):
@@ -5216,6 +5713,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_long_fp16=trained_long_fp16, remat=remat,
                   train_fp16_timing=train_times_fp16,
                   train_long_fp16_timing=long_times_fp16,
+                  train_long_bf16_timing=long_times_bf16,
+                  remat_offload=ro,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

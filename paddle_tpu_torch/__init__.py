@@ -10,12 +10,14 @@ layers (``incubate.nn``).  Attention, the LM head and the fused post-LN
 epilogue run through hand-written CUDA kernels (``csrc/``) built with
 nvcc at first use.  Entry points run on the card unless given
 ``device="cpu"``.  :func:`seed` reseeds the port's random state
-(``random``).
+(``random``); :func:`set_flags` and :func:`get_flags` set and read the
+reference's runtime flags (``utils.flags``).
 """
 from . import regularizer
 from .device import NoCudaDevice, resolve_device
 from .hapi import Model, flops, summary
 from .random import seed
+from .utils.flags import get_flags, set_flags
 
-__all__ = ["Model", "NoCudaDevice", "flops", "regularizer",
-           "resolve_device", "seed", "summary"]
+__all__ = ["Model", "NoCudaDevice", "flops", "get_flags", "regularizer",
+           "resolve_device", "seed", "set_flags", "summary"]

@@ -304,6 +304,32 @@ class auto_cast:
 amp_guard = auto_cast
 
 
+class restored:
+    """Context manager: run under ``state`` (an ``_amp_state()`` taken
+    earlier, or None), as inside the auto_cast that made it; a region
+    recomputed in the backward re-enters its forward's state so."""
+
+    def __init__(self, state: Optional[_AmpState]):
+        self._new = state
+
+    def __enter__(self):
+        self._prev = _amp_state()
+        _state.amp = self._new
+        self._mode = None
+        if self._new is not None and not getattr(_state, "hooked", False):
+            self._mode = _CastMode()
+            self._mode.__enter__()
+            _state.hooked = True
+        return self
+
+    def __exit__(self, *exc):
+        if self._mode is not None:
+            _state.hooked = False
+            self._mode.__exit__(*exc)
+        _state.amp = self._prev
+        return False
+
+
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """O2 decoration: the models' fp32 parameters cast to ``dtype`` in

@@ -972,6 +972,20 @@ extern "C" int mt_unscale(const void* recs, const int* prefix, int n,
   return (int)cudaGetLastError();
 }
 
+// Where `p` lies and the address a kernel reads it at (the optimizer
+// slots of an offloaded state are pinned host memory, read in place):
+// `type` the cudaMemoryType (0 unregistered host, 1 host, 2 device, 3
+// managed), `dev` the device pointer (null for unregistered memory).
+extern "C" int mt_device_pointer(const void* p, int* type, void** dev) {
+  cudaGetLastError();
+  cudaPointerAttributes a;
+  const cudaError_t e = cudaPointerGetAttributes(&a, p);
+  if (e != cudaSuccess) return (int)e;
+  *type = (int)a.type;
+  *dev = a.devicePointer;
+  return 0;
+}
+
 extern "C" const char* multi_tensor_update_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -66,7 +66,8 @@ COUNTERS = (("flash_attention", "FWD_LAUNCHES"),
             ("multi_tensor_update", "LAUNCHES"),
             ("multi_tensor_update", "NORM_LAUNCHES"),
             ("multi_tensor_update", "POW_LAUNCHES"),
-            ("multi_tensor_update", "UNSCALE_LAUNCHES"))
+            ("multi_tensor_update", "UNSCALE_LAUNCHES"),
+            ("multi_tensor_update", "OFFLOAD_ROUTES"))
 
 # one capture stream per device
 _STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}

@@ -9,7 +9,8 @@ With ``prepare(jit=True)``, the default, the reference runs
 ``predict_batch`` as jitted XLA steps cached per signature (:467-481,
 :637-680).  The port captures each in a CUDA graph per signature — the
 kind (``"train"``, ``"eval"``, ``"predict"``), the inputs' and labels'
-shapes and dtypes, and for training the AMP level and type — through an
+shapes and dtypes, and for training the AMP level and type and the remat
+decision — through an
 :class:`~paddle_tpu_torch.serving.bucketing.ExecutableCache` of
 :class:`~paddle_tpu_torch.graphs.StepGraph` entries.  The first call of a
 signature runs the step once, a real step, on a side stream, then
@@ -53,8 +54,8 @@ specs) say how many leading fields of a batch are inputs
 ``verbose``, ``ModelCheckpoint`` with ``save_dir``, and
 ``LRSchedulerCallback``, which steps the optimizer's scheduler after
 every batch), per epoch a fresh :class:`~paddle_tpu_torch.io.DevicePrefetcher`
-of depth ``prefetch_to_device`` (default ``FLAGS_prefetch_to_device``
-from the environment, else 2; 0 turns it off) onto the model's device,
+of depth ``prefetch_to_device`` (default ``FLAGS_prefetch_to_device``,
+2; 0 turns it off) onto the model's device,
 ``train_batch`` per batch (with ``accumulate_grad_batches`` > 1,
 ``train_batch(update=False)`` and an eager step on the boundary), the
 real batch size in the logs, ``evaluate`` every ``eval_freq`` epochs,
@@ -88,18 +89,43 @@ path; ``_amp_found_inf`` is the last step's flag, a device tensor, as in
 the reference (:581).
 The optimizer's step count advances on an overflow too (:595-596).
 
+The budget remat (:meth:`Model._remat_decision`, the reference's
+:340-376): with ``FLAGS_program_remat`` set and ``FLAGS_remat_budget_mb``
+above 0 (the flag registry, ``paddle_tpu_torch.set_flags``), the captured
+update step keeps every product's output and recomputes the rest in the
+backward (:mod:`~paddle_tpu_torch.hapi.remat`, the reference's
+``dots_saveable`` checkpoint, :283-290); the decision is part of the
+step's key, so setting the flags captures another graph.  The reference
+engages it when its static planner's peak passes the budget or the model
+cannot be planned; the port has no planner yet (``ROADMAP.md`` A7) and
+takes the second branch for every model, warning as the reference does
+("planner peak unknown").  A model the reference could plan under its
+budget therefore remats in the port: its values are the same, its memory
+lower and its step slower.  ``jit=False``, ``update=False`` and ``fit``'s
+accumulating steps ignore the flags, as the reference's eager engine
+does.
+
+``prepare(offload=True)`` (the reference's :217-221, 377-409, 486-491):
+from the first captured update step on, every optimizer slot lives in
+pinned host memory and each update crosses PCIe for it
+(``Optimizer._offload_state``, ``ops/multi_tensor_update.py``); fp32
+masters stay on the card.  Where the
+model is not on a card (the reference's backend without a
+``pinned_host`` memory space) it warns with the reference's text and
+trains un-offloaded; ``jit=False`` trains un-offloaded, as there.
+
 Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``offload=True`` and the budget-driven remat of
-``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb`` (A3); ``fit``'s
-fault-tolerance hooks — ``checkpointer=``, ``FLAGS_anomaly_action`` and
-the supervisor's ``PADDLE_SUPERVISE_STORE`` (A8); ``save(training=False)``,
-the inference export (A6).  ``summary`` (:1465) prints
-:func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
+``ROADMAP.md`` item: ``fit``'s fault-tolerance hooks — ``checkpointer=``,
+``FLAGS_anomaly_action`` and the supervisor's ``PADDLE_SUPERVISE_STORE``
+(A8); ``save(training=False)``, the inference export (A6).  ``summary``
+(:1465) prints :func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import warnings
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -112,12 +138,13 @@ from ..metric import Metric
 from ..ops.amp_ops import update_loss_scaling_
 from ..ops.multi_tensor_update import multi_tensor_unscale
 from ..serving.bucketing import ExecutableCache
+from ..utils.flags import get_flag
+from . import remat as _remat
 from .callbacks import config_callbacks
 from .summary import summary as _summary
 
 __all__ = ["Model"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md A3)"
 _FAULT_TOLERANCE = ("is not ported yet (ROADMAP.md A8: fit's "
                     "fault-tolerance hooks)")
 
@@ -136,20 +163,6 @@ def _batch_len(ins) -> int:
         return 0
 
 
-def _prefetch_depth_flag() -> int:
-    """``FLAGS_prefetch_to_device`` from the environment (the reference's
-    flag, default 2)."""
-    return int(os.environ.get("FLAGS_prefetch_to_device", "2") or 0)
-
-
-def _remat_flags_set() -> bool:
-    """The reference's remat switch (``_remat_decision``): both flags set
-    in the environment, which its flag registry reads."""
-    on = os.environ.get("FLAGS_program_remat", "").lower() in (
-        "1", "true", "yes", "on")
-    return on and int(os.environ.get("FLAGS_remat_budget_mb", "0") or 0) > 0
-
-
 class Model:
     """Train, evaluate and run a ``torch.nn.Module`` batch by batch."""
 
@@ -166,6 +179,11 @@ class Model:
         self._scaler = None
         self._amp_found_inf = None
         self._jit = True
+        self._offload = False
+        self._offload_on = None
+        self._remat_cache = None
+        self._remat_active = False
+        self._remat_planned_peak = None
         self._steps = ExecutableCache(name="hapi")
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -173,16 +191,18 @@ class Model:
         """Set the optimizer, the loss and AMP.  ``jit`` (the default)
         captures the train (with ``update``), eval and predict steps per
         signature; ``jit=False`` runs them eagerly.  ``metrics`` are
-        ``paddle_tpu_torch.metric.Metric``s."""
+        ``paddle_tpu_torch.metric.Metric``s.  ``offload`` keeps the
+        optimizer's state in pinned host memory (module docstring); without
+        it, an optimizer an earlier ``prepare`` offloaded has its state
+        brought back onto the card."""
         self._metrics = _to_list(metrics)
         for m in self._metrics:
             if not isinstance(m, Metric):
                 raise TypeError(f"metric {m} is not a paddle Metric")
         self._amp, self._scaler = self._amp_settings(amp_configs)
         self._amp_found_inf = None
-        if offload:
-            raise NotImplementedError(f"optimizer-state offload "
-                                      f"{_NOT_PORTED}")
+        self._offload = bool(offload)
+        self._offload_on = None
         self._optimizer = optimizer
         self._loss = loss
         self._jit = bool(jit)
@@ -190,6 +210,8 @@ class Model:
         if optimizer is not None:
             optimizer._name_parameters(
                 {id(p): n for n, p in self.network.named_parameters()})
+            if not offload:             # offloaded by an earlier prepare
+                optimizer._offload_state(False)
         return self
 
     def _amp_settings(self, amp_configs):
@@ -342,15 +364,22 @@ class Model:
             return out
         return exe(*values)
 
-    def _train_step(self, n_in: int) -> Callable:
+    def _train_step(self, n_in: int, remat: bool = False) -> Callable:
         """forward, loss, backward, optimizer step (the clip inside it),
         gradients zeroed in place; returns ``(loss,)``, and with metrics
-        the network's outputs after it."""
+        the network's outputs after it.  With ``remat`` the network's
+        blocks and the loss are recomputed regions
+        (:mod:`~paddle_tpu_torch.hapi.remat`)."""
         def step(*tensors):
             ins, labs = list(tensors[:n_in]), list(tensors[n_in:])
-            outs = _to_list(self.network(*ins) if self._amp is None
-                            else self._forward_amp(ins))
-            loss = self._loss(*(outs + labs))
+            with (_remat.segments(self.network) if remat
+                  else contextlib.nullcontext()):
+                outs = _to_list(self.network(*ins) if self._amp is None
+                                else self._forward_amp(ins))
+            if remat:
+                loss = _remat.checkpoint(self._loss, *(outs + labs))
+            else:
+                loss = self._loss(*(outs + labs))
             self._backward_and_step(loss, update=True)
             self._optimizer.clear_grad(set_to_zero=True)
             return self._step_outputs(loss, outs)
@@ -386,15 +415,55 @@ class Model:
         logs.update(metrics)
         return logs
 
+    def _remat_decision(self, batch_size: int = 1) -> bool:
+        """Whether the captured update step remats (the reference's
+        :340-376): ``FLAGS_program_remat`` set, ``FLAGS_remat_budget_mb``
+        above 0, and the planner's train peak over the budget or unknown.
+        The port has no planner yet (``ROADMAP.md`` A7), so the peak is
+        unknown and every budget engages it, with the reference's warning.
+        The verdict is cached per (budget, batch size)."""
+        if not get_flag("FLAGS_program_remat"):
+            return False
+        budget_mb = int(get_flag("FLAGS_remat_budget_mb") or 0)
+        if budget_mb <= 0:
+            return False
+        cached = self._remat_cache
+        if cached is not None and cached[0] == (budget_mb, batch_size):
+            return cached[1]
+        peak = None                       # static_memory_plan: A7
+        on = peak is None or peak > budget_mb * (1 << 20)
+        if on:
+            warnings.warn(
+                f"fit: rematerialization engaged — planner peak "
+                f"{'unknown' if peak is None else f'{peak}B'} vs budget "
+                f"{budget_mb}MB (FLAGS_remat_budget_mb); the train step "
+                f"recomputes non-matmul activations in the backward")
+        self._remat_active = on
+        self._remat_planned_peak = peak
+        self._remat_cache = ((budget_mb, batch_size), on)
+        return on
+
+    def _offload_state(self) -> None:
+        """At the first captured update step after ``prepare(offload=
+        True)``: the optimizer's slots move to pinned host memory when the
+        model is on a card; elsewhere the reference's warning, once, and
+        no offload (the reference's ``_offload_shardings``, :377-409)."""
+        if not self._offload or self._offload_on is not None:
+            return
+        self._offload_on = self._device().type == "cuda"
+        if self._offload_on:
+            self._optimizer._offload_state()
+        else:
+            warnings.warn(
+                "prepare(offload=True): this backend exposes no "
+                "pinned_host memory space — optimizer-state offload "
+                "is a no-op here (training proceeds un-offloaded)")
+
     # ------------------------------------------------------------------
     def train_batch(self, inputs, labels=None, update: bool = True) -> Dict:
         """One step on a batch: ``{"loss": 0-d device tensor}`` and each
         metric's result.  With ``update=False`` the gradients stay in the
         parameters' ``.grad`` and nothing is stepped."""
-        if _remat_flags_set():
-            raise NotImplementedError(f"budget-driven remat (FLAGS_program_"
-                                      f"remat, FLAGS_remat_budget_mb) "
-                                      f"{_NOT_PORTED}")
         if self._loss is None or (update and self._optimizer is None):
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
@@ -407,9 +476,12 @@ class Model:
         steps = opt._global_step
         amp = None if self._amp is None else (self._amp["level"],
                                               self._amp["dtype"])
+        remat = self._remat_decision(_batch_len(ins))
+        self._offload_state()             # outside the graph
         opt._refresh_lr()                 # outside the graph
-        out = self._captured("train", lambda: self._train_step(len(ins)),
-                             ins + labs, (amp,))
+        out = self._captured(
+            "train", lambda: self._train_step(len(ins), remat), ins + labs,
+            (remat, amp))
         opt._global_step = steps + 1
         return self._pack_logs(out[0].clone(),
                                self._update_metrics(out[1:], labs))
@@ -471,7 +543,8 @@ class Model:
         onto the model's device, unless ``depth`` is 0 or the loader runs
         its own stage (which is pointed at the model's device)."""
         from ..io import DataLoader, DevicePrefetcher
-        depth = int(_prefetch_depth_flag() if depth is None else depth or 0)
+        depth = int(get_flag("FLAGS_prefetch_to_device") if depth is None
+                    else depth or 0)
         dev = self._device()
         if getattr(loader, "prefetch_to_device", 0) > 0:
             loader._device = dev
@@ -493,7 +566,7 @@ class Model:
             raise NotImplementedError(f"fit(checkpointer=...), the "
                                       f"checkpoint resume, "
                                       f"{_FAULT_TOLERANCE}")
-        if os.environ.get("FLAGS_anomaly_action"):
+        if get_flag("FLAGS_anomaly_action"):
             raise NotImplementedError(f"FLAGS_anomaly_action, the nan/inf "
                                       f"loss guard, {_FAULT_TOLERANCE}")
         if os.environ.get("PADDLE_SUPERVISE_STORE"):

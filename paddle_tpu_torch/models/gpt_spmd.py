@@ -416,8 +416,11 @@ def build_spmd_train_step(cfg: GPTConfig, mesh: Optional[Mapping] = None,
     draws fresh parameters on the device.  ``device`` is the card unless
     ``device="cpu"``.  ``mesh`` is ``None`` or a mapping of axis sizes;
     a mesh of more than one device (ZeRO included: a ``"sharding"`` axis),
-    micro-batching, the 1F1B schedule and offload are not ported
-    (``ROADMAP.md`` A5)."""
+    micro-batching and the 1F1B schedule are not ported (``ROADMAP.md``
+    A5).  ``offload`` is the reference's ZeRO offload, which moves the
+    state to pinned host memory only with a ``"sharding"`` axis over 1
+    (``paddle_tpu/models/gpt_spmd.py:495-503``, waiting for A5 here): on
+    one device it changes nothing, there and here."""
     dev = resolve_device(device)
     sizes = dict(mesh or {})
     if any(int(n) > 1 for n in sizes.values()):
@@ -429,8 +432,6 @@ def build_spmd_train_step(cfg: GPTConfig, mesh: Optional[Mapping] = None,
     if schedule_mode != "F-then-B":
         raise NotImplementedError(f"schedule_mode {schedule_mode!r}; "
                                   + _LATER)
-    if offload:
-        raise NotImplementedError("optimizer-state offload; " + _LATER)
     if compute_dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise ValueError(f"compute_dtype {compute_dtype}: fp32, bf16 or "
                          f"fp16")

@@ -37,6 +37,31 @@ flag as ``found_inf``: set, every launch returns before writing, so
 parameters, masters, slots and powers keep their values (the reference's
 ``jnp.where(found_inf, old, new)``), and the plain version keeps them
 through ``torch.where``.  Nothing reads the flag on the host.
+
+Optimizer-state offload (``Model.prepare(offload=True)``) puts the slots
+and powers of a group on the card in pinned host memory; parameters,
+gradients and masters stay on the card, and a slot in host memory that is
+not pinned is refused by name.  A host slot is addressed by the device
+pointer ``cudaPointerGetAttributes`` gives for it (``mt_device_pointer``;
+memory of another type raises).  Two routes, counted in
+:data:`OFFLOAD_ROUTES`:
+
+- ``"staged"`` (every kind without a norms pass): the group is cut into
+  stages of at most :data:`STAGE_ELEMENTS` elements of each slot; a
+  stage's slots are copied by the copy engines into one of
+  :data:`STAGE_RING` device buffers on a side stream, the update kernel
+  steps the stage there, and another side stream copies them back, so
+  the two directions and the kernel overlap across stages; each stage is
+  one launch of the update pass.  On the H100s measured it was never the
+  slower route: 22% faster than in place where pinned copies both ways at
+  once ran 32-34 GB/s each way, 4% where they ran 45.5 (``PERF.md`` §6,
+  ``tools/offload_sweep.py``); the stage size and ring depth moved it
+  under 4%.  The powers stay in place (8 bytes a tensor) and advance once,
+  after every stage.
+- ``"in_place"`` (LarsMomentum, Lamb: their norms pass, once over whole
+  tensors, comes before the update; Lamb's stores the moments the update
+  pass reads back): the kernel reads and writes the slots where they lie,
+  over PCIe.
 """
 from __future__ import annotations
 
@@ -53,7 +78,8 @@ __all__ = ["KINDS", "Spec", "Record", "Table", "multi_tensor_update",
            "multi_tensor_update_ref", "LAUNCHES", "NORM_LAUNCHES",
            "POW_LAUNCHES", "CHUNK", "GradTable", "grad_tables", "GRAD_CODES",
            "multi_tensor_unscale", "multi_tensor_unscale_ref",
-           "UNSCALE_LAUNCHES"]
+           "UNSCALE_LAUNCHES", "STAGE_ELEMENTS", "STAGE_RING",
+           "OFFLOAD_ROUTES", "device_address", "stage_cuts"]
 
 # the kernel's kinds, in the order of its Kind enum
 KINDS = ("sgd", "momentum", "lars", "adam", "adamw", "adamax", "adagrad",
@@ -71,6 +97,17 @@ LAUNCHES: Dict[str, int] = {}
 NORM_LAUNCHES = 0
 POW_LAUNCHES = 0
 UNSCALE_LAUNCHES = 0
+# offloaded groups' update launches by route (see the module docstring;
+# a staged group launches once per stage)
+OFFLOAD_ROUTES: Dict[str, int] = {"staged": 0, "in_place": 0}
+# a stage's elements of each slot (a multiple of 8: aligned vectors), and
+# the device buffers the stages take in turn (tools/offload_sweep.py times
+# 1M-16M and 2-4)
+STAGE_ELEMENTS = 1 << 22
+STAGE_RING = 3
+# the staged route for the kinds that can take it; chip_smoke.py patches
+# it to False to time the in-place route beside it
+_STAGE_OFFLOAD = True
 
 _lib = None
 
@@ -139,6 +176,9 @@ def _kernel():
         lib.mt_pows.restype = i
         lib.mt_unscale.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
         lib.mt_unscale.restype = i
+        lib.mt_device_pointer.argtypes = [p, ctypes.POINTER(i),
+                                          ctypes.POINTER(p)]
+        lib.mt_device_pointer.restype = i
         lib.multi_tensor_update_error_string.argtypes = [i]
         lib.multi_tensor_update_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -164,9 +204,16 @@ def _types_code(r: Record) -> int:
     return _TYPES.index(key)
 
 
+def _host_slot(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` is a slot of a group on the card kept in host
+    memory (offload)."""
+    return device.type == "cuda" and t.device.type == "cpu"
+
+
 def _check(spec: Spec, records: Sequence[Record]) -> torch.device:
     """What the kernel and its plain version take alike; returns the
-    records' device."""
+    records' device.  A slot or power of a group on the card may lie in
+    pinned host memory."""
     if spec.kind not in KINDS:
         raise ValueError(f"multi_tensor_update: unknown kind {spec.kind!r}")
     if not records:
@@ -181,12 +228,23 @@ def _check(spec: Spec, records: Sequence[Record]) -> torch.device:
                              f"slots and {len(r.pows)} powers where "
                              f"{spec.kind} has {len(spec.slots)} and "
                              f"{len(spec.betas)}")
-        for what, t in tensors.items():
+        state = set(spec.slots)
+        for what, t in list(tensors.items()) + [
+                (f"power {k}", t) for k, t in enumerate(r.pows)]:
             if t is None:
                 continue
-            if t.device != device:
+            if (what in state or what.startswith("power")) and \
+                    _host_slot(t, device):
+                if not t.is_pinned():
+                    raise ValueError(
+                        f"multi_tensor_update: {r.name}'s {what} is in host "
+                        f"memory that is not pinned; the kernel reads host "
+                        f"slots in place, which needs pinned memory")
+            elif t.device != device:
                 raise ValueError(f"multi_tensor_update: {r.name}'s {what} is "
                                  f"on {t.device}, the group on {device}")
+            if what.startswith("power"):
+                continue
             if t.numel() != r.param.numel():
                 raise ValueError(f"multi_tensor_update: {r.name}'s {what} "
                                  f"has {t.numel()} elements, the parameter "
@@ -201,10 +259,9 @@ def _check(spec: Spec, records: Sequence[Record]) -> torch.device:
                             f"in the {'master' if r.master is not None else 'parameter'}"
                             f"'s; got {r.grad.dtype}, "
                             f"{[s.dtype for s in r.slots]}")
-        if any(t.dtype != torch.float32 or t.numel() != 1 or t.device != device
-               for t in r.pows):
+        if any(t.dtype != torch.float32 or t.numel() != 1 for t in r.pows):
             raise TypeError(f"multi_tensor_update: {r.name}: the powers must "
-                            f"be fp32 scalars on {device}")
+                            f"be fp32 scalars")
         if r.reg not in _REG:
             raise ValueError(f"multi_tensor_update: {r.name}: regularizer "
                              f"{r.reg!r}; the kernel adds L1Decay and "
@@ -222,6 +279,7 @@ class Table:
         self.names = tuple(r.name for r in self.records)
         self.device = _check(spec, self.records)
         self.recs = self.prefix = self.partials = self.norms = None
+        self.stages = self.ring = ()
         self.nchunks = sum(-(-r.param.numel() // CHUNK) for r in self.records)
         if self.device.type != "cuda":
             return
@@ -232,16 +290,16 @@ class Table:
         self.types = codes.pop()
         arr = (_Rec * len(self.records))()
         for rec, r in zip(arr, self.records):
-            ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + [
-                s.data_ptr() for s in r.slots]
+            slots = [device_address(s) for s in r.slots]
+            ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + slots
             rec.w, rec.g = ptrs[0], ptrs[1]
             rec.p16 = r.param.data_ptr() if r.master is not None else None
             if rec.p16:
                 ptrs.append(rec.p16)
-            for k, s in enumerate(r.slots):
-                rec.s[k] = s.data_ptr()
+            for k, s in enumerate(slots):
+                rec.s[k] = s
             for k, t in enumerate(r.pows):
-                rec.pw[k] = t.data_ptr()
+                rec.pw[k] = device_address(t)
             rec.n = r.param.numel()
             rec.lr_scale, rec.reg_coeff = r.lr_scale, r.reg_coeff
             rec.decay, rec.reg = r.decay, _REG[r.reg]
@@ -249,6 +307,10 @@ class Table:
             rec.vec = int(all(p % 16 == 0 for p in ptrs))
         self.recs, self.prefix = _upload("multi_tensor_update", arr,
                                          self.device)
+        if _STAGE_OFFLOAD and spec.kind not in _NORM_KINDS and any(
+                _host_slot(s, self.device) for r in self.records
+                for s in r.slots):
+            self._stage()
         if spec.kind in _NORM_KINDS:
             self.partials = torch.empty(2 * max(self.nchunks, 1),
                                         dtype=torch.float32,
@@ -256,10 +318,111 @@ class Table:
             self.norms = torch.empty(2 * len(self.records),
                                      dtype=torch.float32, device=self.device)
 
+    def _stage(self) -> None:
+        """The staged route of an offloaded group: :attr:`stages`, each
+        with its device table over :attr:`ring` buffers and the (host,
+        device) slot ranges it copies each way."""
+        E, nslots = STAGE_ELEMENTS, len(self.spec.slots)
+        dtype = self.records[0].slots[0].dtype
+        cuts = [[(self.records[i], start, n, pos) for i, start, n, pos in cut]
+                for cut in stage_cuts([r.param.numel() for r in self.records],
+                                      E)]
+        self.ring = tuple(torch.empty(nslots * E, dtype=dtype,
+                                      device=self.device)
+                          for _ in range(min(STAGE_RING, len(cuts))))
+        stages = []
+        for i, cut in enumerate(cuts):
+            buf = self.ring[i % len(self.ring)]
+            arr = (_Rec * len(cut))()
+            copies = []
+            for rec, (r, start, n, pos) in zip(arr, cut):
+                w, g = r.target, r.grad
+                rec.w = w.data_ptr() + start * w.element_size()
+                rec.g = g.data_ptr() + start * g.element_size()
+                rec.p16 = (r.param.data_ptr() + start * r.param.element_size()
+                           if r.master is not None else None)
+                for k, slot in enumerate(r.slots):
+                    dev = buf[k * E + pos:k * E + pos + n]
+                    rec.s[k] = dev.data_ptr()
+                    copies.append((slot.view(-1)[start:start + n], dev))
+                for k, t in enumerate(r.pows):
+                    rec.pw[k] = device_address(t)
+                rec.n = n
+                rec.lr_scale, rec.reg_coeff = r.lr_scale, r.reg_coeff
+                rec.decay, rec.reg = r.decay, _REG[r.reg]
+                rec.plain = int(r.plain)
+                rec.vec = int(all(p % 16 == 0 for p in (
+                    rec.w, rec.g, rec.p16 or 0, *rec.s[:nslots])))
+            recs, prefix = _upload("multi_tensor_update", arr, self.device)
+            stages.append(_Stage(recs, prefix, len(cut), sum(
+                -(-n // CHUNK) for _, _, n, _ in cut), tuple(copies)))
+        self.stages = tuple(stages)
+        self.streams = tuple(torch.cuda.Stream(device=self.device)
+                             for _ in range(2))
+
     def tensors(self):
         """The device tensors a launch reads by address."""
         return tuple(t for t in (self.recs, self.prefix, self.partials,
-                                 self.norms) if t is not None)
+                                 self.norms) if t is not None) + tuple(
+            self.ring) + tuple(t for st in self.stages
+                               for t in (st.recs, st.prefix))
+
+
+def stage_cuts(sizes: Sequence[int], elements: int):
+    """Tensors of ``sizes`` elements cut into stages of at most
+    ``elements`` (a multiple of 8) each, in order: per stage the ranges
+    ``(tensor index, start, length, offset in the stage)``; each range
+    starts at a multiple of 8 in its stage and in its tensor, so that
+    aligned tensors keep aligned vectors."""
+    cuts, cur, pos = [], [], 0
+    for i, n in enumerate(sizes):
+        start = 0
+        while start < n:
+            if pos >= elements:
+                cuts.append(cur)
+                cur, pos = [], 0
+            take = min(n - start, elements - pos)
+            cur.append((i, start, take, pos))
+            start += take
+            pos += -(-take // 8) * 8
+    if cur:
+        cuts.append(cur)
+    return cuts
+
+
+@dataclass(frozen=True)
+class _Stage:
+    """One stage of an offloaded group: its device table (``n`` records,
+    ``nchunks`` chunks) and the (host range, device range) pairs of its
+    slots."""
+    recs: torch.Tensor
+    prefix: torch.Tensor
+    n: int
+    nchunks: int
+    copies: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+
+
+# cudaMemoryType of cudaPointerGetAttributes
+_MEMORY_TYPES = {0: "unregistered host", 1: "host", 2: "device", 3: "managed"}
+
+
+def device_address(t: torch.Tensor) -> int:
+    """The address a kernel reads ``t`` at: its own for a tensor on the
+    card; for pinned host memory the device pointer that
+    ``cudaPointerGetAttributes`` gives for it (``mt_device_pointer``),
+    which must be of host memory."""
+    if t.device.type != "cpu":
+        return t.data_ptr()
+    kind, dev = ctypes.c_int(), ctypes.c_void_p()
+    lib = _kernel()
+    _raise(lib, "mt_device_pointer", lib.mt_device_pointer(
+        t.data_ptr(), ctypes.byref(kind), ctypes.byref(dev)))
+    if kind.value != 1 or not dev.value:
+        raise ValueError(
+            f"multi_tensor_update: a host slot at {t.data_ptr():#x} is "
+            f"{_MEMORY_TYPES.get(kind.value, kind.value)} memory; the kernel "
+            f"reads pinned host memory")
+    return dev.value
 
 
 def _upload(what: str, arr, device: torch.device
@@ -330,17 +493,60 @@ def multi_tensor_update(spec: Spec, table: Table, lr: torch.Tensor,
                 table.partials.data_ptr(), table.norms.data_ptr(), skip,
                 stream))
             NORM_LAUNCHES += 1
-        if table.nchunks:           # none: every tensor is empty
+        if table.stages:
+            _staged_update(lib, spec, table, lr, hyper, skip)
+        elif table.nchunks:         # none: every tensor is empty
             _raise(lib, "mt_update", lib.mt_update(
                 table.recs.data_ptr(), table.prefix.data_ptr(), n,
                 table.nchunks, CHUNK, kind, table.types, lr.data_ptr(),
                 hyper, spec.flags, _ptr(table.norms), skip, stream))
             LAUNCHES[spec.kind] = LAUNCHES.get(spec.kind, 0) + 1
+            if any(_host_slot(s, table.device) for r in table.records
+                   for s in r.slots):
+                OFFLOAD_ROUTES["in_place"] += 1
         if spec.betas:
             b1, b2 = (tuple(spec.betas) + (1.0,))[:2]
             _raise(lib, "mt_pows", lib.mt_pows(table.recs.data_ptr(), n, b1,
                                                b2, skip, stream))
             POW_LAUNCHES += 1
+
+
+def _staged_update(lib, spec: Spec, table: Table, lr, hyper, skip) -> None:
+    """The update pass of an offloaded group, stage by stage (the module
+    docstring): the copy in on one side stream, the kernel on the current
+    stream, the copy out on the other side stream; a ring buffer is
+    loaded again only once its copy out is done.  The current stream
+    waits for both side streams at the end, so a step captured in a CUDA
+    graph joins them.  Each stage counts as a launch of the update
+    pass."""
+    main = torch.cuda.current_stream(table.device)
+    load, store = table.streams
+    load.wait_stream(main)
+    store.wait_stream(main)
+    ring = len(table.ring)
+    stored = []
+    for i, st in enumerate(table.stages):
+        with torch.cuda.stream(load):
+            if i >= ring:
+                load.wait_event(stored[i - ring])
+            for host, dev in st.copies:
+                dev.copy_(host, non_blocking=True)
+            loaded = load.record_event()
+        main.wait_event(loaded)
+        _raise(lib, "mt_update", lib.mt_update(
+            st.recs.data_ptr(), st.prefix.data_ptr(), st.n, st.nchunks,
+            CHUNK, KINDS.index(spec.kind), table.types, lr.data_ptr(), hyper,
+            spec.flags, None, skip, main.cuda_stream))
+        LAUNCHES[spec.kind] = LAUNCHES.get(spec.kind, 0) + 1
+        OFFLOAD_ROUTES["staged"] += 1
+        updated = main.record_event()
+        with torch.cuda.stream(store):
+            store.wait_event(updated)
+            for host, dev in st.copies:
+                host.copy_(dev, non_blocking=True)
+            stored.append(store.record_event())
+    main.wait_stream(load)
+    main.wait_stream(store)
 
 
 def _raise(lib, what: str, err: int) -> None:

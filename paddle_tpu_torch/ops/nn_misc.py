@@ -26,16 +26,18 @@ from typing import Optional
 import torch
 
 from ..amp import amp_op
-from ..random import default_generator
+from ..random import default_generator, logged
 from .flash_attention import flash_attention
 
 __all__ = ["scaled_dot_product_attention", "dropout"]
 
 
 def _keep(shape, p: float, device) -> torch.Tensor:
-    """Bernoulli(1 - p) keep mask of ``shape`` from the device stream."""
+    """Bernoulli(1 - p) keep mask of ``shape`` from the device stream (the
+    mask its forward drew, in a region the remat recomputes)."""
     gen = default_generator.device(device)
-    return torch.rand(shape, generator=gen, device=device) < (1.0 - p)
+    return logged(lambda: torch.rand(shape, generator=gen,
+                                     device=device) < (1.0 - p))
 
 
 @amp_op("dropout")

@@ -36,8 +36,9 @@ and not part of the tables' cache key.
 
 It returns False — the caller then takes the per-leaf path — in the
 reference's remaining cases only, decided before any launch and counted
-in :data:`ROUTES`: ``FLAGS_fused_optimizer`` off (``0``, ``false``,
-``no``, ``off`` in the environment; default on), or a regularizer other
+in :data:`ROUTES`: ``FLAGS_fused_optimizer`` off (the flag registry,
+``utils/flags.py``: ``set_flags`` or the environment at import; default
+on), or a regularizer other
 than ``L1Decay`` / ``L2Decay`` (the reference's ``"opaque"``).  A
 subclass that overrides ``_update`` without describing its functor in
 ``_kernel_spec`` also takes the per-leaf path (the reference's
@@ -47,26 +48,23 @@ build or launch raises; nothing falls back.
 """
 from __future__ import annotations
 
-import os
 from typing import Dict, List, Tuple
 
 import torch
 
 from ..ops import multi_tensor_update as mtu
+from ..utils.flags import get_flag
 
 __all__ = ["fused_step", "supported", "ROUTES", "tables", "bound_tensors"]
 
 # steps by route (plain integers): "fused", and the per-leaf ones
 ROUTES: Dict[str, int] = {"fused": 0, "per_leaf_flag": 0,
                           "per_leaf_regularizer": 0, "per_leaf_update": 0}
-_OFF = ("0", "false", "no", "off")
 
 
 def _flag_on() -> bool:
-    """``FLAGS_fused_optimizer`` from the environment (the reference's
-    flag, default on)."""
-    return os.environ.get("FLAGS_fused_optimizer", "1").strip().lower() \
-        not in _OFF
+    """``FLAGS_fused_optimizer`` from the flag registry (default on)."""
+    return bool(get_flag("FLAGS_fused_optimizer"))
 
 
 def _own_update(opt) -> bool:

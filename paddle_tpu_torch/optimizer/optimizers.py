@@ -65,6 +65,20 @@ per-parameter ``_update`` below stays the per-leaf path, taken with
 ``FLAGS_fused_optimizer=0`` or a regularizer other than ``L1Decay`` /
 ``L2Decay``.
 
+Offload (``Model.prepare(offload=True)``, :meth:`Optimizer._offload_state`):
+every slot (moments, accumulators, the powers) lives in pinned host memory,
+in its type, and a CUDA step reads and writes it there: the fused update
+moves it through the card in stages on the copy engines, or reads it in
+place over PCIe (``ops/multi_tensor_update.py``'s two routes); the
+per-leaf path copies each slot to the parameter's device for ``_update``
+and the result back.  fp32 masters stay on the card, as
+the reference's O2 masters are parameters, not optimizer state.
+``state_dict`` returns the host slots and ``set_state_dict`` copies into
+them in place (a captured step keeps their addresses); both wait for the
+card first, since its writes to host memory land asynchronously.  A later
+``prepare(offload=False)`` with the same optimizer brings the slots back
+onto their parameters' devices.
+
 ``parameters`` takes tensors or ``(name, tensor)`` pairs; an unnamed
 tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
@@ -114,6 +128,12 @@ def _wd_reg(weight_decay):
     return L2Decay(float(weight_decay))
 
 
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in pinned host memory, in its type."""
+    out = torch.empty(t.shape, dtype=t.dtype, device="cpu", pin_memory=True)
+    return out.copy_(t)
+
+
 def _norm(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.square(t)))
 
@@ -152,6 +172,7 @@ class Optimizer:
         self._lr_on: Dict[torch.device, torch.Tensor] = {}
         self._lr_value = self.get_lr()      # what the device scalars hold
         self._global_step = 0
+        self._offload = False
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
@@ -202,14 +223,38 @@ class Optimizer:
 
     def _slot(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``p``'s slots, made at its first step from its fp32 master
-        (made then too) under ``multi_precision``, else from ``p``."""
+        (made then too) under ``multi_precision``, else from ``p``; in
+        pinned host memory under offload."""
         key = id(p)
         if key not in self._state:
             if self._multi_precision and p.dtype in _LOW:
                 self._master_weights[key] = p.detach().float()
-            self._state[key] = self._init_state_for(
+            state = self._init_state_for(
                 self._master_weights.get(key, p.detach()))
+            self._state[key] = ({k: _pinned(v) for k, v in state.items()}
+                                if self._offload else state)
         return self._state[key]
+
+    def _offload_state(self, on: bool = True) -> None:
+        """Keep every slot in pinned host memory from now on (``on``), or
+        on its parameter's device again: the slots made so far move (new
+        addresses: a captured step binding them captures again), later
+        ones are made there."""
+        if self._offload == on:
+            return
+        self._sync_offloaded()
+        self._offload = on
+        where = {id(p): p.device for _, p in self._params or ()}
+        for key, state in self._state.items():
+            self._state[key] = {
+                k: _pinned(v) if on else v.to(where.get(key, v.device))
+                for k, v in state.items()}
+
+    def _sync_offloaded(self) -> None:
+        """Wait for the card's writes into the host slots (and before
+        the host writes them), under offload."""
+        if self._offload and torch.cuda.is_available():
+            torch.cuda.synchronize()
 
     def _update(self, param, grad, state, lr: torch.Tensor, name: str):
         """``(new parameter, new state)``; ``lr`` is a 0-d device
@@ -284,14 +329,17 @@ class Optimizer:
             reg = self._regularizer_for(p)
             if reg is not None and reg.coeff:
                 g = g + reg.grad(target)
-            new_p, new_state = self._update(target, g, slot, self._lr_for(p),
+            # host slots (offload) go to the device for the update
+            cur = {k: v.to(target.device, non_blocking=True)
+                   for k, v in slot.items()}
+            new_p, new_state = self._update(target, g, cur, self._lr_for(p),
                                             name)
             if found_inf is not None:
-                new_state = {k: torch.where(found_inf, slot[k], v)
+                new_state = {k: torch.where(found_inf, cur[k], v)
                              for k, v in new_state.items()}
                 new_p = torch.where(found_inf, target, new_p)
             for k, v in new_state.items():
-                slot[k].copy_(v)
+                slot[k].copy_(v, non_blocking=True)
             target.copy_(new_p)
             if master is not None:
                 p.copy_(master)
@@ -331,6 +379,7 @@ class Optimizer:
         """``{"global_step": n, "<name>_<slot>": tensor, ...}``, and
         ``"LR_Scheduler"``: the scheduler's state, under one."""
         out: Dict[str, object] = {"global_step": self._global_step}
+        self._sync_offloaded()
         if self._lr_scheduler is not None:
             out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         for name, p in self._params or []:
@@ -342,6 +391,7 @@ class Optimizer:
         self._global_step = int(state_dict.get("global_step", 0))
         if self._lr_scheduler is not None and "LR_Scheduler" in state_dict:
             self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
+        self._sync_offloaded()
         for name, p in self._params or []:
             slot = self._slot(p)
             for k, cur in slot.items():

@@ -32,10 +32,11 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["Generator", "SeedSlots", "default_generator", "seed"]
+__all__ = ["DrawLog", "Generator", "SeedSlots", "default_generator", "seed"]
 
 _M64 = (1 << 64) - 1
-# the SeedSlots a capture on this thread takes its seeds from
+# the SeedSlots a capture on this thread takes its seeds from, and the
+# DrawLog a recomputed region on this thread records into or replays
 _local = threading.local()
 
 
@@ -75,6 +76,9 @@ class Generator:
         (``ops/fused_ops.py:201``), drawn on the host; while a step is
         captured on this thread, the next slot of its :class:`SeedSlots`
         instead (a 1-element int64 tensor on the card)."""
+        return logged(self._next_seed)
+
+    def _next_seed(self):
         slots = getattr(_local, "slots", None)
         if slots is not None:
             return slots.take()
@@ -102,6 +106,65 @@ class Generator:
 
 
 default_generator = Generator(0)
+
+
+def logged(draw):
+    """``draw()``, kept in the :class:`DrawLog` this thread records into;
+    while one replays, its next value instead, and ``draw`` is not
+    called."""
+    log = getattr(_local, "log", None)
+    if log is None:
+        return draw()
+    return log.next(draw)
+
+
+def drawing() -> bool:
+    """Whether this thread is inside a draw that a :class:`DrawLog`
+    records (its ops need not be kept: the log replays the value)."""
+    return getattr(_local, "drawing", False)
+
+
+class DrawLog:
+    """The draws of one recomputed region, in order: host seeds (ints),
+    capture slots and dropout keep masks (tensors)."""
+
+    def __init__(self):
+        self.values: List = []
+        self._pos = None                # None: recording
+
+    def next(self, draw):
+        if self._pos is None:
+            _local.drawing = True
+            try:
+                value = draw()
+            finally:
+                _local.drawing = False
+            self.values.append(value)
+            return value
+        if self._pos >= len(self.values):
+            raise RuntimeError(
+                f"a recomputed region draws more than the {len(self.values)} "
+                "values its forward drew")
+        self._pos += 1
+        return self.values[self._pos - 1]
+
+    @contextlib.contextmanager
+    def _active(self, pos):
+        prev = getattr(_local, "log", None)
+        _local.log, self._pos = self, pos
+        try:
+            yield self
+        finally:
+            _local.log = prev
+
+    def recording(self):
+        """The region's forward: every draw on this thread is kept."""
+        return self._active(None)
+
+    def replaying(self):
+        """The region's recompute: every draw on this thread takes the
+        next kept value, from the first."""
+        return self._active(0)
 
 
 def seed(seed_val: int) -> Generator:

@@ -4,6 +4,7 @@
                                                     [--amp O1|O2
                                                      [--amp-dtype float16]]
                                                     [--uncaptured]
+                                                    [--remat] [--offload]
                                                     [--fit [--prefetch N]
                                                      [--metric]]
                                                     [--steps 5] [--json PATH]
@@ -21,7 +22,12 @@ builds the same model).  ``--amp`` (with ``--eager`` or ``--encoder``)
 prepares the model with ``amp_configs`` at that level in bf16, or in
 fp16 with ``--amp-dtype float16`` (the default loss scaling).  Those
 two paths run ``prepare(jit=True)``'s step, captured in a CUDA graph and
-replayed, unless ``--uncaptured`` asks for ``jit=False``.  Either
+replayed, unless ``--uncaptured`` asks for ``jit=False``.  On the
+captured step ``--remat`` sets ``FLAGS_program_remat`` and
+``FLAGS_remat_budget_mb`` (``set_flags``: the budget remat, products
+kept and the rest recomputed in the backward) and ``--offload`` prepares
+the model with ``offload=True`` (the optimizer's slots in pinned host
+memory, read by the update kernel over PCIe).  Either
 way it takes two warm-up steps, then
 ``--steps`` steps unprofiled
 (host wall per step, ending in a synchronise) and ``--steps`` steps under
@@ -38,8 +44,10 @@ epoch's start to a synchronise after it) and one under the profiler,
 every number per step.
 
 Reports the device time per step (the sum of the kernels' and copies'
-durations on the card), the device's idle share of an unprofiled step
-(1 - device time / unprofiled wall), device ops and the port's kernel
+durations on the card), the device's busy time (the union of their
+intervals: copies on side streams overlap kernels) and its idle share of
+an unprofiled step (1 - busy time / unprofiled wall), device ops and the
+port's kernel
 launches per step, the device time by kind of op, and the top ops by
 device time.  With ``--json PATH`` it also writes the summary to PATH.
 """
@@ -73,6 +81,7 @@ from ..nn import ClipGradByGlobalNorm
 from ..optimizer import AdamW, lr
 from ..random import default_generator, seed
 from .device_time import device_ms_per_call
+from ..utils.flags import set_flags
 
 WIDTH = dict(vocab_size=30528, hidden_size=768, num_layers=12,
              num_heads=12, max_seq_len=512)
@@ -96,6 +105,9 @@ KINDS = (("flash attention forward (rows 1-3)", ("flash_fwd_kernel",
                                 "ln_fwd_tile")),
          ("fused_ln_bwd (the epilogue's backward)",
           ("ln_bwd_warp", "ln_bwd_row", "ln_bwd_fold", "ln_bwd_tile")),
+         ("optimizer update (multi_tensor_update.cu)",
+          ("mt_update_kernel", "mt_norms_kernel", "mt_fold_kernel",
+           "mt_pows_kernel", "mt_unscale_kernel")),
          ("matrix products (cuBLAS)", ("gemm", "Gemm", "cutlass", "sm90_",
                                        "xmma", "nvjet")),
          ("copies and casts", ("copy", "Copy", "Memcpy", "Memset")),
@@ -205,16 +217,18 @@ def _eager_counts():
                 fused_ln=fl.LAUNCHES, fused_ln_bwd=fl.BWD_LAUNCHES)
 
 
-def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
+def _eager_path(encoder: bool = False, amp=None, jit: bool = True,
+                offload: bool = False, remat: bool = False):
     """Model.train_batch on the eager GPT (or the fused encoder), with
-    ``amp_configs=amp`` and ``jit``: the same four callables."""
+    ``amp_configs=amp``, ``jit`` and ``offload`` (the step's remat is the
+    flags', ``remat`` only labels it): the same four callables."""
     if encoder:
         net = build_encoder()
     else:
         net = GPT(GPTConfig(**WIDTH), seed=0)
     model = Model(net).prepare(
         AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01),
-        CrossEntropyLoss(), amp_configs=amp, jit=jit)
+        CrossEntropyLoss(), amp_configs=amp, jit=jit, offload=offload)
     ids = np.random.RandomState(0).randint(0, WIDTH["vocab_size"],
                                            (EAGER_BATCH, SEQ))
     labels = np.roll(ids, -1, 1).reshape(EAGER_BATCH, SEQ, 1)
@@ -225,7 +239,8 @@ def _eager_path(encoder: bool = False, amp=None, jit: bool = True):
 
     return one, _eager_reset, _eager_counts, dict(
         path="encoder" if encoder else "eager", batch=EAGER_BATCH, seq=SEQ,
-        dtype=_amp_label(amp), remat="none", captured=jit)
+        dtype=_amp_label(amp), remat="budget" if remat else "none",
+        offload=offload, captured=jit)
 
 
 def _amp_label(amp) -> str:
@@ -283,6 +298,22 @@ def _fit_path(net, amp, jit: bool, steps: int, prefetch: int, metric: bool,
         accumulate_grad_batches=accumulate)
 
 
+def _busy_us(events) -> float:
+    """Microseconds in which some device event ran: the union of their
+    intervals (an offloaded update's copies on side streams overlap the
+    kernels, so the summed durations can pass the wall)."""
+    total, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if end is None or start > end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total
+
+
 def profile(one, reset, counts, setup, steps: int) -> dict:
     """Time and profile ``one()`` as ``main`` does (a call is one step, or
     with ``setup["steps_per_call"]`` that many: ``Model.fit``'s epoch) and
@@ -318,9 +349,10 @@ def profile(one, reset, counts, setup, steps: int) -> dict:
         by_kind[_kind(e.name)] += ms
     n = len(prof_wall) * per_call
     device_ms = sum(v[0] for v in by_name.values()) / n
+    busy_ms = _busy_us(events) / 1e3 / n
     prof_mean = statistics.fmean(prof_wall)
-    if device_ms > prof_mean:
-        raise RuntimeError(f"summed device time {device_ms:.3f} ms/step "
+    if busy_ms > prof_mean:
+        raise RuntimeError(f"device busy time {busy_ms:.3f} ms/step "
                            f"exceeds the profiled steps' mean wall "
                            f"{prof_mean:.3f} ms: the events are miscounted")
     wall_p50 = statistics.median(wall)
@@ -328,8 +360,8 @@ def profile(one, reset, counts, setup, steps: int) -> dict:
     return dict(
         card=card, width=WIDTH, **setup, steps=n, wall_ms_p50=wall_p50,
         profiled_wall_ms_p50=statistics.median(prof_wall),
-        device_ms_per_step=device_ms,
-        idle_share=1.0 - device_ms / wall_p50,
+        device_ms_per_step=device_ms, device_busy_ms_per_step=busy_ms,
+        idle_share=1.0 - busy_ms / wall_p50,
         device_ops_per_step=len(events) / n, kernel_launches_per_step=launches,
         by_kind=[dict(kind=k, ms_per_step=v / n, share=v / n / device_ms)
                  for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])],
@@ -355,6 +387,11 @@ def main(argv=None) -> int:
     ap.add_argument("--uncaptured", action="store_true",
                     help="with --eager or --encoder: prepare(jit=False), "
                          "the step run op by op")
+    ap.add_argument("--remat", action="store_true",
+                    help="with --eager or --encoder: the budget remat "
+                         "(FLAGS_program_remat, FLAGS_remat_budget_mb)")
+    ap.add_argument("--offload", action="store_true",
+                    help="with --eager or --encoder: prepare(offload=True)")
     ap.add_argument("--fit", action="store_true",
                     help="profile Model.fit epochs of --steps batches (the "
                          "GPT, or the encoder with --encoder)")
@@ -377,6 +414,14 @@ def main(argv=None) -> int:
         ap.error("--metric and --prefetch take --fit")
     if args.amp_dtype != "bfloat16" and not args.amp:
         ap.error("--amp-dtype takes --amp")
+    if (args.remat or args.offload) and not (
+            (args.eager or args.encoder) and not args.fit
+            and not args.uncaptured):
+        ap.error("--remat and --offload take --eager or --encoder, "
+                 "captured (they act on the captured update step)")
+    if args.remat:
+        set_flags({"FLAGS_program_remat": True,
+                   "FLAGS_remat_budget_mb": 4096})
     amp = args.amp if args.amp_dtype == "bfloat16" else dict(
         level=args.amp, dtype=args.amp_dtype)
     if args.fit:
@@ -386,9 +431,9 @@ def main(argv=None) -> int:
             net, amp, not args.uncaptured, args.steps, args.prefetch,
             args.metric)
     elif args.eager or args.encoder:
-        one, reset, counts, setup = _eager_path(encoder=args.encoder,
-                                                amp=amp,
-                                                jit=not args.uncaptured)
+        one, reset, counts, setup = _eager_path(
+            encoder=args.encoder, amp=amp, jit=not args.uncaptured,
+            offload=args.offload, remat=args.remat)
     else:
         one, reset, counts, setup = _compiled_path()
     report = profile(one, reset, counts, setup, args.steps)
@@ -400,7 +445,9 @@ def main(argv=None) -> int:
           f"{wall_p50:.3f} ms p50 "
           f"unprofiled "
           f"({report['profiled_wall_ms_p50']:.3f} profiled); device "
-          f"{device_ms:.3f} ms/step; idle share {report['idle_share']:.4f}; "
+          f"{device_ms:.3f} ms/step summed, busy "
+          f"{report['device_busy_ms_per_step']:.3f}; idle share "
+          f"{report['idle_share']:.4f}; "
           f"{report['device_ops_per_step']:.0f} device ops/step; kernel "
           f"launches/step {launches}", flush=True)
     for k in report["by_kind"]:

@@ -1584,3 +1584,272 @@ def test_fp16_overflow_in_a_replay_moves_nothing(card):
     assert report["ok"]
     assert [r["found_inf"] for r in report["steps"]] == [True, False, True,
                                                          False]
+
+
+# -- the budget remat and optimizer-state offload of Model -------------------
+REMAT = {"FLAGS_program_remat": True, "FLAGS_remat_budget_mb": 64}
+
+
+def _offload_run(make, amp, decorate, offload, jit=True, per_leaf=False,
+                 manual=False):
+    """Three train_batch steps of the GPT at WIDTH from seed 0, with
+    ``prepare(offload=...)`` (``manual``: the optimizer offloaded by hand,
+    so that ``jit=False`` steps read host slots): losses, copies of every
+    parameter, slot and master, and the optimizer."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model, regularizer
+    from paddle_tpu_torch import amp as pamp
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    opt = make(optimizer, regularizer, net.parameters())
+    if decorate:
+        net, opt = pamp.decorate(net, opt, level="O2")
+    model = Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
+                               jit=jit, offload=offload and not manual)
+    if manual and offload:
+        opt._offload_state()
+    paddle_tpu_torch.seed(2)
+    rs = np.random.RandomState(0)
+    losses = []
+    with chip_smoke.port_flags({"FLAGS_fused_optimizer": not per_leaf}):
+        for _ in range(3):
+            ids = rs.randint(0, WIDTH["vocab_size"], (4, 128))
+            labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
+            losses.append(model.train_batch([ids], [labels])["loss"])
+    torch.cuda.synchronize()
+    state = {f"param {n}": p.detach().cpu()
+             for n, p in net.named_parameters()}
+    state.update({f"slot {k}": v.cpu() for k, v in
+                  opt.state_dict().items() if torch.is_tensor(v)})
+    state.update({f"master {n}": opt._master_weights[id(p)].cpu()
+                  for n, p in net.named_parameters()
+                  if id(p) in opt._master_weights})
+    return torch.stack(losses).cpu(), state, opt
+
+
+def _assert_same_state(a, b):
+    assert torch.equal(a[0], b[0]), (a[0], b[0])
+    assert a[1].keys() == b[1].keys()
+    for k in a[1]:
+        assert torch.equal(a[1][k], b[1][k]), k
+
+
+@pytest.mark.parametrize("case", list(CARD_OPTIMIZERS))
+def test_offloaded_steps_equal_unoffloaded_with_pinned_slots(card, case,
+                                                            monkeypatch):
+    """Captured steps with prepare(offload=True), and eager steps (jit=False)
+    of an optimizer offloaded by hand, are bit for bit those without; every
+    slot is pinned host memory read at its device address, masters stay on
+    the card.  Stages of 4096 elements: every staged kind runs more
+    stages than the ring has buffers, so buffers are loaded again."""
+    from paddle_tpu_torch.optimizer import fused_update
+    monkeypatch.setattr(mtu, "STAGE_ELEMENTS", 1 << 12)
+    amp, decorate, make = CARD_OPTIMIZERS[case]
+    for jit in (True, False):
+        base = _offload_run(make, amp, decorate, False, jit=jit)
+        routes = dict(mtu.OFFLOAD_ROUTES)
+        launches = sum(mtu.LAUNCHES.values())
+        got = _offload_run(make, amp, decorate, True, jit=jit,
+                           manual=not jit)
+        _assert_same_state(base, got)
+        opt = got[2]
+        tables = fused_update.tables(opt)
+        # a staged group launches the update pass once per stage, a group
+        # in place once; three steps (SGD has no slots)
+        if opt._kernel_spec().kind in ("lars", "lamb"):
+            want = {"staged": 0, "in_place": 3 * len(tables)}
+        else:
+            assert case == "SGD" or max(
+                len(t.stages) for t in tables) > mtu.STAGE_RING
+            want = {"staged": 3 * sum(len(t.stages) for t in tables),
+                    "in_place": 0}
+        moved = {k: mtu.OFFLOAD_ROUTES[k] - routes[k] for k in routes}
+        assert moved == want, moved
+        assert sum(mtu.LAUNCHES.values()) - launches == (
+            3 * len(tables) if case == "SGD" else sum(want.values()))
+        slots = [t for s in opt._state.values() for t in s.values()]
+        assert opt._offload                   # SGD has no slots
+        assert all(t.device.type == "cpu" and t.is_pinned() for t in slots)
+        assert all(m.is_cuda for m in opt._master_weights.values())
+        assert all(mtu.device_address(t) for t in slots)
+
+
+@pytest.mark.parametrize("case", ["Lamb", "AdamW decorated O2"])
+def test_offloaded_per_leaf_path_equals_unoffloaded(card, case):
+    # FLAGS_fused_optimizer off: each host slot goes to the card for
+    # _update and back
+    amp, decorate, make = CARD_OPTIMIZERS[case]
+    base = _offload_run(make, amp, decorate, False, per_leaf=True)
+    got = _offload_run(make, amp, decorate, True, per_leaf=True)
+    _assert_same_state(base, got)
+
+
+def test_offloaded_state_dict_round_trip_keeps_the_slots_in_place(card):
+    """state_dict hands out the host slots; set_state_dict copies into them
+    in place (a captured step keeps their addresses)."""
+    from paddle_tpu_torch import Model, optimizer, regularizer
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    amp, decorate, make = CARD_OPTIMIZERS["Adamax"]
+    _, _, opt = _offload_run(make, amp, decorate, True)
+    saved = {k: v.clone() for k, v in opt.state_dict().items()
+             if torch.is_tensor(v)}
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    fresh = make(optimizer, regularizer, net.parameters())
+    model = Model(net).prepare(fresh, CrossEntropyLoss(), offload=True)
+    ids = np.random.RandomState(3).randint(0, WIDTH["vocab_size"], (4, 128))
+    labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
+    model.train_batch([ids], [labels])            # slots made, on the host
+    held = {k: v for k, v in fresh.state_dict().items() if torch.is_tensor(v)}
+    assert held.keys() == saved.keys()
+    assert all(v.is_pinned() for v in held.values())
+    ptrs = {k: v.data_ptr() for k, v in held.items()}
+    fresh.set_state_dict(saved)
+    back = fresh.state_dict()
+    for k, v in saved.items():
+        assert torch.equal(back[k], v), k
+        assert back[k].data_ptr() == ptrs[k] and back[k].is_pinned(), k
+
+
+def test_prepare_without_offload_brings_the_slots_back(card):
+    """An optimizer a prepare(offload=True) offloaded has its slots on the
+    card again after a later prepare(offload=False), and its steps stay
+    bit for bit those of an optimizer never offloaded."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model, optimizer, regularizer
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    _, _, make = CARD_OPTIMIZERS["Adamax"]
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, WIDTH["vocab_size"], (4, 128))
+    labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
+    runs = []
+    for first in (False, True):
+        net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+        opt = make(optimizer, regularizer, net.parameters())
+        paddle_tpu_torch.seed(2)
+        losses = []
+        for offload in (first, False):
+            model = Model(net).prepare(opt, CrossEntropyLoss(),
+                                       offload=offload)
+            losses += [model.train_batch([ids], [labels])["loss"]
+                       for _ in range(2)]
+        slots = [t for st in opt._state.values() for t in st.values()]
+        assert not opt._offload and all(t.is_cuda for t in slots)
+        runs.append((torch.stack(losses).cpu(),
+                     {k: v.cpu() for k, v in opt.state_dict().items()
+                      if torch.is_tensor(v)}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1].keys() == runs[1][1].keys()
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
+
+
+def test_an_unpinned_host_slot_is_refused_by_name(card):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.rand(100, generator=gen, device="cuda")
+    rec = mtu.Record(name="blocks.0.up.weight", param=p,
+                     grad=torch.rand_like(p),
+                     master=None, slots=(torch.zeros(100),))
+    spec = mtu.Spec("momentum", (0.9,), 0, ("velocity",))
+    with pytest.raises(ValueError, match="blocks.0.up.weight's velocity .*"
+                                         "not pinned"):
+        mtu.Table(spec, [rec])
+    rec.slots = (torch.zeros(100, pin_memory=True),)
+    table = mtu.Table(spec, [rec])
+    lr = torch.full((), 0.1, device="cuda")
+    mtu.multi_tensor_update(spec, table, lr, None)
+    torch.cuda.synchronize()
+    assert torch.equal(rec.slots[0], rec.grad.cpu())   # v = 0.9·0 + g
+
+
+def _remat_model(net):
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    return Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                              CrossEntropyLoss(), amp_configs="O1")
+
+
+@pytest.mark.parametrize("which", ["gpt", "encoder"])
+def test_remat_captured_equals_uncaptured_equals_no_remat(card, which):
+    """Three O1 steps: captured with the remat, its step function run
+    uncaptured, and captured without it, bit for bit; a replayed remat
+    step launches the forward kernels twice."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import graphs
+
+    def build():
+        return GPT(GPTConfig(**WIDTH), device="cuda", seed=0) \
+            if which == "gpt" else _small_encoder()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 97, (4, 128))).cuda()
+    labels = ids.roll(-1, 1)[..., None]
+    runs = []
+    for how in ("no remat", "remat", "uncaptured remat"):
+        net = build()
+        model = _remat_model(net)
+        paddle_tpu_torch.seed(2)
+        losses, counts = [], None
+        with chip_smoke.port_flags(REMAT if how != "no remat" else {}):
+            for i in range(3):
+                if how == "uncaptured remat":
+                    model._scaler_state()
+                    net.train()
+                    losses.append(model._train_step(1, True)(
+                        ids.roll(i, 0), labels.roll(i, 0))[0])
+                    continue
+                before = graphs.launch_counts()
+                losses.append(model.train_batch(
+                    [ids.roll(i, 0)], [labels.roll(i, 0)])["loss"])
+                if i == 1:
+                    torch.cuda.synchronize()
+                    after = graphs.launch_counts()
+                    counts = {k: after[k] - before.get(k, 0) for k in after
+                              if after[k] != before.get(k, 0)}
+        torch.cuda.synchronize()
+        state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        runs.append((torch.stack(losses).cpu(), state, counts,
+                     model._steps.compiles))
+    (l0, s0, c0, k0), (l1, s1, c1, k1), (l2, s2, _, _) = runs
+    assert (k0, k1) == (1, 1)
+    assert torch.equal(l0, l1) and torch.equal(l1, l2)
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]) and torch.equal(s1[k], s2[k]), k
+    fwd = ("flash_attention", "SM90_FWD_LAUNCHES", None)
+    bwd = ("flash_attention", "SM90_BWD_LAUNCHES", None)
+    L = 2
+    assert (c0[fwd], c0[bwd]) == (L, L)
+    assert (c1[fwd], c1[bwd]) == (2 * L, L)
+    if which == "encoder":
+        ln = ("fused_ln", "LAUNCHES", None)
+        ln_bwd = ("fused_ln", "BWD_LAUNCHES", None)
+        assert (c0[ln], c0[ln_bwd]) == (2 * L, 2 * L)
+        assert (c1[ln], c1[ln_bwd]) == (4 * L, 2 * L)
+
+
+def test_encoder_train_step_never_reaches_a_plain_epilogue_under_remat(
+        card):
+    # the check above with the remat on: the recompute runs the epilogue's
+    # kernel too, 2L forwards more
+    from unittest import mock
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+    net = _small_encoder()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 97, (4, 128))).cuda()
+    labels = ids.roll(-1, 1)[..., None]
+    for amp in (None, "O1", "O2"):
+        from paddle_tpu_torch import Model
+        from paddle_tpu_torch.nn import CrossEntropyLoss
+        from paddle_tpu_torch.optimizer import AdamW
+        model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                                   CrossEntropyLoss(), amp_configs=amp)
+        f0, b0 = fl.LAUNCHES, fl.BWD_LAUNCHES
+        with chip_smoke.port_flags(REMAT), \
+                mock.patch.object(fl, "fused_ln_ref", refuse), \
+                mock.patch.object(fl, "fused_ln_bwd_ref", refuse):
+            loss = model.train_batch([ids], [labels])["loss"]
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert (fl.LAUNCHES - f0, fl.BWD_LAUNCHES - b0) == (8, 4), amp

@@ -29,6 +29,7 @@ from paddle_tpu import framework_io as rfio
 from paddle_tpu.models import GPT as RefGPT
 from paddle_tpu.models import GPTConfig as RefConfig
 
+import paddle_tpu_torch
 from paddle_tpu_torch import Model, framework_io
 from paddle_tpu_torch.callbacks import Callback, EarlyStopping, VisualDL
 from paddle_tpu_torch.io import DataLoader, TensorDataset
@@ -206,7 +207,7 @@ def _port_fit(**kw):
         k: v.clone() for k, v in net.state_dict().items()}
 
 
-def test_prefetch_metrics_and_capture_change_no_bit(monkeypatch):
+def test_prefetch_metrics_and_capture_change_no_bit():
     base_model, base, state = _port_fit(prefetch_to_device=0)
     assert base_model._last_prefetcher is None
     runs = {"flag default (2)": _port_fit(),
@@ -214,8 +215,12 @@ def test_prefetch_metrics_and_capture_change_no_bit(monkeypatch):
             "metrics": _port_fit(metrics=True),
             "jit=False": _port_fit(jit=False)}
     assert runs["flag default (2)"][0]._last_prefetcher.depth == 2
-    monkeypatch.setenv("FLAGS_prefetch_to_device", "0")
-    runs["flag 0"] = _port_fit()
+    was = paddle_tpu_torch.get_flags(["FLAGS_prefetch_to_device"])
+    paddle_tpu_torch.set_flags({"FLAGS_prefetch_to_device": 0})
+    try:
+        runs["flag 0"] = _port_fit()
+    finally:
+        paddle_tpu_torch.set_flags(was)
     assert runs["flag 0"][0]._last_prefetcher is None
     for name, (_, losses, st) in runs.items():
         assert torch.equal(losses, base), name

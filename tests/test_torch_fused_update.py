@@ -61,9 +61,11 @@ BF16_SHARE = 2.0 ** -5
 @pytest.fixture(autouse=True)
 def _flags(monkeypatch):
     was = rflags.get_flags(["FLAGS_fused_optimizer"])
+    port_was = paddle_tpu_torch.get_flags(["FLAGS_fused_optimizer"])
     monkeypatch.delenv("FLAGS_fused_optimizer", raising=False)
     yield
     rflags.set_flags(was)
+    paddle_tpu_torch.set_flags(port_was)
 
 
 # -- tests/test_fused_optimizer.py, case by case ------------------------------
@@ -98,7 +100,7 @@ def _train_ref(make_opt, fused, steps=5):
 def _train_port(make_opt, monkeypatch, fused, steps=5):
     """The reference's network in the port: its weights, its parameter
     names, ``x @ W + b`` layers with ReLU between them."""
-    monkeypatch.setenv("FLAGS_fused_optimizer", "1" if fused else "0")
+    paddle_tpu_torch.set_flags({"FLAGS_fused_optimizer": bool(fused)})
     named = [(p.name, torch.nn.Parameter(torch.from_numpy(
         np.array(p.numpy())))) for p in _ref_net().parameters()]
     opt = make_opt(paddle_tpu_torch, named)

@@ -16,6 +16,8 @@ such a gradient moves the parameter by a fraction of lr; logits 1e-4
 (``tests/test_torch_gpt.py``); cross entropy 1e-6; an eager optimizer
 step on a Linear(4, 2) 1e-6.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +30,7 @@ from paddle_tpu.models import GPT as RefGPT
 from paddle_tpu.models import GPTConfig as RefConfig
 from paddle_tpu.ops import loss as rloss
 
+import paddle_tpu_torch
 from paddle_tpu_torch import Model
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
 from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
@@ -273,13 +276,25 @@ def test_model_names_the_parameters_for_the_decay_rule():
 
 # the knobs that still wait, each with the ROADMAP.md item its error
 # names; a knob ported since keeps its case, which checks what it does now
-# (None): multi_precision, regularizers, decorate with optimizers and
-# summary are ported, and lazy_mode is taken with the reference's dense
-# semantics while a sparse gradient waits for the eager core (A2)
+# (None): multi_precision, regularizers, decorate with optimizers,
+# summary, offload and the budget remat are ported, and lazy_mode is taken
+# with the reference's dense semantics while a sparse gradient waits for
+# the eager core (A2)
 KNOBS = {"multi_precision": None, "lazy_mode": "A2", "regularizer": None,
-         "amp": None, "offload": "A3", "remat": "A3", "checkpointer": "A8",
+         "amp": None, "offload": None, "remat": None, "checkpointer": "A8",
          "anomaly_action": "A8", "supervise_store": "A8",
          "profiler_callback": "A8", "save_export": "A6", "summary": None}
+
+
+@contextlib.contextmanager
+def _port_flags(flags):
+    """The port's flags set for the block, then restored."""
+    was = paddle_tpu_torch.get_flags(list(flags))
+    paddle_tpu_torch.set_flags(flags)
+    try:
+        yield
+    finally:
+        paddle_tpu_torch.set_flags(was)
 
 
 def _ported_knob(knob, net, params):
@@ -308,6 +323,30 @@ def _ported_knob(knob, net, params):
         opt = SGD(parameters=params)
         assert decorate(net, optimizers=opt) == (net, opt)
         assert net.weight.dtype == torch.bfloat16 and opt._multi_precision
+    elif knob in ("offload", "remat"):
+        # on the CPU offload warns and trains un-offloaded, as the
+        # reference does without a pinned_host memory space; the remat
+        # engages with the reference's warning and changes no bit
+        _, twin = _linear_pair(3)
+        x, y = np.ones((2, 4), np.float32), np.zeros((2, 2), np.float32)
+        models = []
+        for n in (net, twin):
+            opt = Adam(parameters=n.parameters())
+            models.append(Model(n).prepare(
+                opt, lambda out, lab: ((out - lab) ** 2).mean(),
+                offload=knob == "offload" and n is net))
+        flags = {"FLAGS_program_remat": knob == "remat",
+                 "FLAGS_remat_budget_mb": 64 if knob == "remat" else 0}
+        with _port_flags(flags):
+            match = ("no pinned_host memory space" if knob == "offload"
+                     else "planner peak unknown")
+            with pytest.warns(UserWarning, match=match):
+                models[0].train_batch([x], [y])
+            models[1].train_batch([x], [y])
+        assert models[0]._optimizer._offload is False
+        assert models[0]._remat_active is (knob == "remat")
+        assert torch.equal(net.weight, twin.weight)
+        assert torch.equal(net.bias, twin.bias)
     else:
         assert Model(net).summary((2, 4)) == {"total_params": 10,
                                               "trainable_params": 10}
@@ -334,28 +373,20 @@ def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
         return
     model = Model(net)
     opt = SGD(parameters=params)
-    if knob == "offload":
-        with pytest.raises(NotImplementedError, match=match):
-            model.prepare(opt, CrossEntropyLoss(), offload=True)
-        return
     model.prepare(opt, lambda out, y: out.sum())
     data = TensorDataset([np.ones((2, 4), np.float32),
                           np.zeros((2, 2), np.float32)])
     fit = lambda **kw: model.fit(data, batch_size=2, verbose=0, **kw)  # noqa: E731
-    if knob == "remat":
-        monkeypatch.setenv("FLAGS_program_remat", "1")
-        monkeypatch.setenv("FLAGS_remat_budget_mb", "64")
-        call = lambda: model.train_batch([np.ones((1, 4), np.float32)],  # noqa: E731
-                                         [np.zeros(1, np.float32)])
-    elif knob == "checkpointer":
+    flags = {}
+    if knob == "checkpointer":
         call = lambda: fit(checkpointer=object())  # noqa: E731
     elif knob == "anomaly_action":
-        monkeypatch.setenv("FLAGS_anomaly_action", "raise")
+        flags = {"FLAGS_anomaly_action": "raise"}
         call = fit
     elif knob == "supervise_store":
         monkeypatch.setenv("PADDLE_SUPERVISE_STORE", "file:///nowhere")
         call = fit
     else:
         call = lambda: model.save(str(tmp_path / "m"), training=False)  # noqa: E731
-    with pytest.raises(NotImplementedError, match=match):
+    with _port_flags(flags), pytest.raises(NotImplementedError, match=match):
         call()

@@ -250,7 +250,30 @@ def test_forward_logits_give_the_loss():
     dict(mesh={"dp": 2}), dict(mesh={"dp": 1, "pp": 2}),
     dict(mesh={"sharding": 2}),
     dict(num_microbatches=2), dict(schedule_mode="1F1B"),
-    dict(offload=True)])
+    dict(mesh={"sharding": 2}, offload=True)])
 def test_paths_not_ported_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         build_spmd_train_step(GPTConfig(**WIDTH), device="cpu", **kwargs)
+
+
+def test_offload_on_one_device_trains_as_without():
+    """The reference's offload moves the state to pinned host memory only
+    under a "sharding" axis (ZeRO, A5); on one device it changes nothing:
+    two steps are bit for bit those of ``offload=False``."""
+    cfg = GPTConfig(**WIDTH)
+    ids, labels = (torch.from_numpy(a[:2, :32]).long() for a in _batch())
+    runs = []
+    for offload in (False, True):
+        step, init = build_spmd_train_step(cfg, device="cpu", offload=offload,
+                                           remat_policy="none")
+        params, opt = init(4)
+        losses = []
+        for _ in range(2):
+            loss, params, opt = step(params, opt, ids, labels)
+            losses.append(loss)
+        runs.append((torch.stack(losses), pspmd._leaves(params),
+                     pspmd._leaves(opt["m"])))
+    (l0, p0, m0), (l1, p1, m1) = runs
+    assert torch.equal(l0, l1)
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]) and torch.equal(m0[k], m1[k]), k
