@@ -232,6 +232,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
             decorated O2 encoder at L 2 (slots pinned, masters on the
             card) and build_spmd_train_step(offload=True) at L 2, each bit
             for bit against offload=False; the seconds the phase took
+16. fit     Model.fit's fault-tolerance hooks on the O1 GPT at full width
+    hooks   (AdamW, constant lr, B 32, T 512): a run resumed from an
+            AsyncCheckpointer (distributed/checkpoint.py) after 6 of 12
+            steps equal to the uninterrupted run bit for bit (losses,
+            parameters, slots, step count), the replayed batches
+            untrained, the newest tree verified; FLAGS_anomaly_action
+            skip with step.loss poisoned at step 4 equal to a hand loop
+            that reverts that step, raise naming the step, rollback to
+            the newest committed step; the guard on an offloaded
+            optimizer keeping its pinned slots; step ms p50 without hooks,
+            with a checkpointer (saving and not), with the guard
+            (offloaded too), save()'s host time, the write's seconds and
+            GB/s, the manifest's, verify's and restore's seconds
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -5019,21 +5032,420 @@ def remat_offload_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch):
     return out
 
 
+# -- phase 16 -----------------------------------------------------------------
+# Model.fit's fault-tolerance hooks at full width: the O1 bf16 GPT, AdamW at
+# a constant lr (the checkpoint tree holds no scheduler, as the
+# reference's), B 32, T 512, seed 0, shuffle off.  16a: U trains ``steps``
+# batches; S trains ``save_at`` with a checkpointer that saves every
+# ``interval``-th step (the reference's window: steps 1 and 6); R, the
+# network re-initialised from seed 1, resumes from S's directory over the
+# same batches.  16b: the guard's ``skip`` with step.loss poisoned at
+# ``poison`` over ``guard_steps`` batches against a hand loop; ``raise``;
+# ``rollback`` at ``rollback_at`` to the newest of ``rollback_interval``-
+# spaced saves (1, 3, 5, each written before the next step: the second and
+# third reuse the first's pinned block).  16c:
+# what each costs, and the guard on an offloaded optimizer over
+# ``offload_steps``.
+FIT_HOOKS = dict(width=GPT_WIDTH, batch=32, seq=512, lr=1e-4, steps=12,
+                 save_at=6, interval=5, keep=2, poison=4, guard_steps=8,
+                 rollback_interval=2, rollback_at=6, offload_steps=5)
+
+
+def _fit_hooks_state(model):
+    """Device copies of the parameters and buffers, every slot and master,
+    and the step count."""
+    fs = model._optimizer.functional_state()
+    return dict(params={k: v.clone()
+                        for k, v in model.network.state_dict().items()},
+                slots={f"{n}.{k}": v.clone() for n, s in fs["slots"].items()
+                       for k, v in s.items()},
+                master={n: v.clone() for n, v in fs["master"].items()},
+                step=fs["step"])
+
+
+def _fit_hooks_same(torch, a, b):
+    """Whether two :func:`_fit_hooks_state` are equal bit for bit."""
+    if a["step"] != b["step"]:
+        return False
+    return all(a[part].keys() == b[part].keys() and all(
+        torch.equal(v, b[part][k]) for k, v in a[part].items())
+        for part in ("params", "slots", "master"))
+
+
+def _fit_hooks_put(torch, model, state):
+    """Copy a :func:`_fit_hooks_state` back into the live model in place
+    (the hand loop's revert)."""
+    with torch.no_grad():
+        for k, v in model.network.state_dict().items():
+            v.copy_(state["params"][k])
+        fs = model._optimizer.functional_state()
+        for n, s in fs["slots"].items():
+            for k, v in s.items():
+                v.copy_(state["slots"][f"{n}.{k}"])
+        for n, v in fs["master"].items():
+            v.copy_(state["master"][n])
+    model._optimizer._global_step = state["step"]
+
+
+def _losses(watch):
+    return [float(s["loss"]) for s in watch.steps]
+
+
+def _ms(watch, idx):
+    """CUDA-event ms of the steps at ``idx`` of a run."""
+    return [watch.steps[i]["events"][0].elapsed_time(
+        watch.steps[i]["events"][1]) for i in idx]
+
+
+def fit_hooks_path(torch, fa, dev, cfg=FIT_HOOKS):
+    """Phase 16 (see FIT_HOOKS): ``fit(checkpointer=...)`` and
+    ``FLAGS_anomaly_action`` on the O1 GPT at full width.  Checks, failing
+    the run on any miss: S commits steps 1 and ``save_at``; R warns that
+    it resumed at ``save_at``, replays that many batches untrained
+    (no callback), and its losses, parameters, slots and step count equal
+    U's bit for bit; R's newest tree passes ``verify_checkpoint``;
+    ``skip`` equals a hand loop of captured ``train_batch`` that copies
+    the state before the poisoned batch back after it, bit for bit, with
+    ``train.anomaly`` up by 1; ``raise`` raises FloatingPointError naming
+    the poisoned step; ``rollback`` leaves the model equal to the newest
+    committed tree and says so; every replayed step of U, S, R and the
+    guarded run launches rows 1 and 6 L times each and the update once;
+    the guard on an offloaded optimizer leaves its pinned slots as before
+    a poisoned step.  Records step ms p50 (no hooks, a checkpointer's
+    non-saving steps, a saving step, the guard, the guard offloaded), the
+    host seconds of ``save``, the bytes, the write's seconds and GB/s, the
+    manifest's (sha256s and fsyncs), a ``verify_checkpoint``'s and a
+    ``restore``'s seconds; returns the report."""
+    import gc
+    import shutil
+    import tempfile
+    import warnings
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.tools import profile_train as pt
+    from paddle_tpu_torch.utils import chaos
+    t0 = time.perf_counter()
+    w, B, T, n = cfg["width"], cfg["batch"], cfg["seq"], cfg["steps"]
+    L = w["num_layers"]
+    data = pt.fit_data(n * B, 0, w["vocab_size"], T)
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    other = GPT(GPTConfig(**w), device=dev, seed=1)
+    state1 = {k: v.clone() for k, v in other.state_dict().items()}
+    del other
+    mode = fa._pallas_mode(T, T, True)
+    want = dict(_attention_want(L, mode, mode, "O1"), **FIT_UPDATE)
+
+    def reset():
+        _reset_attention(fa)
+        _reset_update()
+
+    def launches():
+        return dict(_attention_launches(fa), **_update_launches())
+
+    def fresh(state, offload=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net.load_state_dict(state)
+        for p in net.parameters():
+            p.grad = None
+        paddle_tpu_torch.seed(0)
+        torch.manual_seed(0)
+        return Model(net).prepare(
+            AdamW(cfg["lr"], parameters=net.parameters(), weight_decay=0.01),
+            CrossEntropyLoss(), amp_configs="O1", offload=offload)
+
+    def run(model, steps, checkpointer=None, extra=()):
+        watch = _fit_watch(torch, reset, launches)
+        try:
+            model.fit(TensorDataset([a[:steps * B] for a in data]),
+                      batch_size=B, shuffle=False, verbose=0,
+                      checkpointer=checkpointer,
+                      callbacks=[watch, *extra])
+        finally:
+            watch.set_model(None)
+        torch.cuda.synchronize()
+        return watch
+
+    def replays_ok(watch):
+        replayed = [s for s in watch.steps if not s["captured"]]
+        return bool(replayed) and all(s["launches"] == want
+                                      for s in replayed)
+
+    out, checks = dict(config={k: v for k, v in cfg.items()
+                               if k != "width"}), {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_hooks_")
+    try:
+        # -- 16a: resume ---------------------------------------------------
+        d = os.path.join(tmp, "resume")
+        model = fresh(state0)
+        wU = run(model, n)
+        U, lossU = _fit_hooks_state(model), _losses(wU)
+        del model
+        model = fresh(state0)
+        cS = ckpt.AsyncCheckpointer(d, max_to_keep=cfg["keep"],
+                                    save_interval_steps=cfg["interval"])
+        wS = run(model, cfg["save_at"], cS)
+        cS.close()
+        saved = cS.all_steps()
+        del model
+        model = fresh(state1)
+        cR = ckpt.AsyncCheckpointer(d, max_to_keep=cfg["keep"],
+                                    save_interval_steps=cfg["interval"])
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            wR = run(model, n, cR)
+        cR.close()
+        R, lossR = _fit_hooks_state(model), _losses(wR)
+        newest = cR.latest_step()
+        tv = time.perf_counter()
+        verified = ckpt.verify_checkpoint(os.path.join(d, str(newest)))
+        verify_s = time.perf_counter() - tv
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tr = time.perf_counter()
+            model._fit_resume(ckpt.AsyncCheckpointer(d))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - tr
+        checks.update(
+            saved_steps=saved == [1, cfg["save_at"]],
+            resume_warned=any(
+                f"resumed from checkpoint at step {cfg['save_at']}"
+                in str(m.message) for m in rec),
+            replayed_batches_untrained=len(lossR) == n - cfg["save_at"],
+            resume_losses_equal=lossR == lossU[cfg["save_at"]:],
+            resume_state_equal=_fit_hooks_same(torch, U, R),
+            newest_tree_verified=verified["step"] == newest == n,
+            resume_launches=replays_ok(wU) and replays_ok(wS)
+            and replays_ok(wR))
+        del model, U, R
+        saves = cS.stats + cR.stats
+        out["resume"] = dict(
+            saved_steps=saved, newest=newest,
+            losses_uninterrupted=lossU, losses_resumed=lossR,
+            launches_per_step=wR.steps[-1]["launches"], saves=saves,
+            verify_s=verify_s, restore_s=restore_s,
+            manifest_files=len(verified["files"]))
+        # the step ms: U's replays (no hooks); S's and R's replays that did
+        # not save, and those that did (S's save_at, R's last)
+        saving = {cfg["save_at"] - 1} | {len(wR.steps) - 1}
+        out["step_ms_p50_no_hooks"] = pct(_ms(wU, range(1, n)), 50)
+        out["step_ms_p50_checkpointer_not_saving"] = pct(
+            _ms(wS, [i for i in range(1, len(wS.steps)) if i not in saving])
+            + _ms(wR, [i for i in range(1, len(wR.steps))
+                       if i not in saving]), 50)
+        out["step_ms_saving"] = _ms(wS, [cfg["save_at"] - 1]) + _ms(
+            wR, [len(wR.steps) - 1])
+        log(f"  16a resume: S committed {saved}; R resumed at "
+            f"{cfg['save_at']}, trained {len(lossR)}: losses equal "
+            f"{checks['resume_losses_equal']}, parameters, slots and step "
+            f"equal {checks['resume_state_equal']}; newest tree {newest} "
+            f"verified ({len(verified['files'])} files)")
+        for s in saves:
+            gbs = s.get('bytes', 0) / max(s.get('write_s', 1e-9), 1e-9) / 1e9
+            log(f"    save at step {s['step']}: save() host "
+                f"{s['snapshot_s'] * 1e3:.1f} ms, {s.get('bytes', 0)} B, "
+                f"write {s.get('write_s', 0):.3f} s ({gbs:.2f}"
+                f" GB/s), manifest (sha256 + fsync) "
+                f"{s.get('manifest_s', 0):.3f} s, total "
+                f"{s.get('total_s', 0):.3f} s")
+        log(f"    verify_checkpoint {verify_s:.3f} s, restore into the "
+            f"model {restore_s:.3f} s")
+        # -- 16b: the guard --------------------------------------------------
+        k = cfg["poison"]
+        model = fresh(state0)
+        before = metrics.counter("train.anomaly").value
+        with port_flags({"FLAGS_anomaly_action": "skip"}):
+            chaos.configure(f"step.loss:nan@{k}", seed=0)
+            try:
+                with warnings.catch_warnings(record=True) as rec:
+                    warnings.simplefilter("always")
+                    wG = run(model, cfg["guard_steps"])
+            finally:
+                chaos.reset()
+        G, lossG = _fit_hooks_state(model), _losses(wG)
+        rise = metrics.counter("train.anomaly").value - before
+        del model
+        model = fresh(state0)
+        hand, hand_ms = [], []
+        for i in range(cfg["guard_steps"]):
+            sl = slice(i * B, (i + 1) * B)
+            if i == k - 1:
+                keep = _fit_hooks_state(model)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            hand.append(float(model.train_batch([data[0][sl]],
+                                                [data[1][sl]])["loss"]))
+            b.record()
+            b.synchronize()
+            hand_ms.append(a.elapsed_time(b))
+            if i == k - 1:
+                _fit_hooks_put(torch, model, keep)
+                del keep
+        H = _fit_hooks_state(model)
+        # the guard's copy alone: host seconds of _state_refs and the card's
+        # ms from before it to after it
+        copy_host, copy_ms = [], []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            tc = time.perf_counter()
+            model._state_refs()
+            copy_host.append((time.perf_counter() - tc) * 1e3)
+            b.record()
+            b.synchronize()
+            copy_ms.append(a.elapsed_time(b))
+        model._guard = None
+        others = [i for i in range(cfg["guard_steps"]) if i != k - 1]
+        checks.update(
+            skip_state_equals_hand_loop=_fit_hooks_same(torch, G, H),
+            skip_losses_equal=[lossG[i] for i in others] == [
+                hand[i] for i in others] and math.isnan(lossG[k - 1]),
+            skip_counted=rise == 1,
+            skip_warned=any(f"anomalous loss nan at step {k}: step "
+                            f"reverted" in str(m.message) for m in rec),
+            skip_launches=replays_ok(wG))
+        del G, H
+        raised = None
+        with port_flags({"FLAGS_anomaly_action": "raise"}):
+            chaos.configure(f"step.loss:nan@{k}", seed=0)
+            try:
+                run(model, cfg["guard_steps"])
+            except FloatingPointError as e:
+                raised = str(e)
+            finally:
+                chaos.reset()
+        checks["raise_names_the_step"] = raised is not None and \
+            f"at train step {k} " in raised
+        dr = os.path.join(tmp, "rollback")
+        cB = ckpt.AsyncCheckpointer(
+            dr, save_interval_steps=cfg["rollback_interval"])
+
+        class Landed(Callback):
+            # each save lands before the next step, so that the step the
+            # rollback restores is the newest save, not the writer's pace
+            def on_train_batch_end(self, step, logs=None):
+                cB.wait_until_finished()
+        with port_flags({"FLAGS_anomaly_action": "rollback"}):
+            chaos.configure(f"step.loss:nan@{cfg['rollback_at']}", seed=0)
+            try:
+                with warnings.catch_warnings(record=True) as rec:
+                    warnings.simplefilter("always")
+                    wB = run(model, cfg["rollback_at"], cB, (Landed(),))
+            finally:
+                chaos.reset()
+        cB.close()
+        top = max(cB.all_steps())
+        tree = ckpt.load_state(os.path.join(dr, str(top)))
+        fs = model._optimizer.functional_state()
+        checks.update(
+            rollback_warned=any(f"rolled back to checkpoint step {top}"
+                                in str(m.message) for m in rec),
+            rollback_state_is_newest_tree=all(
+                torch.equal(v.cpu(), tree["params"][n_])
+                for n_, v in model.network.named_parameters()) and all(
+                torch.equal(v.cpu(), tree["opt"]["slots"][n_][s_])
+                for n_, sl in fs["slots"].items()
+                for s_, v in sl.items()))
+        out["guard"] = dict(losses_skip=lossG, losses_hand=hand,
+                            anomaly_rise=rise, raised=raised,
+                            rollback_steps=cB.all_steps(),
+                            rollback_to=top, rollback_saves=cB.stats,
+                            copy_host_ms=copy_host, copy_ms=copy_ms)
+        del tree, fs, model
+        out["step_ms_p50_guard"] = pct(_ms(wG, others[1:]), 50)
+        out["step_ms_p50_hand_synchronised"] = pct(hand_ms[1:], 50)
+        # the saves whose pinned block is reused (the rollback run's second
+        # and third: each save's write lands before the next step)
+        out["step_ms_saving_reused"] = _ms(wB, [r["step"] - 1
+                                                for r in cB.stats[1:3]])
+        out["save_host_s_reused"] = [r["snapshot_s"] for r in cB.stats[1:3]]
+        out["step_ms_saving_allocating_rollback"] = _ms(
+            wB, [cB.stats[0]["step"] - 1])
+        log(f"    the guard's copy: _state_refs host "
+            f"{pct(copy_host, 50):.3f} ms, card {pct(copy_ms, 50):.3f} ms; "
+            f"the hand loop synchronised each step "
+            f"{out['step_ms_p50_hand_synchronised']:.3f} ms p50; the "
+            f"rollback run's saves: the first allocating its pinned block, "
+            f"the step {out['step_ms_saving_allocating_rollback'][0]:.3f} "
+            f"ms; two reusing it: save() host "
+            f"{[round(x * 1e3, 1) for x in out['save_host_s_reused']]} ms, "
+            f"the steps "
+            f"{[round(x, 3) for x in out['step_ms_saving_reused']]} ms")
+        log(f"  16b guard: skip at step {k} = hand-reverted loop, bit for "
+            f"bit: {checks['skip_state_equals_hand_loop']} (losses "
+            f"{checks['skip_losses_equal']}, train.anomaly +{rise}); raise: "
+            f"{raised!r}; rollback to step {top}: "
+            f"{checks['rollback_state_is_newest_tree']}")
+        # -- 16c: the guard on an offloaded optimizer -------------------------
+        model = fresh(state0, offload=True)
+        wO = run(model, cfg["offload_steps"])
+        with port_flags({"FLAGS_anomaly_action": "skip"}):
+            wOG = run(model, cfg["offload_steps"])
+            fs = model._optimizer.functional_state()
+            slots = [v for s in fs["slots"].values() for v in s.values()]
+            torch.cuda.synchronize()
+            kept = [v.clone() for v in slots]
+            chaos.configure("step.loss:nan@1", seed=0)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    run(model, 1)
+            finally:
+                chaos.reset()
+        torch.cuda.synchronize()
+        checks["offload_skip_keeps_pinned_slots"] = all(
+            v.is_pinned() and torch.equal(v, c)
+            for v, c in zip(slots, kept)) and bool(slots)
+        del kept, slots, fs, model
+        out["step_ms_p50_offload"] = pct(_ms(wO, range(1, len(wO.steps))),
+                                         50)
+        out["step_ms_p50_offload_guard"] = pct(_ms(wOG, range(
+            len(wOG.steps))), 50)
+    finally:
+        chaos.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  16c step ms p50: no hooks {out['step_ms_p50_no_hooks']:.3f}, "
+        f"a checkpointer's non-saving steps "
+        f"{out['step_ms_p50_checkpointer_not_saving']:.3f}, saving steps "
+        f"{[round(x, 3) for x in out['step_ms_saving']]}, the guard "
+        f"{out['step_ms_p50_guard']:.3f}; offloaded "
+        f"{out['step_ms_p50_offload']:.3f}, with the guard "
+        f"{out['step_ms_p50_offload_guard']:.3f}")
+    log(f"  phase 16 checks {checks}; took {out['seconds']:.1f} s")
+    failed = [k_ for k_, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 16 failed its checks: {failed}")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
-        long_fp16_cfg=TRAIN_LONG_FP16):
-    """Phases 3-15 on ``dev`` with a serving GPT of ``width``, the two
+        long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS):
+    """Phases 3-16 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
     shape) pairs of phase 3's update, unscale and skip-flag checks
     (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
     ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
-    and 8 (phase 7's remat policies run ``train_cfg``); returns the report
-    and the ``kernels`` entries."""
+    and 8 (phase 7's remat policies run ``train_cfg``), ``fit_hooks_cfg``
+    phase 16's; returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -5175,6 +5587,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                      encoder_batch, eager_o1)
     ro = remat_offload_path(torch, fa, fl, dev, eager_cfg, encoder_cfg,
                             encoder_batch)
+    log("== phase 16: Model.fit's checkpointer and anomaly guard, the O1 GPT "
+        "at full width")
+    hooks = fit_hooks_path(torch, fa, dev, fit_hooks_cfg)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -5714,7 +6129,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_fp16_timing=train_times_fp16,
                   train_long_fp16_timing=long_times_fp16,
                   train_long_bf16_timing=long_times_bf16,
-                  remat_offload=ro,
+                  remat_offload=ro, fit_hooks=hooks,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

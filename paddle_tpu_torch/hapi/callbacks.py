@@ -13,8 +13,8 @@ read waits for the step.  The reference's loss is a lazy scalar
 result.  No callback reads ``logs["loss"]`` on any other step, so
 ``fit`` at ``verbose=0`` never waits for the card.
 
-``ProfilerCallback`` raises ``NotImplementedError``: the profiler is not
-ported yet (ROADMAP.md A8).
+``ProfilerCallback`` raises ``NotImplementedError``: the profiler's
+tracer is not ported yet (ROADMAP.md A8, the profiler bullet).
 """
 from __future__ import annotations
 
@@ -321,8 +321,9 @@ class ProfilerCallback(Callback):
     def __init__(self, profiler=None, summary=True, **profiler_kwargs):
         raise NotImplementedError(
             "ProfilerCallback is not ported yet: it drives "
-            "paddle.profiler, which waits for the profiler port "
-            "(ROADMAP.md A8)")
+            "paddle.profiler's Profiler and host tracer, which wait for "
+            "the profiler port (ROADMAP.md A8, the profiler bullet; the "
+            "metrics registry and the flight recorder are ported)")
 
 
 def config_callbacks(callbacks=None, model=None, batch_size=None, epochs=None,

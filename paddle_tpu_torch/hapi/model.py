@@ -114,11 +114,28 @@ model is not on a card (the reference's backend without a
 ``pinned_host`` memory space) it warns with the reference's text and
 trains un-offloaded; ``jit=False`` trains un-offloaded, as there.
 
-Not ported yet, and raising ``NotImplementedError`` with their
-``ROADMAP.md`` item: ``fit``'s fault-tolerance hooks — ``checkpointer=``,
-``FLAGS_anomaly_action`` and the supervisor's ``PADDLE_SUPERVISE_STORE``
-(A8); ``save(training=False)``, the inference export (A6).  ``summary``
-(:1465) prints :func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
+``fit``'s fault-tolerance hooks (the reference's :697-934, :1017-1281):
+``fit(checkpointer=AsyncCheckpointer(...))`` resumes from the newest
+intact checkpoint (``distributed/checkpoint.py``: parameters, buffers,
+the optimizer's slots, masters and step count, the random state, the
+step and the samples seen), replays the batches already trained without
+training them or firing a callback, and saves on the steps the
+checkpointer wants (its snapshot ordered on the card against the next
+step's in-place update).  ``FLAGS_anomaly_action`` (``raise``, ``skip``,
+``rollback``) reads the loss after every step, one synchronising read a
+step, and on a nan or inf raises, reverts the whole step from a copy
+taken before it, or restores the newest checkpoint; the copy is made
+into buffers kept on the card, on the step's stream (an offloaded
+optimizer's pinned slots into host memory, after a synchronise).  As in
+the reference, the tree holds neither the LR scheduler nor the fp16 loss
+scaler's state, a rollback does not rewind the data, and the
+``step.loss`` chaos site poisons the loss ``train_batch`` reports after a
+normal update.  With no checkpointer and no flag, ``fit`` makes no
+synchronising call.  The supervisor's heartbeat
+(``PADDLE_SUPERVISE_STORE``) raises ``NotImplementedError`` until the
+distributed launch is ported (``ROADMAP.md`` A5); ``save(training=False)``,
+the inference export, until A6.  ``summary`` (:1465) prints
+:func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
 """
 from __future__ import annotations
 
@@ -132,12 +149,14 @@ import numpy as np
 import torch
 
 from .. import framework_io
+from .. import random as _random
 from ..amp import auto_cast, to_dtype
 from ..graphs import StepGraph
 from ..metric import Metric
 from ..ops.amp_ops import update_loss_scaling_
 from ..ops.multi_tensor_update import multi_tensor_unscale
 from ..serving.bucketing import ExecutableCache
+from ..utils import chaos as _chaos
 from ..utils.flags import get_flag
 from . import remat as _remat
 from .callbacks import config_callbacks
@@ -145,8 +164,9 @@ from .summary import summary as _summary
 
 __all__ = ["Model"]
 
-_FAULT_TOLERANCE = ("is not ported yet (ROADMAP.md A8: fit's "
-                    "fault-tolerance hooks)")
+_SUPERVISE = ("the supervised-launch heartbeat (PADDLE_SUPERVISE_STORE) is "
+              "not ported yet: it needs the distributed launch's stores, "
+              "heartbeat key and fleet metrics (ROADMAP.md A5)")
 
 
 def _to_list(x) -> List:
@@ -185,6 +205,8 @@ class Model:
         self._remat_active = False
         self._remat_planned_peak = None
         self._steps = ExecutableCache(name="hapi")
+        self._train_step_count = 0
+        self._guard = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=True, offload=False) -> "Model":
@@ -483,8 +505,21 @@ class Model:
             "train", lambda: self._train_step(len(ins), remat), ins + labs,
             (remat, amp))
         opt._global_step = steps + 1
-        return self._pack_logs(out[0].clone(),
-                               self._update_metrics(out[1:], labs))
+        metrics = self._update_metrics(out[1:], labs)
+        self._train_step_count += 1
+        loss = out[0].clone()
+        if _chaos.active and _chaos.hit("step.loss") == "nan":
+            # the chaos layer poisons the reported loss of a step that
+            # updated normally (the reference's :601-604)
+            loss = float("nan")
+        if get_flag("FLAGS_check_nan_inf"):
+            # the loss read at the step that made it (:605-613)
+            v = float(loss)
+            if not np.isfinite(v):
+                raise FloatingPointError(
+                    f"loss is {v} at train step {self._train_step_count} "
+                    f"(FLAGS_check_nan_inf enabled)")
+        return self._pack_logs(loss, metrics)
 
     def _train_batch_eager(self, inputs, labels, update: bool = True) -> Dict:
         """The eager engine's step: forward, loss, backward and, with
@@ -558,21 +593,178 @@ class Model:
         self._last_prefetcher = pf
         return iter(pf), pf
 
+    # ------------------------------------------------------------------
+    # fault tolerance: checkpoint resume and the anomaly guard (the
+    # reference's :697-934)
+    # ------------------------------------------------------------------
+    def _ckpt_tree(self, step_count: int) -> Dict:
+        """(params, buffers, opt, meta) as one checkpointable tree: the
+        live tensors (the checkpointer snapshots them), the optimizer's
+        functional state, and in ``meta`` the step count, the random
+        state (:func:`paddle_tpu_torch.random.get_state`, the port's form
+        of ``rng_seed`` / ``rng_counter``), the data-parallel world and
+        the samples seen, in all and in this epoch.  As in the
+        reference, no LR scheduler and no fp16 loss scale."""
+        rng = _random.get_state()
+        rng["seed"] = np.uint64(rng["seed"] & ((1 << 64) - 1))
+        rng["draws"] = np.int64(rng["draws"])
+        return {"params": dict(self.network.named_parameters()),
+                "buffers": dict(self.network.named_buffers()),
+                "opt": self._optimizer.functional_state(),
+                "meta": {"step": np.int64(step_count), "rng": rng,
+                         "world": np.int64(getattr(self, "_fit_data_world",
+                                                   1)),
+                         "samples": np.int64(getattr(
+                             self, "_fit_samples_seen", 0)),
+                         "epoch": np.int64(getattr(self, "_fit_epoch", 0)),
+                         "samples_epoch": np.int64(getattr(
+                             self, "_fit_samples_epoch", 0))}}
+
+    def _fit_resume(self, checkpointer, data_world=None):
+        """Restore the newest intact checkpoint into the live model, in
+        place (corrupt steps are quarantined by the checkpointer); returns
+        ``{"step", "world", "epoch", "samples_epoch", "label"}``, or None
+        when nothing intact exists (the live state is left untouched).  The reference's :731-810 with its cross-world
+        branch; the port reads only its own format-2 trees, so the
+        reference's retry of a pre-v2 tree is not taken over, and any
+        other restore error propagates."""
+        from ..distributed.checkpoint import (CheckpointCorruptError,
+                                              copy_into, derive_rank_seed)
+        if data_world is None:
+            data_world = getattr(self, "_fit_data_world", 1)
+        try:
+            restored = checkpointer.restore(template=self._ckpt_tree(0))
+        except CheckpointCorruptError:
+            if checkpointer.all_steps():
+                warnings.warn(
+                    "fit: no intact checkpoint survived verification; "
+                    "starting from scratch")
+            return None
+        copy_into(dict(self.network.named_parameters()), restored["params"],
+                  "parameters")
+        copy_into(dict(self.network.named_buffers()),
+                  restored.get("buffers", {}), "buffers")
+        self._optimizer.load_functional_state(restored["opt"])
+        meta = restored["meta"]
+        old_world = int(meta["world"])
+        if old_world != data_world:
+            # cross-world resume: each survivor re-derives its streams
+            # from its NEW rank instead of inheriting an old rank's
+            rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+            _random.set_state(meta["rng"], seed=derive_rank_seed(
+                int(meta["rng"]["seed"]), rank))
+        else:
+            _random.set_state(meta["rng"])
+        step = int(meta["step"])
+        warnings.warn(f"fit: resumed from checkpoint at step {step} "
+                      f"(generation "
+                      f"{os.environ.get('PADDLE_RESTART_GENERATION', '0')}"
+                      f", saved at data-parallel world {old_world})")
+        seen = getattr(checkpointer, "last_restored_meta", None) or {}
+        label = seen.get("step")
+        label = step if label is None else int(label)
+        return {"step": step, "world": old_world, "epoch": int(meta["epoch"]),
+                "samples_epoch": int(meta["samples_epoch"]), "label": label}
+
+    def _guard_live(self):
+        """``(device tensors, host tensors, step count)`` the anomaly
+        guard reverts: the parameters, buffers, and the optimizer's
+        :meth:`~Optimizer.functional_state` (the reference's :878-894:
+        params, buffers and ``_fn_state``); on a card, an offloaded
+        optimizer's slots are the host ones."""
+        fs = self._optimizer.functional_state()
+        live = list(self.network.parameters())
+        live += self.network.buffers()
+        for slots in fs["slots"].values():
+            live += slots.values()
+        live += fs["master"].values()
+        if self._device().type != "cuda":
+            return live, [], fs["step"]
+        dev, host = [], []
+        for t in live:
+            (dev if t.is_cuda else host).append(t)
+        return dev, host, fs["step"]
+
+    @torch.no_grad()
+    def _state_refs(self):
+        """Copies of the guarded state before a step, into buffers kept
+        across steps (made again when the set of tensors changed; a
+        tensor's storage may move, the copy reads it where it lies, and
+        one whose shape changed makes the copy raise): the device tensors
+        on the step's stream, one multi-tensor copy, no host wait; pinned
+        host tensors (offloaded slots, which the card writes
+        asynchronously) into host memory, after a synchronise of the
+        step's stream."""
+        dev, host, step = self._guard_live()
+        key = tuple(map(id, dev + host))
+        guard = self._guard
+        if guard is None or guard["key"] != key:
+            guard = self._guard = dict(key=key, dev=[
+                torch.empty_like(t) for t in dev], host=[
+                torch.empty_like(t) for t in host])
+        if dev:
+            torch._foreach_copy_(guard["dev"], dev, non_blocking=True)
+        if host:
+            torch.cuda.current_stream(self._device()).synchronize()
+            for buf, t in zip(guard["host"], host):
+                buf.copy_(t)
+        return dev, host, step, guard
+
+    @torch.no_grad()
+    def _restore_state_refs(self, snap) -> None:
+        dev, host, step, guard = snap
+        if dev:
+            torch._foreach_copy_(dev, guard["dev"], non_blocking=True)
+        if host:
+            torch.cuda.current_stream(self._device()).synchronize()
+            for t, buf in zip(host, guard["host"]):
+                t.copy_(buf)
+        self._optimizer._global_step = step
+
+    def _handle_anomaly(self, action, value, step_count, snap,
+                        checkpointer) -> None:
+        """The nan/inf loss policy (``FLAGS_anomaly_action``, the
+        reference's :896-934): ``raise``; ``skip`` reverts this step;
+        ``rollback`` restores the newest intact checkpoint (or reverts
+        the step without one).  The data is not rewound either way."""
+        from ..profiler import flight as _flight
+        from ..profiler import metrics as _metrics
+        _metrics.counter("train.anomaly",
+                         "nan/inf losses caught by the fit anomaly "
+                         "guard").inc()
+        if _flight.active:
+            _flight.note("train", "anomaly", value=str(value),
+                         step=step_count, action=action)
+        if action == "raise":
+            raise FloatingPointError(
+                f"loss is {value} at train step {step_count} "
+                f"(FLAGS_anomaly_action=raise)")
+        if action == "rollback" and checkpointer is not None:
+            restored = self._fit_resume(checkpointer)
+            if restored is not None:
+                warnings.warn(f"anomalous loss {value} at step "
+                              f"{step_count}: rolled back to checkpoint "
+                              f"step {restored['step']}")
+                return
+            warnings.warn("FLAGS_anomaly_action=rollback: no intact "
+                          "checkpoint yet, reverting this step instead")
+        elif action == "rollback":
+            warnings.warn("FLAGS_anomaly_action=rollback without a "
+                          "checkpointer: reverting this step instead")
+        self._restore_state_refs(snap)
+        # the accumulation path has already backward()ed the poisoned
+        # loss into .grad: flush it (zeroed in place, so that a captured
+        # step keeps its gradient buffers)
+        self._optimizer.clear_grad(set_to_zero=True)
+        warnings.warn(f"anomalous loss {value} at step {step_count}: "
+                      f"step reverted, continuing")
+
     @staticmethod
-    def _check_fault_tolerance(checkpointer) -> None:
-        """The reference's fit hooks that wait for A8 raise rather than
-        being ignored."""
-        if checkpointer is not None:
-            raise NotImplementedError(f"fit(checkpointer=...), the "
-                                      f"checkpoint resume, "
-                                      f"{_FAULT_TOLERANCE}")
-        if get_flag("FLAGS_anomaly_action"):
-            raise NotImplementedError(f"FLAGS_anomaly_action, the nan/inf "
-                                      f"loss guard, {_FAULT_TOLERANCE}")
+    def _check_fault_tolerance() -> None:
+        """The supervisor's heartbeat waits for the distributed launch
+        (A5) and raises rather than being ignored."""
         if os.environ.get("PADDLE_SUPERVISE_STORE"):
-            raise NotImplementedError(f"the supervised-launch heartbeat "
-                                      f"(PADDLE_SUPERVISE_STORE) "
-                                      f"{_FAULT_TOLERANCE}")
+            raise NotImplementedError(_SUPERVISE)
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
@@ -581,8 +773,8 @@ class Model:
             prefetch_to_device=None):
         """Train on ``train_data`` (a ``Dataset`` or a loader) for
         ``epochs``; see the module docstring."""
-        from ..io import DataLoader, Dataset
-        self._check_fault_tolerance(checkpointer)
+        from ..io import DataLoader, Dataset, DistributedBatchSampler
+        self._check_fault_tolerance()
         self._save_dir = save_dir
         if isinstance(train_data, Dataset):
             train_loader = DataLoader(train_data, batch_size=batch_size,
@@ -605,18 +797,96 @@ class Model:
                                 save_freq=save_freq, save_dir=save_dir,
                                 metrics=["loss"] + [m.name() for m in
                                                     self._metrics])
+        # the hooks cost one predicate read a step when unconfigured (no
+        # checkpointer, no anomaly flag, no chaos spec)
+        anomaly = get_flag("FLAGS_anomaly_action")
+        # the DATA pipeline's world: > 1 only when the loader shards the
+        # index space across ranks
+        data_world = 1
+        bs = getattr(train_loader, "batch_sampler", None)
+        if isinstance(bs, DistributedBatchSampler):
+            data_world = int(bs.nranks)
+        self._fit_data_world = data_world
+        self._fit_samples_seen = 0
+        start_step = 0
+        resume_samples = None
+        resume_epoch = 0
+        # directory labels stay monotonic across elastic resumes (the
+        # reference's :1037-1043)
+        self._fit_save_offset = 0
+        if checkpointer is not None and self._optimizer is not None:
+            info = self._fit_resume(checkpointer, data_world)
+            if info is not None:
+                if info["world"] != data_world:
+                    self._fit_save_offset = info["label"]
+                    # replay completed epochs wholesale and skip WITHIN
+                    # the saved epoch by global sample count
+                    resume_samples = info["samples_epoch"]
+                    resume_epoch = info["epoch"]
+                    warnings.warn(
+                        f"fit: resharded resume — checkpoint was taken "
+                        f"at data-parallel world {info['world']}, this "
+                        f"run is world {data_world}; replaying "
+                        f"{resume_epoch} completed epoch(s) plus "
+                        f"{resume_samples} already-trained global "
+                        f"samples instead of old-world step indices")
+                else:
+                    start_step = info["step"]
+                    self._fit_save_offset = max(
+                        0, info["label"] - info["step"])
         cbks.on_train_begin()
         step_count = 0
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
+            self._fit_epoch = epoch
+            self._fit_samples_epoch = 0
             for m in self._metrics:
                 m.reset()
             logs = {}
             it, pf = self._epoch_input(train_loader, prefetch_to_device)
             try:
                 for step, batch in enumerate(it):
+                    if resume_samples is not None:
+                        # cross-world resume: replay the data order by
+                        # GLOBAL samples up to the checkpoint's mark
+                        if epoch > resume_epoch:
+                            resume_samples = None
+                        else:
+                            bl = _batch_len(self._split_batch(batch)[0]) \
+                                * data_world
+                            if epoch < resume_epoch or \
+                                    self._fit_samples_epoch + bl <= \
+                                    resume_samples:
+                                self._fit_samples_seen += bl
+                                self._fit_samples_epoch += bl
+                                step_count += 1
+                                continue
+                            short = resume_samples - self._fit_samples_epoch
+                            if short > 0:
+                                warnings.warn(
+                                    f"fit: resharded-resume boundary "
+                                    f"falls inside a batch — re-training "
+                                    f"{short} of {resume_samples} replayed "
+                                    f"samples (the old step boundary is "
+                                    f"not representable on the new "
+                                    f"world's batch grid)")
+                            resume_samples = None
+                    if resume_samples is None and step_count < start_step:
+                        # resumed run: this batch's update is inside the
+                        # restored state; replay the data order without
+                        # training it (shuffle must be off or seeded)
+                        step_count += 1
+                        bl = _batch_len(self._split_batch(batch)[0]) \
+                            * data_world
+                        self._fit_samples_seen += bl
+                        self._fit_samples_epoch += bl
+                        continue
                     cbks.on_train_batch_begin(step)
                     ins, lbls = self._split_batch(batch)
+                    if anomaly:
+                        # the guard's per-step copy (the reference's
+                        # :1171-1174)
+                        snap = self._state_refs()
                     if accumulate_grad_batches > 1:
                         # the gradients add up in .grad; the optimizer
                         # steps on the boundary
@@ -628,6 +898,26 @@ class Model:
                     else:
                         logs = self.train_batch(ins, lbls)
                     step_count += 1
+                    self._fit_samples_seen += _batch_len(ins) * data_world
+                    self._fit_samples_epoch += _batch_len(ins) * data_world
+                    if anomaly and "loss" in logs:
+                        # one synchronising read a step (:1206-1218)
+                        v = float(logs["loss"])
+                        if not np.isfinite(v):
+                            self._handle_anomaly(anomaly, v, step_count,
+                                                 snap, checkpointer)
+                            logs["loss"] = v
+                    if _chaos.active:
+                        # host.slow stretches this step's wall time
+                        _chaos.hit("host.slow")
+                    save_label = step_count + self._fit_save_offset
+                    if checkpointer is not None and (
+                            not hasattr(checkpointer, "want_save")
+                            or checkpointer.want_save(save_label)):
+                        # the tree and its snapshot only on the steps the
+                        # checkpointer writes
+                        checkpointer.save(save_label,
+                                          self._ckpt_tree(step_count))
                     # the real batch size, also of a partial last batch
                     logs["batch_size"] = _batch_len(ins)
                     cbks.on_train_batch_end(step, logs)
@@ -649,6 +939,9 @@ class Model:
             if num_iters is not None and step_count >= num_iters:
                 break
         cbks.on_train_end()
+        if checkpointer is not None:
+            # the last step's write lands before fit returns (:1274-1281)
+            checkpointer.wait_until_finished()
 
     def _split_batch(self, batch):
         if isinstance(batch, (list, tuple)):

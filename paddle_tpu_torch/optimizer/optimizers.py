@@ -402,6 +402,57 @@ class Optimizer:
 
     set_dict = set_state_dict
 
+    # -- functional state (checkpoints and fit's anomaly guard) -------------
+    def functional_state(self) -> Dict[str, object]:
+        """The optimizer's state as the reference's ``_fn_state`` holds it
+        (``paddle_tpu/optimizer/optimizers.py:254-274``): ``{"slots":
+        {name: {slot: tensor}}, "master": {name: fp32 master}, "step":
+        the step count}``, with Adam's powers among the slots.  The
+        tensors are the live ones (on the card, or pinned host memory
+        under offload), for a checkpointer's ordered snapshot; only the
+        parameters whose state exists are in it."""
+        slots, master = {}, {}
+        for name, p in self._params or []:
+            state = self._state.get(id(p))
+            if state is not None:
+                slots[name] = dict(state)
+            m = self._master_weights.get(id(p))
+            if m is not None:
+                master[name] = m
+        return {"slots": slots, "master": master,
+                "step": self._global_step}
+
+    @torch.no_grad()
+    def load_functional_state(self, state: Mapping[str, object]) -> None:
+        """Write a :meth:`functional_state` (host copies) back into the
+        live tensors in place with ``copy_``, making a parameter's slots
+        (and its master) first where they do not exist yet; a captured
+        step therefore keeps reading the same addresses.  Offloaded slots
+        are written after the card's pending writes into them land."""
+        names = {n: p for n, p in self._params or []}
+        unknown = sorted(set(state.get("slots", {})) - set(names))
+        if unknown:
+            raise KeyError(f"the optimizer has no parameters {unknown[:5]}")
+        self._sync_offloaded()
+        for name, saved in state.get("slots", {}).items():
+            slot = self._slot(names[name])
+            for k, cur in slot.items():
+                if k not in saved:
+                    raise KeyError(f"the saved state of {name!r} lacks its "
+                                   f"{k!r} slot")
+                cur.copy_(torch.as_tensor(saved[k]).to(dtype=cur.dtype),
+                          non_blocking=True)
+        for name, saved in state.get("master", {}).items():
+            p = names[name]
+            self._slot(p)
+            master = self._master_weights.get(id(p))
+            if master is None:
+                raise KeyError(f"the saved state has an fp32 master of "
+                               f"{name!r}, which this optimizer keeps none "
+                               f"of (multi_precision)")
+            master.copy_(torch.as_tensor(saved), non_blocking=True)
+        self._global_step = int(state.get("step", self._global_step))
+
 
 class SGD(Optimizer):
     """``param - lr·grad`` (reference ``sgd_op.cc``)."""

@@ -32,7 +32,8 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["DrawLog", "Generator", "SeedSlots", "default_generator", "seed"]
+__all__ = ["DrawLog", "Generator", "SeedSlots", "default_generator",
+           "get_state", "seed", "set_state"]
 
 _M64 = (1 << 64) - 1
 # the SeedSlots a capture on this thread takes its seeds from, and the
@@ -90,6 +91,50 @@ class Generator:
         :meth:`next_seed` outside a capture would draw them."""
         with self._lock:
             return [self._draw() for _ in range(int(n))]
+
+    def get_state(self) -> Dict:
+        """The whole random state as data (the port's form of the
+        reference's ``rng_seed`` / ``rng_counter`` checkpoint leaves,
+        ``hapi/model.py:715-717``): the seed, the host stream's state and
+        :attr:`draws`, and each device stream's state by device name.
+        A captured step draws its replay's seeds from the host stream
+        before it replays (:meth:`SeedSlots.refill`), so the state read
+        after a step is the state after that step's draws."""
+        with self._lock:
+            return {"seed": self._seed, "host": self._host.get_state(),
+                    "draws": self.draws,
+                    "devices": {str(d): g.get_state()
+                                for d, g in self._devices.items()}}
+
+    def set_state(self, state: Dict, seed: int = None) -> "Generator":
+        """Set the state :meth:`get_state` returned, every stream in place
+        (a captured graph keeps the device generator it was captured
+        with).  With ``seed`` the host and device streams restart from it
+        instead, keeping the draw count: the reference's cross-world
+        resume (``hapi/model.py:784-793``), where ``seed`` is
+        ``derive_rank_seed`` of the saved seed and the new rank.  Device
+        streams of devices this process lacks are left out."""
+        if seed is not None:
+            self.manual_seed(seed)
+            with self._lock:
+                self.draws = int(state["draws"])
+            return self
+        devices = {}
+        for name, st in state.get("devices", {}).items():
+            dev = torch.device(name)
+            if dev.type == "cuda" and not (
+                    torch.cuda.is_available()
+                    and (dev.index or 0) < torch.cuda.device_count()):
+                continue
+            devices[self.device(dev)] = torch.as_tensor(st, dtype=torch.uint8)
+        with self._lock:
+            self._seed = int(state["seed"])
+            self._host.set_state(torch.as_tensor(state["host"],
+                                                 dtype=torch.uint8))
+            self.draws = int(state["draws"])
+            for gen, st in devices.items():
+                gen.set_state(st)
+        return self
 
     def device(self, device) -> torch.Generator:
         """The stream of ``device``, made at first use."""
@@ -170,6 +215,39 @@ class DrawLog:
 def seed(seed_val: int) -> Generator:
     """Reseed the port's default random state (``paddle.seed``)."""
     return default_generator.manual_seed(seed_val)
+
+
+def _torch_generators() -> Dict[str, torch.Generator]:
+    gens = {"cpu": torch.default_generator}
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            gens[f"cuda:{i}"] = torch.cuda.default_generators[i]
+    return gens
+
+
+def get_state() -> Dict:
+    """The process's whole random state as data: the port's
+    :data:`default_generator` (:meth:`Generator.get_state`) and, under
+    ``"torch"``, torch's own default generators, which modules such as
+    ``torch.nn.Dropout`` draw from."""
+    state = default_generator.get_state()
+    state["torch"] = {name: g.get_state()
+                      for name, g in _torch_generators().items()}
+    return state
+
+
+def set_state(state: Dict, seed: int = None) -> None:
+    """Set what :func:`get_state` returned, in place (see
+    :meth:`Generator.set_state`, including ``seed``, which reseeds torch's
+    default generators too)."""
+    default_generator.set_state(state, seed=seed)
+    if seed is not None:
+        torch.manual_seed(int(seed) & _M64)
+        return
+    gens = _torch_generators()
+    for name, st in state.get("torch", {}).items():
+        if name in gens:
+            gens[name].set_state(torch.as_tensor(st, dtype=torch.uint8))
 
 
 class SeedSlots:

@@ -12,8 +12,11 @@ run time with :func:`set_flags`.
 The port reads ``FLAGS_fused_optimizer`` (the optimizers' fused update),
 ``FLAGS_prefetch_to_device`` (``Model.fit``'s input stage),
 ``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb`` (``Model``'s
-budget remat) and ``FLAGS_anomaly_action`` (``Model.fit``'s guard, which
-raises while it waits for its port).  Each other flag's doc string names
+budget remat), ``FLAGS_anomaly_action`` (``Model.fit``'s guard),
+``FLAGS_check_nan_inf`` (``Model.train_batch``'s loss check),
+``FLAGS_chaos_spec`` and ``FLAGS_chaos_seed`` (``utils/chaos.py``),
+``FLAGS_flight_recorder`` and ``FLAGS_flight_recorder_capacity``
+(``profiler/flight.py``).  Each other flag's doc string names
 the ``ROADMAP.md`` item whose module will read it.
 """
 from __future__ import annotations
@@ -104,8 +107,8 @@ define_flag("FLAGS_remat_budget_mb", 0,
             "planner yet (ROADMAP.md A7), so any budget engages it")
 define_flag("FLAGS_anomaly_action", "",
             "hapi/model.py: Model.fit's guard on a nan/inf loss ('', "
-            "'raise', 'skip', 'rollback'); set, fit raises until the guard "
-            "is ported (ROADMAP.md A8)")
+            "'raise', 'skip', 'rollback'); set, fit reads the loss after "
+            "every step")
 
 # -- defined for set_flags, read by a module still to port -------------------
 define_flag("FLAGS_eager_jit_cache", True,
@@ -114,7 +117,9 @@ define_flag("FLAGS_use_pallas", True,
             "the eager core's kernel dispatch (ROADMAP.md A2); the port's "
             "entry points always run its hand-written kernels")
 define_flag("FLAGS_check_nan_inf", False,
-            "the eager core's per-op nan/inf check (ROADMAP.md A2)")
+            "hapi/model.py: Model.train_batch's captured step reads its "
+            "loss and raises on a nan/inf; the eager core's per-op check "
+            "waits for ROADMAP.md A2")
 define_flag("FLAGS_allocator_strategy", "auto_growth",
             "kept for the API, as in the reference: the caching allocator "
             "owns device memory")
@@ -145,9 +150,9 @@ define_flag("FLAGS_aot_store_max_mb", 2048,
 define_flag("FLAGS_host_tracer_capacity", 1 << 20,
             "the profiler's host span ring (ROADMAP.md A8)")
 define_flag("FLAGS_chaos_spec", "",
-            "the fault-injection schedule (utils/chaos.py, ROADMAP.md A8)")
+            "utils/chaos.py: the fault-injection schedule")
 define_flag("FLAGS_chaos_seed", 0,
-            "the fault-injection seed (ROADMAP.md A8)")
+            "utils/chaos.py: the fault-injection seed")
 define_flag("FLAGS_watchdog_timeout", 60.0,
             "the supervised launch's hang timeout (ROADMAP.md A5)")
 define_flag("FLAGS_inference_retrace_warn", 8,
@@ -180,6 +185,6 @@ define_flag("FLAGS_request_trace", False,
 define_flag("FLAGS_mem_accounting", False,
             "device-memory accounting, memscope (ROADMAP.md A8)")
 define_flag("FLAGS_flight_recorder", True,
-            "the flight recorder's event ring (ROADMAP.md A4)")
+            "profiler/flight.py: the flight recorder's event ring")
 define_flag("FLAGS_flight_recorder_capacity", 2048,
-            "the flight recorder's ring size (ROADMAP.md A4)")
+            "profiler/flight.py: the flight recorder's ring size")

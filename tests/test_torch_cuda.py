@@ -1853,3 +1853,97 @@ def test_encoder_train_step_never_reaches_a_plain_epilogue_under_remat(
         torch.cuda.synchronize()
         assert torch.isfinite(loss)
         assert (fl.LAUNCHES - f0, fl.BWD_LAUNCHES - b0) == (8, 4), amp
+
+
+def _hooks_model(offload=False):
+    """The GPT at WIDTH from seed 0 under AMP O1 with AdamW, captured, and
+    four batches of (4, 128) ids."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
+    paddle_tpu_torch.seed(0)
+    model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                               CrossEntropyLoss(), amp_configs="O1",
+                               offload=offload)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, WIDTH["vocab_size"], (16, 128))
+    return model, [ids, np.roll(ids, -1, 1).reshape(16, 128, 1)]
+
+
+def _hooks_state(model):
+    torch.cuda.synchronize()
+    fs = model._optimizer.functional_state()
+    out = {f"param {k}": v.detach().cpu()
+           for k, v in model.network.state_dict().items()}
+    out.update({f"slot {n}.{k}": v.cpu() for n, s in fs["slots"].items()
+                for k, v in s.items()})
+    return out, fs["step"]
+
+
+def test_restore_into_a_captured_step_replays_as_an_uncaptured_one(
+        card, tmp_path):
+    """A checkpoint restored into a model whose step is already captured is
+    written into the tensors the graph reads (no capture again); its next
+    captured step equals, bit for bit, an uncaptured step from the same
+    restored state."""
+    import warnings
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    model, (ids, labels) = _hooks_model()
+    ckptr = ckpt.AsyncCheckpointer(str(tmp_path))
+    for i in range(2):
+        model.train_batch([ids[4 * i:4 * i + 4]], [labels[4 * i:4 * i + 4]])
+    ckptr.save(2, model._ckpt_tree(2))
+    ckptr.wait_until_finished()
+    for i in range(2, 4):
+        model.train_batch([ids[4 * i:4 * i + 4]], [labels[4 * i:4 * i + 4]])
+    compiles = model._steps.compiles
+    other, _ = _hooks_model()
+    other._jit = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for m in (model, other):
+            assert m._fit_resume(ckpt.AsyncCheckpointer(str(tmp_path))
+                                 )["step"] == 2
+    assert _hooks_state(model)[0].keys() == _hooks_state(other)[0].keys()
+    losses = [float(m.train_batch([ids[8:12]], [labels[8:12]])["loss"])
+              for m in (model, other)]
+    assert model._steps.compiles == compiles          # replayed
+    assert losses[0] == losses[1]
+    a, b = _hooks_state(model), _hooks_state(other)
+    assert a[1] == b[1] == 3
+    for k, v in a[0].items():
+        assert torch.equal(v, b[0][k]), k
+    ckptr.close()
+
+
+def test_skip_with_offload_keeps_the_pinned_slots(card):
+    """FLAGS_anomaly_action=skip on a poisoned step of an offloaded
+    optimizer: its pinned host slots, and the parameters, are bit for bit
+    what they were before the step."""
+    import warnings
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.utils import chaos
+    model, data = _hooks_model(offload=True)
+    model.fit(TensorDataset([a[:8] for a in data]), batch_size=4,
+              shuffle=False, verbose=0)
+    before, step = _hooks_state(model)
+    fs = model._optimizer.functional_state()
+    slots = [v for s in fs["slots"].values() for v in s.values()]
+    assert slots and all(v.is_pinned() for v in slots)
+    with chip_smoke.port_flags({"FLAGS_anomaly_action": "skip"}):
+        chaos.configure("step.loss:nan@1", seed=0)
+        try:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                model.fit(TensorDataset([a[8:12] for a in data]),
+                          batch_size=4, shuffle=False, verbose=0)
+        finally:
+            chaos.reset()
+    assert any("step reverted" in str(w.message) for w in rec)
+    after, step_after = _hooks_state(model)
+    assert step_after == step
+    for k, v in before.items():
+        assert torch.equal(v, after[k]), k
+    assert all(v.is_pinned() for v in slots)

@@ -144,7 +144,13 @@ def test_set_flags_reaches_the_remat_decision():
 
 
 def test_set_flags_reaches_the_anomaly_guard():
+    # set_flags arms the guard and, through the chaos layer's observer,
+    # the step.loss site that poisons the step's loss: the step is reverted
     model = _linear()
+    before = {k: v.clone() for k, v in model.network.state_dict().items()}
     with _set({"FLAGS_anomaly_action": "skip"}), \
-            pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+            _set({"FLAGS_chaos_spec": "step.loss:nan@1"}), \
+            pytest.warns(UserWarning, match="step reverted"):
         model.fit(TensorDataset(list(_xy())), batch_size=2, verbose=0)
+    for k, v in model.network.state_dict().items():
+        assert torch.equal(v, before[k]), k

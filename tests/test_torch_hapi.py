@@ -277,12 +277,14 @@ def test_model_names_the_parameters_for_the_decay_rule():
 # the knobs that still wait, each with the ROADMAP.md item its error
 # names; a knob ported since keeps its case, which checks what it does now
 # (None): multi_precision, regularizers, decorate with optimizers,
-# summary, offload and the budget remat are ported, and lazy_mode is taken
-# with the reference's dense semantics while a sparse gradient waits for
-# the eager core (A2)
+# summary, offload, the budget remat, fit's checkpointer and its anomaly
+# guard are ported, and lazy_mode is taken with the reference's dense
+# semantics while a sparse gradient waits for the eager core (A2); the
+# supervisor's heartbeat waits for the distributed launch (A5) and
+# ProfilerCallback for the profiler's tracer (A8)
 KNOBS = {"multi_precision": None, "lazy_mode": "A2", "regularizer": None,
-         "amp": None, "offload": None, "remat": None, "checkpointer": "A8",
-         "anomaly_action": "A8", "supervise_store": "A8",
+         "amp": None, "offload": None, "remat": None, "checkpointer": None,
+         "anomaly_action": None, "supervise_store": "A5",
          "profiler_callback": "A8", "save_export": "A6", "summary": None}
 
 
@@ -297,7 +299,7 @@ def _port_flags(flags):
         paddle_tpu_torch.set_flags(was)
 
 
-def _ported_knob(knob, net, params):
+def _ported_knob(knob, net, params, tmp_path):
     """What a ported knob does on the Linear(4, 2) ``net``."""
     if knob == "multi_precision":
         net.to(torch.bfloat16)
@@ -347,6 +349,36 @@ def _ported_knob(knob, net, params):
         assert models[0]._remat_active is (knob == "remat")
         assert torch.equal(net.weight, twin.weight)
         assert torch.equal(net.bias, twin.bias)
+    elif knob == "checkpointer":
+        # fit saves into the checkpointer and a fresh model resumes from it
+        from paddle_tpu_torch.distributed.checkpoint import AsyncCheckpointer
+        _, twin = _linear_pair(3)
+        data = TensorDataset([np.ones((4, 4), np.float32),
+                              np.zeros((4, 2), np.float32)])
+        d = str(tmp_path / "ckpt")
+        models = [Model(n).prepare(SGD(0.1, parameters=n.parameters()),
+                                   lambda out, y: ((out - y) ** 2).mean())
+                  for n in (net, twin)]
+        ckptr = AsyncCheckpointer(d)
+        models[0].fit(data, batch_size=2, verbose=0, shuffle=False,
+                      checkpointer=ckptr)
+        ckptr.close()
+        assert ckptr.all_steps() == [1, 2]
+        with pytest.warns(UserWarning, match="resumed from checkpoint at "
+                                             "step 2"):
+            models[1].fit(data, batch_size=2, verbose=0, shuffle=False,
+                          checkpointer=AsyncCheckpointer(d))
+        assert torch.equal(net.weight, twin.weight)
+        assert torch.equal(net.bias, twin.bias)
+    elif knob == "anomaly_action":
+        # the guard reads the loss and raises on a nan one
+        model = Model(net).prepare(SGD(parameters=params),
+                                   lambda out, y: out.sum() * np.nan)
+        data = TensorDataset([np.ones((2, 4), np.float32),
+                              np.zeros((2, 2), np.float32)])
+        with _port_flags({"FLAGS_anomaly_action": "raise"}), pytest.raises(
+                FloatingPointError, match="at train step 1"):
+            model.fit(data, batch_size=2, verbose=0)
     else:
         assert Model(net).summary((2, 4)) == {"total_params": 10,
                                               "trainable_params": 10}
@@ -357,7 +389,7 @@ def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
     _, net = _linear_pair(3)
     params = list(net.parameters())
     if KNOBS[knob] is None:
-        _ported_knob(knob, net, params)
+        _ported_knob(knob, net, params, tmp_path)
         return
     match = f"ROADMAP.md {KNOBS[knob]}"
     if knob == "lazy_mode":
@@ -377,16 +409,10 @@ def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
     data = TensorDataset([np.ones((2, 4), np.float32),
                           np.zeros((2, 2), np.float32)])
     fit = lambda **kw: model.fit(data, batch_size=2, verbose=0, **kw)  # noqa: E731
-    flags = {}
-    if knob == "checkpointer":
-        call = lambda: fit(checkpointer=object())  # noqa: E731
-    elif knob == "anomaly_action":
-        flags = {"FLAGS_anomaly_action": "raise"}
-        call = fit
-    elif knob == "supervise_store":
+    if knob == "supervise_store":
         monkeypatch.setenv("PADDLE_SUPERVISE_STORE", "file:///nowhere")
         call = fit
     else:
         call = lambda: model.save(str(tmp_path / "m"), training=False)  # noqa: E731
-    with _port_flags(flags), pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match):
         call()

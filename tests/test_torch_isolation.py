@@ -63,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
             "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.nn.clip, "
             "paddle_tpu_torch.optimizer.fused_update, "
             "paddle_tpu_torch.ops.multi_tensor_update, "
-            "paddle_tpu_torch.framework_io\n"
+            "paddle_tpu_torch.framework_io, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.checkpoint, "
+            "paddle_tpu_torch.profiler, paddle_tpu_torch.profiler.metrics, "
+            "paddle_tpu_torch.profiler.flight, paddle_tpu_torch.utils.chaos, "
+            "paddle_tpu_torch.utils.resilience\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
