@@ -245,6 +245,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
             with a checkpointer (saving and not), with the guard
             (offloaded too), save()'s host time, the write's seconds and
             GB/s, the manifest's, verify's and restore's seconds
+17. paged   PagedGenerationEngine (generation/paged_kv.py) on phase 4's
+    serving GPT, fp32, 8 slots, block_size 16: 17a phase 5's 16
+            requests (warmup=True, the default 256-block pool) stream
+            phase 5's tokens bit for bit, sampled ones too, with no
+            capture while serving, 12 row-1 launches a prefill group and
+            the pool all free after close, its tokens/s, TTFT and decode
+            ms/step beside phase 5's; 17b 16 prompts over one 256-token
+            system prompt and the first again (prefix cache 64 blocks):
+            at least 15 hits, fewer tokens fed to prefill than the
+            prompts hold, a copy-on-write, greedy streams equal the
+            contiguous engine's, the chain exported (kv_wire) and
+            imported back; 17c a 40-block pool: 4 batch streams, then 4
+            interactive ones that preempt them to host memory, every
+            stream equal to its run without pressure (greedy and
+            sampled), swap ms and bytes, a kv.block_alloc chaos run shed
+            typed with no block leaked; 17d speculative decoding (k 4,
+            n-gram 2) on repeated 16-token phrases equal to plain
+            decoding, greedy and sampled, the accept rate and decode ms
+            per committed token; 17e int8 KV: engine streams equal each
+            prompt's solo int8 session stream, the arena's int8 bytes and
+            scales after a replayed prefill equal quantize_int8 of the
+            uncaptured step's keys and values, bytes per token, greedy
+            agreement with the fp32 streams; the phase's seconds
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -1857,12 +1880,13 @@ def make_requests(vocab):
     return reqs
 
 
-def run_engine(torch, fa, net, reqs):
+def run_engine(torch, fa, net, reqs, engine_cls=None, **config):
     """Serve ``reqs`` from CLIENTS threads (each submits its share, then
-    waits) through an engine built with ``warmup=True`` (every prefill
-    bucket and the decode step captured before the clients start); returns
-    the streams, the engine's counts and step times, and its executable
-    cache's."""
+    waits) through an engine (``engine_cls``, by default the contiguous
+    one) built with ``warmup=True`` (every prefill bucket and the decode
+    step captured before the clients start) and ``config``; returns the
+    streams, the engine's counts and step times, its executable cache's,
+    and the engine, closed."""
     import gc
     from paddle_tpu_torch.serving import (GenerationEngine,
                                           GenerationEngineConfig)
@@ -1870,8 +1894,10 @@ def run_engine(torch, fa, net, reqs):
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    engine = GenerationEngine(net, GenerationEngineConfig(
-        max_slots=SLOTS, max_new_tokens=NEW_TOKENS, warmup=True))
+    config = dict(dict(max_slots=SLOTS, max_new_tokens=NEW_TOKENS,
+                       warmup=True), **config)
+    engine = (engine_cls or GenerationEngine)(
+        net, GenerationEngineConfig(**config))
     warmup_s = time.perf_counter() - t0
     pool = torch.cuda.memory_reserved() - reserved
     results, ttft, errors = [None] * len(reqs), [None] * len(reqs), []
@@ -1920,7 +1946,7 @@ def run_engine(torch, fa, net, reqs):
                                   for k, e in entries.items()},
                 captured=_all_captured(entries.values()),
                 hits=cache.hits - hits0, compiles=cache.compiles - compiles0,
-                warmup_compiles=compiles0)
+                warmup_compiles=compiles0, engine=engine)
 
 
 def _all_captured(entries) -> bool:
@@ -2005,6 +2031,7 @@ def serving(torch, fa, net):
     from paddle_tpu_torch.serving import seq_buckets
     reqs = make_requests(net.cfg.vocab_size)
     first = run_engine(torch, fa, net, reqs)
+    first.pop("engine")                       # its graphs go with it
     answered = sum(r is not None and len(r) > 0 for r in first["results"])
     tokens = sum(len(r) for r in first["results"] if r is not None)
     groups = first["prefill_steps"]
@@ -2060,6 +2087,7 @@ def serving(torch, fa, net):
     del solo
 
     second = run_engine(torch, fa, net, reqs)
+    second.pop("engine")
     changed = [i for i in range(REQUESTS) if not np.array_equal(
         first["results"][i], second["results"][i])]
     log(f"  a second engine run repeats {REQUESTS - len(changed)}/"
@@ -2073,6 +2101,7 @@ def serving(torch, fa, net):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(requests=REQUESTS, answered=answered, tokens=tokens,
+                results=[r.tolist() for r in first["results"]],
                 wall_s=first["wall_s"], tokens_per_s=tokens / first["wall_s"],
                 prefill_groups=groups, decode_steps=first["decode_steps"],
                 launches=first["launches"],
@@ -5431,13 +5460,576 @@ def fit_hooks_path(torch, fa, dev, cfg=FIT_HOOKS):
     return out
 
 
+# -- phase 17 -----------------------------------------------------------------
+# The paged serving engine (PagedGenerationEngine) on phase 4's GPT at full
+# width, fp32, 8 slots, block_size 16 (32 blocks a 512-token slot).  17a:
+# phase 5's 16 requests with the default pool (256 blocks, the contiguous
+# footprint).  17b: PREFIX_REQUESTS prompts sharing a PREFIX_LEN-token
+# system prompt (16 full blocks), each with its own suffix of 8-32 tokens,
+# then the first prompt again (a whole-prompt hit: its last token is fed
+# into a copy of the cached tail block); the prefix cache holds
+# PREFIX_CACHE_BLOCKS blocks.  17c: a pool of PRESSURE_BLOCKS blocks: four
+# batch streams of PRESSURE_BATCH (prompt, new) tokens, 10 blocks each at
+# their end, fill it; four interactive ones of PRESSURE_INTERACTIVE arrive
+# once each batch stream has PRESSURE_HEAD tokens, and preempt batch
+# streams to host memory.  17d: speculative decoding (SPEC_K drafts,
+# SPEC_NGRAM) on prompts of a 16-token phrase repeated SPEC_REPEATS times.
+# 17e: int8 KV on phase 5's requests
+PAGED_BLOCK = 16
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_CACHE_BLOCKS = 256, 16, 64
+PREFIX_NEW_TOKENS = 32
+PRESSURE_BLOCKS, PRESSURE_HEAD = 40, 8
+PRESSURE_BATCH, PRESSURE_INTERACTIVE = (120, 40), (100, 8)
+SPEC_K, SPEC_NGRAM, SPEC_REPEATS, SPEC_NEW_TOKENS = 4, 2, 4, 48
+
+
+def _paged(torch, net, name, **config):
+    """A PagedGenerationEngine over ``net`` (8 slots, block 16, phase 5's
+    token budget, no prefix cache unless given)."""
+    import gc
+    from paddle_tpu_torch.serving import (GenerationEngineConfig,
+                                          PagedGenerationEngine)
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = dict(dict(max_slots=SLOTS, max_new_tokens=NEW_TOKENS,
+                       block_size=PAGED_BLOCK, prefix_cache_blocks=0,
+                       name=name), **config)
+    return PagedGenerationEngine(net, GenerationEngineConfig(**config))
+
+
+def _serve_all(engine, prompts, kws, timeout=600):
+    """Submit every prompt at once (from this thread) and wait: the
+    streams and their TTFT s."""
+    streams = [engine.submit(p, **kw) for p, kw in zip(prompts, kws)]
+    return ([s.result(timeout=timeout) for s in streams],
+            [s.ttft_s for s in streams])
+
+
+def _same_streams(a, b):
+    import numpy as np
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if not np.array_equal(np.asarray(x), np.asarray(y))]
+
+
+def _all_free(engine):
+    return engine.pool.available == engine.pool.num_blocks
+
+
+def paged_parity(torch, fa, net, reqs, phase5):
+    """17a: phase 5's requests through the paged engine: every stream
+    phase 5's bit for bit, no capture while serving, L row-1 launches a
+    prefill group, the pool all free after close."""
+    from paddle_tpu_torch.serving import PagedGenerationEngine, seq_buckets
+    run = run_engine(torch, fa, net, reqs, engine_cls=PagedGenerationEngine,
+                     block_size=PAGED_BLOCK, prefix_cache_blocks=0,
+                     name="phase17a")
+    eng = run.pop("engine")
+    L = net.cfg.num_layers
+    groups = run["prefill_steps"]
+    tokens = sum(len(r) for r in run["results"])
+    differ = _same_streams(run["results"], phase5["results"])
+    want_buckets = len(seq_buckets(net.cfg.max_seq_len, 8)) + 1
+    out = dict(
+        differ=differ, tokens=tokens, wall_s=run["wall_s"],
+        tokens_per_s=tokens / run["wall_s"], prefill_groups=groups,
+        decode_steps=run["decode_steps"], launches=run["launches"],
+        warmed_buckets=run["warmed_buckets"], captured=run["captured"],
+        cache_hits=run["hits"], cache_compiles=run["compiles"],
+        ttft_ms_p50=pct(run["ttft"], 50) * 1e3,
+        ttft_ms_p99=pct(run["ttft"], 99) * 1e3,
+        decode_ms_p50=pct(run["decode_ms"], 50),
+        decode_ms_p99=pct(run["decode_ms"], 99),
+        prefill_ms_p50=pct(run["prefill_ms"], 50),
+        warmup_s=run["warmup_s"],
+        graph_pool_bytes=sum(run["graph_pool_bytes"].values()),
+        pool_free=_all_free(eng), num_blocks=eng.pool.num_blocks,
+        memory=eng.memory_breakdown())
+    log(f"  17a: {REQUESTS - len(differ)}/{REQUESTS} streams equal phase "
+        f"5's bit for bit ({SAMPLED} sampled); warmup {out['warmed_buckets']}"
+        f" steps captured in {out['warmup_s']:.3f} s; serving: compiles "
+        f"{out['cache_compiles']}, hits {out['cache_hits']}, prefill groups "
+        f"{groups}, row-1 launches {out['launches']} ({L} a group), decode "
+        f"steps {out['decode_steps']}; pool {eng.pool.available}/"
+        f"{eng.pool.num_blocks} free after close; arenas "
+        f"{out['memory']['mem_kv_arena_bytes'] / 2**20:.1f} MiB")
+    log(f"  17a against phase 5 (contiguous), this run: tokens/s "
+        f"{out['tokens_per_s']:.1f} / {phase5['tokens_per_s']:.1f}, TTFT ms "
+        f"p50 {out['ttft_ms_p50']:.3f} / {phase5['ttft_ms_p50']:.3f}, p99 "
+        f"{out['ttft_ms_p99']:.3f} / {phase5['ttft_ms_p99']:.3f}, decode "
+        f"ms/step p50 {out['decode_ms_p50']:.3f} / "
+        f"{phase5['decode_ms_p50']:.3f}, p99 {out['decode_ms_p99']:.3f} / "
+        f"{phase5['decode_ms_p99']:.3f}")
+    bad = []
+    if differ:
+        bad.append(f"streams {differ} differ from phase 5's")
+    if out["warmed_buckets"] != want_buckets or not out["captured"]:
+        bad.append(f"warmup left {out['warmed_buckets']} steps (captured "
+                   f"{out['captured']}), expected {want_buckets}")
+    if out["cache_compiles"] or \
+            out["cache_hits"] != groups + out["decode_steps"]:
+        bad.append(f"serving compiled {out['cache_compiles']} steps")
+    if out["launches"] != L * groups:
+        bad.append(f"{out['launches']} row-1 launches over {groups} groups")
+    if not out["pool_free"]:
+        bad.append("blocks leaked")
+    if bad:
+        raise AssertionError(f"17a: {'; '.join(bad)}")
+    return out
+
+
+def paged_prefix(torch, fa, net):
+    """17b: PREFIX_REQUESTS prompts over one system prompt, and the first
+    again; greedy streams equal the contiguous engine's on the same
+    prompts; at least PREFIX_REQUESTS - 1 hits, fewer tokens fed to
+    prefill than the prompts hold, a copy-on-write; then the chain's
+    export, read back into the cache."""
+    import numpy as np
+    from paddle_tpu_torch.generation import kv_wire
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.serving import (GenerationEngine,
+                                          GenerationEngineConfig)
+    V = net.cfg.vocab_size
+    rng = np.random.RandomState(17)
+    system = rng.randint(1, V, PREFIX_LEN).astype(np.int32)
+    prompts = [np.concatenate([system, rng.randint(
+        1, V, rng.randint(8, 33)).astype(np.int32)])
+        for _ in range(PREFIX_REQUESTS)]
+    prompts.append(prompts[0].copy())
+    kws = [dict(max_new_tokens=PREFIX_NEW_TOKENS)] * len(prompts)
+    # (its token budget lifted: the 17 requests reserve more than 8 slots
+    # of 512 hold, and queue instead)
+    ceng = GenerationEngine(net, GenerationEngineConfig(
+        max_slots=SLOTS, max_new_tokens=PREFIX_NEW_TOKENS,
+        max_tokens_in_flight=1 << 20, name="phase17b_contiguous"))
+    try:
+        want, _ = _serve_all(ceng, prompts, kws)
+    finally:
+        ceng.close()
+    del ceng
+    eng = _paged(torch, net, "phase17b", warmup=True,
+                 prefix_cache_blocks=PREFIX_CACHE_BLOCKS,
+                 max_new_tokens=PREFIX_NEW_TOKENS)
+    fed = []
+    prefill = eng.session.prefill
+
+    def counting(arenas, table, ids, starts, feed, *a, **k):
+        fed.append(int(np.sum(feed)))
+        return prefill(arenas, table, ids, starts, feed, *a, **k)
+    eng.session.prefill = counting
+    compiles0 = eng.session._cache.compiles
+    try:
+        t0 = time.perf_counter()
+        got0, ttft0 = _serve_all(eng, prompts[:1], kws[:1])
+        rest, ttft = _serve_all(eng, prompts[1:], kws[1:])
+        wall = time.perf_counter() - t0
+        got = got0 + rest
+        hits = metrics.get("phase17b.prefix_cache.hit").value
+        hit_tokens = metrics.get("phase17b.prefix_cache.hit_tokens").value
+        blob = eng.export_prefix_chain(prompts[0])
+        doc = kv_wire.deserialize_chain(
+            blob, expect_block_size=PAGED_BLOCK,
+            expect_spec=eng.session.block_spec(eng._arenas))
+        eng.prefix_cache.clear()
+        covered = eng.import_prefix_chain(blob)
+        hits_before = metrics.get("phase17b.prefix_cache.hit").value
+        again = eng.generate(prompts[1], timeout=600,
+                             max_new_tokens=PREFIX_NEW_TOKENS)
+        import_hit = metrics.get("phase17b.prefix_cache.hit").value \
+            > hits_before
+    finally:
+        eng.close()
+    # the rerun over the imported chain is request len(prompts)
+    differ = _same_streams(got + [again], want + [want[1]])
+    total = int(sum(len(p) for p in prompts))
+    out = dict(requests=len(prompts), hits=hits, hit_tokens=hit_tokens,
+               prompt_tokens=total, fed_tokens=int(sum(fed)),
+               copies=eng.session.blocks_copied, differ=differ,
+               wall_s=wall, ttft_ms_miss=ttft0[0] * 1e3,
+               ttft_ms_hits_p50=pct(ttft, 50) * 1e3,
+               compiles=eng.session._cache.compiles - compiles0,
+               warmed_buckets=eng.warmed_buckets, blob_bytes=len(blob),
+               blob_covered=doc["covered"], imported=covered,
+               import_hit=import_hit, pool_free=_all_free(eng),
+               swaps_out=list(eng.session.swaps["out"]),
+               swaps_in=list(eng.session.swaps["in"]))
+    log(f"  17b: {len(prompts)} requests over a {PREFIX_LEN}-token system "
+        f"prompt: hits {hits} ({hit_tokens} tokens), prefill fed "
+        f"{out['fed_tokens']} of {total} prompt tokens, copy-on-write "
+        f"blocks {out['copies']}; greedy streams equal to the contiguous "
+        f"engine's: {len(prompts) + 1 - len(differ)}/{len(prompts) + 1} "
+        f"(the last a rerun over the imported chain); "
+        f"TTFT ms miss {out['ttft_ms_miss']:.3f}, hits p50 "
+        f"{out['ttft_ms_hits_p50']:.3f}; warmup {out['warmed_buckets']} "
+        f"steps, serving compiles {out['compiles']}; the chain's export "
+        f"{len(blob)} B covering {doc['covered']} tokens, imported back "
+        f"and hit: {out['import_hit']}")
+    bad = []
+    if hits < PREFIX_REQUESTS - 1:
+        bad.append(f"{hits} hits")
+    if out["fed_tokens"] >= total:
+        bad.append("prefill fed every prompt token")
+    if out["copies"] < 1:
+        bad.append("no copy-on-write")
+    if differ:
+        bad.append(f"streams {differ} differ from the contiguous engine's")
+    if out["compiles"]:
+        bad.append(f"{out['compiles']} captures while serving")
+    if covered != len(prompts[0]) or not out["import_hit"]:
+        bad.append(f"the import covered {covered} tokens")
+    if not out["pool_free"]:
+        bad.append("blocks leaked")
+    if bad:
+        raise AssertionError(f"17b: {'; '.join(bad)}")
+    return out
+
+
+def _pressure_requests(V):
+    """Four batch and four interactive requests (half of each sampled)."""
+    import numpy as np
+    rng = np.random.RandomState(23)
+    reqs = []
+    for cls, (plen, new) in (("batch", PRESSURE_BATCH),
+                             ("interactive", PRESSURE_INTERACTIVE)):
+        for i in range(4):
+            kw = dict(max_new_tokens=new, priority=cls, seed=300 + len(reqs))
+            if i % 2:
+                kw.update(do_sample=True, temperature=0.8, top_p=0.95)
+            reqs.append((rng.randint(1, V, plen).astype(np.int32), kw))
+    return reqs
+
+
+def paged_pressure(torch, fa, net):
+    """17c: a PRESSURE_BLOCKS-block pool: batch streams preempted to host
+    memory by interactive ones and resumed, every stream equal to its run
+    without pressure; then a kv.block_alloc chaos run sheds typed."""
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.serving import RequestRejected
+    from paddle_tpu_torch.utils import chaos
+    reqs = _pressure_requests(net.cfg.vocab_size)
+    base = _paged(torch, net, "phase17c_free")
+    try:
+        want, _ = _serve_all(base, [p for p, _ in reqs],
+                             [kw for _, kw in reqs])
+    finally:
+        base.close()
+    del base
+    eng = _paged(torch, net, "phase17c", warmup=True,
+                 num_blocks=PRESSURE_BLOCKS)
+    shed = None
+    try:
+        t0 = time.perf_counter()
+        batch = [eng.submit(p, **kw) for p, kw in reqs[:4]]
+        for s in batch:
+            it = iter(s)
+            for _ in range(PRESSURE_HEAD):
+                next(it)
+        inter = [eng.submit(p, **kw) for p, kw in reqs[4:]]
+        got = [s.result(timeout=600) for s in batch + inter]
+        wall = time.perf_counter() - t0
+        preempted = metrics.get("phase17c.request.preempted").value
+        resumed = metrics.get("phase17c.request.resumed").value
+        chaos.configure("kv.block_alloc:fail@1")
+        try:
+            eng.generate(reqs[4][0], timeout=600, **reqs[4][1])
+        except RequestRejected as e:
+            shed = e.reason
+        finally:
+            chaos.configure("")
+    finally:
+        eng.close()
+    differ = _same_streams(got, want)
+    outs, ins = list(eng.session.swaps["out"]), list(eng.session.swaps["in"])
+    out = dict(preempted=preempted, resumed=resumed, differ=differ,
+               wall_s=wall, swap_out_ms=[m for m, _ in outs],
+               swap_out_bytes=[b for _, b in outs],
+               swap_in_ms=[m for m, _ in ins],
+               swap_in_bytes=[b for _, b in ins], chaos_shed=shed,
+               shed_kv_blocks=eng.stats().get("shed_kv_blocks", 0),
+               pool_free=_all_free(eng))
+    log(f"  17c: {PRESSURE_BLOCKS}-block pool, 4 batch then 4 interactive "
+        f"streams: preempted {preempted}, resumed {resumed}; every stream "
+        f"equal to its run without pressure: {len(reqs) - len(differ)}/"
+        f"{len(reqs)} (greedy and sampled); swap-out ms "
+        f"{[round(m, 3) for m in out['swap_out_ms']]} of bytes "
+        f"{out['swap_out_bytes']}, swap-in ms "
+        f"{[round(m, 3) for m in out['swap_in_ms']]}; chaos kv.block_alloc "
+        f"shed {shed!r}; pool {eng.pool.available}/{eng.pool.num_blocks} "
+        f"free after close")
+    bad = []
+    if preempted < 1 or resumed < 1:
+        bad.append(f"preempted {preempted}, resumed {resumed}")
+    if differ:
+        bad.append(f"streams {differ} differ from their runs without "
+                   "pressure")
+    if shed != "kv_blocks":
+        bad.append(f"the chaos run shed {shed!r}")
+    if not out["pool_free"]:
+        bad.append("blocks leaked")
+    if bad:
+        raise AssertionError(f"17c: {'; '.join(bad)}")
+    return out
+
+
+def paged_speculative(torch, fa, net):
+    """17d: speculative decoding (SPEC_K, SPEC_NGRAM) on prompts of a
+    repeated 16-token phrase: streams equal the plain engine's, greedy
+    and sampled; the accept rate and decode ms per committed token."""
+    import numpy as np
+    from paddle_tpu_torch.profiler import metrics
+    V = net.cfg.vocab_size
+    rng = np.random.RandomState(29)
+    prompts, kws = [], []
+    for i in range(SLOTS):
+        phrase = rng.randint(1, V, 16).astype(np.int32)
+        prompts.append(np.tile(phrase, SPEC_REPEATS))
+        kw = dict(max_new_tokens=SPEC_NEW_TOKENS, seed=500 + i)
+        if i % 2:
+            kw.update(do_sample=True, temperature=0.8, top_p=0.95)
+        kws.append(kw)
+    runs = {}
+    for label, k in (("plain", 0), ("speculative", SPEC_K)):
+        eng = _paged(torch, net, f"phase17d_{label}", warmup=True,
+                     speculative_k=k, spec_ngram=SPEC_NGRAM)
+        try:
+            t0 = time.perf_counter()
+            got, _ = _serve_all(eng, prompts, kws)
+            wall = time.perf_counter() - t0
+        finally:
+            eng.close()
+        tokens = sum(len(g) for g in got)
+        decode_ms = sum(eng.session.step_ms["decode"])
+        runs[label] = dict(streams=got, wall_s=wall, tokens=tokens,
+                           decode_steps=eng.session.steps["decode"],
+                           decode_ms=decode_ms,
+                           ms_per_token=decode_ms / (tokens - len(got)),
+                           keys=[k[0] for k in eng.session._cache.keys()])
+        del eng
+    # an oracle drafter that proposes each stream's true continuation:
+    # every draft is accepted, so each verify commits up to k + 1 tokens
+    # sampled from logits at B·W rows (decode's products run at B)
+    from paddle_tpu_torch.generation import speculative
+    truth = {tuple(p.tolist()): list(g) for p, g in
+             zip(prompts, runs["plain"]["streams"])}
+
+    def oracle(context, k, ngram=2):
+        ctx = [int(t) for t in context]
+        n = len(prompts[0])
+        done = truth[tuple(ctx[:n])]
+        return done[len(ctx) - n:len(ctx) - n + int(k)]
+    with mock.patch.object(speculative, "propose_drafts", oracle):
+        eng = _paged(torch, net, "phase17d_oracle", warmup=True,
+                     speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM)
+        try:
+            oracle_got, _ = _serve_all(eng, prompts, kws)
+        finally:
+            eng.close()
+    oracle_steps = eng.session.steps["decode"]
+    oracle_ms = sum(eng.session.step_ms["decode"])
+    del eng
+    op = metrics.get("phase17d_oracle.spec.proposed").value
+    oa = metrics.get("phase17d_oracle.spec.accepted").value
+    p = metrics.get("phase17d_speculative.spec.proposed").value
+    a = metrics.get("phase17d_speculative.spec.accepted").value
+    differ = _same_streams(runs["speculative"]["streams"],
+                           runs["plain"]["streams"])
+    oracle_differ = _same_streams(oracle_got, runs["plain"]["streams"])
+    tokens = runs["plain"]["tokens"]
+    out = dict(differ=differ, proposed=p, accepted=a,
+               accept_rate=a / p if p else 0.0, oracle_differ=oracle_differ,
+               oracle_proposed=op, oracle_accepted=oa,
+               oracle_decode_steps=oracle_steps,
+               oracle_ms_per_token=oracle_ms / (tokens - len(prompts)),
+               **{f"{k}_{f}": v[f] for k, v in runs.items()
+                  for f in ("wall_s", "decode_steps", "ms_per_token")})
+    log(f"  17d: speculative (k {SPEC_K}, n-gram {SPEC_NGRAM}) streams equal "
+        f"plain ones: {SLOTS - len(differ)}/{SLOTS} (half sampled); drafts "
+        f"proposed {p}, accepted {a} (rate {out['accept_rate']:.4f}); decode "
+        f"steps {out['speculative_decode_steps']} / "
+        f"{out['plain_decode_steps']}, decode ms per committed token "
+        f"{out['speculative_ms_per_token']:.4f} / "
+        f"{out['plain_ms_per_token']:.4f} (speculative / plain)")
+    log(f"  17d oracle drafts (each stream's own continuation): streams "
+        f"equal plain ones {SLOTS - len(oracle_differ)}/{SLOTS}; proposed "
+        f"{op}, accepted {oa}; decode steps {oracle_steps}, ms per committed "
+        f"token {out['oracle_ms_per_token']:.4f}")
+    if differ or oracle_differ:
+        raise AssertionError(f"17d: speculative streams {differ} and with "
+                             f"oracle drafts {oracle_differ} differ from "
+                             "plain ones")
+    if oa != op:
+        raise AssertionError(f"17d: {op - oa} oracle drafts rejected")
+    if p < 1:
+        raise AssertionError("17d: the drafter proposed nothing")
+    return out
+
+
+def _int8_against_plain(torch, net, reqs):
+    """After an int8 prefill (a replay), the arena's int8 bytes and scales
+    at every written slot against quantize_int8 of the keys and values the
+    same step computes uncaptured (forward hooks on each layer's qkv
+    projection)."""
+    import numpy as np
+    from paddle_tpu_torch.generation import PagedGenerationSession
+    from paddle_tpu_torch.generation import paged_kv
+    from paddle_tpu_torch.quantization import quantize_int8
+    cfg, dev = net.cfg, net.device
+    S, H = SLOTS, cfg.num_heads
+    hd = cfg.hidden_size // H
+    sess = PagedGenerationSession(net, batch_capacity=S, kv_dtype="int8")
+    arenas = sess.init_arenas()
+    table = sess.identity_table()
+    prompts = [p for p, _ in reqs[:S]]
+    P = sess.prompt_bucket(max(len(p) for p in prompts))
+    ids = np.zeros((S, P), np.int32)
+    feed = np.zeros((S,), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+        feed[i] = len(p)
+    values = (table, ids, np.zeros((S,), np.int32), feed,
+              np.arange(S, dtype=np.int64), np.zeros((S,), np.float32),
+              np.zeros((S,), np.int32), np.ones((S,), np.float32))
+    sess.prefill(arenas, *values)             # captures
+    sess.init_arenas()
+    sess.prefill(arenas, *values)             # a replay
+    replayed = [[f.clone() for f in a] for a in arenas]
+    qkv = {}
+    hooks = [blk.attn.qkv.register_forward_hook(
+        lambda m, i, o, li=li: qkv.__setitem__(li, o.detach().clone()))
+        for li, blk in enumerate(net.blocks)]
+    try:
+        sess.init_arenas()
+        net.eval()
+        with torch.inference_mode():
+            sess._make_chunk(P, False)(*[
+                torch.as_tensor(np.asarray(v)).to(dev, t)
+                for v, t in zip(values, paged_kv._CHUNK_TYPES)])
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = torch.as_tensor(np.concatenate(
+        [np.full(n, i) for i, n in enumerate(feed)]), device=dev)
+    pos = torch.as_tensor(np.concatenate([np.arange(n) for n in feed]),
+                          device=dev)
+    tab = torch.as_tensor(table, dtype=torch.long, device=dev)
+    blk = tab[rows, pos // PAGED_BLOCK]
+    off = pos % PAGED_BLOCK
+    bytes_equal, scales_equal, scale_err = True, True, 0.0
+    for li, a in enumerate(replayed):
+        x = qkv[li].reshape(S, P, 3, H, hd)
+        # the fields are k, v, k_scale, v_scale
+        for j, (q_field, s_field) in enumerate(((a[0], a[2]),
+                                                (a[1], a[3]))):
+            q, sc = quantize_int8(x[:, :, 1 + j], axis=-1)
+            bytes_equal &= torch.equal(q_field[blk, off], q[rows, pos])
+            scales_equal &= torch.equal(s_field[blk, off], sc[rows, pos])
+            scale_err = max(scale_err, float(
+                (s_field[blk, off] - sc[rows, pos]).abs().max()))
+    # the pool's blocks (the sink, which takes every dropped write, left
+    # out: its duplicate writes land in no fixed order)
+    same_run = all(torch.equal(f[:-1], g[:-1])
+                   for a, b in zip(arenas, replayed) for f, g in zip(a, b))
+    return dict(slots=int(len(pos)), bytes_equal=bool(bytes_equal),
+                scales_equal=bool(scales_equal), scale_max_abs_err=scale_err,
+                replay_equals_uncaptured=same_run)
+
+
+def paged_int8(torch, fa, net, reqs, phase5):
+    """17e: int8 KV: engine streams equal each prompt's solo int8 session
+    stream; the arena's bytes against the plain quantization; bytes per
+    token; each greedy request's agreement with its fp32 stream."""
+    import numpy as np
+    from paddle_tpu_torch.generation import PagedGenerationSession
+    eng = _paged(torch, net, "phase17e", warmup=True, kv_cache_dtype="int8")
+    try:
+        t0 = time.perf_counter()
+        got, _ = _serve_all(eng, [p for p, _ in reqs],
+                            [dict(kw, max_new_tokens=NEW_TOKENS)
+                             for _, kw in reqs])
+        wall = time.perf_counter() - t0
+    finally:
+        eng.close()
+    bpt8 = eng.session.arena_bytes_per_block() // PAGED_BLOCK
+    free = _all_free(eng)
+    del eng
+    solo = PagedGenerationSession(net, batch_capacity=SLOTS, kv_dtype="int8")
+    want = [solo.generate([p], max_new_tokens=NEW_TOKENS, **kw)[0]
+            for p, kw in reqs]
+    bpt32 = PagedGenerationSession(
+        net, batch_capacity=SLOTS).arena_bytes_per_block() // PAGED_BLOCK
+    del solo
+    differ = _same_streams(got, want)
+    agree = []
+    for (p, kw), g, f in zip(reqs, got, phase5["results"]):
+        if kw.get("do_sample"):
+            continue
+        f = np.asarray(f)
+        n = min(len(g), len(f))
+        miss = np.flatnonzero(np.asarray(g[:n]) != f[:n])
+        agree.append(int(miss[0]) if miss.size else n)
+    quant = _int8_against_plain(torch, net, reqs)
+    out = dict(differ=differ, wall_s=wall, bytes_per_token=bpt8,
+               bytes_per_token_fp32=bpt32, ratio=bpt32 / bpt8,
+               agreement=agree, pool_free=free, **quant)
+    log(f"  17e: int8 engine streams equal their solo int8 session streams: "
+        f"{len(reqs) - len(differ)}/{len(reqs)}; after a prefill replay the "
+        f"arena's int8 bytes at {quant['slots']} slots x "
+        f"{net.cfg.num_layers} layers equal "
+        f"quantize_int8 of the uncaptured step's keys and values: "
+        f"{quant['bytes_equal']}, scales {quant['scales_equal']} (max abs "
+        f"err {quant['scale_max_abs_err']:.3e}); bytes per token {bpt8} "
+        f"against fp32's {bpt32} ({out['ratio']:.3f}x); greedy agreement "
+        f"with the fp32 streams (tokens of {NEW_TOKENS}): {agree}")
+    bad = []
+    if differ:
+        bad.append(f"streams {differ} differ from the solo int8 session's")
+    if not (quant["bytes_equal"] and quant["scales_equal"]):
+        bad.append("the arena's bytes differ from the plain quantization")
+    if not quant["replay_equals_uncaptured"]:
+        bad.append("the replayed prefill's arenas differ from the "
+                   "uncaptured step's")
+    if not free:
+        bad.append("blocks leaked")
+    if bad:
+        raise AssertionError(f"17e: {'; '.join(bad)}")
+    return out
+
+
+def paged_path(torch, fa, dev, width, phase5):
+    """Phase 17: the paged engine at full width (17a-17e); the seconds it
+    took."""
+    import gc
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    t0 = time.perf_counter()
+    net = GPT(GPTConfig(**width), device=dev, seed=0)
+    reqs = make_requests(net.cfg.vocab_size)
+    log("== phase 17a: phase 5's requests through PagedGenerationEngine")
+    parity = paged_parity(torch, fa, net, reqs, phase5)
+    log(f"== phase 17b: prefix sharing ({PREFIX_LEN}-token system prompt)")
+    prefix = paged_prefix(torch, fa, net)
+    log(f"== phase 17c: pool pressure ({PRESSURE_BLOCKS} blocks), preemption "
+        "to host memory")
+    pressure = paged_pressure(torch, fa, net)
+    log(f"== phase 17d: speculative decoding (k {SPEC_K})")
+    spec = paged_speculative(torch, fa, net)
+    log("== phase 17e: int8 KV")
+    int8 = paged_int8(torch, fa, net, reqs, phase5)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(parity=parity, prefix=prefix, pressure=pressure,
+               speculative=spec, int8=int8,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS):
-    """Phases 3-16 on ``dev`` with a serving GPT of ``width``, the two
+    """Phases 3-17 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -5590,6 +6182,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 16: Model.fit's checkpointer and anomaly guard, the O1 GPT "
         "at full width")
     hooks = fit_hooks_path(torch, fa, dev, fit_hooks_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 17: the paged serving engine at full width (fp32, 8 slots,"
+        f" block {PAGED_BLOCK})")
+    paged = paged_path(torch, fa, dev, width, serve)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -5605,6 +6201,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         source="paddle_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="paddle_tpu/ops/pallas/flash_attention.py:205",
         launches=serve["launches"],
+        launches_paged_serving=paged["parity"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in checks
                         if c["dtype"] == "float32"),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
@@ -6129,7 +6726,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_fp16_timing=train_times_fp16,
                   train_long_fp16_timing=long_times_fp16,
                   train_long_bf16_timing=long_times_bf16,
-                  remat_offload=ro, fit_hooks=hooks,
+                  remat_offload=ro, fit_hooks=hooks, paged=paged,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

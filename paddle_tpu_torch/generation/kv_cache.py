@@ -8,7 +8,11 @@ change from step to step.
 
 Unlike the reference, whose arrays are immutable, the port updates the
 buffers **in place**: :func:`write_kv` and :func:`write` mutate the cache
-they are given and return it.
+they are given and return it.  :func:`write` and :func:`kv_view` dispatch
+on the cache's structure: a paged cache
+(:class:`~paddle_tpu_torch.generation.paged_kv.PagedKV`) takes the
+block-table write and gather, so the attention layers read every layout
+through the same two calls.
 """
 from __future__ import annotations
 
@@ -70,20 +74,29 @@ def write_kv(buf: torch.Tensor, new: torch.Tensor,
     return buf
 
 
-def write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-          starts: torch.Tensor) -> KVCache:
-    """Write one step's keys and values into ``cache`` in place."""
+def write(cache, k_new: torch.Tensor, v_new: torch.Tensor,
+          starts: torch.Tensor):
+    """Write one step's keys and values into ``cache`` in place (a paged
+    cache through its block table); returns ``cache``."""
     if not isinstance(cache, KVCache):
-        raise TypeError(f"expected a KVCache, got {type(cache).__name__} "
-                        "(paged caches are not ported yet)")
+        from .paged_kv import PagedKV, write_paged
+        if not isinstance(cache, PagedKV):
+            raise TypeError(f"expected a KVCache or a PagedKV, got "
+                            f"{type(cache).__name__}")
+        return write_paged(cache, k_new, v_new, starts)
     write_kv(cache.k, k_new, starts)
     write_kv(cache.v, v_new, starts)
     return cache
 
 
-def kv_view(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense ``(B, capacity, H, D)`` key and value buffers."""
-    return cache.k, cache.v
+def kv_view(cache) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``(B, capacity, H, D)`` key and value views: the buffers of a
+    :class:`KVCache`, or the block-table gather (dequantized when int8) of
+    a paged cache."""
+    if isinstance(cache, KVCache):
+        return cache.k, cache.v
+    from .paged_kv import paged_view
+    return paged_view(cache)
 
 
 def attention_mask(starts: torch.Tensor, q_len: int, capacity: int,

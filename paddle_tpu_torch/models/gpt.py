@@ -17,7 +17,11 @@ place**: a decode step (``positions`` given) writes one token's keys and
 values per row and attends over the capacity axis under a length mask; a
 prefill (no ``positions``) starts every row at position 0 of a zeroed
 cache, where the reference's length mask is exactly causal attention over
-the prompt bucket, so the prefill attends through the kernel.
+the prompt bucket, so the prefill attends through the kernel.  A paged
+cache (:class:`~paddle_tpu_torch.generation.paged_kv.PagedKV`, from
+:meth:`GPT.gen_arenas`) goes through the same calls: a chunk whose rows all
+start at 0 (``fresh``) attends through the kernel over its window, every
+other chunk with the masked math over the gathered view.
 """
 from __future__ import annotations
 
@@ -70,11 +74,16 @@ class GPTAttention(nn.Module):
             ctx = scaled_dot_product_attention(q, k, v, is_causal=True)
         else:
             _kv.write(cache, k, v, positions)
-            kv_k, kv_v = _kv.kv_view(cache)
-            mask = _kv.attention_mask(positions, T, kv_k.shape[1],
-                                      dtype=q.dtype)
-            ctx = scaled_dot_product_attention(q, kv_k, kv_v,
-                                               attn_mask=mask)
+            if getattr(cache, "fresh", False):
+                # a paged chunk with every row at position 0: the length
+                # mask is exactly causal over the window
+                ctx = scaled_dot_product_attention(q, k, v, is_causal=True)
+            else:
+                kv_k, kv_v = _kv.kv_view(cache)
+                mask = _kv.attention_mask(positions, T, kv_k.shape[1],
+                                          dtype=q.dtype)
+                ctx = scaled_dot_product_attention(q, kv_k, kv_v,
+                                                   attn_mask=mask)
         return self.dropout(self.out(ctx.reshape(B, T, D)))
 
 
@@ -185,6 +194,20 @@ class GPT(nn.Module):
                                self.cfg.hidden_size // self.cfg.num_heads,
                                device=self.device,
                                dtype=self.wte.weight.dtype)
+
+    def gen_arenas(self, num_blocks: int, block_size: int,
+                   quantized: bool = False):
+        """Zero paged KV arenas on the model's device, one per block:
+        ``(num_blocks + 1, block_size, num_heads, head_dim)`` each, the
+        last block the sink of invalid writes (int8 with fp32 scales when
+        ``quantized``).  Block tables, not the arena's shape, decide which
+        request owns which block."""
+        from ..generation import paged_kv as _paged
+        return _paged.init_arenas(self.cfg.num_layers, num_blocks,
+                                  block_size, self.cfg.num_heads,
+                                  self.cfg.hidden_size // self.cfg.num_heads,
+                                  quantized=quantized, device=self.device,
+                                  dtype=self.wte.weight.dtype)
 
     def generate(self, ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,

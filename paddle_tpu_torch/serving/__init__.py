@@ -1,13 +1,14 @@
 """Serving: shape buckets, admission control and the continuous-batching
-generation engine."""
-from .admission import (AdmissionController, DeadlineExceeded,
-                        EngineClosed, RequestRejected)
+generation engines (contiguous and paged)."""
+from .admission import (PRIORITIES, AdmissionController, DeadlineExceeded,
+                        EngineClosed, RequestRejected, priority_rank)
 from .bucketing import (BucketPolicy, ExecutableCache, bucket_shape,
                         next_bucket, pad_batch, seq_buckets)
 from .engine import (GenerationEngine, GenerationEngineConfig,
-                     GenerationStream)
+                     GenerationStream, PagedGenerationEngine)
 
 __all__ = ["AdmissionController", "DeadlineExceeded", "EngineClosed",
-           "RequestRejected", "BucketPolicy", "ExecutableCache",
-           "bucket_shape", "next_bucket", "pad_batch", "seq_buckets",
-           "GenerationEngine", "GenerationEngineConfig", "GenerationStream"]
+           "RequestRejected", "PRIORITIES", "priority_rank", "BucketPolicy",
+           "ExecutableCache", "bucket_shape", "next_bucket", "pad_batch",
+           "seq_buckets", "GenerationEngine", "GenerationEngineConfig",
+           "GenerationStream", "PagedGenerationEngine"]

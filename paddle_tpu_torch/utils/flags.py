@@ -16,7 +16,10 @@ budget remat), ``FLAGS_anomaly_action`` (``Model.fit``'s guard),
 ``FLAGS_check_nan_inf`` (``Model.train_batch``'s loss check),
 ``FLAGS_chaos_spec`` and ``FLAGS_chaos_seed`` (``utils/chaos.py``),
 ``FLAGS_flight_recorder`` and ``FLAGS_flight_recorder_capacity``
-(``profiler/flight.py``).  Each other flag's doc string names
+(``profiler/flight.py``), ``FLAGS_serving_queue_depth``,
+``FLAGS_kv_cache_dtype``, ``FLAGS_prefix_cache_blocks`` and
+``FLAGS_speculative_k`` (the defaults of
+``serving.GenerationEngineConfig``).  Each other flag's doc string names
 the ``ROADMAP.md`` item whose module will read it.
 """
 from __future__ import annotations
@@ -158,7 +161,8 @@ define_flag("FLAGS_watchdog_timeout", 60.0,
 define_flag("FLAGS_inference_retrace_warn", 8,
             "the Predictor's retrace warning (ROADMAP.md A6)")
 define_flag("FLAGS_serving_queue_depth", 128,
-            "the serving engines' default admission bound (ROADMAP.md A4)")
+            "serving/engine.py: the generation engines' default admission "
+            "bound")
 define_flag("FLAGS_compile_cache_dir", "",
             "the persistent compilation cache (ROADMAP.md A8)")
 define_flag("FLAGS_lock_san", 0,
@@ -175,11 +179,11 @@ define_flag("FLAGS_fused_conv", True,
 define_flag("FLAGS_conv_bn_fold", False,
             "the static graph's conv/batch-norm fold (ROADMAP.md A7)")
 define_flag("FLAGS_kv_cache_dtype", "float32",
-            "the paged KV cache's storage type (ROADMAP.md A4)")
+            "serving/engine.py: the paged KV cache's storage type")
 define_flag("FLAGS_prefix_cache_blocks", 0,
-            "the prefix cache's capacity (ROADMAP.md A4)")
+            "serving/engine.py: the prefix cache's capacity in blocks")
 define_flag("FLAGS_speculative_k", 0,
-            "speculative decoding's draft tokens (ROADMAP.md A4)")
+            "serving/engine.py: speculative decoding's draft tokens")
 define_flag("FLAGS_request_trace", False,
             "per-request serving traces (ROADMAP.md A4)")
 define_flag("FLAGS_mem_accounting", False,
