@@ -268,6 +268,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
             scales after a replayed prefill equal quantize_int8 of the
             uncaptured step's keys and values, bytes per token, greedy
             agreement with the fp32 streams; the phase's seconds
+18. http   phase 5's GPT behind serving.ServingServer on 127.0.0.1 (a
+            warmed GenerationEngine, 8 slots, max_queue 16): 18a phase 5's
+            16 requests from 16 client threads, 8 JSON and 8 SSE, every
+            stream phase 5's bit for bit, no capture while serving, 12
+            row-1 launches a prefill group, the registry's
+            request.completed 16, ttft_ms count 16 and inter_token_ms
+            count sum(tokens - 1), /metrics parsed as Prometheus text with
+            those series, /healthz ready; tokens/s, TTFT (engine clock and
+            the SSE client's) and decode ms/step beside phase 5's; 18b a
+            tenant whose quota holds one request's tokens answered 429
+            tenant_quota with Retry-After in [1, 30] while another tenant
+            is served, and under pause() the requests past max_queue 429
+            queue_full with Retry-After, every queued request phase 5's
+            stream after resume(); 18c swap_weights to a second seed's
+            weights while 8 SSE streams decode (none dropped, nothing
+            captured), the 16 requests after it equal to an uncaptured
+            session on those weights, swapping back phase 5's streams
+            again, a tree with one wrong shape refused with the live
+            weights unchanged, the swap's ms; 18d FLAGS_request_trace,
+            FLAGS_mem_accounting and FLAGS_lock_san 1: every request's
+            span chain complete and its traceparent echoed, memscope's
+            params and kv_arena tags equal to the computed bytes (288 MiB
+            of caches), the capture ledger, no lock-order cycle, the
+            long holds, decode ms/step and tokens/s beside 18a's; the
+            phase's seconds
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -6023,13 +6048,673 @@ def paged_path(torch, fa, dev, width, phase5):
     return out
 
 
+# -- phase 18 ------------------------------------------------------------------
+HTTP_QUEUE = 16              # the HTTP engine's max_queue: phase 5's burst
+HTTP_SWAP_SEED = 1
+HTTP_OVERFLOW = 2            # requests sent past max_queue while paused
+_PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                        r'(\S+)$')
+
+
+def _http_call(port, path, body=None, headers=None, stream=False,
+               timeout=600):
+    """One HTTP request to 127.0.0.1:port: ``(status, headers, payload,
+    times)``; JSON bodies come back parsed, an SSE stream as its events;
+    ``times`` the client's clock: ``start`` (perf_counter), then seconds
+    from it to the response headers, the first SSE event (None for JSON)
+    and the end."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        times = dict(start=t0, first=None)
+        if body is None:
+            conn.request("GET", path, headers=headers or {})
+        else:
+            h = {"Content-Type": "application/json"}
+            h.update(headers or {})
+            conn.request("POST", path, json.dumps(body), h)
+        r = conn.getresponse()
+        times["headers"] = time.perf_counter() - t0
+        hdrs = {k.lower(): v for k, v in r.getheaders()}
+        if stream and r.status == 200:
+            events = []
+            for line in r:
+                if line.startswith(b"data: "):
+                    if times["first"] is None:
+                        times["first"] = time.perf_counter() - t0
+                    events.append(json.loads(line[6:]))
+            times["done"] = time.perf_counter() - t0
+            return r.status, hdrs, events, times
+        data = r.read()
+        times["done"] = time.perf_counter() - t0
+        ctype = hdrs.get("content-type", "")
+        return (r.status, hdrs,
+                json.loads(data) if "json" in ctype else data.decode(),
+                times)
+    finally:
+        conn.close()
+
+
+def _request_body(prompt, kw):
+    body = dict(prompt_ids=[int(t) for t in prompt],
+                max_new_tokens=NEW_TOKENS)
+    body.update(kw)
+    return body
+
+
+def _http_tokens(status, payload):
+    """The tokens of a JSON or SSE answer (SSE: the streamed events,
+    which must equal the terminal event's list)."""
+    if status != 200:
+        raise AssertionError(f"HTTP {status}: {payload}")
+    if isinstance(payload, dict):
+        return payload["tokens"]
+    streamed = [e["token"] for e in payload if "token" in e]
+    final = [e for e in payload if e.get("done")]
+    if not final or final[0]["tokens"] != streamed:
+        raise AssertionError(f"an SSE stream's events disagree with its "
+                             f"terminal event: {payload[-1]}")
+    return streamed
+
+
+def _client_round(port, jobs):
+    """Run ``jobs`` (``[(body, headers, stream)]``), each from a thread of
+    its own: ``([(status, headers, payload, times)], wall_s)``, each
+    ``times`` in seconds from the round's start (``sent``, ``headers``,
+    ``first`` SSE event or None, ``done``)."""
+    out = [None] * len(jobs)
+    errors = []
+    t0 = time.perf_counter()
+
+    def client(i):
+        try:
+            body, hdrs, stream = jobs[i]
+            st, h, payload, times = _http_call(port, "/v1/generate", body,
+                                               headers=hdrs, stream=stream)
+            sent = times["start"] - t0
+            out[i] = (st, h, payload, dict(
+                sent=sent, headers=sent + times["headers"],
+                first=None if times["first"] is None
+                else sent + times["first"], done=sent + times["done"]))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(jobs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("an HTTP client thread did not finish")
+    return out, wall
+
+
+def _client_main():
+    """The client process of ``_http_round(..., process=True)``: a round's
+    port and jobs as JSON on stdin, its results as one JSON line out."""
+    spec = json.load(sys.stdin)
+    out, wall = _client_round(spec["port"], spec["jobs"])
+    print(json.dumps({"out": out, "wall": wall}))
+
+
+def _http_round(port, reqs, headers=None, sse=lambda i: i % 2 == 1,
+                timings=None, process=False):
+    """Every request of ``reqs`` from a client thread of its own (JSON or
+    SSE by ``sse(i)``): the token lists, the client's SSE TTFTs, the
+    response headers, the wall seconds.  ``process=True`` runs the
+    clients in a Python process of their own, so that their work does
+    not compete with the server's threads for this interpreter's lock,
+    as a remote client's would not; ``timings``, a list, gets each
+    request's client clock (ms from the round's start: sent, headers,
+    first SSE event, done)."""
+    jobs = [(dict(_request_body(*reqs[i]), stream=sse(i)),
+             headers(i) if headers else None, sse(i))
+            for i in range(len(reqs))]
+    if process:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{HERE!r}); import chip_smoke; chip_smoke._client_main()"],
+            input=json.dumps({"port": port, "jobs": jobs}),
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"the HTTP client process failed: "
+                                 f"{proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout.strip().splitlines()[-1])
+        out, wall = doc["out"], doc["wall"]
+    else:
+        out, wall = _client_round(port, jobs)
+    tokens = [_http_tokens(st, payload) for st, _h, payload, _t in out]
+    if timings is not None:
+        def ms(v):
+            return None if v is None else round(v * 1e3, 3)
+        timings.extend(dict(i=i, sse=sse(i), sent=ms(t["sent"]),
+                            headers=ms(t["headers"]), first=ms(t["first"]),
+                            done=ms(t["done"]))
+                       for i, (_s, _h, _p, t) in enumerate(out))
+    return (tokens, [t["first"] for _s, _h, _p, t in out
+                     if t["first"] is not None],
+            [h for _s, h, _p, _t in out], wall)
+
+
+def parse_prometheus(text):
+    """Prometheus text (format 0.0.4) to ``{series: value}``; raises on a
+    line that is neither a comment nor a sample."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        series[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return series
+
+
+def _http_engine(torch, net, name, **config):
+    """A warmed GenerationEngine (phase 5's config, max_queue
+    HTTP_QUEUE) behind a ServingServer on 127.0.0.1, port 0."""
+    import gc
+    from paddle_tpu_torch.serving import (GenerationEngine,
+                                          GenerationEngineConfig,
+                                          ServingServer)
+    gc.collect()
+    if net.device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = GenerationEngine(net, GenerationEngineConfig(**dict(dict(
+        max_slots=SLOTS, max_new_tokens=NEW_TOKENS, warmup=True,
+        max_queue=HTTP_QUEUE, name=name), **config)))
+    warmup_s = time.perf_counter() - t0
+    return engine, ServingServer(engine).start(), warmup_s
+
+
+def http_parity(torch, fa, engine, srv, reqs, phase5):
+    """18a: phase 5's 16 requests from 16 client threads, 8 JSON and 8
+    SSE: every stream phase 5's bit for bit, no capture, L row-1 launches
+    a prefill group, the registry's counts, /metrics and /healthz."""
+    from paddle_tpu_torch.profiler import metrics
+    name, L = engine.metrics_prefix, engine.model.cfg.num_layers
+    sess, cache = engine.session, engine.session._cache
+    compiles0, groups0 = cache.compiles, sess.steps["prefill"]
+    decode0 = sess.steps["decode"]
+    fa.FWD_LAUNCHES = 0
+    timings = []
+    ttft_seen = len(metrics.get(f"{name}.ttft_ms")._ring)
+    got, sse_ttft, _hdrs, wall = _http_round(srv.port, reqs,
+                                             timings=timings, process=True)
+    launches = fa.FWD_LAUNCHES
+    groups = sess.steps["prefill"] - groups0
+    differ = _same_streams(got, phase5["results"])
+    tokens = sum(len(t) for t in got)
+    completed = metrics.get(f"{name}.request.completed").value
+    ttft_h = metrics.get(f"{name}.ttft_ms")
+    itl_h = metrics.get(f"{name}.inter_token_ms")
+    want_itl = sum(len(t) - 1 for t in got)
+    st, hdrs, text, _ = _http_call(srv.port, "/metrics")
+    series = parse_prometheus(text)
+    p = name.replace(".", "_")
+    want_series = {f"{p}_request_completed": len(reqs),
+                   f"{p}_ttft_ms_count": len(reqs),
+                   f"{p}_inter_token_ms_count": want_itl}
+    st_h, _h, health, _ = _http_call(srv.port, "/healthz")
+    decode_ms = list(sess.step_ms["decode"])[-(sess.steps["decode"]
+                                               - decode0):]
+    out = dict(
+        requests=len(reqs), json=len(reqs) - len(sse_ttft),
+        sse=len(sse_ttft), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall, equal_to_phase5=len(reqs) - len(differ),
+        captures_while_serving=cache.compiles - compiles0,
+        prefill_groups=groups, launches=launches, completed=completed,
+        ttft_count=ttft_h.count, inter_token_count=itl_h.count,
+        inter_token_want=want_itl,
+        ttft_ms_p50=ttft_h.percentile(50), ttft_ms_p99=ttft_h.percentile(99),
+        sse_ttft_ms_p50=pct(sse_ttft, 50) * 1e3,
+        sse_ttft_ms_p99=pct(sse_ttft, 99) * 1e3,
+        decode_ms_p50=pct(decode_ms, 50), decode_ms_p99=pct(decode_ms, 99),
+        metrics_status=st, metrics_type=hdrs.get("content-type"),
+        metrics_series=len(series),
+        metrics_seen={k: series.get(k) for k in want_series},
+        healthz=health, client_ms=timings,
+        engine_ttft_ms=sorted(round(v, 3) for v in ttft_h._ring[ttft_seen:]))
+    log(f"  16 requests over HTTP (8 JSON, 8 SSE, 16 client threads in a "
+        f"process of their own): "
+        f"{out['equal_to_phase5']}/16 streams phase 5's bit for bit; "
+        f"tokens {tokens}, wall {wall:.3f} s, tokens/s "
+        f"{out['tokens_per_s']:.1f} (phase 5 in-process "
+        f"{phase5['tokens_per_s']:.1f})")
+    log(f"  TTFT ms (engine clock) p50 {out['ttft_ms_p50']:.3f} p99 "
+        f"{out['ttft_ms_p99']:.3f} (phase 5 {phase5['ttft_ms_p50']:.3f} / "
+        f"{phase5['ttft_ms_p99']:.3f}); SSE first event at the client p50 "
+        f"{out['sse_ttft_ms_p50']:.3f} p99 {out['sse_ttft_ms_p99']:.3f}; "
+        f"decode ms/step p50 {out['decode_ms_p50']:.3f} p99 "
+        f"{out['decode_ms_p99']:.3f} (phase 5 {phase5['decode_ms_p50']:.3f}"
+        f" / {phase5['decode_ms_p99']:.3f})")
+    for kind, sse in (("JSON", False), ("SSE", True)):
+        rows = [t for t in timings if t["sse"] == sse]
+        log(f"  {kind} client ms from the round's start (sent / headers / "
+            f"first event / done): " + "; ".join(
+                f"{t['sent']:.1f}/{t['headers']:.1f}/"
+                f"{'-' if t['first'] is None else format(t['first'], '.1f')}"
+                f"/{t['done']:.1f}" for t in rows))
+    log(f"  engine TTFT ms, sorted: {out['engine_ttft_ms']}")
+    log(f"  prefill groups {groups}, row-1 launches {launches}, captures "
+        f"while serving {out['captures_while_serving']}; registry: "
+        f"completed {completed}, ttft_ms count {ttft_h.count}, "
+        f"inter_token_ms count {itl_h.count} (want {want_itl}); /metrics "
+        f"{st} {out['metrics_type']!r}, {len(series)} series, "
+        f"{out['metrics_seen']}; /healthz ready={health.get('ready')}")
+    if differ:
+        raise AssertionError(f"HTTP streams {differ} differ from phase 5's")
+    if out["captures_while_serving"]:
+        raise AssertionError("the HTTP engine captured a step while "
+                             "serving")
+    if launches != L * groups:
+        raise AssertionError(f"{launches} row-1 launches over {groups} "
+                             f"prefill groups; expected {L} per group")
+    if (completed, ttft_h.count, itl_h.count) != (len(reqs), len(reqs),
+                                                  want_itl):
+        raise AssertionError(
+            f"registry: completed {completed}, ttft_ms count "
+            f"{ttft_h.count}, inter_token_ms count {itl_h.count}; expected "
+            f"{len(reqs)}, {len(reqs)}, {want_itl}")
+    if st != 200 or out["metrics_type"] != "text/plain; version=0.0.4" \
+            or any(series.get(k) != v for k, v in want_series.items()):
+        raise AssertionError(f"/metrics: {st}, {out['metrics_type']!r}, "
+                             f"{out['metrics_seen']} != {want_series}")
+    if st_h != 200 or health.get("ready") is not True:
+        raise AssertionError(f"/healthz {st_h}: {health}")
+    return out
+
+
+def http_admission(torch, engine, srv, reqs, phase5):
+    """18b: a tenant's quota admits one request's tokens, its next gets
+    429 tenant_quota with Retry-After while another tenant is served;
+    under pause() the requests past max_queue get 429 queue_full with
+    Retry-After, and after resume() every admitted request completes,
+    phase 5's stream."""
+    prompt, kw = reqs[0]
+    cost = len(prompt) + NEW_TOKENS
+    engine.set_quotas({"q": {"rate": 0.0, "burst": float(cost)}})
+    body = _request_body(prompt, kw)
+    first = _http_call(srv.port, "/v1/generate", body, {"X-Tenant": "q"})
+    second = _http_call(srv.port, "/v1/generate", body, {"X-Tenant": "q"})
+    other = _http_call(srv.port, "/v1/generate", body,
+                       {"X-Tenant": "r", "X-Priority": "interactive"})
+    engine.set_quotas(None)
+    quota = dict(cost=cost, first=first[0], second=second[0],
+                 reason=second[2].get("reason"),
+                 retry_after=second[1].get("retry-after"), other=other[0])
+    log(f"  tenant q, burst {cost} tokens (one request): {first[0]}, then "
+        f"{second[0]} {quota['reason']} Retry-After {quota['retry_after']}"
+        f"; tenant r: {other[0]}")
+    if (first[0], second[0], other[0]) != (200, 429, 200) or \
+            quota["reason"] != "tenant_quota" or \
+            not 1 <= int(quota["retry_after"] or 0) <= 30:
+        raise AssertionError(f"tenant quota: {quota}")
+    if _http_tokens(200, first[2]) != phase5["results"][0]:
+        raise AssertionError("the quota's admitted request differs from "
+                             "phase 5's stream")
+
+    engine.pause()
+    got, errors = [None] * len(reqs), []
+
+    def client(i):
+        try:
+            st, _h, payload, _t = _http_call(
+                srv.port, "/v1/generate", _request_body(*reqs[i]))
+            got[i] = _http_tokens(st, payload)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 120
+    while engine._admission.depth < HTTP_QUEUE:
+        if time.monotonic() > deadline or errors:
+            engine.resume()
+            raise AssertionError(f"the paused queue holds "
+                                 f"{engine._admission.depth} requests, "
+                                 f"expected {HTTP_QUEUE}: {errors}")
+        time.sleep(0.005)
+    over = [_http_call(srv.port, "/v1/generate", _request_body(*reqs[0]))
+            for _ in range(HTTP_OVERFLOW)]
+    t0 = time.perf_counter()
+    engine.resume()
+    for th in threads:
+        th.join(timeout=900)
+    resume_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    differ = _same_streams(got, phase5["results"])
+    pause = dict(queued=HTTP_QUEUE, over=[o[0] for o in over],
+                 reasons=[o[2].get("reason") for o in over],
+                 retry_after=[o[1].get("retry-after") for o in over],
+                 completed_after_resume=sum(g is not None for g in got),
+                 equal_to_phase5=len(reqs) - len(differ), resume_s=resume_s)
+    log(f"  paused with {HTTP_QUEUE} queued: {HTTP_OVERFLOW} more answered "
+        f"{pause['over']} {pause['reasons']} Retry-After "
+        f"{pause['retry_after']}; after resume() "
+        f"{pause['completed_after_resume']}/{len(reqs)} completed in "
+        f"{resume_s:.3f} s, {pause['equal_to_phase5']} equal to phase 5's")
+    if any(o[0] != 429 or o[2].get("reason") != "queue_full"
+           or not 1 <= int(o[1].get("retry-after") or 0) <= 30
+           for o in over):
+        raise AssertionError(f"overload past max_queue: {pause}")
+    if differ:
+        raise AssertionError(f"streams {differ} after resume() differ from "
+                             "phase 5's")
+    return dict(quota=quota, pause=pause)
+
+
+def _uncaptured_generate(torch, net, reqs):
+    """Each request's stream from a GenerationSession whose steps are
+    called directly (no CUDA graph), greedy rows and sampled rows in
+    batches of SLOTS (rows never interact)."""
+    import numpy as np
+    from paddle_tpu_torch.generation import GenerationSession
+    sess = GenerationSession(net, batch_capacity=SLOTS)
+
+    def direct(kind, make, types, values):
+        return make()(*[torch.as_tensor(np.asarray(v)).to(sess.device, t)
+                        for v, t in zip(values, types)])
+    sess._compiled = direct
+    out = [None] * len(reqs)
+    groups = {}
+    for i, (_p, kw) in enumerate(reqs):
+        key = tuple(sorted((k, v) for k, v in kw.items() if k != "seed"))
+        groups.setdefault(key, []).append(i)
+    for key, idx in groups.items():
+        for j in range(0, len(idx), SLOTS):
+            rows = idx[j:j + SLOTS]
+            res = sess.generate([reqs[i][0] for i in rows],
+                                max_new_tokens=NEW_TOKENS,
+                                seeds=[reqs[i][1].get("seed", 0)
+                                       for i in rows], **dict(key))
+            for i, r in zip(rows, res):
+                out[i] = r.tolist()
+    return out
+
+
+def http_swap(torch, engine, srv, reqs, phase5, width):
+    """18c: swap_weights to a second seed's weights while 8 SSE streams
+    decode (none drops, nothing captured again); requests after it equal
+    an uncaptured session on those weights; swapping back gives phase
+    5's streams; a tree with one wrong shape raises and leaves the live
+    weights as they were."""
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    net, cache = engine.model, engine.session._cache
+    dev = net.device
+    first = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    net2 = GPT(GPTConfig(**width), device=dev, seed=HTTP_SWAP_SEED)
+    second = {k: v.detach().clone() for k, v in net2.state_dict().items()}
+    compiles0 = cache.compiles
+    errors, straddled = [], [None] * SLOTS
+
+    def client(i):
+        try:
+            st, _h, payload, _t = _http_call(
+                srv.port, "/v1/generate",
+                dict(_request_body(*reqs[i]), stream=True), stream=True)
+            straddled[i] = _http_tokens(st, payload)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SLOTS)]
+    tok0 = engine.session.tokens_out
+    for th in threads:
+        th.start()
+    deadline = time.monotonic() + 120
+    # every stream in a slot and a few boundaries behind it
+    while engine.occupancy < SLOTS or \
+            engine.session.tokens_out - tok0 < 4 * SLOTS:
+        if time.monotonic() > deadline or errors:
+            raise AssertionError(f"8 streams never decoded together: "
+                                 f"{errors}")
+        time.sleep(0.001)
+    at = engine.session.tokens_out - tok0
+    from paddle_tpu_torch.profiler import flight
+
+    def swap_event():
+        evs = [f for _t, cat, ev, f in flight.events()
+               if cat == "serve" and ev == "weights_swap"]
+        return {k: round(v, 3) for k, v in evs[-1].items()
+                if k.endswith("_ms")} if evs else {}
+    t0 = time.perf_counter()
+    engine.swap_weights(second)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    swap_parts = swap_event()
+    for th in threads:
+        th.join(timeout=900)
+    if errors:
+        raise errors[0]
+    dropped = [i for i, s in enumerate(straddled)
+               if s is None or len(s) != NEW_TOKENS]
+    after, _t, _h, _w = _http_round(srv.port, reqs)
+    plain = _uncaptured_generate(torch, net2, reqs)
+    differ2 = _same_streams(after, plain)
+    t0 = time.perf_counter()
+    engine.swap_weights(first)
+    back_ms = (time.perf_counter() - t0) * 1e3
+    back_parts = swap_event()
+    back, _t, _h, _w = _http_round(srv.port, reqs)
+    differ_back = _same_streams(back, phase5["results"])
+    checksum = sum(p.detach().double().sum().item()
+                   for p in net.parameters())
+    bad = dict(first)
+    bad["wte.weight"] = first["wte.weight"][:, :-1]
+    try:
+        engine.swap_weights(bad)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    same = all(torch.equal(v, first[k]) for k, v in net.state_dict().items())
+    checksum_after = sum(p.detach().double().sum().item()
+                         for p in net.parameters())
+    out = dict(swap_ms=swap_ms, swap_back_ms=back_ms,
+               swap_parts=swap_parts, swap_back_parts=back_parts,
+               tokens_before_swap=at, straddling=SLOTS, dropped=dropped,
+               captures=cache.compiles - compiles0,
+               equal_to_uncaptured_second=len(reqs) - len(differ2),
+               equal_to_phase5_after_swap_back=len(reqs) - len(differ_back),
+               bad_tree_error=raised, weights_unchanged=same,
+               checksum=checksum, checksum_after_bad_tree=checksum_after)
+    log(f"  swap to seed {HTTP_SWAP_SEED}'s weights with {SLOTS} SSE streams"
+        f" decoding ({at} tokens out): {swap_ms:.3f} ms from call to "
+        f"return ({swap_parts}), {len(dropped)} streams dropped, captures "
+        f"{out['captures']}; after it {out['equal_to_uncaptured_second']}/"
+        f"{len(reqs)} streams equal an uncaptured session on those "
+        f"weights; swap back {back_ms:.3f} ms ({back_parts}), "
+        f"{out['equal_to_phase5_after_swap_back']}/{len(reqs)} phase 5's")
+    log(f"  one wrong shape: {raised!r}; live weights unchanged {same} "
+        f"(checksum {checksum!r} -> {checksum_after!r})")
+    del net2, second, first
+    if dropped or out["captures"]:
+        raise AssertionError(f"the swap dropped streams {dropped} or "
+                             f"captured {out['captures']} steps")
+    if differ2:
+        raise AssertionError(f"streams {differ2} after the swap differ from "
+                             "the uncaptured session on the new weights")
+    if differ_back:
+        raise AssertionError(f"streams {differ_back} after swapping back "
+                             "differ from phase 5's")
+    if raised is None or "a shape/dtype change" not in raised or not same \
+            or checksum != checksum_after:
+        raise AssertionError(f"the bad tree: raised {raised!r}, weights "
+                             f"unchanged {same}")
+    return out
+
+
+def http_observability(torch, fa, net, reqs, phase5, parity):
+    """18d: request tracing, memory accounting and the lock sanitizer
+    (level 1) on: every request's span chain complete with its
+    traceparent echoed, the params / kv_arena tags equal to the computed
+    bytes, no lock-order cycle; decode ms/step and tokens/s beside 18a's
+    (all off)."""
+    import warnings
+    from paddle_tpu_torch.profiler import memscope, rtrace, tracer
+    from paddle_tpu_torch.utils import concurrency as cc
+    cfg = net.cfg
+    L, D, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    with port_flags({"FLAGS_request_trace": True,
+                     "FLAGS_mem_accounting": True, "FLAGS_lock_san": 1}), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tracer.clear()
+        memscope.reset()
+        cc.reset_graph()
+        engine, srv, warmup_s = _http_engine(torch, net, "http_obs")
+        try:
+            tags = memscope.tag_bytes()
+            ledger = [e for e in memscope.compile_entries()
+                      if e["site"] == "http_obs"]
+            tids = ["%032x" % (0xC0DE0000 + i) for i in range(len(reqs))]
+            sess = engine.session
+            decode0 = sess.steps["decode"]
+            got, _sse, hdrs, wall = _http_round(
+                srv.port, reqs, headers=lambda i: {
+                    "traceparent": f"00-{tids[i]}-{'7a' * 8}-01",
+                    "X-Request-Id": f"obs-{i}"}, process=True)
+            decode_ms = list(sess.step_ms["decode"])[
+                -(sess.steps["decode"] - decode0):]
+            health = _http_call(srv.port, "/healthz")[2]
+            stats = memscope.device_stats()
+            peak = memscope.peak_bytes()
+            census = memscope.census()
+        finally:
+            srv.stop()
+            engine.close()
+        san = cc.san_stats()
+        cycles = cc.cycle_reports()
+    params = sum(p.numel() for p in net.parameters())
+    kv_want = L * 2 * SLOTS * engine.max_length * D * 4
+    events = tracer.events()
+    tracer.clear()
+    incomplete, echo_bad = [], []
+    for i, tid in enumerate(tids):
+        spans = rtrace.request_spans(events, trace_id=tid)
+        names = [s["name"] for s in spans]
+        root = [s for s in spans if s["name"] == "ingress"]
+        ok = bool(root) and all(n in names for n in (
+            "ingress", "admission", "queue_wait", "prefill", "egress")) \
+            and names.count("decode") == len(got[i]) - 1 and all(
+                s["parent_id"] == root[0]["span_id"] for s in spans
+                if s["name"] != "ingress") and \
+            root[0]["parent_id"] == "7a" * 8 and all(
+                s.get("request_id") == f"obs-{i}" for s in spans)
+        if not ok:
+            incomplete.append((i, names))
+        tp = hdrs[i].get("traceparent", "")
+        if tp.split("-")[1:3] != [tid, root[0]["span_id"] if root else ""]:
+            echo_bad.append((i, tp))
+    differ = _same_streams(got, phase5["results"])
+    long_holds = [str(w.message) for w in caught
+                  if "held for" in str(w.message)]
+    tokens = sum(len(t) for t in got)
+    out = dict(
+        warmup_s=warmup_s, spans=len(events), incomplete=incomplete,
+        traceparent_not_echoed=echo_bad, equal_to_phase5=len(reqs)
+        - len(differ), params_tag=tags.get("params"),
+        params_want=4 * params, kv_arena_tag=tags.get("kv_arena"),
+        kv_arena_want=kv_want, ledger=[dict(signature=e["signature"],
+                                            cause=e["cause"],
+                                            wall_ms=e["wall_ms"])
+                                       for e in ledger],
+        device_stats=stats, peak_bytes=peak,
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if net.device.type == "cuda" else 0,
+        census_live_bytes=census["live_bytes_total"],
+        census_blocks=census["live_arrays"],
+        healthz_memory={k: v for k, v in health.items()
+                        if k.startswith("mem_")},
+        san=san, cycles=cycles, long_holds=long_holds,
+        tokens_per_s=tokens / wall, decode_ms_p50=pct(decode_ms, 50),
+        decode_ms_p99=pct(decode_ms, 99))
+    log(f"  tracing + memory accounting + lock sanitizer 1: {len(events)} "
+        f"spans; span chains complete {len(reqs) - len(incomplete)}/"
+        f"{len(reqs)}, traceparent echoed {len(reqs) - len(echo_bad)}/"
+        f"{len(reqs)}; streams equal phase 5's {out['equal_to_phase5']}/"
+        f"{len(reqs)}")
+    log(f"  tags: params {out['params_tag']} B (4 x {params} parameters = "
+        f"{4 * params}), kv_arena {out['kv_arena_tag']} B ({kv_want} = "
+        f"{kv_want / 2**20:.1f} MiB); ledger {len(ledger)} captures "
+        f"{[round(e['wall_ms'], 1) for e in ledger]} ms; peak_bytes "
+        f"{peak} (max_memory_allocated {out['max_memory_allocated']}); "
+        f"device_stats {stats}; census {census['live_arrays']} blocks "
+        f"{census['live_bytes_total']} B")
+    log(f"  sanitizer: {san}, cycles {len(cycles)}; long holds "
+        f"{len(long_holds)}: {long_holds[:4]}")
+    log(f"  decode ms/step p50 {out['decode_ms_p50']:.3f} p99 "
+        f"{out['decode_ms_p99']:.3f} and tokens/s "
+        f"{out['tokens_per_s']:.1f} with all three on; 18a (off) "
+        f"{parity['decode_ms_p50']:.3f} / {parity['decode_ms_p99']:.3f}, "
+        f"{parity['tokens_per_s']:.1f}")
+    if incomplete or echo_bad:
+        raise AssertionError(f"span chains incomplete {incomplete[:2]}, "
+                             f"traceparent not echoed {echo_bad[:2]}")
+    if differ:
+        raise AssertionError(f"streams {differ} differ from phase 5's with "
+                             "observability on")
+    if out["params_tag"] != 4 * params or out["kv_arena_tag"] != kv_want:
+        raise AssertionError(f"memory tags {tags}; expected params "
+                             f"{4 * params}, kv_arena {kv_want}")
+    if cycles or san["cycles"]:
+        raise AssertionError(f"the lock sanitizer reported cycles: {cycles}")
+    if san["acquires"] == 0:
+        raise AssertionError("the sanitizer saw no acquire: the engine's "
+                             "locks were not instrumented")
+    return out
+
+
+def http_path(torch, fa, dev, width, phase5):
+    """Phase 18: phase 5's serving GPT behind ServingServer (18a-18d); the
+    seconds it took."""
+    import gc
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    t0 = time.perf_counter()
+    net = GPT(GPTConfig(**width), device=dev, seed=0)
+    reqs = make_requests(net.cfg.vocab_size)
+    engine, srv, warmup_s = _http_engine(torch, net, "http")
+    log(f"  engine warmed in {warmup_s:.3f} s; serving on 127.0.0.1:"
+        f"{srv.port}")
+    try:
+        log("== phase 18a: phase 5's requests over HTTP, JSON and SSE")
+        parity = http_parity(torch, fa, engine, srv, reqs, phase5)
+        log("== phase 18b: tenant quota and overload, Retry-After")
+        admission = http_admission(torch, engine, srv, reqs, phase5)
+        log(f"== phase 18c: swap_weights mid-traffic (seed "
+            f"{HTTP_SWAP_SEED}), and back")
+        swap = http_swap(torch, engine, srv, reqs, phase5, width)
+    finally:
+        srv.stop()
+        engine.close()
+    del engine
+    gc.collect()
+    log("== phase 18d: request tracing, memory accounting, lock sanitizer")
+    obs = http_observability(torch, fa, net, reqs, phase5, parity)
+    del net
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = dict(warmup_s=warmup_s, parity=parity, admission=admission,
+               swap=swap, observability=obs,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS):
-    """Phases 3-17 on ``dev`` with a serving GPT of ``width``, the two
+    """Phases 3-18 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -6186,6 +6871,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 17: the paged serving engine at full width (fp32, 8 slots,"
         f" block {PAGED_BLOCK})")
     paged = paged_path(torch, fa, dev, width, serve)
+    torch.cuda.empty_cache()
+    log("== phase 18: HTTP serving at full width (fp32, 8 slots, "
+        "ServingServer on 127.0.0.1)")
+    http = http_path(torch, fa, dev, width, serve)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -6202,6 +6891,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         replaces="paddle_tpu/ops/pallas/flash_attention.py:205",
         launches=serve["launches"],
         launches_paged_serving=paged["parity"]["launches"],
+        launches_http_serving=http["parity"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in checks
                         if c["dtype"] == "float32"),
         ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
@@ -6726,7 +7416,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_fp16_timing=train_times_fp16,
                   train_long_fp16_timing=long_times_fp16,
                   train_long_bf16_timing=long_times_bf16,
-                  remat_offload=ro, fit_hooks=hooks, paged=paged,
+                  remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

@@ -51,7 +51,6 @@ import json
 import os
 import queue
 import shutil
-import threading
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -61,6 +60,7 @@ import torch
 
 from ..profiler import metrics as _metrics
 from ..utils import chaos as _chaos
+from ..utils import concurrency as _conc
 from ..utils import resilience as _resilience
 
 __all__ = ["save_state", "load_state", "save_layer", "load_layer",
@@ -80,7 +80,8 @@ _MESH = ("is not ported yet: the port checkpoints one process on one "
          "device (ROADMAP.md §A item 8, A5)")
 
 _pending = []
-_plock = threading.Lock()
+# lazy: made at import, before any set_flags could arm the sanitizer
+_plock = _conc.Lock(name="ckpt.pending", lazy=True)
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -482,7 +483,6 @@ def save_state(path: str, tree: Dict[str, Any], *, overwrite: bool = True,
     The leaves are copied to the host before it returns; with
     ``use_async`` the files are written on a background thread and
     :func:`wait_all` (which finalizes the commit) joins it."""
-    import threading
     path = os.path.abspath(path)
     parent = os.path.dirname(path)
     if parent:
@@ -502,8 +502,7 @@ def save_state(path: str, tree: Dict[str, Any], *, overwrite: bool = True,
                                          overwrite=overwrite)
         except BaseException as e:  # noqa: BLE001 — re-raised by wait_all
             box["error"] = e
-    t = threading.Thread(target=work, name="paddle-ckpt-save", daemon=True)
-    t.start()
+    t = _conc.spawn(work, name="paddle-ckpt-save")
     with _plock:
         _pending.append((t, box, path))
     return t

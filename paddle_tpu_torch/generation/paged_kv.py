@@ -57,7 +57,6 @@ chaos site) and the engine sheds the request with a typed
 from __future__ import annotations
 
 import itertools
-import threading
 import time
 from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -65,6 +64,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import concurrency as _conc
 from .sampling import sample
 from .session import GenerationSession, _seed_rows
 
@@ -226,7 +226,7 @@ class BlockPool:
         # bytes one block occupies across every layer's arenas (the engine
         # fills it in; metrics only)
         self.block_bytes = 0
-        self._lock = threading.Lock()
+        self._lock = _conc.Lock(name=f"{name}.kv.pool")
         self._free: deque = deque(range(self.num_blocks))
         self._ref = np.zeros(self.num_blocks, np.int32)
         from ..profiler import metrics as _metrics

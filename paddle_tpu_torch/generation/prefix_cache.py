@@ -35,12 +35,12 @@ Metrics: ``<name>.prefix_cache.hit`` / ``.miss`` / ``.evict`` counters,
 from __future__ import annotations
 
 import hashlib
-import threading
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import concurrency as _conc
 from .paged_kv import BlockPool
 
 __all__ = ["PrefixCache"]
@@ -69,7 +69,7 @@ class PrefixCache:
                  name: str = "serving"):
         self.pool = pool
         self.capacity_blocks = int(capacity_blocks)
-        self._lock = threading.Lock()
+        self._lock = _conc.Lock(name=f"{name}.prefix_cache")
         self._entries: "OrderedDict[bytes, _Entry]" = OrderedDict()
         from ..profiler import metrics as _metrics
         p = f"{name}.prefix_cache"

@@ -31,12 +31,14 @@ address they had at capture, so the session owns one set of caches
 than copied into (``load_state_dict`` copies) is captured again.  Steps
 run under ``torch.inference_mode()`` with the model in eval mode, one at
 a time; each serving step's wall time (ended by the copy of its tokens to
-the host) is kept in :attr:`step_ms`.
+the host) is kept in :attr:`step_ms` and observed in the registry's
+``<name>.prefill`` / ``<name>.decode`` histograms (ms), its sampled tokens
+in ``<name>.tokens_out``, and with the host tracer on it is a
+``serve::<name>.<phase>`` span.
 """
 from __future__ import annotations
 
 import itertools
-import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -45,6 +47,9 @@ import numpy as np
 import torch
 
 from ..graphs import StepGraph
+from ..profiler import metrics as _metrics
+from ..profiler import tracer as _tracer
+from ..utils import concurrency as _conc
 from .sampling import sample
 
 __all__ = ["GenerationSession"]
@@ -93,7 +98,10 @@ class GenerationSession:
 
     :attr:`steps` and :attr:`step_ms` count the steps that served a row
     (an engine's warmup steps, all rows masked out, are left out);
-    :attr:`tokens_out` counts the tokens they sampled.
+    :attr:`tokens_out` counts the tokens they sampled.  The registry's
+    ``<name>.prefill`` / ``<name>.decode`` histograms and
+    ``<name>.tokens_out`` counter take the same steps (shared by every
+    session of one name).
     """
 
     def __init__(self, model, batch_capacity: int = 1,
@@ -118,12 +126,21 @@ class GenerationSession:
             else ExecutableCache(name=name)
         self._serial = next(_SERIALS)
         self._caches = None
-        self._lock = threading.Lock()
+        self._lock = _conc.Lock(name=f"{name}.session")
         self.steps: Dict[str, int] = {"prefill": 0, "decode": 0}
         self.step_ms: Dict[str, deque] = {
             "prefill": deque(maxlen=_TIMING_WINDOW),
             "decode": deque(maxlen=_TIMING_WINDOW)}
         self.tokens_out = 0
+        self._m_step = {
+            "prefill": _metrics.histogram(
+                f"{name}.prefill", "prefill step latency ms (fill the "
+                "KV-cache + first token)"),
+            "decode": _metrics.histogram(
+                f"{name}.decode", "decode step latency ms (one token for "
+                "the whole batch)")}
+        self._m_tokens = _metrics.counter(
+            f"{name}.tokens_out", "tokens sampled by generation steps")
 
     # -- caches and buckets ---------------------------------------------
     def init_caches(self):
@@ -224,7 +241,7 @@ class GenerationSession:
         net = self.model
         with self._lock:
             was_training = net.training
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             try:
                 net.eval()
                 with torch.inference_mode():
@@ -233,9 +250,15 @@ class GenerationSession:
             finally:
                 net.train(was_training)
             if live:
-                self.step_ms[phase].append((time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter_ns()
+                ms = (t1 - t0) / 1e6
+                self.step_ms[phase].append(ms)
                 self.steps[phase] += 1
                 self.tokens_out += live
+                self._m_step[phase].observe(ms)
+                self._m_tokens.inc(live)
+                if _tracer.active:
+                    _tracer.on_serving_phase(f"{self.name}.{phase}", t0, t1)
         return tok_h
 
     # -- steps (the engine calls these; generate() below too) -----------

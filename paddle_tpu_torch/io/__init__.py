@@ -37,6 +37,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils import chaos as _chaos
 from .prefetch import DevicePrefetcher
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
@@ -354,6 +355,8 @@ class DataLoader:
         return len(self.batch_sampler)
 
     def _fetch(self, indices: List[int]):
+        if _chaos.active:
+            _chaos.hit("loader.worker")
         return self.collate_fn([self.dataset[i] for i in indices])
 
     def _iter_iterable(self):

@@ -27,7 +27,10 @@ training with the stage on or off.  A prefetcher is one-shot: iterate it
 once, and make a fresh one per epoch.  An error upstream reaches the
 consumer in order, after the batches made before it.  ``stats`` counts
 ``gets``, ``nonempty_gets`` (the queue held a batch when asked),
-``max_depth``, ``refetch`` and ``produced`` in plain integers.
+``max_depth``, ``refetch`` and ``produced`` in plain integers; each
+refetch also counts in the registry's ``io.prefetch.refetch``.  The
+``loader.worker`` chaos site fires in ``DataLoader._fetch``, the fetch
+the indexed mode retries.
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..profiler import metrics as _metrics
+from ..utils import concurrency as _conc
 
 __all__ = ["DevicePrefetcher"]
 
@@ -123,6 +128,7 @@ class DevicePrefetcher:
         return obj
 
     def _fetch_with_retry(self, i: int, indices):
+        # the loader's _fetch fires the loader.worker chaos site
         last = None
         for attempt in range(self._retries + 1):
             try:
@@ -132,6 +138,10 @@ class DevicePrefetcher:
                 if attempt == self._retries:
                     break
                 self.stats["refetch"] += 1
+                _metrics.counter(
+                    "io.prefetch.refetch",
+                    "prefetch-stage batch fetches retried after a "
+                    "loader worker death (recovered, not lost)").inc()
                 if not self._warned_refetch:
                     self._warned_refetch = True
                     warnings.warn(
@@ -187,9 +197,9 @@ class DevicePrefetcher:
             if self._stream is None:
                 self._stream = _STREAMS[self.device] = torch.cuda.Stream(
                     device=self.device)
-        self._thread = threading.Thread(target=self._produce,
-                                        name="paddle-prefetch", daemon=True)
-        self._thread.start()
+        # spawn registers the creation site with the sanitizer's thread
+        # registry, so leak reports and SIGUSR1 dumps name this stage
+        self._thread = _conc.spawn(self._produce, name="paddle-prefetch")
 
     def _hand_over(self, batch, event):
         """Order the consumer's stream after the batch's copies, and keep

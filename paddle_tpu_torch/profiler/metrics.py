@@ -10,15 +10,22 @@ ring-slot store.  The port's counters so far: ``ckpt.verify_fail``,
 ``ckpt.write_fail``, ``ckpt.quarantined``
 (:mod:`paddle_tpu_torch.distributed.checkpoint`), ``chaos.injected`` and
 ``chaos.injected.<site>`` (:mod:`paddle_tpu_torch.utils.chaos`),
-``resilience.retry`` and ``train.anomaly`` (``Model.fit``'s guard).
+``resilience.retry`` and ``train.anomaly`` (``Model.fit``'s guard),
+``io.prefetch.refetch`` (the prefetcher), the serving engines'
+``<name>.*`` series (the executable cache, the session's step
+histograms, admission, TTFT and inter-token latency, request outcomes,
+per-tenant counts; ``/metrics`` of :mod:`paddle_tpu_torch.serving.server`
+exports them), ``lock.*`` (the lock sanitizer) and ``mem.*``
+(:mod:`paddle_tpu_torch.profiler.memscope`).
 """
 from __future__ import annotations
 
 import bisect
 import json
 import re
-import threading
 from typing import Dict, List, Optional, Tuple
+
+from ..utils import concurrency as _conc
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "counter", "gauge",
            "histogram", "get", "snapshot", "prometheus_text", "reset",
@@ -184,9 +191,12 @@ class Registry:
     """Name -> metric, get-or-create; one process-wide default below."""
 
     def __init__(self):
-        # RLock, as the reference's: its lock sanitizer records its own
-        # observations through this registry, re-entering get-or-create
-        self._lock = threading.RLock()
+        # RLock, deliberately: under FLAGS_lock_san the sanitizer records
+        # its own observations through this registry, so the
+        # instrumentation path can re-enter get-or-create while the outer
+        # create still holds the lock; lazy: the default Registry is built
+        # at import, before any set_flags could arm the sanitizer
+        self._lock = _conc.RLock(name="profiler.registry", lazy=True)
         self._metrics: Dict[str, object] = {}
 
     def _get_or_create(self, cls, name, doc, **kw):

@@ -11,15 +11,22 @@ the batch dim always (:class:`BucketPolicy`, :func:`bucket_shape`,
 per key: in the reference an XLA executable, in the port a
 :class:`~paddle_tpu_torch.graphs.StepGraph` (on the card a captured CUDA
 graph with its static inputs and outputs).  A per-key in-flight latch
-keeps concurrent callers to one compile per key.  The cache counts
-:attr:`~ExecutableCache.hits` and :attr:`~ExecutableCache.compiles` (the
-reference's ``<name>.executable_cache.hit`` and ``<name>.compile``
-metrics) in plain integers.
+keeps concurrent callers to one compile per key.  The cache publishes
+the reference's ``<name>.executable_cache.hit`` and ``<name>.compile``
+counters, keeps the same counts in :attr:`~ExecutableCache.hits` and
+:attr:`~ExecutableCache.compiles` (per cache: the registry's are shared by
+every cache of one name), and with memory accounting on records each
+compile's wall time in memscope's compile ledger.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..profiler import memscope as _memscope
+from ..profiler import metrics as _metrics
+from ..utils import concurrency as _conc
 
 __all__ = ["next_bucket", "bucket_shape", "pad_batch", "seq_buckets",
            "BucketPolicy", "ExecutableCache"]
@@ -141,11 +148,18 @@ class ExecutableCache:
 
     def __init__(self, name: str = "serving"):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = _conc.Lock(name=f"{name}.executable_cache")
         self._entries: Dict[Tuple, object] = {}
         self._inflight: Dict[Tuple, threading.Event] = {}
         self.hits = 0
         self.compiles = 0
+        self._m_hits = _metrics.counter(
+            f"{name}.executable_cache.hit",
+            "bucketed executions served by an already-made executable")
+        self._m_compiles = _metrics.counter(
+            f"{name}.compile",
+            "executable-cache misses == compiles (on the card: CUDA graph "
+            "captures); bounded by the bucket count")
 
     def __len__(self):
         return len(self._entries)
@@ -166,6 +180,7 @@ class ExecutableCache:
                 if exe is not None:
                     if valid is None or valid(exe):
                         self.hits += 1
+                        self._m_hits.inc()
                         return exe
                     del self._entries[key]
                 latch = self._inflight.get(key)
@@ -176,10 +191,19 @@ class ExecutableCache:
                 latch.wait()
                 continue            # re-read: the owner published or failed
             try:
-                exe = compile_fn()
+                if _memscope.active:
+                    t0 = time.perf_counter()
+                    exe = compile_fn()
+                    _memscope.compile_record(
+                        self.name, key, time.perf_counter() - t0,
+                        provenance="jit")
+                else:
+                    exe = compile_fn()
                 with self._lock:
                     self._entries[key] = exe
                     self.compiles += 1
+                    # under the lock: exact compile counts
+                    self._m_compiles.inc()
                 return exe
             finally:
                 with self._lock:

@@ -30,10 +30,22 @@ captured at its first use.  Every launch on the card, captures, block
 copies, swaps and the prefix-chain export and import included, runs on
 the scheduler thread; client threads only queue requests and read
 results, so no other thread touches the card while a graph is captured.
+:meth:`GenerationEngine.swap_weights` stages the new weights on the
+card from the caller's thread under the session's lock (no capture can
+be in progress then) and the scheduler copies them into the live
+parameters between two token boundaries, so every captured graph reads
+them at its next replay and nothing is captured again.
 
-Not ported yet (``ROADMAP.md`` §A item 7): the reference's tenant quota
-tables and Retry-After, ``pause``/``resume``/``swap_weights``, and its
-request-trace, memory-accounting and tracer hooks.
+Metrics (the registry, ``<name>.`` prefix): the session's ``prefill`` /
+``decode`` step histograms and ``tokens_out``, ``ttft_ms``,
+``inter_token_ms``, ``decode.occupancy``, ``request.completed`` /
+``.failed`` / ``.cancelled``, ``slots``, ``decode_warmed_buckets``, the
+executable cache's ``executable_cache.hit`` / ``compile``, the admission
+counters and the per-tenant ``tenant.<t>.*`` series; :meth:`stats` reads
+them.  With ``FLAGS_request_trace`` a request submitted with a trace
+context leaves its span chain (:mod:`~paddle_tpu_torch.profiler.rtrace`);
+with ``FLAGS_mem_accounting`` the engines attribute ``params`` and
+``kv_arena`` bytes and an exhaustion leaves memscope's forensics dump.
 """
 from __future__ import annotations
 
@@ -49,11 +61,15 @@ import numpy as np
 
 from ..generation.session import GenerationSession
 from ..profiler import flight as _flight
+from ..profiler import memscope as _memscope
 from ..profiler import metrics as _metrics
+from ..profiler import rtrace as _rtrace
+from ..profiler import tracer as _tracer
+from ..utils import concurrency as _conc
 from ..utils import flags as _flags
 from .admission import (PRIORITIES, AdmissionController, DeadlineExceeded,
-                        EngineClosed, RequestRejected, deadline_from_ms,
-                        priority_rank)
+                        EngineClosed, RequestRejected, TenantQuotaTable,
+                        deadline_from_ms, priority_rank)
 
 __all__ = ["GenerationEngineConfig", "GenerationStream", "GenerationEngine",
            "PagedGenerationEngine", "RequestRejected", "DeadlineExceeded",
@@ -78,6 +94,11 @@ class GenerationEngineConfig:
     aging_s              priority aging: a waiting request's class
                          improves by one per ``aging_s`` seconds queued,
                          so batch traffic cannot starve (0: strict order)
+    tenant_quotas        per-tenant token buckets ``{tenant: {"rate":
+                         tokens/s, "burst": max}}`` (``"*"``: the default
+                         for unlisted tenants); an empty bucket sheds
+                         typed ``tenant_quota``; replaced at run time by
+                         ``engine.set_quotas`` / admission.QuotaWatcher
     prompt_bucket_min    smallest prompt-length bucket
     warmup               capture every prefill bucket and the decode step
                          before serving: True in the constructor,
@@ -109,6 +130,7 @@ class GenerationEngineConfig:
                  max_tokens_in_flight: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  aging_s: float = 2.0,
+                 tenant_quotas: Optional[Dict[str, dict]] = None,
                  prompt_bucket_min: int = 8,
                  warmup=False,
                  name: str = "serving",
@@ -129,6 +151,7 @@ class GenerationEngineConfig:
         self.max_tokens_in_flight = max_tokens_in_flight
         self.deadline_ms = deadline_ms
         self.aging_s = float(aging_s)
+        self.tenant_quotas = tenant_quotas
         self.prompt_bucket_min = int(prompt_bucket_min)
         self.warmup = warmup if warmup == "async" else bool(warmup)
         self.name = str(name)
@@ -149,12 +172,12 @@ class GenerationEngineConfig:
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "temperature", "top_k", "top_p",
                  "seed", "eos", "deadline", "budget", "future", "queue",
-                 "tokens", "t_submit", "t_first", "cancelled",
+                 "tokens", "t_submit", "t_first", "t_last", "cancelled",
                  "finish_reason", "tenant", "priority", "blocks",
-                 "cached_len", "parked")
+                 "cached_len", "parked", "ctx", "t_submit_ns")
 
     def __init__(self, prompt, max_new, temperature, top_k, top_p, seed,
-                 eos, deadline, budget, tenant=None, priority=1):
+                 eos, deadline, budget, ctx=None, tenant=None, priority=1):
         self.prompt = prompt
         self.max_new = max_new
         self.temperature = temperature
@@ -169,7 +192,12 @@ class _GenRequest:
         self.tokens: List[int] = []
         self.t_submit = time.monotonic()
         self.t_first: Optional[float] = None
+        self.t_last: Optional[float] = None
         self.cancelled = False
+        # the request's trace context (profiler/rtrace.py), carried across
+        # the submit -> scheduler -> stream thread hops; None when untraced
+        self.ctx = ctx
+        self.t_submit_ns = _tracer.now_ns() if ctx is not None else 0
         self.finish_reason: Optional[str] = None
         self.tenant: Optional[str] = tenant
         self.priority = int(priority)   # rank into admission.PRIORITIES
@@ -178,6 +206,10 @@ class _GenRequest:
         # while preempted to host memory: {"host": payload, "nblocks": n,
         # "pos": position, "last": last sampled token}; None otherwise
         self.parked: Optional[dict] = None
+
+    @property
+    def request_id(self) -> Optional[str]:
+        return self.ctx.request_id if self.ctx is not None else None
 
     @property
     def priority_name(self) -> str:
@@ -237,29 +269,81 @@ class GenerationStream:
         return self._req.finish_reason
 
 
+def _check_swap_tree(live: Dict[str, object], new: Dict[str, object],
+                     what: str):
+    """A weight swap may never half-apply: the incoming tree must match
+    the live one key for key in shape and dtype, checked before anything
+    is touched (every captured graph binds the live tensors)."""
+    missing = sorted(set(live) - set(new))
+    extra = sorted(set(new) - set(live))
+    if missing or extra:
+        raise ValueError(
+            f"swap_weights {what} tree mismatch: missing {missing[:3]}"
+            f"{'...' if len(missing) > 3 else ''}, unexpected "
+            f"{extra[:3]}{'...' if len(extra) > 3 else ''} — swap "
+            "trees must match the served model exactly")
+    for k, v in new.items():
+        cur = live[k]
+        if tuple(v.shape) != tuple(cur.shape) or \
+                str(v.dtype) != str(cur.dtype):
+            raise ValueError(
+                f"swap_weights {what}[{k!r}]: incoming "
+                f"{tuple(v.shape)}/{v.dtype} vs served "
+                f"{tuple(cur.shape)}/{cur.dtype} — a shape/dtype "
+                "change is a new artifact, not a hot-swap")
+
+
+def _as_tensors(tree) -> Dict[str, object]:
+    """``{name: tensor}`` of a tree of tensors or array-likes (numpy
+    arrays are wrapped, not copied)."""
+    import torch
+    return {str(k): v if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v)) for k, v in tree.items()}
+
+
 class GenerationEngine:
     """Continuous batching over an autoregressive model at token
     boundaries (Orca-style); see the module docstring.
 
     Admission bounds the queue depth and the reserved tokens (prompt +
-    max_new per request, returned at retirement).  :attr:`counts` holds
-    the outcome counts (``completed``, ``cancelled``, ``failed``, and the
-    admission ones); the session keeps the step times.  :attr:`ready` is
-    False while an ``"async"`` warmup runs; :attr:`warmed_buckets` is the
-    number of steps the warmup left captured.  A request's ``tenant``
-    labels the per-tenant counters ``<name>.tenant.<tenant>.*``."""
+    max_new per request, returned at retirement) and, with
+    ``tenant_quotas``, each tenant's token bucket.  :attr:`ready` is
+    False while an ``"async"`` warmup runs and after :meth:`close`;
+    :attr:`warmed_buckets` is the number of steps the warmup left
+    captured.  :meth:`stats` reads the registry's ``<name>.*`` series
+    beside this engine's own outcome counts (:attr:`counts`:
+    ``completed``, ``cancelled``, ``failed``; the admission controller's;
+    the session's ``prefill_steps`` / ``decode_steps``), which count this
+    engine alone where the registry's are shared by every engine of one
+    name."""
 
     def __init__(self, model,
                  config: Optional[GenerationEngineConfig] = None):
         self.config = cfg = config or GenerationEngineConfig()
         self.model = model
-        self.metrics_prefix = cfg.name
+        self.metrics_prefix = p = cfg.name
         max_len = int(cfg.max_length or model.cfg.max_seq_len)
         self.session = self._make_session(model, cfg, max_len)
         self.max_length = self.session.max_length
         self.slots = self.session.batch_capacity
         self._admission = self._make_admission(cfg)
         self.counts: Counter = Counter()
+        self._m_ttft = _metrics.histogram(
+            f"{p}.ttft_ms", "time to first token (submit -> first "
+            "sampled token)")
+        self._m_itl = _metrics.histogram(
+            f"{p}.inter_token_ms", "gap between consecutive streamed "
+            "tokens of one request")
+        self._m_occ = _metrics.histogram(
+            f"{p}.decode.occupancy", "occupied slots per decode step")
+        self._m_done = _metrics.counter(
+            f"{p}.request.completed", "requests answered successfully")
+        self._m_failed = _metrics.counter(
+            f"{p}.request.failed", "requests completed exceptionally")
+        self._m_cancelled = _metrics.counter(
+            f"{p}.request.cancelled", "requests retired by client cancel "
+            "(the result is the partial tokens; not counted as completed)")
+        _metrics.gauge(f"{p}.slots", "decode slots").set(self.slots)
         self._init_slot_state()
 
         self._pending: deque = deque()
@@ -270,17 +354,21 @@ class GenerationEngine:
         self._imports: List[dict] = []
         self._exports: List[dict] = []
         self._aging_s = float(cfg.aging_s)
-        self._cond = threading.Condition()
+        self._cond = _conc.Condition(name=f"{p}.genengine.cond")
+        self._mlock = _conc.Lock(name=f"{p}.genengine.metrics")
         self._stop = False
+        self._paused = False
         self._closed = False
+        # a pending weight swap, applied by the scheduler between token
+        # boundaries: (staged (live, new) pairs, done event, error holder)
+        self._swap = None
         self.ready = False
         self.warmed_buckets = 0
         if cfg.warmup and cfg.warmup != "async":
             self._warmup()
         self.ready = cfg.warmup != "async"
-        self._scheduler = threading.Thread(
-            target=self._loop, name="generation-scheduler")
-        self._scheduler.start()
+        self._scheduler = _conc.spawn(self._loop,
+                                      name="generation-scheduler")
 
     # -- construction hooks (PagedGenerationEngine overrides these) --------
     def _make_session(self, model, cfg: GenerationEngineConfig,
@@ -293,7 +381,23 @@ class GenerationEngine:
                         ) -> AdmissionController:
         budget = cfg.max_tokens_in_flight or self.slots * self.max_length
         return AdmissionController(cfg.max_queue, max_tokens=int(budget),
-                                   name=cfg.name)
+                                   name=cfg.name,
+                                   quotas=self._make_quotas(cfg))
+
+    @staticmethod
+    def _make_quotas(cfg: GenerationEngineConfig):
+        if not cfg.tenant_quotas:
+            return None
+        return TenantQuotaTable(cfg.tenant_quotas)
+
+    def set_quotas(self, quotas) -> int:
+        """Replace the per-tenant quota table (a dict of tenant ->
+        ``{"rate": tokens/s, "burst": tokens}``, a built
+        :class:`~paddle_tpu_torch.serving.admission.TenantQuotaTable`, or
+        None to drop quotas).  Validated before it is published; bucket
+        levels carry over, clamped to the new burst.  Returns the table's
+        generation (the ``QuotaWatcher`` apply hook)."""
+        return self._admission.set_quotas(quotas)
 
     def _init_slot_arrays(self):
         S = self.slots
@@ -308,6 +412,37 @@ class GenerationEngine:
     def _init_slot_state(self):
         self._caches = self.session.init_caches()
         self._init_slot_arrays()
+        if _memscope.active:
+            self._note_memory_tags()
+
+    # -- memory accounting ---------------------------------------------------
+    def _kv_arena_bytes(self) -> int:
+        """Device bytes of the KV store: the contiguous engine's per-slot
+        caches (the paged engine's arenas in its override)."""
+        return _memscope.tree_nbytes(getattr(self, "_caches", None))
+
+    def _params_bytes(self) -> int:
+        return _memscope.tree_nbytes(list(self.model.parameters())
+                                     + list(self.model.buffers()))
+
+    def _note_memory_tags(self):
+        """Attribute this engine's exactly-known footprints to memscope's
+        ``params`` and ``kv_arena`` tags (callers gate on its
+        predicate)."""
+        _memscope.set_tag_bytes("params", self._params_bytes())
+        _memscope.set_tag_bytes("kv_arena", self._kv_arena_bytes())
+
+    def memory_breakdown(self) -> Dict[str, int]:
+        """Where the engine's device memory goes (the ``/healthz``
+        fields): the parameters, the KV store, the prefix cache's share
+        and, with memory accounting on, the process's peak."""
+        return {
+            "mem_params_bytes": self._params_bytes(),
+            "mem_kv_arena_bytes": self._kv_arena_bytes(),
+            "mem_prefix_cache_bytes": 0,
+            "mem_peak_step_bytes":
+                _memscope.peak_bytes() if _memscope.active else 0,
+        }
 
     def _token_reservation(self, prompt, max_new: int) -> int:
         """Tokens reserved against the admission budget at submit: the
@@ -362,20 +497,30 @@ class GenerationEngine:
                 f"step(s) (first: {errors[0][0]}: {errors[0][1]!r}); they "
                 "capture again at first use", RuntimeWarning, stacklevel=3)
         self.warmed_buckets = len(self.session._cache)
+        _metrics.gauge(
+            f"{self.metrics_prefix}.decode_warmed_buckets",
+            "prefill/decode steps captured by the engine's warmup"
+            ).set(self.warmed_buckets)
 
     # -- client surface --------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                do_sample: bool = False, temperature: float = 1.0,
                top_k: int = 0, top_p: float = 1.0, seed: int = 0,
                eos_token_id: Optional[int] = None,
-               deadline_ms="default", tenant: Optional[str] = None,
+               deadline_ms="default", trace_ctx=None,
+               tenant: Optional[str] = None,
                priority: Optional[str] = None) -> GenerationStream:
         """Enqueue one prompt; returns a :class:`GenerationStream`.
         Raises :class:`RequestRejected` at admission (``queue_full``,
-        ``token_budget``, ``too_large``, ``closed``).  ``priority`` is one
-        of ``admission.PRIORITIES`` (``"interactive"`` < ``"standard"``,
-        the default, < ``"batch"``) and orders dequeue, with aging;
-        ``tenant`` labels the request's per-tenant counters."""
+        ``token_budget``, ``too_large``, ``tenant_quota``, ``closed``);
+        the ``serve.request`` chaos site can fail or delay here.
+        ``priority`` is one of ``admission.PRIORITIES``
+        (``"interactive"`` < ``"standard"``, the default, < ``"batch"``)
+        and orders dequeue, with aging; ``tenant`` charges the request's
+        prompt + max_new tokens to that tenant's bucket (when quotas are
+        set) and labels its per-tenant counters; ``trace_ctx`` (an
+        ``rtrace.TraceContext``) makes every hop of the request emit
+        request-scoped spans."""
         prompt = np.asarray(prompt).reshape(-1).astype(np.int32)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -384,23 +529,52 @@ class GenerationEngine:
         if max_new < 1:
             raise ValueError("max_new_tokens must be >= 1")
         rank = priority_rank(priority)      # ValueError on an unknown class
-        if prompt.size >= self.max_length:
-            self._admission.reject(
-                "too_large", f"prompt of {prompt.size} tokens leaves no "
-                f"room in the {self.max_length}-slot KV cache")
+        traced = trace_ctx is not None and _rtrace.active
+        t_adm = _tracer.now_ns() if traced else 0
         budget = self._token_reservation(prompt, max_new)
-        self._admission.acquire(tokens=budget, tenant=tenant)
+        # a tenant's bucket drains by what the request can consume,
+        # whatever the engine reserves (the paged engine reserves 0)
+        quota_cost = int(prompt.size) + max_new
+        try:
+            if prompt.size >= self.max_length:
+                self._admission.reject(
+                    "too_large", f"prompt of {prompt.size} tokens leaves no "
+                    f"room in the {self.max_length}-slot KV cache",
+                    tenant=tenant, priority=PRIORITIES[rank])
+            from ..utils import chaos as _chaos
+            if _chaos.active:
+                _chaos.hit("serve.request")
+            self._admission.acquire(tokens=budget, tenant=tenant,
+                                    priority=PRIORITIES[rank],
+                                    quota_tokens=quota_cost)
+        except RequestRejected as e:
+            if traced:
+                # a rejected request still leaves a terminated span with
+                # the verdict
+                trace_ctx.record("admission", t_adm, outcome=e.reason,
+                                 terminated=True)
+            raise
+        except Exception as e:
+            if traced:
+                trace_ctx.record("admission", t_adm,
+                                 outcome=type(e).__name__, terminated=True)
+            raise
+        if traced:
+            trace_ctx.record("admission", t_adm, outcome="admitted")
         if deadline_ms == "default":
             deadline_ms = self.config.deadline_ms
         req = _GenRequest(prompt, max_new,
                           float(temperature) if do_sample else 0.0,
                           int(top_k), float(top_p), int(seed), eos_token_id,
                           deadline_from_ms(deadline_ms), budget,
-                          tenant=tenant, priority=rank)
+                          ctx=trace_ctx, tenant=tenant, priority=rank)
         with self._cond:
             if self._closed:
                 self._admission.release()
                 self._admission.release_tokens(budget)
+                if traced:
+                    trace_ctx.record("queue_wait", req.t_submit_ns,
+                                     outcome="closed", terminated=True)
                 raise EngineClosed()
             self._pending.append(req)
             self._cond.notify()
@@ -411,27 +585,162 @@ class GenerationEngine:
         """Blocking submit: the whole generated sequence."""
         return self.submit(prompt, **kw).result(timeout=timeout)
 
-    def stats(self) -> Dict[str, int]:
-        """Outcome counts of the engine and its admission controller."""
-        out = dict(self.counts)
+    # -- operations ----------------------------------------------------------
+    def pause(self):
+        """Stop taking queued requests into slots (running slots keep
+        decoding); admission keeps filling the queue up to its bounds,
+        then sheds."""
+        with self._cond:
+            self._paused = True
+
+    def resume(self):
+        with self._cond:
+            self._paused = False
+            self._cond.notify_all()
+
+    def stats(self) -> Dict[str, object]:
+        """The registry's ``<name>.*`` entries, then this engine's own
+        outcome counts (see the class docstring)."""
+        prefix = self.metrics_prefix + "."
+        out: Dict[str, object] = {
+            k: v for k, v in _metrics.snapshot().items()
+            if k.startswith(prefix)}
+        out.update(self.counts)
         out.update(self._admission.counts)
         out["prefill_steps"] = self.session.steps["prefill"]
         out["decode_steps"] = self.session.steps["decode"]
         return out
 
+    @property
+    def occupancy(self) -> int:
+        """Occupied decode slots."""
+        return sum(1 for r in self._slot_req if r is not None)
+
+    @property
+    def parked(self) -> int:
+        """Requests preempted to host memory (always 0 on the contiguous
+        engine)."""
+        return len(self._parked)
+
+    def swap_weights(self, params, buffers=None, *,
+                     timeout: float = 60.0):
+        """Replace the model's weights between two engine steps, with no
+        restart and no capture.
+
+        ``params`` (and ``buffers``) map the model's ``named_parameters``
+        (``named_buffers``) names — its ``state_dict`` names — to tensors
+        or arrays; a reference tree goes through
+        ``models.gpt_state_from_paddle_tpu`` first.  The tree is checked
+        key for key, shape and dtype, before anything is touched (a
+        mismatch raises ``ValueError`` and the live weights stay), then
+        staged on the model's device.  The scheduler copies the staged
+        tensors into the live ones at the next token boundary (at once
+        when idle): running streams finish their current step on the old
+        weights and keep their slots and caches, and every later prefill
+        and decode replays its captured graph over the new ones.  Blocks
+        until the swap is applied; raises the application's error if it
+        failed.  The flight recorder's ``serve.weights_swap`` event
+        carries the staging's and the wait's milliseconds."""
+        import torch
+        t0 = time.perf_counter()
+        live_p = dict(self.model.named_parameters())
+        new_p = _as_tensors(params)
+        _check_swap_tree(live_p, new_p, "params")
+        pairs = [(live_p[k], v) for k, v in new_p.items()]
+        if buffers is not None:
+            live_b = dict(self.model.named_buffers())
+            new_b = _as_tensors(buffers)
+            _check_swap_tree(live_b, new_b, "buffers")
+            pairs += [(live_b[k], v) for k, v in new_b.items()]
+        # stage on the device under the session's lock: no graph is being
+        # captured meanwhile, and the copy the boundary waits on is
+        # device to device
+        with self.session._lock, torch.no_grad():
+            staged = [(live, torch.empty_like(live).copy_(new))
+                      for live, new in pairs]
+            dev = self.session.device
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        t1 = time.perf_counter()
+        done = threading.Event()
+        holder: Dict[str, BaseException] = {}
+        with self._cond:
+            if self._closed:
+                raise EngineClosed()
+            if self._swap is not None:
+                raise RuntimeError("another weight swap is already pending")
+            self._swap = (staged, done, holder)
+            self._cond.notify_all()
+        if not done.wait(timeout):
+            with self._cond:
+                if self._swap is not None and self._swap[1] is done:
+                    # withdrawn before the scheduler claimed it: it will
+                    # never apply
+                    self._swap = None
+                    raise TimeoutError(
+                        f"weight swap not applied within {timeout}s "
+                        "(scheduler wedged mid-step?)")
+            # the scheduler claimed it while we timed out: it is applying
+            # now, so wait that out rather than report the old weights live
+            if not done.wait(timeout):
+                raise TimeoutError(
+                    f"weight swap claimed by the scheduler but not applied "
+                    f"within another {timeout}s")
+        err = holder.get("error")
+        if err is not None:
+            raise err
+        with self._mlock:
+            _metrics.counter(f"{self.metrics_prefix}.weight_swaps",
+                             "weight swaps applied").inc()
+        if _flight.active:
+            _flight.note("serve", "weights_swap", engine=self.metrics_prefix,
+                         stage_ms=(t1 - t0) * 1e3,
+                         wait_ms=(time.perf_counter() - t1) * 1e3)
+
+    def _apply_swap(self):
+        """The scheduler's side of :meth:`swap_weights`, between token
+        boundaries: copy the staged tensors into the live ones in place
+        (the captured graphs read the live tensors' memory)."""
+        import torch
+        with self._cond:
+            swap, self._swap = self._swap, None
+        if swap is None:
+            return
+        staged, done, holder = swap
+        try:
+            with torch.no_grad():
+                for live, new in staged:
+                    live.copy_(new)
+        except BaseException as e:     # noqa: BLE001 — raised to the caller
+            holder["error"] = e
+        finally:
+            done.set()
+
+    def _drain_swap(self, exc: BaseException):
+        """Resolve a swap the scheduler will never apply (the engine is
+        closing), so its caller's wait cannot hang."""
+        with self._cond:
+            swap, self._swap = self._swap, None
+        if swap is not None:
+            swap[2]["error"] = exc
+            swap[1].set()
+
     def close(self, timeout: Optional[float] = 60.0):
         """Reject new work, let queued and running requests finish, and
         join the scheduler thread."""
+        self.ready = False
         self._admission.close()
         with self._cond:
             if not self._closed:
                 self._closed = True
                 self._stop = True
+                self._paused = False
                 self._cond.notify_all()
         self._scheduler.join(timeout=timeout)
         if self._scheduler.is_alive():
             raise TimeoutError(f"generation scheduler still running after "
                                f"{timeout}s")
+        self._drain_swap(EngineClosed())
 
     def __enter__(self):
         return self
@@ -446,6 +755,16 @@ class GenerationEngine:
     def _busy(self) -> bool:
         return bool(self._pending or self._parked or self._occupied())
 
+    def _idle(self) -> bool:
+        """Nothing for the scheduler to do (the caller holds ``_cond``):
+        no swap or transfer queued, and no work, or paused with no
+        running slot."""
+        if self._swap is not None or self._imports or self._exports:
+            return False
+        if self._stop:
+            return False
+        return not self._busy() or (self._paused and not self._occupied())
+
     def _loop(self):
         if self.config.warmup == "async":
             try:
@@ -454,11 +773,15 @@ class GenerationEngine:
                 self.ready = not self._closed
         while True:
             with self._cond:
-                while not self._stop and not self._busy() \
-                        and not self._imports and not self._exports:
+                while self._idle():
                     self._cond.wait()
                 if self._stop and not self._busy():
                     break
+            if self._swap is not None:
+                # between boundaries by construction: the last step has
+                # returned, the next has not started
+                self._apply_swap()
+                continue
             try:
                 self._admit()
                 occ = self._occupied()
@@ -467,11 +790,37 @@ class GenerationEngine:
             except Exception as e:  # noqa: BLE001 — fail everything in flight
                 self._fail_all(e)
 
+    def _trace_boundary(self, name: str, t0: int, t1: int,
+                        slots: List[int], **fields):
+        """Request-trace accounting for one batched step: ONE
+        ``batch::<name>`` span linked to every traced member's root, and
+        a ``<name>`` span per member pointing back at it.  Callers gate
+        on ``_rtrace.active``."""
+        ctxs, reqs = [], []
+        for s in slots:
+            r = self._slot_req[s]
+            if r is not None and r.ctx is not None:
+                ctxs.append(r.ctx)
+                reqs.append((s, r))
+        if not ctxs:
+            return
+        bspan = _rtrace.batch_span(f"batch::{name}", t0, t1, ctxs,
+                                   **fields)
+        for s, r in reqs:
+            r.ctx.record(name, t0, t1, batch_span=bspan, slot=s,
+                         position=int(self._positions[s]))
+
     def _decode_round(self, occ: List[int]):
         """One token boundary: one decode step for every occupied slot."""
+        t0 = _tracer.now_ns() if _rtrace.active else 0
         tok, self._caches = self.session.decode(
             self._caches, self._last_tok, self._positions, self._seeds,
-            self._temps, self._tks, self._tps)
+            self._temps, self._tks, self._tps, live_rows=len(occ))
+        if t0:
+            self._trace_boundary("decode", t0, _tracer.now_ns(), occ,
+                                 occupancy=len(occ))
+        with self._mlock:
+            self._m_occ.observe(len(occ))
         self._positions = self._positions + 1
         self._last_tok = np.array(tok, np.int32)
         for s in occ:
@@ -498,9 +847,12 @@ class GenerationEngine:
 
     def _take_pending(self) -> List[Tuple[int, _GenRequest]]:
         """Queued requests for the free slots, in dequeue order; the
-        expired ones are shed and the cancelled ones retired."""
+        expired ones are shed and the cancelled ones retired.  Nothing
+        while paused."""
         took: List[Tuple[int, _GenRequest]] = []
         with self._cond:
+            if self._paused:
+                return took
             free = [i for i, r in enumerate(self._slot_req) if r is None]
             while self._pending and free:
                 req = self._pop_pending()
@@ -537,26 +889,42 @@ class GenerationEngine:
                 self._slot_req[slot] = req
                 self._set_slot_knobs(slot, req)
                 self._note_slot_admit(slot, req)
+            t0 = _tracer.now_ns() if _rtrace.active else 0
             tok, self._caches = self.session.prefill(
                 self._caches, ids, plens, mask, self._seeds, self._temps,
                 self._tks, self._tps)
+            if t0:
+                self._trace_boundary("prefill", t0, _tracer.now_ns(),
+                                     [s for s, _r in members], bucket=pb)
             for slot, req in members:
                 self._positions[slot] = plens[slot]
                 self._last_tok[slot] = tok[slot]
                 self._emit(slot, int(tok[slot]))
 
     def _note_slot_admit(self, slot: int, req: _GenRequest):
-        """The flight event of a request entering a decode slot."""
+        """The queue-wait span and the flight event of a request entering
+        a decode slot."""
+        if req.ctx is not None and _rtrace.active:
+            req.ctx.record("queue_wait", req.t_submit_ns, slot=slot)
         if _flight.active:
             _flight.note("serve", "slot_admit", engine=self.metrics_prefix,
-                         slot=slot, prompt=int(req.prompt.size))
+                         slot=slot, request=req.request_id,
+                         prompt=int(req.prompt.size))
 
     def _emit(self, slot: int, tok: int):
         req = self._slot_req[slot]
         if req is None:
             return
-        if req.t_first is None:
-            req.t_first = time.monotonic()
+        # the step's tokens are on the host already: a host clock read, no
+        # device sync
+        now = time.monotonic()
+        with self._mlock:
+            if req.t_first is None:
+                req.t_first = now
+                self._m_ttft.observe((now - req.t_submit) * 1e3)
+            else:
+                self._m_itl.observe((now - req.t_last) * 1e3)
+        req.t_last = now
         req.tokens.append(tok)
         req.queue.put(tok)
         hit_eos = req.eos is not None and tok == int(req.eos)
@@ -576,23 +944,47 @@ class GenerationEngine:
         its token reservation, and in the paged engine its KV blocks."""
         self._admission.release_tokens(req.budget)
 
-    def _note_tenant(self, req: _GenRequest, what: str, n: int = 1):
-        """One count on ``<name>.tenant.<tenant>.<what>``; nothing for a
-        request without a tenant."""
+    def _note_tenant(self, req: _GenRequest, what: str, n: int = 1,
+                     latency_ms: Optional[float] = None):
+        """One count on ``<name>.tenant.<tenant>.<what>`` (and, given,
+        one observation of the tenant's ``latency_ms``); nothing for a
+        request without a tenant.  Callers must not hold ``_mlock``."""
         if req.tenant is None:
             return
-        _metrics.counter(f"{self.metrics_prefix}.tenant.{req.tenant}.{what}",
-                         f"per-tenant {what}").inc(n)
+        base = f"{self.metrics_prefix}.tenant.{req.tenant}"
+        with self._mlock:
+            _metrics.counter(f"{base}.{what}",
+                             f"per-tenant {what} (requests or tokens)"
+                             ).inc(n)
+            if latency_ms is not None:
+                _metrics.histogram(
+                    f"{base}.latency_ms",
+                    "per-tenant end-to-end request latency"
+                    ).observe(latency_ms)
 
     def _retire(self, req: _GenRequest, slot: Optional[int]):
         if slot is not None:
             self._slot_req[slot] = None
         self._release_resources(req)
+        if _flight.active:
+            _flight.note("serve", "slot_retire", engine=self.metrics_prefix,
+                         slot=slot, request=req.request_id,
+                         reason=req.finish_reason or (
+                             "cancelled" if req.cancelled else "done"),
+                         tokens=len(req.tokens))
         if not req.future.done():
             req.future.set_result(np.asarray(req.tokens, np.int32))
-            self.counts["cancelled" if req.cancelled else "completed"] += 1
+            with self._mlock:
+                if req.cancelled:
+                    self.counts["cancelled"] += 1
+                    self._m_cancelled.inc()
+                else:
+                    self.counts["completed"] += 1
+                    self._m_done.inc()
             if not req.cancelled:
-                self._note_tenant(req, "completed")
+                self._note_tenant(
+                    req, "completed",
+                    latency_ms=(time.monotonic() - req.t_submit) * 1e3)
                 self._note_tenant(req, "tokens_out", len(req.tokens))
         req.queue.put(None)
 
@@ -600,6 +992,9 @@ class GenerationEngine:
         self._admission.shed_deadline()
         self._note_tenant(req, "shed")
         self._release_resources(req)
+        if req.ctx is not None and _rtrace.active:
+            req.ctx.record("queue_wait", req.t_submit_ns,
+                           outcome="shed_deadline", terminated=True)
         exc = DeadlineExceeded("request deadline expired while queued")
         if not req.future.done():
             req.future.set_exception(exc)
@@ -617,16 +1012,28 @@ class GenerationEngine:
         victims = pending + parked + [r for r in self._slot_req
                                       if r is not None]
         self._slot_req = [None] * self.slots
+        if _memscope.active and _memscope.is_oom(exc):
+            # forensics before the victims fail with the original error
+            _memscope.oom_dump(
+                exc, context=f"engine:{self.metrics_prefix}",
+                pool=getattr(self, "pool", None),
+                prefix_cache=getattr(self, "prefix_cache", None))
         if _flight.active:
             _flight.note("serve", "engine_failure",
                          engine=self.metrics_prefix,
                          error=f"{type(exc).__name__}: {exc}",
                          victims=len(victims))
+            _flight.dump(reason="engine-failure")
         for req in victims:
             self._release_resources(req)
+            if req.ctx is not None and _rtrace.active:
+                req.ctx.record("failed", req.t_submit_ns,
+                               outcome=type(exc).__name__, terminated=True)
             if not req.future.done():
                 req.future.set_exception(exc)
-                self.counts["failed"] += 1
+                with self._mlock:
+                    self.counts["failed"] += 1
+                    self._m_failed.inc()
             req.queue.put(exc)
 
 
@@ -683,7 +1090,8 @@ class PagedGenerationEngine(GenerationEngine):
         # no token budget: queue depth at submit, then live block-pool
         # occupancy at allocation
         return AdmissionController(cfg.max_queue, max_tokens=None,
-                                   name=cfg.name)
+                                   name=cfg.name,
+                                   quotas=self._make_quotas(cfg))
 
     def _token_reservation(self, prompt, max_new: int) -> int:
         return 0
@@ -718,23 +1126,18 @@ class PagedGenerationEngine(GenerationEngine):
         self._g_parked = _metrics.gauge(
             f"{p}.requests_parked", "requests swapped out to host memory "
             "awaiting blocks")
+        if _memscope.active:
+            self._note_memory_tags()
 
     def _kv_arena_bytes(self) -> int:
-        return sum(f.numel() * f.element_size()
-                   for a in self._arenas for f in a)
+        """The arenas' device bytes, the sink block included."""
+        return _memscope.tree_nbytes(getattr(self, "_arenas", None))
 
     def memory_breakdown(self) -> Dict[str, int]:
-        """Where the engine's device memory goes: the parameters, the
-        arenas (the sink block included) and the prefix cache's share."""
-        return {
-            "mem_params_bytes": sum(
-                t.numel() * t.element_size()
-                for t in list(self.model.parameters())
-                + list(self.model.buffers())),
-            "mem_kv_arena_bytes": self._kv_arena_bytes(),
-            "mem_prefix_cache_bytes":
-                len(self.prefix_cache) * int(self.pool.block_bytes),
-        }
+        out = super().memory_breakdown()
+        out["mem_prefix_cache_bytes"] = \
+            len(self.prefix_cache) * int(self.pool.block_bytes)
+        return out
 
     def _warmup(self):
         """Every chunk width captured over the engine's own arenas with an
@@ -945,7 +1348,14 @@ class PagedGenerationEngine(GenerationEngine):
         have = len(req.blocks)
         if need <= have:
             return
-        fresh = self.pool.alloc(need - have)
+        if _rtrace.active and req.ctx is not None:
+            # the pool's exhaustion events carry the request's identity
+            _rtrace.set_current(req.ctx)
+        try:
+            fresh = self.pool.alloc(need - have)
+        finally:
+            if _rtrace.active:
+                _rtrace.set_current(None)
         req.blocks.extend(fresh)
         self._table[slot, have:have + len(fresh)] = fresh
 
@@ -956,9 +1366,21 @@ class PagedGenerationEngine(GenerationEngine):
         if slot is not None:
             self._slot_req[slot] = None
             self._table[slot, :] = -1
+        if _memscope.active:
+            # what filled the pool, even though the shed is graceful (one
+            # artifact per process; the flight event fires every time)
+            _memscope.oom_dump(
+                cause if isinstance(cause, BaseException)
+                else RuntimeError(str(cause)),
+                context=f"kv_shed:{self.metrics_prefix}",
+                pool=self.pool, prefix_cache=self.prefix_cache)
         if _flight.active:
             _flight.note("serve", "kv_shed", engine=self.metrics_prefix,
-                         slot=slot, cause=str(cause))
+                         slot=slot, request=req.request_id,
+                         cause=str(cause))
+        if req.ctx is not None and _rtrace.active:
+            req.ctx.record("shed", req.t_submit_ns, outcome="kv_blocks",
+                           terminated=True)
         self._note_tenant(req, "shed")
         self._release_resources(req)
         exc = RequestRejected(
@@ -1023,14 +1445,18 @@ class PagedGenerationEngine(GenerationEngine):
         self._release_resources(req)        # frees the device blocks
         with self._cond:
             self._parked.append(req)
-        self._m_preempted.inc()
-        self._g_parked.set(len(self._parked))
+        with self._mlock:
+            self._m_preempted.inc()
+            self._g_parked.set(len(self._parked))
         self._note_tenant(req, "preempted")
         if _flight.active:
             _flight.note("serve", "preempt", engine=self.metrics_prefix,
-                         slot=slot, tenant=req.tenant,
-                         priority=req.priority_name, blocks=nblocks,
-                         position=pos)
+                         slot=slot, request=req.request_id,
+                         tenant=req.tenant, priority=req.priority_name,
+                         blocks=nblocks, position=pos)
+        if req.ctx is not None and _rtrace.active:
+            req.ctx.record("preempt", _tracer.now_ns(), slot=slot,
+                           blocks=nblocks)
 
     def _sweep_parked(self):
         """A parked stream whose deadline passed (or that was cancelled)
@@ -1118,14 +1544,18 @@ class PagedGenerationEngine(GenerationEngine):
         self._positions[slot] = park["pos"]
         self._last_tok[slot] = park["last"]
         self._set_slot_knobs(slot, req)
-        self._m_resumed.inc()
-        self._g_parked.set(len(self._parked))
+        with self._mlock:
+            self._m_resumed.inc()
+            self._g_parked.set(len(self._parked))
         self._note_tenant(req, "resumed")
         if _flight.active:
             _flight.note("serve", "resume", engine=self.metrics_prefix,
-                         slot=slot, tenant=req.tenant,
-                         priority=req.priority_name, blocks=len(blocks),
-                         position=park["pos"])
+                         slot=slot, request=req.request_id,
+                         tenant=req.tenant, priority=req.priority_name,
+                         blocks=len(blocks), position=park["pos"])
+        if req.ctx is not None and _rtrace.active:
+            req.ctx.record("resume", _tracer.now_ns(), slot=slot,
+                           blocks=len(blocks))
 
     def _retire(self, req: _GenRequest, slot: Optional[int]):
         if slot is not None:
@@ -1207,9 +1637,13 @@ class PagedGenerationEngine(GenerationEngine):
                 ids[slot, :len(suffix)] = suffix
                 starts[slot] = req.cached_len
                 feed[slot] = len(suffix)
+            t0 = _tracer.now_ns() if _rtrace.active else 0
             tok, self._arenas = self.session.prefill(
                 self._arenas, self._table, ids, starts, feed, self._seeds,
                 self._temps, self._tks, self._tps, live_rows=len(members))
+            if t0:
+                self._trace_boundary("prefill", t0, _tracer.now_ns(),
+                                     [s for s, _r in members], bucket=pb)
             for slot, req in members:
                 # offer the filled prompt blocks to the prefix cache
                 # before emit (which may retire the request)
@@ -1267,10 +1701,16 @@ class PagedGenerationEngine(GenerationEngine):
         occ = self._grow(occ, lambda s: 0)
         if not occ:
             return
+        t0 = _tracer.now_ns() if _rtrace.active else 0
         tok, self._arenas = self.session.decode(
             self._arenas, self._table, self._last_tok, self._positions,
             self._seeds, self._temps, self._tks, self._tps,
             live_rows=len(occ))
+        if t0:
+            self._trace_boundary("decode", t0, _tracer.now_ns(), occ,
+                                 occupancy=len(occ))
+        with self._mlock:
+            self._m_occ.observe(len(occ))
         # rows freed this boundary sit at position 0 with a -1 table:
         # their writes land in the sink
         self._positions = self._positions + 1
@@ -1293,10 +1733,17 @@ class PagedGenerationEngine(GenerationEngine):
         for s in live:
             fill_verify_row(ids, feed, s, int(self._last_tok[s]),
                             drafts.get(s) or [])
+        t0 = _tracer.now_ns() if _rtrace.active else 0
         toks, self._arenas = self.session.verify(
             self._arenas, self._table, ids, self._positions, feed,
             self._seeds, self._temps, self._tks, self._tps,
             live_rows=len(live))
+        if t0:
+            # the verify step is this boundary's decode work
+            self._trace_boundary("decode", t0, _tracer.now_ns(), live,
+                                 occupancy=len(live), verify_width=W)
+        with self._mlock:
+            self._m_occ.observe(len(live))
         proposed = sum(len(drafts.get(s) or []) for s in live)
         accepted = 0
         for s in live:
@@ -1311,8 +1758,9 @@ class PagedGenerationEngine(GenerationEngine):
                     accepted += 1
                 if self._slot_req[s] is None:
                     break           # retired mid-span (eos, budget)
-        self._m_spec_proposed.inc(proposed)
-        self._m_spec_accepted.inc(accepted)
-        total = self._m_spec_proposed.value
-        self._g_spec_rate.set(self._m_spec_accepted.value / total
-                              if total else 0.0)
+        with self._mlock:
+            self._m_spec_proposed.inc(proposed)
+            self._m_spec_accepted.inc(accepted)
+            total = self._m_spec_proposed.value
+            self._g_spec_rate.set(self._m_spec_accepted.value / total
+                                  if total else 0.0)

@@ -19,8 +19,12 @@ budget remat), ``FLAGS_anomaly_action`` (``Model.fit``'s guard),
 (``profiler/flight.py``), ``FLAGS_serving_queue_depth``,
 ``FLAGS_kv_cache_dtype``, ``FLAGS_prefix_cache_blocks`` and
 ``FLAGS_speculative_k`` (the defaults of
-``serving.GenerationEngineConfig``).  Each other flag's doc string names
-the ``ROADMAP.md`` item whose module will read it.
+``serving.GenerationEngineConfig``), ``FLAGS_lock_san`` and
+``FLAGS_lock_hold_warn_ms`` (``utils/concurrency.py``),
+``FLAGS_host_tracer_capacity`` (``profiler/tracer.py``),
+``FLAGS_request_trace`` (``profiler/rtrace.py``) and
+``FLAGS_mem_accounting`` (``profiler/memscope.py``).  Each other flag's
+doc string names the ``ROADMAP.md`` item whose module will read it.
 """
 from __future__ import annotations
 
@@ -151,7 +155,7 @@ define_flag("FLAGS_program_opt_skip", "",
 define_flag("FLAGS_aot_store_max_mb", 2048,
             "the artifact store's size cap (ROADMAP.md A8)")
 define_flag("FLAGS_host_tracer_capacity", 1 << 20,
-            "the profiler's host span ring (ROADMAP.md A8)")
+            "profiler/tracer.py: the host span ring's capacity")
 define_flag("FLAGS_chaos_spec", "",
             "utils/chaos.py: the fault-injection schedule")
 define_flag("FLAGS_chaos_seed", 0,
@@ -166,10 +170,10 @@ define_flag("FLAGS_serving_queue_depth", 128,
 define_flag("FLAGS_compile_cache_dir", "",
             "the persistent compilation cache (ROADMAP.md A8)")
 define_flag("FLAGS_lock_san", 0,
-            "the lock sanitizer's level (utils/concurrency.py, ROADMAP.md "
-            "A8)")
+            "utils/concurrency.py: the lock sanitizer's level (0 off, 1 "
+            "warn, 2 raise)")
 define_flag("FLAGS_lock_hold_warn_ms", 200.0,
-            "the lock sanitizer's long-hold warning (ROADMAP.md A8)")
+            "utils/concurrency.py: the lock sanitizer's long-hold warning")
 define_flag("FLAGS_straggler_factor", 3.0,
             "the supervised launch's straggler detection (ROADMAP.md A5)")
 define_flag("FLAGS_straggler_patience", 3,
@@ -185,9 +189,9 @@ define_flag("FLAGS_prefix_cache_blocks", 0,
 define_flag("FLAGS_speculative_k", 0,
             "serving/engine.py: speculative decoding's draft tokens")
 define_flag("FLAGS_request_trace", False,
-            "per-request serving traces (ROADMAP.md A4)")
+            "profiler/rtrace.py: per-request serving traces")
 define_flag("FLAGS_mem_accounting", False,
-            "device-memory accounting, memscope (ROADMAP.md A8)")
+            "profiler/memscope.py: device-memory accounting")
 define_flag("FLAGS_flight_recorder", True,
             "profiler/flight.py: the flight recorder's event ring")
 define_flag("FLAGS_flight_recorder_capacity", 2048,

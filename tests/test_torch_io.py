@@ -9,6 +9,8 @@ prefetcher runs here with ``device="cpu"``, where it collates on its
 thread and moves nothing; its copies onto the card are tested in
 ``tests/test_torch_cuda.py``.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -284,6 +286,44 @@ def test_prefetcher_refetches_a_failed_batch():
     with pytest.warns(UserWarning), \
             pytest.raises(RuntimeError, match="refetches"):
         list(loader)
+
+
+def test_prefetcher_chaos_kill_recovered_zero_lost():
+    """The loader.worker chaos site kills the third fetch; the prefetcher
+    refetches it: 5 batches equal to the plain loader's, one refetch in
+    its stats and in io.prefetch.refetch (the reference's
+    tests/test_async_pipeline.py:106-121)."""
+    from paddle_tpu_torch.profiler import metrics
+    from paddle_tpu_torch.utils import chaos
+    want = [_np(b[0]) for b in io.DataLoader(ArrayDS(), batch_size=4)]
+    r0 = metrics.counter("io.prefetch.refetch").value
+    chaos.configure("loader.worker:fail@3", seed=0)
+    try:
+        ld = io.DataLoader(ArrayDS(), batch_size=4, prefetch_to_device=2,
+                           places="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got = [_np(b[0]) for b in ld]
+    finally:
+        chaos.reset()
+    assert len(got) == 5 and all(np.array_equal(a, b)
+                                 for a, b in zip(want, got))
+    assert ld._last_prefetcher.stats["refetch"] == 1
+    assert metrics.counter("io.prefetch.refetch").value == r0 + 1
+
+
+def test_prefetcher_retries_exhausted_raises():
+    from paddle_tpu_torch.utils import chaos
+    chaos.configure("loader.worker:fail@1-", seed=0)   # every call fails
+    try:
+        ld = io.DataLoader(ArrayDS(), batch_size=4, prefetch_to_device=2,
+                           places="cpu")
+        with pytest.raises(RuntimeError, match="refetches"), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            list(ld)
+    finally:
+        chaos.reset()
 
 
 def test_prefetcher_wants_the_card_unless_told_cpu(monkeypatch):
