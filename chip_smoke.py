@@ -293,6 +293,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
             of caches), the capture ledger, no lock-order cycle, the
             long holds, decode ms/step and tokens/s beside 18a's; the
             phase's seconds
+19. profiler phase 12's O1 GPT (B 32, T 512, prefetch 2, captured)
+            under paddle_tpu_torch.profiler: 19a an 8-step fit under
+            ProfilerCallback(Profiler(make_scheduler(closed=1, ready=1,
+            record=3, skip_first=1), with_device_trace=True)): windows as
+            the state machine gives them, a hapi::train_step span and a
+            cudaGraphLaunch a recorded step, each replay's flash_attn_sm90
+            forwards, backward passes and fused update in the device
+            trace as the launch counters say (up to 3 attempts, CUPTI
+            loses records), each launch inside its step's span after the
+            clock offset, trace_summary.py --cat kernel on the merged
+            export listing the sm90 kernels; 19b FLAGS_mem_accounting:
+            goodput fractions summing to 1, params and opt_state tags
+            equal to the counted bytes, the step peak, a ledger entry per
+            capture, the goodput file; 19c start_profiler / stop_profiler
+            around two train_batch calls; 19d step ms p50 with tracing
+            and accounting off and on, beside phase 12's
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -6708,13 +6724,401 @@ def http_path(torch, fa, dev, width, phase5):
     return out
 
 
+# -- phase 19: the profiler's windows on phase 12's O1 GPT ----------------------
+PROFILE_FIT = dict(width=GPT_WIDTH, batch=32, seq=512, steps=8, cost_steps=12,
+                   cost_rounds=2)
+PROFILE_SCHED = dict(closed=1, ready=1, record=3, skip_first=1)
+PROFILE_ATTEMPTS = 3         # CUPTI loses kernel records (PERF.md section 7)
+# the kernels of a captured O1 step that the device trace must hold, as
+# kineto names them (demangled, csrc/*.cu's anonymous namespace), each with
+# the launch counter it is held to: the row 1 forward and the row 6
+# backward's three passes on csrc/flash_attn_sm90.cu, the fused update and
+# its powers' advance on csrc/multi_tensor_update.cu
+TRACE_KERNELS = (("sm90_fwd", "(anonymous namespace)::fwd_kernel<", "sm90_fwd"),
+                 ("sm90_delta", "(anonymous namespace)::delta_kernel<",
+                  "sm90_bwd"),
+                 ("sm90_dkv", "(anonymous namespace)::dkv_kernel<", "sm90_bwd"),
+                 ("sm90_dq", "(anonymous namespace)::dq_kernel<", "sm90_bwd"),
+                 ("mt_update", "(anonymous namespace)::mt_update_kernel<",
+                  "update"),
+                 ("mt_pows", "(anonymous namespace)::mt_pows_kernel(",
+                  "update_pows"))
+
+
+def expected_windows(prof, sched, n):
+    """The record windows a Profiler driven by ``sched`` closes over a
+    ``fit`` of ``n`` steps, each the batch indices it records: batch i runs
+    in state ``sched(i)``; a window closes on leaving the record states or
+    after RECORD_AND_RETURN, and one open at ``stop()`` (state ``sched(n)``)
+    closes there, with no batch."""
+    rec = (prof.ProfilerState.RECORD, prof.ProfilerState.RECORD_AND_RETURN)
+    windows, cur = [], None
+    for i in range(n + 1):
+        state = sched(i)
+        if state in rec:
+            cur = [] if cur is None else cur
+            if i < n:
+                cur.append(i)
+            if state is prof.ProfilerState.RECORD_AND_RETURN and i < n:
+                windows.append(cur)
+                cur = None
+        elif cur is not None:
+            windows.append(cur)
+            cur = None
+    if cur is not None:
+        windows.append(cur)
+    return windows
+
+
+def _trace_counts(events, launch):
+    """The TRACE_KERNELS kernels of one graph replay (the kernels whose
+    correlation id is its cudaGraphLaunch's), and all its kernels."""
+    corr = launch["args"]["correlation"]
+    out = {name: 0 for name, _, _ in TRACE_KERNELS}
+    total = 0
+    for e in events:
+        if e.get("cat") == "kernel" and \
+                e.get("args", {}).get("correlation") == corr:
+            total += 1
+            for name, pat, _ in TRACE_KERNELS:
+                if pat in e["name"]:
+                    out[name] += 1
+    return out, total
+
+
+def _counted(launches):
+    """The TRACE_KERNELS counts one step's launch counters give."""
+    by = dict(sm90_fwd=launches["sm90_fwd"], sm90_bwd=launches["sm90_bwd"],
+              update=sum(launches["update"].values()),
+              update_pows=launches["update_pows"])
+    return {name: by[key] for name, _, key in TRACE_KERNELS}
+
+
+def check_window(win, steps, watch_steps):
+    """One window of 19a against the batches ``steps`` it should record:
+    its host spans, its device trace (one cudaGraphLaunch a step, each
+    replay's TRACE_KERNELS as the step's counters say) and the clock (each
+    launch inside its step's ``hapi::train_step`` span).  Returns the
+    verdict; ``whole`` is False when the trace lost records."""
+    host = win["events"]
+    spans = sorted((e for e in host if e[0] == "hapi::train_step"),
+                   key=lambda e: e[1])
+    cats = {e[4] for e in host}
+    dev = win["device"]
+    evs = dev["events"]
+    launches = sorted((e for e in evs if e.get("name") == "cudaGraphLaunch"),
+                      key=lambda e: e["ts"])
+    per = [_trace_counts(evs, ln) for ln in launches]
+    want = [_counted(watch_steps[i]["launches"]) for i in steps]
+    whole = len(launches) == len(steps) and \
+        [c for c, _ in per] == want and len({t for _, t in per}) <= 1
+    inside = [s[1] / 1e3 <= ln["ts"] and ln["ts"] + ln["dur"] <= s[2] / 1e3
+              for ln, s in zip(launches, spans)]
+    return dict(steps=steps, step_num=win["step_num"],
+                host_steps=len(spans), host_cats=sorted(cats),
+                host_ok=len(spans) == len(steps) and (
+                    not steps or {"hapi", "dataloader"} <= cats),
+                graph_launches=len(launches), kernels=[c for c, _ in per],
+                kernels_per_replay=sorted({t for _, t in per}), want=want,
+                whole=whole, launches_inside_steps=inside,
+                clock_ok=whole and len(inside) == len(steps) and all(inside),
+                offset_us=dev["offset_us"], skew_us=dev["skew_us"],
+                path=dev["path"])
+
+
+def _kernel_table(path, merged):
+    """``tools/trace_summary.py --cat kernel`` on ``merged``: (its rows
+    naming TRACE_KERNELS' sm90 kernels, its output)."""
+    r = subprocess.run([sys.executable, os.path.join(path, "tools",
+                                                     "trace_summary.py"),
+                        merged, "--cat", "kernel", "-n", "200"],
+                       capture_output=True, text=True, timeout=120,
+                       check=True)
+    named = {name: [ln for ln in r.stdout.splitlines() if pat in ln]
+             for name, pat, _ in TRACE_KERNELS if name.startswith("sm90")}
+    return named, r.stdout
+
+
+def profiler_path(torch, fa, dev, cfg=PROFILE_FIT, phase12_ms=None):
+    """Phase 19: paddle_tpu_torch.profiler on phase 12's O1 GPT (V 30528,
+    D 768, L 12, H 12, T 512, B 32, ``profile_train.fit_recipe``,
+    ``prepare(jit=True)``, ``prefetch_to_device=2``), built once.
+    19a: ``fit`` of ``cfg["steps"]`` steps under ``ProfilerCallback(
+    Profiler(make_scheduler(**PROFILE_SCHED), with_device_trace=True))``:
+    the windows and their batches are the state machine's; each window's
+    host spans hold a ``hapi::train_step`` a batch (and the ``hapi`` and
+    ``dataloader`` categories); its device trace a cudaGraphLaunch a batch
+    whose replay holds TRACE_KERNELS as the step's launch counters say
+    (else the trace lost records: the fit is traced again, up to
+    PROFILE_ATTEMPTS in all, and the phase fails if none is whole); each
+    launch inside its step's span after the clock offset; the first
+    window's merged export (``export_chrome_tracing`` from
+    ``on_trace_ready``) lists the sm90 kernels in ``trace_summary.py --cat
+    kernel``.  19b: one epoch of a fresh model under
+    ``FLAGS_mem_accounting``: goodput fractions sum to 1 within 0.01; the
+    ``params`` and ``opt_state`` tags equal the bytes of the parameters
+    and of the slots and masters counted here; the ``step`` peak no more
+    than ``max_memory_allocated``; a ``hapi.train_step`` ledger entry per
+    capture; the goodput file.  19c: two ``train_batch`` calls between
+    ``start_profiler`` and ``stop_profiler``: the file holds their sm90
+    kernels.  19d: step ms p50 (CUDA events at each step's begin and end,
+    unsynchronised) with everything off, the host tracer, a recording
+    window with its device trace, memory accounting, in
+    ``cfg["cost_rounds"]`` rounds of alternating order; printed beside
+    ``phase12_ms``, phase 12's O1 step ms p50 with and without its
+    metric, not gated.  Returns the report."""
+    import gc
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import profiler as prof
+    from paddle_tpu_torch.callbacks import ProfilerCallback
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.profiler import memscope
+    from paddle_tpu_torch.tools import profile_train as pt
+    t_phase = time.perf_counter()
+    w, B, T = cfg["width"], cfg["batch"], cfg["seq"]
+    net = GPT(GPTConfig(**w), device=dev, seed=0)
+    data = TensorDataset(pt.fit_data(cfg["steps"] * B, 0, w["vocab_size"],
+                                     T))
+    cost_data = TensorDataset(pt.fit_data(cfg["cost_steps"] * B, 0,
+                                          w["vocab_size"], T))
+
+    def reset():
+        _reset_attention(fa)
+        _reset_update()
+
+    def launches():
+        return dict(_attention_launches(fa), **_update_launches())
+
+    def fit(model, callbacks, ds=data):
+        watch = _fit_watch(torch, reset, launches)
+        try:
+            model.fit(ds, batch_size=B, epochs=1, shuffle=False, verbose=0,
+                      prefetch_to_device=2, callbacks=[watch] + callbacks)
+        finally:
+            watch.set_model(None)
+        torch.cuda.synchronize()
+        return watch
+
+    out, checks = dict(config={k: v for k, v in cfg.items()
+                               if k != "width"}, schedule=PROFILE_SCHED), {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profiler_")
+    try:
+        log(f"== phase 19a: fit of {cfg['steps']} steps under "
+            f"ProfilerCallback, make_scheduler({PROFILE_SCHED}), device "
+            f"trace")
+        model = pt.fit_recipe(net, amp="O1")
+        sched = prof.make_scheduler(**PROFILE_SCHED)
+        want = expected_windows(prof, sched, cfg["steps"])
+        attempts, verdicts = [], None
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            windows = []
+            d = os.path.join(tmp, f"19a_{attempt}")
+
+            def ready(p, d=d, windows=windows):
+                merged = None
+                if p.events:
+                    merged = prof.export_chrome_tracing(os.path.join(
+                        d, f"merged.{len(windows)}.json"), events=p.events)
+                windows.append(dict(step_num=p.step_num, events=p.events,
+                                    device=p.device_trace, merged=merged))
+            p = prof.Profiler(scheduler=sched, with_device_trace=True,
+                              log_dir=d, on_trace_ready=ready)
+            watch = fit(model, [ProfilerCallback(profiler=p, summary=False)])
+            captured = [s["step"] for s in watch.steps if s["captured"]]
+            if [win["step_num"] for win in windows] != \
+                    [(s[-1] + 1 if s else cfg["steps"]) for s in want]:
+                raise AssertionError(
+                    f"19a: windows closed at steps "
+                    f"{[win['step_num'] for win in windows]}, the state "
+                    f"machine closes {want}")
+            verdicts = [check_window(win, s, watch.steps)
+                        for win, s in zip(windows, want)]
+            attempts.append(dict(
+                attempt=attempt, captured=captured,
+                whole=[v["whole"] for v in verdicts],
+                graph_launches=[v["graph_launches"] for v in verdicts],
+                kernels=[v["kernels"] for v in verdicts]))
+            log(f"  19a attempt {attempt}: captures at batches {captured}; "
+                f"windows {[v['steps'] for v in verdicts]} (closing at "
+                f"steps {[v['step_num'] for v in verdicts]}); graph "
+                f"launches {[v['graph_launches'] for v in verdicts]}; "
+                f"kernels a replay {[v['kernels_per_replay'] for v in verdicts]}"
+                f"; whole {[v['whole'] for v in verdicts]}")
+            if all(v["whole"] for v in verdicts):
+                break
+        out["attempts"] = attempts
+        out["windows"] = verdicts
+        checks["windows_as_state_machine"] = True
+        checks["a_whole_attempt"] = all(v["whole"] for v in verdicts)
+        checks["host_spans"] = all(v["host_ok"] for v in verdicts)
+        checks["launches_inside_steps"] = all(
+            v["clock_ok"] for v in verdicts if v["steps"])
+        checks["capture_outside_windows"] = not any(
+            i in s for s in want for i in attempts[0]["captured"])
+        for v in verdicts:
+            log(f"  window {v['steps']}: host hapi::train_step "
+                f"{v['host_steps']}, categories {v['host_cats']}; per "
+                f"replay {v['kernels'][:1]} (counters {v['want'][:1]}); "
+                f"launch inside its step {v['launches_inside_steps']}; "
+                f"offset {v['offset_us']:.3f} us, anchors' skew "
+                f"{v['skew_us']:.3f} us; {v['path']}")
+        first = next(win for win in windows if win["merged"])
+        named, table = _kernel_table(HERE, first["merged"])
+        out["kernel_table_rows"] = {k: len(v) for k, v in named.items()}
+        checks["trace_summary_lists_sm90"] = all(named.values())
+        log("  trace_summary.py --cat kernel, the sm90 rows:")
+        for rows in named.values():
+            for ln in rows:
+                log("    " + " ".join(ln.split()))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("== phase 19b: one epoch of a fresh model under "
+            "FLAGS_mem_accounting")
+        flight_dir = os.path.join(tmp, "flight")
+        env0 = {k: os.environ.get(k) for k in (
+            "PADDLE_FLIGHT_DIR", "PADDLE_TRAINER_ID",
+            "PADDLE_RESTART_GENERATION")}
+        os.environ.update(PADDLE_FLIGHT_DIR=flight_dir, PADDLE_TRAINER_ID="0",
+                          PADDLE_RESTART_GENERATION="0")
+        memscope.reset()
+        try:
+            model = pt.fit_recipe(net, amp="O1")
+            with port_flags({"FLAGS_mem_accounting": True}):
+                fit(model, [])
+        finally:
+            for k, v in env0.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        opt = model._optimizer
+        params = list(net.parameters())
+        param_bytes = sum(t.numel() * t.element_size() for t in params)
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for st in opt._state.values() for t in st.values())
+        slot_bytes += sum(t.numel() * t.element_size()
+                          for t in opt._master_weights.values())
+        tags = memscope.tag_bytes()
+        peaks = memscope.phase_peaks()
+        max_alloc = torch.cuda.max_memory_allocated()
+        ledger = [e for e in memscope.compile_entries()
+                  if e["site"] == "hapi.train_step"]
+        gp = model._last_goodput
+        with open(os.path.join(flight_dir, "goodput.r0.g0.json")) as f:
+            gp_file = json.load(f)
+        out["memory"] = dict(
+            goodput=gp, tags=tags, param_bytes=param_bytes,
+            opt_state_bytes=slot_bytes, phase_peaks=peaks,
+            max_memory_allocated=max_alloc, ledger=ledger,
+            captures=model._steps.compiles)
+        checks.update(
+            goodput_sums_to_1=abs(sum(gp["fractions"].values()) - 1) <= 0.01,
+            params_tag=tags.get("params") == param_bytes,
+            opt_state_tag=tags.get("opt_state") == slot_bytes,
+            step_peak=0 < peaks.get("step", 0) <= max_alloc,
+            ledger_per_capture=len(ledger) == model._steps.compiles == 1,
+            goodput_file=gp_file["fractions"] == gp["fractions"])
+        log(f"  19b: goodput {gp['fractions']} (sum "
+            f"{sum(gp['fractions'].values()):.6f}), {gp['compiles']} "
+            f"compile(s), {gp['steps']} steps; tags params "
+            f"{tags.get('params')} (counted {param_bytes}), opt_state "
+            f"{tags.get('opt_state')} (counted {slot_bytes}); step peak "
+            f"{peaks.get('step')} <= max_memory_allocated {max_alloc}; "
+            f"ledger {[(e['site'], e['cause'], e['wall_ms']) for e in ledger]}"
+            f" for {model._steps.compiles} capture(s); goodput file "
+            f"{checks['goodput_file']}")
+        memscope.reset()
+
+        log("== phase 19c: start_profiler, two train_batch calls, "
+            "stop_profiler")
+        ids, labels = pt.fit_data(B, 0, w["vocab_size"], T)
+        model.train_batch([ids], [labels])      # a replay before the session
+        legacy = []
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            d = os.path.join(tmp, f"19c_{attempt}")
+            reset()
+            prof.start_profiler(log_dir=d)
+            for _ in range(2):
+                model.train_batch([ids], [labels])
+            prof.stop_profiler()
+            counted = _counted(launches())
+            files = os.listdir(d)
+            with open(os.path.join(d, files[0])) as f:
+                evs = json.load(f)["traceEvents"]
+            got = {name: sum(1 for e in evs if e.get("cat") == "kernel"
+                             and pat in e["name"])
+                   for name, pat, _ in TRACE_KERNELS}
+            legacy.append(dict(attempt=attempt, files=files, kernels=got,
+                               counted=counted))
+            log(f"  19c attempt {attempt}: {files}: kernels {got} (counters "
+                f"{counted})")
+            if got == counted:
+                break
+        out["legacy"] = legacy
+        checks["legacy_file_holds_sm90"] = len(legacy[-1]["files"]) == 1 and \
+            legacy[-1]["kernels"] == legacy[-1]["counted"]
+
+        log("== phase 19d: step ms with tracing and accounting off and on")
+        def cost(setting):
+            cbs, flags = [], {}
+            if setting == "tracer":
+                prof.enable_host_tracer()
+            elif setting == "window":
+                cbs = [ProfilerCallback(profiler=prof.Profiler(
+                    with_device_trace=True, log_dir=os.path.join(tmp, "19d")),
+                    summary=False)]
+            elif setting == "mem_accounting":
+                flags = {"FLAGS_mem_accounting": True}
+            try:
+                with port_flags(flags):
+                    watch = fit(model, cbs, cost_data)
+            finally:
+                prof.disable_host_tracer()
+                prof.tracer.clear()
+                memscope.reset()
+            return _step_ms(watch.steps[1:], 0, B)[0]
+
+        settings = ("off", "tracer", "window", "mem_accounting")
+        ms = {k: [] for k in settings}
+        for r in range(cfg["cost_rounds"]):
+            for k in (settings if r % 2 == 0 else settings[::-1]):
+                ms[k].append(cost(k))
+        out["cost_step_ms_p50"] = ms
+        out["phase12_step_ms_p50"] = phase12_ms
+        log(f"  19d: step ms p50 over steps 2-{cfg['cost_steps']} of a fit, "
+            f"rounds {cfg['cost_rounds']}: "
+            + ", ".join(f"{k} {[round(v, 3) for v in vs]}"
+                        for k, vs in ms.items())
+            + f"; phase 12's O1 fit with and without its metric "
+            f"{phase12_ms} ({card_line()})")
+        del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    failed = [k for k, v in checks.items() if v is not True]
+    log(f"  phase 19 checks {checks}; {out['seconds']:.1f} s "
+        f"({card_line()})")
+    if failed:
+        raise AssertionError(f"phase 19 failed its checks: {failed}")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
-        long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS):
-    """Phases 3-18 on ``dev`` with a serving GPT of ``width``, the two
+        long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS,
+        profile_cfg=PROFILE_FIT):
+    """Phases 3-19 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -6722,7 +7126,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
     ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
     and 8 (phase 7's remat policies run ``train_cfg``), ``fit_hooks_cfg``
-    phase 16's; returns the report and the ``kernels`` entries."""
+    phase 16's, ``profile_cfg`` phase 19's; returns the report and the
+    ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -6875,6 +7280,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 18: HTTP serving at full width (fp32, 8 slots, "
         "ServingServer on 127.0.0.1)")
     http = http_path(torch, fa, dev, width, serve)
+    log("== phase 19: the profiler's windows, device traces and memory "
+        "accounting on phase 12's O1 GPT")
+    profiled = profiler_path(torch, fa, dev, profile_cfg, tuple(
+        fit_o1[k]["step_ms_p50"] for k in ("main", "nometric")))
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -7417,6 +7826,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_long_fp16_timing=long_times_fp16,
                   train_long_bf16_timing=long_times_bf16,
                   remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
+                  profiler=profiled,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

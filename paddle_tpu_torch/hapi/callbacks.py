@@ -1,7 +1,8 @@
 """hapi callbacks of the port — the counterpart of
 ``paddle_tpu/hapi/callbacks.py``: ``CallbackList``, ``Callback``,
 ``ProgBarLogger``, ``ModelCheckpoint``, ``EarlyStopping``,
-``LRSchedulerCallback``, ``VisualDL`` and ``config_callbacks``.
+``LRSchedulerCallback``, ``VisualDL``, ``ProfilerCallback`` and
+``config_callbacks``.
 
 ``Model.train_batch`` returns its loss as a 0-d device tensor, whose
 read waits for the step.  The reference's loss is a lazy scalar
@@ -12,9 +13,6 @@ read waits for the step.  The reference's loss is a lazy scalar
 ``VisualDL`` at its flushes, ``EarlyStopping`` on the evaluation's
 result.  No callback reads ``logs["loss"]`` on any other step, so
 ``fit`` at ``verbose=0`` never waits for the card.
-
-``ProfilerCallback`` raises ``NotImplementedError``: the profiler's
-tracer is not ported yet (ROADMAP.md A8, the profiler bullet).
 """
 from __future__ import annotations
 
@@ -315,15 +313,34 @@ class VisualDL(Callback):
 
 
 class ProfilerCallback(Callback):
-    """Drives the reference's ``paddle.profiler.Profiler`` across
-    ``Model.fit``; the profiler is not ported yet."""
+    """Drives a ``paddle_tpu_torch.profiler.Profiler`` across
+    ``Model.fit`` (the reference's :293-316).
+
+    Pass a ready Profiler, or scheduler/on_trace_ready/etc. keywords to
+    build one.  ``start()`` fires at train begin, ``step(num_samples)``
+    after every batch (so step latency and ips are measured around the
+    real train step), ``stop()`` and, with ``summary``, ``summary()`` at
+    train end."""
 
     def __init__(self, profiler=None, summary=True, **profiler_kwargs):
-        raise NotImplementedError(
-            "ProfilerCallback is not ported yet: it drives "
-            "paddle.profiler's Profiler and host tracer, which wait for "
-            "the profiler port (ROADMAP.md A8, the profiler bullet; the "
-            "metrics registry and the flight recorder are ported)")
+        super().__init__()
+        if profiler is None:
+            from .. import profiler as _prof_mod
+            profiler = _prof_mod.Profiler(**profiler_kwargs)
+        self.profiler = profiler
+        self.print_summary = summary
+
+    def on_train_begin(self, logs=None):
+        self.profiler.start()
+
+    def on_train_batch_end(self, step, logs=None):
+        self.profiler.step(num_samples=((logs or {}).get("batch_size")
+                                        or self.params.get("batch_size")))
+
+    def on_train_end(self, logs=None):
+        self.profiler.stop()
+        if self.print_summary:
+            self.profiler.summary()
 
 
 def config_callbacks(callbacks=None, model=None, batch_size=None, epochs=None,

@@ -136,6 +136,30 @@ synchronising call.  The supervisor's heartbeat
 distributed launch is ported (``ROADMAP.md`` A5); ``save(training=False)``,
 the inference export, until A6.  ``summary`` (:1465) prints
 :func:`~paddle_tpu_torch.hapi.summary.summary`'s table.
+
+Tracing and memory accounting (the reference's :543-591, :1075-1326),
+each site one predicate read when off.  With the host tracer on
+(``profiler.enable_host_tracer``, or a ``Profiler`` window) ``fit``
+records per step the ``step::data_wait`` and ``step::device`` spans and
+``hapi::train_step``, the ``train.step.{data_wait,device,host}_ms``
+histograms and ``_ns`` counters, ``hapi.train_step_latency_ms``,
+``hapi.train_samples`` and ``hapi.train_ips``; ``evaluate`` records
+``hapi::eval_step``.  The ``device`` phase is the captured step's call:
+on a replay the graph's launch, which returns once the card's launch
+queue takes it, so it grows only when that queue is full (the
+reference's XLA in-flight limit); nothing synchronises to measure it.
+The eager engine records no ``device`` phase, as in the reference.
+With ``FLAGS_mem_accounting`` on, ``fit`` tags ``params`` (the
+parameters' bytes; the reference's functional state also counts the
+buffers), at its first step ``opt_state`` (the optimizer's slots and
+fp32 masters) and under ``prepare(offload=True)`` ``host_offload`` (the
+slots in pinned host memory), samples the ``step`` phase peak, and
+leaves ``_last_goodput`` (``memscope.GoodputMeter``: the step time, the
+data wait, checkpoints, anomalies and the compiles, which the ledger
+holds under ``hapi.train_step``, ``hapi.eval_step`` and
+``hapi.predict_step``, one entry a capture); a captured step that runs
+out of device memory writes ``memscope.oom_dump`` (context
+``hapi.train_step``) before the error propagates.
 """
 from __future__ import annotations
 
@@ -155,6 +179,8 @@ from ..graphs import StepGraph
 from ..metric import Metric
 from ..ops.amp_ops import update_loss_scaling_
 from ..ops.multi_tensor_update import multi_tensor_unscale
+from ..profiler import memscope as _memscope
+from ..profiler import tracer as _tracer
 from ..serving.bucketing import ExecutableCache
 from ..utils import chaos as _chaos
 from ..utils.flags import get_flag
@@ -207,6 +233,8 @@ class Model:
         self._steps = ExecutableCache(name="hapi")
         self._train_step_count = 0
         self._guard = None
+        self._last_dispatch_ns = 0
+        self._last_goodput = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=True, offload=False) -> "Model":
@@ -380,7 +408,8 @@ class Model:
             made.append(exe)
             return exe
         exe = self._steps.get_or_compile(key, compile_fn,
-                                         valid=StepGraph.current)
+                                         valid=StepGraph.current,
+                                         site=f"hapi.{kind}_step")
         if made:
             out, exe.first_outputs = exe.first_outputs, None
             return out
@@ -501,9 +530,31 @@ class Model:
         remat = self._remat_decision(_batch_len(ins))
         self._offload_state()             # outside the graph
         opt._refresh_lr()                 # outside the graph
-        out = self._captured(
-            "train", lambda: self._train_step(len(ins), remat), ins + labs,
-            (remat, amp))
+        # the "device" phase (the reference's :543-570) is the entry's
+        # call: on a replay the graph's launch, which returns once the
+        # card's launch queue takes it (it blocks only when that queue is
+        # full), on a capture the real step and the capture; nothing
+        # synchronises to measure it
+        _d0 = _tracer.now_ns() if _tracer.active else 0
+        try:
+            out = self._captured(
+                "train", lambda: self._train_step(len(ins), remat),
+                ins + labs, (remat, amp))
+        except Exception as e:
+            if _memscope.active and _memscope.is_oom(e):
+                # the forensics dump lands before the error propagates
+                _memscope.oom_dump(e, context="hapi.train_step")
+            raise
+        if _d0:
+            self._last_dispatch_ns = _tracer.on_step_phase("device", _d0)
+        if self._offload_on and _memscope.active:
+            try:
+                _memscope.set_tag_bytes("host_offload", sum(
+                    _memscope.tree_nbytes(t) for slots in
+                    opt.functional_state()["slots"].values()
+                    for t in slots.values() if not t.is_cuda))
+            except Exception:   # noqa: BLE001 — accounting never throws
+                pass
         opt._global_step = steps + 1
         metrics = self._update_metrics(out[1:], labs)
         self._train_step_count += 1
@@ -835,6 +886,18 @@ class Model:
                     self._fit_save_offset = max(
                         0, info["label"] - info["step"])
         cbks.on_train_begin()
+        # the goodput meter and the memory tags (the reference's
+        # :1075-1086): one predicate read a hook when FLAGS_mem_accounting
+        # is off (`_gp is None` below)
+        _gp = None
+        _tagged_opt = False
+        if _memscope.active:
+            try:
+                _memscope.set_tag_bytes("params", _memscope.tree_nbytes(
+                    list(self.network.parameters())))
+            except Exception:   # noqa: BLE001 — accounting never throws
+                pass
+            _gp = _memscope.GoodputMeter("train").start()
         step_count = 0
         for epoch in range(epochs):
             cbks.on_epoch_begin(epoch)
@@ -844,8 +907,25 @@ class Model:
                 m.reset()
             logs = {}
             it, pf = self._epoch_input(train_loader, prefetch_to_device)
+            step = -1
             try:
-                for step, batch in enumerate(it):
+                while True:
+                    # the step phases (the reference's :1104-1113):
+                    # data_wait is the time this loop blocked on the input
+                    # pipeline for the next batch
+                    trace = _tracer.active
+                    _tw0 = _tracer.now_ns() if (trace or _gp is not None) \
+                        else 0
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    if _tw0:
+                        _dw = _tracer.on_step_phase("data_wait", _tw0) \
+                            if trace else _tracer.now_ns() - _tw0
+                        if _gp is not None:
+                            _gp.add_ns("data_wait", _dw)
+                    step += 1
                     if resume_samples is not None:
                         # cross-world resume: replay the data order by
                         # GLOBAL samples up to the checkpoint's mark
@@ -883,10 +963,14 @@ class Model:
                         continue
                     cbks.on_train_batch_begin(step)
                     ins, lbls = self._split_batch(batch)
+                    # with the host tracer off, one predicate read a step
+                    _t0 = _tracer.now_ns() if trace else 0
+                    self._last_dispatch_ns = 0
                     if anomaly:
                         # the guard's per-step copy (the reference's
                         # :1171-1174)
                         snap = self._state_refs()
+                    _s0 = _tracer.now_ns() if _gp is not None else 0
                     if accumulate_grad_batches > 1:
                         # the gradients add up in .grad; the optimizer
                         # steps on the boundary
@@ -897,6 +981,18 @@ class Model:
                             logs = self._train_batch_eager(ins, lbls)
                     else:
                         logs = self.train_batch(ins, lbls)
+                    if _s0:
+                        _gp.step_ns(_tracer.now_ns() - _s0)
+                        if not trace:
+                            # the phase hooks sample the watermark when
+                            # the tracer is on
+                            _memscope.on_phase("step")
+                        if not _tagged_opt:
+                            _tagged_opt = True
+                            self._tag_opt_state()
+                    if _t0:
+                        _tracer.on_hapi_step(_t0, num_samples=_batch_len(ins),
+                                             mode="train")
                     step_count += 1
                     self._fit_samples_seen += _batch_len(ins) * data_world
                     self._fit_samples_epoch += _batch_len(ins) * data_world
@@ -904,8 +1000,11 @@ class Model:
                         # one synchronising read a step (:1206-1218)
                         v = float(logs["loss"])
                         if not np.isfinite(v):
+                            _a0 = _tracer.now_ns() if _gp is not None else 0
                             self._handle_anomaly(anomaly, v, step_count,
                                                  snap, checkpointer)
+                            if _a0:
+                                _gp.add_ns("anomaly", _tracer.now_ns() - _a0)
                             logs["loss"] = v
                     if _chaos.active:
                         # host.slow stretches this step's wall time
@@ -916,11 +1015,17 @@ class Model:
                             or checkpointer.want_save(save_label)):
                         # the tree and its snapshot only on the steps the
                         # checkpointer writes
+                        _c0 = _tracer.now_ns() if _gp is not None else 0
                         checkpointer.save(save_label,
                                           self._ckpt_tree(step_count))
+                        if _c0:
+                            _gp.add_ns("checkpoint", _tracer.now_ns() - _c0)
                     # the real batch size, also of a partial last batch
                     logs["batch_size"] = _batch_len(ins)
                     cbks.on_train_batch_end(step, logs)
+                    if _t0:
+                        _tracer.on_step_host(
+                            _tracer.now_ns() - _t0 - self._last_dispatch_ns)
                     if num_iters is not None and step_count >= num_iters:
                         break
             finally:
@@ -940,8 +1045,27 @@ class Model:
                 break
         cbks.on_train_end()
         if checkpointer is not None:
-            # the last step's write lands before fit returns (:1274-1281)
+            # the last step's write lands before fit returns (:1274-1281);
+            # goodput charges the drain to the checkpoint bucket
+            _c0 = _tracer.now_ns() if _gp is not None else 0
             checkpointer.wait_until_finished()
+            if _c0:
+                _gp.add_ns("checkpoint", _tracer.now_ns() - _c0)
+        if _gp is not None:
+            # train.goodput.* gauges and goodput.r<rank>.g<gen>.json
+            self._last_goodput = _gp.finish(
+                extra={"steps": step_count,
+                       "samples": self._fit_samples_seen})
+
+    def _tag_opt_state(self) -> None:
+        """The ``opt_state`` tag: the optimizer's slots and fp32 masters,
+        wherever they lie (the reference tags its whole ``_fn_state``)."""
+        try:
+            fs = self._optimizer.functional_state()
+            _memscope.set_tag_bytes("opt_state", _memscope.tree_nbytes(
+                [fs["slots"], fs["master"]]))
+        except Exception:   # noqa: BLE001 — accounting never throws
+            pass
 
     def _split_batch(self, batch):
         if isinstance(batch, (list, tuple)):
@@ -972,7 +1096,11 @@ class Model:
         for step, batch in enumerate(loader):
             cbks.on_eval_batch_begin(step)
             ins, lbls = self._split_batch(batch)
+            _t0 = _tracer.now_ns() if _tracer.active else 0
             logs = self.eval_batch(ins, lbls)
+            if _t0:
+                _tracer.on_hapi_step(_t0, num_samples=_batch_len(ins),
+                                     mode="eval")
             if "loss" in logs:
                 losses.append(logs["loss"])
             logs["batch_size"] = _batch_len(ins)

@@ -37,6 +37,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..profiler import tracer as _tracer
 from ..utils import chaos as _chaos
 from .prefetch import DevicePrefetcher
 
@@ -377,7 +378,21 @@ class DataLoader:
             self._last_prefetcher = pf
             yield from pf
             return
-        yield from self._iter_batches()
+        # with the host tracer on, each batch handoff records a consumer
+        # wait span and the wait histogram (the reference's :443-456); off,
+        # one predicate read a batch.  Without workers nothing queues; the
+        # worker mode's queue is torch's own and shows no depth
+        it = self._iter_batches()
+        while True:
+            trace = _tracer.active
+            t0 = _tracer.now_ns() if trace else 0
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            if trace:
+                _tracer.on_data_wait(t0)
+            yield batch
 
     def _iter_batches(self):
         if self._iterable_mode:

@@ -30,7 +30,10 @@ consumer in order, after the batches made before it.  ``stats`` counts
 ``max_depth``, ``refetch`` and ``produced`` in plain integers; each
 refetch also counts in the registry's ``io.prefetch.refetch``.  The
 ``loader.worker`` chaos site fires in ``DataLoader._fetch``, the fetch
-the indexed mode retries.
+the indexed mode retries.  With the host tracer on, each batch taken
+records the consumer's wait (an ``io::batch_wait`` span, the
+``dataloader.batch_wait_ms`` histogram) and the queue's depth
+(``dataloader.queue_depth``, ``io.prefetch.queue_depth``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..profiler import metrics as _metrics
+from ..profiler import tracer as _tracer
 from ..utils import concurrency as _conc
 
 __all__ = ["DevicePrefetcher"]
@@ -219,6 +223,8 @@ class DevicePrefetcher:
         self._start()
         try:
             while True:
+                trace = _tracer.active
+                t0 = _tracer.now_ns() if trace else 0
                 try:
                     kind, payload = self._q.get_nowait()
                     nonempty = True
@@ -232,8 +238,16 @@ class DevicePrefetcher:
                 self.stats["gets"] += 1
                 if nonempty:
                     self.stats["nonempty_gets"] += 1
-                self.stats["max_depth"] = max(self.stats["max_depth"],
-                                              self._q.qsize())
+                depth = self._q.qsize()
+                self.stats["max_depth"] = max(self.stats["max_depth"], depth)
+                if trace:
+                    # the consumer's wait and the queue's depth (the
+                    # reference's :232-258)
+                    _tracer.on_data_wait(t0, depth=depth)
+                    _metrics.gauge(
+                        "io.prefetch.queue_depth",
+                        "device-resident batches waiting in the "
+                        "prefetch queue").set(depth)
                 batch, event = payload
                 if event is not None:
                     self._hand_over(batch, event)

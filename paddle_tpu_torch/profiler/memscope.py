@@ -262,12 +262,13 @@ def tag_bytes() -> Dict[str, int]:
 
 def on_phase(phase: str) -> int:
     """Sample the allocator at a step or serving phase boundary and keep
-    the per-phase high-water mark (``mem.peak_bytes.<phase>``); callers
-    gate on the module predicate.  Returns the sample."""
+    the per-phase high-water mark (``mem.peak_bytes.<phase>``; a phase
+    sampled only at 0 bytes, as on the CPU, keeps 0); callers gate on the
+    module predicate.  Returns the sample."""
     cur = live_bytes()
     global _peak
     with _lock:
-        if cur > _phase_peaks.get(phase, 0):
+        if phase not in _phase_peaks or cur > _phase_peaks[phase]:
             _phase_peaks[phase] = cur
             _metrics.gauge(
                 f"mem.peak_bytes.{phase}",

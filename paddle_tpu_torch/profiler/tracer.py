@@ -19,9 +19,11 @@ beyond capacity the oldest spans drop, so an unbounded run cannot run
 the host out of memory through its own profiler.  The port's sites so
 far: the generation session's ``serve::<name>.prefill`` /
 ``serve::<name>.decode`` phases, the request spans of
-:mod:`~paddle_tpu_torch.profiler.rtrace` (``cat="rtrace"``) and the
+:mod:`~paddle_tpu_torch.profiler.rtrace` (``cat="rtrace"``), the
 compile ledger's ``compile::<site>`` spans
-(:mod:`~paddle_tpu_torch.profiler.memscope`).
+(:mod:`~paddle_tpu_torch.profiler.memscope`), ``Model.fit``'s and
+``evaluate``'s step phases and steps (``cat="hapi"``) and the loaders'
+``io::batch_wait`` (``cat="dataloader"``).
 """
 from __future__ import annotations
 

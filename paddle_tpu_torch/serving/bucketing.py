@@ -16,7 +16,8 @@ the reference's ``<name>.executable_cache.hit`` and ``<name>.compile``
 counters, keeps the same counts in :attr:`~ExecutableCache.hits` and
 :attr:`~ExecutableCache.compiles` (per cache: the registry's are shared by
 every cache of one name), and with memory accounting on records each
-compile's wall time in memscope's compile ledger.
+compile's wall time in memscope's compile ledger, under the cache's name
+or the site its caller names.
 """
 from __future__ import annotations
 
@@ -144,7 +145,8 @@ class ExecutableCache:
     failing ``compile_fn`` publishes nothing).  ``valid(entry)``, when
     given, says whether an entry may still run; one that may not is
     dropped and made again (a captured step whose parameters were
-    replaced)."""
+    replaced).  ``site`` names the compile in memscope's ledger (the
+    cache's name when not given)."""
 
     def __init__(self, name: str = "serving"):
         self.name = name
@@ -173,7 +175,8 @@ class ExecutableCache:
             return dict(self._entries)
 
     def get_or_compile(self, key: Tuple, compile_fn: Callable[[], object],
-                       valid: Optional[Callable[[object], bool]] = None):
+                       valid: Optional[Callable[[object], bool]] = None,
+                       site: Optional[str] = None):
         while True:
             with self._lock:
                 exe = self._entries.get(key)
@@ -195,7 +198,7 @@ class ExecutableCache:
                     t0 = time.perf_counter()
                     exe = compile_fn()
                     _memscope.compile_record(
-                        self.name, key, time.perf_counter() - t0,
+                        site or self.name, key, time.perf_counter() - t0,
                         provenance="jit")
                 else:
                     exe = compile_fn()

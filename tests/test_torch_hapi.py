@@ -278,14 +278,14 @@ def test_model_names_the_parameters_for_the_decay_rule():
 # names; a knob ported since keeps its case, which checks what it does now
 # (None): multi_precision, regularizers, decorate with optimizers,
 # summary, offload, the budget remat, fit's checkpointer and its anomaly
-# guard are ported, and lazy_mode is taken with the reference's dense
-# semantics while a sparse gradient waits for the eager core (A2); the
-# supervisor's heartbeat waits for the distributed launch (A5) and
-# ProfilerCallback for the profiler's tracer (A8)
+# guard and ProfilerCallback are ported, and lazy_mode is taken with the
+# reference's dense semantics while a sparse gradient waits for the eager
+# core (A2); the supervisor's heartbeat waits for the distributed launch
+# (A5)
 KNOBS = {"multi_precision": None, "lazy_mode": "A2", "regularizer": None,
          "amp": None, "offload": None, "remat": None, "checkpointer": None,
          "anomaly_action": None, "supervise_store": "A5",
-         "profiler_callback": "A8", "save_export": "A6", "summary": None}
+         "profiler_callback": None, "save_export": "A6", "summary": None}
 
 
 @contextlib.contextmanager
@@ -379,6 +379,23 @@ def _ported_knob(knob, net, params, tmp_path):
         with _port_flags({"FLAGS_anomaly_action": "raise"}), pytest.raises(
                 FloatingPointError, match="at train step 1"):
             model.fit(data, batch_size=2, verbose=0)
+    elif knob == "profiler_callback":
+        # the callback drives a Profiler across fit: one window of steps
+        # 1 and 2 of three, each with its hapi::train_step span
+        from paddle_tpu_torch.profiler import tracer
+        model = Model(net).prepare(SGD(parameters=params),
+                                   lambda out, y: ((out - y) ** 2).mean())
+        data = TensorDataset([np.ones((6, 4), np.float32),
+                              np.zeros((6, 2), np.float32)])
+        windows = []
+        cb = ProfilerCallback(scheduler=(1, 3), summary=False,
+                              on_trace_ready=lambda p: windows.append(
+                                  (p.step_num, [e[0] for e in p.events])))
+        model.fit(data, batch_size=2, verbose=0, callbacks=[cb])
+        assert cb.profiler.step_num == 3 and cb.profiler._samples == 6
+        assert [(n, names.count("hapi::train_step"))
+                for n, names in windows] == [(3, 2)]
+        assert not tracer.active
     else:
         assert Model(net).summary((2, 4)) == {"total_params": 10,
                                               "trainable_params": 10}
@@ -398,10 +415,6 @@ def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
         emb(torch.tensor([0, 3])).sum().backward()
         with pytest.raises(NotImplementedError, match=match):
             opt.step()
-        return
-    if knob == "profiler_callback":
-        with pytest.raises(NotImplementedError, match=match):
-            ProfilerCallback()
         return
     model = Model(net)
     opt = SGD(parameters=params)
