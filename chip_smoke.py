@@ -309,6 +309,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
             capture, the goodput file; 19c start_profiler / stop_profiler
             around two train_batch calls; 19d step ms p50 with tracing
             and accounting off and on, beside phase 12's
+20. eager core the reference's nn.TransformerEncoder at BERT-base width
+            written with the eager core as a paddle user writes it
+            (nn.Embedding 30528 x 768 and 512 x 768,
+            nn.TransformerEncoder(nn.TransformerEncoderLayer(768, 12,
+            3072, dropout 0.1, gelu, attn_dropout 0), 12), nn.Linear(768,
+            30528); seed 0; B 32, T 512): 20a the dygraph loop in fp32
+            (F.cross_entropy, backward, AdamW.step, clear_grad): one step
+            through the kernels against the plain versions (loss and
+            every gradient at phase 11's fp32 tolerances, all finite), 12
+            row-1 and 12 row-6 launches and one update a step, two 3-step
+            runs bit for bit, the loss falling over 12 steps; step ms
+            p50, host ms, peak memory, the ops dispatched a step and the
+            step's idle share (profile_train.profile); 20b the same Layer
+            through Model (AdamW, nn.CrossEntropyLoss): jit=False equal
+            to 20a's loop bit for bit, jit=True equal to jit=False bit
+            for bit, a replay launching 12 + 12 attention kernels and the
+            update, one capture; step ms p50 of each; 20c the loop under
+            auto_cast (O1, bf16): 12 + 12 flash_attn_sm90 launches, the
+            plain versions at O1's tolerances, the loss falling, step ms
+            p50; 20d every case of the op table
+            (paddle_tpu_torch/tools/eager_ops.py) on CUDA Tensors against
+            CPU Tensors, forward and gradients, every creation op with no
+            place on the card; 20e one traced step's op:: spans under
+            dispatch and eager_phase_profile's shares; the phase's seconds
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -7111,14 +7135,497 @@ def profiler_path(torch, fa, dev, cfg=PROFILE_FIT, phase12_ms=None):
     return out
 
 
+# -- phase 20 ------------------------------------------------------------------
+# the eager core: the reference's nn.TransformerEncoder at BERT-base width,
+# written as a paddle user writes it (phase 11's encoder on the eager core)
+EAGER_CORE = dict(vocab_size=30528, max_len=512, d_model=768, nhead=12,
+                  dim_feedforward=3072, num_layers=12, dropout=0.1,
+                  batch=32, seq=512)
+EAGER_CORE_STEPS = 3      # runs compared bit for bit (20a, 20b)
+EAGER_CORE_FALL = 12      # 20a: the loss falls over these steps, timed
+EAGER_CORE_TIMED = 4      # 20b: Model steps timed per engine
+EAGER_CORE_AMP = 6        # 20c: O1 steps, timed
+
+
+def eager_core_net(paddle, cfg):
+    """The encoder of :data:`EAGER_CORE` as a ``paddle.nn.Layer``: token
+    and position embeddings, ``nn.TransformerEncoder`` (post-LN, GELU,
+    hidden dropout, no attention dropout) and an untied head."""
+    nn = paddle.nn
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            D = cfg["d_model"]
+            self.wte = nn.Embedding(cfg["vocab_size"], D)
+            self.wpe = nn.Embedding(cfg["max_len"], D)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                D, cfg["nhead"], cfg["dim_feedforward"],
+                dropout=cfg["dropout"], activation="gelu", attn_dropout=0.0),
+                cfg["num_layers"])
+            self.head = nn.Linear(D, cfg["vocab_size"])
+
+        def forward(self, ids):
+            pos = paddle.arange(ids.shape[1])
+            return self.head(self.encoder(self.wte(ids) + self.wpe(pos)))
+    return Encoder()
+
+
+def _core_grads(view):
+    return {n: p.grad.detach().clone() for n, p in view.named_parameters()
+            if p.grad is not None}
+
+
+def _core_compare(torch, a, b):
+    """(relative L2 of each gradient, of all of them together, every
+    gradient finite).  Each gradient's error is taken relative to its own
+    norm, or to 1e-3 of the norm of all gradients where its own is
+    smaller: the keys' bias gets a gradient of exactly 0 (softmax ignores
+    a constant along a row), so both runs hold only roundings there."""
+    total = torch.sqrt(sum(g.float().norm() ** 2 for g in b.values()))
+    err = {n: (a[n].float() - b[n].float()).norm() for n in b}
+    rel = {n: (err[n] / torch.maximum(b[n].float().norm(),
+                                      1e-3 * total)).item() for n in b}
+    whole = (torch.sqrt(sum(e ** 2 for e in err.values())) / total).item()
+    return rel, whole, all(bool(torch.isfinite(g).all())
+                           for g in a.values())
+
+
+def _core_step(paddle, net, opt, ids, labels, amp=None):
+    """One dygraph step: forward and loss (under ``amp`` when given),
+    backward, ``opt.step()``, ``opt.clear_grad()``; returns the loss,
+    detached: a loss kept with its graph keeps the parameters' gradient
+    accumulators, whose stream a later capture cannot take."""
+    F = paddle.nn.functional
+    if amp:
+        with paddle.amp.auto_cast(level=amp):
+            loss = F.cross_entropy(net(ids), labels)
+    else:
+        loss = F.cross_entropy(net(ids), labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def _core_case(paddle, np, case, place, cot_seed=0):
+    """One op-table case on ``place``: its outputs as (dtype name, numpy),
+    the gradients of its ``grad`` inputs, and whether every output lies on
+    the card."""
+    from paddle_tpu_torch.core.dtype import canonical_dtype
+    paddle.set_device(place)
+    ts = [paddle.to_tensor(a, stop_gradient=i not in case.grad)
+          if isinstance(a, np.ndarray) else a
+          for i, a in enumerate(case.args)]
+    out = case.fn(paddle)(*ts, **case.kw)
+    flat, todo = [], [out]
+    while todo:
+        o = todo.pop(0)
+        if isinstance(o, (tuple, list)):
+            todo[:0] = list(o)
+        elif hasattr(o, "_data"):
+            flat.append(o)
+    rs = np.random.RandomState(cot_seed)
+    loss = None
+    for o in flat:
+        if o.stop_gradient or not o._data.is_floating_point():
+            continue
+        cot = paddle.to_tensor(np.asarray(rs.randn(*o.shape), np.float32)
+                               ).astype(canonical_dtype(o.dtype))
+        term = (o * cot).sum()
+        loss = term if loss is None else loss + term
+    if loss is not None:
+        loss.backward()
+    grads = [ts[i].grad.numpy() for i in case.grad
+             if ts[i].grad is not None]
+    return ([(canonical_dtype(o.dtype), o.numpy()) for o in flat], grads,
+            all(o._data.is_cuda for o in flat))
+
+
+def eager_op_table(torch, dev):
+    """20d: every op-table case on ``dev``'s place against the CPU place,
+    forward and gradients at the CPU tests' tolerances; a creation op made
+    with no place lands on the card.  Returns the report."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import creation
+    from paddle_tpu_torch.tools.eager_ops import CASES
+    tols = {"ew": dict(rtol=1e-5, atol=1e-6),
+            "red": dict(rtol=1e-4, atol=1e-5)}
+    place = f"gpu:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+    bad, on_card, t0 = [], 0, time.perf_counter()
+    for case in CASES:
+        try:
+            ref_out, ref_g, _ = _core_case(paddle, np, case, "cpu")
+            out, grads, cuda = _core_case(paddle, np, case, place)
+            assert [d for d, _ in out] == [d for d, _ in ref_out], "dtypes"
+            for (d, a), (_, b) in zip(out, ref_out):
+                assert a.shape == b.shape, "shapes"
+                if d.startswith(("float", "bfloat", "complex")):
+                    np.testing.assert_allclose(a, b, **tols[case.tol])
+                else:
+                    np.testing.assert_array_equal(a, b)
+            assert len(grads) == len(ref_g), "gradients"
+            for a, b in zip(grads, ref_g):
+                np.testing.assert_allclose(a, b, **tols[case.tol])
+            if case.kind == "fn" and case.name in creation.__all__ and \
+                    dev.type == "cuda":
+                assert cuda, "not on the card"
+                on_card += 1
+        except Exception as e:          # noqa: BLE001 -- each case reported
+            bad.append(f"{case.id}: {type(e).__name__}: "
+                       f"{str(e).splitlines()[0][:160] if str(e) else ''}")
+    paddle.set_device(place)
+    seconds = time.perf_counter() - t0
+    log(f"  20d: {len(CASES)} op-table cases (functions, methods, operators)"
+        f" on {place} against the CPU, forward and gradients: "
+        f"{len(CASES) - len(bad)} within the CPU tests' tolerances; "
+        f"{on_card} creation ops with no place on the card; {seconds:.1f} s")
+    if bad:
+        raise AssertionError(f"{len(bad)} op-table cases differ on the "
+                             f"card: " + "; ".join(bad[:20]))
+    return dict(cases=len(CASES), creation_on_card=on_card, seconds=seconds)
+
+
+def eager_core_path(torch, fa, dev, cfg=EAGER_CORE):
+    """Phase 20 (the module docstring) on ``dev``; returns the report."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import torch_view
+    from paddle_tpu_torch.profiler import metrics, tracer
+    from paddle_tpu_torch.tools import profile_train
+    t_phase = time.perf_counter()
+    F = paddle.nn.functional
+    dev = torch.device(dev)
+    paddle.set_device(f"gpu:{dev.index or 0}" if dev.type == "cuda"
+                      else "cpu")
+    L, B, T, V = cfg["num_layers"], cfg["batch"], cfg["seq"], \
+        cfg["vocab_size"]
+    paddle.seed(0)
+    net = eager_core_net(paddle, cfg)
+    view = torch_view(net)
+    state0 = {k: v.detach().clone() for k, v in view.state_dict().items()}
+    ids_np = np.random.RandomState(0).randint(0, V, (B, T))
+    labels_np = np.roll(ids_np, -1, 1).reshape(B, T, 1)
+    ids, labels = paddle.to_tensor(ids_np), paddle.to_tensor(labels_np)
+    batches = [(paddle.roll(ids, i, 0), paddle.roll(labels, i, 0))
+               for i in range(EAGER_CORE_STEPS)]
+    mode = fa._pallas_mode(T, T, False)
+    rows = dict(fwd=fa.reference_rows("fwd", mode, T),
+                bwd=fa.reference_rows("bwd", mode, T))
+
+    def adamw():
+        return paddle.optimizer.AdamW(1e-3, parameters=net.parameters(),
+                                      weight_decay=0.01)
+
+    def restore():
+        net.set_state_dict(state0)
+        net.clear_gradients()
+
+    def counts():
+        return dict(_attention_launches(fa), **_update_launches())
+
+    def reset():
+        _reset_attention(fa)
+        _reset_update()
+
+    # -- 20a: the main path, counted, against the plain versions ----------
+    log("  20a: the dygraph loop in fp32")
+    restore()
+    opt = adamw()
+    sync(torch, dev)
+    reset()
+    paddle.seed(1)
+    loss = F.cross_entropy(net(ids), labels)
+    loss.backward()
+    loss_k = loss.item()
+    del loss
+    grads_k = _core_grads(view)
+    want = dict(_attention_want(L, mode, mode, None),
+                **_update_want(opt, list(view.parameters())))
+    opt.step()
+    opt.clear_grad()
+    sync(torch, dev)
+    launched = counts()
+    restore()
+    paddle.seed(1)
+    with _plain_attention(fa):
+        loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+    loss_p = loss.item()
+    del loss
+    grads_p = _core_grads(view)
+    rels, whole, finite = _core_compare(torch, grads_k, grads_p)
+    worst = max(rels, key=rels.get)
+    rel = rels[worst]
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_k, grads_p
+    net.clear_gradients()
+    log(f"  20a: step through the kernels: loss {loss_k:.6f}, launches "
+        f"{launched} (expected {want}; rows {rows}, non-causal); the plain "
+        f"versions: loss {loss_p:.6f} (rel diff {d_loss:.3e}, limit "
+        f"{EAGER_LOSS_RTOL:g}), gradient rel L2 of each of {len(rels)} "
+        f"parameters at most {rel:.3e} ({worst}; limit "
+        f"{EAGER_GRAD_RTOL:g}), of all together {whole:.3e}, all finite "
+        f"{finite}")
+    if launched != want:
+        raise AssertionError(f"the dygraph step launched {launched}; "
+                             f"expected {want}")
+    if not (finite and np.isfinite(loss_k) and d_loss <= EAGER_LOSS_RTOL
+            and rel <= EAGER_GRAD_RTOL):
+        raise AssertionError("the dygraph step through the kernels "
+                             "disagrees with the plain versions")
+
+    def loop(steps_batches, seed, amp=None):
+        restore()
+        opt = adamw()
+        paddle.seed(seed)
+        losses = [_core_step(paddle, net, opt, b_ids, b_labels,
+                             amp)._data.detach()
+                  for b_ids, b_labels in steps_batches]
+        return torch.stack(losses), _train_state(view, opt)
+
+    l1, s1 = loop(batches, 2)
+    l2, s2 = loop(batches, 2)
+    repeats = bool(torch.equal(l1, l2)) and all(
+        torch.equal(v, s2[k]) for k, v in s1.items())
+    del s2
+    log(f"  20a: two {EAGER_CORE_STEPS}-step runs from seed 0 "
+        f"({len(s1)} parameters and slots): losses {l1.tolist()}, bit for "
+        f"bit {repeats}")
+    if not repeats:
+        raise AssertionError("two dygraph runs from one seed differ")
+
+    restore()
+    opt = adamw()
+    paddle.seed(3)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, host = [], [], []
+    for i in range(EAGER_CORE_FALL):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        h0 = time.perf_counter()
+        loss = _core_step(paddle, net, opt, ids, labels)
+        host.append((time.perf_counter() - h0) * 1e3)
+        b.record()
+        b.synchronize()
+        losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    step_ms = pct(times, 50)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the dygraph loss did not fall: {losses}")
+
+    # -- 20e: the dispatch's spans, on one step of the same loop ----------
+    tracer.enable()
+    tracer.clear()
+    before = metrics.counter("dispatch.count").value
+    _core_step(paddle, net, opt, ids, labels)
+    sync(torch, dev)
+    dispatched = metrics.counter("dispatch.count").value - before
+    evs = tracer.events()
+    tracer.clear()
+    tracer.disable()
+    spans = [e for e in evs if e[4] == "dispatch"]
+    cats = sorted({e[4] for e in evs})
+    model = paddle.Model(net).prepare(opt, paddle.nn.CrossEntropyLoss(),
+                                      jit=False)
+    table, shares, wall = tracer.eager_phase_profile(
+        model, opt, ids, labels, net.head.weight, steps=2)
+    need = {"matmul", "norm", "elementwise", "loss", "optimizer"}
+    total = sum(v["time_frac"] for v in shares.values())
+    log(f"  20e: one traced step: {len(spans)} op:: spans under cats {cats}"
+        f", dispatch.count +{dispatched}; eager_phase_profile over 2 steps "
+        f"({wall:.2f} s): " + ", ".join(
+            f"{k} {v['time_frac']:.4f} ({v['calls']} calls)"
+            for k, v in shares.items()) + f"; sum {total:.6f}")
+    if not spans or cats != ["dispatch"] or len(spans) != dispatched or \
+            not all(e[0].startswith("op::") for e in spans):
+        raise AssertionError("the traced step's dispatch spans are wrong")
+    if not need <= set(shares) or abs(total - 1.0) > 1e-9:
+        raise AssertionError(f"eager_phase_profile's shares {shares}")
+    del model
+
+    prof = profile_train.profile(
+        lambda: _core_step(paddle, net, opt, ids, labels),
+        lambda: _reset_attention(fa),
+        lambda: dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES),
+        dict(path="eager core: the dygraph loop", batch=B, seq=T), 2)
+    log(f"  20a: step ms p50 {step_ms:.3f} (min {min(times):.3f}, "
+        f"{len(times)} steps after {TRAIN_WARMUP} warm-ups, CUDA events); "
+        f"host ms p50 {pct(host, 50):.3f}; peak memory "
+        f"{peak / 2**30:.3f} GiB; {dispatched} ops dispatched a step; idle "
+        f"share {prof['idle_share']:.4f} (device busy "
+        f"{prof['device_busy_ms_per_step']:.3f} of "
+        f"{prof['wall_ms_p50']:.3f} ms); losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    core = dict(config=cfg, rows=rows, launches=launched, expected=want,
+                loss_step1=loss_k, loss_step1_plain=loss_p,
+                loss_rel_diff=d_loss, grad_rel_l2_max=rel,
+                grad_rel_l2_whole=whole, deterministic=repeats, losses=losses, step_ms=times,
+                step_ms_p50=step_ms, host_ms=host,
+                host_ms_p50=pct(host, 50), peak_memory_bytes=peak,
+                ops_dispatched_per_step=dispatched,
+                idle_share=prof["idle_share"], profile=prof,
+                phase_shares=shares, phase_table_ops=len(table))
+
+    # -- 20b: the same Layer through Model --------------------------------
+    log("  20b: the same Layer through Model (AdamW, nn.CrossEntropyLoss)")
+
+    def model_run(jit):
+        restore()
+        opt = adamw()
+        model = paddle.Model(net).prepare(
+            opt, paddle.nn.CrossEntropyLoss(), jit=jit)
+        paddle.seed(2)
+        out, replay, upd_want = [], {}, {}
+        for i, (b_ids, b_labels) in enumerate(batches):
+            if jit and i == 1:
+                sync(torch, dev)
+                reset()
+            out.append(model.train_batch([b_ids], [b_labels])["loss"])
+            if jit and i == 1:
+                sync(torch, dev)
+                replay = counts()
+                upd_want = _update_want(opt, list(view.parameters()))
+        state = _train_state(view, opt)
+        captured = _all_captured(model._steps.entries().values())
+        times = []
+        for _ in range(EAGER_CORE_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model.train_batch([ids], [labels])
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return (torch.stack(out), state, captured, model._steps.compiles,
+                replay, upd_want, times)
+
+    l_e, s_e, cap_e, _, _, _, t_e = model_run(False)
+    eager_equal = bool(torch.equal(l_e, l1)) and all(
+        torch.equal(v, s_e[k]) for k, v in s1.items())
+    del s1
+    l_j, s_j, cap_j, captures, replay, upd_want, t_j = model_run(True)
+    exact = bool(torch.equal(l_j, l_e)) and all(
+        torch.equal(v, s_j[k]) for k, v in s_e.items())
+    del s_e, s_j
+    want_replay = dict(_attention_want(L, mode, mode, None), **upd_want)
+    log(f"  20b: jit=False = 20a's loop bit for bit: {eager_equal}; "
+        f"jit=True = jit=False bit for bit: {exact} (losses {l_j.tolist()})"
+        f"; captured {cap_j} (jit=False {cap_e}), captures {captures}; a "
+        f"replay's launches {replay} (expected {want_replay}); step ms p50 "
+        f"captured {pct(t_j, 50):.3f}, uncaptured {pct(t_e, 50):.3f} "
+        f"(gap {pct(t_e, 50) - pct(t_j, 50):.3f}: the dispatch's host cost)")
+    if not (eager_equal and exact):
+        raise AssertionError("Model on the Layer differs from the dygraph "
+                             "loop, or captured from uncaptured")
+    if cap_e or not cap_j or captures != 1:
+        raise AssertionError("jit=True did not capture once, or jit=False "
+                             "captured")
+    if replay != want_replay:
+        raise AssertionError(f"a replayed step launched {replay}; "
+                             f"expected {want_replay}")
+    core["model"] = dict(uncaptured_equals_loop=eager_equal,
+                         captured_equals_uncaptured=exact, captures=captures,
+                         replay_launches=replay, step_ms_captured=t_j,
+                         step_ms_uncaptured=t_e,
+                         step_ms_p50_captured=pct(t_j, 50),
+                         step_ms_p50_uncaptured=pct(t_e, 50))
+
+    # -- 20c: AMP O1 in bf16 ----------------------------------------------
+    log("  20c: the dygraph loop under auto_cast (O1, bf16)")
+    restore()
+    opt = adamw()
+    sync(torch, dev)
+    reset()
+    paddle.seed(4)
+    with paddle.amp.auto_cast(level="O1"):
+        loss = F.cross_entropy(net(ids), labels)
+    loss.backward()
+    sync(torch, dev)
+    amp_launched = _attention_launches(fa)
+    loss_k = loss.item()
+    del loss
+    grads_k = _core_grads(view)
+    restore()
+    paddle.seed(4)
+    with _plain_attention(fa):
+        with paddle.amp.auto_cast(level="O1"):
+            loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+    loss_p = loss.item()
+    del loss
+    grads_p = _core_grads(view)
+    rels, whole, finite = _core_compare(torch, grads_k, grads_p)
+    worst = max(rels, key=rels.get)
+    # phase 9's O1 check holds these by name: a projection of the first
+    # block, the embedding, the last block's output product; here also
+    # all the gradients together
+    held = ("encoder.layers.0.self_attn.q_proj.weight", "wte.weight",
+            f"encoder.layers.{L - 1}.linear2.weight", "head.weight")
+    rel = max(rels[n] for n in held)
+    d_loss = abs(loss_k - loss_p) / abs(loss_p)
+    del grads_k, grads_p
+    restore()
+    amp_want = _attention_want(L, mode, mode, "O1")
+    paddle.seed(5)
+    amp_losses, amp_times = [], []
+    for i in range(EAGER_CORE_AMP):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = _core_step(paddle, net, opt, ids, labels, amp="O1")
+        b.record()
+        b.synchronize()
+        amp_losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            amp_times.append(a.elapsed_time(b))
+    log(f"  20c: launches {amp_launched} (expected {amp_want}); the plain "
+        f"versions: loss rel diff {d_loss:.3e} (limit "
+        f"{TRAIN_LOSS_RTOL['bfloat16']:g}), gradient rel L2 of {held} at "
+        f"most {rel:.3e} and of all together {whole:.3e} (limit "
+        f"{TRAIN_GRAD_RTOL['bfloat16']:g}; the worst single parameter "
+        f"{worst} {rels[worst]:.3e}), finite {finite}; losses "
+        f"{amp_losses[0]:.4f} -> {amp_losses[-1]:.4f}; step ms p50 "
+        f"{pct(amp_times, 50):.3f}")
+    if amp_launched != amp_want:
+        raise AssertionError(f"the O1 step launched {amp_launched}; "
+                             f"expected {amp_want}")
+    if not (finite and d_loss <= TRAIN_LOSS_RTOL["bfloat16"]
+            and max(rel, whole) <= TRAIN_GRAD_RTOL["bfloat16"]):
+        raise AssertionError("the O1 step through the kernels disagrees "
+                             "with the plain versions")
+    if not amp_losses[-1] < amp_losses[0]:
+        raise AssertionError(f"the O1 loss did not fall: {amp_losses}")
+    core["amp_o1"] = dict(launches=amp_launched, loss_rel_diff=d_loss,
+                          grad_rel_l2_held=rel, grad_rel_l2_whole=whole,
+                          grad_rel_l2_worst=(worst, rels[worst]),
+                          losses=amp_losses,
+                          step_ms=amp_times,
+                          step_ms_p50=pct(amp_times, 50))
+    del net, view, state0, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- 20d: the op table on the card ------------------------------------
+    core["op_table"] = eager_op_table(torch, dev)
+    core["seconds"] = time.perf_counter() - t_phase
+    log(f"  20: {core['seconds']:.1f} s ({card_line()})")
+    return core
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS,
-        profile_cfg=PROFILE_FIT):
-    """Phases 3-19 on ``dev`` with a serving GPT of ``width``, the two
+        profile_cfg=PROFILE_FIT, eager_core_cfg=EAGER_CORE):
+    """Phases 3-20 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -7126,8 +7633,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
     ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
     and 8 (phase 7's remat policies run ``train_cfg``), ``fit_hooks_cfg``
-    phase 16's, ``profile_cfg`` phase 19's; returns the report and the
-    ``kernels`` entries."""
+    phase 16's, ``profile_cfg`` phase 19's, ``eager_core_cfg`` phase 20's;
+    returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_attention_qkv as fq
@@ -7284,6 +7791,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         "accounting on phase 12's O1 GPT")
     profiled = profiler_path(torch, fa, dev, profile_cfg, tuple(
         fit_o1[k]["step_ms_p50"] for k in ("main", "nometric")))
+    torch.cuda.empty_cache()
+    log("== phase 20: the eager core: the reference's nn.TransformerEncoder "
+        "at full width, trained eagerly")
+    core = eager_core_path(torch, fa, dev, eager_core_cfg)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -7310,6 +7821,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         timed_shape="bh 96, T 512, d 64, fp32, causal",
         launches_scoring=score["launches"], checks=len(checks),
         launches_eager_forward=eager["launches"]["fwd"],
+        launches_eager_core=core["launches"]["fwd"],
         launches_fit_step=fit_fp32["launches_per_step"]["fwd"],
         max_abs_err_bf16=max(c["max_abs_err"] for c in checks
                              if c["dtype"] == "bfloat16"
@@ -7477,7 +7989,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                          f"{fa_py}:733",
                          eager["launches"]["modes"]["bwd small"],
                          "max_abs_err_grads"),
-             launches_fit_step=fit_fp32["launches_per_step"]["bwd"]),
+             launches_fit_step=fit_fp32["launches_per_step"]["bwd"],
+             launches_eager_core=core["launches"]["bwd"]),
         split_entry("flash_attn_bwd_tiled", 7, "flash_attn_bwd.cu",
                     f"{fa_py}:649", t1024["bwd small"], "max_abs_err_grads"),
         split_entry("flash_attn_bwd_dq", 8, "flash_attn_bwd.cu",
@@ -7579,6 +8092,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              "per group in eager steps, fusions in its jitted step), no "
              "Pallas kernel",
         launches=sum(eager["replay_update_launches"]["update"].values()),
+        launches_eager_core=sum(core["launches"]["update"].values()),
         max_abs_err=max(r["max_abs_err"] for r in update_checks
                         if r["setup"] == "fp32"),
         ms=adamw["ms"], plain_ms=adamw["plain_ms"],
@@ -7826,7 +8340,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_long_fp16_timing=long_times_fp16,
                   train_long_bf16_timing=long_times_bf16,
                   remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
-                  profiler=profiled,
+                  profiler=profiled, eager_core=core,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

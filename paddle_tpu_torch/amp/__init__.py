@@ -339,9 +339,10 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     Returns ``models`` without optimizers, else ``(models, optimizers)``,
     each as it was passed (one, or a list).  ``level`` and ``save_dtype``
     are taken and not read, as in the reference."""
+    from ..nn.layer_base import torch_view
     low = to_dtype(dtype)
     for m in models if isinstance(models, (list, tuple)) else [models]:
-        for p in m.parameters():
+        for p in torch_view(m).parameters():
             if p.dtype == torch.float32:
                 p.data = p.data.to(low)
     if optimizers is None:

@@ -617,8 +617,10 @@ def save_layer(path: str, layer, optimizer=None, *, use_async: bool = False,
                step: Optional[int] = None):
     """Checkpoint a module (parameters and buffers by name) and optionally
     its optimizer's functional state."""
-    tree = {"params": dict(layer.named_parameters()),
-            "buffers": dict(layer.named_buffers())}
+    from ..nn.layer_base import torch_view
+    view = torch_view(layer)
+    tree = {"params": dict(view.named_parameters()),
+            "buffers": dict(view.named_buffers())}
     if optimizer is not None:
         tree["opt"] = optimizer.functional_state()
     return save_state(path, tree, use_async=use_async, step=step)
@@ -630,9 +632,11 @@ def load_layer(path: str, layer, optimizer=None, *, mesh=None,
     if mesh is not None:
         raise NotImplementedError(f"load_layer(mesh=...) {_MESH}")
     restored = load_state(path, verify=verify)
-    copy_into(dict(layer.named_parameters()), restored["params"],
+    from ..nn.layer_base import torch_view
+    view = torch_view(layer)
+    copy_into(dict(view.named_parameters()), restored["params"],
               "parameters")
-    copy_into(dict(layer.named_buffers()), restored.get("buffers", {}),
+    copy_into(dict(view.named_buffers()), restored.get("buffers", {}),
               "buffers")
     if optimizer is not None and "opt" in restored:
         optimizer.load_functional_state(restored["opt"])

@@ -17,12 +17,18 @@ import pickle
 import numpy as np
 import torch
 
+from .core.tensor import Tensor
+
 __all__ = ["save", "load"]
 
 _PROTOCOL = 4
 
 
 def _to_saveable(obj):
+    if isinstance(obj, Tensor):
+        out = _to_saveable(obj._data)
+        out["name"] = obj.name
+        return out
     if isinstance(obj, torch.Tensor):
         t = obj.detach()
         if t.dtype == torch.bfloat16:

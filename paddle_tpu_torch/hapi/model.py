@@ -175,8 +175,10 @@ import torch
 from .. import framework_io
 from .. import random as _random
 from ..amp import auto_cast, to_dtype
+from ..core.tensor import unwrap
 from ..graphs import StepGraph
 from ..metric import Metric
+from ..nn.layer_base import torch_view
 from ..ops.amp_ops import update_loss_scaling_
 from ..ops.multi_tensor_update import multi_tensor_unscale
 from ..profiler import memscope as _memscope
@@ -196,9 +198,12 @@ _SUPERVISE = ("the supervised-launch heartbeat (PADDLE_SUPERVISE_STORE) is "
 
 
 def _to_list(x) -> List:
+    """``x`` as a list, the eager core's Tensors as their torch tensors
+    (the batch calls take Tensors as they take numpy arrays)."""
     if x is None:
         return []
-    return list(x) if isinstance(x, (list, tuple)) else [x]
+    return [unwrap(v) for v in (x if isinstance(x, (list, tuple))
+                                else [x])]
 
 
 def _batch_len(ins) -> int:
@@ -214,6 +219,9 @@ class Model:
 
     def __init__(self, network: torch.nn.Module, inputs=None, labels=None):
         self.network = network
+        # torch's view of the network's parameters and buffers (a Layer
+        # answers paddle's accessors with its Tensor wrappers)
+        self._net = torch_view(network)
         self._inputs = inputs
         self._optimizer = None
         self._loss = None
@@ -259,7 +267,7 @@ class Model:
         self._steps = ExecutableCache(name="hapi")
         if optimizer is not None:
             optimizer._name_parameters(
-                {id(p): n for n, p in self.network.named_parameters()})
+                {id(p): n for n, p in self._net.named_parameters()})
             if not offload:             # offloaded by an earlier prepare
                 optimizer._offload_state(False)
         return self
@@ -310,7 +318,7 @@ class Model:
                 return self.network(*inputs)
             low = self._amp["dtype"]
             view = {n: p.to(low) if p.dtype == torch.float32 else p
-                    for n, p in self.network.named_parameters()}
+                    for n, p in self._net.named_parameters()}
             return torch.func.functional_call(self.network, view,
                                               tuple(inputs))
 
@@ -347,7 +355,7 @@ class Model:
         if not update:
             return
         multi_tensor_unscale(
-            [p.grad for p in self.network.parameters() if p.grad is not None],
+            [p.grad for p in self._net.parameters() if p.grad is not None],
             sc["scale"], sc["found_inf"], sc["tables"])
         self._amp_found_inf = sc["found_inf"]
         self._optimizer.step(found_inf=sc["found_inf"])
@@ -358,7 +366,7 @@ class Model:
                 sc["incr_ratio"], sc["decr_ratio"])
 
     def _device(self) -> torch.device:
-        return next(self.network.parameters()).device
+        return next(self._net.parameters()).device
 
     def _tensors(self, arrays) -> List[torch.Tensor]:
         dev = self._device()
@@ -370,7 +378,7 @@ class Model:
         and buffers; for training also the gradients, the optimizer's
         state and learning rate, and under fp16 the scaler's state and the
         unscale pass's device tables."""
-        net = self.network
+        net = self._net
         out = itertools.chain(net.parameters(), net.buffers())
         if grads:
             out = itertools.chain(
@@ -431,6 +439,7 @@ class Model:
                 loss = _remat.checkpoint(self._loss, *(outs + labs))
             else:
                 loss = self._loss(*(outs + labs))
+            loss = unwrap(loss)
             self._backward_and_step(loss, update=True)
             self._optimizer.clear_grad(set_to_zero=True)
             return self._step_outputs(loss, outs)
@@ -579,7 +588,7 @@ class Model:
         ins = self._tensors(inputs)
         outs = _to_list(self.network(*ins) if self._amp is None
                         else self._forward_amp(ins))
-        loss = self._loss(*(outs + self._tensors(labels)))
+        loss = unwrap(self._loss(*(outs + self._tensors(labels))))
         self._backward_and_step(loss, update)
         if update:
             self._optimizer.clear_grad()
@@ -599,7 +608,7 @@ class Model:
                 def step(*t):
                     outs = _to_list(self.network(*t[:n]))
                     return self._step_outputs(
-                        self._loss(*(outs + list(t[n:]))), outs)
+                        unwrap(self._loss(*(outs + list(t[n:])))), outs)
                 return step
             out = self._captured("eval", make, ins + labs)
             return self._pack_logs(float(out[0]),
@@ -659,8 +668,8 @@ class Model:
         rng = _random.get_state()
         rng["seed"] = np.uint64(rng["seed"] & ((1 << 64) - 1))
         rng["draws"] = np.int64(rng["draws"])
-        return {"params": dict(self.network.named_parameters()),
-                "buffers": dict(self.network.named_buffers()),
+        return {"params": dict(self._net.named_parameters()),
+                "buffers": dict(self._net.named_buffers()),
                 "opt": self._optimizer.functional_state(),
                 "meta": {"step": np.int64(step_count), "rng": rng,
                          "world": np.int64(getattr(self, "_fit_data_world",
@@ -691,9 +700,9 @@ class Model:
                     "fit: no intact checkpoint survived verification; "
                     "starting from scratch")
             return None
-        copy_into(dict(self.network.named_parameters()), restored["params"],
+        copy_into(dict(self._net.named_parameters()), restored["params"],
                   "parameters")
-        copy_into(dict(self.network.named_buffers()),
+        copy_into(dict(self._net.named_buffers()),
                   restored.get("buffers", {}), "buffers")
         self._optimizer.load_functional_state(restored["opt"])
         meta = restored["meta"]
@@ -724,8 +733,8 @@ class Model:
         params, buffers and ``_fn_state``); on a card, an offloaded
         optimizer's slots are the host ones."""
         fs = self._optimizer.functional_state()
-        live = list(self.network.parameters())
-        live += self.network.buffers()
+        live = list(self._net.parameters())
+        live += self._net.buffers()
         for slots in fs["slots"].values():
             live += slots.values()
         live += fs["master"].values()
@@ -894,7 +903,7 @@ class Model:
         if _memscope.active:
             try:
                 _memscope.set_tag_bytes("params", _memscope.tree_nbytes(
-                    list(self.network.parameters())))
+                    list(self._net.parameters())))
             except Exception:   # noqa: BLE001 — accounting never throws
                 pass
             _gp = _memscope.GoodputMeter("train").start()
@@ -1144,7 +1153,7 @@ class Model:
             raise NotImplementedError(
                 "Model.save(training=False), the inference export through "
                 "jit.save, is not ported yet (ROADMAP.md A6)")
-        framework_io.save(self.network.state_dict(), path + ".pdparams")
+        framework_io.save(self._net.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             framework_io.save(self._optimizer.state_dict(), path + ".pdopt")
 

@@ -49,6 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy,
 
 from .. import amp as _amp
 from .. import random as _random
+from ..core.tensor import Tensor, unwrap, wrap
+from ..nn.layer_base import torch_view
 
 __all__ = ["PRODUCTS", "policy", "checkpoint", "segments", "blocks"]
 
@@ -111,13 +113,16 @@ def checkpoint(fn: Callable, *args, **kwargs):
 
 def blocks(network: torch.nn.Module) -> List[torch.nn.Module]:
     """The regions of ``network``: the items of its outermost
-    ``ModuleList`` / ``Sequential`` containers, in order; the network
-    itself when it has none."""
+    ``ModuleList`` / ``Sequential`` containers (torch's or the eager
+    core's ``LayerList`` / ``Sequential``), in order; the network itself
+    when it has none."""
+    from ..nn.layer.container import LayerList, Sequential
     out, inside = [], set()
     for mod in network.modules():
         if id(mod) in inside:
             continue
-        if isinstance(mod, (torch.nn.ModuleList, torch.nn.Sequential)):
+        if isinstance(mod, (torch.nn.ModuleList, torch.nn.Sequential,
+                            LayerList, Sequential)):
             out.extend(mod)
             inside.update(id(m) for m in mod.modules())
     return out or [network]
@@ -125,9 +130,12 @@ def blocks(network: torch.nn.Module) -> List[torch.nn.Module]:
 
 def _block_forward(block: torch.nn.Module, forward: Callable) -> Callable:
     """``block``'s forward as a region whose inputs are also the block's
-    parameters and buffers as the forward sees them."""
-    names = [n for n, _ in block.named_parameters(remove_duplicate=False)] \
-        + [n for n, _ in block.named_buffers(remove_duplicate=False)]
+    parameters and buffers as the forward sees them.  A block of the eager
+    core called with Tensors runs its region on their torch tensors and
+    hands Tensors back."""
+    view = torch_view(block)
+    names = [n for n, _ in view.named_parameters(remove_duplicate=False)] \
+        + [n for n, _ in view.named_buffers(remove_duplicate=False)]
 
     def body(*flat, **kwargs):
         state = dict(zip(names, flat[:len(names)]))
@@ -137,11 +145,22 @@ def _block_forward(block: torch.nn.Module, forward: Callable) -> Callable:
     def region(*args, **kwargs):
         if getattr(_local, "inside", False):
             return forward(*args, **kwargs)
-        state = [functools.reduce(getattr, n.split("."), block)
+        state = [unwrap(functools.reduce(getattr, n.split("."), block))
                  for n in names]
-        return checkpoint(body, *state, *args, **kwargs)
+        wrapped = any(isinstance(a, Tensor) for a in args)
+        out = checkpoint(body, *state, *(unwrap(a) for a in args),
+                         **kwargs)
+        return _wrap_all(out) if wrapped else out
 
     return region
+
+
+def _wrap_all(out):
+    if isinstance(out, torch.Tensor):
+        return wrap(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap_all(o) for o in out)
+    return out
 
 
 @contextlib.contextmanager

@@ -17,6 +17,10 @@ import math
 import torch
 from torch import nn
 
+from ..core.tensor import unwrap
+from ..nn.layer.common import Linear as _PaddleLinear
+from ..nn.layer_base import torch_view
+
 __all__ = ["summary", "flops"]
 
 
@@ -48,7 +52,7 @@ def _run(net: nn.Module, inputs) -> None:
 
 
 def _device(net: nn.Module) -> torch.device:
-    p = next(net.parameters(), None)
+    p = next(iter(torch_view(net).parameters()), None)
     return p.device if p is not None else torch.device("cpu")
 
 
@@ -59,7 +63,7 @@ def summary(net: nn.Module, input_size=None, dtypes=None, input=None):
 
     def make_hook(name):
         def hook(module, inputs, outputs):
-            out = _first(outputs)
+            out = unwrap(_first(outputs))
             shape = list(out.shape) if isinstance(out, torch.Tensor) \
                 else "?"
             n_params = sum(p.numel() for p in module.parameters(
@@ -88,8 +92,9 @@ def summary(net: nn.Module, input_size=None, dtypes=None, input=None):
         for h in hooks:
             h.remove()
 
-    total_params = sum(p.numel() for p in net.parameters())
-    trainable = sum(p.numel() for p in net.parameters() if p.requires_grad)
+    params = list(torch_view(net).parameters())
+    total_params = sum(p.numel() for p in params)
+    trainable = sum(p.numel() for p in params if p.requires_grad)
     width = 76
     print("-" * width)
     print(f"{'Layer (type)':<34}{'Output Shape':<26}{'Param #':<12}")
@@ -116,7 +121,9 @@ def flops(net: nn.Module, input_size, custom_ops=None, print_detail=False):
         total[0] += 2 * k * cin * _first(outputs).numel()
 
     def linear_hook(module, inputs, outputs):
-        total[0] += 2 * module.in_features * _first(outputs).numel()
+        fan_in = module.in_features if isinstance(module, nn.Linear) \
+            else module._in_features
+        total[0] += 2 * fan_in * unwrap(_first(outputs)).numel()
 
     hooks = []
     for name, sub in net.named_modules():
@@ -124,7 +131,7 @@ def flops(net: nn.Module, input_size, custom_ops=None, print_detail=False):
             continue
         if isinstance(sub, nn.modules.conv._ConvNd):
             hooks.append(sub.register_forward_hook(conv_hook))
-        elif isinstance(sub, nn.Linear):
+        elif isinstance(sub, (nn.Linear, _PaddleLinear)):
             hooks.append(sub.register_forward_hook(linear_hook))
     try:
         _run(net, [torch.zeros(list(input_size), device=_device(net))])

@@ -10,8 +10,14 @@ drawn from the device stream of the port's random state on ``device``
 unchanged through
 :func:`~paddle_tpu_torch.models.convert.fused_transformer_state_from_paddle_tpu`.
 The refusals are the reference's too: ``need_weights``, cross-attention
-and an incremental ``cache``.  ``ParamAttr`` is not ported yet: passing a
-``weight_attr`` or ``bias_attr`` raises.
+and an incremental ``cache``.  ``weight_attr`` and ``bias_attr`` take a
+:class:`~paddle_tpu_torch.nn.ParamAttr` (or what ``ParamAttr._to_attr``
+takes): the weights take ``weight_attr``'s initializer, and the
+parameters its name, learning-rate scale, regularizer, clip flag and
+trainability, as the reference's ``create_parameter`` gives them; the
+LayerNorm parameters take no attribute but the bias-dropout layer's
+scale, whose initializer stays 1 (reference :160-165).  The layers stay
+torch modules written on torch tensors.
 """
 from __future__ import annotations
 
@@ -21,7 +27,10 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ....core.tensor import Parameter
 from ....device import resolve_device
+from ....nn.layer_base import apply_param_attr
+from ....nn.param_attr import ParamAttr
 from ....random import default_generator
 from .. import functional as F
 
@@ -41,28 +50,47 @@ def _fans(shape: Sequence[int]):
     return shape[1] * receptive, shape[0] * receptive
 
 
+def _attr(arg):
+    """A fused layer's ``weight_attr`` / ``bias_attr`` as a ParamAttr;
+    ``False`` (no parameter) raises, as the fused kernels need them all."""
+    attr = ParamAttr._to_attr(arg)
+    if attr is False:
+        raise ValueError("the fused layers need every parameter: "
+                         "weight_attr / bias_attr cannot be False")
+    return attr
+
+
 class _Fused(nn.Module):
     """Parameter creation shared by the fused layers."""
 
     def __init__(self, device, weight_attr=None, bias_attr=None):
         super().__init__()
-        if weight_attr is not None or bias_attr is not None:
-            raise NotImplementedError("ParamAttr (weight_attr, bias_attr) "
-                                      "is not ported yet (ROADMAP.md A2)")
         self._device = resolve_device(device)
+        self._weight_attr = _attr(weight_attr)
+        self._bias_attr = _attr(bias_attr)
 
-    def _param(self, name: str, shape, init: str) -> None:
+    def _param(self, name: str, shape, init: str, attr=None) -> None:
+        """Register ``name``: initialised by ``attr``'s initializer where
+        it has one (not for the scales of 1), else by ``init``; then the
+        attribute's settings on the parameter."""
         t = torch.empty(tuple(shape), dtype=torch.float32,
                         device=self._device)
         with torch.no_grad():
-            if init == "xavier":
+            if attr is not None and attr.initializer is not None and \
+                    init != "one":
+                t.copy_(attr.initializer(shape, "float32",
+                                         device=self._device))
+            elif init == "xavier":
                 fan_in, fan_out = _fans(shape)
                 gen = default_generator.device(self._device)
                 t.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
                           generator=gen)
             else:
                 t.fill_(1.0 if init == "one" else 0.0)
-        self.register_parameter(name, nn.Parameter(t))
+        p = nn.Parameter(t)
+        if attr is not None:
+            apply_param_attr(Parameter.of(p), attr)
+        self.register_parameter(name, p)
 
 
 class FusedMultiHeadAttention(_Fused):
@@ -90,10 +118,11 @@ class FusedMultiHeadAttention(_Fused):
                                   else attn_dropout_rate)
         self.normalize_before = normalize_before
         H, Dh, D = num_heads, self.head_dim, embed_dim
-        self._param("qkv_weight", (3, H, Dh, D), "xavier")
-        self._param("qkv_bias", (3, H, Dh), "zero")
-        self._param("linear_weight", (D, D), "xavier")
-        self._param("linear_bias", (D,), "zero")
+        self._param("qkv_weight", (3, H, Dh, D), "xavier",
+                    self._weight_attr)
+        self._param("qkv_bias", (3, H, Dh), "zero", self._bias_attr)
+        self._param("linear_weight", (D, D), "xavier", self._weight_attr)
+        self._param("linear_bias", (D,), "zero", self._bias_attr)
         self._param("pre_ln_scale", (D,), "one")
         self._param("pre_ln_bias", (D,), "zero")
         self._param("ln_scale", (D,), "one")
@@ -136,10 +165,13 @@ class FusedFeedForward(_Fused):
                                  else act_dropout_rate)
         self.activation = activation
         self.normalize_before = normalize_before
-        self._param("linear1_weight", (d_model, dim_feedforward), "xavier")
-        self._param("linear1_bias", (dim_feedforward,), "zero")
-        self._param("linear2_weight", (dim_feedforward, d_model), "xavier")
-        self._param("linear2_bias", (d_model,), "zero")
+        w, b = self._weight_attr, self._bias_attr
+        self._param("linear1_weight", (d_model, dim_feedforward), "xavier",
+                    w)
+        self._param("linear1_bias", (dim_feedforward,), "zero", b)
+        self._param("linear2_weight", (dim_feedforward, d_model), "xavier",
+                    w)
+        self._param("linear2_bias", (d_model,), "zero", b)
         self._param("ln1_scale", (d_model,), "one")
         self._param("ln1_bias", (d_model,), "zero")
         self._param("ln2_scale", (d_model,), "one")
@@ -194,8 +226,8 @@ class FusedBiasDropoutResidualLayerNorm(_Fused):
         self.embed_dim = embed_dim
         self.dropout_rate = dropout_rate
         self.epsilon = epsilon
-        self._param("linear_bias", (embed_dim,), "zero")
-        self._param("ln_scale", (embed_dim,), "one")
+        self._param("linear_bias", (embed_dim,), "zero", self._bias_attr)
+        self._param("ln_scale", (embed_dim,), "one", self._weight_attr)
         self._param("ln_bias", (embed_dim,), "zero")
 
     def forward(self, x, residual):

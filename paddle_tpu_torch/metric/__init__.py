@@ -18,10 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.tensor import unwrap
+
 __all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc", "accuracy"]
 
 
 def _tensor(x, device=None) -> torch.Tensor:
+    x = unwrap(x)
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return t if device is None else t.to(device)
 
@@ -36,6 +39,7 @@ def _top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _numpy(x) -> np.ndarray:
+    x = unwrap(x)
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

@@ -1,8 +1,13 @@
-"""``paddle.nn`` of the port.  The models build on ``torch.nn``; this
-package holds the reference's layers that ``torch.nn`` does not match,
-so far ``CrossEntropyLoss``, and the gradient clips (``nn/clip.py``)."""
-from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import CrossEntropyLoss
-
-__all__ = ["CrossEntropyLoss", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm"]
+"""``paddle.nn`` of the port — the counterpart of
+``paddle_tpu/nn/__init__.py``: ``Layer`` (``layer_base``), ``ParamAttr``,
+``initializer``, ``functional``, the layers of ``nn/layer/`` (common,
+activation, norm, container, transformer, ``CrossEntropyLoss``), the
+gradient clips (``clip``) and ``Parameter``.  ``torch_view`` gives port
+code torch's view of a network."""
+from . import functional, initializer  # noqa: F401
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401,E501
+from .layer import *  # noqa: F401,F403
+from .layer import CrossEntropyLoss  # noqa: F401
+from .layer_base import Layer, torch_view  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401
+from ..core.tensor import Parameter  # noqa: F401

@@ -32,6 +32,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..core.tensor import Tensor, unwrap, wrap
+
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
@@ -42,10 +44,14 @@ def _clippable(params_grads) -> List[torch.Tensor]:
 
 class ClipGradBase:
     def __call__(self, params_grads: Sequence[Tuple]) -> List[Tuple]:
-        """``(param, grad)`` pairs -> new pairs with clipped copies."""
-        out = [(p, None if g is None else g.detach().clone())
+        """``(param, grad)`` pairs -> new pairs with clipped copies; the
+        eager core's Tensors in, Tensors out."""
+        given = any(isinstance(g, Tensor) for _, g in params_grads)
+        out = [(unwrap(p), None if g is None else unwrap(g).detach().clone())
                for p, g in params_grads]
         self._clip_(out)
+        if given:
+            out = [(wrap(p), None if g is None else wrap(g)) for p, g in out]
         return out
 
     @torch.no_grad()

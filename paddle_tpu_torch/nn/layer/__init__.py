@@ -1,4 +1,9 @@
-"""Layers of the port (``paddle_tpu/nn/layer/``): the loss layers."""
-from .loss import CrossEntropyLoss
-
-__all__ = ["CrossEntropyLoss"]
+"""Layers of the port (``paddle_tpu/nn/layer/``): ``common``,
+``activation``, ``norm``, ``container``, ``transformer`` and the loss
+layers."""
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .loss import CrossEntropyLoss  # noqa: F401
+from .norm import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403

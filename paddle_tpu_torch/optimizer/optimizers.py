@@ -97,6 +97,7 @@ from typing import Dict, Mapping
 
 import torch
 
+from ..core.tensor import unwrap
 from ..nn.clip import ClipGradBase
 from ..ops.multi_tensor_update import Spec
 from ..regularizer import L2Decay, WeightDecayRegularizer
@@ -113,9 +114,13 @@ _LOW = (torch.bfloat16, torch.float16)
 
 
 def _named(parameters):
+    """``(name, torch parameter)`` pairs from the ``parameters=``
+    argument: torch parameters, the eager core's ``Parameter``\\ s (a
+    ``Layer``'s ``parameters()``) or ``(name, parameter)`` pairs."""
     out = []
     for i, p in enumerate(parameters):
-        out.append(tuple(p) if isinstance(p, tuple) else (f"param_{i}", p))
+        name, p = tuple(p) if isinstance(p, tuple) else (f"param_{i}", p)
+        out.append((name, unwrap(p)))
     return out
 
 

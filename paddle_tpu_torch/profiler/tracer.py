@@ -22,8 +22,11 @@ far: the generation session's ``serve::<name>.prefill`` /
 :mod:`~paddle_tpu_torch.profiler.rtrace` (``cat="rtrace"``), the
 compile ledger's ``compile::<site>`` spans
 (:mod:`~paddle_tpu_torch.profiler.memscope`), ``Model.fit``'s and
-``evaluate``'s step phases and steps (``cat="hapi"``) and the loaders'
-``io::batch_wait`` (``cat="dataloader"``).
+``evaluate``'s step phases and steps (``cat="hapi"``), the loaders'
+``io::batch_wait`` (``cat="dataloader"``) and the eager core's dispatch
+(``op::<name>``, ``cat="dispatch"``, with the ``dispatch.count`` /
+``dispatch.op.<name>`` / ``dispatch.time_ns`` metrics;
+``core/dispatch.py``), which :func:`eager_phase_profile` tables.
 """
 from __future__ import annotations
 
@@ -290,13 +293,48 @@ OP_PHASES = (
 
 
 def eager_phase_profile(model, opt, x, y, p0, steps: int = 2):
-    """The reference's per-op phase breakdown of eager train steps reads
-    the eager dispatch core's ``op::`` spans; the port has no eager
-    dispatch core yet (``ROADMAP.md`` §A item 5), so this raises."""
-    raise NotImplementedError(
-        "eager_phase_profile needs the eager dispatch core's per-op "
-        "spans, which the port does not have yet (ROADMAP.md §A item 5, "
-        "the eager core)")
+    """The reference's per-op phase breakdown of eager train steps
+    (``paddle_tpu/profiler/tracer.py:290``): ``steps`` instrumented eager
+    ``Model`` steps (``_train_batch_eager(update=False)``, then
+    ``opt.step()`` and ``opt.clear_grad()``), read from the eager core's
+    ``op::`` spans, with the optimizer's wall time folded in as its own
+    synthetic bucket.  One step runs first outside the window, so it
+    attributes no first-call costs.  ``p0`` is a parameter the step
+    updates: the card is synchronised on it after each step.  Returns
+    ``(op_table, phase_shares, wall_s)``; the tracer's state is restored
+    on exit."""
+    import torch
+
+    def _sync():
+        t = getattr(p0, "_data", p0)
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    model._train_batch_eager([x], [y], update=False)
+    opt.step()
+    opt.clear_grad()
+    _sync()
+    was = active
+    enable()
+    clear()
+    opt_ns = 0
+    t_all = time.perf_counter()
+    try:
+        for _ in range(steps):
+            model._train_batch_eager([x], [y], update=False)
+            t0 = time.perf_counter_ns()
+            opt.step()
+            opt.clear_grad()
+            _sync()
+            opt_ns += time.perf_counter_ns() - t0
+        wall = time.perf_counter() - t_all
+        table = op_table()
+        return table, phase_shares(table, extra_ns={"optimizer": opt_ns}), \
+            wall
+    finally:
+        clear()
+        if not was:
+            disable()
 
 
 def op_phase(op_name: str) -> str:

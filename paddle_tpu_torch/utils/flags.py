@@ -13,7 +13,10 @@ The port reads ``FLAGS_fused_optimizer`` (the optimizers' fused update),
 ``FLAGS_prefetch_to_device`` (``Model.fit``'s input stage),
 ``FLAGS_program_remat`` with ``FLAGS_remat_budget_mb`` (``Model``'s
 budget remat), ``FLAGS_anomaly_action`` (``Model.fit``'s guard),
-``FLAGS_check_nan_inf`` (``Model.train_batch``'s loss check),
+``FLAGS_check_nan_inf`` (``Model.train_batch``'s loss check and the
+eager dispatch's per-op check), ``FLAGS_benchmark`` (the dispatch's
+per-op synchronisation), ``FLAGS_default_dtype`` (``core/dtype.py``),
+``FLAGS_matmul_precision`` (``ops/linalg.py``),
 ``FLAGS_chaos_spec`` and ``FLAGS_chaos_seed`` (``utils/chaos.py``),
 ``FLAGS_flight_recorder`` and ``FLAGS_flight_recorder_capacity``
 (``profiler/flight.py``), ``FLAGS_serving_queue_depth``,
@@ -117,31 +120,41 @@ define_flag("FLAGS_anomaly_action", "",
             "'raise', 'skip', 'rollback'); set, fit reads the loss after "
             "every step")
 
-# -- defined for set_flags, read by a module still to port -------------------
-define_flag("FLAGS_eager_jit_cache", True,
-            "the eager core's per-op cache (ROADMAP.md A2)")
-define_flag("FLAGS_use_pallas", True,
-            "the eager core's kernel dispatch (ROADMAP.md A2); the port's "
-            "entry points always run its hand-written kernels")
 define_flag("FLAGS_check_nan_inf", False,
             "hapi/model.py: Model.train_batch's captured step reads its "
-            "loss and raises on a nan/inf; the eager core's per-op check "
-            "waits for ROADMAP.md A2")
+            "loss and raises on a nan/inf; core/dispatch.py: every eager "
+            "op checks its outputs and raises FloatingPointError naming "
+            "the op")
+define_flag("FLAGS_benchmark", False,
+            "core/dispatch.py: every eager op synchronises the card after "
+            "it runs")
+define_flag("FLAGS_default_dtype", "float32",
+            "core/dtype.py: the eager core's default floating type "
+            "(creation ops, to_tensor of Python floats)")
+define_flag("FLAGS_matmul_precision", "default",
+            "ops/linalg.py: the eager core's fp32 products on the card: "
+            "'default' / 'highest' / 'float32' full fp32, 'high' / "
+            "'tensorfloat32' / 'bfloat16' TF32")
+
+# -- defined for set_flags; nothing reads them, and why ----------------------
+define_flag("FLAGS_eager_jit_cache", True,
+            "the reference's eager per-op jit cache: torch runs eagerly "
+            "without tracing, so the port's eager core has no such cache")
+define_flag("FLAGS_use_pallas", True,
+            "the reference's Pallas-or-XLA kernel choice: the port always "
+            "runs its hand-written kernels on CUDA tensors and their plain "
+            "versions only on CPU tensors")
+
+# -- defined for set_flags, read by a module still to port -------------------
 define_flag("FLAGS_allocator_strategy", "auto_growth",
             "kept for the API, as in the reference: the caching allocator "
             "owns device memory")
-define_flag("FLAGS_benchmark", False,
-            "the eager core's per-op synchronisation (ROADMAP.md A2)")
 define_flag("FLAGS_cudnn_deterministic", False,
             "the conv leg's cuDNN algorithms (ROADMAP.md A6)")
 define_flag("FLAGS_max_inplace_grad_add", 0,
             "kept for the API, as in the reference")
 define_flag("FLAGS_init_allocated_mem", False,
             "kept for the API, as in the reference")
-define_flag("FLAGS_default_dtype", "float32",
-            "the eager core's default floating type (ROADMAP.md A2)")
-define_flag("FLAGS_matmul_precision", "default",
-            "the eager core's matmul precision (ROADMAP.md A2)")
 define_flag("FLAGS_log_recompile", False,
             "the static Executor's recompile notices (ROADMAP.md A7)")
 define_flag("FLAGS_check_program", False,

@@ -182,7 +182,18 @@ def test_layers_refuse_what_the_reference_refuses():
         mha(x, torch.rand(B, T, D))
     with pytest.raises(NotImplementedError, match="cache"):
         mha(x, cache=object())
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
+    # ParamAttr is ported: the attribute's initializer and settings land
+    # on the parameters; what is no attribute still raises, naming it
+    from paddle_tpu_torch.nn import ParamAttr, initializer
+    ffn = inc.FusedFeedForward(
+        D, FF, weight_attr=ParamAttr(initializer=initializer.Constant(0.5),
+                                     learning_rate=2.0),
+        bias_attr=ParamAttr(trainable=False), device="cpu")
+    assert torch.all(ffn.linear1_weight == 0.5)
+    assert ffn.linear2_weight.optimize_attr["learning_rate"] == 2.0
+    assert not ffn.linear1_bias.requires_grad
+    assert torch.all(ffn.ln1_scale == 1.0) and ffn.ln1_scale.requires_grad
+    with pytest.raises(TypeError, match="ParamAttr"):
         inc.FusedFeedForward(D, FF, weight_attr=object(), device="cpu")
     with pytest.raises(ValueError, match="activation"):
         inc.FusedFeedForward(D, FF, activation="swish", device="cpu")

@@ -113,8 +113,25 @@ def test_tracer_exports_and_summarizes(tmp_path):
     doc = json.loads(open(path).read())
     assert [e["dur"] for e in doc["traceEvents"]] == [2.0, 1.0]
     tracer.clear()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tracer.eager_phase_profile(None, None, None, None, None)
+    # eager_phase_profile is ported on the eager core's op:: spans
+    # (tests/test_torch_dispatch.py holds its phases to the reference's)
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import place
+    was = place._place
+    pt.set_device("cpu")
+    try:
+        net = pt.nn.Linear(4, 3)
+        opt = pt.optimizer.SGD(0.1, parameters=net.parameters())
+        model = pt.Model(net).prepare(opt, pt.nn.CrossEntropyLoss(),
+                                      jit=False)
+        table, shares, wall = tracer.eager_phase_profile(
+            model, opt, np.ones((2, 4), np.float32),
+            np.zeros((2, 1), np.int64), net.weight)
+    finally:
+        place._place = was
+    assert table["linear"]["phase"] == "matmul" and wall > 0
+    assert abs(sum(s["time_frac"] for s in shares.values()) - 1) < 1e-9
+    assert not tracer.is_enabled() and not tracer.events()
 
 
 def test_tracing_and_accounting_off_cost_one_predicate(net):
