@@ -333,6 +333,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
             CPU Tensors, forward and gradients, every creation op with no
             place on the card; 20e one traced step's op:: spans under
             dispatch and eager_phase_profile's shares; the phase's seconds
+21. sparse phase 20's encoder with wte = nn.Embedding(30528, 768,
+    embedding padding_idx=0, sparse=True), ids from seed 21 with padding:
+            21a SGD, Adam and AdamW: a counted step (12 + 12 attention
+            launches, one mt_update and one mt_update_rows, two powers'
+            advances under Adam and AdamW; wte's gradient a SelectedRows
+            of 16384 x 768 values, no dense (V, D) gradient), the rows
+            kernel against its plain version on the next step's merged
+            gradient and state (update_close's bounds, untouched rows
+            kept), two 3-step runs bit for bit, untouched rows unmoved
+            under Adam and AdamW, SGD within 1e-6 relative of the dense
+            embedding; 21b ClipGradByGlobalNorm(1.0)'s scale on the merged
+            rows within 1e-6 of the dense twin's, two clipped Adam steps;
+            21c Model(jit=True) on the sparse table = on a dense one bit
+            for bit (one capture, no rows launch: the captured step takes
+            the dense gradient), Model(jit=False) Adam = 21a's loop bit
+            for bit; 21d the loss falling over 12 Adam steps, step ms p50
+            sparse against dense (10 each after 2, alternating rounds),
+            host ms, peak memory, idle share, unique rows a step; the
+            merge, mt_update_rows (events, a replayed graph, its plain
+            version, its bytes bound), the dense mt_update on the table,
+            torch.optim.SparseAdam.step and SGD's index_add_ after
+            torch.unique; the phase's seconds
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -7147,17 +7169,19 @@ EAGER_CORE_TIMED = 4      # 20b: Model steps timed per engine
 EAGER_CORE_AMP = 6        # 20c: O1 steps, timed
 
 
-def eager_core_net(paddle, cfg):
+def eager_core_net(paddle, cfg, sparse=False, padding_idx=None):
     """The encoder of :data:`EAGER_CORE` as a ``paddle.nn.Layer``: token
     and position embeddings, ``nn.TransformerEncoder`` (post-LN, GELU,
-    hidden dropout, no attention dropout) and an untied head."""
+    hidden dropout, no attention dropout) and an untied head; the token
+    embedding with ``sparse`` and ``padding_idx`` as given."""
     nn = paddle.nn
 
     class Encoder(nn.Layer):
         def __init__(self):
             super().__init__()
             D = cfg["d_model"]
-            self.wte = nn.Embedding(cfg["vocab_size"], D)
+            self.wte = nn.Embedding(cfg["vocab_size"], D,
+                                    padding_idx=padding_idx, sparse=sparse)
             self.wpe = nn.Embedding(cfg["max_len"], D)
             self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
                 D, cfg["nhead"], cfg["dim_feedforward"],
@@ -7618,6 +7642,458 @@ def eager_core_path(torch, fa, dev, cfg=EAGER_CORE):
     return core
 
 
+SPARSE_STEPS = 3       # 21a / 21c: runs compared bit for bit
+SPARSE_FALL = 12       # 21d: the loss falls over these Adam steps
+SPARSE_ROUND = 6       # 21d: steps a round (one warm-up), two rounds a mode
+SPARSE_LR = {"sgd": 1e-2, "adam": 1e-4, "adamw": 1e-4}
+SPARSE_REL = 1e-6      # 21a SGD sparse against dense; 21b the clip scale
+
+
+def sparse_ids(np, V, B, T, seed=21):
+    """Token ids from ``seed``, uniform over 1 ... V - 1, row i's last
+    (7·i mod 64) positions the padding id 0."""
+    ids = np.random.RandomState(seed).randint(1, V, (B, T))
+    for i in range(B):
+        k = (7 * i) % 64
+        if k:
+            ids[i, T - k:] = 0
+    return ids
+
+
+def _state_rel_l2(torch, a, b):
+    """max over keys of ‖a - b‖ / ‖b‖ (‖b‖ 0: ‖a - b‖)."""
+    out = 0.0
+    for k, v in b.items():
+        d = (a[k].double() - v.double()).norm().item()
+        n = v.double().norm().item()
+        out = max(out, d / n if n else d)
+    return out
+
+
+def _rows_records(torch, mtu, opt, p, merged, name):
+    """Two records of the row-sparse update of ``p`` from ``opt``'s state
+    (clones: one for the kernel, one for the plain version)."""
+    spec = opt._kernel_spec()
+    slot = opt._state.get(id(p), {})
+    out = []
+    for _ in range(2):
+        out.append(mtu.Record(
+            name=name, param=p.detach().clone(),
+            grad=merged._values.contiguous(), master=None,
+            slots=tuple(slot[k].clone() for k in spec.slots),
+            pows=tuple(slot[k].clone() for k in ("beta1_pow", "beta2_pow")[
+                :len(spec.betas)]), rows=merged._rows,
+            **opt._kernel_record(name)))
+    return spec, out
+
+
+def _record_state(spec, r):
+    return dict({"param": r.param}, **dict(zip(spec.slots, r.slots)),
+                **{f"pow{i}": t for i, t in enumerate(r.pows)})
+
+
+def sparse_embedding_path(torch, fa, dev, cfg=EAGER_CORE):
+    """Phase 21 (the module docstring) on ``dev``; returns the report."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.selected_rows import SelectedRows, merged_grad
+    from paddle_tpu_torch.nn import torch_view
+    from paddle_tpu_torch.nn.clip import _clippable
+    from paddle_tpu_torch.ops import multi_tensor_update as mtu
+    from paddle_tpu_torch.tools import profile_train
+    t_phase = time.perf_counter()
+    F = paddle.nn.functional
+    dev = torch.device(dev)
+    paddle.set_device(f"gpu:{dev.index or 0}" if dev.type == "cuda"
+                      else "cpu")
+    L, B, T, V, D = cfg["num_layers"], cfg["batch"], cfg["seq"], \
+        cfg["vocab_size"], cfg["d_model"]
+    paddle.seed(0)
+    net = eager_core_net(paddle, cfg, sparse=True, padding_idx=0)
+    view = torch_view(net)
+    wte = dict(view.named_parameters())["wte.weight"]
+    state0 = {k: v.detach().clone() for k, v in view.state_dict().items()}
+    ids_np = sparse_ids(np, V, B, T)
+    labels_np = np.roll(ids_np, -1, 1).reshape(B, T, 1)
+    ids, labels = paddle.to_tensor(ids_np), paddle.to_tensor(labels_np)
+    batches = [(paddle.roll(ids, i, 0), paddle.roll(labels, i, 0))
+               for i in range(SPARSE_STEPS)]
+    touched_np = np.unique(ids_np)
+    untouched = torch.ones(V, dtype=torch.bool, device=dev)
+    untouched[torch.as_tensor(touched_np, device=dev)] = False
+    mode = fa._pallas_mode(T, T, False)
+    attn_want = _attention_want(L, mode, mode, None)
+    opts = {
+        "sgd": lambda **k: paddle.optimizer.SGD(
+            SPARSE_LR["sgd"], parameters=net.parameters(), **k),
+        "adam": lambda **k: paddle.optimizer.Adam(
+            SPARSE_LR["adam"], parameters=net.parameters(), **k),
+        "adamw": lambda **k: paddle.optimizer.AdamW(
+            SPARSE_LR["adamw"], parameters=net.parameters(),
+            weight_decay=0.01, **k)}
+
+    def set_sparse(on):
+        net.wte._sparse = on
+
+    def restore(sparse=True):
+        net.set_state_dict(state0)
+        net.clear_gradients()
+        set_sparse(sparse)
+
+    def reset():
+        _reset_attention(fa)
+        _reset_update()
+        mtu.ROWS_LAUNCHES = 0
+
+    def counts():
+        return dict(_attention_launches(fa), **_update_launches(),
+                    update_rows=mtu.ROWS_LAUNCHES)
+
+    def loop(kind, sparse, seed=2, **kw):
+        restore(sparse)
+        opt = opts[kind](**kw)
+        paddle.seed(seed)
+        losses = [_core_step(paddle, net, opt, b_ids, b_labels)._data.detach()
+                  for b_ids, b_labels in batches]
+        return torch.stack(losses), _train_state(view, opt)
+
+    report = dict(config=dict(cfg, padding_idx=0, ids_seed=21),
+                  occurrences=B * T, unique_ids=int(touched_np.size))
+
+    # -- 21a: SGD, Adam and AdamW on the sparse table ----------------------
+    log(f"  21a: SGD, Adam and AdamW with wte = nn.Embedding({V}, {D}, "
+        f"padding_idx=0, sparse=True); {B * T} ids, {touched_np.size} "
+        f"distinct")
+    runs, errs = {}, []
+    for kind in ("sgd", "adam", "adamw"):
+        restore()
+        opt = opts[kind]()
+        sync(torch, dev)
+        reset()
+        paddle.seed(1)
+        loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+        del loss
+        g = net.wte.weight.grad
+        sparse_ok = (isinstance(g, SelectedRows) and wte.grad.is_sparse
+                     and tuple(g.values.shape) == (B * T, D)
+                     and g.dense_shape == (V, D))
+        spec = opt._kernel_spec()
+        want = dict(attn_want, update={spec.kind: 1}, update_norms=0,
+                    update_pows=2 if spec.betas else 0, update_unscale=0,
+                    update_rows=1)
+        opt.step()
+        opt.clear_grad()
+        sync(torch, dev)
+        launched = counts()
+        unique_rows = None
+        # the kernel against its plain version on the second step's
+        # merged gradient and state (launches made here are not counted)
+        paddle.seed(5)
+        loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+        del loss
+        merged = SelectedRows.of(wte.grad).merged()
+        unique_rows = int(merged._rows.numel())
+        spec, (k_rec, p_rec) = _rows_records(torch, mtu, opt, wte, merged,
+                                             "wte.weight")
+        base = {k: v.clone() for k, v in _record_state(spec, k_rec).items()}
+        lr = opt._lr(dev)
+        mtu.multi_tensor_update_rows(spec, mtu.RowsTable(spec, [k_rec]), lr,
+                                     opt._update)
+        mtu.multi_tensor_update_rows_ref(spec, [p_rec], lr, opt._update)
+        sync(torch, dev)
+        got, wantv = _record_state(spec, k_rec), _record_state(spec, p_rec)
+        ok, bad, _, rows = update_verdict(torch, got, wantv, base)
+        err = max(r["err"] for r in rows.values())
+        kept = all(torch.equal(got[k][untouched], base[k][untouched])
+                   for k in got if got[k].dim() > 0)
+        errs.append(err)
+        del merged, k_rec, p_rec, got, wantv, base
+        net.clear_gradients()
+        l1, s1 = loop(kind, True)
+        l2, s2 = loop(kind, True)
+        repeats = bool(torch.equal(l1, l2)) and all(
+            torch.equal(v, s2[k]) for k, v in s1.items())
+        del s2
+        still = torch.equal(s1["param wte.weight"][untouched],
+                            state0["wte.weight"][untouched])
+        row = dict(launches=launched, expected=want, selected_rows=sparse_ok,
+                   unique_rows=unique_rows, kernel_vs_plain_ok=ok,
+                   kernel_vs_plain_bad=bad, max_abs_err=err,
+                   kernel_kept_untouched=kept, deterministic=repeats,
+                   losses=l1.tolist(), untouched_rows_unmoved=still)
+        if kind == "sgd":
+            l_d, s_d = loop(kind, False)
+            row["sgd_vs_dense_rel_l2"] = _state_rel_l2(torch, s1, s_d)
+            row["sgd_vs_dense_loss_rel"] = (
+                (l1 - l_d).abs().max() / l_d.abs().max()).item()
+            del s_d
+        if kind == "adam":
+            runs["adam"] = (l1, s1)
+        else:
+            del s1
+        log(f"  21a {kind}: launches {launched} (expected {want}); grad a "
+            f"SelectedRows of values {tuple(g.values.shape)}, dense shape "
+            f"{g.dense_shape}, no dense (V, D) gradient: {sparse_ok}; "
+            f"{unique_rows} unique rows; kernel vs plain {ok} (max abs err "
+            f"{err:.3e}{', bad ' + str(bad) if bad else ''}), untouched rows "
+            f"kept by the kernel {kept}; two {SPARSE_STEPS}-step runs bit for "
+            f"bit {repeats}, losses {l1.tolist()}; untouched rows unmoved "
+            f"{still}" + (f"; sparse vs dense twin rel L2 "
+                          f"{row['sgd_vs_dense_rel_l2']:.3e} (loss "
+                          f"{row['sgd_vs_dense_loss_rel']:.3e}, limit "
+                          f"{SPARSE_REL:g})" if kind == "sgd" else ""))
+        if launched != want or not sparse_ok:
+            raise AssertionError(f"21a {kind}: launches {launched}, expected "
+                                 f"{want}; SelectedRows {sparse_ok}")
+        if not (ok and kept and repeats):
+            raise AssertionError(f"21a {kind}: kernel vs plain {ok} {bad}, "
+                                 f"untouched kept {kept}, bit for bit "
+                                 f"{repeats}")
+        if kind != "sgd" and not still:
+            raise AssertionError(f"21a {kind}: untouched rows moved")
+        if kind == "sgd" and max(row["sgd_vs_dense_rel_l2"],
+                                 row["sgd_vs_dense_loss_rel"]) > SPARSE_REL:
+            raise AssertionError("21a: SGD sparse differs from its dense twin")
+        report[kind] = row
+
+    # -- 21b: the global-norm clip on the merged rows ----------------------
+    clip = paddle.nn.ClipGradByGlobalNorm(1.0)
+    scales = {}
+    for sparse in (True, False):
+        restore(sparse)
+        paddle.seed(4)
+        loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+        del loss
+        pairs = []
+        for p in view.parameters():
+            if p.grad is not None:
+                if p.grad.is_sparse:
+                    p.grad = merged_grad(p.grad)
+                pairs.append((p, p.grad))
+        scales[sparse] = clip._scale(_clippable(pairs)).item()
+        del pairs
+    restore()
+    opt = opts["adam"](grad_clip=clip)
+    paddle.seed(4)
+    reset()
+    clip_losses = [_core_step(paddle, net, opt, ids, labels).item()
+                   for _ in range(2)]
+    sync(torch, dev)
+    clip_counts = counts()
+    clip_rel = abs(scales[True] - scales[False]) / abs(scales[False])
+    log(f"  21b: ClipGradByGlobalNorm(1.0): scale sparse {scales[True]!r} "
+        f"dense {scales[False]!r} (rel {clip_rel:.3e}, limit "
+        f"{SPARSE_REL:g}); 2 clipped Adam steps, losses {clip_losses}, "
+        f"launches {clip_counts}")
+    if clip_rel > SPARSE_REL or not all(np.isfinite(clip_losses)) or \
+            clip_counts["update_rows"] != 2:
+        raise AssertionError("21b: the clip on the sparse table is wrong")
+    report["clip"] = dict(scale_sparse=scales[True], scale_dense=scales[False],
+                          rel=clip_rel, losses=clip_losses,
+                          launches=clip_counts)
+
+    # -- 21c: Model, captured (dense) and eager (lazy rows) ----------------
+    def model_run(sparse, jit):
+        restore(sparse)
+        opt = opts["adam"]()
+        model = paddle.Model(net).prepare(opt, paddle.nn.CrossEntropyLoss(),
+                                          jit=jit)
+        paddle.seed(2)
+        reset()
+        losses = [model.train_batch([b_ids], [b_labels])["loss"]
+                  for b_ids, b_labels in batches]
+        sync(torch, dev)
+        launched = counts()
+        return (torch.stack(losses), _train_state(view, opt),
+                model._steps.compiles,
+                _all_captured(model._steps.entries().values()), launched)
+
+    l_js, s_js, cap_s, all_s, n_js = model_run(True, True)
+    l_jd, s_jd, cap_d, all_d, _ = model_run(False, True)
+    jit_equal = bool(torch.equal(l_js, l_jd)) and all(
+        torch.equal(v, s_jd[k]) for k, v in s_js.items())
+    del s_js, s_jd
+    l_e, s_e, _, _, n_e = model_run(True, False)
+    l_a, s_a = runs.pop("adam")
+    eager_equal = bool(torch.equal(l_e, l_a)) and all(
+        torch.equal(v, s_a[k]) for k, v in s_e.items())
+    del s_e, s_a
+    log(f"  21c: Model(jit=True) sparse = dense bit for bit: {jit_equal} "
+        f"(captures {cap_s} / {cap_d}, captured {all_s} / {all_d}; rows "
+        f"launches {n_js['update_rows']}); Model(jit=False) Adam = 21a's "
+        f"loop bit for bit: {eager_equal} (rows launches "
+        f"{n_e['update_rows']})")
+    if not (jit_equal and eager_equal) or cap_s != 1 or not all_s or \
+            n_js["update_rows"] != 0 or n_e["update_rows"] != SPARSE_STEPS:
+        raise AssertionError("21c: Model on the sparse table is wrong")
+    report["model"] = dict(captured_sparse_equals_dense=jit_equal,
+                           captures=cap_s, eager_equals_loop=eager_equal,
+                           rows_launches_captured=n_js["update_rows"],
+                           rows_launches_eager=n_e["update_rows"])
+
+    # -- 21d: step time, sparse against dense, and the pieces --------------
+    def timed_run(sparse, steps, seed, warm=1):
+        restore(sparse)
+        opt = opts["adam"]()
+        paddle.seed(seed)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        losses, times, host = [], [], []
+        for i in range(steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            h0 = time.perf_counter()
+            loss = _core_step(paddle, net, opt, ids, labels)
+            host.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            b.synchronize()
+            losses.append(loss.item())
+            if i >= warm:
+                times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+            else 0
+        return losses, times, host[warm:], peak, opt
+
+    fall, _, _, peak_fall, opt = timed_run(True, SPARSE_FALL, 6)
+    if not fall[-1] < fall[0]:
+        raise AssertionError(f"21d: the loss did not fall: {fall}")
+    prof = profile_train.profile(
+        lambda: _core_step(paddle, net, opt, ids, labels),
+        lambda: _reset_attention(fa),
+        lambda: dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES),
+        dict(path="phase 21: the sparse table, Adam", batch=B, seq=T), 2)
+    set_sparse(False)
+    prof_dense = profile_train.profile(
+        lambda: _core_step(paddle, net, opt, ids, labels),
+        lambda: _reset_attention(fa),
+        lambda: dict(fwd=fa.FWD_LAUNCHES, bwd=fa.BWD_LAUNCHES),
+        dict(path="phase 21: the table dense, Adam", batch=B, seq=T), 2)
+    del opt
+    timing = {True: dict(times=[], host=[], peak=0),
+              False: dict(times=[], host=[], peak=0)}
+    for rnd in range(2):
+        for sparse in ((True, False) if rnd == 0 else (False, True)):
+            _, times, host, peak, opt = timed_run(sparse, SPARSE_ROUND, 7)
+            del opt
+            t = timing[sparse]
+            t["times"] += times
+            t["host"] += host
+            t["peak"] = max(t["peak"], peak)
+    p50 = {k: pct(v["times"], 50) for k, v in timing.items()}
+
+    # the pieces on one step's gradient: the merge, the rows pass against
+    # its plain version and bound, the dense pass on the table, and the
+    # library calls (timed here, used nowhere)
+    restore()
+    opt = opts["adam"]()
+    paddle.seed(8)
+    _core_step(paddle, net, opt, ids, labels)
+    loss = F.cross_entropy(net(ids), labels)
+    loss.backward()
+    del loss
+    raw = wte.grad.detach().clone()
+    net.clear_gradients()
+    merge_ms = time_ms(torch, lambda: SelectedRows.of(raw).merged(), reps=10)
+    merged = SelectedRows.of(raw).merged()
+    R = int(merged._rows.numel())
+    spec, (k_rec, p_rec) = _rows_records(torch, mtu, opt, wte, merged,
+                                         "wte.weight")
+    lr = opt._lr(dev)
+    table = mtu.RowsTable(spec, [k_rec])
+
+    def rows_fn():
+        mtu.multi_tensor_update_rows(spec, table, lr, opt._update)
+    slot = opt._state[id(wte)]
+    dense_grad = merged.to_dense()._data
+    d_rec = mtu.Record(name="wte.weight", param=wte.detach().clone(),
+                       grad=dense_grad, master=None,
+                       slots=tuple(slot[k].clone() for k in spec.slots),
+                       pows=tuple(slot[k].clone() for k in (
+                           "beta1_pow", "beta2_pow")),
+                       **opt._kernel_record("wte.weight"))
+    d_table = mtu.Table(spec, [d_rec])
+
+    def dense_fn():
+        mtu.multi_tensor_update(spec, d_table, lr, opt._update)
+    ms = time_ms(torch, rows_fn)
+    plain_ms = time_ms(torch, lambda: mtu.multi_tensor_update_rows_ref(
+        spec, [p_rec], lr, opt._update), reps=5, warmup=1)
+    dense_ms = time_ms(torch, dense_fn)
+    (rows_dev, _), (dense_dev, _) = graphs_ms(torch, [rows_fn, dense_fn],
+                                              rounds=8)
+    w_lib = wte.detach().clone().requires_grad_(True)
+    w_lib.grad = raw
+    sparse_adam = torch.optim.SparseAdam([w_lib], lr=SPARSE_LR["adam"])
+    library_ms = time_ms(torch, sparse_adam.step, reps=10)
+    w_sgd = wte.detach().clone()
+    rows_raw, vals_raw = raw._indices()[0], raw._values()
+
+    def sgd_index_add():
+        uniq, inv = torch.unique(rows_raw, return_inverse=True)
+        acc = torch.zeros((uniq.numel(), D), dtype=vals_raw.dtype,
+                          device=dev).index_add_(0, inv, vals_raw)
+        w_sgd.index_add_(0, uniq, acc, alpha=-SPARSE_LR["sgd"])
+    sgd_library_ms = time_ms(torch, sgd_index_add, reps=10)
+    nbytes = R * D * 28 + R * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_with_merge_ms = (R * D * 28 + B * T * D * 4) / HBM_BYTES_PER_S * 1e3
+    dense_bound_ms = V * D * 28 / HBM_BYTES_PER_S * 1e3
+    del raw, merged, k_rec, p_rec, table, d_rec, d_table, dense_grad, w_lib
+    del sparse_adam, w_sgd, opt
+    log(f"  21d: the loss falls over {SPARSE_FALL} Adam steps: "
+        f"{fall[0]:.4f} -> {fall[-1]:.4f}; step ms p50 sparse "
+        f"{p50[True]:.3f}, dense {p50[False]:.3f} (10 each after 2 "
+        f"warm-ups, alternating rounds); host ms p50 sparse "
+        f"{pct(timing[True]['host'], 50):.3f}, dense "
+        f"{pct(timing[False]['host'], 50):.3f}; peak memory sparse "
+        f"{timing[True]['peak'] / 2**30:.3f} GiB, dense "
+        f"{timing[False]['peak'] / 2**30:.3f} GiB; idle share sparse "
+        f"{prof['idle_share']:.4f} (device busy "
+        f"{prof['device_busy_ms_per_step']:.3f} of {prof['wall_ms_p50']:.3f}"
+        f" ms), dense {prof_dense['idle_share']:.4f} (busy "
+        f"{prof_dense['device_busy_ms_per_step']:.3f} of "
+        f"{prof_dense['wall_ms_p50']:.3f}); {R} unique rows a step")
+    log(f"  21d: merge {merge_ms:.4f} ms (events, its host read included); "
+        f"mt_update_rows {ms:.4f} ms, device {rows_dev:.4f} against its "
+        f"bound {bound_ms:.4f} ({R} x {D} x 28 B + rows; with the "
+        f"occurrences' read {bound_with_merge_ms:.4f}), plain {plain_ms:.4f};"
+        f" the dense mt_update on the table {dense_ms:.4f}, device "
+        f"{dense_dev:.4f} (bound {dense_bound_ms:.4f}); SparseAdam.step "
+        f"{library_ms:.4f}; SGD index_add_ after unique "
+        f"{sgd_library_ms:.4f} ({card_line()})")
+    report["timing"] = dict(
+        loss_fall=fall, peak_memory_fall=peak_fall,
+        step_ms_sparse=timing[True]["times"],
+        step_ms_dense=timing[False]["times"], step_ms_p50_sparse=p50[True],
+        step_ms_p50_dense=p50[False],
+        host_ms_p50_sparse=pct(timing[True]["host"], 50),
+        host_ms_p50_dense=pct(timing[False]["host"], 50),
+        peak_memory_sparse=timing[True]["peak"],
+        peak_memory_dense=timing[False]["peak"],
+        idle_share_sparse=prof["idle_share"], profile=prof,
+        idle_share_dense=prof_dense["idle_share"], profile_dense=prof_dense,
+        unique_rows=R,
+        merge_ms=merge_ms, rows_ms=ms, rows_device_ms=rows_dev,
+        rows_plain_ms=plain_ms, rows_bound_ms=bound_ms,
+        rows_bound_with_merge_ms=bound_with_merge_ms,
+        dense_update_ms=dense_ms, dense_update_device_ms=dense_dev,
+        dense_update_bound_ms=dense_bound_ms, sparse_adam_ms=library_ms,
+        sgd_index_add_ms=sgd_library_ms)
+    report["max_abs_err"] = max(errs)
+    report["launches"] = sum(report[k]["launches"]["update_rows"]
+                             for k in ("sgd", "adam", "adamw"))
+    del net, view, state0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  21: {report['seconds']:.1f} s ({card_line()})")
+    return report
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
@@ -7625,7 +8101,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS,
         profile_cfg=PROFILE_FIT, eager_core_cfg=EAGER_CORE):
-    """Phases 3-20 on ``dev`` with a serving GPT of ``width``, the two
+    """Phases 3-21 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -7633,7 +8109,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     (defaults: the GPT's parameters and UPDATE_EXTRA, see each check);
     ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
     and 8 (phase 7's remat policies run ``train_cfg``), ``fit_hooks_cfg``
-    phase 16's, ``profile_cfg`` phase 19's, ``eager_core_cfg`` phase 20's;
+    phase 16's, ``profile_cfg`` phase 19's, ``eager_core_cfg`` phases 20
+    and 21's;
     returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -7795,6 +8272,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 20: the eager core: the reference's nn.TransformerEncoder "
         "at full width, trained eagerly")
     core = eager_core_path(torch, fa, dev, eager_core_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 21: the sparse embedding and its rows-only update on "
+        "phase 20's encoder")
+    sparse = sparse_embedding_path(torch, fa, dev, eager_core_cfg)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -8313,6 +8794,27 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              overflow_steps=[dict(found_inf=r["found_inf"],
                                   scale=r["scale"], moved=r["moved"])
                              for r in fp16["overflow"]["steps"]])]
+    st = sparse["timing"]
+    kernels.append(dict(
+        name="mt_update_rows", route="cuda",
+        source="paddle_tpu_torch/csrc/multi_tensor_update.cu",
+        replaces="paddle_tpu/optimizer/optimizers.py:455", tpu_kernel=None,
+        note="the row-sparse update (_update_sparse: SGD :350, Adam :455, "
+             "AdamW :499) is XLA scatters in the reference, no Pallas "
+             "kernel",
+        launches=sparse["launches"], launches_per_step=1,
+        max_abs_err=sparse["max_abs_err"], ms=st["rows_ms"],
+        plain_ms=st["rows_plain_ms"], bound_ms=st["rows_bound_ms"],
+        bound_by="bytes", library_ms=st["sparse_adam_ms"],
+        library="torch.optim.SparseAdam.step (its own coalesce included)",
+        device_ms=st["rows_device_ms"],
+        share_of_bound=st["rows_bound_ms"] / st["rows_device_ms"],
+        bound_with_merge_input_ms=st["rows_bound_with_merge_ms"],
+        merge_ms=st["merge_ms"], sgd_index_add_ms=st["sgd_index_add_ms"],
+        dense_update_ms=st["dense_update_ms"],
+        dense_update_device_ms=st["dense_update_device_ms"],
+        timed_shape=f"Adam on wte (30528 x 768, fp32), {st['unique_rows']} "
+                    f"unique rows of {sparse['occurrences']} ids"))
     report = dict(checks=checks, qkv_checks=qkv_checks,
                   fp64_checks=fp64_checks,
                   head_checks=head_checks, dlogits_checks=dlogits_checks,
@@ -8341,6 +8843,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_long_bf16_timing=long_times_bf16,
                   remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
                   profiler=profiled, eager_core=core,
+                  sparse_embedding=sparse,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

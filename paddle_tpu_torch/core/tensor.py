@@ -8,7 +8,8 @@ paddle's ``shape`` (a list), ``size`` (a property), ``dim`` and ``dtype``
 clash with torch's own, which torch's Python code calls.  Autograd is
 torch's (``core/autograd.py``): ``stop_gradient`` is ``not
 _data.requires_grad`` and ``grad`` is a :class:`Tensor` view of
-``_data.grad``.
+``_data.grad`` (a :class:`~.selected_rows.SelectedRows` view of a sparse
+embedding's row-sparse gradient).
 
 A :class:`Parameter` wraps a ``torch.nn.Parameter``.  There is exactly
 one wrapper per torch parameter (:meth:`Parameter.of`), and its paddle
@@ -151,12 +152,22 @@ class Tensor:
                 self._data = d.detach().requires_grad_(True)
 
     @property
-    def grad(self) -> Optional["Tensor"]:
+    def grad(self):
+        """The gradient as a Tensor; a row-sparse one (a sparse
+        embedding's) as a :class:`~.selected_rows.SelectedRows` view."""
         g = self._data.grad
-        return None if g is None else Tensor(g)
+        if g is None:
+            return None
+        if g.is_sparse:
+            from .selected_rows import SelectedRows
+            return SelectedRows.of(g)
+        return Tensor(g)
 
     @grad.setter
     def grad(self, value):
+        from .selected_rows import SelectedRows
+        if isinstance(value, SelectedRows):
+            value = value.to_torch()
         self._data.grad = None if value is None else unwrap(value)
 
     def backward(self, grad_tensor=None, retain_graph: bool = False):
@@ -164,8 +175,15 @@ class Tensor:
         autograd.backward(self, grad_tensor, retain_graph)
 
     def clear_gradient(self, set_to_zero: bool = False):
-        if set_to_zero and self._data.grad is not None:
-            self._data.grad.zero_()
+        g = self._data.grad
+        if set_to_zero and g is not None:
+            if g.is_sparse:
+                # dense zeros, as the reference leaves (:145-151): the
+                # next gradient then accumulates densely
+                self._data.grad = torch.zeros(g.shape, dtype=g.dtype,
+                                              device=g.device)
+            else:
+                g.zero_()
         else:
             self._data.grad = None
 

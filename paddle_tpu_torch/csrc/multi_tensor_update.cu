@@ -48,6 +48,16 @@
 // update pass has read them, one thread a tensor: the blocks of a tensor
 // all read the old power, so none may write it.
 //
+// The row-sparse update (the reference's `_update_sparse`,
+// paddle_tpu/optimizer/optimizers.py:350 SGD, :455 Adam, :499 AdamW, XLA
+// scatters): `mt_update_rows` steps only the rows a merged SelectedRows
+// gradient touches, through each kind's functor below, so a touched row
+// moves exactly as the dense pass would move it with that gradient, and an
+// untouched row, its slots and its 16-bit parameter keep every bit (Adam's
+// lazy rows; AdamW decays touched rows only).  Bound by bytes: per touched
+// element the parameter, the slots and the 16-bit parameter read and
+// written, the value read, and a row index per row.
+//
 // Loss scaling under fp16 AMP (the reference's jitted step,
 // paddle_tpu/hapi/model.py:296-331, and ops/amp_ops.py:16
 // check_finite_and_unscale, both XLA): `mt_unscale` multiplies every
@@ -509,16 +519,19 @@ __device__ __forceinline__ int tensor_of(const int* prefix, int n, int b) {
   return lo;
 }
 
-// V elements from i on: load, step, store
+// V elements from i on: load, step, store.  The gradient is read from
+// element ig on: i itself in the dense pass, the element of the merged
+// values in the rows pass
 template <int K, int TC, int V>
 __device__ __forceinline__ void update_at(const Rec& r, long long i,
-                                          const Hyper& h, const Ctx& c) {
+                                          long long ig, const Hyper& h,
+                                          const Ctx& c) {
   using T = Types<TC>;
   using O = Op<K>;
   constexpr int NS = O::NS;
   float w[V], g[V], s[NS > 0 ? NS : 1][V];
   load<typename T::W, V>(r.w, i, w);
-  if (O::GRAD) load<typename T::G, V>(r.g, i, g);
+  if (O::GRAD) load<typename T::G, V>(r.g, ig, g);
 #pragma unroll
   for (int k = 0; k < NS; ++k) load<typename T::W, V>(r.s[k], i, s[k]);
 #pragma unroll
@@ -561,14 +574,61 @@ __global__ void __launch_bounds__(THREADS)
     for (long long i = start + (long long)threadIdx.x * V; i < end;
          i += (long long)THREADS * V) {
       if (i + V <= end) {
-        update_at<K, TC, V>(r, i, h, c);
+        update_at<K, TC, V>(r, i, i, h, c);
       } else {
-        for (long long j = i; j < end; ++j) update_at<K, TC, 1>(r, j, h, c);
+        for (long long j = i; j < end; ++j)
+          update_at<K, TC, 1>(r, j, j, h, c);
       }
     }
   } else {
     for (long long i = start + threadIdx.x; i < end; i += THREADS)
-      update_at<K, TC, 1>(r, i, h, c);
+      update_at<K, TC, 1>(r, i, i, h, c);
+  }
+}
+
+// The rows pass: what a row-sparse gradient (SelectedRows, merged: unique
+// rows, each row's slices summed) updates.  A record's `g` holds the
+// merged values, R rows of D elements in the parameter's type, `n` is R·D,
+// and its `RowsAux` the rows (R int64, unique) and D.  Element e of the
+// values steps element rows[e / D]·D + e % D of the parameter (or master),
+// its slots and its 16-bit parameter, through the same functor as the
+// dense pass.  Vectors run along D when D is a multiple of V (every
+// vector then lies in one row) and the pointers are aligned; else element
+// by element.  Rows are unique, so no two threads write one element: no
+// atomics, and the result depends on no order of the blocks.
+struct RowsAux {
+  const long long* rows;  // the merged rows, unique
+  long long dim;          // D, the elements of a row
+};
+
+template <int K, int TC>
+__global__ void __launch_bounds__(THREADS)
+    mt_update_rows_kernel(const Rec* recs, const RowsAux* aux,
+                          const int* prefix, int n, int chunk,
+                          const float* lr, Hyper h,
+                          const unsigned char* skip) {
+  constexpr int V = 16 / sizeof(typename Types<TC>::W);
+  if (skipped(skip)) return;
+  const int t = tensor_of(prefix, n, blockIdx.x);
+  const Rec r = recs[t];
+  const long long* rows = aux[t].rows;
+  const long long D = aux[t].dim;
+  Ctx c{};
+  c.lr = mul(*lr, r.lr_scale);
+  Op<K>::tensor(h, r, nullptr, c);
+  const long long start = (long long)(blockIdx.x - prefix[t]) * chunk;
+  const long long end = min(r.n, start + chunk);
+  if (r.vec) {
+    for (long long e = start + (long long)threadIdx.x * V; e < end;
+         e += (long long)THREADS * V) {
+      const long long row = e / D;
+      update_at<K, TC, V>(r, rows[row] * D + (e - row * D), e, h, c);
+    }
+  } else {
+    for (long long e = start + threadIdx.x; e < end; e += THREADS) {
+      const long long row = e / D;
+      update_at<K, TC, 1>(r, rows[row] * D + (e - row * D), e, h, c);
+    }
   }
 }
 
@@ -724,6 +784,24 @@ bool update_types(const Launch& a, int types) {
     case 2: launch_update<K, 2>(a); return true;
     case 3: launch_update<K, 3>(a); return true;
     case 4: launch_update<K, 4>(a); return true;
+    default: return false;
+  }
+}
+
+template <int K, int TC>
+void launch_rows(const Launch& a, const RowsAux* aux) {
+  mt_update_rows_kernel<K, TC><<<a.nchunks, THREADS, 0, a.s>>>(
+      a.recs, aux, a.prefix, a.n, a.chunk, a.lr, a.h, a.skip);
+}
+
+template <int K>
+bool rows_types(const Launch& a, const RowsAux* aux, int types) {
+  switch (types) {
+    case 0: launch_rows<K, 0>(a, aux); return true;
+    case 1: launch_rows<K, 1>(a, aux); return true;
+    case 2: launch_rows<K, 2>(a, aux); return true;
+    case 3: launch_rows<K, 3>(a, aux); return true;
+    case 4: launch_rows<K, 4>(a, aux); return true;
     default: return false;
   }
 }
@@ -900,6 +978,30 @@ extern "C" int mt_update(const void* recs, const int* prefix, int n,
                                flags, const_cast<float*>(norms), nullptr,
                                skip, stream);
   if (!update_kind(a, kind, types)) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The rows pass of one group of row-sparse gradients (SGD, Adam and
+// AdamW, the reference's SelectedRows updates): `recs` (n Recs, each `g`
+// the merged values and `n` rows·D) and `aux` (n RowsAux) in device
+// memory, `prefix` as mt_update's over the values' elements; the other
+// arguments as mt_update's.  The powers are not advanced here: mt_pows
+// does it over the same Recs after this launch.
+extern "C" int mt_update_rows(const void* recs, const void* aux,
+                              const int* prefix, int n, int nchunks,
+                              int chunk, int kind, int types,
+                              const float* lr, const float* hyper, int flags,
+                              const void* skip, void* stream) {
+  cudaGetLastError();
+  if (!shape_ok(n, nchunks, chunk)) return (int)cudaErrorInvalidValue;
+  const Launch a = launch_args(recs, prefix, n, nchunks, chunk, lr, hyper,
+                               flags, nullptr, nullptr, skip, stream);
+  const RowsAux* x = static_cast<const RowsAux*>(aux);
+  bool ok = false;
+  if (kind == SGD) ok = rows_types<SGD>(a, x, types);
+  if (kind == ADAM) ok = rows_types<ADAM>(a, x, types);
+  if (kind == ADAMW) ok = rows_types<ADAMW>(a, x, types);
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

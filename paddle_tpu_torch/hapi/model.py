@@ -175,12 +175,14 @@ import torch
 from .. import framework_io
 from .. import random as _random
 from ..amp import auto_cast, to_dtype
+from ..core.selected_rows import merged_grad
 from ..core.tensor import unwrap
 from ..graphs import StepGraph
 from ..metric import Metric
 from ..nn.layer_base import torch_view
 from ..ops.amp_ops import update_loss_scaling_
 from ..ops.multi_tensor_update import multi_tensor_unscale
+from ..ops.nn_ops import dense_embedding
 from ..profiler import memscope as _memscope
 from ..profiler import tracer as _tracer
 from ..serving.bucketing import ExecutableCache
@@ -354,9 +356,17 @@ class Model:
         (loss.float() * sc["scale"]).backward()
         if not update:
             return
-        multi_tensor_unscale(
-            [p.grad for p in self._net.parameters() if p.grad is not None],
-            sc["scale"], sc["found_inf"], sc["tables"])
+        grads = []
+        for p in self._net.parameters():
+            if p.grad is not None and p.grad.is_sparse:
+                # a sparse embedding's gradient (jit=False): merged here,
+                # as the step would, and its values unscaled
+                p.grad = merged_grad(p.grad)
+                grads.append(p.grad._values())
+            elif p.grad is not None:
+                grads.append(p.grad)
+        multi_tensor_unscale(grads, sc["scale"], sc["found_inf"],
+                             sc["tables"])
         self._amp_found_inf = sc["found_inf"]
         self._optimizer.step(found_inf=sc["found_inf"])
         if sc["use_dynamic_loss_scaling"]:
@@ -431,8 +441,10 @@ class Model:
         (:mod:`~paddle_tpu_torch.hapi.remat`)."""
         def step(*tensors):
             ins, labs = list(tensors[:n_in]), list(tensors[n_in:])
+            # a sparse embedding's gradient is dense here, as in the
+            # reference's traced step: the step is captured
             with (_remat.segments(self.network) if remat
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), dense_embedding():
                 outs = _to_list(self.network(*ins) if self._amp is None
                                 else self._forward_amp(ins))
             if remat:

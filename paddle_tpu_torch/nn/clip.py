@@ -23,8 +23,15 @@ its clip:
   those norms); the product is formed in fp32 and rounded to the
   gradient's type.
 
+A row-sparse gradient (a sparse embedding's, merged by ``step()``: unique
+rows, summed values) is clipped through its values: the global norm
+counts each touched row once, as the dense gradient would (the
+reference merges before the norm, ``paddle_tpu/nn/clip.py:80-105``; an
+unmerged one would under-clip), and the scale multiplies the values.
+
 Called on ``(param, grad)`` pairs, a clip returns new pairs and leaves
-the given gradients as they were, as the reference's does.
+the given gradients as they were, as the reference's does; a
+``SelectedRows`` gradient comes back merged and clipped.
 """
 from __future__ import annotations
 
@@ -32,26 +39,42 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..core.selected_rows import SelectedRows, merged_grad
 from ..core.tensor import Tensor, unwrap, wrap
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
 
 
 def _clippable(params_grads) -> List[torch.Tensor]:
-    return [g for p, g in params_grads
+    """The gradients to clip: dense ones as they are, the values of the
+    merged row-sparse ones."""
+    return [g._values() if g.is_sparse else g for p, g in params_grads
             if g is not None and getattr(p, "need_clip", True)]
+
+
+def _copy(g):
+    """A clippable copy of a gradient: a torch tensor, a Tensor or a
+    ``SelectedRows`` (merged, as torch's sparse tensor)."""
+    if isinstance(g, SelectedRows):
+        g = g.to_torch()
+    g = unwrap(g).detach()
+    return merged_grad(g).clone() if g.is_sparse else g.clone()
 
 
 class ClipGradBase:
     def __call__(self, params_grads: Sequence[Tuple]) -> List[Tuple]:
         """``(param, grad)`` pairs -> new pairs with clipped copies; the
-        eager core's Tensors in, Tensors out."""
-        given = any(isinstance(g, Tensor) for _, g in params_grads)
-        out = [(unwrap(p), None if g is None else unwrap(g).detach().clone())
+        eager core's Tensors (and ``SelectedRows``) in, Tensors (and
+        ``SelectedRows``) out."""
+        given = any(isinstance(g, (Tensor, SelectedRows))
+                    for _, g in params_grads)
+        out = [(unwrap(p), None if g is None else _copy(g))
                for p, g in params_grads]
         self._clip_(out)
         if given:
-            out = [(wrap(p), None if g is None else wrap(g)) for p, g in out]
+            out = [(wrap(p), None if g is None else
+                    SelectedRows.of(g) if g.is_sparse else wrap(g))
+                   for p, g in out]
         return out
 
     @torch.no_grad()

@@ -3,13 +3,12 @@
 (``ops/activation.py``), the normalizations (``ops/norm_ops.py``), the
 Tensor entry points of the reference's ``nn_misc`` and ``loss``
 (``ops/nn_ops.py``: ``linear``, ``embedding``, the dropouts,
-``scaled_dot_product_attention`` and its alias ``flash_attention``,
-``cross_entropy``, ...), ``pad`` and the in-place ``elu_``,
+``scaled_dot_product_attention`` and its alias ``flash_attention``, every
+loss, ``sequence_mask`` ... ``nce``), ``pad`` and the in-place ``elu_``,
 ``softmax_``, ``tanh_``.
 
-Waiting: the conv, pooling and vision functions (``ROADMAP.md`` §A item
-10), the rest of the losses and of ``nn_misc``, ``fused_conv_bn`` and
-``gather_tree`` (§A item 5a's rest).
+Waiting: the conv, pooling and vision functions and ``affine_grid``
+(``ROADMAP.md`` §A item 10), ``fused_conv_bn`` and ``gather_tree``.
 """
 from __future__ import annotations
 

@@ -5,11 +5,17 @@
 ``SyncBatchNorm`` reduces its statistics across a data-parallel axis in
 the reference; the port has no mesh yet (``ROADMAP.md`` §A item 8), so
 it runs as ``BatchNorm2D`` on one device, as the reference's does outside
-a mesh.  ``SpectralNorm`` waits with ``nn/utils_mod.py`` (§A item 5a's
-rest).
+a mesh.  ``SpectralNorm`` divides a weight it is given by its largest
+singular value (power iteration from its ``weight_u`` / ``weight_v``
+buffers, drawn from numpy's global stream as the reference's are; the
+result carries no gradient, as the reference's).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ...core.tensor import Tensor, unwrap
 from ...ops import activation as _act
 from ...ops import norm_ops
 from .. import initializer as I
@@ -19,7 +25,7 @@ from ..param_attr import ParamAttr
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm1D",
            "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
-           "RMSNorm"]
+           "RMSNorm", "SpectralNorm"]
 
 
 def _scale_and_bias(layer, shape, weight_attr, bias_attr):
@@ -209,3 +215,38 @@ class LocalResponseNorm(Layer):
     def forward(self, x):
         return norm_ops.local_response_norm(x, *self.args)
 
+
+
+class SpectralNorm(Layer):
+    """``forward(weight)``: ``weight / σ``, σ its largest singular value
+    along ``dim`` from ``power_iters`` steps of power iteration, the
+    vectors kept in the buffers (reference ``spectral_norm_op``)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        h = weight_shape[dim]
+        w = int(np.prod(weight_shape)) // h
+        self.register_buffer("weight_u", Tensor(
+            np.random.normal(0, 1, [h]).astype("float32")))
+        self.register_buffer("weight_v", Tensor(
+            np.random.normal(0, 1, [w]).astype("float32")))
+
+    @torch.no_grad()
+    def forward(self, weight):
+        w = unwrap(weight).detach()
+        mat = w.movedim(self._dim, 0).reshape(w.shape[self._dim], -1)
+        ubuf, vbuf = unwrap(self.weight_u), unwrap(self.weight_v)
+        u, v = ubuf, vbuf
+        for _ in range(self._power_iters):
+            v = mat.t() @ u
+            v = v / (torch.linalg.vector_norm(v) + self._eps)
+            u = mat @ v
+            u = u / (torch.linalg.vector_norm(u) + self._eps)
+        sigma = u @ mat @ v
+        ubuf.copy_(u)
+        vbuf.copy_(v)
+        return Tensor(w / sigma)

@@ -12,16 +12,18 @@ The ``paddle.*`` tensor functions of the eager core, on
 :class:`~paddle_tpu_torch.core.tensor.Tensor`\\ s (the counterpart of
 ``paddle_tpu/ops/__init__.py``): ``creation``, ``math``, ``reduction``,
 ``logic``, ``manipulation``, ``activation``, ``norm_ops``, ``linalg``'s
-products and ``nn_ops`` (the Tensor entry points of the reference's
-``nn_misc`` and ``loss``).  Importing this package attaches their method
+products, ``nn_ops`` (the Tensor entry points of the reference's
+``nn_misc`` and ``loss``) and ``extras`` (in-place variants, tensor
+arrays, utilities).  Importing this package attaches their method
 surface and operators to ``Tensor`` (``_attach``, reference :39-129).
 """
 from __future__ import annotations
 
-from . import (activation, creation, linalg, logic, manipulation, math,
-               nn_ops, norm_ops, reduction)
+from . import (activation, creation, extras, linalg, logic, manipulation,
+               math, nn_ops, norm_ops, reduction)
 from .activation import *  # noqa: F401,F403
 from .creation import *  # noqa: F401,F403
+from .extras import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -34,7 +36,7 @@ from ..core.tensor import Tensor
 
 #: the modules whose functions make up ``paddle_tpu_torch.<name>``
 TENSOR_MODULES = (creation, math, reduction, manipulation, logic, linalg,
-                  activation, norm_ops, nn_ops)
+                  activation, norm_ops, nn_ops, extras)
 
 
 def _attach():

@@ -38,6 +38,22 @@ parameters, masters, slots and powers keep their values (the reference's
 ``jnp.where(found_inf, old, new)``), and the plain version keeps them
 through ``torch.where``.  Nothing reads the flag on the host.
 
+A row-sparse gradient (a merged ``SelectedRows``: unique rows, each row's
+slices summed; ``core/selected_rows.py``) of an SGD, Adam or AdamW
+parameter steps only the rows it touches (the reference's
+``_update_sparse``, ``paddle_tpu/optimizer/optimizers.py:350, 455, 499``,
+XLA scatters): a :class:`Record` with ``rows`` set carries the merged
+values as its ``grad`` (rows x D, in the parameter's type), and
+:func:`multi_tensor_update_rows` launches the rows pass of
+``csrc/multi_tensor_update.cu`` (``mt_update_rows``) for a
+:class:`RowsTable` of them, then the powers' advance (``mt_pows``) over
+the same records; :func:`multi_tensor_update_rows_ref` is its plain
+version.  A touched row moves as the dense pass moves it under that
+gradient (the same functor, the coupled L1 or L2 regularizer on the
+touched rows); untouched rows, their slots and 16-bit parameters keep
+every bit.  :data:`ROWS_LAUNCHES` counts the rows pass.  The tables are
+built per step (the rows change with the data), outside any capture.
+
 Optimizer-state offload (``Model.prepare(offload=True)``) puts the slots
 and powers of a group on the card in pinned host memory; parameters,
 gradients and masters stay on the card, and a slot in host memory that is
@@ -79,7 +95,9 @@ __all__ = ["KINDS", "Spec", "Record", "Table", "multi_tensor_update",
            "POW_LAUNCHES", "CHUNK", "GradTable", "grad_tables", "GRAD_CODES",
            "multi_tensor_unscale", "multi_tensor_unscale_ref",
            "UNSCALE_LAUNCHES", "STAGE_ELEMENTS", "STAGE_RING",
-           "OFFLOAD_ROUTES", "device_address", "stage_cuts"]
+           "OFFLOAD_ROUTES", "device_address", "stage_cuts",
+           "ROWS_KINDS", "ROWS_LAUNCHES", "RowsTable",
+           "multi_tensor_update_rows", "multi_tensor_update_rows_ref"]
 
 # the kernel's kinds, in the order of its Kind enum
 KINDS = ("sgd", "momentum", "lars", "adam", "adamw", "adamax", "adagrad",
@@ -97,6 +115,9 @@ LAUNCHES: Dict[str, int] = {}
 NORM_LAUNCHES = 0
 POW_LAUNCHES = 0
 UNSCALE_LAUNCHES = 0
+# the rows pass (row-sparse gradients), and the kinds it takes
+ROWS_LAUNCHES = 0
+ROWS_KINDS = ("sgd", "adam", "adamw")
 # offloaded groups' update launches by route (see the module docstring;
 # a staged group launches once per stage)
 OFFLOAD_ROUTES: Dict[str, int] = {"staged": 0, "in_place": 0}
@@ -143,6 +164,9 @@ class Record:
     reg_coeff: float = 0.0
     decay: float = 0.0
     plain: bool = False
+    # a row-sparse gradient: the merged rows (int64, unique) that ``grad``
+    # (rows x D) holds the summed values of
+    rows: Optional[torch.Tensor] = None
 
     @property
     def target(self) -> torch.Tensor:
@@ -172,6 +196,9 @@ def _kernel():
         lib.mt_update.restype = i
         lib.mt_norms.argtypes = [p, p, i, i, i, i, i, p, i, p, p, p, p]
         lib.mt_norms.restype = i
+        lib.mt_update_rows.argtypes = [p, p, p, i, i, i, i, i, p, p, i, p,
+                                       p]
+        lib.mt_update_rows.restype = i
         lib.mt_pows.argtypes = [p, i, ctypes.c_float, ctypes.c_float, p, p]
         lib.mt_pows.restype = i
         lib.mt_unscale.argtypes = [p, p, i, i, i, i, p, p, p, i, p]
@@ -245,6 +272,20 @@ def _check(spec: Spec, records: Sequence[Record]) -> torch.device:
                                  f"on {t.device}, the group on {device}")
             if what.startswith("power"):
                 continue
+            if what == "gradient" and r.rows is not None:
+                if r.rows.dtype != torch.int64 or r.rows.dim() != 1 or \
+                        r.rows.device != device or r.param.dim() < 1 or \
+                        t.shape != (r.rows.numel(),) + r.param.shape[1:]:
+                    raise ValueError(
+                        f"multi_tensor_update: {r.name}: a row-sparse "
+                        f"gradient needs int64 rows on {device} and values "
+                        f"of shape (rows,) + {tuple(r.param.shape[1:])}; got "
+                        f"rows {r.rows.dtype} {tuple(r.rows.shape)}, values "
+                        f"{tuple(t.shape)}")
+                if not t.is_contiguous():
+                    raise ValueError(f"multi_tensor_update: {r.name}'s "
+                                     f"values are not contiguous")
+                continue
             if t.numel() != r.param.numel():
                 raise ValueError(f"multi_tensor_update: {r.name}'s {what} "
                                  f"has {t.numel()} elements, the parameter "
@@ -290,21 +331,7 @@ class Table:
         self.types = codes.pop()
         arr = (_Rec * len(self.records))()
         for rec, r in zip(arr, self.records):
-            slots = [device_address(s) for s in r.slots]
-            ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + slots
-            rec.w, rec.g = ptrs[0], ptrs[1]
-            rec.p16 = r.param.data_ptr() if r.master is not None else None
-            if rec.p16:
-                ptrs.append(rec.p16)
-            for k, s in enumerate(slots):
-                rec.s[k] = s
-            for k, t in enumerate(r.pows):
-                rec.pw[k] = device_address(t)
-            rec.n = r.param.numel()
-            rec.lr_scale, rec.reg_coeff = r.lr_scale, r.reg_coeff
-            rec.decay, rec.reg = r.decay, _REG[r.reg]
-            rec.plain = int(r.plain)
-            rec.vec = int(all(p % 16 == 0 for p in ptrs))
+            rec.vec = int(all(p % 16 == 0 for p in _fill(rec, r)))
         self.recs, self.prefix = _upload("multi_tensor_update", arr,
                                          self.device)
         if _STAGE_OFFLOAD and spec.kind not in _NORM_KINDS and any(
@@ -366,6 +393,26 @@ class Table:
                                  self.norms) if t is not None) + tuple(
             self.ring) + tuple(t for st in self.stages
                                for t in (st.recs, st.prefix))
+
+
+def _fill(rec, r: Record):
+    """``rec`` (a :class:`_Rec`) from the record ``r``, ``n`` the
+    gradient's elements; returns the addresses its vectors need aligned."""
+    slots = [device_address(s) for s in r.slots]
+    ptrs = [r.target.data_ptr(), r.grad.data_ptr()] + slots
+    rec.w, rec.g = ptrs[0], ptrs[1]
+    rec.p16 = r.param.data_ptr() if r.master is not None else None
+    if rec.p16:
+        ptrs.append(rec.p16)
+    for k, s in enumerate(slots):
+        rec.s[k] = s
+    for k, t in enumerate(r.pows):
+        rec.pw[k] = device_address(t)
+    rec.n = r.grad.numel()
+    rec.lr_scale, rec.reg_coeff = r.lr_scale, r.reg_coeff
+    rec.decay, rec.reg = r.decay, _REG[r.reg]
+    rec.plain = int(r.plain)
+    return ptrs
 
 
 def stage_cuts(sizes: Sequence[int], elements: int):
@@ -603,6 +650,137 @@ def _kept(found_inf, old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """``new``, or ``old`` where ``found_inf`` is set, in old's type."""
     new = new.to(old.dtype)
     return new if found_inf is None else torch.where(found_inf, old, new)
+
+
+# -- the rows pass ------------------------------------------------------------
+class _RowsAux(ctypes.Structure):
+    """``RowsAux`` of csrc/multi_tensor_update.cu: the merged rows and D."""
+    _fields_ = [("rows", ctypes.c_void_p), ("dim", ctypes.c_longlong)]
+
+
+class RowsTable:
+    """One group of row-sparse records (``rows`` set) of one type setup,
+    checked, and on the card its device tables: the records (``n`` the
+    values' elements), the rows and widths, and the prefix table of the
+    values' chunks.  Built each step: the merged rows change with the
+    data."""
+
+    def __init__(self, spec: Spec, records: Sequence[Record]):
+        if spec.kind not in ROWS_KINDS:
+            raise ValueError(f"multi_tensor_update_rows: the rows pass "
+                             f"takes {ROWS_KINDS}; got {spec.kind!r}")
+        if any(r.rows is None for r in records):
+            raise ValueError("multi_tensor_update_rows: a record without "
+                             "rows")
+        self.spec = spec
+        self.records = tuple(records)
+        self.device = _check(spec, self.records)
+        self.recs = self.aux = self.prefix = None
+        self.nchunks = sum(-(-r.grad.numel() // CHUNK) for r in self.records)
+        if self.device.type != "cuda":
+            return
+        if any(_host_slot(s, self.device) for r in self.records
+               for s in r.slots):
+            raise ValueError("multi_tensor_update_rows: slots in host "
+                             "memory (offload) take the dense pass")
+        codes = {_types_code(r) for r in self.records}
+        if len(codes) != 1:
+            raise TypeError(f"multi_tensor_update_rows: a group of mixed "
+                            f"type setups {sorted(codes)}")
+        self.types = codes.pop()
+        arr = (_Rec * len(self.records))()
+        aux = (_RowsAux * len(self.records))()
+        for rec, x, r in zip(arr, aux, self.records):
+            dim = r.param.numel() // max(r.param.shape[0], 1)
+            ptrs = _fill(rec, r)
+            # vectors of 16 bytes of the updated type lie in one row
+            vec = 16 // r.target.element_size()
+            rec.vec = int(dim % vec == 0 and all(p % 16 == 0 for p in ptrs))
+            x.rows, x.dim = r.rows.data_ptr(), dim
+        self.recs, self.prefix = _upload("multi_tensor_update_rows", arr,
+                                         self.device)
+        self.aux = torch.frombuffer(bytearray(aux), dtype=torch.uint8).to(
+            self.device)
+
+
+def multi_tensor_update_rows(spec: Spec, table: RowsTable, lr: torch.Tensor,
+                             update, found_inf: Optional[torch.Tensor] = None
+                             ) -> None:
+    """Step the touched rows of every record of ``table`` in place (the
+    parameter or master, the 16-bit parameter, the slots) and advance
+    each record's powers once; as :func:`multi_tensor_update` otherwise.
+    On the card: ``mt_update_rows``, then ``mt_pows`` where the kind has
+    powers; CPU tensors take :func:`multi_tensor_update_rows_ref` with
+    ``update``, the optimizer's ``_update``."""
+    global ROWS_LAUNCHES, POW_LAUNCHES
+    _check_flag("multi_tensor_update_rows", found_inf, table.device)
+    if table.device.type == "cpu":
+        multi_tensor_update_rows_ref(spec, table.records, lr, update,
+                                     found_inf)
+        return
+    if table.device.type != "cuda":
+        raise ValueError(f"multi_tensor_update_rows runs on CUDA or CPU, "
+                         f"not {table.device}")
+    if lr.dtype != torch.float32 or lr.numel() != 1 or \
+            lr.device != table.device:
+        raise ValueError(f"multi_tensor_update_rows: the rate must be one "
+                         f"fp32 on {table.device}")
+    skip = _ptr(found_inf)
+    lib = _kernel()
+    hyper = (ctypes.c_float * 8)(*spec.hyper)
+    n = len(table.records)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        if table.nchunks:               # none: no row touched
+            _raise(lib, "mt_update_rows", lib.mt_update_rows(
+                table.recs.data_ptr(), table.aux.data_ptr(),
+                table.prefix.data_ptr(), n, table.nchunks, CHUNK,
+                KINDS.index(spec.kind), table.types, lr.data_ptr(), hyper,
+                spec.flags, skip, stream))
+            ROWS_LAUNCHES += 1
+        if spec.betas:
+            b1, b2 = (tuple(spec.betas) + (1.0,))[:2]
+            _raise(lib, "mt_pows", lib.mt_pows(table.recs.data_ptr(), n, b1,
+                                               b2, skip, stream))
+            POW_LAUNCHES += 1
+
+
+@torch.no_grad()
+def multi_tensor_update_rows_ref(spec: Spec, records: Sequence[Record],
+                                 lr: torch.Tensor, update,
+                                 found_inf: Optional[torch.Tensor] = None
+                                 ) -> None:
+    """Plain version of the rows pass: for each record, ``update`` (the
+    optimizer's ``_update``) on fp32 copies of the touched rows of the
+    parameter (or master) and the slots, with the merged values as the
+    gradient (the regularizer added on those rows) and the powers as they
+    are; the new rows are stored back, each rounded once to its type, the
+    16-bit parameter's rows from the master's, and the powers.  With
+    ``found_inf`` set every output keeps its value."""
+    _check(spec, records)
+    _check_flag("multi_tensor_update_rows_ref", found_inf,
+                records[0].param.device)
+    for r in records:
+        idx = r.rows
+        w0 = r.target
+        acc = torch.promote_types(w0.dtype, torch.float32)
+        w = w0[idx].to(acc)
+        g = r.grad.to(acc)
+        if r.reg == "L1Decay":
+            g = g + r.reg_coeff * torch.sign(w)
+        elif r.reg == "L2Decay":
+            g = g + r.reg_coeff * w
+        state = {k: t[idx].to(acc) for k, t in zip(spec.slots, r.slots)}
+        state.update(zip(_POWS, r.pows))
+        kw = {"decay": r.decay} if spec.kind == "adamw" else {}
+        new_w, new_state = update(w, g, state, lr * r.lr_scale, r.name, **kw)
+        for k, t in zip(spec.slots, r.slots):
+            t[idx] = _kept(found_inf, t[idx], new_state[k])
+        for k, t in zip(_POWS, r.pows):
+            t.copy_(_kept(found_inf, t, new_state[k]))
+        w0[idx] = _kept(found_inf, w0[idx], new_w)
+        if r.master is not None:
+            r.param[idx] = _kept(found_inf, r.param[idx], r.master[idx])
 
 
 # -- the unscale pass ---------------------------------------------------------

@@ -29,6 +29,17 @@ A gradient that is not in its parameter's type, or not contiguous, is
 copied each step into a buffer of the optimizer's (made at the first
 step, read by address like the tables); the kernel reads that.
 
+A row-sparse gradient of an SGD, Adam or AdamW parameter is a record of
+the rows pass (``mt_update_rows``), merged (unique rows, summed values)
+after the dense groups are launched, since finding its unique rows waits
+for the card: its tables are built every step, the rows changing with
+the data, and launched after the dense groups'.  Any other
+optimizer's is scattered into that buffer as a dense gradient, with the
+coupled regularizer added on the touched rows first and none in its
+record (the reference's ``_update_sparse`` default after
+``optimizers.py:145-150``: a record's regularizer would decay every
+row); the scatter writes each row once, so it is deterministic.
+
 ``step(found_inf=...)`` (fp16 loss scaling) hands every launch a device
 bool: set, the launches write nothing (``ops/multi_tensor_update.py``).
 The flag is a launch argument, read by address like the learning rate,
@@ -52,10 +63,12 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..core.selected_rows import merged_grad
 from ..ops import multi_tensor_update as mtu
 from ..utils.flags import get_flag
 
-__all__ = ["fused_step", "supported", "ROUTES", "tables", "bound_tensors"]
+__all__ = ["fused_step", "supported", "ROUTES", "tables", "bound_tensors",
+           "sparse_values", "scatter_rows"]
 
 # steps by route (plain integers): "fused", and the per-leaf ones
 ROUTES: Dict[str, int] = {"fused": 0, "per_leaf_flag": 0,
@@ -113,12 +126,50 @@ def _grad(opt, p):
     return buf.copy_(g)
 
 
-def _records(opt, spec, live, regs) -> List[mtu.Record]:
+def sparse_values(p, target, reg):
+    """``(rows, values)`` of ``p``'s merged row-sparse gradient, the
+    values in ``target``'s type with ``reg``'s gradient on the touched
+    rows added (the reference's :145-150)."""
+    g = p.grad
+    rows, vals = g._indices()[0], g._values().to(target.dtype)
+    if reg is not None and reg.coeff:
+        vals = vals + reg.grad(target[rows])
+    return rows, vals
+
+
+def scatter_rows(like, rows, values, out=None):
+    """``values`` written at ``rows`` into zeros shaped as ``like`` (into
+    ``out`` when given): rows are unique, so each is written once."""
+    if out is None:
+        out = torch.zeros_like(like, memory_format=torch.contiguous_format)
+    else:
+        out.zero_()
+    return out.index_copy_(0, rows, values.to(out.dtype))
+
+
+def _dense_of_sparse(opt, p, reg):
+    """The dense gradient of ``p``'s merged row-sparse one in a buffer of
+    the optimizer's, in ``p``'s type, the regularizer on the touched rows
+    added (on the master where there is one)."""
+    target = opt._master_weights.get(id(p), p)
+    rows, vals = sparse_values(p, target, reg)
+    bufs = opt.__dict__.setdefault("_fused_grads", {})
+    buf = bufs.get(id(p))
+    if buf is None or buf.shape != p.shape or buf.dtype != p.dtype:
+        buf = bufs[id(p)] = torch.empty_like(
+            p, memory_format=torch.contiguous_format)
+    return scatter_rows(p, rows, vals, out=buf)
+
+
+def _records(opt, spec, live, regs, grads=None, rows=None
+             ) -> List[mtu.Record]:
     out = []
-    for (name, p), (reg, coeff) in zip(live, regs):
+    for i, ((name, p), (reg, coeff)) in enumerate(zip(live, regs)):
         slot = opt._slot(p)
         out.append(mtu.Record(
-            name=name, param=p, grad=_grad(opt, p),
+            name=name, param=p,
+            grad=_grad(opt, p) if grads is None else grads[i],
+            rows=None if rows is None else rows[i],
             master=opt._master_weights.get(id(p)),
             slots=tuple(slot[k] for k in spec.slots),
             pows=tuple(slot[k] for k in ("beta1_pow", "beta2_pow")[
@@ -185,7 +236,23 @@ def fused_step(opt, found_inf=None) -> bool:
         raise ValueError("a parameter is listed twice: the fused update "
                          "would step it twice at once")
     spec = opt._kernel_spec()
-    records = _records(opt, spec, live, regs)
+    rows_path = opt._sparse_rows and spec.kind in mtu.ROWS_KINDS
+    dense, dense_regs, grads, sparse, sparse_regs = [], [], [], [], []
+    for (name, p), (reg, coeff) in zip(live, regs):
+        if not p.grad.is_sparse:
+            dense.append((name, p))
+            dense_regs.append((reg, coeff))
+            grads.append(_grad(opt, p))
+        elif rows_path:
+            sparse.append((name, p))
+            sparse_regs.append((reg, coeff))
+        else:
+            p.grad = merged_grad(p.grad)
+            opt._slot(p)                # the master the regularizer reads
+            dense.append((name, p))
+            dense_regs.append((None, 0.0))
+            grads.append(_dense_of_sparse(opt, p, opt._regularizer_for(p)))
+    records = _records(opt, spec, dense, dense_regs, grads)
     key = _key(spec, records)
     groups = _group(records)
     cached = getattr(opt, "_fused_tables", None)
@@ -201,6 +268,19 @@ def fused_step(opt, found_inf=None) -> bool:
                                     opt._update, found_inf=found_inf)
         finally:
             table.records = ()
+    if sparse:
+        # merged after the dense launches: finding the unique rows waits
+        # for the card, which then has the dense update queued
+        for _, p in sparse:
+            p.grad = merged_grad(p.grad)
+        values = [p.grad._values().to(p.dtype).contiguous()
+                  for _, p in sparse]
+        rows = [p.grad._indices()[0] for _, p in sparse]
+        for group in _group(_records(opt, spec, sparse, sparse_regs, values,
+                                     rows)):
+            mtu.multi_tensor_update_rows(spec, mtu.RowsTable(spec, group),
+                                         opt._lr(group[0].param.device),
+                                         opt._update, found_inf=found_inf)
     opt._global_step += 1
     ROUTES["fused"] += 1
     return True

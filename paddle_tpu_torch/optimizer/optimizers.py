@@ -20,9 +20,8 @@ device and in its type:
   ``weight_decay`` (a number is ``L2Decay``; ``regularizer.L1Decay`` and
   ``L2Decay`` objects as they are);
 - a parameter's ``optimize_attr["learning_rate"]`` scales its rate
-  (:165-166).  The port has no ``ParamAttr`` yet (``ROADMAP.md`` A2):
-  ``regularizer`` and ``optimize_attr`` are plain attributes set on the
-  ``torch.nn.Parameter``.
+  (:165-166); ``regularizer`` and ``optimize_attr`` are attributes on the
+  ``torch.nn.Parameter`` (``ParamAttr`` sets them).
 
 ``multi_precision`` (also set by ``amp.decorate(optimizers=...)``) gives a
 bf16 or fp16 parameter an fp32 master at its first step, from which its
@@ -84,11 +83,22 @@ tensor is called ``param_<i>``.  :class:`~paddle_tpu_torch.Model` names
 the network's parameters as ``named_parameters()`` does, as the
 reference's ``train_batch`` names them (``functional_state``).
 
-``lazy_mode`` (``Adam``, ``AdamW``) is taken with the reference's dense
-semantics: the reference reads it nowhere, and updates rows only for a
-``SelectedRows`` gradient, which only its eager core's sparse embedding
-makes.  A sparse gradient (``torch.nn.Embedding(sparse=True)``) reaching
-``step()`` raises: the row-sparse update waits for that core (A2).
+A row-sparse gradient (``nn.Embedding(sparse=True)``'s, or a torch
+module's ``torch.nn.Embedding(sparse=True)``: torch's sparse COO
+``.grad``, a ``SelectedRows`` in the eager core) takes the reference's
+sparse semantics (:131-159): ``step()`` merges it (unique rows, each
+row's slices summed, deterministically: ``core/selected_rows.py``) and
+writes the merged gradient back to ``.grad`` — before the clip, which
+reads the merged values, else after the dense groups' launches, since
+finding the unique rows waits for the card; SGD, Adam and AdamW
+(``_sparse_rows``) then update only
+the touched rows (SGD ``p[r] -= lr·v``, Adam's lazy moments, AdamW's
+decay of touched rows, with the coupled regularizer on those rows),
+every other optimizer the dense gradient the merged rows make, with the
+regularizer added on the touched rows only, before the scatter
+(:105-110, :145-150).  ``lazy_mode`` (``Adam``, ``AdamW``) is taken and
+read nowhere, as in the reference: the rows-only update is what any
+row-sparse gradient gets.
 """
 from __future__ import annotations
 
@@ -97,6 +107,7 @@ from typing import Dict, Mapping
 
 import torch
 
+from ..core.selected_rows import merged_grad
 from ..core.tensor import unwrap
 from ..nn.clip import ClipGradBase
 from ..ops.multi_tensor_update import Spec
@@ -108,8 +119,6 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
            "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars", "LarsMomentum",
            "Ftrl", "DecayedAdagrad"]
 
-_SPARSE = ("a sparse gradient reached the optimizer: the row-sparse "
-           "(SelectedRows) update is not ported yet (ROADMAP.md A2)")
 _LOW = (torch.bfloat16, torch.float16)
 
 
@@ -122,6 +131,13 @@ def _named(parameters):
         name, p = tuple(p) if isinstance(p, tuple) else (f"param_{i}", p)
         out.append((name, unwrap(p)))
     return out
+
+
+def _merge_sparse(live) -> None:
+    """Each row-sparse gradient of ``live`` merged in place (``.grad``)."""
+    for _, p in live:
+        if p.grad.is_sparse:
+            p.grad = merged_grad(p.grad)
 
 
 def _wd_reg(weight_decay):
@@ -151,6 +167,9 @@ class Optimizer:
     # the regularizer added to the gradient (all but AdamW, which decays
     # decoupled)
     _coupled_weight_decay = True
+    # a row-sparse gradient updates the touched rows only (SGD, Adam and
+    # AdamW, the reference's _update_sparse); else it is made dense
+    _sparse_rows = False
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -320,20 +339,28 @@ class Optimizer:
                 and torch.cuda.is_current_stream_capturing()):
             self._refresh_lr()
         live = self._live()
-        if any(p.grad.is_sparse for _, p in live):
-            raise NotImplementedError(_SPARSE)
         if self._grad_clip is not None:
+            _merge_sparse(live)     # the clip reads the merged values
             self._grad_clip._clip_([(p, p.grad) for _, p in live])
         if fused_update.fused_step(self, found_inf):
             return
+        _merge_sparse(live)
         for name, p in live:
             slot = self._slot(p)
             master = self._master_weights.get(id(p))
             target = p if master is None else master
-            g = p.grad.to(target.dtype)
             reg = self._regularizer_for(p)
-            if reg is not None and reg.coeff:
-                g = g + reg.grad(target)
+            if p.grad.is_sparse:
+                rows, g = fused_update.sparse_values(p, target, reg)
+                if self._sparse_rows:
+                    self._step_rows(name, p, target, master, rows, g,
+                                    found_inf)
+                    continue
+                g = fused_update.scatter_rows(target, rows, g)
+            else:
+                g = p.grad.to(target.dtype)
+                if reg is not None and reg.coeff:
+                    g = g + reg.grad(target)
             # host slots (offload) go to the device for the update
             cur = {k: v.to(target.device, non_blocking=True)
                    for k, v in slot.items()}
@@ -349,6 +376,30 @@ class Optimizer:
             if master is not None:
                 p.copy_(master)
         self._global_step += 1
+
+    def _step_rows(self, name, p, target, master, rows, g, found_inf):
+        """The per-leaf rows-only update: ``_update`` on the touched rows
+        of the parameter (or master) and its slots, with the merged values
+        ``g`` (regularizer added) as the gradient."""
+        slot = self._slot(p)
+        cur = {k: v.to(target.device, non_blocking=True)[rows]
+               for k, v in slot.items() if v.dim() > 0}
+        cur.update({k: v.to(target.device, non_blocking=True)
+                    for k, v in slot.items() if v.dim() == 0})
+        w = target[rows]
+        new_w, new_state = self._update(w, g, cur, self._lr_for(p), name)
+        if found_inf is not None:
+            new_state = {k: torch.where(found_inf, cur[k], v)
+                         for k, v in new_state.items()}
+            new_w = torch.where(found_inf, w, new_w)
+        for k, v in new_state.items():
+            if slot[k].dim() > 0:
+                slot[k][rows] = v.to(slot[k].device, slot[k].dtype)
+            else:
+                slot[k].copy_(v, non_blocking=True)
+        target[rows] = new_w.to(target.dtype)
+        if master is not None:
+            p[rows] = master[rows].to(p.dtype)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
@@ -369,10 +420,16 @@ class Optimizer:
         """Drop the gradients (``set_to_zero``: zero them in place, as a
         captured step does, so that they stay where it reads them; one
         multi-tensor launch per group of them)."""
-        grads = [p.grad for _, p in self._params or [] if p.grad is not None]
+        grads = [p.grad for _, p in self._params or [] if p.grad is not None
+                 and not p.grad.is_sparse]
         if set_to_zero:
             if grads:
                 torch._foreach_zero_(grads)
+            for _, p in self._params or []:
+                if p.grad is not None and p.grad.is_sparse:
+                    # dense zeros, as the reference's clear_gradient
+                    p.grad = torch.zeros(p.shape, dtype=p.grad.dtype,
+                                         device=p.device)
             return
         for _, p in self._params or []:
             p.grad = None
@@ -460,7 +517,10 @@ class Optimizer:
 
 
 class SGD(Optimizer):
-    """``param - lr·grad`` (reference ``sgd_op.cc``)."""
+    """``param - lr·grad`` (reference ``sgd_op.cc``); a row-sparse
+    gradient moves the touched rows only."""
+
+    _sparse_rows = True
 
     def _kernel_spec(self):
         return Spec("sgd")
@@ -549,8 +609,11 @@ Lars = LarsMomentum
 
 class Adam(Optimizer):
     """Adam with the reference's bias correction folded into the step
-    size (``adam_op``).  ``lazy_mode`` is taken with the reference's dense
-    semantics (see the module's docstring)."""
+    size (``adam_op``); a row-sparse gradient moves the touched rows and
+    their moments only (lazy rows), the powers advancing once a step.
+    ``lazy_mode`` is taken and read nowhere (the module's docstring)."""
+
+    _sparse_rows = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,

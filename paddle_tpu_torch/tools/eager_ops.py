@@ -444,6 +444,69 @@ CASES += [
         A),
 ]
 
+# -- the rest of the losses and of nn_misc, and extras ------------------------
+LOGP = (A - np.log(np.exp(A).sum(1, keepdims=True))).astype(f32)
+PR = (np.exp(LOGP)).astype(f32)
+SIGN = np.array([1., -1., 1.], f32)
+IDS4 = LBL[:, 0]
+CTC = (rs.randn(6, 2, 4).astype(f32), np.array([[1, 2], [3, 3]], np.int32),
+       np.array([6, 5], np.int32), np.array([2, 2], np.int32))
+HS = (rs.randn(3, 5).astype(f32), np.array([[0], [3], [2]], np.int64), 4,
+      rs.randn(3, 5).astype(f32), rs.randn(3).astype(f32))
+NCE_W = rs.randn(10, 4).astype(f32)
+CSR = (np.array([0, 1, 3, 4, 6, 8, 10, 11, 12], np.int32),
+       np.array([0, 0, 1, 2, 2, 3, 3, 4, 4, 5, 6, 7], np.int32))
+CASES += [
+    nf("one_hot", IDS4, kw=dict(num_classes=4)),
+    nf("mse_loss", A, B, grad=(0, 1), tol="red"),
+    nf("square_error_cost", A, B, grad=(0, 1)),
+    nf("l1_loss", A, B, grad=(0,), tol="red", kw=dict(reduction="sum")),
+    nf("nll_loss", LOGP, IDS4, rs.rand(4).astype(f32) + 0.5, grad=(0,),
+       tol="red"),
+    nf("binary_cross_entropy", Q, PR, grad=(0,), tol="red"),
+    nf("binary_cross_entropy_with_logits", A, Q, grad=(0,), tol="red"),
+    nf("kl_div", LOGP, PR, grad=(0,), tol="red",
+       kw=dict(reduction="batchmean")),
+    nf("smooth_l1_loss", A, B, grad=(0,), tol="red", kw=dict(delta=0.5)),
+    nf("huber_loss", A, B, grad=(0,), tol="red", kw=dict(delta=0.5)),
+    nf("margin_ranking_loss", V2, V2[::-1].copy(), SIGN, grad=(0, 1),
+       tol="red", kw=dict(margin=0.1)),
+    nf("hinge_embedding_loss", V2, SIGN, grad=(0,), tol="red"),
+    nf("cosine_embedding_loss", A, B, SIGN, grad=(0, 1), tol="red"),
+    nf("triplet_margin_loss", A, B, P, grad=(0, 1, 2), tol="red"),
+    nf("label_smooth", SOFT, grad=(0,), kw=dict(epsilon=0.2)),
+    nf("sigmoid_focal_loss", A, np.round(Q), grad=(0,), tol="red"),
+    nf("log_loss", Q, np.round(PR), grad=(0,)),
+    nf("ctc_loss", *CTC, grad=(0,), tol="red"),
+    nf("dice_loss", PR[None], LBL[None], grad=(0,), tol="red"),
+    nf("hsigmoid_loss", *HS, grad=(0, 3, 4), tol="red"),
+    nf("margin_cross_entropy", U, IDS4, grad=(0,), tol="red",
+       kw=dict(scale=4.0)),
+    nf("sequence_mask", np.array([1, 3, 0], np.int32)),
+    nf("diag_embed", A, grad=(0,), kw=dict(offset=1)),
+    nf("affine_channel", S4, V, V[::-1].copy(), grad=(0, 1, 2)),
+    nf("npair_loss", A, B, np.array([0, 1, 0], np.int64), grad=(0, 1),
+       tol="red"),
+    nf("temporal_shift", S4, grad=(0,), kw=dict(seg_num=2)),
+    nf("sparse_attention", *[x.transpose(0, 2, 1, 3).copy()
+                             for x in QKV], *CSR, grad=(0, 1, 2), tol="red"),
+    nf("nce", A, I[:, :1], NCE_W, grad=(0, 2), tol="red",
+       kw=dict(num_total_classes=10, num_neg_samples=3, seed=5)),
+    fn("add_n", [A, B], label="list"),
+    lam("add_n", lambda m: lambda x, y: m.add_n([x, y]), A, B,
+        grad=(0, 1)),
+    lam("broadcast_tensors", lambda m: lambda x, y: m.broadcast_tensors(
+        [x, y]), A[:, :1], V[None], grad=(0, 1)),
+    fn("diagflat", V, grad=(0,), kw=dict(offset=-1)),
+    fn("diagonal", S3, grad=(0,), kw=dict(axis1=1, axis2=2)),
+    fn("floor_mod", I, J),
+    lam("multiplex", lambda m: lambda x, y, i: m.multiplex([x, y], i), A, B,
+        np.array([[1], [0], [1]], np.int32), grad=(0, 1)),
+    fn("scatter_nd", np.array([[1], [0], [1]], np.int32), A, [3, 4],
+       grad=(1,), label="rows"),
+    fn("rank", S3), fn("shape", S3),
+]
+
 # -- creation ----------------------------------------------------------------
 CASES += [
     fn("zeros", [2, 3]), fn("zeros", [2, 3], kw=dict(dtype="int64"),

@@ -278,11 +278,10 @@ def test_model_names_the_parameters_for_the_decay_rule():
 # names; a knob ported since keeps its case, which checks what it does now
 # (None): multi_precision, regularizers, decorate with optimizers,
 # summary, offload, the budget remat, fit's checkpointer and its anomaly
-# guard and ProfilerCallback are ported, and lazy_mode is taken with the
-# reference's dense semantics while a sparse gradient waits for the eager
-# core (A2); the supervisor's heartbeat waits for the distributed launch
-# (A5)
-KNOBS = {"multi_precision": None, "lazy_mode": "A2", "regularizer": None,
+# guard, ProfilerCallback and lazy_mode (a sparse gradient's rows-only
+# update) are ported; the supervisor's heartbeat waits for the
+# distributed launch (A5)
+KNOBS = {"multi_precision": None, "lazy_mode": None, "regularizer": None,
          "amp": None, "offload": None, "remat": None, "checkpointer": None,
          "anomaly_action": None, "supervise_store": "A5",
          "profiler_callback": None, "save_export": "A6", "summary": None}
@@ -310,6 +309,20 @@ def _ported_knob(knob, net, params, tmp_path):
             master = opt._master_weights[id(p)]
             assert master.dtype == torch.float32
             assert torch.equal(p.detach(), master.to(torch.bfloat16))
+    elif knob == "lazy_mode":
+        # taken and read nowhere, as in the reference: a sparse gradient
+        # moves the touched rows only, with lazy_mode set or not
+        moved = []
+        for lazy in (True, False):
+            torch.manual_seed(0)
+            emb = torch.nn.Embedding(6, 2, sparse=True)
+            before = emb.weight.detach().clone()
+            opt = Adam(parameters=emb.parameters(), lazy_mode=lazy)
+            emb(torch.tensor([0, 3])).sum().backward()
+            opt.step()
+            moved.append((emb.weight.detach() != before).any(1).tolist())
+        assert moved[0] == moved[1] == [True, False, False, True, False,
+                                        False]
     elif knob == "regularizer":
         from paddle_tpu_torch.regularizer import L2Decay
         _, twin = _linear_pair(3)
@@ -409,13 +422,6 @@ def test_knobs_not_ported_raise(monkeypatch, tmp_path, knob):
         _ported_knob(knob, net, params, tmp_path)
         return
     match = f"ROADMAP.md {KNOBS[knob]}"
-    if knob == "lazy_mode":
-        emb = torch.nn.Embedding(6, 2, sparse=True)
-        opt = Adam(parameters=emb.parameters(), lazy_mode=True)
-        emb(torch.tensor([0, 3])).sum().backward()
-        with pytest.raises(NotImplementedError, match=match):
-            opt.step()
-        return
     model = Model(net)
     opt = SGD(parameters=params)
     model.prepare(opt, lambda out, y: out.sum())

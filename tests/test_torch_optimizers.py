@@ -229,14 +229,34 @@ def test_bf16_parameters_step_on_fp32_masters(case):
 
 
 def test_a_sparse_gradient_raises_naming_a2():
+    """Once a raise naming ``ROADMAP.md`` A2; the row-sparse update is
+    ported since: a torch module's ``torch.nn.Embedding(sparse=True)``
+    gradient under Adam (``lazy_mode`` taken, read nowhere) moves only the
+    touched rows, and equals the reference's sparse Adam on the same
+    weights and ids."""
     emb = torch.nn.Embedding(10, 4, sparse=True)
     opt = popt.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
-    emb(torch.tensor([1, 2, 2])).sum().backward()
-    assert emb.weight.grad.is_sparse
+    paddle.seed(0)
+    ref_emb = paddle.nn.Embedding(10, 4, sparse=True)
+    with torch.no_grad():
+        emb.weight.copy_(torch.as_tensor(np.asarray(ref_emb.weight._data)))
+    ref_opt = paddle.optimizer.Adam(0.1, parameters=ref_emb.parameters(),
+                                    lazy_mode=True)
     before = emb.weight.detach().clone()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+    for ids in ([1, 2, 2], [2, 7]):
+        emb(torch.tensor(ids)).square().sum().backward()
+        assert emb.weight.grad.is_sparse
         opt.step()
-    assert torch.equal(emb.weight.detach(), before)
+        opt.clear_grad()
+        out = ref_emb(paddle.to_tensor(np.array(ids)))
+        paddle.sum(out * out).backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+    untouched = [0, 3, 4, 5, 6, 8, 9]
+    assert torch.equal(emb.weight.detach()[untouched], before[untouched])
+    assert not torch.equal(emb.weight.detach()[[1, 2, 7]],
+                           before[[1, 2, 7]])
+    _close(emb.weight.detach().numpy(), ref_emb.weight._data, "weight")
 
 
 def test_minimize_and_the_aliases():
