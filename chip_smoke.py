@@ -674,6 +674,14 @@ def sync(torch, dev):
         torch.cuda.synchronize()
 
 
+def torch_view(net):
+    """torch's view of a network: for a port ``nn.Layer`` (the GPT, the
+    eager core's layers) its ``parameters`` / ``state_dict`` ... are torch
+    tensors, as a ``torch.nn.Module``'s are."""
+    from paddle_tpu_torch.nn import torch_view as view
+    return view(net)
+
+
 def pct(values, q):
     import numpy as np
     return float(np.percentile(np.asarray(values, float), q))
@@ -1559,7 +1567,7 @@ def update_shapes(torch, width, dev):
     """(name, shape) of every parameter of the GPT at ``width``."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     net = GPT(GPTConfig(**width), device=dev, seed=0)
-    out = [(n, tuple(p.shape)) for n, p in net.named_parameters()]
+    out = [(n, tuple(p.shape)) for n, p in torch_view(net).named_parameters()]
     del net
     return out
 
@@ -3322,7 +3330,7 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     from paddle_tpu_torch.optimizer import AdamW
     dev = ids.device
     B = ids.shape[0]
-    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    state0 = {k: v.clone() for k, v in torch_view(net).state_dict().items()}
     make_opt = make_opt or (lambda params: AdamW(
         1e-3, parameters=params, weight_decay=0.01))
     # decorate: True (bf16) or the low type
@@ -3331,7 +3339,7 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
 
     def fresh(jit=True):
         net.load_state_dict(state0)
-        opt = make_opt(net.parameters())
+        opt = make_opt(torch_view(net).parameters())
         if decorate:
             pamp.decorate(net, opt, level="O2", dtype=_dtype_name(low))
         return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
@@ -3341,7 +3349,8 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
         """Each parameter the optimizer stepped has a master and equals it
         cast to its type, exactly (a post-LN encoder's unused pre-LN
         parameters get no gradient and no master)."""
-        stepped = [p for p in net.parameters() if id(p) in opt._state]
+        stepped = [p for p in torch_view(net).parameters()
+                   if id(p) in opt._state]
         return bool(stepped) and all(
             id(p) in opt._master_weights and torch.equal(
                 p, opt._master_weights[id(p)].to(p.dtype)) for p in stepped)
@@ -3360,7 +3369,7 @@ def model_train(torch, net, ids, labels, names, reset, launches, want,
     def first_step(model):
         paddle_tpu_torch.seed(1)
         loss = model.train_batch([ids], [labels], update=False)["loss"]
-        params = dict(net.named_parameters())
+        params = dict(torch_view(net).named_parameters())
         grads = {n: params[n].grad.clone() for n in names}
         model._optimizer.clear_grad()
         return loss.item(), grads
@@ -3478,8 +3487,8 @@ def _timed_steps(torch, model, ids, labels, tied):
 def _train_state(net, opt):
     """Copies of the parameters, every optimizer slot and every master."""
     out = {f"param {n}": p.detach().clone()
-           for n, p in net.named_parameters()}
-    for n, p in net.named_parameters():
+           for n, p in torch_view(net).named_parameters()}
+    for n, p in torch_view(net).named_parameters():
         for k, v in opt._state.get(id(p), {}).items():
             out[f"slot {n}_{k}"] = v.clone()
         if id(p) in opt._master_weights:
@@ -3525,7 +3534,7 @@ def _captured_vs_uncaptured(torch, net, ids, labels, fresh, tied, reset,
                 replay_counts.update(launches())
                 update_counts.update(_update_launches())
                 update_want.update(_update_want(
-                    model._optimizer, net.parameters(),
+                    model._optimizer, torch_view(net).parameters(),
                     model._scaler is not None))
             if tied is not None:
                 ties.append(tied(model._optimizer))
@@ -3756,7 +3765,7 @@ def encoder_scoring(torch, fa, fl, net, cfg, batch=ENCODER_SCORE_BATCH):
     ids = np.random.RandomState(11).randint(0, V, (batch, T))
     model = Model(net)
     model.predict_batch([ids])                        # warm-up
-    sync(torch, next(net.parameters()).device)
+    sync(torch, next(torch_view(net).parameters()).device)
     _reset_encoder(fa, fl)
     t0 = time.perf_counter()
     logits = model.predict_batch([ids])[0]
@@ -3907,11 +3916,12 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
     from paddle_tpu_torch.io import BatchSampler, TensorDataset
     from paddle_tpu_torch.tools import profile_train as pt
     B, T = cfg["batch"], cfg["seq"]
-    vocab = next(m for m in net.modules()
-                 if isinstance(m, torch.nn.Embedding)).num_embeddings
+    from paddle_tpu_torch import nn as pnn
+    vocab = next(m for m in net.modules() if isinstance(
+        m, (torch.nn.Embedding, pnn.Embedding))).weight.shape[0]
     train = pt.fit_data(cfg["train"], 0, vocab, T)
     evald = pt.fit_data(cfg["eval"], 1, vocab, T)
-    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    state0 = {k: v.clone() for k, v in torch_view(net).state_dict().items()}
     last = epochs - 1
 
     def updates(step):
@@ -3929,14 +3939,16 @@ def fit_path(torch, net, cfg, reset, launches, want, amp=None, epochs=2,
 
     def fresh(jit=True, metric=True):
         net.load_state_dict(state0)
-        for p in net.parameters():   # an accumulating run leaves its last
-            p.grad = None            # batches' gradients unstepped
+        # an accumulating run leaves its last batches' gradients
+        # unstepped
+        for p in torch_view(net).parameters():
+            p.grad = None
         paddle_tpu_torch.seed(0)
         np.random.seed(0)
         return pt.fit_recipe(net, amp=amp, jit=jit, metric=metric)
 
     def state():
-        return {k: v.clone() for k, v in net.state_dict().items()}
+        return {k: v.clone() for k, v in torch_view(net).state_dict().items()}
 
     def fit(label, jit=True, metric=True, prefetch=2, strict=False,
             keep=False):
@@ -4286,7 +4298,7 @@ def update_time(torch, net, model, ids, labels):
     and Lamb also at the kernel's two passes."""
     opt = model._optimizer
     model.train_batch([ids], [labels], update=False)
-    params = list(net.parameters())
+    params = list(torch_view(net).parameters())
     nbytes = update_bytes(params, opt)
     two = update_bytes(params, opt, two_pass=True)
     n = sum(p.numel() for p in params if p.grad is not None)
@@ -4492,7 +4504,7 @@ OVERFLOW = dict(FP16_O1, init_loss_scaling=2.0 ** 40,
 def _slots_initial(torch, opt, net):
     """Whether every slot of ``opt`` is as AdamW makes it: moments zero,
     powers one (no update has reached them)."""
-    for p in net.parameters():
+    for p in torch_view(net).parameters():
         for k, v in opt._state.get(id(p), {}).items():
             if k.endswith("_pow") and not bool((v == 1).all()):
                 return False
@@ -4517,7 +4529,8 @@ def fp16_overflow(torch, fa, dev, cfg):
     from paddle_tpu_torch.optimizer import AdamW
     w = cfg["width"]
     net = GPT(GPTConfig(**w), device=dev, seed=0)
-    opt = AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01)
+    opt = AdamW(1e-3, parameters=torch_view(net).parameters(),
+                weight_decay=0.01)
     model = Model(net).prepare(opt, CrossEntropyLoss(),
                                amp_configs=dict(OVERFLOW), jit=True)
     ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], cfg["seq"],
@@ -4588,7 +4601,8 @@ def grad_scaler_loop(torch, fa, dev, cfg, steps=3):
     w = cfg["width"]
     L = w["num_layers"]
     net = GPT(GPTConfig(**w), device=dev, seed=0)
-    opt = AdamW(1e-3, parameters=net.parameters(), weight_decay=0.01)
+    opt = AdamW(1e-3, parameters=torch_view(net).parameters(),
+                weight_decay=0.01)
     scaler = pamp.GradScaler(init_loss_scaling=FP16_O1["init_loss_scaling"])
     loss_fn = CrossEntropyLoss()
     ids, labels = _batch(torch, w["vocab_size"], cfg["batch"], cfg["seq"],
@@ -4678,10 +4692,11 @@ def fp16_path(torch, fa, fl, dev, cfg, encoder_cfg, encoder_batch,
 
     def one_step():
         model = Model(enc_net).prepare(
-            AdamW(1e-3, parameters=enc_net.parameters()), CrossEntropyLoss(),
+            AdamW(1e-3, parameters=torch_view(enc_net).parameters()),
+            CrossEntropyLoss(),
             amp_configs=dict(FP16_O1), jit=False)
         model.train_batch([ids], [labels], update=False)
-        for p in enc_net.parameters():
+        for p in torch_view(enc_net).parameters():
             p.grad = None
     types = _epilogue_types(torch, fl, one_step)
     log(f"  the epilogue's (x, residual, parameters) types under fp16 O1: "
@@ -4725,8 +4740,9 @@ def _host_state(net, opt):
     asynchronously)."""
     import torch
     torch.cuda.synchronize()
-    out = {f"param {n}": p.detach().cpu() for n, p in net.named_parameters()}
-    for n, p in net.named_parameters():
+    out = {f"param {n}": p.detach().cpu()
+           for n, p in torch_view(net).named_parameters()}
+    for n, p in torch_view(net).named_parameters():
         for k, v in opt._state.get(id(p), {}).items():
             out[f"slot {n}_{k}"] = v.clone() if v.device.type == "cpu" \
                 else v.cpu()
@@ -4766,7 +4782,7 @@ def phase15_run(torch, make_net, make_opt, ids, labels, amp, remat=False,
     gc.collect()
     torch.cuda.empty_cache()
     net = make_net()
-    opt = make_opt(net.parameters())
+    opt = make_opt(torch_view(net).parameters())
     if decorate:
         pamp.decorate(net, opt, level="O2")
     model = Model(net).prepare(opt, CrossEntropyLoss(), amp_configs=amp,
@@ -5172,7 +5188,8 @@ def _fit_hooks_state(model):
     and the step count."""
     fs = model._optimizer.functional_state()
     return dict(params={k: v.clone()
-                        for k, v in model.network.state_dict().items()},
+                        for k, v in
+                        torch_view(model.network).state_dict().items()},
                 slots={f"{n}.{k}": v.clone() for n, s in fs["slots"].items()
                        for k, v in s.items()},
                 master={n: v.clone() for n, v in fs["master"].items()},
@@ -5192,7 +5209,7 @@ def _fit_hooks_put(torch, model, state):
     """Copy a :func:`_fit_hooks_state` back into the live model in place
     (the hand loop's revert)."""
     with torch.no_grad():
-        for k, v in model.network.state_dict().items():
+        for k, v in torch_view(model.network).state_dict().items():
             v.copy_(state["params"][k])
         fs = model._optimizer.functional_state()
         for n, s in fs["slots"].items():
@@ -5252,9 +5269,9 @@ def fit_hooks_path(torch, fa, dev, cfg=FIT_HOOKS):
     L = w["num_layers"]
     data = pt.fit_data(n * B, 0, w["vocab_size"], T)
     net = GPT(GPTConfig(**w), device=dev, seed=0)
-    state0 = {k: v.clone() for k, v in net.state_dict().items()}
+    state0 = {k: v.clone() for k, v in torch_view(net).state_dict().items()}
     other = GPT(GPTConfig(**w), device=dev, seed=1)
-    state1 = {k: v.clone() for k, v in other.state_dict().items()}
+    state1 = {k: v.clone() for k, v in torch_view(other).state_dict().items()}
     del other
     mode = fa._pallas_mode(T, T, True)
     want = dict(_attention_want(L, mode, mode, "O1"), **FIT_UPDATE)
@@ -5270,12 +5287,13 @@ def fit_hooks_path(torch, fa, dev, cfg=FIT_HOOKS):
         gc.collect()
         torch.cuda.empty_cache()
         net.load_state_dict(state)
-        for p in net.parameters():
+        for p in torch_view(net).parameters():
             p.grad = None
         paddle_tpu_torch.seed(0)
         torch.manual_seed(0)
         return Model(net).prepare(
-            AdamW(cfg["lr"], parameters=net.parameters(), weight_decay=0.01),
+            AdamW(cfg["lr"], parameters=torch_view(net).parameters(),
+                  weight_decay=0.01),
             CrossEntropyLoss(), amp_configs="O1", offload=offload)
 
     def run(model, steps, checkpointer=None, extra=()):
@@ -5467,7 +5485,8 @@ def fit_hooks_path(torch, fa, dev, cfg=FIT_HOOKS):
                                 in str(m.message) for m in rec),
             rollback_state_is_newest_tree=all(
                 torch.equal(v.cpu(), tree["params"][n_])
-                for n_, v in model.network.named_parameters()) and all(
+                for n_, v in
+                torch_view(model.network).named_parameters()) and all(
                 torch.equal(v.cpu(), tree["opt"]["slots"][n_][s_])
                 for n_, sl in fs["slots"].items()
                 for s_, v in sl.items()))
@@ -5980,8 +5999,11 @@ def _int8_against_plain(torch, net, reqs):
     sess.prefill(arenas, *values)             # a replay
     replayed = [[f.clone() for f in a] for a in arenas]
     qkv = {}
+    # the projection's output as its hook sees it (a Tensor of the GPT's
+    # eager core): its torch tensor
     hooks = [blk.attn.qkv.register_forward_hook(
-        lambda m, i, o, li=li: qkv.__setitem__(li, o.detach().clone()))
+        lambda m, i, o, li=li: qkv.__setitem__(
+            li, getattr(o, "_data", o).detach().clone()))
         for li, blk in enumerate(net.blocks)]
     try:
         sess.init_arenas()
@@ -6512,9 +6534,11 @@ def http_swap(torch, engine, srv, reqs, phase5, width):
     from paddle_tpu_torch.models import GPT, GPTConfig
     net, cache = engine.model, engine.session._cache
     dev = net.device
-    first = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    first = {k: v.detach().clone()
+             for k, v in torch_view(net).state_dict().items()}
     net2 = GPT(GPTConfig(**width), device=dev, seed=HTTP_SWAP_SEED)
-    second = {k: v.detach().clone() for k, v in net2.state_dict().items()}
+    second = {k: v.detach().clone()
+              for k, v in torch_view(net2).state_dict().items()}
     compiles0 = cache.compiles
     errors, straddled = [], [None] * SLOTS
 
@@ -6567,7 +6591,7 @@ def http_swap(torch, engine, srv, reqs, phase5, width):
     back, _t, _h, _w = _http_round(srv.port, reqs)
     differ_back = _same_streams(back, phase5["results"])
     checksum = sum(p.detach().double().sum().item()
-                   for p in net.parameters())
+                   for p in torch_view(net).parameters())
     bad = dict(first)
     bad["wte.weight"] = first["wte.weight"][:, :-1]
     try:
@@ -6575,9 +6599,10 @@ def http_swap(torch, engine, srv, reqs, phase5, width):
         raised = None
     except ValueError as e:
         raised = str(e)
-    same = all(torch.equal(v, first[k]) for k, v in net.state_dict().items())
+    same = all(torch.equal(v, first[k])
+               for k, v in torch_view(net).state_dict().items())
     checksum_after = sum(p.detach().double().sum().item()
-                         for p in net.parameters())
+                         for p in torch_view(net).parameters())
     out = dict(swap_ms=swap_ms, swap_back_ms=back_ms,
                swap_parts=swap_parts, swap_back_parts=back_parts,
                tokens_before_swap=at, straddling=SLOTS, dropped=dropped,
@@ -6653,7 +6678,7 @@ def http_observability(torch, fa, net, reqs, phase5, parity):
             engine.close()
         san = cc.san_stats()
         cycles = cc.cycle_reports()
-    params = sum(p.numel() for p in net.parameters())
+    params = sum(p.numel() for p in torch_view(net).parameters())
     kv_want = L * 2 * SLOTS * engine.max_length * D * 4
     events = tracer.events()
     tracer.clear()
@@ -7042,7 +7067,7 @@ def profiler_path(torch, fa, dev, cfg=PROFILE_FIT, phase12_ms=None):
                 else:
                     os.environ[k] = v
         opt = model._optimizer
-        params = list(net.parameters())
+        params = list(torch_view(net).parameters())
         param_bytes = sum(t.numel() * t.element_size() for t in params)
         slot_bytes = sum(t.numel() * t.element_size()
                          for st in opt._state.values() for t in st.values())
@@ -8094,6 +8119,216 @@ def sparse_embedding_path(torch, fa, dev, cfg=EAGER_CORE):
     return report
 
 
+# -- phase 22: the flagship GPT on the eager core -----------------------------
+ENTRY = dict(vocab_size=8192, hidden_size=256, num_layers=4, num_heads=4,
+             max_seq_len=256)        # __graft_entry__.py entry()'s model
+ENTRY_IDS = (4, 128)                  # and its example ids
+ENTRY_BATCH = 8                       # 22b's batch at full width
+ENTRY_HOST_REPS = 10
+ENTRY_NEW_TOKENS = 16                 # 22c's generate calls
+
+
+def entry_forward(net):
+    """entry()'s forward on the port: the functional state taken once,
+    then at each call, under ``autograd.no_grad``, loaded back and the
+    model called with a ``Tensor``; returns the torch logits."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.core import autograd
+    params, buffers = net.functional_state()
+
+    def forward(ids):
+        with autograd.no_grad():
+            net.load_functional_state(params, buffers)
+            out = net(paddle_tpu_torch.Tensor(ids))
+        return out._data
+    return forward
+
+
+def _host_and_event_ms(torch, fn, dev, reps=ENTRY_HOST_REPS):
+    """(host ms p50, CUDA-event ms p50) of ``fn()``: the call's wall time
+    until it returns (its launches queued, not waited for), and the
+    events around it (the device's time unless the host is slower)."""
+    host = []
+    for _ in range(reps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    sync(torch, dev)
+    return pct(host, 50), time_ms(torch, fn, reps=reps)
+
+
+def entry_path(torch, fa, dev, width=GPT_WIDTH, entry_cfg=ENTRY,
+               batch=ENTRY_BATCH):
+    """Phase 22: the GPT as an ``nn.Layer`` written on Tensors.  22a:
+    ``__graft_entry__.entry()`` written against the port:
+    ``set_device``, ``seed(0)``, ``GPT(GPTConfig(**ENTRY))`` on the card,
+    ``eval()``, then :func:`entry_forward` on entry()'s ids (seed 0,
+    ENTRY_IDS), through the kernel (one row-1 launch a layer), held
+    against the same weights run on the CPU (the plain versions) within
+    SCORING_ATOL.  22b: the full-width GPT (``width``, fp32) on (batch,
+    max_seq_len) ids, called with a ``Tensor`` and with a torch tensor
+    under ``no_grad``: the logits equal bit for bit, one row-1 launch a
+    layer each; host ms and CUDA-event ms of each call, and the ops one
+    call dispatches (the tracer's ``dispatch.count``).  22c:
+    ``generate`` twice on the same model and batch bucket: the second
+    call makes no step (no capture), hits the executable cache of the one
+    session kept on the model, and gives the same greedy tokens."""
+    import numpy as np
+    import paddle_tpu_torch
+    from paddle_tpu_torch.core import place as pplace
+    from paddle_tpu_torch.models import GPT, GPTConfig
+    from paddle_tpu_torch.profiler import metrics, tracer
+    t_phase = time.perf_counter()
+    out = {}
+    log("== phase 22a: entry() on the card against the CPU")
+    was = pplace._place
+    paddle_tpu_torch.set_device(dev)
+    try:
+        paddle_tpu_torch.seed(0)
+        net = GPT(GPTConfig(**entry_cfg))
+        net.eval()
+        ids = np.random.RandomState(0).randint(
+            0, entry_cfg["vocab_size"], ENTRY_IDS).astype(np.int32)
+        forward = entry_forward(net)
+        forward(ids)                                  # warm-up
+        sync(torch, dev)
+        fa.FWD_LAUNCHES = 0
+        logits = forward(ids)
+        sync(torch, dev)
+        launches = fa.FWD_LAUNCHES
+    finally:
+        pplace._place = was
+    plain = GPT(GPTConfig(**entry_cfg), device="cpu")
+    plain.set_state_dict(net.state_dict())
+    plain.eval()
+    with pplace.place_guard("cpu"):
+        want = entry_forward(plain)(ids)
+    err = (logits.cpu() - want).abs().max().item()
+    finite = bool(torch.isfinite(logits).all().item())
+    shape = tuple(logits.shape)
+    out["entry"] = dict(config=entry_cfg, ids=list(ENTRY_IDS), shape=shape,
+                        launches=launches, max_abs_err=err,
+                        atol=SCORING_ATOL, finite=finite,
+                        max_abs_logit=want.abs().max().item(),
+                        device=str(logits.device))
+    log(f"  entry() forward on {logits.device}: logits {shape} "
+        f"finite={finite}, row-1 launches {launches} (expected "
+        f"{entry_cfg['num_layers']}), max |card - CPU plain| {err:.3e} "
+        f"(atol {SCORING_ATOL:.0e}, max |logit| "
+        f"{out['entry']['max_abs_logit']:.3f})")
+    if shape != ENTRY_IDS + (entry_cfg["vocab_size"],) or not finite:
+        raise AssertionError("entry() logits have the wrong shape or are "
+                             "not finite")
+    if logits.device.type != torch.device(dev).type:
+        raise AssertionError(f"entry() ran on {logits.device}, not {dev}")
+    if launches != entry_cfg["num_layers"]:
+        raise AssertionError(f"entry() launched the kernel {launches} "
+                             f"times, expected {entry_cfg['num_layers']}")
+    if err > SCORING_ATOL:
+        raise AssertionError(f"entry() on the card differs from the CPU by "
+                             f"{err} > {SCORING_ATOL}")
+    del net, plain, forward, logits, want
+
+    log(f"== phase 22b: the full-width Layer GPT, B {batch}, a Tensor and "
+        "a torch tensor")
+    big = GPT(GPTConfig(**width), device=dev, seed=0)
+    big.eval()
+    V, T, L = width["vocab_size"], width["max_seq_len"], width["num_layers"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ids_t = torch.randint(0, V, (batch, T), generator=gen, device=dev)
+    ids_p = paddle_tpu_torch.Tensor(ids_t)
+    n_params = sum(p.numel() for p in torch_view(big).parameters())
+
+    def call_tensor():
+        with torch.no_grad():
+            return big(ids_p)._data
+
+    def call_torch():
+        with torch.no_grad():
+            return big(ids_t)
+
+    calls = {}
+    for name, fn in (("tensor", call_tensor), ("torch", call_torch)):
+        fn()                                          # warm-up
+        sync(torch, dev)
+        fa.FWD_LAUNCHES = 0
+        got = fn()
+        sync(torch, dev)
+        calls[name] = dict(logits=got, launches=fa.FWD_LAUNCHES)
+    same = torch.equal(calls["tensor"]["logits"], calls["torch"]["logits"])
+    finite = bool(torch.isfinite(calls["torch"]["logits"]).all().item())
+    del calls["tensor"]["logits"], calls["torch"]["logits"]
+    for name, fn in (("tensor", call_tensor), ("torch", call_torch)):
+        host_ms, event_ms = _host_and_event_ms(torch, fn, dev)
+        calls[name].update(host_ms=host_ms, event_ms=event_ms)
+    c0 = metrics.get("dispatch.count")
+    c0 = c0.value if c0 is not None else 0
+    tracer.enable()
+    tracer.clear()
+    try:
+        call_torch()
+        sync(torch, dev)
+        ops = {op: row["calls"] for op, row in tracer.op_table().items()}
+    finally:
+        tracer.disable()
+        tracer.clear()
+    dispatched = metrics.get("dispatch.count").value - c0
+    out["layer_gpt"] = dict(
+        width=width, batch=batch, params=n_params, logits_equal=same,
+        finite=finite, calls=calls, ops_dispatched=dispatched, ops=ops)
+    for name, c in calls.items():
+        log(f"  called with a {'Tensor' if name == 'tensor' else 'torch tensor'}"
+            f": row-1 launches {c['launches']} "
+            f"(expected {L}), host ms p50 {c['host_ms']:.3f}, CUDA-event "
+            f"ms p50 {c['event_ms']:.3f}")
+    log(f"  logits equal bit for bit: {same}; finite: {finite}; "
+        f"{dispatched} ops dispatched a call ({len(ops)} kinds: "
+        f"{dict(sorted(ops.items()))}); {n_params:,} parameters")
+    if not same or not finite:
+        raise AssertionError("the Layer GPT's logits differ between a "
+                             "Tensor and a torch tensor, or are not finite")
+    if any(c["launches"] != L for c in calls.values()):
+        raise AssertionError(f"a full-width call launched "
+                             f"{[c['launches'] for c in calls.values()]} "
+                             f"row-1 kernels, expected {L} each")
+    if dispatched != sum(ops.values()) or dispatched <= 0:
+        raise AssertionError(f"dispatch.count {dispatched} against the "
+                             f"trace's {sum(ops.values())} op spans")
+
+    log("== phase 22c: generate twice on one batch bucket")
+    rs = np.random.RandomState(22)
+    prompts = [rs.randint(1, V, n).astype(np.int32) for n in (5, 9, 17)]
+    first = big.generate(prompts, max_new_tokens=ENTRY_NEW_TOKENS)
+    (key, sess), = big._gen_sessions.items()
+    entries = {k: id(e) for k, e in sess._cache.entries().items()}
+    before = dict(compiles=sess._cache.compiles, hits=sess._cache.hits,
+                  captured=_all_captured(sess._cache.entries().values()))
+    second = big.generate(prompts, max_new_tokens=ENTRY_NEW_TOKENS)
+    after = dict(compiles=sess._cache.compiles, hits=sess._cache.hits,
+                 sessions=len(big._gen_sessions))
+    kept = entries == {k: id(e) for k, e in sess._cache.entries().items()}
+    streams_equal = all(np.array_equal(a, b) for a, b in zip(first, second))
+    out["generate"] = dict(session_key=list(key), first=before,
+                           second=after, entries_kept=kept,
+                           streams_equal=streams_equal,
+                           tokens=[len(a) for a in first])
+    log(f"  session {key}: first call {before['compiles']} steps made "
+        f"(captured: {before['captured']}), hits {before['hits']}; second "
+        f"call {after['compiles']} made, hits {after['hits']}; sessions on "
+        f"the model {after['sessions']}; same entries {kept}; same greedy "
+        f"tokens {streams_equal}")
+    if not (after["compiles"] == before["compiles"] and after["hits"] >
+            before["hits"] and after["sessions"] == 1 and kept
+            and before["captured"] and streams_equal):
+        raise AssertionError(f"the second generate made steps again or "
+                             f"left another session: {out['generate']}")
+    del big
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22 in {out['seconds']:.1f} s")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
@@ -8276,6 +8511,10 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 21: the sparse embedding and its rows-only update on "
         "phase 20's encoder")
     sparse = sparse_embedding_path(torch, fa, dev, eager_core_cfg)
+    torch.cuda.empty_cache()
+    log("== phase 22: the flagship GPT on the eager core: entry(), the "
+        "Layer GPT at full width, generate's session")
+    layer_gpt = entry_path(torch, fa, dev, width)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -8303,6 +8542,9 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         launches_scoring=score["launches"], checks=len(checks),
         launches_eager_forward=eager["launches"]["fwd"],
         launches_eager_core=core["launches"]["fwd"],
+        launches_entry_forward=layer_gpt["entry"]["launches"],
+        launches_layer_gpt_forward=layer_gpt["layer_gpt"]["calls"][
+            "tensor"]["launches"],
         launches_fit_step=fit_fp32["launches_per_step"]["fwd"],
         max_abs_err_bf16=max(c["max_abs_err"] for c in checks
                              if c["dtype"] == "bfloat16"
@@ -8843,7 +9085,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   train_long_bf16_timing=long_times_bf16,
                   remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
                   profiler=profiled, eager_core=core,
-                  sparse_embedding=sparse,
+                  sparse_embedding=sparse, entry_path=layer_gpt,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

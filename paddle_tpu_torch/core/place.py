@@ -14,13 +14,16 @@ quietly on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 
 __all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
            "set_device", "get_device", "device_count",
-           "is_compiled_with_cuda", "place_of", "current_place"]
+           "is_compiled_with_cuda", "place_of", "current_place",
+           "place_guard"]
 
 
 class Place:
@@ -79,6 +82,8 @@ class CUDAPinnedPlace(Place):
 
 
 _place: Optional[Place] = None
+# this thread's place inside a place_guard block
+_local = threading.local()
 
 
 def _parse(device) -> Place:
@@ -108,9 +113,27 @@ def set_device(device) -> Place:
 
 
 def current_place() -> Place:
-    """The place new tensors go to: the one :func:`set_device` set, else
-    the first card."""
+    """The place new tensors go to: this thread's :func:`place_guard`
+    place, else the one :func:`set_device` set, else the first card."""
+    guarded = getattr(_local, "place", None)
+    if guarded is not None:
+        return guarded
     return _place if _place is not None else CUDAPlace(0)
+
+
+@contextlib.contextmanager
+def place_guard(device):
+    """New tensors of this thread go to ``device`` inside the block (a
+    model built for a device its caller names, whatever the process's
+    place)."""
+    place = _parse(device)
+    place.torch_device()
+    was = getattr(_local, "place", None)
+    _local.place = place
+    try:
+        yield place
+    finally:
+        _local.place = was
 
 
 def get_device() -> str:

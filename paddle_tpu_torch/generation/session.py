@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..graphs import StepGraph
+from ..nn.layer_base import torch_view
 from ..profiler import metrics as _metrics
 from ..profiler import tracer as _tracer
 from ..utils import concurrency as _conc
@@ -127,6 +128,8 @@ class GenerationSession:
         self._serial = next(_SERIALS)
         self._caches = None
         self._lock = _conc.Lock(name=f"{name}.session")
+        # one generate() at a time: its steps share the session's caches
+        self._generate_lock = _conc.Lock(name=f"{name}.session.generate")
         self.steps: Dict[str, int] = {"prefill": 0, "decode": 0}
         self.step_ms: Dict[str, deque] = {
             "prefill": deque(maxlen=_TIMING_WINDOW),
@@ -212,7 +215,7 @@ class GenerationSession:
         return step
 
     def _bound(self):
-        net = self.model
+        net = torch_view(self.model)
         return itertools.chain(net.parameters(), net.buffers())
 
     def _compiled(self, kind: str, make: Callable, types, values):
@@ -303,7 +306,8 @@ class GenerationSession:
         a list of ragged 1-D prompts.  Returns ``B`` int32 arrays of
         generated tokens (prompt excluded; eos, when hit, included last).
         Greedy unless ``do_sample``.  ``stream_callback(row, token)``
-        fires per sampled token in order."""
+        fires per sampled token in order.  Calls on one session run one
+        at a time (their steps share the session's caches)."""
         ids_list, lens = self._normalize_prompts(ids, prompt_lens)
         B_real, B = len(ids_list), self.batch_capacity
         if B_real > B:
@@ -328,9 +332,6 @@ class GenerationSession:
         mask = np.zeros((B,), bool)
         mask[:B_real] = True
 
-        caches = self.init_caches()
-        tok, caches = self.prefill(caches, batch, plens, mask, row_seeds,
-                                   temps, tks, tps)
         out: List[List[int]] = [[] for _ in range(B_real)]
         done = [False] * B_real
         positions = plens.copy()            # where the sampled token sits
@@ -350,12 +351,16 @@ class GenerationSession:
                     done[i] = True
                 elif positions[i] + 1 >= self.max_length:
                     done[i] = True          # cache full: hard stop
-        absorb(tok)
-        while not all(done):
-            tok, caches = self.decode(caches, tok, positions, row_seeds,
-                                      temps, tks, tps)
-            positions = positions + 1
+        with self._generate_lock:
+            caches = self.init_caches()
+            tok, caches = self.prefill(caches, batch, plens, mask,
+                                       row_seeds, temps, tks, tps)
             absorb(tok)
+            while not all(done):
+                tok, caches = self.decode(caches, tok, positions, row_seeds,
+                                          temps, tks, tps)
+                positions = positions + 1
+                absorb(tok)
         return [np.asarray(o, np.int32) for o in out]
 
     @staticmethod

@@ -1,10 +1,10 @@
 """Carry the reference GPT's weights into the port.
 
 :func:`gpt_state_from_paddle_tpu` takes the eager GPT's weights, named as
-``paddle_tpu``'s ``GPT.functional_state()[0]``; the port's modules carry
-the same names.  The reference stores every linear weight as
-``(in, out)``; ``nn.Linear`` holds ``(out, in)``, so those are
-transposed.  Embeddings and LayerNorm parameters carry over as they are.
+``paddle_tpu``'s ``GPT.functional_state()[0]`` (or its ``state_dict()``);
+the port's ``GPT`` is built of the same layers, with the same names and
+layouts (``[in, out]`` linear weights), so every array carries over as it
+is.  ``GPT.set_state_dict`` takes the reference's tree directly as well.
 
 :func:`gpt_spmd_state_from_paddle_tpu` takes the compiled trainer's
 stacked parameter tree (``gpt_spmd.init_gpt_params``) and its AdamW state;
@@ -25,29 +25,21 @@ import torch
 from ..device import resolve_device
 
 __all__ = ["gpt_state_from_paddle_tpu", "gpt_spmd_state_from_paddle_tpu",
-           "fused_transformer_state_from_paddle_tpu", "LINEAR_WEIGHTS"]
+           "fused_transformer_state_from_paddle_tpu"]
 
-# name suffixes of the reference's (in, out) linear weights
-LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out.weight", "up.weight",
-                  "down.weight", "head.weight")
+
+def _tensors(params: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
+    return {name: torch.from_numpy(np.array(np.asarray(value), order="C"))
+            .to(dev) for name, value in params.items()}
 
 
 def gpt_state_from_paddle_tpu(params: Mapping[str, np.ndarray], *,
                               device=None) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for :class:`~paddle_tpu_torch.models.GPT` from the
     reference's parameter arrays (any array-likes numpy can read), on
-    ``device`` (the card unless ``device="cpu"``)."""
-    dev = resolve_device(device)
-    out: Dict[str, torch.Tensor] = {}
-    for name, value in params.items():
-        arr = np.asarray(value)
-        if name.endswith(LINEAR_WEIGHTS):
-            if arr.ndim != 2:
-                raise ValueError(f"{name}: expected an (in, out) matrix, "
-                                 f"got shape {arr.shape}")
-            arr = arr.T
-        out[name] = torch.from_numpy(np.array(arr, order="C")).to(dev)
-    return out
+    ``device`` (the card unless ``device="cpu"``): the same names and
+    arrays, as torch tensors."""
+    return _tensors(params, resolve_device(device))
 
 
 def _tensor_tree(tree: Mapping, dev: torch.device) -> Dict:
@@ -86,6 +78,4 @@ def fused_transformer_state_from_paddle_tpu(
     layouts (the packed ``[3, H, Dh, D]`` qkv weight, ``(in, out)`` linear
     weights, ``(D,)`` LayerNorm vectors) and its parameter names, so every
     name and array carries over as it is, with no transpose."""
-    dev = resolve_device(device)
-    return {name: torch.from_numpy(np.array(np.asarray(value), order="C"))
-            .to(dev) for name, value in params.items()}
+    return _tensors(params, resolve_device(device))

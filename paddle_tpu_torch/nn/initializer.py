@@ -12,7 +12,9 @@ to determinism under ``seed``, not to JAX's bits.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -56,8 +58,25 @@ def _empty(shape, dtype, device):
                        dtype=dtype_to_torch(dtype), device=dev)
 
 
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def generator_guard(gen: torch.Generator):
+    """This thread's initializers draw from ``gen`` inside the block, not
+    from the port's stream (a model built from an explicit seed leaves
+    that stream where it was)."""
+    was = getattr(_draws, "gen", None)
+    _draws.gen = gen
+    try:
+        yield gen
+    finally:
+        _draws.gen = was
+
+
 def _gen(t: torch.Tensor) -> torch.Generator:
-    return default_generator.device(t.device)
+    gen = getattr(_draws, "gen", None)
+    return gen if gen is not None else default_generator.device(t.device)
 
 
 class Initializer:

@@ -45,8 +45,23 @@ def _promoted(fn):
     return kernel
 
 
-def _binary(op_name, fn):
-    kernel = _promoted(fn)
+def _arith(fn):
+    """``fn`` of the arithmetic ops on two floating tensors that torch
+    promotes to JAX's common type itself (not a 0-d one beside a wider
+    tensor): the kernel reads each operand in its own type and computes in
+    the common one, the values a cast first gives, without the copy of the
+    narrower operand (AMP O1's bf16 branch added to an fp32 residual)."""
+    def kernel(a, b):
+        if a.is_floating_point() and b.is_floating_point() and \
+                torch.result_type(a, b) == torch.promote_types(a.dtype,
+                                                               b.dtype):
+            return fn(a, b)
+        return fn(*promote(a, b))
+    return kernel
+
+
+def _binary(op_name, fn, kernel=None):
+    kernel = kernel or _promoted(fn)
 
     def op(x, y, name=None):
         x, y = pair(x, y)
@@ -66,10 +81,10 @@ def _float_in(fn):
     return kernel
 
 
-add = _binary("add", torch.add)
-subtract = _binary("subtract", torch.sub)
-multiply = _binary("multiply", torch.mul)
-divide = _binary("divide", torch.true_divide)
+add = _binary("add", torch.add, _arith(torch.add))
+subtract = _binary("subtract", torch.sub, _arith(torch.sub))
+multiply = _binary("multiply", torch.mul, _arith(torch.mul))
+divide = _binary("divide", torch.true_divide, _arith(torch.true_divide))
 floor_divide = _binary("floor_divide", torch.floor_divide)
 remainder = _binary("remainder", torch.remainder)
 mod = remainder

@@ -59,7 +59,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..core.tensor import unwrap
 from ..generation.session import GenerationSession
+from ..nn.layer_base import torch_view
 from ..profiler import flight as _flight
 from ..profiler import memscope as _memscope
 from ..profiler import metrics as _metrics
@@ -294,11 +296,15 @@ def _check_swap_tree(live: Dict[str, object], new: Dict[str, object],
 
 
 def _as_tensors(tree) -> Dict[str, object]:
-    """``{name: tensor}`` of a tree of tensors or array-likes (numpy
-    arrays are wrapped, not copied)."""
+    """``{name: tensor}`` of a tree of tensors (torch's or the port's)
+    or array-likes (numpy arrays are wrapped, not copied)."""
     import torch
-    return {str(k): v if isinstance(v, torch.Tensor)
-            else torch.as_tensor(np.asarray(v)) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        v = unwrap(v)
+        out[str(k)] = v if isinstance(v, torch.Tensor) \
+            else torch.as_tensor(np.asarray(v))
+    return out
 
 
 class GenerationEngine:
@@ -422,8 +428,9 @@ class GenerationEngine:
         return _memscope.tree_nbytes(getattr(self, "_caches", None))
 
     def _params_bytes(self) -> int:
-        return _memscope.tree_nbytes(list(self.model.parameters())
-                                     + list(self.model.buffers()))
+        view = torch_view(self.model)
+        return _memscope.tree_nbytes(list(view.parameters())
+                                     + list(view.buffers()))
 
     def _note_memory_tags(self):
         """Attribute this engine's exactly-known footprints to memscope's
@@ -629,8 +636,8 @@ class GenerationEngine:
 
         ``params`` (and ``buffers``) map the model's ``named_parameters``
         (``named_buffers``) names — its ``state_dict`` names — to tensors
-        or arrays; a reference tree goes through
-        ``models.gpt_state_from_paddle_tpu`` first.  The tree is checked
+        or arrays; the reference GPT's tree (``state_dict()`` as arrays)
+        is one as it is.  The tree is checked
         key for key, shape and dtype, before anything is touched (a
         mismatch raises ``ValueError`` and the live weights stay), then
         staged on the model's device.  The scheduler copies the staged
@@ -643,12 +650,13 @@ class GenerationEngine:
         carries the staging's and the wait's milliseconds."""
         import torch
         t0 = time.perf_counter()
-        live_p = dict(self.model.named_parameters())
+        view = torch_view(self.model)
+        live_p = dict(view.named_parameters())
         new_p = _as_tensors(params)
         _check_swap_tree(live_p, new_p, "params")
         pairs = [(live_p[k], v) for k, v in new_p.items()]
         if buffers is not None:
-            live_b = dict(self.model.named_buffers())
+            live_b = dict(view.named_buffers())
             new_b = _as_tensors(buffers)
             _check_swap_tree(live_b, new_b, "buffers")
             pairs += [(live_b[k], v) for k, v in new_b.items()]

@@ -69,7 +69,7 @@ from ..hapi import Model
 from ..incubate.nn import FusedTransformerEncoderLayer
 from ..models import GPT, GPTConfig
 from ..models.gpt_spmd import build_spmd_train_step
-from ..nn import CrossEntropyLoss
+from ..nn import CrossEntropyLoss, Embedding
 from ..ops import flash_attention as fa
 from ..ops import flash_attention_qkv as fq
 from ..ops import fused_ln as fl
@@ -282,8 +282,8 @@ def _fit_path(net, amp, jit: bool, steps: int, prefetch: int, metric: bool,
     ``accumulate_grad_batches=accumulate``.  ``amp``: an ``amp_configs``
     value (a level, or a dict with the level and the type)."""
     model = fit_recipe(net, amp=amp, jit=jit, metric=metric)
-    vocab = next(m for m in net.modules()
-                 if isinstance(m, torch.nn.Embedding)).num_embeddings
+    vocab = next(m for m in net.modules() if isinstance(
+        m, (torch.nn.Embedding, Embedding))).weight.shape[0]
     data = TensorDataset(fit_data(steps * batch, vocab=vocab, seq=seq))
 
     def one():

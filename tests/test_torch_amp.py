@@ -41,7 +41,7 @@ from paddle_tpu.ops import amp_ops as ramp_ops
 
 from paddle_tpu_torch import Model, amp
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import CrossEntropyLoss, torch_view
 from paddle_tpu_torch.ops import amp_ops
 from paddle_tpu_torch.optimizer import AdamW
 
@@ -202,7 +202,7 @@ def test_train_batch_under_amp_repeats_and_leaves_fp32_grads():
             amp_configs={"level": "O2", "custom_black_list": ["gelu"]})
         loss = model.train_batch([ids], [labels], update=False)["loss"]
         assert loss.dtype == torch.float32
-        grads = [p.grad for p in net.parameters()]
+        grads = [p.grad for p in torch_view(net).parameters()]
         assert all(g is not None and g.dtype == torch.float32
                    for g in grads)
         runs.append((loss, grads))

@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.ops import flash_attention as pfa
 from paddle_tpu_torch.ops import flash_attention_qkv as fq
 from paddle_tpu_torch.ops import fused_ln as fl
@@ -79,7 +80,8 @@ def test_kernel_refuses_what_it_does_not_take(card):
 def test_gpt_on_the_card_matches_the_cpu(card):
     net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
     cpu = GPT(GPTConfig(**WIDTH), device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    cpu.load_state_dict({k: v.cpu()
+                         for k, v in torch_view(net).state_dict().items()})
     ids = torch.randint(0, WIDTH["vocab_size"], (2, 100))
     before = pfa.FWD_LAUNCHES
     with torch.inference_mode():
@@ -564,7 +566,7 @@ def test_amp_o1_steps_run_bf16_attention_on_sm90(card):
         def step():
             paddle_tpu_torch.seed(4)
             loss = model.train_batch([ids], [labels], update=False)["loss"]
-            grads = [p.grad.clone() for p in net.parameters()
+            grads = [p.grad.clone() for p in torch_view(net).parameters()
                      if p.grad is not None]
             model._optimizer.clear_grad()
             return loss.item(), grads
@@ -1071,7 +1073,7 @@ def _fit(jit=True, metric=False, prefetch=2, strict=False, epochs=2):
         torch.cuda.set_sync_debug_mode(0)
     seen["compiles"].append(model._steps.compiles)
     return (torch.stack(seen["losses"]),
-            {k: v.clone() for k, v in net.state_dict().items()},
+            {k: v.clone() for k, v in torch_view(net).state_dict().items()},
             seen["compiles"], seen["launches"])
 
 
@@ -1124,16 +1126,16 @@ def _optimizer_run(make, jit, amp, decorate):
         labels = np.roll(ids, -1, 1).reshape(4, 128, 1)
         losses.append(model.train_batch([ids], [labels])["loss"])
         if decorate:
-            for p in net.parameters():
+            for p in torch_view(net).parameters():
                 assert torch.equal(p, opt._master_weights[id(p)].to(p.dtype))
     torch.cuda.synchronize()
     updates = sum(mtu.LAUNCHES.values()) - updates
     state = {f"param {n}": p.detach().clone()
-             for n, p in net.named_parameters()}
+             for n, p in torch_view(net).named_parameters()}
     state.update({f"slot {k}": v.clone() for k, v in
                   opt.state_dict().items() if torch.is_tensor(v)})
     state.update({f"master {n}": opt._master_weights[id(p)].clone()
-                  for n, p in net.named_parameters()
+                  for n, p in torch_view(net).named_parameters()
                   if id(p) in opt._master_weights})
     return torch.stack(losses), state, model._steps.compiles, updates
 
@@ -1619,11 +1621,11 @@ def _offload_run(make, amp, decorate, offload, jit=True, per_leaf=False,
             losses.append(model.train_batch([ids], [labels])["loss"])
     torch.cuda.synchronize()
     state = {f"param {n}": p.detach().cpu()
-             for n, p in net.named_parameters()}
+             for n, p in torch_view(net).named_parameters()}
     state.update({f"slot {k}": v.cpu() for k, v in
                   opt.state_dict().items() if torch.is_tensor(v)})
     state.update({f"master {n}": opt._master_weights[id(p)].cpu()
-                  for n, p in net.named_parameters()
+                  for n, p in torch_view(net).named_parameters()
                   if id(p) in opt._master_weights})
     return torch.stack(losses).cpu(), state, opt
 
@@ -1807,7 +1809,8 @@ def test_remat_captured_equals_uncaptured_equals_no_remat(card, which):
                     counts = {k: after[k] - before.get(k, 0) for k in after
                               if after[k] != before.get(k, 0)}
         torch.cuda.synchronize()
-        state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        state = {k: v.detach().cpu()
+                 for k, v in torch_view(net).state_dict().items()}
         runs.append((torch.stack(losses).cpu(), state, counts,
                      model._steps.compiles))
     (l0, s0, c0, k0), (l1, s1, c1, k1), (l2, s2, _, _) = runs
@@ -1876,7 +1879,7 @@ def _hooks_state(model):
     torch.cuda.synchronize()
     fs = model._optimizer.functional_state()
     out = {f"param {k}": v.detach().cpu()
-           for k, v in model.network.state_dict().items()}
+           for k, v in torch_view(model.network).state_dict().items()}
     out.update({f"slot {n}.{k}": v.cpu() for n, s in fs["slots"].items()
                 for k, v in s.items()})
     return out, fs["step"]

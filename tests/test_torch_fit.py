@@ -35,7 +35,7 @@ from paddle_tpu_torch.callbacks import Callback, EarlyStopping, VisualDL
 from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.metric import Accuracy
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm, CrossEntropyLoss
 from paddle_tpu_torch.optimizer import SGD, AdamW, lr
 
@@ -59,8 +59,7 @@ def _ref_state(net):
 
 
 def _as_reference(state):
-    return {k: (v.T if k.endswith(LINEAR_WEIGHTS) else v)
-            for k, v in ((k, v.detach().numpy()) for k, v in state.items())}
+    return {k: v.detach().numpy() for k, v in state.items()}
 
 
 def _pair():
@@ -146,7 +145,7 @@ def test_fit_losses_track_the_reference(fitted):
 
 def test_fit_parameters_match_the_reference(fitted):
     want = _ref_state(fitted["ref"])
-    got = _as_reference(fitted["net"].state_dict())
+    got = _as_reference(torch_view(fitted["net"]).state_dict())
     assert set(got) == set(want)
     for name, w in want.items():
         np.testing.assert_allclose(got[name], w, atol=5e-4, err_msg=name)
@@ -204,7 +203,7 @@ def _port_fit(**kw):
     model.fit(TensorDataset(TRAIN), batch_size=BATCH, epochs=2, verbose=0,
               callbacks=[rec], **kw)
     return model, torch.stack(rec.losses), {
-        k: v.clone() for k, v in net.state_dict().items()}
+        k: v.clone() for k, v in torch_view(net).state_dict().items()}
 
 
 def test_prefetch_metrics_and_capture_change_no_bit():
@@ -256,7 +255,7 @@ def test_accumulation_and_num_iters_track_the_reference(kw):
     np.testing.assert_allclose([float(v) for v in rec.losses], ref_losses,
                                rtol=1e-5)
     want = _ref_state(ref)
-    for name, g in _as_reference(net.state_dict()).items():
+    for name, g in _as_reference(torch_view(net).state_dict()).items():
         np.testing.assert_allclose(g, want[name], atol=5e-4, err_msg=name)
     if "accumulate_grad_batches" in kw:
         # the boundary counts batches within an epoch: batch 1 of each
@@ -304,7 +303,7 @@ def test_fp16_accumulation_tracks_the_reference():
                                rtol=FP16_LOSS_RTOL)
     want = _ref_state(ref)
     start = _ref_state(_pair()[0])
-    got = _as_reference(net.state_dict())
+    got = _as_reference(torch_view(net).state_dict())
     err = np.concatenate([(got[k] - w).ravel() for k, w in want.items()])
     move = np.concatenate([(w - start[k]).ravel() for k, w in want.items()])
     rel = np.linalg.norm(err) / np.linalg.norm(move)
@@ -406,7 +405,7 @@ def test_checkpoints_are_read_by_the_reference(tmp_path):
     assert names == sorted(f"{n}.{s}" for n in ("0", "1", "final")
                            for s in ("pdparams", "pdopt"))
     params = rfio.load(str(tmp_path / "final.pdparams"))
-    state = net.state_dict()
+    state = torch_view(net).state_dict()
     assert set(params) == set(state)
     for k, v in state.items():
         np.testing.assert_array_equal(np.asarray(params[k]._data),
@@ -428,8 +427,8 @@ def test_save_and_load_round_trip(tmp_path):
     _, other = _pair()
     restored = _port_model(other, metrics=False)
     restored.load(str(tmp_path / "ckpt"))
-    for k, v in net.state_dict().items():
-        assert torch.equal(other.state_dict()[k], v), k
+    for k, v in torch_view(net).state_dict().items():
+        assert torch.equal(torch_view(other).state_dict()[k], v), k
     a, b = model._optimizer, restored._optimizer
     assert b._lr_scheduler.last_epoch == a._lr_scheduler.last_epoch == 3
     sa, sb = a.state_dict(), b.state_dict()

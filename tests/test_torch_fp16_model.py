@@ -30,7 +30,7 @@ from paddle_tpu.models import GPTConfig as RefConfig
 
 from paddle_tpu_torch import Model, amp
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import CrossEntropyLoss, torch_view
 from paddle_tpu_torch.optimizer import SGD, AdamW
 
 SMALL = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
@@ -72,9 +72,14 @@ def _reference(ids, labels):
     return state, rows, params
 
 
+def _named(net):
+    """The network's (name, torch parameter) pairs."""
+    return torch_view(net).named_parameters()
+
+
 def _snapshot(net, opt):
-    out = {n: p.detach().clone() for n, p in net.named_parameters()}
-    for n, p in net.named_parameters():
+    out = {n: p.detach().clone() for n, p in _named(net)}
+    for n, p in _named(net):
         for k, v in opt._state.get(id(p), {}).items():
             out[f"{n}_{k}"] = v.clone()
     return out
@@ -108,7 +113,7 @@ def test_fp16_model_steps_track_the_reference_through_an_overflow(jit):
     port = gpt_state_from_paddle_tpu(ref_params, device="cpu")
     init = gpt_state_from_paddle_tpu(state, device="cpu")
     errs, moves = [], []
-    for n, p in net.state_dict().items():
+    for n, p in torch_view(net).state_dict().items():
         assert p.dtype == torch.float32, n
         errs.append((p - port[n]).flatten())
         moves.append((port[n] - init[n]).flatten())
@@ -131,11 +136,11 @@ def test_the_overflow_step_moves_nothing_but_the_scale_state():
     rs = np.random.RandomState(1)
     ids = rs.randint(0, SMALL["vocab_size"], (B, T))
     labels = np.roll(ids, -1, 1).reshape(B, T, 1)
-    params = {n: p.detach().clone() for n, p in net.named_parameters()}
+    params = {n: p.detach().clone() for n, p in _named(net)}
     model.train_batch([ids], [labels])
     assert bool(model._amp_found_inf)
     assert model._amp_found_inf.dtype == torch.bool
-    for n, p in net.named_parameters():
+    for n, p in _named(net):
         assert torch.equal(p, params[n]), n
     slots = _snapshot(net, opt)
     # every slot as AdamW makes it: moments zero, powers one
@@ -148,7 +153,7 @@ def test_the_overflow_step_moves_nothing_but_the_scale_state():
     model.train_batch([ids], [labels])
     assert not bool(model._amp_found_inf)
     assert any(not torch.equal(p, params[n])
-               for n, p in net.named_parameters())
+               for n, p in _named(net))
 
 
 def test_eager_grad_scaler_loop_on_the_gpt():
@@ -162,7 +167,7 @@ def test_eager_grad_scaler_loop_on_the_gpt():
     ids = torch.from_numpy(rs.randint(0, SMALL["vocab_size"], (B, T)))
     labels = torch.roll(ids, -1, 1).reshape(B, T, 1)
     loss_fn = CrossEntropyLoss()
-    w0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+    w0 = {n: p.detach().clone() for n, p in _named(net)}
     for step in range(3):
         with amp.auto_cast(level="O1", dtype="float16"):
             out = net(ids)
@@ -172,10 +177,10 @@ def test_eager_grad_scaler_loop_on_the_gpt():
         opt.clear_grad()
         if step == 0:           # the overflow: nothing moved
             assert all(torch.equal(p, w0[n])
-                       for n, p in net.named_parameters())
+                       for n, p in _named(net))
             assert scaler.state_dict()["scale"] == 2.0 ** 10
     assert scaler.state_dict()["scale"] == 2.0 ** 11
-    assert any(not torch.equal(p, w0[n]) for n, p in net.named_parameters())
+    assert any(not torch.equal(p, w0[n]) for n, p in _named(net))
 
 
 @pytest.mark.parametrize("jit", [False, True])
@@ -198,8 +203,8 @@ def test_fp16_gradient_accumulation_sums_the_micro_batches(jit):
     for ids, labels in batches:
         loss_fn(plain(torch.from_numpy(ids)),
                 torch.from_numpy(labels)).backward()
-    w0 = {n: p.detach().clone() for n, p in net.named_parameters()}
-    want = torch.cat([-p.grad.flatten() for _, p in plain.named_parameters()])
+    w0 = {n: p.detach().clone() for n, p in _named(net)}
+    want = torch.cat([-p.grad.flatten() for _, p in _named(plain)])
     model = Model(net).prepare(
         SGD(1.0, parameters=net.parameters()), CrossEntropyLoss(),
         amp_configs={"level": "O1", "dtype": "float16",
@@ -209,7 +214,7 @@ def test_fp16_gradient_accumulation_sums_the_micro_batches(jit):
     assert not bool(model._amp_found_inf)
     assert int(model._scaler["good"]) == 1     # one update of the state
     got = torch.cat([(p.detach() - w0[n]).flatten()
-                     for n, p in net.named_parameters()])
+                     for n, p in _named(net)])
     rel = float((got - want).norm() / want.norm())
     print(f"fp16 accumulation jit={jit}: relative L2 {rel:.3g} "
           f"(limit {ACCUM_REL_L2})")

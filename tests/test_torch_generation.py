@@ -7,6 +7,7 @@ reference exactly and the streams are held to the contract: reproducible
 across runs and independent of batch position and batchmates.
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -20,10 +21,13 @@ from paddle_tpu.generation import GenerationSession as RefSession
 from paddle_tpu.generation import sampling as rsampling
 from paddle_tpu.models import GPT as RefGPT
 from paddle_tpu.models import GPTConfig as RefConfig
+from paddle_tpu.profiler import metrics as rmetrics
 
+from paddle_tpu_torch.core.errors import UnimplementedError
 from paddle_tpu_torch.generation import GenerationSession, sample
 from paddle_tpu_torch.generation import sampling as psampling
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
+from paddle_tpu_torch.profiler import metrics as pmetrics
 from paddle_tpu_torch.serving import (AdmissionController, DeadlineExceeded,
                                       EngineClosed, GenerationEngine,
                                       GenerationEngineConfig,
@@ -176,6 +180,81 @@ def test_seeded_sampling_reproducible_and_position_independent(pair,
     np.testing.assert_array_equal(a[1], solo)
     other = sess.generate(prompts, seeds=[4, 5, 6], **kw)
     assert any(not np.array_equal(x, y) for x, y in zip(a, other))
+
+
+def _count(registry, name):
+    m = registry.get(name)
+    return m.value if m is not None else 0
+
+
+def test_a_second_generate_adds_no_compile(pair):
+    # the reference's tests/test_generation.py:170-184 through the model's
+    # own generate (C13): the session of a (batch bucket, max length) is
+    # kept on the model, so a second call on the bucket makes no step
+    # again and only hits the executable cache, as the reference's does
+    ref, net = pair
+    prompt = np.arange(1, 6, dtype=np.int32)
+    kw = dict(batch_capacity=2, max_new_tokens=4)
+    c0 = _count(pmetrics, "generation.compile")
+    r0 = _count(rmetrics, "generation.compile")
+    first = net.generate(prompt, **kw)
+    assert _count(pmetrics, "generation.compile") - c0 == 2
+    h0 = _count(pmetrics, "generation.executable_cache.hit")
+    second = net.generate(prompt, **kw)
+    assert _count(pmetrics, "generation.compile") - c0 == 2     # still 2
+    assert _count(pmetrics, "generation.executable_cache.hit") > h0
+    assert list(net._gen_sessions) == [(2, WIDTH["max_seq_len"])]
+    want = [ref.generate(prompt, **kw) for _ in range(2)]
+    assert _count(rmetrics, "generation.compile") - r0 == 2
+    for got, w in zip((first, second), want):
+        np.testing.assert_array_equal(got[0], w[0])
+
+
+def test_concurrent_first_generates_share_one_session():
+    # the reference's tests/test_generation.py:283-312: three first calls
+    # at once, two of one bucket (prompts of 3 and 7 tokens: bucket 8) and
+    # one of another (32); the model keeps ONE session (one batch bucket,
+    # one max length) and a quiet rerun gives the same tokens.  Each token's
+    # callback yields the interpreter, so the calls would interleave their
+    # steps on the session's one set of caches if it let them
+    fresh = GPT(GPTConfig(**WIDTH), device="cpu", seed=3)
+    base = np.random.RandomState(0).randint(1, V, 7).astype(np.int32)
+    outs, errs = {}, []
+
+    def worker(i, p):
+        try:
+            outs[i] = fresh.generate(
+                [p], batch_capacity=2, max_new_tokens=4,
+                stream_callback=lambda row, tok: time.sleep(0.005))[0]
+        except Exception as e:  # noqa: BLE001
+            errs.append(repr(e))
+    ths = [threading.Thread(target=worker, args=(i, base[:n]))
+           for i, n in enumerate((3, 7))]
+    ths.append(threading.Thread(target=worker, args=(
+        2, np.arange(1, 33, dtype=np.int32))))
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    assert not errs, errs
+    assert len(fresh._gen_sessions) == 1
+    (sess,) = fresh._gen_sessions.values()
+    assert sess._cache.compiles == 3          # prefill:8, prefill:32, decode
+    for i, p in enumerate((base[:3], base[:7], np.arange(1, 33,
+                                                         dtype=np.int32))):
+        again = fresh.generate([p], batch_capacity=2, max_new_tokens=4)[0]
+        np.testing.assert_array_equal(outs[i], again)
+
+
+def test_tensor_parallel_config_is_refused_naming_a5():
+    # the reference builds its model-parallel GPT; the port has only the
+    # one-device path and says where the rest is queued
+    paddle.seed(0)
+    tp = RefGPT(RefConfig(**WIDTH, tensor_parallel=True))
+    assert type(tp.blocks[0].attn.qkv).__name__ == "ColumnParallelLinear"
+    with pytest.raises(UnimplementedError, match="A5"):
+        GPTConfig(**WIDTH, tensor_parallel=True)
+    assert GPTConfig(**WIDTH).tensor_parallel is False
 
 
 def test_engine_streams_equal_solo_session_streams(pair):

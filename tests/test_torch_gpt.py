@@ -1,7 +1,8 @@
 """paddle_tpu_torch GPT against the JAX reference GPT on the CPU.
 
 The reference's weights are carried across with
-``gpt_state_from_paddle_tpu``; the same token ids go through both models.
+``gpt_state_from_paddle_tpu`` (the same names and arrays: the port's GPT
+keeps the reference's layout); the same token ids go through both models.
 Tolerances: 1e-4 on logits (XLA and PyTorch sum in different orders on
 the CPU), 1e-6 on cache contents (a copy of the same projections).
 """
@@ -17,9 +18,12 @@ from paddle_tpu.generation import kv_cache as rkv
 from paddle_tpu.models import GPT as RefGPT
 from paddle_tpu.models import GPTConfig as RefConfig
 
+import paddle_tpu_torch
+from paddle_tpu_torch.core import place as port_place
+from paddle_tpu_torch.core.tensor import Parameter
 from paddle_tpu_torch.generation import kv_cache as pkv
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.ops import flash_attention as pfa
 
 WIDTH = dict(vocab_size=97, hidden_size=32, num_layers=2, num_heads=2,
@@ -44,30 +48,51 @@ def _ids(seed, B, T):
 
 
 def test_weight_names_and_shapes_map(pair):
-    _ref, net, params = pair
+    # the reference's layout: the same names and shapes key for key
+    # ([in, out] linear weights), carried over with no transpose
+    ref, net, params = pair
     state = net.state_dict()
-    assert set(state) == set(params)
+    want = ref.state_dict()
+    assert list(state) == list(want) and set(state) == set(params)
     for name, arr in params.items():
-        want = arr.T.shape if name.endswith(LINEAR_WEIGHTS) else arr.shape
-        assert tuple(state[name].shape) == want, name
-    np.testing.assert_array_equal(
-        state["blocks.0.attn.qkv.weight"].numpy(),
-        params["blocks.0.attn.qkv.weight"].T)
-    with pytest.raises(ValueError, match="matrix"):
-        gpt_state_from_paddle_tpu({"head.weight": np.zeros(3)},
-                                  device="cpu")
+        assert state[name].shape == list(want[name].shape) == \
+            list(arr.shape), name
+        np.testing.assert_array_equal(state[name].numpy(), arr)
 
 
 def test_seeded_init_follows_the_reference_distributions():
     a = GPT(GPTConfig(**WIDTH), device="cpu", seed=3)
     b = GPT(GPTConfig(**WIDTH), device="cpu", seed=3)
-    for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+    sa, sb = torch_view(a).state_dict(), torch_view(b).state_dict()
+    for (name, x), y in zip(sa.items(), sb.values()):
         torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
-    qkv = a.blocks[0].attn.qkv
-    assert abs(qkv.weight.std().item() - (2.0 / (32 + 96)) ** 0.5) < 0.02
-    assert qkv.bias.abs().max().item() == 0.0
-    assert abs(a.wte.weight.std().item() - 1.0) < 0.1
-    assert a.ln_f.weight.eq(1).all() and a.ln_f.bias.eq(0).all()
+    qkv = sa["blocks.0.attn.qkv.weight"]
+    assert tuple(qkv.shape) == (32, 96)                  # [in, out]
+    assert abs(qkv.std().item() - (2.0 / (32 + 96)) ** 0.5) < 0.02
+    assert sa["blocks.0.attn.qkv.bias"].abs().max().item() == 0.0
+    assert abs(sa["wte.weight"].std().item() - 1.0) < 0.1
+    assert sa["ln_f.weight"].eq(1).all() and sa["ln_f.bias"].eq(0).all()
+
+
+def test_plain_construction_draws_from_the_port_stream():
+    # GPT(cfg) as the reference builds it: on the current place, from the
+    # stream paddle_tpu_torch.seed set; an explicit seed leaves that
+    # stream where it was
+    was = port_place._place
+    port_place.set_device("cpu")
+    try:
+        paddle_tpu_torch.seed(5)
+        a = GPT(GPTConfig(**WIDTH))
+        paddle_tpu_torch.seed(5)
+        GPT(GPTConfig(**WIDTH), seed=9)
+        b = GPT(GPTConfig(**WIDTH))
+    finally:
+        port_place._place = was
+    assert a.device == torch.device("cpu")
+    assert all(isinstance(p, Parameter) for p in a.parameters())
+    for (name, x), y in zip(torch_view(a).state_dict().items(),
+                            torch_view(b).state_dict().values()):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
 
 
 @pytest.mark.parametrize("B,T", [(2, 16), (1, 64), (3, 7)])

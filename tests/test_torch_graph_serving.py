@@ -16,6 +16,7 @@ from paddle_tpu.models import GPTConfig as RefConfig
 
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.serving import (ExecutableCache, GenerationEngine,
                                       GenerationEngineConfig, seq_buckets)
 
@@ -150,14 +151,15 @@ def test_copied_weights_are_read_and_replaced_ones_recompile():
     prompt = [np.arange(1, 9, dtype=np.int32)]
     first = sess.generate(prompt, max_new_tokens=4)[0]
     other = GPT(GPTConfig(**WIDTH), device="cpu", seed=2)
-    net.load_state_dict(other.state_dict())              # copies in place
+    net.set_state_dict(other.state_dict())               # copies in place
     copied = sess.generate(prompt, max_new_tokens=4)[0]
     assert sess._cache.compiles == 2
     np.testing.assert_array_equal(
         copied, GenerationSession(other, batch_capacity=B, max_length=C)
         .generate(prompt, max_new_tokens=4)[0])
     assert not np.array_equal(first, copied)
-    net.head.weight = torch.nn.Parameter(net.head.weight.detach().clone())
+    net.head.weight = torch.nn.Parameter(
+        torch_view(net.head).state_dict()["weight"].clone())
     again = sess.generate(prompt, max_new_tokens=4)[0]
     assert sess._cache.compiles == 4              # both entries made again
     np.testing.assert_array_equal(again, copied)

@@ -10,7 +10,7 @@ import torch
 import paddle_tpu_torch
 from paddle_tpu_torch import Model, graphs
 from paddle_tpu_torch.models import GPT, GPTConfig
-from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import CrossEntropyLoss, torch_view
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_ln as fl
 from paddle_tpu_torch.ops import fused_ops as fo
@@ -39,7 +39,7 @@ def _run(make_net, jit, amp=None, steps=STEPS):
     losses = [model.train_batch([ids], [labels])["loss"].clone()
               for ids, labels in (_batch(s) for s in range(steps))]
     return torch.stack(losses), {k: v.clone() for k, v in
-                                 net.state_dict().items()}, model
+                                 torch_view(net).state_dict().items()}, model
 
 
 @pytest.mark.parametrize("path,amp", [("encoder", None), ("encoder", "O2"),

@@ -19,6 +19,7 @@ from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.generation import session as psession
 from paddle_tpu_torch.graphs import CaptureError, StepGraph
 from paddle_tpu_torch.models import GPT, GPTConfig
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.ops import flash_attention as pfa
 from paddle_tpu_torch.ops import fused_ln as fl
@@ -121,13 +122,14 @@ def test_copied_weights_are_read_and_a_replaced_parameter_recaptures(card):
     prompt = [np.arange(1, 20, dtype=np.int32)]
     first = sess.generate(prompt, max_new_tokens=6)[0]
     other = GPT(GPTConfig(**WIDTH), device="cuda", seed=2)
-    net.load_state_dict(other.state_dict())          # copied in place
+    net.set_state_dict(other.state_dict())           # copied in place
     copied = sess.generate(prompt, max_new_tokens=6)[0]
     assert sess._cache.compiles == 2
     np.testing.assert_array_equal(copied, GenerationSession(
         other, batch_capacity=B).generate(prompt, max_new_tokens=6)[0])
     assert not np.array_equal(first, copied)
-    net.head.weight = torch.nn.Parameter(net.head.weight.detach().clone())
+    net.head.weight = torch.nn.Parameter(
+        torch_view(net.head).state_dict()["weight"].clone())
     again = sess.generate(prompt, max_new_tokens=6)[0]
     assert sess._cache.compiles == 4
     np.testing.assert_array_equal(again, copied)
@@ -188,7 +190,8 @@ def test_captured_encoder_steps_equal_eager_and_masks_change(card, amp):
         frozen = [model.train_batch(*[[t] for t in _batch(9)])["loss"]
                   for _ in range(2)]
         runs.append((torch.stack(losses + frozen),
-                     {k: v.clone() for k, v in net.state_dict().items()}))
+                     {k: v.clone() for k, v in
+                      torch_view(net).state_dict().items()}))
         assert model._steps.compiles == (1 if jit else 0)
     (le, se), (lj, sj), (lj2, sj2) = runs
     assert torch.equal(le, lj), (le, lj)

@@ -33,7 +33,7 @@ from paddle_tpu.ops import loss as rloss
 import paddle_tpu_torch
 from paddle_tpu_torch import Model
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.ops.loss import cross_entropy
 from paddle_tpu_torch.callbacks import ProfilerCallback
@@ -58,9 +58,7 @@ def _state(net):
 
 
 def _as_reference(state):
-    return {k: (v.T if k.endswith(LINEAR_WEIGHTS) else v)
-            for k, v in ((k, v.detach().numpy())
-                         for k, v in state.items())}
+    return {k: v.detach().numpy() for k, v in state.items()}
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +96,7 @@ def test_train_batch_losses_track_the_reference(trained):
 
 def test_parameters_after_three_steps_match(trained):
     want = _state(trained["ref"])
-    got = _as_reference(trained["net"].state_dict())
+    got = _as_reference(torch_view(trained["net"]).state_dict())
     assert set(got) == set(want)
     for name, w in want.items():
         np.testing.assert_allclose(got[name], w, atol=5e-4, err_msg=name)

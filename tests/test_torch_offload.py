@@ -15,7 +15,7 @@ import torch
 
 from paddle_tpu_torch import Model
 from paddle_tpu_torch.models import GPT, GPTConfig
-from paddle_tpu_torch.nn import CrossEntropyLoss
+from paddle_tpu_torch.nn import CrossEntropyLoss, torch_view
 from paddle_tpu_torch.optimizer import AdamW, Lamb
 
 SMALL = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
@@ -35,7 +35,8 @@ def _run(offload, jit=True, make_opt=AdamW, steps=3):
         warnings.simplefilter("always")
         losses = torch.stack([model.train_batch([ids], [labels])["loss"]
                               for _ in range(steps)])
-    return losses, net.state_dict(), opt, [str(x.message) for x in w]
+    return losses, torch_view(net).state_dict(), opt, [str(x.message)
+                                                      for x in w]
 
 
 @pytest.mark.parametrize("make_opt", [AdamW, Lamb])

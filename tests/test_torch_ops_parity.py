@@ -196,3 +196,30 @@ def test_the_partly_taken_modules_miss_only_waiting_names(mod, where):
     unlisted = [n for n in missing if f"`{n}`" not in waiting]
     assert not unlisted, f"ops/{mod}.py names neither ported nor listed " \
                          f"as waiting in ROADMAP.md: {unlisted}"
+
+
+@pytest.mark.parametrize("op", ["add", "subtract", "multiply", "divide"])
+@pytest.mark.parametrize("shapes", [((3, 4), (3, 4)), ((), (3, 4)),
+                                    ((3, 4), ())], ids=["same", "0d_left",
+                                                        "0d_right"])
+def test_mixed_float_arithmetic_promotes_as_jax(op, shapes):
+    # fp32 beside bf16 (AMP O1's residual adds): the port lets torch
+    # promote inside the kernel where torch's common type is JAX's, and
+    # casts first where it is not (a 0-d fp32 beside a bf16 tensor)
+    rs = np.random.RandomState(0)
+    a = np.asarray(rs.rand(*shapes[0]) + 0.5, np.float32)
+    b = np.asarray(rs.rand(*shapes[1]) + 0.5, np.float32)
+
+    def run(pkg):
+        x = pkg.to_tensor(a, stop_gradient=False)
+        y = pkg.to_tensor(b).astype("bfloat16")
+        y.stop_gradient = False
+        out = getattr(pkg, op)(x, y)
+        out.sum().backward()
+        return out, x.grad, y.grad
+    want, got = run(ref), run(port)
+    assert str(got[0].dtype).replace("torch.", "") == str(want[0].dtype)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(np.asarray(g.numpy(), np.float32),
+                                   np.asarray(w.numpy(), np.float32),
+                                   rtol=1e-2 if g is got[2] else 1e-6)

@@ -45,7 +45,7 @@ from paddle_tpu_torch import Model, amp
 from paddle_tpu_torch import optimizer as popt
 from paddle_tpu_torch import regularizer as preg
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
-from paddle_tpu_torch.models.convert import LINEAR_WEIGHTS
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.nn import CrossEntropyLoss
 
 SHAPES = {"fc.weight": (6, 4), "fc.bias": (4,), "ln.weight": (5,)}
@@ -307,9 +307,8 @@ NOISE_SHARE = 1 / 32             # of a tensor's RMS gradient (docstring)
 EMBEDDING_OFF_SHARE = 3e-3       # of the wte and wpe elements
 
 
-def _as_reference(name, t):
-    a = t.detach().float().numpy()
-    return a.T if name.endswith(LINEAR_WEIGHTS) else a
+def _as_reference(t):
+    return t.detach().float().numpy()
 
 
 def _reference_gradient(ids, labels):
@@ -363,15 +362,16 @@ def decorated_runs():
             run["tied"].append(all(
                 torch.equal(p.detach(),
                             opt._master_weights[id(p)].to(p.dtype))
-                for p in net.parameters()))
+                for p in torch_view(net).parameters()))
         run.update(
             ref_master={n: np.array(a) for n, a in
                         ropt._fn_state["master"].items()},
             ref_params={n: np.array(a) for n, a in
                         ref.functional_state()[0].items()},
-            master={n: _as_reference(n, opt._master_weights[id(p)])
-                    for n, p in net.named_parameters()},
-            param_dtypes={n: p.dtype for n, p in net.named_parameters()},
+            master={n: _as_reference(opt._master_weights[id(p)])
+                    for n, p in torch_view(net).named_parameters()},
+            param_dtypes={n: p.dtype
+                          for n, p in torch_view(net).named_parameters()},
             captured=len(model._steps.entries()))
         out[kind] = run
     return out

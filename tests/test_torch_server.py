@@ -29,6 +29,7 @@ from paddle_tpu.serving import admission as radm
 from paddle_tpu_torch import set_flags
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig, gpt_state_from_paddle_tpu
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.profiler import metrics, rtrace, tracer
 from paddle_tpu_torch.serving import (DeadlineExceeded, EngineClosed,
                                       GenerationEngine,
@@ -437,7 +438,8 @@ def test_pause_resume_completes_every_admitted_request(pair, prompts):
 def test_swap_weights_mid_traffic_and_a_bad_tree(prompts):
     net = GPT(GPTConfig(**WIDTH), device="cpu", seed=3)
     other = GPT(GPTConfig(**WIDTH), device="cpu", seed=4)
-    first = {k: v.clone() for k, v in net.state_dict().items()}
+    # the Layer's own state_dict (Tensors) is a swap tree as it is
+    first = {k: v.clone() for k, v in torch_view(net).state_dict().items()}
     second = {k: v.clone() for k, v in other.state_dict().items()}
     want_second = GenerationSession(other, batch_capacity=4).generate(
         [prompts[1]], max_new_tokens=6)[0]
@@ -457,7 +459,8 @@ def test_swap_weights_mid_traffic_and_a_bad_tree(prompts):
         np.testing.assert_array_equal(
             eng.generate(prompts[1], max_new_tokens=6, timeout=60),
             want_first)
-        before = {k: v.clone() for k, v in net.state_dict().items()}
+        before = {k: v.clone()
+                  for k, v in torch_view(net).state_dict().items()}
         bad = dict(second, **{"wte.weight": second["wte.weight"][:, :16]})
         with pytest.raises(ValueError, match="a shape/dtype change"):
             eng.swap_weights(bad)
@@ -466,9 +469,9 @@ def test_swap_weights_mid_traffic_and_a_bad_tree(prompts):
             eng.swap_weights(missing)
         with pytest.raises(ValueError, match="a shape/dtype change"):
             eng.swap_weights(dict(
-                second, **{"wte.weight": second["wte.weight"].double()}))
+                second, **{"wte.weight": first["wte.weight"].double()}))
         assert all(torch.equal(before[k], v)
-                   for k, v in net.state_dict().items())
+                   for k, v in torch_view(net).state_dict().items())
         assert eng.session._cache.compiles == len(eng.session._cache)
         assert val("srv_swap.weight_swaps") == 2
     with pytest.raises(EngineClosed):

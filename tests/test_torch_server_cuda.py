@@ -16,6 +16,7 @@ import torch
 
 from paddle_tpu_torch.generation import GenerationSession
 from paddle_tpu_torch.models import GPT, GPTConfig
+from paddle_tpu_torch.nn import torch_view
 from paddle_tpu_torch.profiler import memscope
 from paddle_tpu_torch.serving import (GenerationEngine,
                                       GenerationEngineConfig, ServingServer)
@@ -55,21 +56,23 @@ def test_swap_weights_under_captured_graphs(card):
     back gives the first streams bit for bit."""
     net = GPT(GPTConfig(**WIDTH), device="cuda", seed=0)
     other = GPT(GPTConfig(**WIDTH), device="cuda", seed=1)
-    first = {k: v.clone() for k, v in net.state_dict().items()}
+    first = {k: v.clone()
+             for k, v in torch_view(net).state_dict().items()}
     prompts = _prompts()
     with GenerationEngine(net, GenerationEngineConfig(
             max_slots=4, max_new_tokens=12, warmup=True,
             name="cuda_swap")) as eng:
         compiles = eng.session._cache.compiles
         want = [eng.generate(p, timeout=120).tolist() for p in prompts]
-        ptrs = [p.data_ptr() for p in net.parameters()]
-        eng.swap_weights(other.state_dict())
+        ptrs = [p.data_ptr() for p in torch_view(net).parameters()]
+        eng.swap_weights(torch_view(other).state_dict())
         got = [eng.generate(p, timeout=120).tolist() for p in prompts]
         assert got == _uncaptured(other, prompts, 12)
         eng.swap_weights({k: v.cpu().numpy() for k, v in first.items()})
         back = [eng.generate(p, timeout=120).tolist() for p in prompts]
         assert back == want
-        assert [p.data_ptr() for p in net.parameters()] == ptrs
+        assert ptrs == [p.data_ptr()
+                        for p in torch_view(net).parameters()]
         assert eng.session._cache.compiles == compiles
         assert all(e.graph is not None
                    for e in eng.session._cache.entries().values())
