@@ -355,6 +355,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
             version, its bytes bound), the dense mt_update on the table,
             torch.optim.SparseAdam.step and SGD's index_add_ after
             torch.unique; the phase's seconds
+22. layer  the GPT as an nn.Layer written on Tensors: 22a entry()'s model
+    GPT     and ids on the card against the CPU; 22b the full-width GPT
+            called with a Tensor and a torch tensor, bit for bit, host
+            and CUDA-event ms, the ops a forward dispatches; 22c generate
+            twice on one batch bucket, the second making no step
+23. numeric the numeric namespaces (linalg, fft, signal, the functional
+            transforms, distribution, the sequence ops, the recurrent
+            layers): the large PTB model of Zaremba et al. (2014), an
+            nn.Embedding(10000, 1500), nn.Dropout(0.65), nn.LSTM(1500,
+            1500, num_layers=2, dropout=0.65), nn.Dropout(0.65),
+            nn.Linear(1500, 10000) language model, 66,034,000 fp32
+            parameters, B 20, T 35, ids from seed 23: 23a the dygraph
+            loop (F.cross_entropy, backward, SGD(1.0,
+            grad_clip=ClipGradByGlobalNorm(10.0)).step, clear_grad): at
+            dropout 0 one step against the same weights on the CPU (loss
+            and every gradient at phase 20a's fp32 tolerances, all
+            finite) with one mt_update launch; at dropout 0.65 two 3-step
+            runs bit for bit and the loss falling over 12 steps; step ms
+            p50, host ms, device ms, idle share, the ops dispatched a
+            step, peak memory; 23b the same Layer through Model:
+            jit=False equal to 23a's loop, jit=True to jit=False, bit for
+            bit, one capture, one update launch a replay, step ms p50 of
+            each; 23c nn.BeamSearchDecoder over the first layer's
+            LSTMCell with the embedding and the projection (beam 4, B 8)
+            under nn.dynamic_decode(max_step_num=35) on 23a's weights:
+            ids equal to a CPU run's and log-probs within 1e-4, or where
+            they differ a tie within 1e-5 at the first differing step; ms
+            a step; 23d signal.stft at Whisper's front end (B 8 x 480,000
+            samples, n_fft 400, hop 160, periodic Hann, centred) against
+            the CPU at 2e-4, istft giving the input back, ms of each; the
+            phase's seconds.  Phase 20d's op table carries every new
+            case (linalg, fft, signal, sequence, distribution, the
+            transforms) on the card
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  With ``--json PATH`` everything
@@ -7300,7 +7333,9 @@ def eager_op_table(torch, dev):
     from paddle_tpu_torch.ops import creation
     from paddle_tpu_torch.tools.eager_ops import CASES
     tols = {"ew": dict(rtol=1e-5, atol=1e-6),
-            "red": dict(rtol=1e-4, atol=1e-5)}
+            "red": dict(rtol=1e-4, atol=1e-5),
+            "fft": dict(rtol=2e-4, atol=2e-4),
+            "dec": dict(rtol=1e-3, atol=1e-5)}
     place = f"gpu:{dev.index or 0}" if dev.type == "cuda" else "cpu"
     bad, on_card, t0 = [], 0, time.perf_counter()
     for case in CASES:
@@ -8329,14 +8364,420 @@ def entry_path(torch, fa, dev, width=GPT_WIDTH, entry_cfg=ENTRY,
     return out
 
 
+# Zaremba, Sutskever and Vinyals (2014) §4.1, the large PTB model: 2 LSTM
+# layers of 1500 units unrolled 35 steps, batch 20, vocabulary 10000,
+# dropout 0.65, gradients clipped at norm 10, SGD at lr 1 (66,034,000
+# fp32 parameters); ids synthetic, from seed 23
+NUMERIC = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
+               dropout=0.65, clip=10.0, lr=1.0, seed=23)
+NUMERIC_STEPS = 3        # 23a / 23b: runs compared bit for bit
+NUMERIC_FALL = 12        # 23a: the loss falls over these steps, timed
+NUMERIC_TIMED = 4        # 23b: Model steps timed per engine
+NUMERIC_BEAM = dict(batch=8, beam=4, max_steps=35, start=0, end=1)
+NUMERIC_BEAM_ATOL = 1e-4     # 23c: log-probs, card against the CPU
+NUMERIC_TIE = 1e-5           # 23c: a tie that may order beams either way
+# 23d: Whisper's log-mel front end (whisper/audio.py): 16 kHz, N_FFT 400,
+# HOP_LENGTH 160, 30 s chunks, a periodic Hann window, centred
+WHISPER = dict(batch=8, samples=480000, n_fft=400, hop=160)
+WHISPER_ATOL = 2e-4          # stft, card against the CPU (rtol the same)
+WHISPER_ISTFT = dict(rtol=1e-3, atol=1e-4)   # tests/test_linalg_fft_signal:145
+
+
+def ptb_lm(paddle, cfg):
+    """The language model of :data:`NUMERIC` as a paddle user writes it:
+    ``nn.Embedding``, ``nn.Dropout``, a 2-layer ``nn.LSTM`` (dropout
+    between its layers), ``nn.Dropout``, ``nn.Linear`` to the vocabulary."""
+    nn = paddle.nn
+
+    class PTBLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            V, Hd, p = cfg["vocab"], cfg["hidden"], cfg["dropout"]
+            self.embedding = nn.Embedding(V, Hd)
+            self.drop_in = nn.Dropout(p)
+            self.lstm = nn.LSTM(Hd, Hd, num_layers=cfg["layers"], dropout=p)
+            self.drop_out = nn.Dropout(p)
+            self.head = nn.Linear(Hd, V)
+
+        def forward(self, ids):
+            out, _ = self.lstm(self.drop_in(self.embedding(ids)))
+            return self.head(self.drop_out(out))
+    return PTBLM()
+
+
+def _lm_dropout(net, p):
+    net.drop_in.p = net.drop_out.p = net.lstm.dropout = p
+
+
+def _beam_totals(torch, dec, inputs, states, log_probs, finished, k):
+    """The ``k + 1`` best totals of each batch row at one beam step,
+    recomputed from the step's inputs as ``BeamSearchDecoder.step`` forms
+    them."""
+    out, _ = dec.cell(dec.embedding_fn(inputs), states)
+    lp = torch.log_softmax(dec.output_fn(out)._data.detach(), -1)
+    fin = torch.full((lp.shape[-1],), -1e9, device=lp.device)
+    fin[dec.end_token] = 0.0
+    lp = torch.where(finished[:, None], fin[None, :], lp)
+    total = (log_probs[:, None] + lp).reshape(-1, dec.beam_size *
+                                               lp.shape[-1])
+    return torch.topk(total, k + 1, dim=-1).values
+
+
+def _beam_decode(torch, paddle, net, cfg, place):
+    """23c's decode on ``place``: ``nn.BeamSearchDecoder`` over the LSTM's
+    first-layer cell with the embedding and the projection, under
+    ``nn.dynamic_decode``; returns (ids, log-probs, each step's inputs and
+    outputs, seconds)."""
+    import numpy as np
+    paddle.set_device(place)
+    cell = net.lstm.rnns[0].cell
+    dec = paddle.nn.BeamSearchDecoder(
+        cell, start_token=cfg["start"], end_token=cfg["end"],
+        beam_size=cfg["beam"], embedding_fn=net.embedding,
+        output_fn=net.head)
+    steps = []
+    plain_step = dec.step
+
+    def step(inputs, states, log_probs, finished):
+        got = plain_step(inputs, states, log_probs, finished)
+        steps.append(dict(given=(inputs, states, log_probs, finished),
+                          tokens=got[0]._data, parents=got[1]))
+        return got
+    dec.step = step
+    zeros = paddle.to_tensor(np.zeros((cfg["batch"], cell.hidden_size),
+                                      np.float32))
+    with paddle.no_grad():
+        inits = cell.get_initial_states(zeros)
+        if place != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, lp = paddle.nn.dynamic_decode(dec, inits,
+                                           max_step_num=cfg["max_steps"])
+        if place != "cpu":
+            torch.cuda.synchronize()
+    return ids, lp, steps, time.perf_counter() - t0, dec
+
+
+def numeric_path(torch, dev, cfg=NUMERIC, beam_cfg=NUMERIC_BEAM,
+                 audio=WHISPER):
+    """Phase 23 (the module docstring) on ``dev``; returns the report."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.profiler import metrics, tracer
+    from paddle_tpu_torch.tools import profile_train
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    place = f"gpu:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+    paddle.set_device(place)
+    V, B, T = cfg["vocab"], cfg["batch"], cfg["steps"]
+    paddle.seed(cfg["seed"])
+    net = ptb_lm(paddle, cfg)
+    view = torch_view(net)
+    n_params = sum(p.numel() for p in view.parameters())
+    state0 = {k: v.detach().clone() for k, v in view.state_dict().items()}
+    rs = np.random.RandomState(cfg["seed"])
+    ids_np = rs.randint(0, V, (B, T + 1))
+    ids = paddle.to_tensor(ids_np[:, :T])
+    labels = paddle.to_tensor(ids_np[:, 1:].reshape(B, T, 1))
+    batches = [(paddle.roll(ids, i, 0), paddle.roll(labels, i, 0))
+               for i in range(NUMERIC_STEPS)]
+
+    def sgd():
+        return paddle.optimizer.SGD(
+            learning_rate=cfg["lr"], parameters=net.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"]))
+
+    def restore():
+        net.set_state_dict(state0)
+        net.clear_gradients()
+
+    out = dict(config=cfg, params=n_params)
+    log(f"  23a: the PTB-large LSTM LM ({n_params:,} parameters), the "
+        "dygraph loop in fp32, dropout 0 against the CPU")
+    _lm_dropout(net, 0.0)
+    restore()
+    opt = sgd()
+    sync(torch, dev)
+    _reset_update()
+    loss = paddle.nn.functional.cross_entropy(net(ids), labels)
+    loss.backward()
+    loss_card = loss.item()
+    del loss
+    grads_card = {k: g.cpu() for k, g in _core_grads(view).items()}
+    want = _update_want(opt, list(view.parameters()))
+    opt.step()
+    opt.clear_grad()
+    sync(torch, dev)
+    launched = _update_launches()
+    paddle.set_device("cpu")
+    cpu_net = ptb_lm(paddle, cfg)
+    _lm_dropout(cpu_net, 0.0)
+    cpu_net.set_state_dict(state0)
+    loss = paddle.nn.functional.cross_entropy(
+        cpu_net(paddle.to_tensor(ids_np[:, :T])),
+        paddle.to_tensor(ids_np[:, 1:].reshape(B, T, 1)))
+    loss.backward()
+    loss_cpu = loss.item()
+    del loss
+    grads_cpu = _core_grads(torch_view(cpu_net))
+    paddle.set_device(place)
+    rels, whole, finite = _core_compare(torch, grads_card, grads_cpu)
+    worst = max(rels, key=rels.get)
+    d_loss = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    del grads_card, grads_cpu
+    cpu_net.clear_gradients()
+    log(f"  23a: card loss {loss_card:.6f}, CPU {loss_cpu:.6f} (rel diff "
+        f"{d_loss:.3e}, limit {EAGER_LOSS_RTOL:g}); gradient rel L2 of "
+        f"each of {len(rels)} parameters at most {rels[worst]:.3e} "
+        f"({worst}; limit {EAGER_GRAD_RTOL:g}), all together {whole:.3e}, "
+        f"finite {finite}; update launches {launched} (expected {want})")
+    if launched != want:
+        raise AssertionError(f"the LSTM step launched {launched}; "
+                             f"expected {want}")
+    if not (finite and np.isfinite(loss_card) and d_loss <= EAGER_LOSS_RTOL
+            and rels[worst] <= EAGER_GRAD_RTOL):
+        raise AssertionError("the LSTM step on the card disagrees with the "
+                             "CPU")
+    out.update(launches=launched, expected=want, loss_card=loss_card,
+               loss_cpu=loss_cpu, loss_rel_diff=d_loss,
+               grad_rel_l2_max=rels[worst], grad_rel_l2_whole=whole)
+
+    _lm_dropout(net, cfg["dropout"])
+
+    def loop(steps_batches, seed):
+        restore()
+        opt = sgd()
+        paddle.seed(seed)
+        losses = [_core_step(paddle, net, opt, b_ids, b_labels)._data
+                  for b_ids, b_labels in steps_batches]
+        return torch.stack(losses), _train_state(view, opt)
+
+    l1, s1 = loop(batches, 2)
+    l2, s2 = loop(batches, 2)
+    repeats = bool(torch.equal(l1, l2)) and all(
+        torch.equal(v, s2[k]) for k, v in s1.items())
+    del s2
+    log(f"  23a: two {NUMERIC_STEPS}-step runs at dropout {cfg['dropout']}:"
+        f" losses {l1.tolist()}, bit for bit {repeats}")
+    if not repeats:
+        raise AssertionError("two LSTM runs from one seed differ")
+
+    restore()
+    opt = sgd()
+    paddle.seed(3)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times, host = [], [], []
+    for i in range(NUMERIC_FALL):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        h0 = time.perf_counter()
+        loss = _core_step(paddle, net, opt, ids, labels)
+        host.append((time.perf_counter() - h0) * 1e3)
+        b.record()
+        b.synchronize()
+        losses.append(loss.item())
+        if i >= TRAIN_WARMUP:
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LSTM loss did not fall: {losses}")
+    c0 = metrics.get("dispatch.count")
+    c0 = c0.value if c0 is not None else 0
+    tracer.enable()
+    tracer.clear()
+    try:
+        _core_step(paddle, net, opt, ids, labels)
+        sync(torch, dev)
+        ops = {k: r["calls"] for k, r in tracer.op_table().items()}
+    finally:
+        tracer.disable()
+        tracer.clear()
+    dispatched = metrics.get("dispatch.count").value - c0
+    prof = profile_train.profile(
+        lambda: _core_step(paddle, net, opt, ids, labels), _reset_update,
+        lambda: dict(update=sum(_update_launches()["update"].values())),
+        dict(path="numeric: the PTB-large LSTM loop", batch=B, seq=T), 2)
+    log(f"  23a: step ms p50 {pct(times, 50):.3f} (min {min(times):.3f}, "
+        f"{len(times)} steps after {TRAIN_WARMUP} warm-ups, CUDA events); "
+        f"host ms p50 {pct(host, 50):.3f}; device busy "
+        f"{prof['device_busy_ms_per_step']:.3f} ms of "
+        f"{prof['wall_ms_p50']:.3f}, idle share {prof['idle_share']:.4f}; "
+        f"{dispatched} ops dispatched a step ({len(ops)} kinds); peak "
+        f"memory {peak / 2**30:.3f} GiB; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    out.update(deterministic=repeats, losses=losses, step_ms=times,
+               step_ms_p50=pct(times, 50), host_ms=host,
+               host_ms_p50=pct(host, 50), peak_memory_bytes=peak,
+               ops_dispatched_per_step=dispatched, ops=ops,
+               idle_share=prof["idle_share"],
+               device_ms_per_step=prof["device_busy_ms_per_step"],
+               profile=prof)
+
+    log("  23b: the same Layer through Model (SGD, nn.CrossEntropyLoss, "
+        "the clip)")
+
+    def model_run(jit):
+        restore()
+        opt = sgd()
+        model = paddle.Model(net).prepare(
+            opt, paddle.nn.CrossEntropyLoss(), jit=jit)
+        paddle.seed(2)
+        got, replay = [], {}
+        for i, (b_ids, b_labels) in enumerate(batches):
+            if jit and i == 1:
+                sync(torch, dev)
+                _reset_update()
+            got.append(model.train_batch([b_ids], [b_labels])["loss"])
+            if jit and i == 1:
+                sync(torch, dev)
+                replay = _update_launches()
+        state = _train_state(view, opt)
+        captured = _all_captured(model._steps.entries().values())
+        t = []
+        for _ in range(NUMERIC_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model.train_batch([ids], [labels])
+            b.record()
+            b.synchronize()
+            t.append(a.elapsed_time(b))
+        return (torch.stack(got), state, captured, model._steps.compiles,
+                replay, t)
+
+    l_e, s_e, cap_e, _, _, t_e = model_run(False)
+    eager_equal = bool(torch.equal(l_e, l1)) and all(
+        torch.equal(v, s_e[k]) for k, v in s1.items())
+    del s1
+    l_j, s_j, cap_j, captures, replay, t_j = model_run(True)
+    exact = bool(torch.equal(l_j, l_e)) and all(
+        torch.equal(v, s_j[k]) for k, v in s_e.items())
+    del s_e, s_j
+    log(f"  23b: jit=False = 23a's loop bit for bit: {eager_equal}; "
+        f"jit=True = jit=False bit for bit: {exact}; captured {cap_j} "
+        f"(jit=False {cap_e}), captures {captures}; a replay's update "
+        f"launches {replay} (expected {want}); step ms p50 captured "
+        f"{pct(t_j, 50):.3f}, uncaptured {pct(t_e, 50):.3f}")
+    if not (eager_equal and exact):
+        raise AssertionError("Model on the LSTM differs from the loop, or "
+                             "captured from uncaptured")
+    if cap_e or not cap_j or captures != 1 or replay != want:
+        raise AssertionError(f"jit=True captured {captures} times, or a "
+                             f"replay launched {replay}")
+    out["model"] = dict(uncaptured_equals_loop=eager_equal,
+                        captured_equals_uncaptured=exact, captures=captures,
+                        replay_launches=replay, step_ms_captured=t_j,
+                        step_ms_uncaptured=t_e,
+                        step_ms_p50_captured=pct(t_j, 50),
+                        step_ms_p50_uncaptured=pct(t_e, 50))
+
+    log(f"  23c: beam search (beam {beam_cfg['beam']}, B "
+        f"{beam_cfg['batch']}, up to {beam_cfg['max_steps']} steps) on 23a's"
+        " weights, card against the CPU")
+    cpu_net.set_state_dict(view.state_dict())
+    ids_c, lp_c, steps_c, secs, dec_c = _beam_decode(
+        torch, paddle, net, beam_cfg, place)
+    ids_h, lp_h, steps_h, _, dec_h = _beam_decode(
+        torch, paddle, cpu_net, beam_cfg, "cpu")
+    paddle.set_device(place)
+    same_ids = ids_c.shape == ids_h.shape and bool(
+        (ids_c._data.cpu() == ids_h._data).all())
+    lp_err = (lp_c._data.cpu() - lp_h._data).abs().max().item()
+    beam = dict(shape=list(ids_c.shape), steps=len(steps_c),
+                ids_equal=same_ids, log_prob_max_abs_err=lp_err,
+                ms_per_step=secs * 1e3 / len(steps_c))
+    if not same_ids:
+        first = next((i for i, (a, b) in enumerate(zip(steps_c, steps_h))
+                      if not (torch.equal(a["tokens"].cpu(), b["tokens"])
+                              and torch.equal(a["parents"].cpu(),
+                                              b["parents"]))), None)
+        if first is None:
+            raise AssertionError(f"the card's beam search ran "
+                                 f"{len(steps_c)} steps, the CPU's "
+                                 f"{len(steps_h)}, every common step equal")
+        k = beam_cfg["beam"]
+        with paddle.no_grad():
+            tops = [_beam_totals(torch, d, *s[first]["given"], k).cpu()
+                    for d, s in ((dec_c, steps_c), (dec_h, steps_h))]
+        rows = [r for r in range(tops[0].shape[0])
+                if not torch.equal(steps_c[first]["tokens"].cpu().reshape(
+                    -1, k)[r], steps_h[first]["tokens"].reshape(-1, k)[r])]
+        gaps = [min(float((t[r, :-1] - t[r, 1:]).min()) for t in tops)
+                for r in rows]
+        beam.update(first_differing_step=first, rows=rows, tie_gaps=gaps)
+        log(f"  23c: ids differ from step {first} in rows {rows}; the "
+            f"closest of the {k + 1} best totals there lie {gaps} apart "
+            f"(a tie within {NUMERIC_TIE:g} may order the beams either way)")
+        if max(gaps) > NUMERIC_TIE:
+            raise AssertionError("the card's beam search differs from the "
+                                 "CPU's where no tie explains it")
+    elif lp_err > NUMERIC_BEAM_ATOL:
+        raise AssertionError(f"the beams' log-probs differ by {lp_err} > "
+                             f"{NUMERIC_BEAM_ATOL}")
+    log(f"  23c: ids {beam['shape']} equal to the CPU's: {same_ids}; "
+        f"log-probs max |card - CPU| {lp_err:.3e} (limit "
+        f"{NUMERIC_BEAM_ATOL:g}); {len(steps_c)} steps, "
+        f"{beam['ms_per_step']:.3f} ms a step")
+    out["beam"] = beam
+    del cpu_net, steps_c, steps_h, dec_c, dec_h
+
+    log(f"  23d: stft / istft at Whisper's front end (B {audio['batch']} x "
+        f"{audio['samples']} samples, n_fft {audio['n_fft']}, hop "
+        f"{audio['hop']}, periodic Hann, centred)")
+    n_fft, hop = audio["n_fft"], audio["hop"]
+    wave = np.random.RandomState(cfg["seed"]).uniform(
+        -1, 1, (audio["batch"], audio["samples"])).astype(np.float32)
+    hann = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+            ).astype(np.float32)
+    x, w = paddle.to_tensor(wave), paddle.to_tensor(hann)
+
+    def stft():
+        return paddle.signal.stft(x, n_fft, hop, window=w)
+    spec = stft()
+    paddle.set_device("cpu")
+    spec_cpu = paddle.signal.stft(paddle.to_tensor(wave), n_fft, hop,
+                                  window=paddle.to_tensor(hann))
+    paddle.set_device(place)
+    stft_err = (spec._data.cpu() - spec_cpu._data).abs().max().item()
+    stft_ok = bool(torch.allclose(spec._data.cpu(), spec_cpu._data,
+                                  rtol=WHISPER_ATOL, atol=WHISPER_ATOL))
+
+    def istft():
+        return paddle.signal.istft(spec, n_fft, hop, window=w,
+                                   length=audio["samples"])
+    back = istft()
+    istft_err = (back._data.cpu() - torch.from_numpy(wave)).abs().max().item()
+    istft_ok = bool(torch.allclose(back._data.cpu(), torch.from_numpy(wave),
+                                   **WHISPER_ISTFT))
+    stft_ms, istft_ms = time_ms(torch, stft, reps=5), \
+        time_ms(torch, istft, reps=5)
+    out["signal"] = dict(shape=list(spec.shape), dtype=str(spec.dtype),
+                         stft_max_abs_err=stft_err,
+                         istft_max_abs_err=istft_err,
+                         stft_ms=stft_ms, istft_ms=istft_ms)
+    log(f"  23d: stft {list(spec.shape)} {spec.dtype}: max |card - CPU| "
+        f"{stft_err:.3e} (rtol = atol = {WHISPER_ATOL:g}: {stft_ok}), "
+        f"{stft_ms:.3f} ms; istft gives the input back within "
+        f"{istft_err:.3e} ({WHISPER_ISTFT}: {istft_ok}), {istft_ms:.3f} ms")
+    if not (stft_ok and istft_ok):
+        raise AssertionError("stft or istft at Whisper's size is off")
+    del spec, spec_cpu, back, net, view, state0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 23 in {out['seconds']:.1f} s ({card_line()})")
+    return out
+
+
 def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
         eager_cfg=EAGER, eager_long=EAGER_LONG, encoder_cfg=None,
         encoder_batch=ENCODER_BATCH, fp32_cfg=TRAIN_FP32, dryrun_cfg=DRYRUN,
         fit_cfg=FIT, optimizer_cfgs=OPTIMIZERS, update_named=None,
         unscale_named=None, skip_named=None, train_fp16_cfg=TRAIN_FP16,
         long_fp16_cfg=TRAIN_LONG_FP16, fit_hooks_cfg=FIT_HOOKS,
-        profile_cfg=PROFILE_FIT, eager_core_cfg=EAGER_CORE):
-    """Phases 3-21 on ``dev`` with a serving GPT of ``width``, the two
+        profile_cfg=PROFILE_FIT, eager_core_cfg=EAGER_CORE,
+        numeric_cfg=NUMERIC, numeric_beam=NUMERIC_BEAM, numeric_audio=WHISPER):
+    """Phases 3-23 on ``dev`` with a serving GPT of ``width``, the two
     train configs, the eager train configs, the encoder, the fit config
     and the optimizers of phase 13a (and of phase 6's update timing);
     ``update_named``, ``unscale_named`` and ``skip_named`` the (name,
@@ -8345,7 +8786,8 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     ``train_fp16_cfg`` and ``long_fp16_cfg`` the fp16 configs of phases 7
     and 8 (phase 7's remat policies run ``train_cfg``), ``fit_hooks_cfg``
     phase 16's, ``profile_cfg`` phase 19's, ``eager_core_cfg`` phases 20
-    and 21's;
+    and 21's, ``numeric_cfg``, ``numeric_beam`` and ``numeric_audio``
+    phase 23's;
     returns the report and the ``kernels`` entries."""
     from paddle_tpu_torch.models import GPT, GPTConfig
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -8515,6 +8957,11 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
     log("== phase 22: the flagship GPT on the eager core: entry(), the "
         "Layer GPT at full width, generate's session")
     layer_gpt = entry_path(torch, fa, dev, width)
+    torch.cuda.empty_cache()
+    log("== phase 23: the numeric namespaces: the PTB-large LSTM language "
+        "model trained eagerly and through Model, beam search, stft")
+    numeric = numeric_path(torch, dev, numeric_cfg, numeric_beam,
+                           numeric_audio)
     off = ro["gpt_offload"]
     dec, und = lamb["decorated"], lamb["undecorated"]
     log(f"  phase 13b: captured step ms p50 / peak allocated GiB: LAMB O2 "
@@ -8816,6 +9263,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
              "Pallas kernel",
         launches=sum(eager["replay_update_launches"]["update"].values()),
         launches_eager_core=sum(core["launches"]["update"].values()),
+        launches_numeric_path=sum(numeric["launches"]["update"].values()),
         max_abs_err=max(r["max_abs_err"] for r in update_checks
                         if r["setup"] == "fp32"),
         ms=adamw["ms"], plain_ms=adamw["plain_ms"],
@@ -9086,6 +9534,7 @@ def run(torch, dev, width, train_cfg=TRAIN, long_cfg=TRAIN_LONG,
                   remat_offload=ro, fit_hooks=hooks, paged=paged, http=http,
                   profiler=profiled, eager_core=core,
                   sparse_embedding=sparse, entry_path=layer_gpt,
+                  numeric_path=numeric,
                   dlogits_fp16_timing=dlogits_time_fp16)
     return report, kernels
 

@@ -18,10 +18,17 @@ The eager core (``core``) is paddle's dygraph API: :class:`Tensor`,
 autograd, the places (:func:`set_device`: the card unless ``"cpu"``), the
 op dispatch, every ported tensor function as ``paddle_tpu_torch.<name>``
 (``ops``), ``nn.Layer`` and its layers up to ``nn.TransformerEncoder``
-(``nn``), ``autograd`` and ``device``.
+(``nn``), ``autograd`` and ``device``; and the numeric namespaces:
+``linalg`` (``paddle.linalg``; :func:`cond` is ``linalg.cond``), ``fft``,
+``signal``, ``distribution``, the functional transforms
+(``autograd.vjp`` ... ``autograd_functional``), the ragged sequence ops
+(``sequence_pool`` ... ``edit_distance``) and the recurrent layers with
+beam search (``nn.LSTM`` ... ``nn.dynamic_decode``).
 """
 from . import (amp, autograd, device, io, metric, nn, ops,  # noqa: F401
                optimizer, regularizer)
+from . import (autograd_functional, distribution, fft, linalg,  # noqa: F401
+               signal)
 from .core import errors  # noqa: F401
 from .core.autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                             no_grad, set_grad_enabled)
@@ -39,6 +46,8 @@ from .device import NoCudaDevice, resolve_device  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .nn.param_attr import ParamAttr  # noqa: F401
 from .utils.flags import get_flags, set_flags  # noqa: F401
+
+cond = linalg.cond
 
 
 def _export_tensor_functions():
@@ -63,5 +72,6 @@ __all__ = ["Model", "NoCudaDevice", "flops", "get_flags", "regularizer",
            "CUDAPinnedPlace", "get_rng_state", "set_rng_state",
            "enable_static", "disable_static", "in_dynamic_mode", "nn",
            "autograd", "device", "amp", "io", "metric", "optimizer",
+           "linalg", "fft", "signal", "distribution", "cond",
            "float32", "float64", "float16", "bfloat16", "int8", "int16", "int32", "int64", "uint8", "bool_",
            "complex64", "complex128"] + TENSOR_FUNCTIONS

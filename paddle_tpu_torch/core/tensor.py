@@ -209,7 +209,7 @@ class Tensor:
     # host interop
     # ------------------------------------------------------------------
     def numpy(self) -> np.ndarray:
-        d = self._data.detach()
+        d = self._data.detach().resolve_conj().resolve_neg()
         if d.dtype == torch.bfloat16:
             d = d.float()
         return d.cpu().numpy().copy() if d.device.type == "cpu" \

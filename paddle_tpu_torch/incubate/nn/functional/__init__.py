@@ -25,8 +25,8 @@ from ....ops.nn_misc import dropout, scaled_dot_product_attention
 __all__ = ["fused_multi_head_attention", "fused_feedforward",
            "fused_bias_dropout_residual_layer_norm"]
 
-# the activations the reference looks up by name (:102); gelu is the
-# exact-erf form
+# relu and gelu as torch's own (gelu the exact-erf form); every other name
+# the reference takes resolves through ``_activation``
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu, "gelu": F.gelu}
 
@@ -36,11 +36,21 @@ def _maybe_ln(x, scale, bias, eps):
 
 
 def _activation(name: str):
-    try:
-        return ACTIVATIONS[name]
-    except KeyError:
-        raise ValueError(f"activation {name!r} is not one of "
-                         f"{sorted(ACTIVATIONS)}") from None
+    """The activation the reference takes as ``getattr(P, activation)``
+    (:102): ``relu`` and ``gelu`` from :data:`ACTIVATIONS`, any other name
+    among the port's tensor functions (``ops.TENSOR_MODULES``,
+    ``ops/activation.py`` first), on torch tensors; a name that is none of
+    them raises ``AttributeError``, as the reference's ``getattr``."""
+    fn = ACTIVATIONS.get(name)
+    if fn is not None:
+        return fn
+    from .... import ops
+    for mod in (ops.activation,) + ops.TENSOR_MODULES:
+        if name in mod.__all__:
+            op = getattr(mod, name)
+            return lambda a: op(a)._data
+    raise AttributeError(f"the port's tensor functions have no activation "
+                         f"{name!r}")
 
 
 def fused_multi_head_attention(

@@ -6,8 +6,8 @@
 and initialisers: Xavier-normal weights with the reference's fans
 (``nn/initializer.py:24``), zero biases, LayerNorm scales 1 and biases 0,
 drawn from the device stream of the port's random state on ``device``
-(the card unless ``device="cpu"``).  Weights of the reference carry over
-unchanged through
+(the current place, as ``set_device`` sets it, when None).  Weights of
+the reference carry over unchanged through
 :func:`~paddle_tpu_torch.models.convert.fused_transformer_state_from_paddle_tpu`.
 The refusals are the reference's too: ``need_weights``, cross-attention
 and an incremental ``cache``.  ``weight_attr`` and ``bias_attr`` take a
@@ -27,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ....core.place import current_place
 from ....core.tensor import Parameter
 from ....device import resolve_device
 from ....nn.layer_base import apply_param_attr
@@ -65,7 +66,9 @@ class _Fused(nn.Module):
 
     def __init__(self, device, weight_attr=None, bias_attr=None):
         super().__init__()
-        self._device = resolve_device(device)
+        # the place set_device sets, as every other layer (C15)
+        self._device = resolve_device(device) if device is not None \
+            else current_place().torch_device()
         self._weight_attr = _attr(weight_attr)
         self._bias_attr = _attr(bias_attr)
 

@@ -1,10 +1,11 @@
 """``paddle.nn`` of the port — the counterpart of
 ``paddle_tpu/nn/__init__.py``: ``Layer`` (``layer_base``), ``ParamAttr``,
 ``initializer``, ``functional``, the layers of ``nn/layer/`` (common,
-activation, norm, container, transformer, the 16 loss layers), the
-gradient clips (``clip``), ``Parameter`` and ``utils`` (``spectral_norm``,
-``weight_norm``, ``remove_weight_norm``, also here).  ``torch_view``
-gives port code torch's view of a network."""
+activation, norm, container, transformer, the recurrent layers and beam
+search, the 16 loss layers), the gradient clips (``clip``),
+``Parameter`` and ``utils`` (``spectral_norm``, ``weight_norm``,
+``remove_weight_norm``, also here).  ``torch_view`` gives port code
+torch's view of a network."""
 from . import functional, initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401,E501
 from .layer import *  # noqa: F401,F403

@@ -11,16 +11,16 @@ tensors) and ``loss`` (cross entropy on torch tensors).
 The ``paddle.*`` tensor functions of the eager core, on
 :class:`~paddle_tpu_torch.core.tensor.Tensor`\\ s (the counterpart of
 ``paddle_tpu/ops/__init__.py``): ``creation``, ``math``, ``reduction``,
-``logic``, ``manipulation``, ``activation``, ``norm_ops``, ``linalg``'s
-products, ``nn_ops`` (the Tensor entry points of the reference's
-``nn_misc`` and ``loss``) and ``extras`` (in-place variants, tensor
-arrays, utilities).  Importing this package attaches their method
+``logic``, ``manipulation``, ``activation``, ``norm_ops``, ``linalg``,
+``nn_ops`` (the Tensor entry points of the reference's ``nn_misc`` and
+``loss``), ``extras`` (in-place variants, tensor arrays, utilities) and
+``sequence`` (the ragged sequence ops).  Importing this package attaches their method
 surface and operators to ``Tensor`` (``_attach``, reference :39-129).
 """
 from __future__ import annotations
 
 from . import (activation, creation, extras, linalg, logic, manipulation,
-               math, nn_ops, norm_ops, reduction)
+               math, nn_ops, norm_ops, reduction, sequence)
 from .activation import *  # noqa: F401,F403
 from .creation import *  # noqa: F401,F403
 from .extras import *  # noqa: F401,F403
@@ -31,12 +31,13 @@ from .math import *  # noqa: F401,F403
 from .nn_ops import *  # noqa: F401,F403
 from .norm_ops import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 
 from ..core.tensor import Tensor
 
 #: the modules whose functions make up ``paddle_tpu_torch.<name>``
 TENSOR_MODULES = (creation, math, reduction, manipulation, logic, linalg,
-                  activation, norm_ops, nn_ops, extras)
+                  activation, norm_ops, nn_ops, extras, sequence)
 
 
 def _attach():
@@ -85,9 +86,10 @@ def _attach():
         "allclose": lg.allclose, "isclose": lg.isclose, "isnan": lg.isnan,
         "isinf": lg.isinf, "isfinite": lg.isfinite,
         "equal_all": lg.equal_all,
-        # linalg (cholesky and inverse wait for item 5b)
+        # linalg
         "matmul": la.matmul, "mm": la.mm, "bmm": la.bmm, "dot": la.dot,
-        "norm": la.norm, "dist": la.dist,
+        "norm": la.norm, "dist": la.dist, "cholesky": la.cholesky,
+        "inverse": la.inverse,
         # activation-ish
         "sigmoid": act.sigmoid, "softmax": act.softmax, "relu": act.relu,
     }

@@ -528,6 +528,322 @@ CASES += [
     fn("numel", A),
 ]
 
+# -- linalg: decompositions, solves, statistics -------------------------------
+# factors unique only up to sign or phase (svd's U/VH, qr's Q/R, eigh's and
+# eig's vectors) are held through invariants: the product that rebuilds
+# the input, absolute values, eigenvalues sorted
+EYE4 = np.eye(4, dtype=f32)
+SPD = (SQ @ SQ.T + 4 * EYE4).astype(f32)
+SQW = (SQ + 4 * EYE4).astype(f32)                  # well conditioned
+CHOL = np.linalg.cholesky(SPD).astype(f32)
+RHS = rs.randn(4, 2).astype(f32)
+REC = rs.randn(5, 3).astype(f32)
+RHS5 = rs.randn(5, 2).astype(f32)
+RANK2 = (rs.randn(4, 2) @ rs.randn(2, 4)).astype(f32)
+_PV = (rs.randn(4, 4) + 3 * np.eye(4)).astype(np.float64)
+EIGM = (_PV @ np.diag([1.0, 2.5, -1.5, 4.0]) @ np.linalg.inv(_PV)).astype(f32)
+V3 = rs.randn(2, 3).astype(f32)
+W3 = rs.randn(2, 3).astype(f32)
+D = dict(tol="dec")
+
+
+def _sorted_eig(m, w, v=None):
+    """Real eigenvalues sorted, and |vectors| in that order."""
+    wr = m.real(w)
+    order = m.argsort(wr)
+    if v is None:
+        return m.gather(wr, order)
+    return m.gather(wr, order), m.index_select(m.abs(v), order, axis=1)
+
+
+CASES += [
+    fn("cross", V3, W3, grad=(0, 1), tol="red"),
+    fn("cross", V3.T.copy(), W3.T.copy(), grad=(0, 1), tol="red",
+       kw=dict(axis=0), label="ax0"),
+    fn("cholesky", SPD, grad=(0,), **D),
+    fn("cholesky", SPD, grad=(0,), kw=dict(upper=True), label="upper", **D),
+    fn("solve", SQW, RHS, grad=(0, 1), **D),
+    fn("solve", SQW, RHS[:, 0].copy(), grad=(0, 1), label="vec", **D),
+    fn("triangular_solve", np.triu(SQW), RHS, grad=(0, 1), **D),
+    fn("triangular_solve", np.tril(SQW), RHS, grad=(0, 1), kw=dict(
+        upper=False, transpose=True, unitriangular=True), label="lower_t",
+       **D),
+    fn("cholesky_solve", RHS, CHOL, grad=(0, 1), **D),
+    fn("cholesky_solve", RHS, CHOL.T.copy(), grad=(0, 1),
+       kw=dict(upper=True), label="upper", **D),
+    fn("inverse", SQW, grad=(0,), **D),
+    fn("pinv", REC, grad=(0,), **D),
+    lam("svd", lambda m: lambda x: (lambda u, s, vh: (
+        s, m.matmul(u * s, vh), m.abs(u * s)))(*m.svd(x)), REC, **D),
+    lam("svd_full", lambda m: lambda x: (lambda u, s, vh: (
+        s, m.abs(vh)))(*m.svd(x, full_matrices=True)), REC, **D),
+    lam("qr", lambda m: lambda x: (lambda q, r: (
+        m.matmul(q, r), m.abs(r), m.abs(q)))(*m.qr(x)), REC, **D),
+    lam("qr_r", lambda m: lambda x: m.abs(m.qr(x, mode="r")), REC, **D),
+    fn("lu", SQW, **D),
+    fn("lu", SQW, kw=dict(get_infos=True), label="infos", **D),
+    lam("eig", lambda m: lambda x: _sorted_eig(m, *m.eig(x)), EIGM, **D),
+    lam("eigvals", lambda m: lambda x: _sorted_eig(m, m.eigvals(x)), EIGM,
+        **D),
+    lam("eigh", lambda m: lambda x: (lambda w, v: (w, m.abs(v)))(
+        *m.eigh(x)), SPD, **D),
+    lam("eigh_upper", lambda m: lambda x: (lambda w, v: (w, m.abs(v)))(
+        *m.eigh(x, UPLO="U")), np.triu(SPD), **D),
+    fn("eigvalsh", SPD, **D),
+    fn("eigvalsh", np.triu(SPD), kw=dict(UPLO="U"), label="upper", **D),
+    fn("det", SQW, grad=(0,), **D),
+    fn("det", S4[:, 0], grad=(0,), label="batched", **D),
+    fn("slogdet", SQW, **D),
+    fn("matrix_rank", REC), fn("matrix_rank", RANK2, label="deficient"),
+    fn("matrix_rank", RANK2, kw=dict(tol=1e-3), label="tol"),
+    fn("matrix_power", SQW * 0.5, grad=(0,), kw=dict(n=3), **D),
+    fn("matrix_power", SQW, grad=(0,), kw=dict(n=-2), label="neg", **D),
+    lam("multi_dot", lambda m: lambda x, y, z: m.multi_dot([x, y, z]), A, W,
+        REC, grad=(0, 1, 2), tol="red"),
+    fn("histogram", A), fn("histogram", A, kw=dict(bins=5, min=-1, max=1),
+                           label="range"),
+    fn("lstsq", REC, RHS5, **D),
+    fn("lstsq", REC, RHS5[:, 0].copy(), kw=dict(rcond=1e-3), label="vec",
+       **D),
+    fn("cov", A, tol="red"),
+    fn("cov", A, kw=dict(rowvar=False, ddof=False), label="cols", tol="red"),
+    fn("cov", A, kw=dict(fweights=np.array([1, 2, 1, 3], np.int64),
+                         aweights=np.array([0.5, 1.0, 2.0, 1.5], f32)),
+       label="weights", tol="red"),
+    fn("corrcoef", A, tol="red"),
+    fn("corrcoef", A, kw=dict(rowvar=False), label="cols", tol="red"),
+    lam("einsum", lambda m: lambda x, y: m.einsum("ij,jk->ik", x, y), A, W,
+        grad=(0, 1), tol="red"),
+    lam("einsum_batched", lambda m: lambda x, y: m.einsum(
+        "bij,jk->bik", x, y), S3, W, grad=(0, 1), tol="red"),
+    lam("einsum_trace", lambda m: lambda x: m.einsum("ii", x), SQ,
+        grad=(0,), tol="red"),
+    lam("linalg_inv", lambda m: lambda x: m.linalg.inv(x), SQW, grad=(0,),
+        **D),
+    lam("linalg_inverse", lambda m: lambda x: m.linalg.inverse(x), SQW,
+        grad=(0,), **D),
+    lam("cond", lambda m: lambda x: m.cond(x), SQW, grad=(0,), **D),
+]
+CASES += [lam(f"linalg_cond_{p}", (lambda p: lambda m: lambda x: m.linalg.cond(
+    x, p=p))(p), SQW, grad=(0,), **D)
+    for p in ("fro", "nuc", 1, -1, 2, -2, float("inf"), float("-inf"))]
+
+# -- fft ----------------------------------------------------------------------
+Z = (rs.randn(3, 4) + 1j * rs.randn(3, 4)).astype(np.complex64)
+Z3 = (rs.randn(2, 3, 4) + 1j * rs.randn(2, 3, 4)).astype(np.complex64)
+T = dict(tol="fft")
+
+
+def _ri(m, z):
+    """A complex result as its real and imaginary parts (real outputs,
+    so their gradients are compared)."""
+    return m.real(z), m.imag(z)
+
+
+def _fft(label, f, *args, **k):
+    return lam(label, lambda m: lambda *xs: _ri(m, f(m)(*xs)), *args, **k)
+
+
+CASES += [
+    _fft("fft", lambda m: m.fft.fft, A, grad=(0,), **T),
+    _fft("fft_ortho_n", lambda m: lambda x: m.fft.fft(x, n=6, axis=0,
+                                                       norm="ortho"),
+         A, grad=(0,), **T),
+    _fft("ifft_forward", lambda m: lambda x: m.fft.ifft(x, norm="forward"),
+         A, grad=(0,), **T),
+    _fft("rfft", lambda m: m.fft.rfft, A, grad=(0,), **T),
+    lam("irfft", lambda m: lambda x: m.fft.irfft(m.fft.rfft(x), n=4), A,
+        grad=(0,), **T),
+    lam("hfft", lambda m: lambda x: m.fft.hfft(m.fft.ihfft(x), n=4), A,
+        grad=(0,), **T),
+    _fft("ihfft", lambda m: m.fft.ihfft, A, grad=(0,), **T),
+    _fft("fft2", lambda m: m.fft.fft2, S3, grad=(0,), **T),
+    _fft("ifft2", lambda m: m.fft.ifft2, S3, grad=(0,), **T),
+    _fft("rfft2", lambda m: m.fft.rfft2, S3, grad=(0,), **T),
+    lam("irfft2", lambda m: lambda x: m.fft.irfft2(m.fft.rfft2(x),
+                                                   s=[3, 4]), S3,
+        grad=(0,), **T),
+    _fft("fftn", lambda m: m.fft.fftn, S3, grad=(0,), **T),
+    _fft("fftn_s", lambda m: lambda x: m.fft.fftn(x, s=[4, 2]), S3,
+         grad=(0,), **T),
+    _fft("ifftn_axes", lambda m: lambda x: m.fft.ifftn(x, axes=[0, 2]), S3,
+         grad=(0,), **T),
+    _fft("rfftn", lambda m: m.fft.rfftn, S3, grad=(0,), **T),
+    lam("irfftn", lambda m: lambda x: m.fft.irfftn(m.fft.rfftn(x),
+                                                   s=[2, 3, 4]), S3,
+        grad=(0,), **T),
+    lam("hfftn", lambda m: lambda x: m.fft.hfftn(m.fft.ihfftn(x),
+                                                 s=[3, 4]), S3,
+        grad=(0,), **T),
+    _fft("ihfftn", lambda m: m.fft.ihfftn, S3, grad=(0,), **T),
+    lam("hfft2", lambda m: lambda x: m.fft.hfft2(m.fft.ihfft2(x),
+                                                 s=[3, 4]), S3,
+        grad=(0,), **T),
+    _fft("ihfft2", lambda m: m.fft.ihfft2, S3, grad=(0,), **T),
+    lam("fft_complex", lambda m: lambda z: m.fft.fft(z), Z, **T),
+    lam("ifftn_complex", lambda m: lambda z: m.fft.ifftn(z, norm="ortho"),
+        Z3, **T),
+    lam("hfft_complex", lambda m: lambda z: m.fft.hfft(z, n=6), Z, **T),
+    lam("irfft_complex", lambda m: lambda z: m.fft.irfft(z), Z, **T),
+    lam("hfftn_complex", lambda m: lambda z: m.fft.hfftn(z), Z3, **T),
+    lam("fftfreq", lambda m: lambda: m.fft.fftfreq(8, d=0.5), **T),
+    lam("fftfreq_dtype", lambda m: lambda: m.fft.fftfreq(
+        7, dtype="float64"), **T),
+    lam("rfftfreq", lambda m: lambda: m.fft.rfftfreq(9, d=2.0), **T),
+    lam("fftshift", lambda m: lambda x: m.fft.fftshift(x), A, grad=(0,)),
+    lam("ifftshift", lambda m: lambda x: m.fft.ifftshift(x, axes=[1]), S3,
+        grad=(0,)),
+]
+
+# -- signal -------------------------------------------------------------------
+SIG = rs.randn(2, 40).astype(f32)
+SIG_T = SIG.T.copy()
+HANN = np.hanning(16).astype(f32)
+FRAMES = rs.randn(2, 8, 5).astype(f32)
+CASES += [
+    lam("frame", lambda m: lambda x: m.signal.frame(x, 8, 4), SIG,
+        grad=(0,)),
+    lam("frame_ax0", lambda m: lambda x: m.signal.frame(x, 8, 4, axis=0),
+        SIG_T, grad=(0,)),
+    lam("overlap_add", lambda m: lambda x: m.signal.overlap_add(x, 3),
+        FRAMES, grad=(0,)),
+    lam("overlap_add_ax0", lambda m: lambda x: m.signal.overlap_add(
+        x, 2, axis=0), FRAMES.transpose(2, 1, 0).copy(), grad=(0,)),
+    lam("stft", lambda m: lambda x, w: _ri(m, m.signal.stft(
+        x, 16, 4, window=w)), SIG, HANN, grad=(0,), **T),
+    lam("stft_plain", lambda m: lambda x: _ri(m, m.signal.stft(
+        x, 16, 4, win_length=12, center=False, normalized=True)), SIG,
+        grad=(0,), **T),
+    lam("stft_constant_twosided", lambda m: lambda x: _ri(m, m.signal.stft(
+        x, 16, 5, pad_mode="constant", onesided=False)), SIG, grad=(0,),
+        **T),
+    lam("istft", lambda m: lambda x, w: m.signal.istft(m.signal.stft(
+        x, 16, 4, window=w), 16, 4, window=w, length=40), SIG, HANN,
+        grad=(0,), **T),
+    lam("istft_normalized", lambda m: lambda x: m.signal.istft(
+        m.signal.stft(x, 16, 4, normalized=True), 16, 4, normalized=True),
+        SIG, grad=(0,), **T),
+]
+
+# -- the ragged sequence ops --------------------------------------------------
+SEQ_X = rs.randn(7, 3).astype(f32)              # total 7, lengths sum 5
+SEQ_LENS = np.array([2, 0, 3], np.int64)
+SEQ_LENS_FULL = np.array([3, 1, 3], np.int64)
+SEQ_IDS = rs.randint(0, 6, (7,)).astype(np.int64)
+SEQ_FILTER = rs.randn(9, 2).astype(f32)
+SEQ_BIAS = rs.randn(2).astype(f32)
+SEQ_PADDED = rs.randn(3, 4, 3).astype(f32)
+ED_H = np.array([[1, 2, 3, 4], [2, 2, 5, 0], [1, 3, 3, 1]], np.int64)
+ED_R = np.array([[1, 3, 4, 0, 0], [2, 5, 5, 1, 2], [4, 4, 0, 0, 0]],
+                np.int64)
+ED_HL = np.array([4, 3, 0], np.int64)
+ED_RL = np.array([3, 5, 2], np.int64)
+R = dict(tol="red")
+CASES += [fn("sequence_pool", SEQ_X, SEQ_LENS, grad=(0,),
+             kw=dict(pool_type=p), label=p, **R)
+          for p in ("sum", "average", "sqrt", "max", "min", "first",
+                    "last")]
+CASES += [
+    fn("sequence_pool", SEQ_X, SEQ_LENS, grad=(0,), kw=dict(
+        pool_type="max", pad_value=-2.0), label="pad_value", **R),
+    fn("sequence_first_step", SEQ_X, SEQ_LENS_FULL, grad=(0,)),
+    fn("sequence_last_step", SEQ_X, SEQ_LENS_FULL, grad=(0,)),
+    fn("sequence_softmax", SEQ_X[:, 0].copy(), SEQ_LENS, grad=(0,), **R),
+    fn("sequence_softmax", SEQ_X[:, :1].copy(), SEQ_LENS_FULL, grad=(0,),
+       label="col", **R),
+    fn("sequence_pad", SEQ_X, SEQ_LENS, grad=(0,)),
+    fn("sequence_pad", SEQ_X, SEQ_LENS, grad=(0,), kw=dict(
+        pad_value=-1.0, maxlen=4), label="maxlen"),
+    fn("sequence_unpad", SEQ_PADDED, SEQ_LENS, grad=(0,)),
+    fn("sequence_reverse", SEQ_X, SEQ_LENS, grad=(0,)),
+    fn("sequence_conv", SEQ_X, SEQ_LENS, SEQ_FILTER, grad=(0, 2), **R),
+    fn("sequence_conv", SEQ_X, SEQ_LENS_FULL, SEQ_FILTER[:6], grad=(0, 2),
+       kw=dict(context_length=2, context_start=0), label="start0", **R),
+    lam("sequence_conv_bias", lambda m: lambda x, n, w, b: m.sequence_conv(
+        x, n, w, bias=b), SEQ_X, SEQ_LENS, SEQ_FILTER, SEQ_BIAS,
+        grad=(0, 2, 3), **R),
+    fn("sequence_expand", SEQ_X, SEQ_LENS_FULL, np.array([2, 0, 1], np.int64),
+       grad=(0,)),
+    fn("sequence_expand_as", SEQ_X[:3], np.array([2, 0, 3], np.int64),
+       grad=(0,)),
+    lam("sequence_concat", lambda m: lambda x, y: m.sequence_concat(
+        [x, y], [m.to_tensor(SEQ_LENS), m.to_tensor(SEQ_LENS_FULL)]),
+        SEQ_X, SEQ_X[::-1].copy(), grad=(0, 1)),
+    fn("sequence_slice", SEQ_X, SEQ_LENS_FULL, np.array([1, 0, 1], np.int64),
+       np.array([2, 1, 1], np.int64), grad=(0,)),
+    fn("sequence_enumerate", SEQ_IDS, SEQ_LENS, kw=dict(win_size=3)),
+    fn("sequence_enumerate", SEQ_IDS, SEQ_LENS_FULL, kw=dict(
+        win_size=2, pad_value=9), label="pad"),
+    fn("sequence_reshape", SEQ_X[:6], np.array([2, 4], np.int64),
+       grad=(0,), kw=dict(new_dim=6)),
+    fn("sequence_erase", SEQ_IDS, SEQ_LENS_FULL, kw=dict(tokens=[1, 3])),
+    fn("sequence_scatter", rs.randn(3, 6).astype(f32),
+       np.array([0, 5, 2, 2, 1, 4, 3], np.int64), SEQ_X[:, 0].copy(),
+       SEQ_LENS, grad=(0, 2)),
+    fn("edit_distance", ED_H, ED_R, ED_HL, ED_RL),
+    fn("edit_distance", ED_H, ED_R, ED_HL, ED_RL,
+       kw=dict(normalized=False), label="raw"),
+    nf("gather_tree", np.array([[[2, 5]], [[6, 1]], [[3, 9]]], np.int32),
+       np.array([[[0, 0]], [[1, 0]], [[0, 1]]], np.int32)),
+    nf("gather_tree", rs.randint(0, 9, (4, 2, 3)).astype(np.int64),
+       rs.randint(0, 3, (4, 2, 3)).astype(np.int64), label="random"),
+]
+
+# -- distribution and the functional transforms -------------------------------
+LOC, SCALE = rs.randn(3).astype(f32), (rs.rand(3) + 0.5).astype(f32)
+LOC2, SCALE2 = rs.randn(3).astype(f32), (rs.rand(3) + 0.5).astype(f32)
+LOW, HIGH = rs.rand(3).astype(f32) - 1, rs.rand(3).astype(f32) + 0.5
+VALUE = rs.uniform(-1, 1.5, 3).astype(f32)
+CAT = np.array([0, 3, 1], np.int64)
+
+
+def _normal(m, loc, scale):
+    return m.distribution.Normal(loc, scale)
+
+
+CASES += [
+    lam("normal_log_prob", lambda m: lambda lo, sc, v: _normal(
+        m, lo, sc).log_prob(v), LOC, SCALE, VALUE, grad=(0, 1, 2)),
+    lam("normal_probs", lambda m: lambda lo, sc, v: _normal(
+        m, lo, sc).probs(v), LOC, SCALE, VALUE, grad=(0, 1, 2)),
+    lam("normal_entropy", lambda m: lambda lo, sc: _normal(
+        m, lo, sc).entropy(), LOC, SCALE, grad=(1,)),
+    lam("normal_kl", lambda m: lambda a, b, c, d: _normal(m, a, b)
+        .kl_divergence(_normal(m, c, d)), LOC, SCALE, LOC2, SCALE2,
+        grad=(0, 1, 2, 3)),
+    lam("uniform_log_prob", lambda m: lambda lo, hi, v: m.distribution
+        .Uniform(lo, hi).log_prob(v), LOW, HIGH, VALUE, grad=(0, 1)),
+    lam("uniform_probs", lambda m: lambda lo, hi, v: m.distribution
+        .Uniform(lo, hi).probs(v), LOW, HIGH, VALUE, grad=(0, 1)),
+    lam("uniform_entropy", lambda m: lambda lo, hi: m.distribution
+        .Uniform(lo, hi).entropy(), LOW, HIGH, grad=(0, 1)),
+    lam("categorical", lambda m: lambda x: (lambda c: (
+        c.entropy(), c.probs(m.to_tensor(CAT)), c.log_prob(
+            m.to_tensor(CAT))))(m.distribution.Categorical(x)), A,
+        grad=(0,)),
+    lam("categorical_1d", lambda m: lambda x: m.distribution.Categorical(
+        x).probs(m.to_tensor(np.array([2], np.int64))), V, grad=(0,)),
+    lam("categorical_kl", lambda m: lambda x, y: m.distribution.Categorical(
+        x).kl_divergence(m.distribution.Categorical(y)), A, B, grad=(0, 1)),
+    lam("jacobian", lambda m: lambda x: m.autograd.jacobian(
+        lambda a: m.tanh(a) * a, x), V, tol="red"),
+    lam("jacobian_two", lambda m: lambda x, y: m.autograd.jacobian(
+        lambda a, b: m.matmul(a, b), [x, y]), A, W[:, :2].copy(), tol="red"),
+    lam("hessian", lambda m: lambda x: m.autograd.hessian(
+        lambda a: (m.tanh(a) * a).sum(), x), V, tol="red"),
+    lam("hessian_two", lambda m: lambda x, y: m.autograd.hessian(
+        lambda a, b: (m.sin(a) * m.exp(b)).sum(), [x, y]), V, V[::-1].copy(),
+        tol="red"),
+    lam("vjp", lambda m: lambda x, v: m.autograd.vjp(
+        lambda a: m.tanh(a) * 2.0, x, v), A, B, tol="red"),
+    lam("vjp_default", lambda m: lambda x, y: m.autograd.vjp(
+        lambda a, b: m.matmul(a, b), [x, y]), A, W, tol="red"),
+    lam("jvp", lambda m: lambda x, v: m.autograd.jvp(
+        lambda a: m.exp(a) * a, x, v), A, B, tol="red"),
+    lam("jvp_default", lambda m: lambda x: m.autograd.jvp(
+        lambda a: m.exp(a) * a, x), A, tol="red"),
+]
+
 # -- the method surface (the reference's ``_attach``) ------------------------
 METHODS = {
     "add", "subtract", "multiply", "divide", "floor_divide", "mod",
@@ -545,7 +861,8 @@ METHODS = {
     "greater_than", "greater_equal", "less_than", "less_equal",
     "logical_and", "logical_or", "logical_not", "logical_xor", "allclose",
     "isclose", "isnan", "isinf", "isfinite", "equal_all", "matmul", "mm",
-    "bmm", "dot", "norm", "dist", "sigmoid", "softmax", "relu"}
+    "bmm", "dot", "norm", "dist", "sigmoid", "softmax", "relu", "cholesky",
+    "inverse"}
 _method_cases = []
 for c in list(CASES):
     if c.kind == "fn" and c.name in METHODS and isinstance(

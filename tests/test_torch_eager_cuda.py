@@ -87,3 +87,22 @@ def test_the_op_dispatch_refuses_a_sync_inside_a_capture(card):
                     paddle.exp(x)
     finally:
         paddle.set_flags({"FLAGS_check_nan_inf": False})
+
+
+@pytest.mark.parametrize("build", [
+    lambda inc: inc.FusedMultiHeadAttention(32, 4),
+    lambda inc: inc.FusedFeedForward(32, 64),
+    lambda inc: inc.FusedTransformerEncoderLayer(16, 2, 32, dropout_rate=0.0),
+    lambda inc: inc.FusedBiasDropoutResidualLayerNorm(32),
+], ids=["mha", "ffn", "encoder_layer", "bias_dropout_ln"])
+def test_fused_layers_build_on_the_card_after_set_device_gpu(card, build):
+    """C15 (``ROADMAP.md`` §C) on the card: with no ``device=``, a fused
+    layer lands on the place ``set_device`` set; ``device="cpu"`` still
+    wins."""
+    from paddle_tpu_torch.incubate import nn as inc
+    paddle.set_device("gpu")
+    assert all(p.is_cuda for p in build(inc).parameters())
+    ffn = inc.FusedFeedForward(32, 64, device="cpu")
+    assert all(p.device.type == "cpu" for p in ffn.parameters())
+    paddle.set_device("cpu")
+    assert all(p.device.type == "cpu" for p in build(inc).parameters())

@@ -195,8 +195,76 @@ def test_layers_refuse_what_the_reference_refuses():
     assert torch.all(ffn.ln1_scale == 1.0) and ffn.ln1_scale.requires_grad
     with pytest.raises(TypeError, match="ParamAttr"):
         inc.FusedFeedForward(D, FF, weight_attr=object(), device="cpu")
-    with pytest.raises(ValueError, match="activation"):
-        inc.FusedFeedForward(D, FF, activation="swish", device="cpu")
+    # an activation the reference's ops lack raises as its getattr does
+    # (C16: any of its activations builds)
+    with pytest.raises(AttributeError, match="no_such_activation"):
+        inc.FusedFeedForward(D, FF, activation="no_such_activation",
+                             device="cpu")
+
+
+FUSED_BUILDS = {
+    "FusedMultiHeadAttention": lambda: inc.FusedMultiHeadAttention(D, H),
+    "FusedFeedForward": lambda: inc.FusedFeedForward(D, FF),
+    "FusedTransformerEncoderLayer": lambda: inc.FusedTransformerEncoderLayer(
+        16, 2, 32, dropout_rate=0.0),
+    "FusedBiasDropoutResidualLayerNorm":
+        lambda: inc.FusedBiasDropoutResidualLayerNorm(D)}
+
+
+@pytest.fixture
+def restore_place():
+    from paddle_tpu_torch.core import place as port_place
+    place = port_place._place
+    yield
+    port_place._place = place
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_BUILDS))
+def test_fused_layers_build_on_the_place_set_device_sets(name,
+                                                         restore_place):
+    """C15 (``ROADMAP.md`` §C): with no ``device=``, a fused layer builds
+    on the current place, as every other layer; an explicit ``device=``
+    still wins."""
+    paddle_tpu_torch.set_device("cpu")
+    layer = FUSED_BUILDS[name]()
+    assert all(p.device.type == "cpu" for p in layer.parameters())
+    assert paddle_tpu_torch.nn.Linear(4, 4).weight.place == \
+        paddle_tpu_torch.CPUPlace()
+
+
+@pytest.mark.parametrize("activation", ["silu", "tanh", "sigmoid",
+                                        "leaky_relu"])
+def test_feedforward_takes_the_references_activations(activation):
+    """C16 (``ROADMAP.md`` §C): the reference takes any of its ops by name
+    (``getattr(P, activation)``); the port's forward and gradients under
+    these four match it at the products' tolerance, with the weights
+    carried by the fused layers' converter."""
+    kw = dict(dropout_rate=0.0, act_dropout_rate=0.0, activation=activation)
+    paddle.seed(0)
+    rlayer = rinc.FusedFeedForward(D, FF, **kw)
+    layer = inc.FusedFeedForward(D, FF, **kw, device="cpu")
+    layer.load_state_dict(fused_transformer_state_from_paddle_tpu(
+        _state(rlayer), device="cpu"), strict=True)
+    rlayer.eval()
+    layer.eval()
+    (x,) = _inputs("ffn")
+    cot = np.random.RandomState(3).randn(B, T, D).astype(np.float32)
+    rx = paddle.to_tensor(x, stop_gradient=False)
+    out = rlayer(rx)
+    paddle.sum(out * paddle.to_tensor(cot)).backward()
+    tx = torch.from_numpy(x).requires_grad_()
+    got = layer(tx)
+    (got * torch.from_numpy(cot)).sum().backward()
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got.detach().numpy(), out.numpy(), **tol)
+    np.testing.assert_allclose(tx.grad.numpy(), rx.grad.numpy(), **tol)
+    rparams = dict(rlayer.named_parameters())
+    for name, p in layer.named_parameters():
+        if name.startswith("ln1"):
+            continue                      # unused in the post-LN layer
+        np.testing.assert_allclose(p.grad.numpy(),
+                                   np.asarray(rparams[name].grad.numpy()),
+                                   err_msg=name, **tol)
 
 
 def test_plain_dropout_statistics_and_determinism():

@@ -165,7 +165,7 @@ def test_numeric_gradients(op, arrays):
 
 # -- coverage ----------------------------------------------------------------
 WHOLE = ["creation", "math", "reduction", "logic", "manipulation",
-         "activation", "norm_ops", "loss", "extras"]
+         "activation", "norm_ops", "loss", "extras", "linalg", "sequence"]
 
 
 @pytest.mark.parametrize("mod", WHOLE)

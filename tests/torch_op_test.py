@@ -18,8 +18,12 @@ from paddle_tpu.core.dtype import canonical_dtype as ref_dtype_name
 from paddle_tpu_torch.core.dtype import canonical_dtype as port_dtype_name
 
 # the satellite's bounds: elementwise and shape ops, then products and
-# reductions (integer, bool and shape results are compared exactly)
-TOL = {"ew": dict(rtol=1e-5, atol=1e-6), "red": dict(rtol=1e-4, atol=1e-5)}
+# reductions (integer, bool, shape and complex results are compared
+# exactly); the transforms, complex results too, and the decompositions
+# and solves at the reference's own bounds
+# (tests/test_linalg_fft_signal.py:23-82)
+TOL = {"ew": dict(rtol=1e-5, atol=1e-6), "red": dict(rtol=1e-4, atol=1e-5),
+       "fft": dict(rtol=2e-4, atol=2e-4), "dec": dict(rtol=1e-3, atol=1e-5)}
 
 
 def leaves(out):
@@ -45,6 +49,10 @@ def _floating(dtype_name: str) -> bool:
     return dtype_name in ("float32", "float16", "bfloat16", "float64")
 
 
+def _complex(dtype_name: str) -> bool:
+    return dtype_name in ("complex64", "complex128")
+
+
 def assert_same(r, p, tol="ew", what=""):
     """A reference result and a port result: the same dtype name, the
     same shape, values within ``TOL[tol]`` (exact for non-floating)."""
@@ -56,9 +64,9 @@ def assert_same(r, p, tol="ew", what=""):
         ra, pa = np.asarray(a.numpy()), np.asarray(b.numpy())
         assert ra.shape == pa.shape, f"{what} output {i}: {ra.shape} vs " \
                                      f"{pa.shape}"
-        if _floating(rn):
-            np.testing.assert_allclose(pa.astype(np.float64),
-                                       ra.astype(np.float64),
+        if _floating(rn) or (_complex(rn) and tol == "fft"):
+            wide = np.complex128 if _complex(rn) else np.float64
+            np.testing.assert_allclose(pa.astype(wide), ra.astype(wide),
                                        err_msg=f"{what} output {i}",
                                        **TOL[tol])
         else:
